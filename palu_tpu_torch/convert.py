@@ -1,0 +1,40 @@
+"""Carry parameters and configs from the JAX package to the port.
+
+The JAX package's params are a pytree of dicts and lists with array leaves;
+`jax.tree.map(np.asarray, params)` turns it into numpy leaves, which
+`params_from_numpy` turns into the port's tree of tensors (same keys, same
+layouts). `config_from_dict` takes `dataclasses.asdict` of a JAX
+ModelConfig. Neither function imports JAX: the caller hands over numpy.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from .models.config import ModelConfig
+
+__all__ = ["params_from_numpy", "config_from_dict"]
+
+
+def params_from_numpy(tree: Any, device="cuda", dtype=None) -> Any:
+    """Map numpy leaves to tensors on `device`; floating leaves are cast to
+    `dtype` when given, integer leaves keep their type. None stays None."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_numpy(v, device, dtype) for v in tree)
+    if tree is None:
+        return None
+    arr = np.asarray(tree)
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def config_from_dict(d: Dict[str, Any]) -> ModelConfig:
+    """The port's ModelConfig from the fields of a JAX ModelConfig."""
+    return ModelConfig(**d)
