@@ -19,11 +19,18 @@ from .models.config import ModelConfig
 __all__ = ["params_from_numpy", "config_from_dict"]
 
 
+# f32 scales of quantized weights (core/wquant), kept f32 whatever `dtype`
+_SCALE_KEYS = ("ws", "es")
+
+
 def params_from_numpy(tree: Any, device="cuda", dtype=None) -> Any:
     """Map numpy leaves to tensors on `device`; floating leaves are cast to
-    `dtype` when given, integer leaves keep their type. None stays None."""
+    `dtype` when given, except the f32 scales of quantized weights ("ws",
+    "es"); integer leaves (quantized codes) keep their type. None stays
+    None."""
     if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
+        return {k: params_from_numpy(v, device, None if k in _SCALE_KEYS else dtype)
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_numpy(v, device, dtype) for v in tree)
     if tree is None:

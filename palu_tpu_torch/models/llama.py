@@ -7,8 +7,10 @@ Weights are stored (in_features, out_features) and a projection reads
 `x @ w`. Low-rank projections hold
   VT: (hidden, G * r)       x @ VT -> latents (B, S, G, r)
   U:  (G, r, group_dim)     reconstruct = einsum('bsgr,grd->bsgd')
-with uniform ranks within a layer. Ragged ranks, k/v biases (Qwen2) and
-the int8/int4 weight paths come with later slices of the port.
+with uniform ranks within a layer. Any projection of the serving path may
+be an int8/int4 weight (core/wquant); `wdot` dispatches it, and
+`mlp_forward` runs the fused int8/int4 MLP GEMV at decode sizes. Ragged
+ranks and k/v biases (Qwen2) come with later slices of the port.
 
 Two value paths give the same attention output:
   - "reconstruct": rebuild full V, apply probs, then dense o_proj;
@@ -25,7 +27,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core.wquant import wdot
+from ..core.wquant import W4_GROUP, is_quantized_weight, w4_group, wdot
+from ..ops.gemv_int4 import mlp_gemv_int4
+from ..ops.gemv_int8 import MAX_ROWS, mlp_gemv_int8
 from .config import ModelConfig
 
 Params = Dict[str, Any]
@@ -104,13 +108,14 @@ def _check_uniform(proj: Params) -> None:
             "comes with a later slice of the port)")
 
 
-def project_kv(x: torch.Tensor, proj: Params) -> torch.Tensor:
-    """Dense: returns (B, S, out). Low-rank: returns latents (B, S, G, r)."""
+def project_kv(x: torch.Tensor, proj: Params, paths: Optional[set] = None) -> torch.Tensor:
+    """Dense: returns (B, S, out). Low-rank: returns latents (B, S, G, r).
+    `paths` collects the wdot paths taken (core/wquant.wdot_path)."""
     if "VT" in proj:
         _check_uniform(proj)
         b, s, _ = x.shape
-        return wdot(x, proj["VT"]).reshape(b, s, proj["U"].shape[0], -1)
-    out = wdot(x, proj["w"])
+        return wdot(x, proj["VT"], paths).reshape(b, s, proj["U"].shape[0], -1)
+    out = wdot(x, proj["w"], paths)
     if proj.get("b") is not None:
         out = out + proj["b"]
     return out
@@ -185,10 +190,38 @@ def attention_core(
 # ---------------------------------------------------------------------------
 
 
-def mlp_forward(x: torch.Tensor, p: Params) -> torch.Tensor:
-    gate = wdot(x, p["gate"])
-    up = wdot(x, p["up"])
-    return wdot(F.silu(gate) * up, p["down"])
+def mlp_path(x: torch.Tensor, p: Params) -> Optional[str]:
+    """The fused MLP GEMV mlp_forward runs for x, as in the JAX package:
+    all three weights quantized alike, at most 8 rows, a multiple of 128
+    intermediate columns (and 128-row groups for int4) ->
+    "mlp_gemv_int4-kernel" / "-plain" or "mlp_gemv_int8-..." (kernel on
+    CUDA); None for three wdots."""
+    ws = [p[k] for k in ("gate", "up", "down")]
+    rows = x.numel() // x.shape[-1]
+    if not all(is_quantized_weight(w) for w in ws) or rows > MAX_ROWS:
+        return None
+    side = "kernel" if x.is_cuda else "plain"
+    if all("wq4" in w for w in ws):
+        if ws[0]["wq4"].shape[1] % 128 == 0 and all(w4_group(w) == W4_GROUP for w in ws):
+            return f"mlp_gemv_int4-{side}"
+    elif all("wq8" in w for w in ws) and ws[0]["wq8"].shape[1] % 128 == 0:
+        return f"mlp_gemv_int8-{side}"
+    return None
+
+
+def mlp_forward(x: torch.Tensor, p: Params, paths: Optional[set] = None) -> torch.Tensor:
+    """SwiGLU MLP. `paths` collects the path taken: mlp_path's name, or the
+    three wdot paths."""
+    path = mlp_path(x, p)
+    if path is not None:
+        if paths is not None:
+            paths.add(path)
+        fn = mlp_gemv_int4 if path.startswith("mlp_gemv_int4") else mlp_gemv_int8
+        out = fn(x.reshape(-1, x.shape[-1]), p["gate"], p["up"], p["down"])
+        return out.reshape(*x.shape[:-1], out.shape[-1])
+    gate = wdot(x, p["gate"], paths)
+    up = wdot(x, p["up"], paths)
+    return wdot(F.silu(gate) * up, p["down"], paths)
 
 
 def attn_forward(x, p: Params, cfg: ModelConfig, positions, mask,

@@ -2,8 +2,9 @@
 
 Each source `palu_tpu_torch/csrc/<name>.cu` exposes a plain C interface and
 compiles with nvcc into its own shared library under
-`palu_tpu_torch/_build/`, named by a hash of the source, so an edited
-source rebuilds and an unchanged one loads at once. The libraries load with
+`palu_tpu_torch/_build/`, named by a hash of the source and of the shared
+headers (`csrc/*.cuh`), so an edited source rebuilds and an unchanged one
+loads at once. The libraries load with
 ctypes. Sources build at first use; `build_all` builds several at once, one
 nvcc process per source, all started together. A missing nvcc or a failed
 build raises. Flags: `-gencode arch=compute_90a,code=sm_90a -O3`, never
@@ -23,12 +24,12 @@ from typing import Dict, Iterable
 
 import torch
 
-__all__ = ["SOURCES", "build_all", "load", "check", "require_cuda", "stream_ptr"]
+__all__ = ["SOURCES", "build_all", "load", "launcher", "check", "require_cuda", "stream_ptr"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("cache_append", "palu_decode", "prefill_flash")
+SOURCES = ("cache_append", "palu_decode", "prefill_flash", "gemv_int4", "gemv_int8")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -48,6 +49,8 @@ def _nvcc() -> str:
 def _lib_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -93,6 +96,20 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+
+
+def launcher(source: str, name: str, sig: str):
+    """The C launcher `name` of csrc/<source>.cu, returning a cudaError_t;
+    `sig` spells its arguments: p a pointer (or the stream), i an int, f a
+    float."""
+    fn = getattr(load(source), name)
+    if fn.argtypes is None:
+        fn.argtypes = [_CTYPES[t] for t in sig]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def check(err: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launcher."""
     if err != 0:
@@ -109,4 +126,7 @@ def require_cuda(device) -> torch.device:
 
 
 def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current CUDA stream of `device` as a raw cudaStream_t, in one C
+    call (torch.cuda.current_stream builds a Stream object first)."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return torch._C._cuda_getCurrentRawStream(index)

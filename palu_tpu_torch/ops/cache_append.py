@@ -12,7 +12,6 @@ by write_at_lanes_masked: lanes with writeable == 0 keep their bytes.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
@@ -74,17 +73,6 @@ def append_token_quantized_ref(lat, codes, scale, pos, writeable, *,
     return (codes, scale) if zero is None else (codes, scale, zero)
 
 
-def _lib():
-    lib = build.load("cache_append")
-    fn = lib.palu_cache_append
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, i, i, i,
-                       ctypes.c_float, i, p]
-        fn.restype = i
-    return fn
-
-
 def append_token_quantized(lat, codes, scale, pos, writeable, *,
                            qcfg: QuantConfig, rank: int, zero=None):
     """Quantize one token's latents lat (B, G, rank) and write them into the
@@ -106,7 +94,7 @@ def append_token_quantized(lat, codes, scale, pos, writeable, *,
     pos_i = pos.to(torch.int32).contiguous()
     wr_b = writeable.to(torch.bool).contiguous()
     clip = qcfg.clip_ratio < 1.0
-    err = _lib()(
+    err = build.launcher("cache_append", "palu_cache_append", "pippppp" + "i" * 8 + "fip")(
         lat_c.data_ptr(), int(lat.dtype == torch.bfloat16), codes.data_ptr(),
         scale.data_ptr(), zero.data_ptr() if zero is not None else None,
         pos_i.data_ptr(), wr_b.data_ptr(), b, g, rank, codes.shape[2],

@@ -10,7 +10,6 @@ Returns (B, nh, rv) f32 latent-space outputs for the U_v-fused o_proj.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 from typing import Optional
@@ -113,15 +112,6 @@ def _rope_tables(s_max: int, head_dim: int, theta: float, inv_freq, rope_scale: 
                    str(torch.device(device)))
 
 
-def _lib():
-    fn = build.load("palu_decode").palu_decode
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i] + [p] * 14 + [i] * 15 + [ctypes.c_float, p]
-        fn.restype = i
-    return fn
-
-
 @functools.lru_cache(maxsize=32)
 def _splits(dev: torch.device, n_bg: int, s_max: int):
     """Sequence splits so that about one block (it fills an SM's shared
@@ -184,7 +174,7 @@ def palu_decode(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, *,
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
-    err = _lib()(
+    err = build.launcher("palu_decode", "palu_decode", "pi" + "p" * 14 + "i" * 15 + "fp")(
         qc.data_ptr(), int(q.dtype == torch.bfloat16), bk.data_ptr(), xk_codes.data_ptr(),
         xk_scale.data_ptr(), ptr(xk_zero), xv_codes.data_ptr(), xv_scale.data_ptr(),
         ptr(xv_zero), kvl.data_ptr(), cos_t.data_ptr(), sin_t.data_ptr(),

@@ -12,7 +12,6 @@ for CPU tensors.
 
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import Optional
 
@@ -65,15 +64,6 @@ def prefill_flash_ref(q, k, v, q_offset, kv_len, *,
     return out.to(q.dtype)
 
 
-def _lib():
-    fn = build.load("prefill_flash").palu_prefill_flash
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 6 + [i] * 7 + [ctypes.c_float, p]
-        fn.restype = i
-    return fn
-
-
 def prefill_flash(q, k, v, q_offset, kv_len, *,
                   sliding_window: Optional[int] = None) -> torch.Tensor:
     """Causal-with-offset flash attention -> (B, nh, Cq, hd).
@@ -98,7 +88,7 @@ def prefill_flash(q, k, v, q_offset, kv_len, *,
     off = _lanes(q_offset, b, dev)
     kvl = _lanes(kv_len, b, dev)
     out = torch.empty_like(qc)
-    err = _lib()(
+    err = build.launcher("prefill_flash", "palu_prefill_flash", "p" * 6 + "i" * 7 + "fp")(
         qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(), off.data_ptr(),
         kvl.data_ptr(), b, nh, nkv, cq, s, hd, int(sliding_window or 0),
         float(LOG2E / math.sqrt(hd)), build.stream_ptr(dev))

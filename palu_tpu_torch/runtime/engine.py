@@ -12,11 +12,16 @@ decode and greedy generate).
            cache (ops/palu_decode) -> U_v-fused o_proj -> MLP; lm_head
            once per step.
 
+Weights may be stored int8 or int4 (EngineConfig.weight_bits, vt_bits,
+embed_bits; core/wquant): the engine quantizes its own copy after building
+the decode weights, decode runs the GEMV kernels (ops/gemv_int4,
+ops/gemv_int8) and prefill multiplies by weights dequantized once per layer.
 The kernels run when the engine's tensors are on CUDA; on the CPU their
-plain versions run (tests). `_decode_paths` records which decode path ran.
+plain versions run (tests). `_decode_paths` records which decode attention
+path ran and `_gemv_paths` which weight paths the decode steps took.
 The cache is updated in place (the JAX engine donates it to jit instead).
-Qwen2 k/v biases, ragged ranks, per-chunk scales, sampling and the
-int8/int4 weight paths come with later slices of the port.
+Qwen2 k/v biases, ragged ranks, per-chunk scales and sampling come with
+later slices of the port.
 """
 
 from __future__ import annotations
@@ -28,12 +33,14 @@ import numpy as np
 import torch
 
 from ..core.quant import QuantConfig
-from ..core.wquant import embed_rows, tied_head, wdot
+from ..core import wquant
+from ..core.wquant import dense_operand, embed_rows, tied_head, wdot
 from ..models import llama
 from ..models import rope as rope_mod
 from ..models.config import ModelConfig
 from ..ops import build
 from ..ops.cache_append import append_supported, append_token_quantized
+from ..ops.gemv_int8 import MAX_ROWS
 from ..ops.palu_decode import palu_decode
 from ..ops.prefill_flash import prefill_flash
 from . import cache as cache_lib
@@ -49,6 +56,15 @@ class EngineConfig:
     qcfg: Optional[QuantConfig] = None
     decode_chunk: int = 512
     device: str = "cuda"
+    # 16 keeps weights in `dtype`; 8 stores q_proj, o_proj (and its U_v-fused
+    # form), the MLP and lm_head as int8 with per-channel scales; 4 as packed
+    # int4 with per-(128-row group, channel) scales (core/wquant)
+    weight_bits: int = 16
+    # 8 also stores the VT down-projections as int8 (needs weight_bits 8/4)
+    vt_bits: int = 16
+    # 8 stores the embedding table as int8 per vocabulary row, which also
+    # serves a tied lm_head (needs weight_bits 8/4)
+    embed_bits: int = 16
 
 
 def build_decode_b(u_k: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -88,6 +104,16 @@ class Engine:
                     raise NotImplementedError(
                         f"layer {i} {which} is dense; the engine needs low-rank k/v")
                 cfg.uniform_rank_for(i, which)  # raises on ragged ranks
+        if ecfg.weight_bits not in (16, 8, 4):
+            raise ValueError(f"weight_bits must be 16, 8 or 4, got {ecfg.weight_bits}")
+        if ecfg.vt_bits not in (16, 8):
+            raise ValueError(f"vt_bits must be 16 or 8, got {ecfg.vt_bits}")
+        if ecfg.vt_bits == 8 and ecfg.weight_bits == 16:
+            raise ValueError("vt_bits=8 requires weight_bits=8 or 4")
+        if ecfg.embed_bits not in (16, 8):
+            raise ValueError(f"embed_bits must be 16 or 8, got {ecfg.embed_bits}")
+        if ecfg.embed_bits == 8 and ecfg.weight_bits == 16:
+            raise ValueError("embed_bits=8 requires weight_bits=8 or 4")
         self.params = params
         self.cfg = cfg
         self.ecfg = ecfg
@@ -96,6 +122,7 @@ class Engine:
         self._chunk = _largest_divisor(ecfg.s_max, ecfg.decode_chunk)
         self._fused_append = append_supported(ecfg.qcfg)
         self._decode_paths: set = set()
+        self._gemv_paths: set = set()
         inv_freq, rope_scale = rope_mod.inv_freq_and_scale(cfg)
         # default schedule -> None: the decode paths compute it from theta
         self._inv_freq = inv_freq if cfg.rope_scaling else None
@@ -104,6 +131,11 @@ class Engine:
             {"b_k": build_decode_b(l["attn"]["k_proj"]["U"].float(), cfg).to(ecfg.dtype)}
             for l in params["layers"]
         ]
+        if ecfg.weight_bits in (8, 4):
+            # after the decode weights: b_k comes from the float U
+            self.params = wquant.quantize_params(
+                params, vt=ecfg.vt_bits == 8, embed=ecfg.embed_bits == 8,
+                bits=ecfg.weight_bits)
 
     def init_cache(self):
         return cache_lib.init_cache(self.cfg, self.ecfg.batch, self.ecfg.s_max,
@@ -111,9 +143,9 @@ class Engine:
 
     # -- prefill -------------------------------------------------------------
 
-    def _lm_head_logits(self, x):
+    def _lm_head_logits(self, x, paths=None):
         x = llama.rms_norm(x, self.params["final_norm"], self.cfg.rms_norm_eps)
-        return wdot(x, tied_head(self.params))
+        return wdot(x, tied_head(self.params), paths)
 
     def _reconstruct_dense(self, entry, attn, rk: int, rv: int, n: int):
         """Dequantize + reconstruct (per kv head) + RoPE the first n cache
@@ -158,20 +190,24 @@ class Engine:
             rk = attn["k_proj"]["U"].shape[1]
             rv = attn["v_proj"]["U"].shape[1]
             k_full, v_full = self._reconstruct_dense(entry, attn, rk, rv, n_read)
+            q_w, o_w, mlp = attn["q_proj"]["w"], attn["o_proj"]["w"], p_layer["mlp"]
+            if b * c_len > MAX_ROWS:
+                # the chunk loop takes wdot's matmul paths: dequantize once
+                q_w, o_w = dense_operand(q_w, ecfg.dtype), dense_operand(o_w, ecfg.dtype)
+                mlp = {k: dense_operand(w, ecfg.dtype) for k, w in mlp.items()}
 
             for c in range(m):
                 sl = slice(c * c_len, (c + 1) * c_len)
-                q = wdot(h[:, sl], attn["q_proj"]["w"]).reshape(b, c_len, nh, hd)
+                q = wdot(h[:, sl], q_w).reshape(b, c_len, nh, hd)
                 q = llama.apply_rope(q.float(), cos_all[:, sl], sin_all[:, sl]).to(ecfg.dtype)
                 q_off = base + c * c_len
                 out = prefill_flash(q.transpose(1, 2), k_full, v_full,
                                     torch.full((b,), q_off, dtype=torch.int32, device=dev),
                                     torch.full((b,), q_off + c_len, dtype=torch.int32, device=dev),
                                     sliding_window=cfg.sliding_window)
-                xc = x[:, sl] + wdot(out.transpose(1, 2).reshape(b, c_len, nh * hd),
-                                     attn["o_proj"]["w"])
+                xc = x[:, sl] + wdot(out.transpose(1, 2).reshape(b, c_len, nh * hd), o_w)
                 h2 = llama.rms_norm(xc, p_layer["post_norm"], cfg.rms_norm_eps)
-                x[:, sl] = xc + llama.mlp_forward(h2, p_layer["mlp"])
+                x[:, sl] = xc + llama.mlp_forward(h2, mlp)
 
         cache["length"] = torch.full((b,), base + run, dtype=torch.int32, device=dev)
         return self._lm_head_logits(x[:, (m - 1) * c_len:])
@@ -229,7 +265,8 @@ class Engine:
             sliding_window=cfg.sliding_window, inv_freq=self._inv_freq,
             rope_scale=self._rope_scale, xk_zero=kb.get("zero_t"),
             xv_zero=vb.get("zero_t"))
-        return wdot(lat_out.to(ecfg.dtype).reshape(b, nh * rv), attn["o_proj"]["w_fused"])
+        return wdot(lat_out.to(ecfg.dtype).reshape(b, nh * rv), attn["o_proj"]["w_fused"],
+                    self._gemv_paths)
 
     @torch.no_grad()
     def decode(self, token_ids, cache, active=None):
@@ -254,17 +291,17 @@ class Engine:
                                        self.derived):
             attn = p_layer["attn"]
             h = llama.rms_norm(x, p_layer["input_norm"], cfg.rms_norm_eps)
-            q = wdot(h, attn["q_proj"]["w"]).reshape(b, 1, nh, hd)
+            q = wdot(h, attn["q_proj"]["w"], self._gemv_paths).reshape(b, 1, nh, hd)
             q = llama.apply_rope(q.float(), cos, sin).to(ecfg.dtype)[:, 0]
             for side, proj in (("k", "k_proj"), ("v", "v_proj")):
-                lat = llama.project_kv(h, attn[proj]).transpose(1, 2)  # (B, G, 1, r)
+                lat = llama.project_kv(h, attn[proj], self._gemv_paths).transpose(1, 2)
                 self._append(entry[side], lat, pos_w, writeable)
             x = x + self._decode_attention(q, entry, attn, der, kv_len)[:, None, :]
             h2 = llama.rms_norm(x, p_layer["post_norm"], cfg.rms_norm_eps)
-            x = x + llama.mlp_forward(h2, p_layer["mlp"])
+            x = x + llama.mlp_forward(h2, p_layer["mlp"], self._gemv_paths)
 
         cache["length"] = kv_len.to(torch.int32)
-        return self._lm_head_logits(x), cache
+        return self._lm_head_logits(x, self._gemv_paths), cache
 
     @torch.no_grad()
     def generate(self, input_ids, max_new_tokens: int,
