@@ -14,13 +14,17 @@ Phases, each printing one JSON line:
                 and a PyTorch yardstick (for the GEMVs: the dense bf16
                 product that weight quantization replaces, and PyTorch's
                 own int4 / int8 weight-only call where the card's torch
-                has one), and for the GEMVs the host time of one call;
+                has one; for the fp decode kernels: scaled_dot_product_attention
+                over dense bf16 K/V, the attention Palu replaces), and for
+                the GEMVs the host time of one call;
   4. e2e      - a 2-layer model at 7B widths: one 2048-token request and 16
                 teacher-forced decode steps through the kernels (bf16) on the
                 card, against the same run on the CPU (plain versions, f32);
      e2e_w4   - the same under weight_bits=4, vt_bits=8, embed_bits=8; the
                 card's quantized codes and scales must equal the CPU's;
      e2e_w8   - the same under weight_bits=8, vt_bits=8, embed_bits=8;
+     e2e_fp, e2e_fp_t - the same over the unquantized bf16 latent caches
+                (qcfg None), seq-major and rank-major;
   5. serve    - the main path at full depth: a 32-layer Llama-2-7B-width
                 Palu model (random weights from a seed, 3-bit latents in
                 nibble containers) answers three requests (1000 / 3000 /
@@ -28,9 +32,16 @@ Phases, each printing one JSON line:
                 Engine.generate, with the launch counters reset just before
                 and read just after; then where the time of one decode step
                 and of one 7000-token prefill goes (torch.profiler);
-     serve_w4 - the same model and traffic under the README's configuration
-                (int4 weights, int8 VT and embedding) with exact GEMV launch
-                counts per step, and its two breakdowns;
+     serve_fp - the same weights and traffic over the unquantized rank-major
+                cache (rank_major_fp: palu_decode_fp_t), exact launches per
+                step, and its two breakdowns;
+     serving  - the same weights through the ServingEngine (serve_bench's
+                default: unquantized seq-major latents, palu_decode_fp) on
+                the native scheduler: 8 lanes, chunked prefill interleaved
+                with decode, 24 requests of 64 new tokens, 6 of them sampled;
+     serve_w4 - the same model and traffic as serve under the README's
+                configuration (int4 weights, int8 VT and embedding) with
+                exact GEMV launch counts per step, and its two breakdowns;
      lanes_w4 - that engine at batch 8 (the GEMV kernels' 8-row edge);
      serve_w8 - int8 weights, 4 layers at full width, one request;
 then the nvidia-smi line, the {"kernels": [...]} line, and last
@@ -56,15 +67,20 @@ from palu_tpu_torch.core.quant import QuantConfig, packed_nrows, pack_codes_t, q
 from palu_tpu_torch.models import llama
 from palu_tpu_torch.models.config import ModelConfig
 from palu_tpu_torch.ops import build
-from palu_tpu_torch.ops.cache_append import append_token_quantized, append_token_quantized_ref
+from palu_tpu_torch.ops.cache_append import (append_supported, append_token_quantized,
+                                             append_token_quantized_ref)
 from palu_tpu_torch.ops.gemv_int4 import (gemv_int4, gemv_int4_ref, mlp_gemv_int4,
                                           mlp_gemv_int4_ref)
 from palu_tpu_torch.ops.gemv_int8 import (gemv_int8, gemv_int8_ref, mlp_gemv_int8,
                                           mlp_gemv_int8_ref)
 from palu_tpu_torch.ops.palu_decode import palu_decode, palu_decode_ref
+from palu_tpu_torch.ops.palu_decode_fp import (palu_decode_fp, palu_decode_fp_ref,
+                                               palu_decode_fp_t, palu_decode_fp_t_ref)
 from palu_tpu_torch.ops.prefill_flash import prefill_flash, prefill_flash_ref
-from palu_tpu_torch.runtime.cache import cache_nbytes
+from palu_tpu_torch.runtime.cache import cache_nbytes, decode_latents
 from palu_tpu_torch.runtime.engine import Engine, EngineConfig
+from palu_tpu_torch.runtime.sampling import SamplingParams
+from palu_tpu_torch.runtime.serving import NativeScheduler, ServingEngine
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and dense
 # bf16 tensor-core rate, for each kernel's bound.
@@ -99,8 +115,8 @@ G, HPG, RK, RV, HD, NH = 8, 4, 128, 384, 128, 32  # Llama-2-7B, Palu group 4
 HID, INTER, VOCAB, LAYERS = 4096, 11008, 32000, 32
 W4 = dict(weight_bits=4, vt_bits=8, embed_bits=8)  # the README's configuration
 W8 = dict(weight_bits=8, vt_bits=8, embed_bits=8)
-COUNTERS = (append_token_quantized, palu_decode, prefill_flash, gemv_int4, mlp_gemv_int4,
-            gemv_int8, mlp_gemv_int8)
+COUNTERS = (append_token_quantized, palu_decode, palu_decode_fp, palu_decode_fp_t,
+            prefill_flash, gemv_int4, mlp_gemv_int4, gemv_int8, mlp_gemv_int8)
 
 
 def emit(obj) -> None:
@@ -126,7 +142,9 @@ def device_ms(fn, iters: int) -> float:
     """Device time of one call of fn: the kernel time torch.profiler sums
     over `iters` calls, each after a 64 MB write that leaves L2 (50 MB)
     cold as a layer's call inside a model step finds it, less the writes'
-    own time measured alone. Host time between launches is not counted."""
+    own time measured alone. Host time between launches is not counted.
+    A profile with no device rows (seen once, at the tied-head GEMV) is
+    taken again; three in a row raise."""
     global _FLUSH
     if _FLUSH is None:
         _FLUSH = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -142,7 +160,11 @@ def device_ms(fn, iters: int) -> float:
             torch.cuda.synchronize()
         return sum(e.self_device_time_total for e in _device_events(prof)) / 1e3
 
-    return (kernel_ms(True) - kernel_ms(False)) / iters
+    for _ in range(3):
+        with_fn, alone = kernel_ms(True), kernel_ms(False)
+        if with_fn > 0 and alone > 0:
+            return (with_fn - alone) / iters
+    raise RuntimeError("torch.profiler recorded no device time")
 
 
 def _device_events(prof):
@@ -313,6 +335,95 @@ def check_decode(gen) -> dict:
     emit({"phase": "kernel", "cases": cases, "max_rel_err": worst_rel, "tol": DECODE_TOL,
           "bytes": nbytes, "flops": flops, **out})
     return out
+
+
+def _fp_inputs(b: int, g: int, hpg: int, s_max: int, gen):
+    """q, b_k and bf16 latents in both layouts: seq-major (B, G, S, r) and
+    rank-major (B, G, r, S) holding the same values."""
+    q = torch.randn((b, g * hpg, HD), generator=gen, device="cuda").to(torch.bfloat16)
+    b_k = (torch.randn((g, hpg, RK, HD), generator=gen, device="cuda")
+           / math.sqrt(RK)).to(torch.bfloat16)
+    lat = [torch.randn((b, g, s_max, r), generator=gen, device="cuda").to(torch.bfloat16)
+           for r in (RK, RV)]
+    return q, b_k, lat, [x.transpose(-1, -2).contiguous() for x in lat]
+
+
+def _dense_kv_sdpa(b: int, n: int, gen):
+    """The yardstick: one scaled_dot_product_attention call for a decode
+    token over dense bf16 K/V of n positions (the attention Palu replaces,
+    not the same function)."""
+    q = torch.randn((b, NH, 1, HD), generator=gen, device="cuda").to(torch.bfloat16)
+    k = torch.randn((b, NH, n, HD), generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn((b, NH, n, HD), generator=gen, device="cuda").to(torch.bfloat16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(q, k, v)
+
+
+def check_decode_fp(gen) -> list:
+    """Both unquantized-cache decode kernels against their plain versions:
+    the 7B shapes at S 8192 with kv_len 8000 (not a whole tile), a sliding
+    window, 8 lanes with their own kv_len, and 16 q-heads per group (GQA).
+    Then each one's device time at batch 1 with the cache full to 8192, and
+    palu_decode_fp's at the `serving` phase's shape (8 lanes, S 4096)."""
+    s_max = 8192
+    specs = [  # (lanes, kv_len per lane, window, heads per group)
+        (1, (8000,), None, HPG),
+        (2, (777, 8192), 1024, HPG),
+        (8, (1, 63, 64, 65, 1000, 4097, 8000, 8192), None, HPG),
+        (2, (777, 8192), None, 16),
+    ]
+    fns = {"palu_decode_fp": (palu_decode_fp, palu_decode_fp_ref, 0),
+           "palu_decode_fp_t": (palu_decode_fp_t, palu_decode_fp_t_ref, 1)}
+    worst = {name: [0.0, 0.0] for name in fns}
+    for lanes, kvl, window, hpg in specs:
+        q, b_k, seq, rank = _fp_inputs(lanes, NH // hpg, hpg, s_max, gen)
+        kv_len = torch.tensor(kvl, dtype=torch.int32, device="cuda")
+        for name, (fn, ref, rm) in fns.items():
+            lat = rank if rm else seq
+            got = fn(q, b_k, *lat, kv_len, sliding_window=window)
+            want = ref(q, b_k, *lat, kv_len, sliding_window=window)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            rel = err / want.abs().max().item()
+            if not (torch.isfinite(got).all() and rel <= DECODE_TOL):
+                raise AssertionError(f"{name} lanes {lanes} kv {kvl} window {window} hpg {hpg}: "
+                                     f"rel err {rel}")
+            worst[name] = [max(worst[name][0], rel), max(worst[name][1], err)]
+        del q, b_k, seq, rank
+
+    lines = []
+    for name, (fn, ref, rm) in fns.items():
+        timed = {}
+        for label, lanes, s, n in (("b1_s8192", 1, s_max, s_max), ("b8_s4096", 8, 4096, 2048)):
+            if rm and lanes > 1:
+                continue  # the rank-major kernel's path (serve_fp) runs batch 1
+            q, b_k, seq, rank = _fp_inputs(lanes, G, HPG, s, gen)
+            lat = rank if rm else seq
+            kv_len = torch.full((lanes,), n, dtype=torch.int32, device="cuda")
+            nbytes = lanes * G * (RK + RV) * n * 2 + q.numel() * 2 + b_k.numel() * 2 + \
+                lanes * NH * RV * 4
+            flops = 2 * lanes * NH * n * (RK * HD + HD + RV)
+            bms, by = bound_ms(nbytes, flops)
+            timed[label] = {"lanes": lanes, "s_max": s, "kv_len": n,
+                            "ms": device_ms(lambda: fn(q, b_k, *lat, kv_len), 20),
+                            "plain_ms": device_ms(lambda: ref(q, b_k, *lat, kv_len), 3),
+                            "library_ms": device_ms(_dense_kv_sdpa(lanes, n, gen), 20),
+                            "bytes": nbytes, "flops": flops, "bound_ms": bms, "bound_by": by}
+            del q, b_k, seq, rank
+        main = timed["b1_s8192"]
+        out = {"name": name, "route": "cuda", "source": "palu_tpu_torch/csrc/palu_decode_fp.cu",
+               "replaces": ("palu_tpu/ops/pallas/palu_decode4.py:997" if rm
+                            else "palu_tpu/ops/pallas/palu_decode.py:492"),
+               "max_abs_err": worst[name][1], "ms": main["ms"], "kernel_ms": main["ms"],
+               "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+               "bound_by": main["bound_by"], "library_ms": main["library_ms"]}
+        emit({"phase": "kernel", "cases": len(specs), "max_rel_err": worst[name][0],
+              "tol": DECODE_TOL, "layout": "(B, G, r, S)" if rm else "(B, G, S, r)",
+              "library_call": "scaled_dot_product_attention, one decode token over dense "
+                              "bf16 K/V of the same context (a different function: the "
+                              "attention Palu replaces)", "timed": timed, **out})
+        lines.append(out)
+    return lines
 
 
 def _prefill_inputs(b, nh, nkv, cq, s, gen):
@@ -565,16 +676,22 @@ def _quantized_leaves(tree, path="params"):
             yield from _quantized_leaves(v, f"{path}/{i}")
 
 
-def phase_e2e(tag: str = "e2e", wkw=None) -> None:
-    wkw = wkw or {}
+def _e2e_inputs():
+    """The e2e phases' 2-layer model (bf16 weights on the CPU, seed 0), its
+    2048-token prompt and 16 teacher-forced tokens."""
     cfg = llama7b(2)
     params = _tree_to(llama.init_params(cfg, torch.Generator().manual_seed(0)), "cpu",
                       torch.bfloat16)
+    rng = np.random.default_rng(0)
+    return (cfg, params, rng.integers(0, cfg.vocab_size, (1, 2048)),
+            rng.integers(0, cfg.vocab_size, 16))
+
+
+def phase_e2e(tag: str = "e2e", wkw=None) -> None:
+    wkw = wkw or {}
+    cfg, params, ids, forced = _e2e_inputs()
     params_gpu = _tree_to(params, "cuda", torch.bfloat16)
     params_cpu = _tree_to(params, "cpu", torch.float32)
-    rng = np.random.default_rng(0)
-    ids = rng.integers(0, cfg.vocab_size, (1, 2048))
-    forced = rng.integers(0, cfg.vocab_size, 16)
     ecfg = EngineConfig(s_max=4096, batch=1, qcfg=FLAGSHIP, decode_chunk=512, **wkw)
     gpu = Engine(params_gpu, cfg, ecfg)
     del params_gpu
@@ -613,6 +730,56 @@ def phase_e2e(tag: str = "e2e", wkw=None) -> None:
         raise AssertionError(f"{tag}: card and CPU quantized weights differ: {qdiff}")
     if wkw and not all(p.endswith("-kernel") for p in gpu._gemv_paths):
         raise AssertionError(f"{tag}: GPU engine took {gpu._gemv_paths}")
+
+
+def _decode_path(ecfg) -> str:
+    """The decode attention wrapper an engine with ecfg runs."""
+    if ecfg.qcfg is not None:
+        return palu_decode.__name__
+    return (palu_decode_fp_t if ecfg.rank_major_fp else palu_decode_fp).__name__
+
+
+def phase_e2e_fp() -> None:
+    """e2e over the unquantized bf16 latent caches (qcfg None): seq-major
+    (e2e_fp, palu_decode_fp) and rank-major (e2e_fp_t, palu_decode_fp_t)
+    on the card against one CPU f32 run, since the plain versions read
+    both layouts with the same arithmetic. No quantization boundary: the
+    error is bf16 against f32 alone."""
+    cfg, params, ids, forced = _e2e_inputs()
+    ecfg = EngineConfig(s_max=4096, batch=1, qcfg=None, decode_chunk=512)
+    cpu = Engine(_tree_to(params, "cpu", torch.float32), cfg,
+                 dataclasses.replace(ecfg, dtype=torch.float32, device="cpu"))
+    t0 = time.perf_counter()
+    want, ccache = _stepwise(cpu, ids, forced)
+    cpu_s = time.perf_counter() - t0
+    n = 2048 + len(forced)
+
+    def latents(cache):
+        return [decode_latents(e[side], None, 0, torch.float32)[..., :n, :].cpu()
+                for e in cache["layers"] for side in ("k", "v")]
+
+    want_lat = latents(ccache)
+    del cpu, ccache
+    for tag, rank_major in (("e2e_fp", False), ("e2e_fp_t", True)):
+        gpu = Engine(_tree_to(params, "cuda", torch.bfloat16), cfg,
+                     dataclasses.replace(ecfg, rank_major_fp=rank_major))
+        t0 = time.perf_counter()
+        got, gcache = _stepwise(gpu, ids, forced)
+        gpu_s = time.perf_counter() - t0
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        lat_rel = max(((g - w).abs().max() / w.abs().max()).item()
+                      for g, w in zip(latents(gcache), want_lat))
+        top1 = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+        path = _decode_path(gpu.ecfg)
+        emit({"phase": tag, "layers": 2, "prompt": 2048, "steps": 16, "qcfg": None,
+              "rank_major_fp": rank_major, "max_rel_err": rel, "tol": E2E_TOL,
+              "top1_agreement": top1, "cache_latent_max_rel_err": lat_rel,
+              "gpu_decode_paths": sorted(gpu._decode_paths), "gpu_s": gpu_s, "cpu_s": cpu_s})
+        if not (torch.isfinite(got).all() and rel <= E2E_TOL):
+            raise AssertionError(f"{tag}: end-to-end logits rel err {rel} > {E2E_TOL}")
+        if gpu._decode_paths != {f"{path}-kernel"}:
+            raise AssertionError(f"{tag}: GPU engine took {gpu._decode_paths}")
+        del gpu, gcache
 
 
 def _tree_to(tree, device, dtype):
@@ -654,13 +821,17 @@ class _CheckedEngine(Engine):
         return logits, cache
 
 
-def expected_launches(layers: int, wkw: dict, steps: int) -> dict:
-    """Exact kernel launches of `steps` decode steps at batch <= 8 (prefill
-    runs the matmul paths, never the GEMVs)."""
-    bits = wkw.get("weight_bits", 16)
-    vt8 = wkw.get("vt_bits", 16) == 8
-    per_step = {"append_token_quantized": 2 * layers, "palu_decode": layers,
-                "gemv_int4": 0, "mlp_gemv_int4": 0, "gemv_int8": 0, "mlp_gemv_int8": 0}
+def expected_launches(layers: int, ecfg: EngineConfig, steps: int) -> dict:
+    """Exact launches of every kernel but prefill_flash in `steps` decode
+    steps at batch <= 8 (prefill runs the matmul paths, never the GEMVs):
+    the cache's append (quantized caches) and decode attention kernels,
+    and the GEMVs of the weights' width."""
+    bits = ecfg.weight_bits
+    vt8 = ecfg.vt_bits == 8
+    per_step = {fn.__name__: 0 for fn in COUNTERS if fn is not prefill_flash}
+    per_step[_decode_path(ecfg)] = layers
+    if append_supported(ecfg.qcfg):
+        per_step["append_token_quantized"] = 2 * layers
     if bits == 4:
         per_step["gemv_int4"] = 2 * layers + 1   # q_proj, w_fused, lm_head
         per_step["mlp_gemv_int4"] = layers
@@ -705,20 +876,23 @@ def serve(tag: str, eng: "_CheckedEngine", prompts, new_tokens: int, extra=None)
     launches = {fn.__name__: fn.launches for fn in COUNTERS}
     steps = new_tokens * len(prompts)
     finite = bool(torch.stack(eng.finite).all().item())
-    wkw = {k: getattr(eng.ecfg, k) for k in ("weight_bits", "vt_bits", "embed_bits")}
+    ecfg = eng.ecfg
+    wkw = {k: getattr(ecfg, k) for k in ("weight_bits", "vt_bits", "embed_bits")}
+    path = _decode_path(ecfg)
     emit({"phase": tag, "model": f"Llama-2-7B widths, {cfg.num_hidden_layers} layers, bf16, "
-          "random (seed 0)", "qcfg": dataclasses.asdict(FLAGSHIP), **wkw,
+          "random (seed 0)", "qcfg": ecfg.qcfg and dataclasses.asdict(ecfg.qcfg),
+          "rank_major_fp": ecfg.rank_major_fp, **wkw,
           "requests": requests, "decode_steps": steps, "launches": launches,
           "logits_finite": finite, "decode_paths": sorted(eng._decode_paths),
           "gemv_paths": sorted(eng._gemv_paths), "weight_bytes": _weight_bytes(eng.params),
           "max_memory_allocated": torch.cuda.max_memory_allocated(), **(extra or {})})
     if not finite:
         raise AssertionError(f"{tag}: non-finite logits")
-    if eng._decode_paths != {"palu_decode-kernel"}:
+    if eng._decode_paths != {f"{path}-kernel"}:
         raise AssertionError(f"{tag}: took {eng._decode_paths}")
     if not all(p.endswith("-kernel") or p == "dense-matmul" for p in eng._gemv_paths):
         raise AssertionError(f"{tag}: decode took {eng._gemv_paths}")
-    for name, n in expected_launches(cfg.num_hidden_layers, wkw, steps).items():
+    for name, n in expected_launches(cfg.num_hidden_layers, ecfg, steps).items():
         if launches[name] != n:
             raise AssertionError(f"{tag}: {name} launched {launches[name]} times, expected {n}")
     if launches["prefill_flash"] <= 0:
@@ -726,7 +900,7 @@ def serve(tag: str, eng: "_CheckedEngine", prompts, new_tokens: int, extra=None)
     return launches
 
 
-def _engine(cfg, wkw, batch=1, params=None, s_max=8192):
+def _engine(cfg, wkw, batch=1, params=None, s_max=8192, qcfg=FLAGSHIP, rank_major_fp=False):
     """A checked engine on seeded random bf16 weights (or `params`); returns
     it and the seconds the weights took to make."""
     t0 = time.perf_counter()
@@ -734,7 +908,8 @@ def _engine(cfg, wkw, batch=1, params=None, s_max=8192):
         params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                                    dtype=torch.bfloat16)
     eng = _CheckedEngine(params, cfg, EngineConfig(s_max=s_max, batch=batch, decode_chunk=512,
-                                                   qcfg=FLAGSHIP, **wkw))
+                                                   qcfg=qcfg, rank_major_fp=rank_major_fp,
+                                                   **wkw))
     torch.cuda.synchronize()
     return eng, time.perf_counter() - t0
 
@@ -744,13 +919,131 @@ def _prompts(seed: int, lens, lanes: int = 1):
     return [rng.integers(0, VOCAB, (lanes, n)) for n in lens]
 
 
-def phase_serve() -> dict:
-    """bf16 weights at full depth, then the decode and prefill breakdowns."""
-    eng, init_s = _engine(llama7b(LAYERS), {})
+def phase_serve() -> tuple:
+    """bf16 weights at full depth over the 3-bit cache (serve), then the
+    same weights and traffic over the unquantized rank-major cache
+    (serve_fp: qcfg None, rank_major_fp, the v4 fp kernel), each with its
+    decode and prefill breakdowns. Returns both runs' launches and the
+    weights, which `serving` reuses."""
+    cfg = llama7b(LAYERS)
+    eng, init_s = _engine(cfg, {})
     prompts = _prompts(1, (1000, 3000, 7000))
     launches = serve("serve", eng, prompts, 32, {"init_s": init_s})
     decode_breakdown(eng, "serve")
     prefill_breakdown(eng, prompts[-1], "serve")
+    params = eng.params
+    del eng
+    fp, _ = _engine(cfg, {}, params=params, qcfg=None, rank_major_fp=True)
+    launches_fp = serve("serve_fp", fp, prompts, 32)
+    decode_breakdown(fp, "serve_fp")
+    prefill_breakdown(fp, prompts[-1], "serve_fp")
+    return launches, launches_fp, params
+
+
+SERVING_SAMPLING = SamplingParams(temperature=1.0, top_k=32, top_p=0.9)
+
+
+def _forced_margin(eng, prompt, served) -> dict:
+    """Feed a served greedy request's own tokens through batch-1 `eng`: the
+    share of steps where the served token is also batch 1's argmax, and
+    the largest gap (max logit - served token's logit) / max|logits|. A
+    small gap says the two runs parted at a near-tie, not at a fault."""
+    logits, cache = eng.prefill_auto(prompt)
+    rows = [logits[0, -1]]
+    for t in served[:-1]:
+        logits, cache = eng.decode(np.full((1, 1), t, np.int64), cache)
+        rows.append(logits[0, -1])
+    lg = torch.stack(rows).float()
+    tok = torch.as_tensor(served, device=lg.device)
+    gap = (lg.amax(-1) - lg.gather(-1, tok[:, None])[:, 0]) / lg.abs().amax(-1)
+    return {"top1_share": (gap == 0).float().mean().item(), "max_gap": gap.max().item(),
+            "median_gap": gap.median().item()}
+
+
+def phase_serving(params) -> dict:
+    """The serving entry point at serve_bench's default configuration and
+    7B width: ServingEngine over `params` (32 layers, bf16), unquantized
+    seq-major latents (palu_decode_fp), 8 lanes, s_max 4096, two prefill
+    chunks per decode step, the native scheduler. 24 requests, prompt
+    lengths drawn from 256-2048 (numpy seed 4), 64 new tokens each, every
+    fourth sampled (temperature 1.0, top-k 32, top-p 0.9). Counters are
+    set to 0 just before the run and read just after. Then two greedy
+    requests again through batch-1 Engine.generate on the same weights: the
+    share of equal tokens is reported, not asserted (at batch 8 the decode
+    split count and the GEMMs' row count differ, so bf16 ties may break
+    differently; the CPU tests hold exact equality)."""
+    cfg = llama7b(LAYERS)
+    ecfg = EngineConfig(s_max=4096, batch=8, decode_chunk=512, qcfg=None)
+    srv = ServingEngine(params, cfg, ecfg, prefer_native=True, prefill_chunks_per_step=2)
+    if not isinstance(srv.sched, NativeScheduler):
+        raise AssertionError(f"serving runs {type(srv.sched).__name__}")
+    rng = np.random.default_rng(4)
+    lens = rng.integers(256, 2049, 24)
+    prompts = {rid: rng.integers(0, VOCAB, (1, int(n))) for rid, n in enumerate(lens)}
+    sampled = {rid for rid in prompts if rid % 4 == 3}
+    new_tokens = 64
+    for rid, p in prompts.items():
+        if not srv.submit(rid, p, new_tokens,
+                          sampling=SERVING_SAMPLING if rid in sampled else None):
+            raise AssertionError(f"request {rid} refused")
+    decode_steps = [0]
+    decode = srv.engine.decode
+
+    def counted(*a, **kw):
+        decode_steps[0] += 1
+        return decode(*a, **kw)
+
+    srv.engine.decode = counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in COUNTERS:
+        fn.launches = 0
+    step_s = []
+    t0 = time.perf_counter()
+    while (srv.sched.num_queued() > 0 or any(a != -1 for a in srv.sched.active())) \
+            and len(step_s) < 10000:
+        ts = time.perf_counter()
+        srv.step()
+        step_s.append(time.perf_counter() - ts)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in COUNTERS}
+    stats = srv.sched.stats()
+    out = srv.outputs
+    n_tokens = sum(len(out[r]) for r in prompts)
+    in_vocab = all(0 <= t < VOCAB for r in prompts for t in out[r])
+    greedy = [r for r in prompts if r not in sampled][:2]
+    match, forced = {}, {}
+    for r in greedy:
+        ref = srv.prefill_engine.generate(prompts[r], max_new_tokens=new_tokens)[0]
+        match[r] = float(np.mean(ref == np.asarray(out[r])))
+        forced[r] = _forced_margin(srv.prefill_engine, prompts[r], out[r])
+    emit({"phase": "serving", "model": "Llama-2-7B widths, 32 layers, bf16, random (seed 0)",
+          "qcfg": None, "lanes": ecfg.batch, "s_max": ecfg.s_max, "prefill_chunks_per_step": 2,
+          "scheduler": type(srv.sched).__name__, "requests": len(prompts),
+          "prompt_lens": [int(n) for n in lens], "sampled": sorted(sampled),
+          "new_tokens": new_tokens, "finished": stats["finished"], "tokens": n_tokens,
+          "sched_stats": stats, "elapsed_s": elapsed, "tokens_per_s": n_tokens / elapsed,
+          "steps": len(step_s), "decode_steps": decode_steps[0],
+          "median_step_ms": float(np.median(step_s)) * 1e3,
+          "p90_step_ms": float(np.percentile(step_s, 90)) * 1e3,
+          "launches": launches, "decode_paths": sorted(srv.engine._decode_paths),
+          "cache_nbytes": cache_nbytes(srv.cache),
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "greedy_equal_to_batch1_generate": match,
+          "greedy_teacher_forced_batch1": forced})
+    if stats != {"admitted": 24, "finished": 24, "tokens": 24 * new_tokens} or \
+            n_tokens != stats["tokens"] or any(len(out[r]) != new_tokens for r in prompts):
+        raise AssertionError(f"serving: {stats}, {n_tokens} tokens")
+    if not in_vocab:
+        raise AssertionError("serving: a token outside the vocabulary")
+    if srv.engine._decode_paths != {"palu_decode_fp-kernel"}:
+        raise AssertionError(f"serving took {srv.engine._decode_paths}")
+    want = expected_launches(LAYERS, ecfg, decode_steps[0])
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"serving: {name} launched {launches[name]} times, "
+                                 f"expected {n}")
     return launches
 
 
@@ -825,19 +1118,25 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    kernels = [check_append(gen), check_decode(gen), check_prefill(gen),
+    kernels = [check_append(gen), check_decode(gen), *check_decode_fp(gen), check_prefill(gen),
                check_gemv(gen, 4), check_mlp(gen, 4), check_gemv(gen, 8), check_mlp(gen, 8)]
     phase_e2e()
     phase_e2e("e2e_w4", W4)
     phase_e2e("e2e_w8", W8)
-    launches = phase_serve()
+    phase_e2e_fp()
+    launches, launches_fp, params = phase_serve()
+    launches_serving = phase_serving(params)
+    del params
     launches_w4 = phase_serve_w4()
     launches_w8 = phase_serve_w8()
     # each kernel's launches on the run of its path: the bf16 serve for the
-    # cache and attention kernels, serve_w4 for the int4 GEMVs and the int8
-    # VT GEMV, serve_w8 for the int8 MLP
+    # quantized cache's and the prefill kernels, serve_fp for the rank-major
+    # fp decode, serving for the seq-major fp decode, serve_w4 for the int4
+    # GEMVs and the int8 VT GEMV, serve_w8 for the int8 MLP
     source = {"cache_append": ("append_token_quantized", launches),
               "palu_decode": ("palu_decode", launches),
+              "palu_decode_fp": ("palu_decode_fp", launches_serving),
+              "palu_decode_fp_t": ("palu_decode_fp_t", launches_fp),
               "prefill_flash": ("prefill_flash", launches),
               "gemv_int4": ("gemv_int4", launches_w4),
               "mlp_gemv_int4": ("mlp_gemv_int4", launches_w4),

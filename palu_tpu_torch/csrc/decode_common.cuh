@@ -1,0 +1,106 @@
+// Shared pieces of the latent decode kernels (palu_decode.cu over the
+// packed cache, palu_decode_fp.cu over the unquantized caches): async
+// copies, ldmatrix and mma.sync wrappers, warp reductions, and the kernel
+// that combines the split-sequence partials.
+//
+// The split pass writes, per (lane, q-head) row and split s, the running
+// max m_s, the softmax denominator l_s and the unnormalised latent
+// accumulator acc_s (rv values); the combine kernel merges the splits with
+// the usual rescaling: out = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace decode {
+
+constexpr size_t kSmemMax = 232448;  // 227 KB, the most one block may use
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
+}
+
+// Four transposed 8x8 bf16 tiles from shared memory (row addresses per lane).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// Four 8x8 bf16 tiles from shared memory, not transposed.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += a (16x16, row) . b (16x8, col), bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__host__ __device__ inline size_t al(size_t x) { return (x + 127) & ~size_t(127); }
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// One block per (lane-head, 128 ranks): merge the splits' (m, l, acc).
+__global__ void __launch_bounds__(128) combine_kernel(
+    const float* __restrict__ part_m, const float* __restrict__ part_l,
+    const float* __restrict__ part_acc, float* __restrict__ out, int splits, int rv) {
+  extern __shared__ float wgt[];  // [splits] exp(m_s - max m)
+  __shared__ float den_s;
+  const size_t bh = blockIdx.x;
+  const float* m = part_m + bh * splits;
+  const float* l = part_l + bh * splits;
+  if (threadIdx.x < 32) {
+    float mx = -1e30f;
+    for (int s = threadIdx.x; s < splits; s += 32) mx = fmaxf(mx, m[s]);
+    mx = warp_max(mx);
+    float den = 0.0f;
+    for (int s = threadIdx.x; s < splits; s += 32) {
+      const float w = expf(m[s] - mx);
+      wgt[s] = w;
+      den += w * l[s];
+    }
+    den = warp_sum(den);
+    if (threadIdx.x == 0) den_s = den;
+  }
+  __syncthreads();
+  const int r = blockIdx.y * 128 + threadIdx.x;
+  if (r >= rv) return;
+  float num = 0.0f;
+  for (int s = 0; s < splits; ++s) num += wgt[s] * part_acc[(bh * splits + s) * rv + r];
+  out[bh * rv + r] = num / den_s;
+}
+
+// Launch the combine over `rows` (lane, q-head) rows; returns the launch error.
+inline int launch_combine(const float* part_m, const float* part_l, const float* part_acc,
+                          float* out, int rows, int splits, int rv, cudaStream_t st) {
+  combine_kernel<<<dim3(rows, (rv + 127) / 128), 128, sizeof(float) * splits, st>>>(
+      part_m, part_l, part_acc, out, splits, rv);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace decode

@@ -44,7 +44,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "decode_common.cuh"
+
 namespace {
+
+using decode::al;
+using decode::cp_async16;
+using decode::cp_async_wait_all;
+using decode::kSmemMax;
+using decode::ldmatrix_x4_trans;
+using decode::mma_bf16;
+using decode::warp_max;
+using decode::warp_sum;
 
 constexpr int kTile = 64;      // tokens per tile
 constexpr int kThreads = 256;  // threads per block
@@ -56,7 +67,6 @@ constexpr int kByteStride = kTile + 4;  // padded byte rows: odd word stride
 // addresses of one ldmatrix fall on distinct banks
 constexpr int kCk = kTile + 8;
 constexpr int kBPad = 8;
-constexpr size_t kSmemMax = 232448;  // 227 KB, the most one block may use
 
 struct DecodeArgs {
   const void* q;               // (B, nh, hd) bf16 or f32, roped at the current position
@@ -120,35 +130,6 @@ __device__ __forceinline__ void load_byte_tile(uint8_t* dst, const uint8_t* src,
   }
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
-}
-
-// Four transposed 8x8 bf16 tiles from shared memory (row addresses per lane).
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// d += a (16x16, row) . b (16x8, col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__host__ __device__ inline size_t al(size_t x) { return (x + 127) & ~size_t(127); }
-
 // Byte offsets of the split kernel's shared-memory regions (one place for
 // the kernel's carve and the launcher's size); `chunk` heads of B staged.
 struct SplitLayout {
@@ -179,16 +160,6 @@ __host__ __device__ inline SplitLayout split_layout(int rk, int hd, int hpg, int
   L.stat = off;   off = al(off + sizeof(float) * 4 * kMaxHeads);
   L.total = off;
   return L;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
 }
 
 template <int HD>
@@ -464,36 +435,6 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
   }
 }
 
-// One block per (lane-head, 128 ranks): merge the splits' (m, l, acc).
-__global__ void __launch_bounds__(128) palu_decode_combine_kernel(
-    const float* __restrict__ part_m, const float* __restrict__ part_l,
-    const float* __restrict__ part_acc, float* __restrict__ out, int splits, int rv) {
-  extern __shared__ float wgt[];  // [splits] exp(m_s - max m)
-  __shared__ float den_s;
-  const size_t bh = blockIdx.x;
-  const float* m = part_m + bh * splits;
-  const float* l = part_l + bh * splits;
-  if (threadIdx.x < 32) {
-    float mx = -1e30f;
-    for (int s = threadIdx.x; s < splits; s += 32) mx = fmaxf(mx, m[s]);
-    mx = warp_max(mx);
-    float den = 0.0f;
-    for (int s = threadIdx.x; s < splits; s += 32) {
-      const float w = expf(m[s] - mx);
-      wgt[s] = w;
-      den += w * l[s];
-    }
-    den = warp_sum(den);
-    if (threadIdx.x == 0) den_s = den;
-  }
-  __syncthreads();
-  const int r = blockIdx.y * 128 + threadIdx.x;
-  if (r >= rv) return;
-  float num = 0.0f;
-  for (int s = 0; s < splits; ++s) num += wgt[s] * part_acc[(bh * splits + s) * rv + r];
-  out[bh * rv + r] = num / den_s;
-}
-
 template <int HD>
 int launch_split(const DecodeArgs& a, int B, cudaStream_t st) {
   const size_t smem =
@@ -560,8 +501,6 @@ extern "C" int palu_decode(const void* q, int q_bf16, const void* bk, const void
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int err = hd == 128 ? launch_split<128>(a, B, st) : launch_split<64>(a, B, st);
   if (err != 0) return err;
-  palu_decode_combine_kernel<<<dim3(B * G * hpg, (rv + 127) / 128), 128,
-                               sizeof(float) * splits, st>>>(
-      a.part_m, a.part_l, a.part_acc, static_cast<float*>(out), splits, rv);
-  return static_cast<int>(cudaGetLastError());
+  return decode::launch_combine(a.part_m, a.part_l, a.part_acc, static_cast<float*>(out),
+                                B * G * hpg, splits, rv, st);
 }

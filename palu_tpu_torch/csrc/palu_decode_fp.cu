@@ -1,0 +1,463 @@
+// Latent decode attention over the unquantized (bf16) latent caches, split
+// over the sequence (flash-decoding) with a second kernel that combines the
+// splits (decode_common.cuh).
+//
+// Replaces: palu_tpu/ops/pallas/palu_decode.py::palu_flash_decode, the v1
+// kernel over seq-major latents (B, G, S, r), and
+// palu_tpu/ops/pallas/palu_decode4.py::palu_flash_decode4, the v4 kernel
+// over rank-major latents (B, G, r, S). One kernel template serves both
+// layouts; only the tile load and the ldmatrix form differ.
+//
+// What it computes, per lane b, group g and q-head h of the group:
+//   K_h(s) = B_h^T x_k(s)
+//   logit(s) = q_h . RoPE_s(K_h(s)) / sqrt(hd), masked by kv_len and window
+//   out_h = sum_s softmax(logit)(s) x_v(s)
+// -> (B, nh, rv) f32 in latent space (o_proj is U_v-fused).
+//
+// Bound on this card: the latents are (rk + rv) * 2 bytes per token and
+// group (67 MB per layer at 8K tokens of the 7B shapes: 20 us at 3.35
+// TB/s), the K rebuild 2 * nh * rk * hd flops per token (8.6 GFLOP, 9 us
+// on the bf16 tensor cores): bound by bytes, where the packed cache of
+// palu_decode.cu is bound by operations. The rebuild runs on the tensor
+// cores all the same (on the f32 pipes it would take ~130 us).
+//
+// Design: the split pass of palu_decode.cu without the unpack and the
+// per-token scales. Grid (splits, G, B), 8 warps, about one block per SM.
+// A block stages the B_h of its group's heads in shared memory once with
+// cp.async (in chunks of heads when they do not all fit), then walks its
+// tiles of 64 tokens. Each tile of K and V latents comes into shared memory
+// with 16-byte cp.async copies in the cache's own layout, so global reads
+// stay coalesced: rank-major as r rows of 64 tokens (128 B, padded to 144 B
+// so ldmatrix rows fall on distinct banks), seq-major as 64 rows of r ranks
+// (padded by 16 B). ldmatrix (.trans for rank-major) turns the K tile into
+// the mma A operand x^T (16 tokens x 16 ranks) directly. Per head, K (64
+// tokens x hd) = x^T . B_h runs as mma.sync m16n8k16 (bf16 in, f32
+// accumulate): warp w takes 16 tokens and matching quarters of both halves
+// of hd, so both halves of each RoPE pair sit in one thread's
+// accumulators; RoPE and the q dot run on them in registers and quad
+// shuffles finish each partial logit. Each thread reads the f32 cos/sin of
+// its two tokens and its dims straight into registers (the tables the
+// wrapper built exactly as the plain version does); staging them in shared
+// memory would not leave room for the 48 KB V tile at rv 384 beside four
+// heads of B. Each head keeps (m, l) and a latent accumulator (rv) in
+// shared memory; a thread per rank reads its 64 V values once per tile and
+// contracts them against p for every head. Blocks past kv_len (or before
+// the window) do no tile work. Nothing allocates here: the wrapper hands in
+// the partials.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "decode_common.cuh"
+
+namespace {
+
+using decode::al;
+using decode::cp_async16;
+using decode::cp_async_wait_all;
+using decode::kSmemMax;
+using decode::ldmatrix_x4;
+using decode::ldmatrix_x4_trans;
+using decode::mma_bf16;
+using decode::warp_max;
+using decode::warp_sum;
+using bf16 = __nv_bfloat16;
+
+constexpr int kTile = 64;      // tokens per tile
+constexpr int kThreads = 256;  // threads per block
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxHeads = 16;  // q-heads per group
+constexpr int kMaxKSteps = 8;  // rk / 16, rk <= 128
+// padded rows (16 bytes) of the rank-major tiles, the seq-major tiles and
+// B, so the eight row addresses of one ldmatrix fall on distinct banks
+constexpr int kCk = kTile + 8;
+constexpr int kPad = 8;
+constexpr int kBPad = 8;
+
+struct FpArgs {
+  const void* q;      // (B, nh, hd) bf16 or f32, roped at the current position
+  int q_bf16;
+  const bf16* bk;     // (G, hpg, rk, hd)
+  const bf16* xk;     // (B, G, S, rk) seq-major or (B, G, rk, S) rank-major
+  const bf16* xv;     // (B, G, S, rv) or (B, G, rv, S)
+  const int* kv_len;  // (B,)
+  const float* cos_t; // (S, hd/2)
+  const float* sin_t;
+  float* part_m;      // (B, nh, splits)
+  float* part_l;
+  float* part_acc;    // (B, nh, splits, rv)
+  int G, hpg, rk, rv, S, window;
+  int splits, tiles_per_split, chunk_heads;
+  float sqrt_hd;
+};
+
+// Elements of one latent tile in shared memory (rows padded).
+__host__ __device__ inline size_t tile_elems(bool rm, int r) {
+  return rm ? static_cast<size_t>(r) * kCk : static_cast<size_t>(kTile) * (r + kPad);
+}
+
+// Byte offsets of the split kernel's shared-memory regions (one place for
+// the kernel's carve and the launcher's size); `chunk` heads of B staged.
+struct FpLayout {
+  size_t bsm, kt, vt, q, acc, lg, pw, red, stat, total;
+};
+
+__host__ __device__ inline FpLayout fp_layout(bool rm, int rk, int hd, int hpg, int rv,
+                                              int chunk) {
+  FpLayout L;
+  size_t off = 0;
+  L.bsm = off;  off = al(off + sizeof(bf16) * chunk * rk * (hd + kBPad));
+  L.kt = off;   off = al(off + sizeof(bf16) * tile_elems(rm, rk));
+  L.vt = off;   off = al(off + sizeof(bf16) * tile_elems(rm, rv));
+  L.q = off;    off = al(off + sizeof(float) * hpg * hd);
+  L.acc = off;  off = al(off + sizeof(float) * hpg * rv);
+  L.lg = off;   off = al(off + sizeof(float) * hpg * kTile);
+  L.pw = off;   off = al(off + sizeof(float) * hpg * kTile);
+  L.red = off;  off = al(off + sizeof(float) * 4 * kTile);
+  L.stat = off; off = al(off + sizeof(float) * 3 * kMaxHeads);
+  L.total = off;
+  return L;
+}
+
+// cp.async the latent tile of tokens [s0, s0 + kTile) of one (b, g) plane
+// with `rows` ranks into shared memory: rank-major as [rank][token]
+// (stride kCk), seq-major as [token][rank] (stride rows + kPad). Tokens at
+// or past S are zero (S and rows are multiples of 8, so a 16-byte piece is
+// wholly in or out).
+template <bool RM>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int rows, int S, int s0,
+                                          int tid) {
+  if (RM) {
+    constexpr int kVec = kTile / 8;  // 16-byte pieces per rank row
+    for (int i = tid; i < rows * kVec; i += kThreads) {
+      const int r = i / kVec, c = i % kVec, s = s0 + c * 8;
+      bf16* d = dst + r * kCk + c * 8;
+      if (s < S)
+        cp_async16(d, src + static_cast<size_t>(r) * S + s);
+      else
+        *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
+    }
+  } else {
+    const int vec = rows / 8;  // 16-byte pieces per token row
+    for (int i = tid; i < kTile * vec; i += kThreads) {
+      const int t = i / vec, c = i % vec, s = s0 + t;
+      bf16* d = dst + t * (rows + kPad) + c * 8;
+      if (s < S)
+        cp_async16(d, src + static_cast<size_t>(s) * rows + c * 8);
+      else
+        *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
+    }
+  }
+}
+
+template <int HD, bool RM>
+__global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a) {
+  constexpr int half = HD / 2;
+  constexpr int HS = HD + kBPad;  // B row stride
+  constexpr int NTH = HD / 16;    // 8-wide column tiles per half of hd
+  constexpr int NTW = NTH / 2;    // ... per warp (two warps share 16 tokens)
+  const int split = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int fg = lane / 4, ft = lane % 4;  // mma fragment row group / column pair
+  const int mi = lane / 8, ri = lane % 8;  // ldmatrix tile / row of this lane
+  const int hpg = a.hpg, rk = a.rk, rv = a.rv, nks = rk / 16;
+  const int nh = a.G * hpg;
+  const int m0 = (warp & 3) * 16;    // this warp's 16 tokens of the tile
+  const int jw = (warp >> 2) * NTW;  // its first column tile in each half of hd
+  const int kstride = RM ? kCk : rk + kPad;  // K tile row stride (elements)
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  const FpLayout L = fp_layout(RM, rk, HD, hpg, rv, a.chunk_heads);
+  bf16* bsm = reinterpret_cast<bf16*>(smem + L.bsm);     // [chunk][rk][HS]
+  bf16* kt = reinterpret_cast<bf16*>(smem + L.kt);       // K latent tile
+  bf16* vt = reinterpret_cast<bf16*>(smem + L.vt);       // V latent tile
+  float* q_s = reinterpret_cast<float*>(smem + L.q);     // [hpg][hd]
+  float* acc_s = reinterpret_cast<float*>(smem + L.acc); // [hpg][rv]
+  float* lg = reinterpret_cast<float*>(smem + L.lg);     // [hpg][kTile] logits
+  float* pw = reinterpret_cast<float*>(smem + L.pw);     // [hpg][kTile] p
+  float* red = reinterpret_cast<float*>(smem + L.red);   // [head parity][warp half][kTile]
+  float* stat = reinterpret_cast<float*>(smem + L.stat); // [3][kMaxHeads]: m, l, alpha
+  float* m_s = stat;
+  float* l_s = stat + kMaxHeads;
+  float* alpha_s = stat + 2 * kMaxHeads;
+
+  const size_t bg = static_cast<size_t>(b) * a.G + g;
+  const bf16* xk = a.xk + bg * rk * a.S;
+  const bf16* xv = a.xv + bg * rv * a.S;
+  const bf16* bk_g = a.bk + static_cast<size_t>(g) * hpg * rk * HD;
+
+  for (int i = tid; i < hpg * HD; i += kThreads) {
+    const size_t qi = (static_cast<size_t>(b) * nh + g * hpg) * HD + i;
+    q_s[i] = a.q_bf16 ? __bfloat162float(static_cast<const bf16*>(a.q)[qi])
+                      : static_cast<const float*>(a.q)[qi];
+  }
+  for (int i = tid; i < hpg * rv; i += kThreads) acc_s[i] = 0.0f;
+  if (tid < kMaxHeads) {
+    m_s[tid] = -1e30f;
+    l_s[tid] = 0.0f;
+    alpha_s[tid] = 1.0f;
+  }
+
+  const int kvl = a.kv_len[b];
+  const int lo_pos = a.window > 0 ? max(0, kvl - a.window) : 0;
+  const int tile_lo = lo_pos / kTile;
+  const int tile_hi = (min(kvl, a.S) + kTile - 1) / kTile;
+  const int t_begin = max(split * a.tiles_per_split, tile_lo);
+  const int t_end = min((split + 1) * a.tiles_per_split, tile_hi);
+  const int tok_a = m0 + fg, tok_b = tok_a + 8;  // accumulator rows of this lane
+
+  // heads in chunks whose B fits in shared memory (one chunk when all fit);
+  // each chunk walks the block's tiles
+  for (int c0 = 0; c0 < hpg && t_begin < t_end; c0 += a.chunk_heads) {
+    const int nc = min(a.chunk_heads, hpg - c0);
+    __syncthreads();  // set-up done / the previous chunk's B reads done
+    for (int i = tid; i < nc * rk * (HD / 8); i += kThreads) {
+      const int row = i / (HD / 8), c = i % (HD / 8);  // row = head * rk + rank
+      cp_async16(bsm + row * HS + c * 8,
+                 bk_g + (static_cast<size_t>(c0) * rk + row) * HD + c * 8);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    for (int tile = t_begin; tile < t_end; ++tile) {
+      const int s0 = tile * kTile;
+      // ---- load: K and V latent tiles (cp.async), this thread's rope rows
+      load_tile<RM>(kt, xk, rk, a.S, s0, tid);
+      load_tile<RM>(vt, xv, rv, a.S, s0, tid);
+      float ca[NTW][2], sa[NTW][2], cb[NTW][2], sb[NTW][2];
+      {
+        const int pa = s0 + tok_a, pb = s0 + tok_b;
+#pragma unroll
+        for (int j = 0; j < NTW; ++j) {
+          const int d = (jw + j) * 8 + 2 * ft;
+          float2 c = make_float2(0.f, 0.f), s = c, c2 = c, s2 = c;
+          if (pa < a.S) {
+            c = *reinterpret_cast<const float2*>(a.cos_t + static_cast<size_t>(pa) * half + d);
+            s = *reinterpret_cast<const float2*>(a.sin_t + static_cast<size_t>(pa) * half + d);
+          }
+          if (pb < a.S) {
+            c2 = *reinterpret_cast<const float2*>(a.cos_t + static_cast<size_t>(pb) * half + d);
+            s2 = *reinterpret_cast<const float2*>(a.sin_t + static_cast<size_t>(pb) * half + d);
+          }
+          ca[j][0] = c.x;  ca[j][1] = c.y;  sa[j][0] = s.x;  sa[j][1] = s.y;
+          cb[j][0] = c2.x; cb[j][1] = c2.y; sb[j][0] = s2.x; sb[j][1] = s2.y;
+        }
+      }
+      cp_async_wait_all();
+      __syncthreads();
+
+      // A fragments: x_k^T (16 tokens x 16 ranks) per k-step, shared by the
+      // heads; a rank-major tile is stored [rank][token], hence .trans
+      uint32_t af[kMaxKSteps][4];
+#pragma unroll
+      for (int ks = 0; ks < kMaxKSteps; ++ks) {
+        if (ks < nks) {
+          if (RM)
+            ldmatrix_x4_trans(af[ks],
+                              kt + (ks * 16 + ri + (mi >> 1) * 8) * kCk + m0 + (mi & 1) * 8);
+          else
+            ldmatrix_x4(af[ks],
+                        kt + (m0 + ri + (mi & 1) * 8) * kstride + ks * 16 + (mi >> 1) * 8);
+        }
+      }
+
+      // ---- per head: K_h (tokens x hd) = x_k^T B_h, then RoPE + q . K
+      for (int hc = 0; hc < nc; ++hc) {
+        const int h = c0 + hc;
+        const bf16* bh = bsm + static_cast<size_t>(hc) * rk * HS;
+        // acc[j]: column tile jw + j (first half of hd); acc[NTW + j]: tile
+        // NTH + jw + j, its RoPE partner in the second half
+        float acc[2 * NTW][4];
+#pragma unroll
+        for (int j = 0; j < 2 * NTW; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+#pragma unroll
+        for (int ks = 0; ks < kMaxKSteps; ++ks) {
+          if (ks < nks) {
+            const bf16* brow = bh + (ks * 16 + ri + (mi & 1) * 8) * HS + (mi >> 1) * 8;
+#pragma unroll
+            for (int p = 0; p < NTW; p += 2) {
+              uint32_t bf[4];
+              ldmatrix_x4_trans(bf, brow + (jw + p) * 8);
+              mma_bf16(acc[p], af[ks], bf[0], bf[1]);
+              mma_bf16(acc[p + 1], af[ks], bf[2], bf[3]);
+              ldmatrix_x4_trans(bf, brow + (NTH + jw + p) * 8);
+              mma_bf16(acc[NTW + p], af[ks], bf[0], bf[1]);
+              mma_bf16(acc[NTW + p + 1], af[ks], bf[2], bf[3]);
+            }
+          }
+        }
+        const float* qh = q_s + h * HD;
+        float part_a = 0.0f, part_b = 0.0f;
+#pragma unroll
+        for (int j = 0; j < NTW; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int d = (jw + j) * 8 + 2 * ft + e;
+            const float q1 = qh[d], q2 = qh[d + half];
+            const float k1 = acc[j][e], k2 = acc[NTW + j][e];
+            const float l1 = acc[j][e + 2], l2 = acc[NTW + j][e + 2];
+            part_a += q1 * (k1 * ca[j][e] - k2 * sa[j][e]) + q2 * (k2 * ca[j][e] + k1 * sa[j][e]);
+            part_b += q1 * (l1 * cb[j][e] - l2 * sb[j][e]) + q2 * (l2 * cb[j][e] + l1 * sb[j][e]);
+          }
+        }
+        part_a += __shfl_xor_sync(0xffffffffu, part_a, 1);
+        part_a += __shfl_xor_sync(0xffffffffu, part_a, 2);
+        part_b += __shfl_xor_sync(0xffffffffu, part_b, 1);
+        part_b += __shfl_xor_sync(0xffffffffu, part_b, 2);
+        // two warps hold each token's partial logits; buffers alternate by
+        // head parity so one barrier per head suffices
+        float* rh = red + ((hc & 1) * 2 + (warp >> 2)) * kTile;
+        if (ft == 0) {
+          rh[tok_a] = part_a;
+          rh[tok_b] = part_b;
+        }
+        __syncthreads();
+        if (tid < kTile) {
+          const float* r2 = red + (hc & 1) * 2 * kTile;
+          lg[h * kTile + tid] = (r2[tid] + r2[kTile + tid]) / a.sqrt_hd;
+        }
+      }
+      __syncthreads();
+
+      // ---- online softmax, one warp per head
+      for (int h = c0 + warp; h < c0 + nc; h += kWarps) {
+        float e[2], x[2];
+        bool ok[2];
+        float mx = -1e30f;
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int t = lane + 32 * u, s = s0 + t;
+          ok[u] = s < kvl && s < a.S && (a.window <= 0 || s > kvl - 1 - a.window);
+          x[u] = ok[u] ? lg[h * kTile + t] : -1e30f;
+          mx = fmaxf(mx, x[u]);
+        }
+        mx = warp_max(mx);
+        const float m_old = m_s[h];
+        const float m_new = fmaxf(m_old, mx);
+        const float alpha = expf(m_old - m_new);
+        float sum = 0.0f;
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int t = lane + 32 * u;
+          e[u] = ok[u] ? expf(x[u] - m_new) : 0.0f;
+          sum += e[u];
+          pw[h * kTile + t] = e[u];
+        }
+        sum = warp_sum(sum);
+        if (lane == 0) {
+          m_s[h] = m_new;
+          l_s[h] = l_s[h] * alpha + sum;
+          alpha_s[h] = alpha;
+        }
+      }
+      __syncthreads();
+
+      // ---- latent V: acc[h][r] = acc * alpha + sum_t p[h][t] x_v[t][r]
+      for (int r = tid; r < rv; r += kThreads) {
+        float cv[kTile];
+        if (RM) {
+          const uint4* row = reinterpret_cast<const uint4*>(vt + r * kCk);
+#pragma unroll
+          for (int c = 0; c < kTile / 8; ++c) {
+            const uint4 u = row[c];
+            const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              const float2 f = __bfloat1622float2(p2[k]);
+              cv[c * 8 + 2 * k] = f.x;
+              cv[c * 8 + 2 * k + 1] = f.y;
+            }
+          }
+        } else {
+#pragma unroll
+          for (int t = 0; t < kTile; ++t) cv[t] = __bfloat162float(vt[t * (rv + kPad) + r]);
+        }
+        for (int h = c0; h < c0 + nc; ++h) {
+          float acc = acc_s[h * rv + r] * alpha_s[h];
+          const float* ph = pw + h * kTile;
+#pragma unroll
+          for (int t = 0; t < kTile; ++t) acc += ph[t] * cv[t];
+          acc_s[h * rv + r] = acc;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  __syncthreads();
+
+  const size_t head0 = static_cast<size_t>(b) * nh + g * hpg;
+  for (int i = tid; i < hpg * rv; i += kThreads) {
+    const int h = i / rv, r = i % rv;
+    a.part_acc[((head0 + h) * a.splits + split) * rv + r] = acc_s[i];
+  }
+  if (tid < hpg) {
+    a.part_m[(head0 + tid) * a.splits + split] = m_s[tid];
+    a.part_l[(head0 + tid) * a.splits + split] = l_s[tid];
+  }
+}
+
+template <int HD, bool RM>
+int launch_split(const FpArgs& a, int B, cudaStream_t st) {
+  const size_t smem = fp_layout(RM, a.rk, HD, a.hpg, a.rv, a.chunk_heads).total;
+  cudaError_t err = cudaFuncSetAttribute(palu_decode_fp_split_kernel<HD, RM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  palu_decode_fp_split_kernel<HD, RM><<<dim3(a.splits, a.G, B), kThreads, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Shapes in the comments of FpArgs; rank_major selects the latent layout;
+// out (B, nh, rv) f32. The partial buffers hold B * nh * splits (m, l) and
+// B * nh * splits * rv accumulators. hd is 64 or 128, rk a multiple of 16
+// up to 128, rv and S multiples of 8.
+extern "C" int palu_decode_fp(const void* q, int q_bf16, const void* bk, const void* xk,
+                              const void* xv, const void* kv_len, const void* cos_t,
+                              const void* sin_t, void* part_m, void* part_l, void* part_acc,
+                              void* out, int B, int G, int hpg, int hd, int rk, int rv, int S,
+                              int rank_major, int window, int splits, int tiles_per_split,
+                              float sqrt_hd, void* stream) {
+  if ((hd != 64 && hd != 128) || rk % 16 || rk > 16 * kMaxKSteps || rv % 8 || S % 8 ||
+      hpg > kMaxHeads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  FpArgs a;
+  a.q = q;
+  a.q_bf16 = q_bf16;
+  a.bk = static_cast<const bf16*>(bk);
+  a.xk = static_cast<const bf16*>(xk);
+  a.xv = static_cast<const bf16*>(xv);
+  a.kv_len = static_cast<const int*>(kv_len);
+  a.cos_t = static_cast<const float*>(cos_t);
+  a.sin_t = static_cast<const float*>(sin_t);
+  a.part_m = static_cast<float*>(part_m);
+  a.part_l = static_cast<float*>(part_l);
+  a.part_acc = static_cast<float*>(part_acc);
+  a.G = G;
+  a.hpg = hpg;
+  a.rk = rk;
+  a.rv = rv;
+  a.S = S;
+  a.window = window;
+  a.splits = splits;
+  a.tiles_per_split = tiles_per_split;
+  a.sqrt_hd = sqrt_hd;
+  // as many heads' B in shared memory as fit beside the rest
+  const bool rm = rank_major != 0;
+  a.chunk_heads = hpg;
+  while (a.chunk_heads > 0 && fp_layout(rm, rk, hd, hpg, rv, a.chunk_heads).total > kSmemMax)
+    --a.chunk_heads;
+  if (a.chunk_heads == 0) return static_cast<int>(cudaErrorInvalidValue);
+
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err;
+  if (hd == 128)
+    err = rm ? launch_split<128, true>(a, B, st) : launch_split<128, false>(a, B, st);
+  else
+    err = rm ? launch_split<64, true>(a, B, st) : launch_split<64, false>(a, B, st);
+  if (err != 0) return err;
+  return decode::launch_combine(a.part_m, a.part_l, a.part_acc, static_cast<float*>(out),
+                                B * G * hpg, splits, rv, st);
+}

@@ -1,0 +1,159 @@
+"""Latent decode attention over the unquantized latent caches (port of
+palu_tpu/ops/pallas/palu_decode.py::palu_flash_decode, the v1 kernel over
+seq-major latents, and palu_tpu/ops/pallas/palu_decode4.py::palu_flash_decode4,
+the v4 kernel over rank-major latents; both are csrc/palu_decode_fp.cu).
+
+`palu_decode_fp` takes seq-major latents (B, G, S, r), `palu_decode_fp_t`
+rank-major latents (B, G, r, S). Each launches the kernel for CUDA tensors
+(latents and b_k in bf16, as the engine keeps them) and runs its plain
+version, flash_decode_latent over the raw latents in f32, for CPU tensors.
+Both return (B, nh, rv) f32 latent-space outputs for the U_v-fused o_proj
+and count their launches separately. The JAX kernels' `k_bias`,
+`return_stats` and `layer_idx` come with later slices.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from ..runtime import cache as cache_lib
+from . import build
+from .attention import flash_decode_latent
+from .palu_decode import _MAX_HEADS, _MAX_RK, _rope_tables, _splits
+
+__all__ = ["palu_decode_fp", "palu_decode_fp_ref", "palu_decode_fp_t", "palu_decode_fp_t_ref"]
+
+
+def _check(q, b_k, x_k, x_v, kv_len, rank_major: bool):
+    """Validate shapes; returns (rk, rv, S)."""
+    if q.dim() != 3 or b_k.dim() != 4 or x_k.dim() != 4 or x_v.dim() != 4:
+        raise ValueError("q must be (B, nh, hd), b_k (G, hpg, rk, hd) and the latents 4-D")
+    b, nh, hd = q.shape
+    g, hpg, rk = b_k.shape[0], b_k.shape[1], b_k.shape[2]
+    if g * hpg != nh or b_k.shape[3] != hd:
+        raise ValueError(f"b_k {tuple(b_k.shape)} does not match q {tuple(q.shape)}")
+    ax_s, ax_r = (3, 2) if rank_major else (2, 3)
+    s_max, rv = x_k.shape[ax_s], x_v.shape[ax_r]
+    layout = "(B, G, r, S)" if rank_major else "(B, G, S, r)"
+    for name, x, r in (("x_k", x_k, rk), ("x_v", x_v, rv)):
+        if tuple(x.shape[:2]) != (b, g) or x.shape[ax_s] != s_max or x.shape[ax_r] != r:
+            raise ValueError(f"{name} must be {layout} with B {b}, G {g}, S {s_max}, r {r}; "
+                             f"got {tuple(x.shape)}")
+    if tuple(kv_len.shape) != (b,):
+        raise ValueError(f"kv_len must be (B,), got {tuple(kv_len.shape)}")
+    return rk, rv, s_max
+
+
+def _ref(q, b_k, x_k, x_v, kv_len, rank_major, theta, sliding_window, inv_freq,
+         rope_scale) -> torch.Tensor:
+    rk, rv, s_max = _check(q, b_k, x_k, x_v, kv_len, rank_major)
+    chunk = min(512, s_max)
+    while s_max % chunk:
+        chunk -= 1
+    key = "lat_t" if rank_major else "lat"
+
+    def reader(x, rank):
+        def read(idx):
+            sl = cache_lib.seq_slice({key: x}, idx * chunk, chunk)
+            return cache_lib.decode_latents(sl, None, rank, torch.float32)
+        return read
+
+    return flash_decode_latent(
+        q.float(), reader(x_k, rk), reader(x_v, rv), b_k.float(), s_max // chunk, chunk,
+        kv_len, q.shape[-1], theta, rv, sliding_window, inv_freq=inv_freq,
+        rope_scale=rope_scale)
+
+
+def _launch(q, b_k, x_k, x_v, kv_len, rank_major, theta, sliding_window, inv_freq,
+            rope_scale) -> torch.Tensor:
+    rk, rv, s_max = _check(q, b_k, x_k, x_v, kv_len, rank_major)
+    b, nh, hd = q.shape
+    g, hpg = b_k.shape[0], b_k.shape[1]
+    if b_k.dtype != torch.bfloat16 or x_k.dtype != torch.bfloat16 or x_v.dtype != torch.bfloat16:
+        raise ValueError(f"the fp decode kernel reads b_k and the latents as bf16, got "
+                         f"{b_k.dtype}, {x_k.dtype}, {x_v.dtype}")
+    if (hd not in (64, 128) or rk % 16 or rk > _MAX_RK or rv % 8 or hpg > _MAX_HEADS
+            or s_max % 8):
+        raise ValueError(f"fp decode kernel needs hd 64 or 128, rk a multiple of 16 up to "
+                         f"{_MAX_RK}, rv and S multiples of 8 and <= {_MAX_HEADS} heads per "
+                         f"group (hd={hd}, rk={rk}, rv={rv}, S={s_max}, hpg={hpg})")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"q must be bf16 or f32, got {q.dtype}")
+    if len({t.device for t in (q, b_k, x_k, x_v, kv_len)}) != 1:
+        raise ValueError("all tensors must be on one device")
+    if not (x_k.is_contiguous() and x_v.is_contiguous()):
+        raise ValueError("cache buffers must be contiguous")
+    dev = q.device
+    cos_t, sin_t = _rope_tables(s_max, hd, theta, inv_freq, rope_scale, dev)
+    qc = q.contiguous()
+    bk = b_k.contiguous()
+    kvl = kv_len.to(torch.int32).contiguous()
+    splits, per = _splits(dev, b * g, s_max)
+    # one allocation: per-split m, l, accumulators, then the output
+    n_part = b * nh * splits
+    scratch = torch.empty(n_part * (2 + rv) + b * nh * rv, dtype=torch.float32, device=dev)
+    out = scratch[n_part * (2 + rv):].view(b, nh, rv)
+    err = build.launcher("palu_decode_fp", "palu_decode_fp", "pi" + "p" * 10 + "i" * 11 + "fp")(
+        qc.data_ptr(), int(q.dtype == torch.bfloat16), bk.data_ptr(), x_k.data_ptr(),
+        x_v.data_ptr(), kvl.data_ptr(), cos_t.data_ptr(), sin_t.data_ptr(),
+        scratch.data_ptr(), scratch[n_part:].data_ptr(), scratch[2 * n_part:].data_ptr(),
+        out.data_ptr(),
+        b, g, hpg, hd, rk, rv, s_max, int(rank_major), int(sliding_window or 0), splits, per,
+        float(math.sqrt(hd)), build.stream_ptr(dev))
+    build.check(err, "palu_decode_fp_t" if rank_major else "palu_decode_fp")
+    return out
+
+
+def palu_decode_fp_ref(q, b_k, x_k, x_v, kv_len, *, theta: float = 10000.0,
+                       sliding_window: Optional[int] = None, inv_freq=None,
+                       rope_scale: float = 1.0) -> torch.Tensor:
+    """Plain version of palu_decode_fp: flash_decode_latent in f32 over the
+    seq-major latents, in chunks of up to 512 positions."""
+    return _ref(q, b_k, x_k, x_v, kv_len, False, theta, sliding_window, inv_freq, rope_scale)
+
+
+def palu_decode_fp(q, b_k, x_k, x_v, kv_len, *, theta: float = 10000.0,
+                   sliding_window: Optional[int] = None, inv_freq=None,
+                   rope_scale: float = 1.0) -> torch.Tensor:
+    """Decode attention over seq-major latents.
+
+    q (B, nh, hd) roped at the current position; b_k (G, hpg, rk, hd);
+    x_k (B, G, S, rk), x_v (B, G, S, rv) pre-RoPE latents; kv_len (B,)
+    valid positions. -> (B, nh, rv) f32. CUDA tensors launch the kernel;
+    CPU tensors run the plain version."""
+    if not q.is_cuda:
+        return palu_decode_fp_ref(q, b_k, x_k, x_v, kv_len, theta=theta,
+                                  sliding_window=sliding_window, inv_freq=inv_freq,
+                                  rope_scale=rope_scale)
+    out = _launch(q, b_k, x_k, x_v, kv_len, False, theta, sliding_window, inv_freq, rope_scale)
+    palu_decode_fp.launches += 1
+    return out
+
+
+def palu_decode_fp_t_ref(q, b_k, xk_t, xv_t, kv_len, *, theta: float = 10000.0,
+                         sliding_window: Optional[int] = None, inv_freq=None,
+                         rope_scale: float = 1.0) -> torch.Tensor:
+    """Plain version of palu_decode_fp_t: flash_decode_latent in f32 over
+    the rank-major latents, in chunks of up to 512 positions."""
+    return _ref(q, b_k, xk_t, xv_t, kv_len, True, theta, sliding_window, inv_freq, rope_scale)
+
+
+def palu_decode_fp_t(q, b_k, xk_t, xv_t, kv_len, *, theta: float = 10000.0,
+                     sliding_window: Optional[int] = None, inv_freq=None,
+                     rope_scale: float = 1.0) -> torch.Tensor:
+    """Decode attention over rank-major latents xk_t (B, G, rk, S), xv_t
+    (B, G, rv, S); otherwise as palu_decode_fp."""
+    if not q.is_cuda:
+        return palu_decode_fp_t_ref(q, b_k, xk_t, xv_t, kv_len, theta=theta,
+                                    sliding_window=sliding_window, inv_freq=inv_freq,
+                                    rope_scale=rope_scale)
+    out = _launch(q, b_k, xk_t, xv_t, kv_len, True, theta, sliding_window, inv_freq, rope_scale)
+    palu_decode_fp_t.launches += 1
+    return out
+
+
+palu_decode_fp.launches = 0
+palu_decode_fp_t.launches = 0

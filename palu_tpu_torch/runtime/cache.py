@@ -1,16 +1,21 @@
-"""Latent KV cache in the rank-major packed layout (port of the per-row
-rank-major part of palu_tpu/runtime/cache.py).
+"""Latent KV cache (port of palu_tpu/runtime/cache.py: the per-row
+rank-major quantized layout and the two unquantized layouts).
 
 Per layer and side (k, v), with per-row (group_size == 0) quantization:
   codes_t (B, G, nrows, S) uint8   packed codes, sequence on the last axis
   scale_t (B, G, 1, S)     f32     per-token scale
   zero_t  (B, G, 1, S)     f32     per-token zero (asymmetric only)
-so x ~= scale * code + zero. Latents are cached pre-RoPE. Buffer names and
-layouts are the JAX package's, so caches compare byte for byte.
+so x ~= scale * code + zero. Without quantization (qcfg None) the latents
+are stored in the engine dtype, seq-major by default or rank-major:
+  lat   (B, G, S, r)   the layout of the v1 decode kernel
+  lat_t (B, G, r, S)   rank_major_fp: the layout of the v4 decode kernel
+Keys ending in "_t" carry the sequence on their last axis, the others on
+the axis before it. Latents are cached pre-RoPE. Buffer names and layouts
+are the JAX package's, so caches compare byte for byte.
 
 The JAX package returns new buffers and relies on buffer donation for
 in-place updates; here the write helpers update the buffers in place.
-Per-chunk (group_size > 0) scales, unquantized and seq-major caches come
+Per-chunk (group_size > 0) scales and seq-major quantized caches come
 with later slices of the port.
 """
 
@@ -25,8 +30,8 @@ from ..models.config import ModelConfig
 from ..ops import build
 
 __all__ = [
-    "rank_major", "init_cache", "cache_nbytes", "decode_latents", "seq_slice",
-    "write_at_lanes", "write_at_lanes_masked",
+    "rank_major", "quantized", "init_cache", "cache_nbytes", "decode_latents",
+    "seq_slice", "write_at_lanes", "write_at_lanes_masked",
 ]
 
 
@@ -36,17 +41,34 @@ def rank_major(qcfg: Optional[quant.QuantConfig]) -> bool:
     return qcfg is not None and qcfg.enabled and qcfg.group_size == 0
 
 
+def quantized(qcfg: Optional[quant.QuantConfig]) -> bool:
+    """True when the cache holds quantized codes, False for raw latents."""
+    return qcfg is not None and qcfg.enabled
+
+
 def _check_layout(qcfg) -> None:
-    if not rank_major(qcfg):
+    if quantized(qcfg) and not rank_major(qcfg):
         raise NotImplementedError(
-            "the port's cache holds per-row quantized latents "
-            "(QuantConfig(bits < 16, group_size=0)); unquantized and per-chunk "
-            "caches come with a later slice of the port")
+            "the port's quantized cache holds per-row scales "
+            "(QuantConfig(bits < 16, group_size=0)); per-chunk caches come "
+            "with a later slice of the port")
+
+
+def _seq_axis(key: str, ndim: int) -> int:
+    """Sequence axis of a buffer leaf: last for rank-major ("_t") keys, the
+    one before it otherwise."""
+    return ndim - 1 if key.endswith("_t") else ndim - 2
 
 
 def _layer_buffers(batch: int, groups: int, s_max: int, rank: int,
-                   qcfg: quant.QuantConfig, device) -> Dict[str, torch.Tensor]:
+                   qcfg: Optional[quant.QuantConfig], device, dtype=torch.bfloat16,
+                   rank_major_fp: bool = False) -> Dict[str, torch.Tensor]:
     _check_layout(qcfg)
+    if not quantized(qcfg):
+        if rank_major_fp:
+            return {"lat_t": torch.zeros((batch, groups, rank, s_max), dtype=dtype,
+                                         device=device)}
+        return {"lat": torch.zeros((batch, groups, s_max, rank), dtype=dtype, device=device)}
     nrows = quant.packed_nrows(rank, qcfg.pack_bits)
     bufs = {
         "codes_t": torch.zeros((batch, groups, nrows, s_max), dtype=torch.uint8,
@@ -61,9 +83,11 @@ def _layer_buffers(batch: int, groups: int, s_max: int, rank: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,
-               qcfg: quant.QuantConfig, device="cuda") -> Dict[str, Any]:
+               qcfg: Optional[quant.QuantConfig], device="cuda", dtype=torch.bfloat16,
+               rank_major_fp: bool = False) -> Dict[str, Any]:
     """Build the cache: per layer {"k": bufs, "v": bufs} plus per-lane
-    lengths. Every layer must have low-rank k and v."""
+    lengths. Every layer must have low-rank k and v. `dtype` and
+    `rank_major_fp` apply to unquantized caches (qcfg None)."""
     device = build.require_cuda(device)
     g = cfg.num_kv_groups
     layers = []
@@ -75,8 +99,8 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
                 f"layer {i} has a dense k/v projection; the port's cache holds "
                 "low-rank latents only")
         layers.append({
-            "k": _layer_buffers(batch, g, s_max, rk, qcfg, device),
-            "v": _layer_buffers(batch, g, s_max, rv, qcfg, device),
+            side: _layer_buffers(batch, g, s_max, r, qcfg, device, dtype, rank_major_fp)
+            for side, r in (("k", rk), ("v", rv))
         })
     return {"layers": layers,
             "length": torch.zeros((batch,), dtype=torch.int32, device=device)}
@@ -91,9 +115,14 @@ def cache_nbytes(cache: Dict[str, Any]) -> int:
     return total
 
 
-def _encode(latents: torch.Tensor, qcfg: quant.QuantConfig) -> Dict[str, torch.Tensor]:
-    """latents (B, G, S, r) -> buffer update dict (sequence on the last axis)."""
+def _encode(latents: torch.Tensor, qcfg: Optional[quant.QuantConfig], dtype=None,
+            rank_major_fp: bool = False) -> Dict[str, torch.Tensor]:
+    """latents (B, G, S, r) -> buffer update dict in the cache's layout;
+    unquantized latents are stored in `dtype`."""
     _check_layout(qcfg)
+    if not quantized(qcfg):
+        lat = latents.to(dtype)
+        return {"lat_t": lat.transpose(-1, -2)} if rank_major_fp else {"lat": lat}
     codes, scales, zeros = quant.quantize_affine(latents, qcfg)
     # scales (B, G, S, 1) -> (B, G, 1, S): sequence on the last axis
     upd = {
@@ -105,9 +134,13 @@ def _encode(latents: torch.Tensor, qcfg: quant.QuantConfig) -> Dict[str, torch.T
     return upd
 
 
-def decode_latents(buf: Dict[str, torch.Tensor], qcfg: quant.QuantConfig,
+def decode_latents(buf: Dict[str, torch.Tensor], qcfg: Optional[quant.QuantConfig],
                    rank: int, dtype=torch.bfloat16) -> torch.Tensor:
     """Read back latents (B, G, S, r) from a layer buffer, dequantizing."""
+    if "lat_t" in buf:
+        return buf["lat_t"].transpose(-1, -2).to(dtype)
+    if "lat" in buf:
+        return buf["lat"].to(dtype)
     codes = quant.unpack_codes_t(buf["codes_t"], qcfg.pack_bits, rank).float()
     if qcfg.sym:
         lat = (codes - 2 ** (qcfg.bits - 1)) * buf["scale_t"]
@@ -118,22 +151,26 @@ def decode_latents(buf: Dict[str, torch.Tensor], qcfg: quant.QuantConfig,
 
 def seq_slice(buf: Dict[str, torch.Tensor], start: int, size: int) -> Dict[str, torch.Tensor]:
     """View of `size` positions at `start` along every leaf's sequence axis."""
-    return {k: a[..., start:start + size] for k, a in buf.items()}
+    return {k: a.narrow(_seq_axis(k, a.dim()), start, size) for k, a in buf.items()}
 
 
-def _lane_index(u: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-    """Per-lane sequence indices pos[b] + j, broadcast to u's shape."""
-    s_new = u.shape[-1]
+def _lane_index(u: torch.Tensor, pos: torch.Tensor, axis: int) -> torch.Tensor:
+    """Per-lane sequence indices pos[b] + j along `axis`, broadcast to u's
+    shape."""
+    s_new = u.shape[axis]
     idx = pos.long()[:, None] + torch.arange(s_new, device=u.device)[None, :]
-    return idx.reshape((u.shape[0],) + (1,) * (u.dim() - 2) + (s_new,)).expand_as(u)
+    shape = [u.shape[0]] + [1] * (u.dim() - 1)
+    shape[axis] = s_new
+    return idx.reshape(shape).expand_as(u)
 
 
 def write_at_lanes(buf: Dict[str, torch.Tensor], update: Dict[str, torch.Tensor],
                    pos: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """Per-lane write in place: update (B, ..., S_new) lands at each lane's
-    own offset pos[b] along the sequence axis. Returns buf."""
+    """Per-lane write in place: each update leaf lands at each lane's own
+    offset pos[b] along its sequence axis. Returns buf."""
     for k, u in update.items():
-        buf[k].scatter_(-1, _lane_index(u, pos), u.to(buf[k].dtype))
+        ax = _seq_axis(k, u.dim())
+        buf[k].scatter_(ax, _lane_index(u, pos, ax), u.to(buf[k].dtype))
     return buf
 
 
@@ -144,8 +181,9 @@ def write_at_lanes_masked(buf: Dict[str, torch.Tensor],
     is re-written with its current content, so idle lanes and full lanes
     (pos clamped to s_max - 1 by the caller) are never corrupted."""
     for k, u in update.items():
-        idx = _lane_index(u, pos)
-        cur = torch.gather(buf[k], -1, idx)
+        ax = _seq_axis(k, u.dim())
+        idx = _lane_index(u, pos, ax)
+        cur = torch.gather(buf[k], ax, idx)
         keep = mask.reshape((u.shape[0],) + (1,) * (u.dim() - 1))
-        buf[k].scatter_(-1, idx, torch.where(keep, u.to(cur.dtype), cur))
+        buf[k].scatter_(ax, idx, torch.where(keep, u.to(cur.dtype), cur))
     return buf

@@ -1,16 +1,23 @@
 """The Palu inference engine in PyTorch (port of palu_tpu/runtime/engine.py:
 EngineConfig, build_decode_b, Engine with layer-major chunked prefill,
-decode and greedy generate).
+one-chunk prefill for serving, decode and generate with sampling).
 
   prefill: per layer, project the whole padded prompt to latents, write
-           them to the quantized cache, rebuild dense K/V from the cache
-           (so attention sees what decode will read, quantization error
+           them to the cache, rebuild dense K/V from the cache (so
+           attention sees what decode will read, quantization error
            included), then per chunk: causal flash attention
            (ops/prefill_flash) -> dense o_proj -> MLP.
-  decode:  per layer, project one token -> quantize-pack-append
-           (ops/cache_append) -> latent decode attention over the packed
-           cache (ops/palu_decode) -> U_v-fused o_proj -> MLP; lm_head
-           once per step.
+  decode:  per layer, project one token -> append it to the cache ->
+           latent decode attention over the cache -> U_v-fused o_proj ->
+           MLP; lm_head once per step.
+
+The cache is quantized (qcfg: per-row rank-major codes; the append is
+quantize-pack-write, ops/cache_append, and decode reads the codes,
+ops/palu_decode) or holds the raw latents in `dtype` (qcfg None, the
+paper's low-rank-only mode): seq-major (B, G, S, r) decoded by
+ops/palu_decode_fp.palu_decode_fp, or rank-major (B, G, r, S) with
+`rank_major_fp`, decoded by palu_decode_fp_t. The raw latents are
+appended by a masked write, as the JAX engine does.
 
 Weights may be stored int8 or int4 (EngineConfig.weight_bits, vt_bits,
 embed_bits; core/wquant): the engine quantizes its own copy after building
@@ -20,8 +27,8 @@ The kernels run when the engine's tensors are on CUDA; on the CPU their
 plain versions run (tests). `_decode_paths` records which decode attention
 path ran and `_gemv_paths` which weight paths the decode steps took.
 The cache is updated in place (the JAX engine donates it to jit instead).
-Qwen2 k/v biases, ragged ranks, per-chunk scales and sampling come with
-later slices of the port.
+Qwen2 k/v biases, ragged ranks and per-chunk scales come with later slices
+of the port.
 """
 
 from __future__ import annotations
@@ -42,8 +49,10 @@ from ..ops import build
 from ..ops.cache_append import append_supported, append_token_quantized
 from ..ops.gemv_int8 import MAX_ROWS
 from ..ops.palu_decode import palu_decode
+from ..ops.palu_decode_fp import palu_decode_fp, palu_decode_fp_t
 from ..ops.prefill_flash import prefill_flash
 from . import cache as cache_lib
+from . import sampling as sampling_lib
 
 __all__ = ["EngineConfig", "Engine", "build_decode_b"]
 
@@ -56,6 +65,10 @@ class EngineConfig:
     qcfg: Optional[QuantConfig] = None
     decode_chunk: int = 512
     device: str = "cuda"
+    # unquantized cache only: store the latents rank-major (B, G, r, S) for
+    # the v4 decode kernel (palu_decode_fp_t) instead of seq-major
+    # (B, G, S, r) for the v1 kernel (palu_decode_fp)
+    rank_major_fp: bool = False
     # 16 keeps weights in `dtype`; 8 stores q_proj, o_proj (and its U_v-fused
     # form), the MLP and lm_head as int8 with per-channel scales; 4 as packed
     # int4 with per-(128-row group, channel) scales (core/wquant)
@@ -91,11 +104,11 @@ class Engine:
 
     def __init__(self, params, cfg: ModelConfig, ecfg: EngineConfig):
         self.device = build.require_cuda(ecfg.device)
-        if not cache_lib.rank_major(ecfg.qcfg):
+        if cache_lib.quantized(ecfg.qcfg) and not cache_lib.rank_major(ecfg.qcfg):
             raise NotImplementedError(
-                "the port's engine serves a per-row quantized latent cache "
-                "(QuantConfig(bits < 16, group_size=0)); other caches come "
-                "with a later slice")
+                "the port's engine serves per-row quantized latents "
+                "(QuantConfig(bits < 16, group_size=0)) or unquantized ones "
+                "(qcfg None); per-chunk caches come with a later slice")
         if cfg.attention_bias:
             raise NotImplementedError("k/v biases (Qwen2) come with a later slice")
         for i, layer in enumerate(params["layers"]):
@@ -139,7 +152,12 @@ class Engine:
 
     def init_cache(self):
         return cache_lib.init_cache(self.cfg, self.ecfg.batch, self.ecfg.s_max,
-                                    self.ecfg.qcfg, device=self.device)
+                                    self.ecfg.qcfg, device=self.device, dtype=self.ecfg.dtype,
+                                    rank_major_fp=self.ecfg.rank_major_fp)
+
+    def _encode(self, lat):
+        """Latents (B, G, S, r) -> the cache's buffer update."""
+        return cache_lib._encode(lat, self.ecfg.qcfg, self.ecfg.dtype, self.ecfg.rank_major_fp)
 
     # -- prefill -------------------------------------------------------------
 
@@ -148,8 +166,9 @@ class Engine:
         return wdot(x, tied_head(self.params), paths)
 
     def _reconstruct_dense(self, entry, attn, rk: int, rv: int, n: int):
-        """Dequantize + reconstruct (per kv head) + RoPE the first n cache
-        positions of a layer into dense (B, nkv, n, hd) K and V."""
+        """Read back (dequantizing) + reconstruct (per kv head) + RoPE the
+        first n cache positions of a layer into dense (B, nkv, n, hd) K and
+        V."""
         cfg, ecfg = self.cfg, self.ecfg
         nkv, hd = cfg.num_key_value_heads, cfg.head_dim
         lat_k = cache_lib.decode_latents(cache_lib.seq_slice(entry["k"], 0, n),
@@ -185,8 +204,7 @@ class Engine:
             h = llama.rms_norm(x, p_layer["input_norm"], cfg.rms_norm_eps)
             for side, proj in (("k", "k_proj"), ("v", "v_proj")):
                 lat = llama.project_kv(h, attn[proj]).transpose(1, 2)  # (B, G, run, r)
-                cache_lib.write_at_lanes(entry[side],
-                                         cache_lib._encode(lat, ecfg.qcfg), offset)
+                cache_lib.write_at_lanes(entry[side], self._encode(lat), offset)
             rk = attn["k_proj"]["U"].shape[1]
             rv = attn["v_proj"]["U"].shape[1]
             k_full, v_full = self._reconstruct_dense(entry, attn, rk, rv, n_read)
@@ -239,18 +257,37 @@ class Engine:
     def prefill_auto(self, input_ids, cache=None):
         return self.prefill_chunked(input_ids, chunk_size=self._chunk, cache=cache)
 
+    @torch.no_grad()
+    def prefill_chunk(self, ids_chunk, cache, off: int):
+        """Advance one prefill chunk ids_chunk (B, chunk) at sequence offset
+        `off` through every layer (the serving loop interleaves these with
+        decode steps, so admitting a long prompt never stalls the running
+        lanes). ids_chunk must be padded to the engine chunk; pad positions
+        are causally invisible. Returns (the chunk's logits (B, chunk, V),
+        cache); the caller tracks the real length and sets cache["length"]
+        when the prompt is complete."""
+        ids = torch.as_tensor(np.asarray(ids_chunk), device=self.device)
+        b, c_len = ids.shape
+        if b != self.ecfg.batch or c_len != self._chunk:
+            raise ValueError(f"chunk must be ({self.ecfg.batch}, {self._chunk}), got "
+                             f"{tuple(ids.shape)}")
+        if off < 0 or off + c_len > self.ecfg.s_max:
+            raise ValueError(f"chunk at {off} does not fit s_max {self.ecfg.s_max}")
+        return self._prefill_layer_major(cache, ids[:, None, :], off), cache
+
     # -- decode --------------------------------------------------------------
 
     def _append(self, bufs, lat, pos_w, writeable):
-        """Quantize + pack + masked write of one token column lat (B, G, 1, r)."""
-        qcfg = self.ecfg.qcfg
+        """Masked write of one token column lat (B, G, 1, r): quantized and
+        packed by the append kernel where it covers the cache, else the
+        plain write (raw latents, exact 3-bit packing), as in the JAX
+        engine."""
         if self._fused_append:
             append_token_quantized(lat[:, :, 0, :], bufs["codes_t"], bufs["scale_t"],
-                                   pos_w, writeable, qcfg=qcfg, rank=lat.shape[-1],
+                                   pos_w, writeable, qcfg=self.ecfg.qcfg, rank=lat.shape[-1],
                                    zero=bufs.get("zero_t"))
-        else:  # exact 3-bit packing: the plain append, as in the JAX engine
-            cache_lib.write_at_lanes_masked(bufs, cache_lib._encode(lat, qcfg),
-                                            pos_w, writeable)
+        else:
+            cache_lib.write_at_lanes_masked(bufs, self._encode(lat), pos_w, writeable)
 
     def _decode_attention(self, q, entry, attn, der, kv_len):
         cfg, ecfg = self.cfg, self.ecfg
@@ -258,13 +295,20 @@ class Engine:
         rk = attn["k_proj"]["U"].shape[1]
         rv = attn["v_proj"]["U"].shape[1]
         kb, vb = entry["k"], entry["v"]
-        self._decode_paths.add("palu_decode-kernel" if q.is_cuda else "palu_decode-plain")
-        lat_out = palu_decode(
-            q, der["b_k"], kb["codes_t"], kb["scale_t"], vb["codes_t"], vb["scale_t"],
-            kv_len, qcfg=ecfg.qcfg, rk=rk, rv=rv, theta=cfg.rope_theta,
-            sliding_window=cfg.sliding_window, inv_freq=self._inv_freq,
-            rope_scale=self._rope_scale, xk_zero=kb.get("zero_t"),
-            xv_zero=vb.get("zero_t"))
+        side = "kernel" if q.is_cuda else "plain"
+        kw = dict(theta=cfg.rope_theta, sliding_window=cfg.sliding_window,
+                  inv_freq=self._inv_freq, rope_scale=self._rope_scale)
+        if cache_lib.quantized(ecfg.qcfg):
+            self._decode_paths.add(f"palu_decode-{side}")
+            lat_out = palu_decode(
+                q, der["b_k"], kb["codes_t"], kb["scale_t"], vb["codes_t"], vb["scale_t"],
+                kv_len, qcfg=ecfg.qcfg, rk=rk, rv=rv, xk_zero=kb.get("zero_t"),
+                xv_zero=vb.get("zero_t"), **kw)
+        else:
+            fn, key = ((palu_decode_fp_t, "lat_t") if ecfg.rank_major_fp
+                       else (palu_decode_fp, "lat"))
+            self._decode_paths.add(f"{fn.__name__}-{side}")
+            lat_out = fn(q, der["b_k"], kb[key], vb[key], kv_len, **kw)
         return wdot(lat_out.to(ecfg.dtype).reshape(b, nh * rv), attn["o_proj"]["w_fused"],
                     self._gemv_paths)
 
@@ -304,19 +348,31 @@ class Engine:
         return self._lm_head_logits(x, self._gemv_paths), cache
 
     @torch.no_grad()
-    def generate(self, input_ids, max_new_tokens: int,
-                 eos_token_id: Optional[int] = None) -> np.ndarray:
-        """Greedy generation: chunked prefill, then one decode step per new
-        token. Returns the new token ids (B, n) as numpy."""
+    def generate(self, input_ids, max_new_tokens: int, eos_token_id: Optional[int] = None,
+                 sampling: Optional[sampling_lib.SamplingParams] = None,
+                 seed: int = 0) -> np.ndarray:
+        """Chunked prefill, then one decode step per new token. Greedy, or
+        with `sampling` (temperature > 0) temperature / top-k / top-p
+        sampling whose Gumbel noise for step t is drawn from a generator
+        seeded with (seed, t). Returns the new token ids (B, n) as numpy."""
         input_ids = np.asarray(input_ids)
         max_new_tokens = min(max_new_tokens, self.ecfg.s_max - input_ids.shape[1])
+        sampled = sampling is not None and sampling.temperature > 0.0
+
+        def pick(logits, step):
+            lg = logits[:, -1]
+            if sampled:
+                noise = sampling_lib.gumbel_noise(lg.shape, lg.device, seed, step)
+                return sampling_lib.sample(lg, sampling, noise)[:, None].cpu().numpy()
+            return lg.argmax(dim=-1)[:, None].cpu().numpy()
+
         logits, cache = self.prefill_auto(input_ids)
         out_tokens = []
-        next_tok = logits[:, -1].argmax(dim=-1)[:, None].cpu().numpy()
-        for _ in range(max_new_tokens):
+        next_tok = pick(logits, 0)
+        for step in range(max_new_tokens):
             out_tokens.append(next_tok)
             if eos_token_id is not None and (next_tok == eos_token_id).all():
                 break
             logits, cache = self.decode(next_tok, cache)
-            next_tok = logits[:, -1].argmax(dim=-1)[:, None].cpu().numpy()
+            next_tok = pick(logits, step + 1)
         return np.concatenate(out_tokens, axis=1)

@@ -115,3 +115,82 @@ def test_gemv_int8_transposed_head_matches_plain(gen, rows):
     x = torch.randn((rows, 512), generator=gen, device="cuda").bfloat16()
     got, want = gemv_int8(x, head), gemv_int8_ref(x, head)
     assert (got.float() - want.float()).abs().max() <= 2.0**-7 * want.float().abs().max()
+
+
+# (lanes, kv_len per lane, window, heads per group): chip_smoke's fp cases
+FP_CASES = [(1, (8000,), None, 4), (2, (777, 8192), 1024, 4),
+            (8, (1, 63, 64, 65, 1000, 4097, 8000, 8192), None, 4), (2, (777, 8192), None, 16)]
+
+
+@pytest.mark.parametrize("rank_major", [False, True], ids=["seq_major", "rank_major"])
+@pytest.mark.parametrize("case", range(len(FP_CASES)))
+def test_decode_fp_kernels_match_plain(gen, case, rank_major):
+    """Both unquantized-cache decode kernels at the 7B shapes (G 8 x hpg 4
+    or G 2 x hpg 16, rk 128, rv 384, hd 128) over an 8192-token cache."""
+    from palu_tpu_torch.ops import palu_decode_fp as mod
+
+    lanes, kvl, window, hpg = FP_CASES[case]
+    g, s_max = 32 // hpg, 8192
+    q = torch.randn((lanes, g * hpg, 128), generator=gen, device="cuda").bfloat16()
+    b_k = (torch.randn((g, hpg, 128, 128), generator=gen, device="cuda") / 11.3).bfloat16()
+    lat = [torch.randn((lanes, g, s_max, r), generator=gen, device="cuda").bfloat16()
+           for r in (128, 384)]
+    fn, ref = mod.palu_decode_fp, mod.palu_decode_fp_ref
+    if rank_major:
+        fn, ref = mod.palu_decode_fp_t, mod.palu_decode_fp_t_ref
+        lat = [x.transpose(-1, -2).contiguous() for x in lat]
+    kv_len = torch.tensor(kvl, dtype=torch.int32, device="cuda")
+    n = fn.launches
+    got = fn(q, b_k, *lat, kv_len, sliding_window=window)
+    assert fn.launches == n + 1
+    want = ref(q, b_k, *lat, kv_len, sliding_window=window)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 2e-3 * want.abs().max()
+
+
+@pytest.mark.parametrize("rank_major", [False, True], ids=["seq_major", "rank_major"])
+def test_serving_engine_on_card(gen, rank_major):
+    """ServingEngine over an unquantized cache on the card: every request
+    finishes with its tokens, decode runs the fp kernel once per layer and
+    step, and a sampled request stays in the vocabulary."""
+    from palu_tpu_torch.models import llama
+    from palu_tpu_torch.models.config import ModelConfig
+    from palu_tpu_torch.ops.palu_decode_fp import palu_decode_fp, palu_decode_fp_t
+    from palu_tpu_torch.runtime.engine import EngineConfig
+    from palu_tpu_torch.runtime.sampling import SamplingParams
+    from palu_tpu_torch.runtime.serving import ServingEngine
+
+    layers = 2
+    ranks = {}
+    for i in range(layers):
+        ranks[f"model.layers.{i}.self_attn.k_proj"] = [32] * 4
+        ranks[f"model.layers.{i}.self_attn.v_proj"] = [64] * 4
+    cfg = ModelConfig(vocab_size=512, hidden_size=512, intermediate_size=1024,
+                      num_hidden_layers=layers, num_attention_heads=8, num_key_value_heads=8,
+                      head_group_size=2, head_wise_ranks=ranks)
+    params = llama.init_params(cfg, gen, dtype=torch.bfloat16)
+    srv = ServingEngine(params, cfg, EngineConfig(s_max=256, batch=2, decode_chunk=64, qcfg=None,
+                                                  rank_major_fp=rank_major),
+                        prefill_chunks_per_step=1)
+    rng = torch.Generator().manual_seed(1)
+    n_new = {1: 5, 2: 9, 3: 4}
+    for rid, n in n_new.items():
+        prompt = torch.randint(0, 512, (1, 40 * rid), generator=rng).numpy()
+        sp = SamplingParams(temperature=1.0, top_k=16) if rid == 2 else None
+        assert srv.submit(rid, prompt, n, sampling=sp)
+    fn = palu_decode_fp_t if rank_major else palu_decode_fp
+    steps = [0]
+    decode = srv.engine.decode
+
+    def counted(*a, **kw):
+        steps[0] += 1
+        return decode(*a, **kw)
+
+    srv.engine.decode = counted
+    n0 = fn.launches
+    out = srv.run_until_done(max_steps=200)
+    assert {r: len(t) for r, t in out.items()} == n_new
+    assert all(0 <= t < 512 for toks in out.values() for t in toks)
+    assert srv.sched.stats() == {"admitted": 3, "finished": 3, "tokens": sum(n_new.values())}
+    assert srv.engine._decode_paths == {f"{fn.__name__}-kernel"}
+    assert fn.launches - n0 == layers * steps[0] > 0

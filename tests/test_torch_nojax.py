@@ -66,6 +66,7 @@ def test_cuda_request_without_cuda_raises():
     from palu_tpu_torch.ops.build import require_cuda
     from palu_tpu_torch.runtime.cache import init_cache
     from palu_tpu_torch.runtime.engine import Engine, EngineConfig
+    from palu_tpu_torch.runtime.serving import ServingEngine
 
     ranks = {f"model.layers.0.self_attn.{w}_proj": [8, 8] for w in "kv"}
     cfg = ModelConfig(vocab_size=32, hidden_size=64, intermediate_size=64,
@@ -78,6 +79,10 @@ def test_cuda_request_without_cuda_raises():
         init_cache(cfg, 1, 16, qcfg)  # default device is cuda
     with pytest.raises(RuntimeError):
         Engine({"layers": []}, cfg, EngineConfig(qcfg=qcfg))
+    with pytest.raises(RuntimeError):
+        init_cache(cfg, 1, 16, None)  # the unquantized cache too
+    with pytest.raises(RuntimeError):
+        ServingEngine({"layers": []}, cfg, EngineConfig())
 
 
 def test_chip_smoke_fails_without_cuda():
