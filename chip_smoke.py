@@ -44,13 +44,32 @@ Phases, each printing one JSON line:
                 exact GEMV launch counts per step, and its two breakdowns;
      lanes_w4 - that engine at batch 8 (the GEMV kernels' 8-row edge);
      serve_w8 - int8 weights, 4 layers at full width, one request;
+  6. the latency entry points (palu_tpu_torch/cli), counts set to 0 just
+     before each run and read just after:
+     latency_kernel    - run_latency_kernel at 4K / 16K / 64K over bf16
+                latents and the exact 3-bit seq-major cache
+                (palu_decode_seq_quantized), providers WX, xla and ours;
+     latency_attention - run_latency_attention at a 64K prompt: the 3-bit
+                cache exact, with int8_rot and with int8_dots, and dense KV,
+                1 layer each; the 3-bit cache at 32 layers; each with the
+                decode path and launches per step asserted and a decode
+                breakdown;
+     serve_bench_int8_rot - serve_bench --int8_rot at 32 layers, 8 lanes, 16
+                requests on the native scheduler.
+  Phase 3 also holds the seq-major packed decode (check_decode_seq) and the
+  packed decode's int8 K-path modes (check_decode_int8, also against the
+  exact decode) against their plain versions, and the engine's dense-KV
+  decode on CUDA (one scaled_dot_product_attention call) against its plain
+  version (dense_sdpa);
 then the nvidia-smi line, the {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import subprocess
@@ -62,11 +81,14 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from palu_tpu_torch.cli import run_latency_attention, run_latency_kernel, serve_bench
 from palu_tpu_torch.core import wquant
-from palu_tpu_torch.core.quant import QuantConfig, packed_nrows, pack_codes_t, quantize_affine
+from palu_tpu_torch.core.quant import (QuantConfig, pack_codes, packed_nrows, pack_codes_t,
+                                       quantize, quantize_affine)
 from palu_tpu_torch.models import llama
 from palu_tpu_torch.models.config import ModelConfig
 from palu_tpu_torch.ops import build
+from palu_tpu_torch.ops.attention import dense_decode_sdpa, dense_flash_decode
 from palu_tpu_torch.ops.cache_append import (append_supported, append_token_quantized,
                                              append_token_quantized_ref)
 from palu_tpu_torch.ops.gemv_int4 import (gemv_int4, gemv_int4_ref, mlp_gemv_int4,
@@ -76,16 +98,22 @@ from palu_tpu_torch.ops.gemv_int8 import (gemv_int8, gemv_int8_ref, mlp_gemv_int
 from palu_tpu_torch.ops.palu_decode import palu_decode, palu_decode_ref
 from palu_tpu_torch.ops.palu_decode_fp import (palu_decode_fp, palu_decode_fp_ref,
                                                palu_decode_fp_t, palu_decode_fp_t_ref)
+from palu_tpu_torch.ops.palu_decode_seq import (palu_decode_seq_quantized,
+                                                palu_decode_seq_quantized_ref)
 from palu_tpu_torch.ops.prefill_flash import prefill_flash, prefill_flash_ref
+from palu_tpu_torch.runtime import profiler
 from palu_tpu_torch.runtime.cache import cache_nbytes, decode_latents
 from palu_tpu_torch.runtime.engine import Engine, EngineConfig
 from palu_tpu_torch.runtime.sampling import SamplingParams
 from palu_tpu_torch.runtime.serving import NativeScheduler, ServingEngine
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and dense
-# bf16 tensor-core rate, for each kernel's bound.
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, dense bf16
+# and int8 tensor-core rates and the f32 rate outside the tensor cores, for
+# each kernel's bound.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
+PEAK_F32_FLOPS = 67e12
 
 # Tolerances, as a share of max|plain|.
 # Decode returns f32 and computes in f32 from bf16 weights and integer
@@ -116,11 +144,35 @@ HID, INTER, VOCAB, LAYERS = 4096, 11008, 32000, 32
 W4 = dict(weight_bits=4, vt_bits=8, embed_bits=8)  # the README's configuration
 W8 = dict(weight_bits=8, vt_bits=8, embed_bits=8)
 COUNTERS = (append_token_quantized, palu_decode, palu_decode_fp, palu_decode_fp_t,
-            prefill_flash, gemv_int4, mlp_gemv_int4, gemv_int8, mlp_gemv_int8)
+            palu_decode_seq_quantized, prefill_flash, gemv_int4, mlp_gemv_int4, gemv_int8,
+            mlp_gemv_int8)
+INT8_MODES = ("int8_dots", "int8_rot")  # palu_decode's int8 K-path modes
+# the int8 modes' deviation from the exact decode: the JAX kernel tests'
+# class (tests/test_pallas_decode4.py), (atol, rtol) for allclose
+INT8_DEV = {"int8_dots": (4e-2, 2e-2), "int8_rot": (8e-2, 4e-2)}
+# the decode kernels' yardstick (library_ms)
+SDPA_YARDSTICK = ("scaled_dot_product_attention, one decode token over dense bf16 K/V of "
+                  "the same context (a different function: the attention Palu replaces)")
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def reset_counts() -> None:
+    """Every wrapper's launch count (and palu_decode's per mode) to 0."""
+    for fn in COUNTERS:
+        fn.launches = 0
+    for mode in palu_decode.mode_launches:
+        palu_decode.mode_launches[mode] = 0
+
+
+def read_counts() -> dict:
+    """Launches per wrapper, plus palu_decode's int8 modes as
+    palu_decode_int8_dots / palu_decode_int8_rot (also in palu_decode's)."""
+    out = {fn.__name__: fn.launches for fn in COUNTERS}
+    out.update({f"palu_decode_{m}": palu_decode.mode_launches[m] for m in INT8_MODES})
+    return out
 
 
 def llama7b(layers: int) -> ModelConfig:
@@ -174,9 +226,13 @@ def _device_events(prof):
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, int8_ops: float = 0.0, f32_flops: float = 0.0):
+    """max(bytes / memory rate, operations / peak rate): bf16 `flops`,
+    `int8_ops` on the int8 tensor-core path and `f32_flops` outside the
+    tensor cores, their times added."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = (flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS
+             + f32_flops / PEAK_F32_FLOPS) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -273,12 +329,12 @@ def check_append(gen) -> dict:
     return out
 
 
-def _decode_inputs(qcfg: QuantConfig, b: int, g: int, hpg: int, s_max: int, gen):
+def _decode_inputs(qcfg: QuantConfig, b: int, g: int, hpg: int, s_max: int, gen, rv: int = RV):
     q = torch.randn((b, g * hpg, HD), generator=gen, device="cuda").to(torch.bfloat16)
     b_k = (torch.randn((g, hpg, RK, HD), generator=gen, device="cuda")
            / math.sqrt(RK)).to(torch.bfloat16)
     bufs = {}
-    for side, r in (("k", RK), ("v", RV)):
+    for side, r in (("k", RK), ("v", rv)):
         lat = torch.randn((b, g, s_max, r), generator=gen, device="cuda")
         codes, scales, zeros = quantize_affine(lat, qcfg)
         bufs[f"x{side}_codes"] = pack_codes_t(codes, qcfg.pack_bits).contiguous()
@@ -331,10 +387,253 @@ def check_decode(gen) -> dict:
            "source": "palu_tpu_torch/csrc/palu_decode.cu",
            "replaces": "palu_tpu/ops/pallas/palu_decode4.py:899",
            "max_abs_err": worst_abs, "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
-           "bound_ms": bms, "bound_by": by, "library_ms": None}
+           "bound_ms": bms, "bound_by": by,
+           "library_ms": device_ms(_dense_kv_sdpa(1, s_max, gen), 20)}
     emit({"phase": "kernel", "cases": cases, "max_rel_err": worst_rel, "tol": DECODE_TOL,
-          "bytes": nbytes, "flops": flops, **out})
+          "bytes": nbytes, "flops": flops, "library_call": SDPA_YARDSTICK, **out})
     return out
+
+
+# run_latency_attention at --prompt_len 65536: s_max 66048, rotation blocks
+# of 512 (129 of them); kv_len 65600 lies in the last block
+ATTN_S, ATTN_KV, ATTN_BLOCK = 66048, 65600, 512
+
+
+def _held_decode(what: str, got, want) -> tuple:
+    """(abs, rel) error of a decode kernel's output against its plain
+    version; raises past DECODE_TOL."""
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    rel = err / want.abs().max().item()
+    if not (torch.isfinite(got).all() and rel <= DECODE_TOL):
+        raise AssertionError(f"{what}: rel err {rel}")
+    return err, rel
+
+
+def check_decode_int8(gen) -> list:
+    """palu_decode's int8 K-path modes against their plain versions at
+    check_decode's shapes with rotation blocks of 512 and 2048 tokens, at
+    serve_bench_int8_rot's shape (8 lanes, rank 128 per group for K and
+    V, S 4096, block 2048) and at latency_attention's 64K point (where the
+    exact decode is held too), and each one's deviation from the exact
+    plain version (asserted within the JAX tests' class, INT8_DEV). Then
+    device times at batch 1 with the flagship cache full to 8192, and at
+    the 64K point."""
+    s_max = 8192
+    specs = [  # (qcfg, kv_len per lane, window, heads per group, rv, S, blocks)
+        (QuantConfig(bits=3, sym=True), (1, 777), None, HPG, RV, s_max, (512, 2048)),
+        (QuantConfig(bits=3, sym=False), (777, 8192), None, HPG, RV, s_max, (512, 2048)),
+        (FLAGSHIP, (8192, 1), None, HPG, RV, s_max, (512, 2048)),
+        (QuantConfig(bits=4, sym=False), (1, 8192), None, HPG, RV, s_max, (512, 2048)),
+        (FLAGSHIP, (777, 8192), 1024, HPG, RV, s_max, (512, 2048)),
+        (FLAGSHIP, (777, 8192), None, 16, RV, s_max, (512, 2048)),
+        # serve_bench_int8_rot: prompts of 1024-2048 tokens plus 32 new ones
+        (FLAGSHIP, (1024, 1100, 1500, 2000, 2047, 2048, 2049, 2080), None, HPG, RK, 4096,
+         (2048,)),
+        (FLAGSHIP, (ATTN_KV,), None, HPG, RV, ATTN_S, (ATTN_BLOCK,)),
+    ]
+    worst = {m: {"rel": 0.0, "abs": 0.0, "dev_abs": 0.0, "dev_rel": 0.0} for m in INT8_MODES}
+    cases = 0
+    for qcfg, kvl, window, hpg, rv, s, blocks in specs:
+        q, b_k, bufs = _decode_inputs(qcfg, len(kvl), NH // hpg, hpg, s, gen, rv)
+        kv_len = torch.tensor(kvl, dtype=torch.int32, device="cuda")
+        kw = dict(qcfg=qcfg, rk=RK, rv=rv, sliding_window=window)
+        exact = palu_decode_ref(q, b_k, kv_len=kv_len, **bufs, **kw)
+        if s == ATTN_S:  # the exact kernel at latency_attention's point
+            _held_decode(f"palu_decode at S {s} kv {kvl}",
+                         palu_decode(q, b_k, kv_len=kv_len, **bufs, **kw), exact)
+        for mode in INT8_MODES:
+            for block_s in blocks:
+                what = (f"{mode} {qcfg} kv {kvl} window {window} hpg {hpg} rv {rv} S {s} "
+                        f"block {block_s}")
+                got = palu_decode(q, b_k, kv_len=kv_len, **bufs, **kw, block_s=block_s,
+                                  **{mode: True})
+                want = palu_decode_ref(q, b_k, kv_len=kv_len, **bufs, **kw, block_s=block_s,
+                                       **{mode: True})
+                err, rel = _held_decode(what, got, want)
+                dev = (got - exact).abs().max().item()
+                atol, rtol = INT8_DEV[mode]
+                if not torch.allclose(got, exact, atol=atol, rtol=rtol):
+                    raise AssertionError(f"{what}: {dev} from the exact decode")
+                w = worst[mode]
+                w["rel"], w["abs"] = max(w["rel"], rel), max(w["abs"], err)
+                w["dev_abs"] = max(w["dev_abs"], dev)
+                w["dev_rel"] = max(w["dev_rel"], dev / exact.abs().max().item())
+                cases += 1
+        del q, b_k, bufs, exact
+
+    q, b_k, bufs = _decode_inputs(FLAGSHIP, 1, G, HPG, s_max, gen)
+    kv_len = torch.tensor([s_max], dtype=torch.int32, device="cuda")
+    kw = dict(qcfg=FLAGSHIP, rk=RK, rv=RV)
+    n = s_max
+    nbytes = (sum(t.numel() * t.element_size() for t in bufs.values())
+              + q.numel() * 2 + b_k.numel() * 2 + NH * RV * 4)
+    library_ms = device_ms(_dense_kv_sdpa(1, s_max, gen), 20)
+    # and at run_latency_attention's 64K point, beside the exact mode
+    q64, b_k64, bufs64 = _decode_inputs(FLAGSHIP, 1, G, HPG, ATTN_S, gen)
+    kv64 = torch.tensor([ATTN_KV], dtype=torch.int32, device="cuda")
+    at_64k = {mode: device_ms(lambda: palu_decode(q64, b_k64, kv_len=kv64, **bufs64, **kw,
+                                                  block_s=ATTN_BLOCK, **{mode: True}), 10)
+              for mode in INT8_MODES}
+    at_64k["exact"] = device_ms(lambda: palu_decode(q64, b_k64, kv_len=kv64, **bufs64, **kw), 10)
+    del q64, b_k64, bufs64
+    lines = []
+    for mode in INT8_MODES:
+        timed = {}
+        for block_s in (512, 2048):
+            # int8 dots for K (u and v: 2 * rk * hd per token and head), bf16
+            # for the logits and P.V, f32 for the operand build per block
+            int8_ops = 2 * NH * n * RK * HD
+            flops = 2 * NH * n * (HD + RV)
+            f32_flops = (n // block_s) * NH * HD * RK * 4
+            bms, by = bound_ms(nbytes, flops, int8_ops, f32_flops)
+            timed[f"block_{block_s}"] = {
+                "ms": device_ms(lambda: palu_decode(q, b_k, kv_len=kv_len, **bufs, **kw,
+                                                    block_s=block_s, **{mode: True}), 20),
+                "plain_ms": device_ms(lambda: palu_decode_ref(
+                    q, b_k, kv_len=kv_len, **bufs, **kw, block_s=block_s, **{mode: True}), 3),
+                "bytes": nbytes, "int8_ops": int8_ops, "flops": flops, "f32_flops": f32_flops,
+                "bound_ms": bms, "bound_by": by}
+        main = timed["block_512"]  # run_latency_attention's block at 64K
+        line = {"name": f"palu_decode_{mode}", "route": "cuda",
+                "source": "palu_tpu_torch/csrc/palu_decode.cu",
+                "replaces": ("palu_tpu/ops/pallas/palu_decode4.py:361" if mode == "int8_dots"
+                             else "palu_tpu/ops/pallas/palu_decode4.py:448"),
+                "max_abs_err": worst[mode]["abs"], "ms": main["ms"], "kernel_ms": main["ms"],
+                "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+                "bound_by": main["bound_by"], "library_ms": library_ms}
+        emit({"phase": "kernel", "cases": cases // len(INT8_MODES),
+              "max_rel_err": worst[mode]["rel"],
+              "tol": DECODE_TOL, "exact_deviation": {
+                  "max_abs": worst[mode]["dev_abs"], "max_rel": worst[mode]["dev_rel"],
+                  "allclose_atol_rtol": INT8_DEV[mode]},
+              "timed": timed, "b1_s66048_kv65600_block512_ms": at_64k,
+              "library_call": SDPA_YARDSTICK, **line})
+        lines.append(line)
+    return lines
+
+
+def _seq_inputs(qcfg: QuantConfig, b: int, s_max: int, gen):
+    """q, b_k and a seq-major packed cache (quantize + pack_codes) at the 7B
+    group shapes."""
+    q = torch.randn((b, NH, HD), generator=gen, device="cuda").to(torch.bfloat16)
+    b_k = (torch.randn((G, HPG, RK, HD), generator=gen, device="cuda")
+           / math.sqrt(RK)).to(torch.bfloat16)
+    bufs = {}
+    for side, r in (("k", RK), ("v", RV)):
+        lat = torch.randn((b, G, s_max, r), generator=gen, device="cuda")
+        codes, scales, base = quantize(lat, qcfg)
+        bufs[f"x{side}_codes"] = pack_codes(codes, qcfg.pack_bits).contiguous()
+        bufs[f"x{side}_scales"] = scales.contiguous()
+        bufs[f"x{side}_base"] = base.contiguous()
+    return q, b_k, bufs
+
+
+def check_decode_seq(gen) -> dict:
+    """The seq-major packed decode against its plain version at S 8192:
+    exact 3-bit and 4-bit, sym and asym, at batch 1 (kv_len 8000, not a
+    whole tile) and over two ragged lanes, and a sliding window; then at
+    run_latency_kernel's 3-bit shapes (batch 1, S = kv_len = 4096, 16384
+    and 65536). Then its device time at batch 1 with that cache full to
+    8192 and to 65536, and the dense-KV SDPA yardstick."""
+    s_max = 8192
+    specs = [  # (qcfg, kv_len per lane, window)
+        (QuantConfig(bits=3, sym=False), (8000,), None),
+        (QuantConfig(bits=3, sym=True), (8000,), None),
+        (QuantConfig(bits=4, sym=False), (8000,), None),
+        (QuantConfig(bits=4, sym=True), (8000,), None),
+        (QuantConfig(bits=3, sym=False), (777, 8192), None),
+        (QuantConfig(bits=2, sym=True), (1, 4097), None),
+        (QuantConfig(bits=3, sym=True), (8000,), 1024),
+    ]
+    worst_rel, worst_abs = 0.0, 0.0
+    qcfg = QuantConfig(bits=3, group_size=0)  # run_latency_kernel --lt_bits 3
+    specs += [(qcfg, (n,), None) for n in (4096, 16384)]
+    for qcfg_i, kvl, window in specs:
+        q, b_k, bufs = _seq_inputs(qcfg_i, len(kvl), max(s_max, *kvl), gen)
+        kv_len = torch.tensor(kvl, dtype=torch.int32, device="cuda")
+        kw = dict(qcfg=qcfg_i, rk=RK, rv=RV, sliding_window=window)
+        err, rel = _held_decode(
+            f"seq decode {qcfg_i} kv {kvl} window {window}",
+            palu_decode_seq_quantized(q, b_k, kv_len=kv_len, **bufs, **kw),
+            palu_decode_seq_quantized_ref(q, b_k, kv_len=kv_len, **bufs, **kw))
+        worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, err)
+        del q, b_k, bufs
+
+    q, b_k, bufs = _seq_inputs(qcfg, 1, s_max, gen)
+    kv_len = torch.tensor([s_max], dtype=torch.int32, device="cuda")
+    kw = dict(qcfg=qcfg, rk=RK, rv=RV)
+    n = s_max
+    nbytes = (sum(t.numel() * t.element_size() for t in bufs.values())
+              + q.numel() * 2 + b_k.numel() * 2 + NH * RV * 4)
+    flops = 2 * NH * n * (RK * HD + HD + RV)
+    bms, by = bound_ms(nbytes, flops)
+    ms = device_ms(lambda: palu_decode_seq_quantized(q, b_k, kv_len=kv_len, **bufs, **kw), 20)
+    plain_ms = device_ms(lambda: palu_decode_seq_quantized_ref(q, b_k, kv_len=kv_len, **bufs,
+                                                               **kw), 3)
+    del q, b_k, bufs
+    q, b_k, bufs = _seq_inputs(qcfg, 1, 65536, gen)  # run_latency_kernel's 64K point
+    kv64 = torch.tensor([65536], dtype=torch.int32, device="cuda")
+    err, rel = _held_decode(
+        f"seq decode {qcfg} kv 65536",
+        palu_decode_seq_quantized(q, b_k, kv_len=kv64, **bufs, **kw),
+        palu_decode_seq_quantized_ref(q, b_k, kv_len=kv64, **bufs, **kw))
+    worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, err)
+    ms_64k = device_ms(lambda: palu_decode_seq_quantized(q, b_k, kv_len=kv64, **bufs, **kw), 10)
+    out = {"name": "palu_decode_seq_quantized", "route": "cuda",
+           "source": "palu_tpu_torch/csrc/palu_decode_fp.cu",
+           "replaces": "palu_tpu/ops/pallas/palu_decode.py:559",
+           "max_abs_err": worst_abs, "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bms, "bound_by": by,
+           "library_ms": device_ms(_dense_kv_sdpa(1, s_max, gen), 20)}
+    emit({"phase": "kernel", "cases": len(specs) + 1, "max_rel_err": worst_rel,
+          "tol": DECODE_TOL, "layout": "(B, G, S, nbytes)", "bytes": nbytes, "flops": flops,
+          "b1_s65536_ms": ms_64k, "library_call": SDPA_YARDSTICK, **out})
+    return out
+
+
+def check_dense_sdpa(gen) -> None:
+    """The dense-KV decode the engine runs on CUDA (one
+    scaled_dot_product_attention call, not a kernel of the port) against
+    its plain version (ops/attention.dense_flash_decode, what the CPU
+    runs) on the same bf16 K/V: 32 heads, S 8192, ragged lanes, a sliding
+    window and GQA, and at run_latency_attention's 64K point (batch 1, S
+    66048, kv_len 65600); then both times there."""
+    tol = DECODE_TOL + 2.0**-9  # SDPA returns bf16: plus half a bf16 ulp
+    worst = 0.0
+    for nkv, kvl, window in ((NH, (777, 8192), None), (NH, (8192, 5000), 1024),
+                             (8, (1, 8192), None)):
+        q = torch.randn((2, NH, HD), generator=gen, device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn((2, nkv, 8192, HD), generator=gen, device="cuda")
+                .to(torch.bfloat16) for _ in range(2))
+        kv_len = torch.tensor(kvl, dtype=torch.int32, device="cuda")
+        got = dense_decode_sdpa(q, k, v, kv_len, window)
+        want = dense_flash_decode(q, k, v, kv_len, 512, window)
+        torch.cuda.synchronize()
+        rel = ((got.float() - want).abs().max() / want.abs().max()).item()
+        if not (torch.isfinite(got).all() and rel <= tol):
+            raise AssertionError(f"dense SDPA decode nkv {nkv} kv {kvl}: rel err {rel}")
+        worst = max(worst, rel)
+    s, n = ATTN_S, ATTN_KV
+    q = torch.randn((1, NH, HD), generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((1, NH, s, HD), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    kv_len = torch.tensor([n], dtype=torch.int32, device="cuda")
+    want = dense_flash_decode(q, k, v, kv_len, ATTN_BLOCK)
+    rel = ((dense_decode_sdpa(q, k, v, kv_len).float() - want).abs().max()
+           / want.abs().max()).item()
+    if rel > tol:
+        raise AssertionError(f"dense SDPA decode at S {s} kv {n}: rel err {rel}")
+    worst = max(worst, rel)
+    nbytes = 2 * NH * n * HD * 2 + 2 * q.numel() * 2
+    bms, by = bound_ms(nbytes, 4 * NH * n * HD)
+    emit({"phase": "dense_sdpa", "cases": 4, "max_rel_err": worst, "tol": tol,
+          "what": "the engine's dense-KV decode on CUDA: torch scaled_dot_product_attention "
+                  "(a library call), held against ops/attention.dense_flash_decode",
+          "s_max": s, "kv_len": n,
+          "sdpa_ms": device_ms(lambda: dense_decode_sdpa(q, k, v, kv_len), 20),
+          "plain_ms": device_ms(lambda: dense_flash_decode(q, k, v, kv_len, 512), 3),
+          "bound_ms": bms, "bound_by": by})
 
 
 def _fp_inputs(b: int, g: int, hpg: int, s_max: int, gen):
@@ -362,8 +661,9 @@ def _dense_kv_sdpa(b: int, n: int, gen):
 def check_decode_fp(gen) -> list:
     """Both unquantized-cache decode kernels against their plain versions:
     the 7B shapes at S 8192 with kv_len 8000 (not a whole tile), a sliding
-    window, 8 lanes with their own kv_len, and 16 q-heads per group (GQA).
-    Then each one's device time at batch 1 with the cache full to 8192, and
+    window, 8 lanes with their own kv_len, and 16 q-heads per group (GQA),
+    and palu_decode_fp at run_latency_kernel's shapes (batch 1, S = kv_len =
+    4096, 16384 and 65536). Then each one's device time at batch 1 with the cache full to 8192, and
     palu_decode_fp's at the `serving` phase's shape (8 lanes, S 4096)."""
     s_max = 8192
     specs = [  # (lanes, kv_len per lane, window, heads per group)
@@ -390,6 +690,14 @@ def check_decode_fp(gen) -> list:
                                      f"rel err {rel}")
             worst[name] = [max(worst[name][0], rel), max(worst[name][1], err)]
         del q, b_k, seq, rank
+    for n in (4096, 16384, 65536):  # run_latency_kernel --lt_bits 16: batch 1, S = kv_len
+        q, b_k, seq, _ = _fp_inputs(1, G, HPG, n, gen)
+        kv_len = torch.tensor([n], dtype=torch.int32, device="cuda")
+        err, rel = _held_decode(f"palu_decode_fp S {n}", palu_decode_fp(q, b_k, *seq, kv_len),
+                                palu_decode_fp_ref(q, b_k, *seq, kv_len))
+        worst["palu_decode_fp"] = [max(worst["palu_decode_fp"][0], rel),
+                                   max(worst["palu_decode_fp"][1], err)]
+        del q, b_k, seq
 
     lines = []
     for name, (fn, ref, rm) in fns.items():
@@ -417,11 +725,10 @@ def check_decode_fp(gen) -> list:
                "max_abs_err": worst[name][1], "ms": main["ms"], "kernel_ms": main["ms"],
                "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
                "bound_by": main["bound_by"], "library_ms": main["library_ms"]}
-        emit({"phase": "kernel", "cases": len(specs), "max_rel_err": worst[name][0],
+        emit({"phase": "kernel", "cases": len(specs) + (0 if rm else 3),
+              "max_rel_err": worst[name][0],
               "tol": DECODE_TOL, "layout": "(B, G, r, S)" if rm else "(B, G, S, r)",
-              "library_call": "scaled_dot_product_attention, one decode token over dense "
-                              "bf16 K/V of the same context (a different function: the "
-                              "attention Palu replaces)", "timed": timed, **out})
+              "library_call": SDPA_YARDSTICK, "timed": timed, **out})
         lines.append(out)
     return lines
 
@@ -858,8 +1165,7 @@ def serve(tag: str, eng: "_CheckedEngine", prompts, new_tokens: int, extra=None)
     cfg = eng.cfg
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in COUNTERS:
-        fn.launches = 0
+    reset_counts()
     eng._gemv_paths.clear()
     requests = []
     for ids in prompts:
@@ -873,7 +1179,7 @@ def serve(tag: str, eng: "_CheckedEngine", prompts, new_tokens: int, extra=None)
                          "new_tokens": int(toks.shape[1]), "prefill_s": prefill_s,
                          "decode_ms_per_token": (total_s - prefill_s) / new_tokens * 1e3,
                          "cache_nbytes": cache_nbytes(eng.last_cache)})
-    launches = {fn.__name__: fn.launches for fn in COUNTERS}
+    launches = read_counts()
     steps = new_tokens * len(prompts)
     finite = bool(torch.stack(eng.finite).all().item())
     ecfg = eng.ecfg
@@ -996,8 +1302,7 @@ def phase_serving(params) -> dict:
     srv.engine.decode = counted
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in COUNTERS:
-        fn.launches = 0
+    reset_counts()
     step_s = []
     t0 = time.perf_counter()
     while (srv.sched.num_queued() > 0 or any(a != -1 for a in srv.sched.active())) \
@@ -1007,7 +1312,7 @@ def phase_serving(params) -> dict:
         step_s.append(time.perf_counter() - ts)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in COUNTERS}
+    launches = read_counts()
     stats = srv.sched.stats()
     out = srv.outputs
     n_tokens = sum(len(out[r]) for r in prompts)
@@ -1069,6 +1374,155 @@ def phase_serve_w8() -> dict:
                  {"init_s": init_s, "reduced": "4 of 32 layers"})
 
 
+# ---------------------------------------------------------------------------
+# 6. the latency entry points (palu_tpu_torch/cli)
+# ---------------------------------------------------------------------------
+
+
+def _only(counts: dict, want: dict, tag: str) -> None:
+    """Raise unless the launch counts are exactly `want` (others 0)."""
+    for name, n in counts.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"{tag}: {name} launched {n} times, expected "
+                                 f"{want.get(name, 0)}")
+
+
+def phase_latency_kernel() -> dict:
+    """run_latency_kernel at 4K / 16K / 64K with the 7B ranks (rank_k 1024,
+    rank_v 3072, groups of 4), providers WX, xla and ours, over bf16
+    latents (ours: palu_decode_fp) and the exact 3-bit seq-major cache
+    (ours: palu_decode_seq_quantized). Counts are set to 0 just before
+    each run and read just after: `ours` is 10 warm-up and 50 timed
+    launches per length, and nothing else launches a kernel. Returns the
+    3-bit run's counts."""
+    lens = (4096, 16384, 65536)
+    out = {}
+    for lt, fn in (("16", palu_decode_fp), ("3", palu_decode_seq_quantized)):
+        argv = ["--target_seq_lens", *map(str, lens), "--total_rank_v", "3072",
+                "--lt_bits", lt, "--json"]
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):  # the CLI's own records
+            rows = run_latency_kernel.main(argv)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        _only(counts, {fn.__name__: 60 * len(lens)}, f"latency_kernel lt_bits {lt}")
+        emit({"phase": "latency_kernel", "argv": argv, "rows_us": rows,
+              "providers": {"ours": fn.__name__, "xla": "ops/attention.flash_decode_latent "
+                            "(plain PyTorch)", "WX": "ops/attention.dense_decode_sdpa over "
+                            "dense bf16 K/V (one scaled_dot_product_attention call)"},
+              "launches": counts, "seconds": time.perf_counter() - t0})
+        out[lt] = counts
+    return out["3"]
+
+
+ATTN_3BIT = ["--palu", "--lt_bits", "3", "--lt_sym", "--lt_container", "4"]
+
+
+def phase_latency_attention() -> dict:
+    """run_latency_attention at --prompt_len 65536 (batch 1, rank_k 1024,
+    rank_v 3072, groups of 4; random weights and a seeded cache): the
+    flagship 3-bit cache as is, with --int8_rot and with --int8_dots, and
+    the dense-KV baseline, each at the CLI's default of 1 layer; then the
+    3-bit cache at 32 layers and Llama-2-7B's MLP width (BASELINE.md's
+    point at full depth). Each run: counts 0 just before and read just
+    after; the decode path and the launches per step (10 warm-up + 100
+    timed) asserted; then a decode breakdown at the 64K context. Returns
+    {run: counts}."""
+    steps = 110
+    runs = [  # (tag, extra flags, layers, decode path, counter of its decode kernel)
+        ("palu_3bit", ATTN_3BIT, 1, "palu_decode-kernel", "palu_decode"),
+        ("palu_3bit_int8_rot", [*ATTN_3BIT, "--int8_rot"], 1, "palu_decode_int8_rot-kernel",
+         "palu_decode_int8_rot"),
+        ("palu_3bit_int8_dots", [*ATTN_3BIT, "--int8_dots"], 1,
+         "palu_decode_int8_dots-kernel", "palu_decode_int8_dots"),
+        ("dense", [], 1, "dense_sdpa-kernel", None),
+        ("palu_3bit_32_layers", [*ATTN_3BIT, "--num_layers", "32", "--intermediate_size",
+                                 "11008"], 32, "palu_decode-kernel", "palu_decode"),
+    ]
+    counts_by_run, tpot = {}, {}
+    for tag, extra, layers, path, counter in runs:
+        argv = ["--prompt_len", "65536", *extra, "--json"]
+        args = run_latency_attention.parser().parse_args(argv)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        stats, eng = run_latency_attention.run(args)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = {}
+        if counter is not None:
+            want = {counter: layers * steps, "palu_decode": layers * steps,
+                    "append_token_quantized": 2 * layers * steps}
+        emit({"phase": "latency_attention", "run": tag, "argv": argv, "layers": layers,
+              **stats, "decode_paths": sorted(eng._decode_paths),
+              "gemv_paths": sorted(eng._gemv_paths), "launches": counts,
+              "launches_per_step": {k: v / steps for k, v in counts.items() if v},
+              "weight_bytes": _weight_bytes(eng.params),
+              "max_memory_allocated": torch.cuda.max_memory_allocated(),
+              "seconds": time.perf_counter() - t0})
+        if eng._decode_paths != {path}:
+            raise AssertionError(f"latency_attention {tag}: took {eng._decode_paths}")
+        _only(counts, want, f"latency_attention {tag}")
+        if not all(p == "dense-matmul" for p in eng._gemv_paths):
+            raise AssertionError(f"latency_attention {tag}: weights took {eng._gemv_paths}")
+        # where one step's time goes, from a freshly seeded cache (after
+        # the counts were read)
+        eng.last_cache = profiler.seed_cache_random(eng, 65536)
+        decode_breakdown(eng, f"latency_attention {tag}")
+        counts_by_run[tag] = counts
+        tpot[tag] = stats["tpot_ms"]
+        del eng
+    emit({"phase": "latency_attention_summary", "prompt_len": 65536, "tpot_ms": tpot,
+          "dense_over_palu_3bit_1_layer": tpot["dense"] / tpot["palu_3bit"]})
+    return counts_by_run
+
+
+def phase_serve_bench_int8_rot() -> dict:
+    """serve_bench --int8_rot at 7B attention width and depth (32 heads, 32
+    layers, rank 128 per group for K and V, 3-bit sym latents in nibble
+    containers, rotation blocks of 2048): 8 lanes, s_max 4096, 16 requests
+    with prompts of 1024-2048 tokens, 32 new tokens each, on the native
+    scheduler. Counts 0 just before and read just after; every decode step
+    launches the int8_rot decode and two appends per layer."""
+    argv = ["--int8_rot", "--lt_bits", "3", "--lt_sym", "--lt_container", "4",
+            "--num_heads", "32", "--num_layers", "32", "--lanes", "8", "--s_max", "4096",
+            "--prompt_len", "2048", "--pallas_block", "2048", "--json"]
+    args = serve_bench.parser().parse_args(argv)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out, srv = serve_bench.run(args)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    n_dec = counts["palu_decode"]
+    emit({"phase": "serve_bench_int8_rot", "argv": argv, **out,
+          "sched_stats": srv.sched.stats(), "decode_paths": sorted(srv.engine._decode_paths),
+          "pallas_block": srv.engine._pallas_block, "launches": counts,
+          "decode_steps": n_dec / args.num_layers,
+          "cache_nbytes": cache_nbytes(srv.cache),
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "seconds": time.perf_counter() - t0})
+    n_tok = args.num_requests * args.max_new_tokens
+    if not isinstance(srv.sched, NativeScheduler) or out["requests"] != args.num_requests \
+            or out["total_tokens"] != n_tok \
+            or any(len(t) != args.max_new_tokens for t in srv.outputs.values()):
+        raise AssertionError(f"serve_bench_int8_rot: {out}")
+    if not all(0 <= t < args.vocab_size for toks in srv.outputs.values() for t in toks):
+        raise AssertionError("serve_bench_int8_rot: a token outside the vocabulary")
+    if srv.engine._decode_paths != {"palu_decode_int8_rot-kernel"} or \
+            srv.engine._pallas_block != 2048:
+        raise AssertionError(f"serve_bench_int8_rot took {srv.engine._decode_paths}")
+    _only(counts, {"palu_decode": n_dec, "palu_decode_int8_rot": n_dec,
+                   "append_token_quantized": 2 * n_dec,
+                   "prefill_flash": counts["prefill_flash"]}, "serve_bench_int8_rot")
+    if n_dec <= 0 or n_dec % args.num_layers or counts["prefill_flash"] <= 0:
+        raise AssertionError(f"serve_bench_int8_rot: launches {counts}")
+    return counts
+
+
 def _breakdown(prof, wall_ms: float, per: int) -> dict:
     kernels = [(e.key, e.self_device_time_total / 1e3 / per, e.count // per)
                for e in _device_events(prof)]
@@ -1118,8 +1572,10 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    kernels = [check_append(gen), check_decode(gen), *check_decode_fp(gen), check_prefill(gen),
+    kernels = [check_append(gen), check_decode(gen), *check_decode_int8(gen),
+               check_decode_seq(gen), *check_decode_fp(gen), check_prefill(gen),
                check_gemv(gen, 4), check_mlp(gen, 4), check_gemv(gen, 8), check_mlp(gen, 8)]
+    check_dense_sdpa(gen)
     phase_e2e()
     phase_e2e("e2e_w4", W4)
     phase_e2e("e2e_w8", W8)
@@ -1129,12 +1585,22 @@ def main() -> int:
     del params
     launches_w4 = phase_serve_w4()
     launches_w8 = phase_serve_w8()
+    launches_lk = phase_latency_kernel()
+    launches_attn = phase_latency_attention()
+    phase_serve_bench_int8_rot()
     # each kernel's launches on the run of its path: the bf16 serve for the
     # quantized cache's and the prefill kernels, serve_fp for the rank-major
     # fp decode, serving for the seq-major fp decode, serve_w4 for the int4
-    # GEMVs and the int8 VT GEMV, serve_w8 for the int8 MLP
+    # GEMVs and the int8 VT GEMV, serve_w8 for the int8 MLP, the 3-bit
+    # run_latency_kernel for the seq-major packed decode, and the 1-layer
+    # run_latency_attention runs for the int8 modes
     source = {"cache_append": ("append_token_quantized", launches),
               "palu_decode": ("palu_decode", launches),
+              "palu_decode_int8_dots": ("palu_decode_int8_dots",
+                                        launches_attn["palu_3bit_int8_dots"]),
+              "palu_decode_int8_rot": ("palu_decode_int8_rot",
+                                       launches_attn["palu_3bit_int8_rot"]),
+              "palu_decode_seq_quantized": ("palu_decode_seq_quantized", launches_lk),
               "palu_decode_fp": ("palu_decode_fp", launches_serving),
               "palu_decode_fp_t": ("palu_decode_fp_t", launches_fp),
               "prefill_flash": ("prefill_flash", launches),

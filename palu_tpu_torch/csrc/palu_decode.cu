@@ -2,7 +2,9 @@
 // sequence (flash-decoding) with a second kernel that combines the splits.
 //
 // Replaces: palu_tpu/ops/pallas/palu_decode4.py::palu_flash_decode4_quantized
-// (body _make_kernel4, launch _call4), per-row scales, sym and asym.
+// (body _make_kernel4, launch _call4), per-row scales, sym and asym, in its
+// three K-path modes: exact (the default), int8_dots and int8_rot (MODE 0,
+// 1, 2 below; the V path and the combine are the same in all three).
 //
 // What it computes, per lane b, group g and q-head h of the group:
 //   K_h(s) = scale_k(s) * B_h^T (code_k(s) - qoff)  [+ zero_k(s) * rowsum B_h]
@@ -39,6 +41,29 @@
 // p * scale_v. Blocks past kv_len (or before the window) do no tile work.
 // The combine kernel merges the per-split (m, l, acc) with the usual
 // rescaling. Nothing allocates here: the wrapper hands in the partials.
+//
+// The int8 modes (k_path / k_path_i8 of the JAX kernel) fold the query into
+// the reconstruction operand per rotation block of block_s tokens: with
+// a1/a2 the scaled query rotated to the block's start (tables c0/s0),
+// bq1 = a1 B1^T + a2 B2^T and bq2 = a2 B1^T - a1 B2^T, (hd/2, rk) per head
+// each, quantized to int8 per row (int8_dots) or per head and half
+// (int8_rot). The block builds them when its tile walk enters a new
+// rotation block, from B in global memory (L2-resident: 128 KB per group),
+// into shared memory as one int8 (hd, rk) operand per head, with their
+// scales and the scaled row sums of the quantized operand (the zero
+// correction). Unsigned codes, unpacked once per tile as an int8 (64 x rk)
+// tile, meet the operand in mma.sync m16n8k32 s8 x s8 -> s32: u and v land
+// in one thread's accumulators for the same frequency, exactly as K's two
+// RoPE halves do in the exact mode. int8_dots then rotates in f32 against
+// the block-relative tables (rcos/rsin); int8_rot rotates in int32 against
+// the int8 tables (cos8/sin8) and sums each head in int32. Either way the
+// per-token scale multiplies afterwards and the zero correction adds
+// zero(s) * sum_e (r1 rcos + r2 rsin), zero = -qoff * scale for sym. The
+// wrapper requires block_s % 64 == 0, so a tile never straddles two blocks.
+// Bound: the int8 dots halve the K rebuild's tensor-core time (4.3 us at
+// 8K on the 7B shapes at the int8 peak) below the 18.4 MB of codes (5.5
+// us), so these modes are bound by bytes where the exact one is bound by
+// operations.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,6 +79,7 @@ using decode::cp_async_wait_all;
 using decode::kSmemMax;
 using decode::ldmatrix_x4_trans;
 using decode::mma_bf16;
+using decode::mma_s8;
 using decode::warp_max;
 using decode::warp_sum;
 
@@ -67,6 +93,8 @@ constexpr int kByteStride = kTile + 4;  // padded byte rows: odd word stride
 // addresses of one ldmatrix fall on distinct banks
 constexpr int kCk = kTile + 8;
 constexpr int kBPad = 8;
+constexpr int kI8Pad = 16;  // int8 rows of rk + 16 bytes: (rk + 16) / 4 words, 4 mod 32 banks
+constexpr int kRed = 12;    // reduction rows: [head parity][3 sums][warp half]
 
 struct DecodeArgs {
   const void* q;               // (B, nh, hd) bf16 or f32, roped at the current position
@@ -79,15 +107,30 @@ struct DecodeArgs {
   const float* vs;
   const float* vz;
   const int* kv_len;           // (B,)
-  const float* cos_t;          // (S, hd/2)
+  const float* cos_t;          // exact: (S, hd/2)
   const float* sin_t;
+  const float* c0;             // int8 modes: (S / block_s, hd/2) block-start rotation
+  const float* s0;
+  const float* rcos;           // (block_s, hd/2) block-relative rotation
+  const float* rsin;
+  const int8_t* cos8;          // int8_rot: (block_s, hd/2) at scale 63 / cmax
+  const int8_t* sin8;
   float* part_m;               // (B, nh, splits)
   float* part_l;
   float* part_acc;             // (B, nh, splits, rv)
   int G, hpg, rk, rv, S, nrk, nrv, pbits, qoff, asym, window;
-  int splits, tiles_per_split, chunk_heads;
-  float sqrt_hd;
+  int splits, tiles_per_split, chunk_heads, block_s;
+  float sqrt_hd, i8r_inv;
 };
+
+// The two rows of the query-folded operand for one (frequency, rank), in
+// f32 without contraction (as the plain version and XLA form them).
+__device__ __forceinline__ void fold(float a1, float a2, __nv_bfloat16 b1h, __nv_bfloat16 b2h,
+                                     float& v1, float& v2) {
+  const float b1 = __bfloat162float(b1h), b2 = __bfloat162float(b2h);
+  v1 = __fadd_rn(__fmul_rn(a1, b1), __fmul_rn(a2, b2));
+  v2 = __fsub_rn(__fmul_rn(a2, b1), __fmul_rn(a1, b2));
+}
 
 // Where rank r (of n) lives in a packed rank-major plane: byte row and
 // bit shift of its field (and for exact 3-bit the row and shift of its
@@ -133,36 +176,47 @@ __device__ __forceinline__ void load_byte_tile(uint8_t* dst, const uint8_t* src,
 // Byte offsets of the split kernel's shared-memory regions (one place for
 // the kernel's carve and the launcher's size); `chunk` heads of B staged.
 struct SplitLayout {
-  size_t bsm, ck, cos, sin, kbytes, vbytes, ktab, vtab, q, rs, acc, lg, pw, red, sk, stat,
-      total;
+  size_t bsm, ck, cos, sin, c8, s8, op, kbytes, vbytes, ktab, vtab, q, rs, acc, lg, pw, red,
+      sk, stat, total;
 };
 
+// mode 0 stages B in bf16 and a bf16 code tile; modes 1 and 2 the int8
+// operand (chunk heads x hd rows of rk bytes) with its five per-row f32 /
+// int arrays (a1|a2, row max, scale, row sum, scaled row sum) and an int8
+// code tile; mode 2 also the int8 rotation rows of the tile.
 __host__ __device__ inline SplitLayout split_layout(int rk, int hd, int hpg, int rv, int nrk,
-                                                    int nrv, int asym, int chunk) {
+                                                    int nrv, int asym, int chunk, int mode) {
   const size_t rope = sizeof(float) * kTile * (hd / 2 + 1);
+  const size_t i8row = static_cast<size_t>(rk + kI8Pad);
   SplitLayout L;
   size_t off = 0;
-  L.bsm = off;    off = al(off + sizeof(__nv_bfloat16) * chunk * rk * (hd + kBPad));
-  L.ck = off;     off = al(off + sizeof(__nv_bfloat16) * rk * kCk);
+  L.bsm = off;
+  off = al(off + (mode == 0 ? sizeof(__nv_bfloat16) * chunk * rk * (hd + kBPad)
+                            : i8row * chunk * hd));
+  L.op = off;     off = al(off + (mode == 0 ? 0 : sizeof(float) * 5 * chunk * hd));
+  L.ck = off;
+  off = al(off + (mode == 0 ? sizeof(__nv_bfloat16) * rk * kCk : i8row * kTile));
   L.cos = off;    off = al(off + rope);
   L.sin = off;    off = al(off + rope);
+  L.c8 = off;     off = al(off + (mode == 2 ? static_cast<size_t>(kTile) * (hd / 2) : 0));
+  L.s8 = off;     off = al(off + (mode == 2 ? static_cast<size_t>(kTile) * (hd / 2) : 0));
   L.kbytes = off; off = al(off + static_cast<size_t>(nrk) * kByteStride);
   L.vbytes = off; off = al(off + static_cast<size_t>(nrv) * kByteStride);
   L.ktab = off;   off = al(off + sizeof(uint32_t) * rk);
   L.vtab = off;   off = al(off + sizeof(uint32_t) * rv);
   L.q = off;      off = al(off + sizeof(float) * hpg * hd);
-  L.rs = off;     off = al(off + (asym ? sizeof(float) * hpg * hd : 0));
+  L.rs = off;     off = al(off + (asym && mode == 0 ? sizeof(float) * hpg * hd : 0));
   L.acc = off;    off = al(off + sizeof(float) * hpg * rv);
   L.lg = off;     off = al(off + sizeof(float) * hpg * kTile);
   L.pw = off;     off = al(off + sizeof(float) * hpg * kTile);
-  L.red = off;    off = al(off + sizeof(float) * 4 * kTile);
+  L.red = off;    off = al(off + sizeof(float) * (mode == 0 ? 4 : kRed) * kTile);
   L.sk = off;     off = al(off + sizeof(float) * 4 * kTile);
   L.stat = off;   off = al(off + sizeof(float) * 4 * kMaxHeads);
   L.total = off;
   return L;
 }
 
-template <int HD>
+template <int HD, int MODE>
 __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs a) {
   constexpr int half = HD / 2;
   constexpr int HS = HD + kBPad;  // B row stride
@@ -179,7 +233,9 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
   const int jw = (warp >> 2) * NTW;  // its first column tile in each half of hd
 
   extern __shared__ __align__(128) unsigned char smem[];
-  const SplitLayout L = split_layout(rk, HD, hpg, rv, a.nrk, a.nrv, a.asym, a.chunk_heads);
+  const SplitLayout L =
+      split_layout(rk, HD, hpg, rv, a.nrk, a.nrv, a.asym, a.chunk_heads, MODE);
+  const int i8s = rk + kI8Pad;  // int8 row stride (operand and code tile)
   __nv_bfloat16* bsm = reinterpret_cast<__nv_bfloat16*>(smem + L.bsm);  // [chunk][rk][HS]
   __nv_bfloat16* ck = reinterpret_cast<__nv_bfloat16*>(smem + L.ck);    // [rk][kCk]
   float* cos_s = reinterpret_cast<float*>(smem + L.cos);                // [kTile][cs]
@@ -196,6 +252,17 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
   float* red = reinterpret_cast<float*>(smem + L.red);  // [head parity][warp half][kTile]
   float* sk = reinterpret_cast<float*>(smem + L.sk);    // [4][kTile]: sk, zk, sv, zv
   float* stat = reinterpret_cast<float*>(smem + L.stat);  // [4][kMaxHeads]: m, l, alpha, zsum
+  // int8 modes: the operand [chunk][hd][i8s] and its per-row arrays
+  int8_t* nq = reinterpret_cast<int8_t*>(smem + L.bsm);
+  int8_t* ck8 = reinterpret_cast<int8_t*>(smem + L.ck);                 // [kTile][i8s]
+  const int8_t* c8s = reinterpret_cast<const int8_t*>(smem + L.c8);     // [kTile][hd/2]
+  const int8_t* s8s = reinterpret_cast<const int8_t*>(smem + L.s8);
+  const int nop = a.chunk_heads * HD;
+  float* aq = reinterpret_cast<float*>(smem + L.op);  // [chunk][hd]: a1 | a2
+  unsigned* amax = reinterpret_cast<unsigned*>(aq + nop);  // row max of |operand|
+  float* osc = aq + 2 * nop;                               // operand scale per row
+  int* rsn = reinterpret_cast<int*>(aq + 3 * nop);         // row sum of the int8 operand
+  float* ors = aq + 4 * nop;                               // rsn * osc
   float* zk = sk + kTile;
   float* sv = sk + 2 * kTile;
   float* zv = sk + 3 * kTile;
@@ -219,7 +286,7 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
     const size_t qi = (static_cast<size_t>(b) * nh + g * hpg) * HD + i;
     q_s[i] = a.q_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(a.q)[qi])
                       : static_cast<const float*>(a.q)[qi];
-    if (a.asym) {
+    if (MODE == 0 && a.asym) {
       const int h = i / HD, d = i % HD;
       float rs = 0.0f;
       for (int r = 0; r < rk; ++r)
@@ -247,16 +314,84 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
   for (int c0 = 0; c0 < hpg && t_begin < t_end; c0 += a.chunk_heads) {
     const int nc = min(a.chunk_heads, hpg - c0);
     __syncthreads();  // set-up done / the previous chunk's B reads done
-    for (int i = tid; i < nc * rk * (HD / 8); i += kThreads) {
-      const int row = i / (HD / 8), c = i % (HD / 8);  // row = head * rk + rank
-      cp_async16(bsm + row * HS + c * 8,
-                 bk_g + (static_cast<size_t>(c0) * rk + row) * HD + c * 8);
+    if (MODE == 0) {
+      for (int i = tid; i < nc * rk * (HD / 8); i += kThreads) {
+        const int row = i / (HD / 8), c = i % (HD / 8);  // row = head * rk + rank
+        cp_async16(bsm + row * HS + c * 8,
+                   bk_g + (static_cast<size_t>(c0) * rk + row) * HD + c * 8);
+      }
+      cp_async_wait_all();
+      __syncthreads();
     }
-    cp_async_wait_all();
-    __syncthreads();
 
+    int cur_blk = -1;
     for (int tile = t_begin; tile < t_end; ++tile) {
       const int s0 = tile * kTile;
+      const int blk = MODE == 0 ? 0 : s0 / a.block_s;
+      if (MODE != 0 && blk != cur_blk) {
+        // ---- int8 modes: the query-folded operand of this rotation block
+        cur_blk = blk;
+        for (int i = tid; i < nc * half; i += kThreads) {
+          const int h = i / half, e = i % half;
+          const float qa = q_s[(c0 + h) * HD + e] / a.sqrt_hd;
+          const float qb = q_s[(c0 + h) * HD + half + e] / a.sqrt_hd;
+          const float c = a.c0[blk * half + e], sn = a.s0[blk * half + e];
+          aq[h * HD + e] = __fadd_rn(__fmul_rn(qa, c), __fmul_rn(qb, sn));
+          aq[h * HD + half + e] = __fsub_rn(__fmul_rn(qb, c), __fmul_rn(qa, sn));
+        }
+        for (int i = tid; i < nc * HD; i += kThreads) {
+          amax[i] = 0u;
+          rsn[i] = 0;
+        }
+        __syncthreads();
+        const int e = tid % half, rstep = kThreads / half;  // half divides kThreads
+        for (int h = 0; h < nc; ++h) {
+          const float a1 = aq[h * HD + e], a2 = aq[h * HD + half + e];
+          const __nv_bfloat16* bh = bk_g + static_cast<size_t>(c0 + h) * rk * HD;
+          float m1 = 0.0f, m2 = 0.0f;
+          for (int r = tid / half; r < rk; r += rstep) {
+            float v1, v2;
+            fold(a1, a2, bh[r * HD + e], bh[r * HD + half + e], v1, v2);
+            m1 = fmaxf(m1, fabsf(v1));
+            m2 = fmaxf(m2, fabsf(v2));
+          }
+          atomicMax(amax + h * HD + e, __float_as_uint(m1));  // order of non-negative floats
+          atomicMax(amax + h * HD + half + e, __float_as_uint(m2));
+        }
+        __syncthreads();
+        for (int i = tid; i < nc * HD; i += kThreads) {
+          float m = __uint_as_float(amax[i]);
+          if (MODE == 2) {  // one scale per head and half
+            const unsigned* seg = amax + (i / HD) * HD + ((i % HD) < half ? 0 : half);
+            m = 0.0f;
+            for (int k = 0; k < half; ++k) m = fmaxf(m, __uint_as_float(seg[k]));
+          }
+          osc[i] = __fmul_rn(fmaxf(m, 1e-30f), 1.0f / 127.0f);
+        }
+        __syncthreads();
+        for (int h = 0; h < nc; ++h) {
+          const float a1 = aq[h * HD + e], a2 = aq[h * HD + half + e];
+          const float sc1 = osc[h * HD + e], sc2 = osc[h * HD + half + e];
+          const __nv_bfloat16* bh = bk_g + static_cast<size_t>(c0 + h) * rk * HD;
+          int n1s = 0, n2s = 0;
+          for (int r = tid / half; r < rk; r += rstep) {
+            float v1, v2;
+            fold(a1, a2, bh[r * HD + e], bh[r * HD + half + e], v1, v2);
+            const int n1 = static_cast<int>(fminf(fmaxf(rintf(v1 / sc1), -127.0f), 127.0f));
+            const int n2 = static_cast<int>(fminf(fmaxf(rintf(v2 / sc2), -127.0f), 127.0f));
+            nq[(h * HD + e) * i8s + r] = static_cast<int8_t>(n1);
+            nq[(h * HD + half + e) * i8s + r] = static_cast<int8_t>(n2);
+            n1s += n1;
+            n2s += n2;
+          }
+          atomicAdd(rsn + h * HD + e, n1s);
+          atomicAdd(rsn + h * HD + half + e, n2s);
+        }
+        __syncthreads();
+        for (int i = tid; i < nc * HD; i += kThreads)
+          ors[i] = __fmul_rn(static_cast<float>(rsn[i]), osc[i]);
+        // (the tile load below ends in a barrier before anyone reads these)
+      }
       // ---- load: packed K/V byte tiles, scales, rope rows (vector loads)
       load_byte_tile(kbytes, kc, a.nrk, a.S, s0, tid);
       load_byte_tile(vbytes, vc, a.nrv, a.S, s0, tid);
@@ -265,29 +400,157 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
         const bool in = s < a.S;
         sk[tid] = in ? ksc[s] : 0.0f;
         sv[tid] = in ? vsc[s] : 0.0f;
-        zk[tid] = (in && a.asym) ? kzp[s] : 0.0f;
+        // int8 modes fold the symmetric offset into the zero correction
+        zk[tid] = (in && a.asym) ? kzp[s]
+                  : (in && MODE != 0) ? sk[tid] * static_cast<float>(-a.qoff) : 0.0f;
         zv[tid] = (in && a.asym) ? vzp[s] : 0.0f;
       }
+      // rope rows: absolute positions (exact), block-relative ones (int8)
+      const float* cos_src = MODE == 0 ? a.cos_t : a.rcos;
+      const float* sin_src = MODE == 0 ? a.sin_t : a.rsin;
+      const int row0 = MODE == 0 ? s0 : s0 - blk * a.block_s;
       for (int i = tid; i < kTile * (half / 4); i += kThreads) {
         const int t = i / (half / 4), f = (i % (half / 4)) * 4, s = s0 + t;
         float4 c = make_float4(0.f, 0.f, 0.f, 0.f), n = c;
         if (s < a.S) {
-          c = *reinterpret_cast<const float4*>(a.cos_t + static_cast<size_t>(s) * half + f);
-          n = *reinterpret_cast<const float4*>(a.sin_t + static_cast<size_t>(s) * half + f);
+          const size_t row = static_cast<size_t>(row0 + t) * half + f;
+          c = *reinterpret_cast<const float4*>(cos_src + row);
+          n = *reinterpret_cast<const float4*>(sin_src + row);
         }
         float* cd = cos_s + t * cs + f;
         float* sd = sin_s + t * cs + f;
         cd[0] = c.x; cd[1] = c.y; cd[2] = c.z; cd[3] = c.w;
         sd[0] = n.x; sd[1] = n.y; sd[2] = n.z; sd[3] = n.w;
       }
-      __syncthreads();
-      // K codes -> bf16 (rk x kTile), re-centred for sym; exact in bf16
-      for (int i = tid; i < rk * kTile; i += kThreads) {
-        const int r = i / kTile, t = i % kTile;
-        ck[r * kCk + t] = __float2bfloat16(
-            static_cast<float>(unpack_code(kbytes, kByteStride, t, ktab[r], a.pbits) - a.qoff));
+      if (MODE == 2) {  // the int8 rotation rows (block-relative; S % 64 == 0 here)
+        for (int i = tid; i < kTile * (half / 4); i += kThreads) {
+          const size_t row = static_cast<size_t>(row0) * half + i * 4;
+          reinterpret_cast<uint32_t*>(smem + L.c8)[i] =
+              *reinterpret_cast<const uint32_t*>(a.cos8 + row);
+          reinterpret_cast<uint32_t*>(smem + L.s8)[i] =
+              *reinterpret_cast<const uint32_t*>(a.sin8 + row);
+        }
       }
       __syncthreads();
+      if (MODE == 0) {
+        // K codes -> bf16 (rk x kTile), re-centred for sym; exact in bf16
+        for (int i = tid; i < rk * kTile; i += kThreads) {
+          const int r = i / kTile, t = i % kTile;
+          ck[r * kCk + t] = __float2bfloat16(static_cast<float>(
+              unpack_code(kbytes, kByteStride, t, ktab[r], a.pbits) - a.qoff));
+        }
+      } else {
+        // raw unsigned K codes -> int8 [token][rank]
+        for (int i = tid; i < rk * kTile; i += kThreads) {
+          const int t = i / rk, r = i % rk;
+          ck8[t * i8s + r] =
+              static_cast<int8_t>(unpack_code(kbytes, kByteStride, t, ktab[r], a.pbits));
+        }
+      }
+      __syncthreads();
+      const int tok_a = m0 + fg, tok_b = tok_a + 8;  // accumulator rows of this lane
+
+      if (MODE != 0) {
+        // ---- int8 modes: per head u|v (tokens x hd) = codes^T . operand^T
+        uint32_t a8[kMaxKSteps / 2][4];
+#pragma unroll
+        for (int ks = 0; ks < kMaxKSteps / 2; ++ks) {
+          if (ks < nks / 2) {
+            const int8_t* ra = ck8 + (m0 + fg) * i8s + ks * 32 + 4 * ft;
+            a8[ks][0] = *reinterpret_cast<const uint32_t*>(ra);
+            a8[ks][1] = *reinterpret_cast<const uint32_t*>(ra + 8 * i8s);
+            a8[ks][2] = *reinterpret_cast<const uint32_t*>(ra + 16);
+            a8[ks][3] = *reinterpret_cast<const uint32_t*>(ra + 8 * i8s + 16);
+          }
+        }
+        for (int hc = 0; hc < nc; ++hc) {
+          const int h = c0 + hc;
+          int acc[2 * NTW][4];
+#pragma unroll
+          for (int j = 0; j < 2 * NTW; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
+#pragma unroll
+          for (int ks = 0; ks < kMaxKSteps / 2; ++ks) {
+            if (ks < nks / 2) {
+#pragma unroll
+              for (int p = 0; p < NTW; ++p) {
+                const int8_t* rb = nq + (hc * HD + (jw + p) * 8 + fg) * i8s + ks * 32 + 4 * ft;
+                mma_s8(acc[p], a8[ks], *reinterpret_cast<const uint32_t*>(rb),
+                       *reinterpret_cast<const uint32_t*>(rb + 16));
+                const int8_t* rv2 = rb + half * i8s;
+                mma_s8(acc[NTW + p], a8[ks], *reinterpret_cast<const uint32_t*>(rv2),
+                       *reinterpret_cast<const uint32_t*>(rv2 + 16));
+              }
+            }
+          }
+          // acc[j]: u at frequency (jw + j) * 8 + ...; acc[NTW + j]: v there
+          float pa = 0.0f, pb = 0.0f, ca = 0.0f, cb = 0.0f;
+          int ia1 = 0, ia2 = 0, ib1 = 0, ib2 = 0;
+#pragma unroll
+          for (int j = 0; j < NTW; ++j) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int d = (jw + j) * 8 + 2 * ft + e;
+              const float r1 = ors[hc * HD + d], r2 = ors[hc * HD + half + d];
+              const float cosa = cos_s[tok_a * cs + d], sina = sin_s[tok_a * cs + d];
+              const float cosb = cos_s[tok_b * cs + d], sinb = sin_s[tok_b * cs + d];
+              ca += r1 * cosa + r2 * sina;
+              cb += r1 * cosb + r2 * sinb;
+              if (MODE == 1) {
+                const float sc1 = osc[hc * HD + d], sc2 = osc[hc * HD + half + d];
+                pa += (static_cast<float>(acc[j][e]) * sc1) * cosa +
+                      (static_cast<float>(acc[NTW + j][e]) * sc2) * sina;
+                pb += (static_cast<float>(acc[j][e + 2]) * sc1) * cosb +
+                      (static_cast<float>(acc[NTW + j][e + 2]) * sc2) * sinb;
+              } else {
+                ia1 += static_cast<int>(c8s[tok_a * half + d]) * acc[j][e];
+                ia2 += static_cast<int>(s8s[tok_a * half + d]) * acc[NTW + j][e];
+                ib1 += static_cast<int>(c8s[tok_b * half + d]) * acc[j][e + 2];
+                ib2 += static_cast<int>(s8s[tok_b * half + d]) * acc[NTW + j][e + 2];
+              }
+            }
+          }
+#pragma unroll
+          for (int o = 1; o <= 2; o <<= 1) {
+            ca += __shfl_xor_sync(0xffffffffu, ca, o);
+            cb += __shfl_xor_sync(0xffffffffu, cb, o);
+            if (MODE == 1) {
+              pa += __shfl_xor_sync(0xffffffffu, pa, o);
+              pb += __shfl_xor_sync(0xffffffffu, pb, o);
+            } else {
+              ia1 += __shfl_xor_sync(0xffffffffu, ia1, o);
+              ia2 += __shfl_xor_sync(0xffffffffu, ia2, o);
+              ib1 += __shfl_xor_sync(0xffffffffu, ib1, o);
+              ib2 += __shfl_xor_sync(0xffffffffu, ib2, o);
+            }
+          }
+          // [parity][sum: main | int8_rot's sin part | correction][warp half][kTile]
+          float* rh = red + ((hc & 1) * 6 + (warp >> 2)) * kTile;
+          if (ft == 0) {
+            rh[tok_a] = MODE == 1 ? pa : __int_as_float(ia1);
+            rh[tok_b] = MODE == 1 ? pb : __int_as_float(ib1);
+            rh[2 * kTile + tok_a] = __int_as_float(ia2);
+            rh[2 * kTile + tok_b] = __int_as_float(ib2);
+            rh[4 * kTile + tok_a] = ca;
+            rh[4 * kTile + tok_b] = cb;
+          }
+          __syncthreads();
+          if (tid < kTile) {
+            const float* r2 = red + (hc & 1) * 6 * kTile;
+            const float corr = r2[4 * kTile + tid] + r2[5 * kTile + tid];
+            float main;
+            if (MODE == 1) {
+              main = r2[tid] + r2[kTile + tid];
+            } else {
+              const int t1 = __float_as_int(r2[tid]) + __float_as_int(r2[kTile + tid]);
+              const int t2 = __float_as_int(r2[2 * kTile + tid]) +
+                             __float_as_int(r2[3 * kTile + tid]);
+              main = static_cast<float>(t1) * (osc[hc * HD] * a.i8r_inv) +
+                     static_cast<float>(t2) * (osc[hc * HD + half] * a.i8r_inv);
+            }
+            lg[h * kTile + tid] = main * sk[tid] + corr * zk[tid];
+          }
+        }
+      } else {
 
       // A fragments: codes^T (16 tokens x 16 ranks) per k-step, shared by
       // the heads; the code tile is stored [rank][token], hence .trans
@@ -299,7 +562,6 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
                             ck + (ks * 16 + ri + (mi >> 1) * 8) * kCk + m0 + (mi & 1) * 8);
 
       // ---- per head: K_h (tokens x hd) = codes^T B_h, then RoPE + q . K
-      const int tok_a = m0 + fg, tok_b = tok_a + 8;  // accumulator rows of this lane
       const float sk_a = sk[tok_a], sk_b = sk[tok_b], zk_a = zk[tok_a], zk_b = zk[tok_b];
       for (int hc = 0; hc < nc; ++hc) {
         const int h = c0 + hc;
@@ -366,6 +628,7 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
           lg[h * kTile + tid] = (r2[tid] + r2[kTile + tid]) / a.sqrt_hd;
         }
       }
+      }  // MODE
       __syncthreads();
 
       // ---- online softmax, one warp per head
@@ -435,16 +698,23 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
   }
 }
 
-template <int HD>
+template <int HD, int MODE>
 int launch_split(const DecodeArgs& a, int B, cudaStream_t st) {
   const size_t smem =
-      split_layout(a.rk, HD, a.hpg, a.rv, a.nrk, a.nrv, a.asym, a.chunk_heads).total;
-  cudaError_t err = cudaFuncSetAttribute(palu_decode_split_kernel<HD>,
+      split_layout(a.rk, HD, a.hpg, a.rv, a.nrk, a.nrv, a.asym, a.chunk_heads, MODE).total;
+  cudaError_t err = cudaFuncSetAttribute(palu_decode_split_kernel<HD, MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  palu_decode_split_kernel<HD><<<dim3(a.splits, a.G, B), kThreads, smem, st>>>(a);
+  palu_decode_split_kernel<HD, MODE><<<dim3(a.splits, a.G, B), kThreads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int launch_mode(const DecodeArgs& a, int mode, int B, cudaStream_t st) {
+  if (mode == 1) return launch_split<HD, 1>(a, B, st);
+  if (mode == 2) return launch_split<HD, 2>(a, B, st);
+  return launch_split<HD, 0>(a, B, st);
 }
 
 }  // namespace
@@ -452,16 +722,24 @@ int launch_split(const DecodeArgs& a, int B, cudaStream_t st) {
 // Shapes in the comments of DecodeArgs; out (B, nh, rv) f32. The partial
 // buffers hold B * nh * splits (m, l) and B * nh * splits * rv accumulators.
 // hd is 64 or 128, rk a multiple of 16 up to 128, S a multiple of 16.
+// mode 0 (exact) reads cos_t / sin_t; modes 1 (int8_dots) and 2
+// (int8_rot) read c0 .. sin8 and need rk % 32 == 0, pack width <= 4,
+// block_s % 64 == 0 and S % block_s == 0.
 extern "C" int palu_decode(const void* q, int q_bf16, const void* bk, const void* kc,
                            const void* ks, const void* kz, const void* vc, const void* vs,
                            const void* vz, const void* kv_len, const void* cos_t,
-                           const void* sin_t, void* part_m, void* part_l, void* part_acc,
-                           void* out, int B, int G, int hpg, int hd, int rk, int rv, int S,
-                           int nrk, int nrv, int pbits, int qoff, int asym, int window,
-                           int splits, int tiles_per_split, float sqrt_hd, void* stream) {
-  if ((hd != 64 && hd != 128) || rk % 16 || rk > 16 * kMaxKSteps || hpg > kMaxHeads)
+                           const void* sin_t, const void* c0, const void* s0, const void* rcos,
+                           const void* rsin, const void* cos8, const void* sin8, void* part_m,
+                           void* part_l, void* part_acc, void* out, int B, int G, int hpg,
+                           int hd, int rk, int rv, int S, int nrk, int nrv, int pbits, int qoff,
+                           int asym, int window, int splits, int tiles_per_split, int mode,
+                           int block_s, float sqrt_hd, float i8r_inv, void* stream) {
+  if ((hd != 64 && hd != 128) || rk % 16 || rk > 16 * kMaxKSteps || hpg > kMaxHeads ||
+      mode < 0 || mode > 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  DecodeArgs a;
+  if (mode != 0 && (rk % 32 || pbits > 4 || block_s % kTile || S % block_s))
+    return static_cast<int>(cudaErrorInvalidValue);
+  DecodeArgs a{};
   a.q = q;
   a.q_bf16 = q_bf16;
   a.bk = static_cast<const __nv_bfloat16*>(bk);
@@ -474,6 +752,12 @@ extern "C" int palu_decode(const void* q, int q_bf16, const void* bk, const void
   a.kv_len = static_cast<const int*>(kv_len);
   a.cos_t = static_cast<const float*>(cos_t);
   a.sin_t = static_cast<const float*>(sin_t);
+  a.c0 = static_cast<const float*>(c0);
+  a.s0 = static_cast<const float*>(s0);
+  a.rcos = static_cast<const float*>(rcos);
+  a.rsin = static_cast<const float*>(rsin);
+  a.cos8 = static_cast<const int8_t*>(cos8);
+  a.sin8 = static_cast<const int8_t*>(sin8);
   a.part_m = static_cast<float*>(part_m);
   a.part_l = static_cast<float*>(part_l);
   a.part_acc = static_cast<float*>(part_acc);
@@ -491,15 +775,18 @@ extern "C" int palu_decode(const void* q, int q_bf16, const void* bk, const void
   a.splits = splits;
   a.tiles_per_split = tiles_per_split;
   a.sqrt_hd = sqrt_hd;
-  // as many heads' B in shared memory as fit beside the rest
+  a.block_s = block_s;
+  a.i8r_inv = i8r_inv;
+  // as many heads' B (or int8 operands) in shared memory as fit beside the rest
   a.chunk_heads = hpg;
   while (a.chunk_heads > 0 &&
-         split_layout(rk, hd, hpg, rv, nrk, nrv, asym, a.chunk_heads).total > kSmemMax)
+         split_layout(rk, hd, hpg, rv, nrk, nrv, asym, a.chunk_heads, mode).total > kSmemMax)
     --a.chunk_heads;
   if (a.chunk_heads == 0) return static_cast<int>(cudaErrorInvalidValue);
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err = hd == 128 ? launch_split<128>(a, B, st) : launch_split<64>(a, B, st);
+  const int err =
+      hd == 128 ? launch_mode<128>(a, mode, B, st) : launch_mode<64>(a, mode, B, st);
   if (err != 0) return err;
   return decode::launch_combine(a.part_m, a.part_l, a.part_acc, static_cast<float*>(out),
                                 B * G * hpg, splits, rv, st);

@@ -1,12 +1,15 @@
-// Latent decode attention over the unquantized (bf16) latent caches, split
-// over the sequence (flash-decoding) with a second kernel that combines the
-// splits (decode_common.cuh).
+// Latent decode attention over the unquantized (bf16) latent caches and
+// over the seq-major packed cache, split over the sequence (flash-decoding)
+// with a second kernel that combines the splits (decode_common.cuh).
 //
 // Replaces: palu_tpu/ops/pallas/palu_decode.py::palu_flash_decode, the v1
-// kernel over seq-major latents (B, G, S, r), and
+// kernel over seq-major latents (B, G, S, r);
 // palu_tpu/ops/pallas/palu_decode4.py::palu_flash_decode4, the v4 kernel
-// over rank-major latents (B, G, r, S). One kernel template serves both
-// layouts; only the tile load and the ldmatrix form differ.
+// over rank-major latents (B, G, r, S); and
+// palu_tpu/ops/pallas/palu_decode.py::palu_flash_decode_quantized, the v1
+// kernel over seq-major packed codes (B, G, S, nbytes) with per-token
+// scale and base (B, G, S, 1). One kernel template serves the three; only
+// the tile load (and, for codes, the per-token scales) differ.
 //
 // What it computes, per lane b, group g and q-head h of the group:
 //   K_h(s) = B_h^T x_k(s)
@@ -20,6 +23,18 @@
 // on the bf16 tensor cores): bound by bytes, where the packed cache of
 // palu_decode.cu is bound by operations. The rebuild runs on the tensor
 // cores all the same (on the f32 pipes it would take ~130 us).
+//
+// The packed variant (QUANT) dequantizes in its tile load: each thread
+// reads 4-byte words of a token's packed row (a 64-token tile is one
+// contiguous run of 64 * nbytes bytes; exact 3-bit reads the matching word
+// of the 1-bit plane too), unpacks them in registers and writes the values
+// code + q_min - base(s), formed in f32 and rounded once to bf16 (exact for
+// the integer base that quantize gives), into the same bf16 tile the
+// latent variants fill. The per-token scale multiplies the f32 K
+// accumulators before RoPE and folds into p on the V side, so K and V are
+// exact up to f32 summation order. At 3 bits the packed tile is 208 bytes
+// per token and group against 1024 for bf16 latents: the K rebuild (2 * nh
+// * rk * hd flops per token, 8.6 GFLOP per layer at 8K) bounds it.
 //
 // Design: the split pass of palu_decode.cu without the unpack and the
 // per-token scales. Grid (splits, G, B), 8 warps, about one block per SM.
@@ -81,6 +96,12 @@ struct FpArgs {
   const bf16* bk;     // (G, hpg, rk, hd)
   const bf16* xk;     // (B, G, S, rk) seq-major or (B, G, rk, S) rank-major
   const bf16* xv;     // (B, G, S, rv) or (B, G, rv, S)
+  const uint8_t* kc;  // packed variant: (B, G, S, nbk) codes
+  const uint8_t* vc;  // (B, G, S, nbv)
+  const float* ks;    // (B, G, S) per-token scale and base
+  const float* kb;
+  const float* vs;
+  const float* vb;
   const int* kv_len;  // (B,)
   const float* cos_t; // (S, hd/2)
   const float* sin_t;
@@ -88,6 +109,7 @@ struct FpArgs {
   float* part_l;
   float* part_acc;    // (B, nh, splits, rv)
   int G, hpg, rk, rv, S, window;
+  int nbk, nbv, pbits, qmin;  // packed variant
   int splits, tiles_per_split, chunk_heads;
   float sqrt_hd;
 };
@@ -100,11 +122,11 @@ __host__ __device__ inline size_t tile_elems(bool rm, int r) {
 // Byte offsets of the split kernel's shared-memory regions (one place for
 // the kernel's carve and the launcher's size); `chunk` heads of B staged.
 struct FpLayout {
-  size_t bsm, kt, vt, q, acc, lg, pw, red, stat, total;
+  size_t bsm, kt, vt, q, acc, lg, pw, red, stat, sc, total;
 };
 
 __host__ __device__ inline FpLayout fp_layout(bool rm, int rk, int hd, int hpg, int rv,
-                                              int chunk) {
+                                              int chunk, bool quant) {
   FpLayout L;
   size_t off = 0;
   L.bsm = off;  off = al(off + sizeof(bf16) * chunk * rk * (hd + kBPad));
@@ -116,6 +138,7 @@ __host__ __device__ inline FpLayout fp_layout(bool rm, int rk, int hd, int hpg, 
   L.pw = off;   off = al(off + sizeof(float) * hpg * kTile);
   L.red = off;  off = al(off + sizeof(float) * 4 * kTile);
   L.stat = off; off = al(off + sizeof(float) * 3 * kMaxHeads);
+  L.sc = off;   off = al(off + (quant ? sizeof(float) * 2 * kTile : 0));
   L.total = off;
   return L;
 }
@@ -151,7 +174,54 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int rows, 
   }
 }
 
-template <int HD, bool RM>
+// Dequantize the packed seq-major tile of tokens [s0, s0 + kTile) of one
+// (b, g) plane with r ranks (nb bytes per token) into dst [token][rank]
+// (stride r + kPad) as bf16 integers code + qmin - base(s). Field k of
+// byte j of the main plane (field width pw, w = r / (8 / pw) bytes) holds
+// rank j + k * w; exact 3-bit adds bit (j / w1) + 2k of byte j % w1 of the
+// 1-bit plane (w1 = r / 8 bytes, after the main plane) as the code's bit 2.
+// One thread per 4-byte word of the main plane; tokens at or past S are 0.
+__device__ __forceinline__ void unpack_tile(bf16* dst, const uint8_t* src, const float* base,
+                                            int r, int nb, int pbits, int qmin, int S, int s0,
+                                            int tid) {
+  const int pw = pbits == 3 ? 2 : pbits;
+  const int nf = 8 / pw, w = r / nf, w1 = r / 8, nw = w / 4;
+  const uint32_t mask = (1u << pw) - 1;
+  for (int i = tid; i < kTile * nw; i += kThreads) {
+    const int t = i / nw, j = (i % nw) * 4, s = s0 + t;
+    bf16* d = dst + t * (r + kPad) + j;
+    uint32_t lo = 0, hi = 0;
+    int hs = 0;
+    float off = 0.0f;
+    const bool in = s < S;
+    if (in) {
+      const uint8_t* row = src + static_cast<size_t>(s) * nb;
+      lo = *reinterpret_cast<const uint32_t*>(row + j);
+      if (pbits == 3) {
+        hi = *reinterpret_cast<const uint32_t*>(row + w + j % w1);
+        hs = j / w1;
+      }
+      off = static_cast<float>(qmin) - base[s];
+    }
+    for (int k = 0; k < nf; ++k) {
+      float v[4];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        uint32_t c = (lo >> (8 * b + pw * k)) & mask;
+        if (pbits == 3) c |= ((hi >> (8 * b + hs + 2 * k)) & 1u) << 2;
+        v[b] = in ? static_cast<float>(c) + off : 0.0f;
+      }
+      __nv_bfloat162 p0 = __floats2bfloat162_rn(v[0], v[1]);
+      __nv_bfloat162 p1 = __floats2bfloat162_rn(v[2], v[3]);
+      uint2 u;
+      u.x = *reinterpret_cast<uint32_t*>(&p0);
+      u.y = *reinterpret_cast<uint32_t*>(&p1);
+      *reinterpret_cast<uint2*>(d + k * w) = u;
+    }
+  }
+}
+
+template <int HD, bool RM, bool QUANT>
 __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a) {
   constexpr int half = HD / 2;
   constexpr int HS = HD + kBPad;  // B row stride
@@ -168,7 +238,7 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
   const int kstride = RM ? kCk : rk + kPad;  // K tile row stride (elements)
 
   extern __shared__ __align__(128) unsigned char smem[];
-  const FpLayout L = fp_layout(RM, rk, HD, hpg, rv, a.chunk_heads);
+  const FpLayout L = fp_layout(RM, rk, HD, hpg, rv, a.chunk_heads, QUANT);
   bf16* bsm = reinterpret_cast<bf16*>(smem + L.bsm);     // [chunk][rk][HS]
   bf16* kt = reinterpret_cast<bf16*>(smem + L.kt);       // K latent tile
   bf16* vt = reinterpret_cast<bf16*>(smem + L.vt);       // V latent tile
@@ -178,13 +248,17 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
   float* pw = reinterpret_cast<float*>(smem + L.pw);     // [hpg][kTile] p
   float* red = reinterpret_cast<float*>(smem + L.red);   // [head parity][warp half][kTile]
   float* stat = reinterpret_cast<float*>(smem + L.stat); // [3][kMaxHeads]: m, l, alpha
+  float* sc_k = reinterpret_cast<float*>(smem + L.sc);   // [kTile] K scales (packed)
+  float* sc_v = sc_k + kTile;                            // [kTile] V scales
   float* m_s = stat;
   float* l_s = stat + kMaxHeads;
   float* alpha_s = stat + 2 * kMaxHeads;
 
   const size_t bg = static_cast<size_t>(b) * a.G + g;
-  const bf16* xk = a.xk + bg * rk * a.S;
-  const bf16* xv = a.xv + bg * rv * a.S;
+  const bf16* xk = QUANT ? nullptr : a.xk + bg * rk * a.S;
+  const bf16* xv = QUANT ? nullptr : a.xv + bg * rv * a.S;
+  const uint8_t* kc = QUANT ? a.kc + bg * a.nbk * a.S : nullptr;
+  const uint8_t* vc = QUANT ? a.vc + bg * a.nbv * a.S : nullptr;
   const bf16* bk_g = a.bk + static_cast<size_t>(g) * hpg * rk * HD;
 
   for (int i = tid; i < hpg * HD; i += kThreads) {
@@ -223,8 +297,18 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
     for (int tile = t_begin; tile < t_end; ++tile) {
       const int s0 = tile * kTile;
       // ---- load: K and V latent tiles (cp.async), this thread's rope rows
-      load_tile<RM>(kt, xk, rk, a.S, s0, tid);
-      load_tile<RM>(vt, xv, rv, a.S, s0, tid);
+      if constexpr (QUANT) {
+        unpack_tile(kt, kc, a.kb + bg * a.S, rk, a.nbk, a.pbits, a.qmin, a.S, s0, tid);
+        unpack_tile(vt, vc, a.vb + bg * a.S, rv, a.nbv, a.pbits, a.qmin, a.S, s0, tid);
+        if (tid < kTile) {
+          const int s = s0 + tid;
+          sc_k[tid] = s < a.S ? a.ks[bg * a.S + s] : 0.0f;
+          sc_v[tid] = s < a.S ? a.vs[bg * a.S + s] : 0.0f;
+        }
+      } else {
+        load_tile<RM>(kt, xk, rk, a.S, s0, tid);
+        load_tile<RM>(vt, xv, rv, a.S, s0, tid);
+      }
       float ca[NTW][2], sa[NTW][2], cb[NTW][2], sb[NTW][2];
       {
         const int pa = s0 + tok_a, pb = s0 + tok_b;
@@ -262,6 +346,9 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
         }
       }
 
+      // packed: the per-token scales of this lane's two rows
+      const float ska = QUANT ? sc_k[tok_a] : 1.0f, skb = QUANT ? sc_k[tok_b] : 1.0f;
+
       // ---- per head: K_h (tokens x hd) = x_k^T B_h, then RoPE + q . K
       for (int hc = 0; hc < nc; ++hc) {
         const int h = c0 + hc;
@@ -295,8 +382,14 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
           for (int e = 0; e < 2; ++e) {
             const int d = (jw + j) * 8 + 2 * ft + e;
             const float q1 = qh[d], q2 = qh[d + half];
-            const float k1 = acc[j][e], k2 = acc[NTW + j][e];
-            const float l1 = acc[j][e + 2], l2 = acc[NTW + j][e + 2];
+            float k1 = acc[j][e], k2 = acc[NTW + j][e];
+            float l1 = acc[j][e + 2], l2 = acc[NTW + j][e + 2];
+            if constexpr (QUANT) {
+              k1 *= ska;
+              k2 *= ska;
+              l1 *= skb;
+              l2 *= skb;
+            }
             part_a += q1 * (k1 * ca[j][e] - k2 * sa[j][e]) + q2 * (k2 * ca[j][e] + k1 * sa[j][e]);
             part_b += q1 * (l1 * cb[j][e] - l2 * sb[j][e]) + q2 * (l2 * cb[j][e] + l1 * sb[j][e]);
           }
@@ -342,7 +435,7 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
           const int t = lane + 32 * u;
           e[u] = ok[u] ? expf(x[u] - m_new) : 0.0f;
           sum += e[u];
-          pw[h * kTile + t] = e[u];
+          pw[h * kTile + t] = QUANT ? e[u] * sc_v[t] : e[u];
         }
         sum = warp_sum(sum);
         if (lane == 0) {
@@ -397,15 +490,22 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
   }
 }
 
-template <int HD, bool RM>
+template <int HD, bool RM, bool QUANT>
 int launch_split(const FpArgs& a, int B, cudaStream_t st) {
-  const size_t smem = fp_layout(RM, a.rk, HD, a.hpg, a.rv, a.chunk_heads).total;
-  cudaError_t err = cudaFuncSetAttribute(palu_decode_fp_split_kernel<HD, RM>,
+  const size_t smem = fp_layout(RM, a.rk, HD, a.hpg, a.rv, a.chunk_heads, QUANT).total;
+  cudaError_t err = cudaFuncSetAttribute(palu_decode_fp_split_kernel<HD, RM, QUANT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  palu_decode_fp_split_kernel<HD, RM><<<dim3(a.splits, a.G, B), kThreads, smem, st>>>(a);
+  palu_decode_fp_split_kernel<HD, RM, QUANT><<<dim3(a.splits, a.G, B), kThreads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Heads of B that fit in shared memory beside the rest; 0 when none do.
+int fit_heads(bool rm, int rk, int hd, int hpg, int rv, bool quant) {
+  int chunk = hpg;
+  while (chunk > 0 && fp_layout(rm, rk, hd, hpg, rv, chunk, quant).total > kSmemMax) --chunk;
+  return chunk;
 }
 
 }  // namespace
@@ -423,7 +523,7 @@ extern "C" int palu_decode_fp(const void* q, int q_bf16, const void* bk, const v
   if ((hd != 64 && hd != 128) || rk % 16 || rk > 16 * kMaxKSteps || rv % 8 || S % 8 ||
       hpg > kMaxHeads)
     return static_cast<int>(cudaErrorInvalidValue);
-  FpArgs a;
+  FpArgs a{};
   a.q = q;
   a.q_bf16 = q_bf16;
   a.bk = static_cast<const bf16*>(bk);
@@ -446,17 +546,69 @@ extern "C" int palu_decode_fp(const void* q, int q_bf16, const void* bk, const v
   a.sqrt_hd = sqrt_hd;
   // as many heads' B in shared memory as fit beside the rest
   const bool rm = rank_major != 0;
-  a.chunk_heads = hpg;
-  while (a.chunk_heads > 0 && fp_layout(rm, rk, hd, hpg, rv, a.chunk_heads).total > kSmemMax)
-    --a.chunk_heads;
+  a.chunk_heads = fit_heads(rm, rk, hd, hpg, rv, false);
   if (a.chunk_heads == 0) return static_cast<int>(cudaErrorInvalidValue);
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int err;
   if (hd == 128)
-    err = rm ? launch_split<128, true>(a, B, st) : launch_split<128, false>(a, B, st);
+    err = rm ? launch_split<128, true, false>(a, B, st) : launch_split<128, false, false>(a, B, st);
   else
-    err = rm ? launch_split<64, true>(a, B, st) : launch_split<64, false>(a, B, st);
+    err = rm ? launch_split<64, true, false>(a, B, st) : launch_split<64, false, false>(a, B, st);
+  if (err != 0) return err;
+  return decode::launch_combine(a.part_m, a.part_l, a.part_acc, static_cast<float*>(out),
+                                B * G * hpg, splits, rv, st);
+}
+
+// The packed seq-major variant: codes (B, G, S, nbk) / (B, G, S, nbv) uint8
+// at pack width pbits (2, 3 or 4), per-token scale and base (B, G, S) f32;
+// x = (code + qmin - base) * scale. hd is 64 or 128, rk a multiple of 32 up
+// to 128, rv a multiple of 32, S a multiple of 8.
+extern "C" int palu_decode_seq_q(const void* q, int q_bf16, const void* bk, const void* kc,
+                                 const void* ks, const void* kb, const void* vc, const void* vs,
+                                 const void* vb, const void* kv_len, const void* cos_t,
+                                 const void* sin_t, void* part_m, void* part_l, void* part_acc,
+                                 void* out, int B, int G, int hpg, int hd, int rk, int rv, int S,
+                                 int nbk, int nbv, int pbits, int qmin, int window, int splits,
+                                 int tiles_per_split, float sqrt_hd, void* stream) {
+  if ((hd != 64 && hd != 128) || rk % 32 || rk > 16 * kMaxKSteps || rv % 32 || S % 8 ||
+      hpg > kMaxHeads || (pbits != 2 && pbits != 3 && pbits != 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  FpArgs a{};
+  a.q = q;
+  a.q_bf16 = q_bf16;
+  a.bk = static_cast<const bf16*>(bk);
+  a.kc = static_cast<const uint8_t*>(kc);
+  a.vc = static_cast<const uint8_t*>(vc);
+  a.ks = static_cast<const float*>(ks);
+  a.kb = static_cast<const float*>(kb);
+  a.vs = static_cast<const float*>(vs);
+  a.vb = static_cast<const float*>(vb);
+  a.kv_len = static_cast<const int*>(kv_len);
+  a.cos_t = static_cast<const float*>(cos_t);
+  a.sin_t = static_cast<const float*>(sin_t);
+  a.part_m = static_cast<float*>(part_m);
+  a.part_l = static_cast<float*>(part_l);
+  a.part_acc = static_cast<float*>(part_acc);
+  a.G = G;
+  a.hpg = hpg;
+  a.rk = rk;
+  a.rv = rv;
+  a.S = S;
+  a.window = window;
+  a.splits = splits;
+  a.tiles_per_split = tiles_per_split;
+  a.sqrt_hd = sqrt_hd;
+  a.nbk = nbk;
+  a.nbv = nbv;
+  a.pbits = pbits;
+  a.qmin = qmin;
+  a.chunk_heads = fit_heads(false, rk, hd, hpg, rv, true);
+  if (a.chunk_heads == 0) return static_cast<int>(cudaErrorInvalidValue);
+
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = hd == 128 ? launch_split<128, false, true>(a, B, st)
+                            : launch_split<64, false, true>(a, B, st);
   if (err != 0) return err;
   return decode::launch_combine(a.part_m, a.part_l, a.part_acc, static_cast<float*>(out),
                                 B * G * hpg, splits, rv, st);

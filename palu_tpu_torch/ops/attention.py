@@ -1,6 +1,9 @@
-"""Attention over the latent cache in plain PyTorch (port of
-flash_decode_latent, palu_tpu/ops/attention.py). This is the plain version
-that the decode kernel (ops/palu_decode.py) is held against."""
+"""Decode attention in plain PyTorch: over the latent cache (port of
+flash_decode_latent, palu_tpu/ops/attention.py; the plain version the
+decode kernels are held against) and over dense roped K/V (port of the JAX
+engine's _dense_flash_decode, the reference's dense-KV baseline; on CUDA
+the engine runs it as one scaled_dot_product_attention call instead, which
+chip_smoke.py holds against this plain version)."""
 
 from __future__ import annotations
 
@@ -10,7 +13,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["flash_decode_latent"]
+__all__ = ["flash_decode_latent", "dense_flash_decode", "dense_decode_sdpa"]
 
 
 def _inv_freq(head_dim: int, rope_theta: float, inv_freq, device) -> torch.Tensor:
@@ -83,3 +86,54 @@ def flash_decode_latent(
         acc = acc * alpha[..., None] + pv
         m = m_new
     return (acc / l[..., None]).reshape(b, nh, rv)
+
+
+def _valid(kv_len: torch.Tensor, pos: torch.Tensor, sliding_window: Optional[int]):
+    """(B, C) bool: positions pos inside each lane's live (windowed) context."""
+    kvl = kv_len.to(pos.device).long()[:, None]
+    valid = pos[None, :] < kvl
+    if sliding_window is not None:
+        valid &= pos[None, :] > (kvl - 1) - sliding_window
+    return valid
+
+
+def dense_flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       kv_len: torch.Tensor, chunk: int,
+                       sliding_window: Optional[int] = None) -> torch.Tensor:
+    """Decode attention of q (B, nh, hd), roped at the current position,
+    over roped K and V (B, n_kv, S, hd) in f32 chunks of `chunk` positions
+    with an online softmax (GQA: each kv head serves nh / n_kv q-heads).
+    -> (B, nh, hd) f32."""
+    b, nh, hd = q.shape
+    nkv, s_max = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, nkv, nh // nkv, hd)
+    m = torch.full(qg.shape[:3], -1e30, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qg)
+    for c0 in range(0, s_max, chunk):
+        kb, vb = k[:, :, c0:c0 + chunk].float(), v[:, :, c0:c0 + chunk].float()
+        logits = torch.einsum("bgrd,bgcd->bgrc", qg, kb) / math.sqrt(hd)
+        valid = _valid(kv_len, torch.arange(c0, c0 + kb.shape[2], device=q.device),
+                       sliding_window)[:, None, None, :]
+        logits = torch.where(valid, logits, -1e30)
+        m_new = torch.maximum(m, logits.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(valid, torch.exp(logits - m_new[..., None]), 0.0)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bgrc,bgcd->bgrd", p, vb)
+        m = m_new
+    return (acc / l[..., None]).reshape(b, nh, hd)
+
+
+def dense_decode_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      kv_len: torch.Tensor, sliding_window: Optional[int] = None
+                      ) -> torch.Tensor:
+    """dense_flash_decode as one scaled_dot_product_attention call: each kv
+    head's nh / n_kv q-heads enter as its query rows, a (B, 1, 1, S) mask
+    keeps the live positions. -> (B, nh, hd) in K's dtype."""
+    b, nh, hd = q.shape
+    nkv, s_max = k.shape[1], k.shape[2]
+    mask = _valid(kv_len, torch.arange(s_max, device=q.device), sliding_window)
+    out = torch.nn.functional.scaled_dot_product_attention(
+        q.to(k.dtype).reshape(b, nkv, nh // nkv, hd), k, v, attn_mask=mask[:, None, None, :])
+    return out.reshape(b, nh, hd)

@@ -3,9 +3,26 @@ palu_tpu/ops/pallas/palu_decode4.py::palu_flash_decode4_quantized; the
 kernel is csrc/palu_decode.cu).
 
 `palu_decode` launches the kernel for CUDA tensors and runs `palu_decode_ref`,
-its plain version (flash_decode_latent over decode_latents, in f32), for CPU
-tensors. Per-row scales, symmetric or asymmetric, pack widths 2/3/4/8.
-Returns (B, nh, rv) f32 latent-space outputs for the U_v-fused o_proj.
+its plain version, for CPU tensors. Per-row scales, symmetric or
+asymmetric, pack widths 2/3/4/8. Returns (B, nh, rv) f32 latent-space
+outputs for the U_v-fused o_proj.
+
+The K path runs in one of three modes, as in the JAX kernel:
+  exact     - K rebuilt from the codes in f32 (the plain version is
+              flash_decode_latent over decode_latents, in f32);
+  int8_dots - the query is folded into the reconstruction operand per
+              rotation block of `block_s` tokens (bq1 = a1 B1^T + a2 B2^T,
+              bq2 = a2 B1^T - a1 B2^T, a1/a2 the query rotated to the
+              block's start), the operand is quantized to int8 per row and
+              dotted with the raw codes in int32, then rotated in f32
+              against the block-relative tables;
+  int8_rot  - the operand quantized per head, the rotation done in int32
+              against int8 tables round(cos_rel * 63 / cmax), floats only
+              on each head's sum.
+Both int8 modes take unsigned codes and fold the symmetric offset, or the
+asymmetric zero rows, into a correction built from the quantized
+operand's row sums (the JAX default `fold_qoff`); their result depends on
+`block_s`.
 """
 
 from __future__ import annotations
@@ -17,12 +34,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core.quant import QuantConfig, packed_nrows
+from ..core.quant import QuantConfig, packed_nrows, unpack_codes_t
 from ..runtime import cache as cache_lib
 from . import build
 from .attention import _inv_freq, flash_decode_latent
 
-__all__ = ["palu_decode", "palu_decode_ref"]
+__all__ = ["palu_decode", "palu_decode_ref", "k_path_mode"]
 
 _TILE = 64        # tokens per kernel tile (kTile in the source)
 _MAX_HEADS = 16   # q-heads per group the kernel holds (kMaxHeads)
@@ -57,6 +74,20 @@ def _check(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, qcfg, rk, rv,
         raise ValueError(f"kv_len must be (B,), got {tuple(kv_len.shape)}")
 
 
+def k_path_mode(qcfg: QuantConfig, rk: int, hd: int, *, int8_dots: bool = False,
+                int8_rot: bool = False) -> str:
+    """Validate the int8 K-path knobs as palu_decode4._call4 does and name
+    the mode: "exact", "int8_dots" or "int8_rot" (which wins over
+    int8_dots, as in the JAX kernel)."""
+    pb = qcfg.pack_bits
+    if (int8_dots or int8_rot) and pb > 4:
+        raise ValueError("int8_dots / int8_rot need sub-byte codes (pack width <= 4)")
+    if int8_rot and 63 * 127 * (2**pb - 1) * rk * (hd // 2) >= 2**31:
+        raise ValueError(f"int8_rot int32 segment sums would overflow at rk={rk}, "
+                         f"half={hd // 2}, pack={pb}")
+    return "int8_rot" if int8_rot else "int8_dots" if int8_dots else "exact"
+
+
 def _bufs(codes, scale, zero):
     b, g, _, s_max = codes.shape
     out = {"codes_t": codes, "scale_t": scale.reshape(b, g, 1, s_max)}
@@ -65,15 +96,129 @@ def _bufs(codes, scale, zero):
     return out
 
 
+def _inv_freq64(half: int, theta: float, inv_key) -> np.ndarray:
+    if inv_key is not None:
+        return np.asarray(inv_key, np.float64).reshape(half)
+    return 1.0 / theta ** (np.arange(half, dtype=np.float64) * 2 / (2 * half))
+
+
+@functools.lru_cache(maxsize=8)
+def _int8_tables(s_max: int, block_s: int, half: int, theta: float, inv_key,
+                 rope_scale: float, device: str) -> dict:
+    """The int8 modes' tables, built in f64 and rounded as the JAX wrapper
+    does: c0 / s0 (S / block_s, hd/2) f32, the rotation at each block's
+    start; rcos / rsin (block_s, hd/2) f32, the block-relative rotation;
+    cos8 / sin8 (block_s, hd/2) int8 at scale 63 / cmax, and its inverse."""
+    inv = _inv_freq64(half, theta, inv_key)
+    rel = np.arange(block_s, dtype=np.float64)[:, None] * inv[None, :]
+    rcos = (np.cos(rel) * rope_scale).astype(np.float32)
+    rsin = (np.sin(rel) * rope_scale).astype(np.float32)
+    cmax = float(max(np.abs(rcos).max(), np.abs(rsin).max(), 1e-9))
+    i8q = 63.0 / cmax
+    ang0 = (np.arange(s_max // block_s, dtype=np.float64) * block_s)[:, None] * inv[None, :]
+    dev = torch.device(device)
+    out = {"c0": np.cos(ang0).astype(np.float32), "s0": np.sin(ang0).astype(np.float32),
+           "rcos": rcos, "rsin": rsin, "cos8": np.round(rcos * i8q).astype(np.int8),
+           "sin8": np.round(rsin * i8q).astype(np.int8)}
+    out = {k: torch.from_numpy(v).to(dev) for k, v in out.items()}
+    out["i8r_inv"] = float(1.0 / i8q)
+    return out
+
+
+def _tables8(s_max, block_s, hd, theta, inv_freq, rope_scale, device) -> dict:
+    if block_s < 1 or s_max % block_s:
+        raise ValueError(f"block_s {block_s} must divide S {s_max}")
+    key = None if inv_freq is None else tuple(float(x) for x in np.asarray(inv_freq))
+    return _int8_tables(s_max, block_s, hd // 2, float(theta), key, float(rope_scale),
+                        str(torch.device(device)))
+
+
+def _int8_ref(q, b_k, kb, vb, kv_len, qcfg, rk, rv, theta, sliding_window, inv_freq,
+              rope_scale, block_s, rot: bool) -> torch.Tensor:
+    """Plain version of the int8 K-path modes, block by block as the JAX
+    kernel runs them; the int32 dots are f32 products of integers (exact
+    below 2^24) and int8_rot's int32 rotation sums run in f64 (exact)."""
+    b, nh, hd = q.shape
+    g, hpg = b_k.shape[0], b_k.shape[1]
+    half = hd // 2
+    s_max = kb["codes_t"].shape[-1]
+    tab = _tables8(s_max, block_s, hd, theta, inv_freq, rope_scale, q.device)
+    qf = (q.float() / math.sqrt(hd)).reshape(b, g, hpg, hd)
+    q1, q2 = qf[..., :half], qf[..., half:]
+    bkt = b_k.float().transpose(-1, -2)  # (G, hpg, hd, rk)
+    b1, b2 = bkt[:, :, :half], bkt[:, :, half:]
+    ks = kb["scale_t"].reshape(b, g, 1, s_max)
+    qoff = 2 ** (qcfg.bits - 1)
+    kz = kb["zero_t"].reshape(b, g, 1, s_max) if "zero_t" in kb else ks * float(-qoff)
+    rcos, rsin = tab["rcos"].t(), tab["rsin"].t()  # (hd/2, block_s)
+    kvl = kv_len.to(q.device).long()[:, None]
+    m = torch.full((b, g, hpg), -1e30, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, g, hpg, rv), dtype=torch.float32, device=q.device)
+
+    def quant(bq):
+        amax = bq.abs().amax(-1, keepdim=True)  # (B, G, hpg, hd/2, 1)
+        if rot:
+            amax = amax.amax(-2, keepdim=True)
+        s = torch.clamp(amax, min=1e-30) * float(np.float32(1.0 / 127.0))
+        return torch.round(bq / s), s[..., 0]
+
+    for j in range(s_max // block_s):
+        p0 = j * block_s
+        c, s = tab["c0"][j], tab["s0"][j]
+        a1 = (q1 * c + q2 * s)[..., None]
+        a2 = (q2 * c - q1 * s)[..., None]
+        n1, s1 = quant(a1 * b1 + a2 * b2)  # (B, G, hpg, hd/2, rk)
+        n2, s2 = quant(a2 * b1 - a1 * b2)
+        ck = unpack_codes_t(kb["codes_t"][..., p0:p0 + block_s], qcfg.pack_bits,
+                            rk).float()  # (B, G, rk, block_s) unsigned
+        u = torch.einsum("bgher,bgrt->bghet", n1, ck)
+        v = torch.einsum("bgher,bgrt->bghet", n2, ck)
+        if rot:
+            t1 = (tab["cos8"].t().double() * u.double()).sum(-2).float()
+            t2 = (tab["sin8"].t().double() * v.double()).sum(-2).float()
+            inv = float(np.float32(tab["i8r_inv"]))
+            lg = t1 * (s1 * inv) + t2 * (s2 * inv)
+        else:
+            lg = (u * s1[..., None] * rcos + v * s2[..., None] * rsin).sum(-2)
+        lg = lg * ks[..., p0:p0 + block_s]
+        r1 = n1.sum(-1) * s1  # row sums of the quantized operand, (B, G, hpg, hd/2)
+        r2 = n2.sum(-1) * s2
+        corr = torch.einsum("bghe,et->bght", r1, rcos) + torch.einsum("bghe,et->bght", r2, rsin)
+        lg = lg + corr * kz[..., p0:p0 + block_s]
+        pos = p0 + torch.arange(block_s, device=q.device)[None, :]
+        valid = pos < kvl
+        if sliding_window is not None:
+            valid &= pos > (kvl - 1) - sliding_window
+        valid = valid[:, None, None, :]
+        lg = torch.where(valid, lg, -1e30)
+        m_new = torch.maximum(m, lg.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(valid, torch.exp(lg - m_new[..., None]), 0.0)
+        l = l * alpha + p.sum(-1)
+        xv = cache_lib.decode_latents(cache_lib.seq_slice(vb, p0, block_s), qcfg, rv,
+                                      torch.float32)
+        acc = acc * alpha[..., None] + torch.einsum("bght,bgtr->bghr", p, xv)
+        m = m_new
+    return (acc / l[..., None]).reshape(b, nh, rv)
+
+
 def palu_decode_ref(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, *,
                     qcfg: QuantConfig, rk: int, rv: int, theta: float = 10000.0,
                     sliding_window: Optional[int] = None, inv_freq=None,
-                    rope_scale: float = 1.0, xk_zero=None, xv_zero=None) -> torch.Tensor:
-    """Plain version: dequantize the cache (decode_latents) and run
-    flash_decode_latent in f32 on the same inputs, in chunks of up to 512
-    positions."""
+                    rope_scale: float = 1.0, xk_zero=None, xv_zero=None,
+                    block_s: int = 1024, int8_dots: bool = False,
+                    int8_rot: bool = False) -> torch.Tensor:
+    """Plain version. Exact mode: dequantize the cache (decode_latents) and
+    run flash_decode_latent in f32 on the same inputs, in chunks of up to
+    512 positions. int8 modes: _int8_ref."""
     _check(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, qcfg, rk, rv,
            xk_zero, xv_zero)
+    mode = k_path_mode(qcfg, rk, q.shape[-1], int8_dots=int8_dots, int8_rot=int8_rot)
+    if mode != "exact":
+        return _int8_ref(q, b_k, _bufs(xk_codes, xk_scale, xk_zero),
+                         _bufs(xv_codes, xv_scale, xv_zero), kv_len, qcfg, rk, rv, theta,
+                         sliding_window, inv_freq, rope_scale, block_s, mode == "int8_rot")
     s_max = xk_codes.shape[-1]
     chunk = min(512, s_max)
     while s_max % chunk:
@@ -126,21 +271,29 @@ def _splits(dev: torch.device, n_bg: int, s_max: int):
 def palu_decode(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, *,
                 qcfg: QuantConfig, rk: int, rv: int, theta: float = 10000.0,
                 sliding_window: Optional[int] = None, inv_freq=None,
-                rope_scale: float = 1.0, xk_zero=None, xv_zero=None) -> torch.Tensor:
+                rope_scale: float = 1.0, xk_zero=None, xv_zero=None,
+                block_s: int = 1024, int8_dots: bool = False,
+                int8_rot: bool = False) -> torch.Tensor:
     """Decode attention over an affine-quantized rank-major latent cache.
 
     q (B, nh, hd) roped at the current position; b_k (G, hpg, rk, hd);
     codes (B, G, packed_nrows, S) uint8; scales/zeros (B, G, S) or
     (B, G, 1, S) f32; kv_len (B,) valid positions. -> (B, nh, rv) f32.
-    CUDA tensors launch the kernel (b_k must be bf16, as the engine keeps
-    it); CPU tensors run the plain version."""
+    int8_dots / int8_rot select the int8 K-path modes over rotation blocks
+    of block_s tokens (module docstring). CUDA tensors launch the kernel
+    (b_k must be bf16, as the engine keeps it; the int8 modes need rk % 32
+    == 0 and block_s % 64 == 0); CPU tensors run the plain version. Each
+    launch adds one to `palu_decode.launches` and to its mode's count in
+    `palu_decode.mode_launches`."""
     if not q.is_cuda:
         return palu_decode_ref(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len,
                                qcfg=qcfg, rk=rk, rv=rv, theta=theta,
                                sliding_window=sliding_window, inv_freq=inv_freq,
-                               rope_scale=rope_scale, xk_zero=xk_zero, xv_zero=xv_zero)
+                               rope_scale=rope_scale, xk_zero=xk_zero, xv_zero=xv_zero,
+                               block_s=block_s, int8_dots=int8_dots, int8_rot=int8_rot)
     _check(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, qcfg, rk, rv,
            xk_zero, xv_zero)
+    mode = k_path_mode(qcfg, rk, q.shape[-1], int8_dots=int8_dots, int8_rot=int8_rot)
     b, nh, hd = q.shape
     g, hpg = b_k.shape[0], b_k.shape[1]
     s_max = xk_codes.shape[-1]
@@ -159,7 +312,15 @@ def palu_decode(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, *,
     if any(t is not None and not t.is_contiguous() for t in bufs):
         raise ValueError("cache buffers must be contiguous")
     dev = q.device
-    cos_t, sin_t = _rope_tables(s_max, hd, theta, inv_freq, rope_scale, dev)
+    if mode == "exact":
+        cos_t, sin_t = _rope_tables(s_max, hd, theta, inv_freq, rope_scale, dev)
+        tab = {}
+    else:
+        if rk % 32 or block_s % _TILE:
+            raise ValueError(f"the int8 modes' kernel needs rk % 32 == 0 and block_s % "
+                             f"{_TILE} == 0 (rk={rk}, block_s={block_s})")
+        cos_t = sin_t = None
+        tab = _tables8(s_max, block_s, hd, theta, inv_freq, rope_scale, dev)
     qc = q.contiguous()
     bk = b_k.contiguous()
     kvl = kv_len.to(torch.int32).contiguous()
@@ -174,18 +335,23 @@ def palu_decode(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, *,
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
-    err = build.launcher("palu_decode", "palu_decode", "pi" + "p" * 14 + "i" * 15 + "fp")(
+    err = build.launcher("palu_decode", "palu_decode", "pi" + "p" * 20 + "i" * 17 + "ffp")(
         qc.data_ptr(), int(q.dtype == torch.bfloat16), bk.data_ptr(), xk_codes.data_ptr(),
         xk_scale.data_ptr(), ptr(xk_zero), xv_codes.data_ptr(), xv_scale.data_ptr(),
-        ptr(xv_zero), kvl.data_ptr(), cos_t.data_ptr(), sin_t.data_ptr(),
+        ptr(xv_zero), kvl.data_ptr(), ptr(cos_t), ptr(sin_t),
+        *(ptr(tab.get(k)) for k in ("c0", "s0", "rcos", "rsin", "cos8", "sin8")),
         scratch.data_ptr(), scratch[n_part:].data_ptr(), scratch[2 * n_part:].data_ptr(),
         out.data_ptr(),
         b, g, hpg, hd, rk, rv, s_max, xk_codes.shape[2], xv_codes.shape[2],
         qcfg.pack_bits, qoff, int(asym), int(sliding_window or 0), splits, per,
-        float(math.sqrt(hd)), build.stream_ptr(dev))
-    build.check(err, "palu_decode")
+        _MODES[mode], block_s, float(math.sqrt(hd)), float(tab.get("i8r_inv", 0.0)),
+        build.stream_ptr(dev))
+    build.check(err, f"palu_decode ({mode})")
     palu_decode.launches += 1
+    palu_decode.mode_launches[mode] += 1
     return out
 
 
+_MODES = {"exact": 0, "int8_dots": 1, "int8_rot": 2}
 palu_decode.launches = 0
+palu_decode.mode_launches = dict.fromkeys(_MODES, 0)

@@ -10,8 +10,11 @@ are stored in the engine dtype, seq-major by default or rank-major:
   lat   (B, G, S, r)   the layout of the v1 decode kernel
   lat_t (B, G, r, S)   rank_major_fp: the layout of the v4 decode kernel
 Keys ending in "_t" carry the sequence on their last axis, the others on
-the axis before it. Latents are cached pre-RoPE. Buffer names and layouts
-are the JAX package's, so caches compare byte for byte.
+the axis before it. Latents are cached pre-RoPE. A side whose projection
+is dense (no VT) holds roped K or V instead, {"lat": (B, n_kv, S, hd)} in
+the engine dtype, as in the JAX package. Buffer names, layouts and key
+order are the JAX package's, so caches compare byte for byte and the
+profiler seeds them from one numpy stream in the same order.
 
 The JAX package returns new buffers and relies on buffer donation for
 in-place updates; here the write helpers update the buffers in place.
@@ -86,22 +89,20 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
                qcfg: Optional[quant.QuantConfig], device="cuda", dtype=torch.bfloat16,
                rank_major_fp: bool = False) -> Dict[str, Any]:
     """Build the cache: per layer {"k": bufs, "v": bufs} plus per-lane
-    lengths. Every layer must have low-rank k and v. `dtype` and
-    `rank_major_fp` apply to unquantized caches (qcfg None)."""
+    lengths. `dtype` applies to unquantized caches (qcfg None) and to dense
+    sides, `rank_major_fp` to unquantized latents."""
     device = build.require_cuda(device)
     g = cfg.num_kv_groups
+    dense = (batch, cfg.num_key_value_heads, s_max, cfg.head_dim)
     layers = []
     for i in range(cfg.num_hidden_layers):
-        rk = cfg.uniform_rank_for(i, "k_proj")
-        rv = cfg.uniform_rank_for(i, "v_proj")
-        if rk is None or rv is None:
-            raise NotImplementedError(
-                f"layer {i} has a dense k/v projection; the port's cache holds "
-                "low-rank latents only")
-        layers.append({
-            side: _layer_buffers(batch, g, s_max, r, qcfg, device, dtype, rank_major_fp)
-            for side, r in (("k", rk), ("v", rv))
-        })
+        entry = {}
+        for side in ("k", "v"):
+            r = cfg.uniform_rank_for(i, f"{side}_proj")
+            entry[side] = ({"lat": torch.zeros(dense, dtype=dtype, device=device)} if r is None
+                           else _layer_buffers(batch, g, s_max, r, qcfg, device, dtype,
+                                               rank_major_fp))
+        layers.append(entry)
     return {"layers": layers,
             "length": torch.zeros((batch,), dtype=torch.int32, device=device)}
 

@@ -25,10 +25,22 @@ the decode weights, decode runs the GEMV kernels (ops/gemv_int4,
 ops/gemv_int8) and prefill multiplies by weights dequantized once per layer.
 The kernels run when the engine's tensors are on CUDA; on the CPU their
 plain versions run (tests). `_decode_paths` records which decode attention
-path ran and `_gemv_paths` which weight paths the decode steps took.
-The cache is updated in place (the JAX engine donates it to jit instead).
-Qwen2 k/v biases, ragged ranks and per-chunk scales come with later slices
-of the port.
+path ran (and the packed decode's K-path mode) and `_gemv_paths` which
+weight paths the decode steps took. The cache is updated in place (the JAX
+engine donates it to jit instead).
+
+The engine takes the JAX engine's formulation knobs for the packed decode,
+validated and resolved once at build as there: kernel_int8_dots and
+kernel_int8_rot pick the kernel's int8 K-path modes over rotation blocks of
+`pallas_block` tokens; kernel_v_byte_dot and kernel_fuse_uv are exact
+reformulations of the TPU's matrix-unit schedule (the same sums in another
+order), so they reach no kernel and the default one runs. Layers whose k and v projections are both dense (the reference's
+dense-KV baseline) keep roped K and V and decode with a flash pass over
+them: scaled_dot_product_attention on CUDA tensors, its plain chunked
+version (ops/attention.dense_flash_decode, the JAX engine's
+_dense_flash_decode) on the CPU; their prefill comes with a later slice.
+Qwen2 k/v biases, ragged ranks, layers with one dense side and per-chunk
+scales come with later slices of the port.
 """
 
 from __future__ import annotations
@@ -47,8 +59,9 @@ from ..models import rope as rope_mod
 from ..models.config import ModelConfig
 from ..ops import build
 from ..ops.cache_append import append_supported, append_token_quantized
+from ..ops.attention import dense_decode_sdpa, dense_flash_decode
 from ..ops.gemv_int8 import MAX_ROWS
-from ..ops.palu_decode import palu_decode
+from ..ops.palu_decode import k_path_mode, palu_decode
 from ..ops.palu_decode_fp import palu_decode_fp, palu_decode_fp_t
 from ..ops.prefill_flash import prefill_flash
 from . import cache as cache_lib
@@ -78,6 +91,17 @@ class EngineConfig:
     # 8 stores the embedding table as int8 per vocabulary row, which also
     # serves a tied lm_head (needs weight_bits 8/4)
     embed_bits: int = 16
+    # rotation block of the packed decode's int8 K-path modes; None uses
+    # decode_chunk (both rounded down to a divisor of s_max)
+    pallas_block: Optional[int] = None
+    # the packed decode's formulation knobs (ops/palu_decode): v_byte_dot
+    # (None = on for per-row nibble containers) and fuse_uv are exact
+    # reformulations and run the default kernel; int8_dots / int8_rot pick
+    # the int8 K-path modes
+    kernel_v_byte_dot: Optional[bool] = None
+    kernel_int8_dots: bool = False
+    kernel_fuse_uv: bool = False
+    kernel_int8_rot: bool = False
 
 
 def build_decode_b(u_k: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -89,6 +113,30 @@ def build_decode_b(u_k: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     g, rk = u_k.shape[0], u_k.shape[1]
     per_kv = u_k.reshape(g, rk, cfg.head_group_size, hd).permute(0, 2, 1, 3)
     return per_kv.repeat_interleave(rep, dim=1).contiguous()
+
+
+def _kernel_knobs(ecfg: EngineConfig) -> dict:
+    """The packed decode's formulation knobs, validated and resolved as the
+    JAX engine does: v_byte_dot None turns on for per-row nibble-container
+    caches; the others are opt-in and need a per-row (sub-byte) cache."""
+    qk = ecfg.qcfg
+    per_row = cache_lib.rank_major(qk)
+    vbd = ecfg.kernel_v_byte_dot
+    if vbd is None:
+        vbd = per_row and qk.pack_bits == 4
+    elif vbd and not (per_row and qk.pack_bits == 4):
+        raise ValueError("kernel_v_byte_dot needs a per-row nibble-container cache "
+                         "(QuantConfig.group_size == 0, pack width 4)")
+    for name in ("kernel_int8_dots", "kernel_int8_rot"):
+        if getattr(ecfg, name) and not (per_row and qk.pack_bits <= 4):
+            raise ValueError(f"{name} needs per-row sub-byte codes "
+                             "(QuantConfig.group_size == 0, pack width <= 4)")
+    if ecfg.kernel_fuse_uv and not per_row:
+        raise ValueError("kernel_fuse_uv needs a per-row quantized cache "
+                         "(QuantConfig.group_size == 0)")
+    knobs = {"v_byte_dot": vbd, "int8_dots": ecfg.kernel_int8_dots,
+             "fuse_uv": ecfg.kernel_fuse_uv, "int8_rot": ecfg.kernel_int8_rot}
+    return {k: True for k, on in knobs.items() if on}
 
 
 def _largest_divisor(n: int, at_most: int) -> int:
@@ -111,12 +159,15 @@ class Engine:
                 "(qcfg None); per-chunk caches come with a later slice")
         if cfg.attention_bias:
             raise NotImplementedError("k/v biases (Qwen2) come with a later slice")
+        self._dense = []
         for i, layer in enumerate(params["layers"]):
+            lowrank = ["VT" in layer["attn"][which] for which in ("k_proj", "v_proj")]
+            if lowrank[0] != lowrank[1]:
+                raise NotImplementedError(f"layer {i} has one dense k/v side; the port's "
+                                          "engine takes layers with both or neither")
             for which in ("k_proj", "v_proj"):
-                if "VT" not in layer["attn"][which]:
-                    raise NotImplementedError(
-                        f"layer {i} {which} is dense; the engine needs low-rank k/v")
                 cfg.uniform_rank_for(i, which)  # raises on ragged ranks
+            self._dense.append(not lowrank[0])
         if ecfg.weight_bits not in (16, 8, 4):
             raise ValueError(f"weight_bits must be 16, 8 or 4, got {ecfg.weight_bits}")
         if ecfg.vt_bits not in (16, 8):
@@ -133,6 +184,20 @@ class Engine:
         # Chunks read fixed-size slices of the cache, so the chunk must
         # divide s_max: take the largest divisor not above decode_chunk.
         self._chunk = _largest_divisor(ecfg.s_max, ecfg.decode_chunk)
+        self._pallas_block = _largest_divisor(ecfg.s_max, ecfg.pallas_block or self._chunk)
+        self._kernel_knobs = _kernel_knobs(ecfg)
+        # the packed decode's K-path mode, checked once against every
+        # low-rank layer's K rank (int8_rot's int32 sums) and kept with the
+        # decode path's name
+        self._int8_knobs = {k: True for k in ("int8_dots", "int8_rot")
+                            if k in self._kernel_knobs}
+        mode = "exact"
+        if cache_lib.quantized(ecfg.qcfg):
+            for layer, dense in zip(params["layers"], self._dense):
+                if not dense:
+                    mode = k_path_mode(ecfg.qcfg, layer["attn"]["k_proj"]["U"].shape[1],
+                                       cfg.head_dim, **self._int8_knobs)
+        self._packed_path = "palu_decode" + ("" if mode == "exact" else f"_{mode}")
         self._fused_append = append_supported(ecfg.qcfg)
         self._decode_paths: set = set()
         self._gemv_paths: set = set()
@@ -141,8 +206,9 @@ class Engine:
         self._inv_freq = inv_freq if cfg.rope_scaling else None
         self._rope_scale = float(rope_scale) if cfg.rope_scaling else 1.0
         self.derived = [
+            {} if dense else
             {"b_k": build_decode_b(l["attn"]["k_proj"]["U"].float(), cfg).to(ecfg.dtype)}
-            for l in params["layers"]
+            for l, dense in zip(params["layers"], self._dense)
         ]
         if ecfg.weight_bits in (8, 4):
             # after the decode weights: b_k comes from the float U
@@ -189,6 +255,9 @@ class Engine:
         K/V prefix once; attention + MLP then run chunk by chunk. Returns
         the logits of the run's last chunk (B, C, V)."""
         cfg, ecfg = self.cfg, self.ecfg
+        if any(self._dense):
+            raise NotImplementedError("prefill of dense k/v layers comes with a later slice "
+                                      "(ROADMAP A item 2); decode them from a seeded cache")
         b, m, c_len = ids.shape
         run = m * c_len
         nh, hd = cfg.num_attention_heads, cfg.head_dim
@@ -299,11 +368,12 @@ class Engine:
         kw = dict(theta=cfg.rope_theta, sliding_window=cfg.sliding_window,
                   inv_freq=self._inv_freq, rope_scale=self._rope_scale)
         if cache_lib.quantized(ecfg.qcfg):
-            self._decode_paths.add(f"palu_decode-{side}")
+            self._decode_paths.add(f"{self._packed_path}-{side}")
             lat_out = palu_decode(
                 q, der["b_k"], kb["codes_t"], kb["scale_t"], vb["codes_t"], vb["scale_t"],
                 kv_len, qcfg=ecfg.qcfg, rk=rk, rv=rv, xk_zero=kb.get("zero_t"),
-                xv_zero=vb.get("zero_t"), **kw)
+                xv_zero=vb.get("zero_t"), block_s=self._pallas_block, **self._int8_knobs,
+                **kw)
         else:
             fn, key = ((palu_decode_fp_t, "lat_t") if ecfg.rank_major_fp
                        else (palu_decode_fp, "lat"))
@@ -312,14 +382,44 @@ class Engine:
         return wdot(lat_out.to(ecfg.dtype).reshape(b, nh * rv), attn["o_proj"]["w_fused"],
                     self._gemv_paths)
 
+    def _dense_attention(self, q, entry, attn, kv_len):
+        """Decode attention of a dense layer over its roped K/V, then the
+        dense o_proj."""
+        cfg = self.cfg
+        b = q.shape[0]
+        k, v = entry["k"]["lat"], entry["v"]["lat"]
+        if q.is_cuda:
+            self._decode_paths.add("dense_sdpa-kernel")
+            out = dense_decode_sdpa(q, k, v, kv_len, cfg.sliding_window)
+        else:
+            self._decode_paths.add("dense_flash-plain")
+            out = dense_flash_decode(q, k, v, kv_len, self._chunk, cfg.sliding_window)
+        return wdot(out.to(self.ecfg.dtype).reshape(b, -1), attn["o_proj"]["w"],
+                    self._gemv_paths)
+
+    def _append_dense(self, entry, h, attn, cos, sin, pos_w, writeable):
+        """Masked write of one token's roped K and its V (B, n_kv, 1, hd)."""
+        cfg, dt = self.cfg, self.ecfg.dtype
+        b = h.shape[0]
+        shape = (b, 1, cfg.num_key_value_heads, cfg.head_dim)
+        k = llama.project_kv(h, attn["k_proj"], self._gemv_paths).reshape(shape)
+        k = llama.apply_rope(k.float(), cos, sin).to(dt).transpose(1, 2)
+        v = llama.project_kv(h, attn["v_proj"], self._gemv_paths).reshape(shape)
+        cache_lib.write_at_lanes_masked(entry["k"], {"lat": k}, pos_w, writeable)
+        cache_lib.write_at_lanes_masked(entry["v"], {"lat": v.to(dt).transpose(1, 2)}, pos_w,
+                                        writeable)
+
     @torch.no_grad()
     def decode(self, token_ids, cache, active=None):
-        """One decode step for token_ids (B, 1). `active` (B,) bool marks
-        lanes that append and advance; inactive and full lanes get a no-op
-        write and a frozen length, decided on the device."""
+        """One decode step for token_ids (B, 1), host ids or a device
+        tensor (kept on the device). `active` (B,) bool marks lanes that
+        append and advance; inactive and full lanes get a no-op write and a
+        frozen length, decided on the device."""
         cfg, ecfg = self.cfg, self.ecfg
         dev = self.device
-        token_ids = torch.as_tensor(np.asarray(token_ids), device=dev)
+        if not isinstance(token_ids, torch.Tensor):
+            token_ids = torch.as_tensor(np.asarray(token_ids))
+        token_ids = token_ids.to(dev)
         b = token_ids.shape[0]
         if active is None:
             active = torch.ones((b,), dtype=torch.bool, device=dev)
@@ -331,16 +431,20 @@ class Engine:
         nh, hd = cfg.num_attention_heads, cfg.head_dim
         cos, sin = llama.rope_cos_sin_for(cfg, pos[:, None])
 
-        for p_layer, entry, der in zip(self.params["layers"], cache["layers"],
-                                       self.derived):
+        for p_layer, entry, der, dense in zip(self.params["layers"], cache["layers"],
+                                              self.derived, self._dense):
             attn = p_layer["attn"]
             h = llama.rms_norm(x, p_layer["input_norm"], cfg.rms_norm_eps)
             q = wdot(h, attn["q_proj"]["w"], self._gemv_paths).reshape(b, 1, nh, hd)
             q = llama.apply_rope(q.float(), cos, sin).to(ecfg.dtype)[:, 0]
-            for side, proj in (("k", "k_proj"), ("v", "v_proj")):
-                lat = llama.project_kv(h, attn[proj], self._gemv_paths).transpose(1, 2)
-                self._append(entry[side], lat, pos_w, writeable)
-            x = x + self._decode_attention(q, entry, attn, der, kv_len)[:, None, :]
+            if dense:
+                self._append_dense(entry, h, attn, cos, sin, pos_w, writeable)
+                x = x + self._dense_attention(q, entry, attn, kv_len)[:, None, :]
+            else:
+                for side, proj in (("k", "k_proj"), ("v", "v_proj")):
+                    lat = llama.project_kv(h, attn[proj], self._gemv_paths).transpose(1, 2)
+                    self._append(entry[side], lat, pos_w, writeable)
+                x = x + self._decode_attention(q, entry, attn, der, kv_len)[:, None, :]
             h2 = llama.rms_norm(x, p_layer["post_norm"], cfg.rms_norm_eps)
             x = x + llama.mlp_forward(h2, p_layer["mlp"], self._gemv_paths)
 

@@ -194,3 +194,73 @@ def test_serving_engine_on_card(gen, rank_major):
     assert srv.sched.stats() == {"admitted": 3, "finished": 3, "tokens": sum(n_new.values())}
     assert srv.engine._decode_paths == {f"{fn.__name__}-kernel"}
     assert fn.launches - n0 == layers * steps[0] > 0
+
+
+def _packed_case(gen, layout, qcfg, b, g, hpg, rk, rv, hd, s_max):
+    """q, b_k and one packed cache: seq-major (quantize + pack_codes, for
+    palu_decode_seq_quantized) or rank-major (quantize_affine + pack_codes_t)."""
+    from palu_tpu_torch.core.quant import pack_codes, quantize
+
+    q = torch.randn((b, g * hpg, hd), generator=gen, device="cuda").bfloat16()
+    b_k = (torch.randn((g, hpg, rk, hd), generator=gen, device="cuda") / rk**0.5).bfloat16()
+    bufs = {}
+    for side, r in (("k", rk), ("v", rv)):
+        x = torch.randn((b, g, s_max, r), generator=gen, device="cuda")
+        if layout == "seq":
+            c, s, z = quantize(x, qcfg)
+            bufs.update({f"x{side}_codes": pack_codes(c, qcfg.pack_bits).contiguous(),
+                         f"x{side}_scales": s.contiguous(), f"x{side}_base": z.contiguous()})
+        else:
+            c, s, z = quantize_affine(x, qcfg)
+            bufs[f"x{side}_codes"] = pack_codes_t(c, qcfg.pack_bits).contiguous()
+            bufs[f"x{side}_scale"] = s[..., 0].contiguous()
+            if not qcfg.sym:
+                bufs[f"x{side}_zero"] = z[..., 0].contiguous()
+    return q, b_k, bufs
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4])
+@pytest.mark.parametrize("sym", [True, False])
+@pytest.mark.parametrize("window", [None, 300])
+def test_decode_seq_kernel_matches_plain(gen, bits, sym, window):
+    """The seq-major packed decode at the 7B group shapes (hpg 4, rk 128,
+    rv 384, hd 128) over 2 lanes of a 1024-token cache."""
+    from palu_tpu_torch.ops.palu_decode_seq import (palu_decode_seq_quantized,
+                                                    palu_decode_seq_quantized_ref)
+
+    qcfg = QuantConfig(bits=bits, sym=sym)
+    q, b_k, bufs = _packed_case(gen, "seq", qcfg, 2, 2, 4, 128, 384, 128, 1024)
+    kv_len = torch.tensor([77, 1024], dtype=torch.int32, device="cuda")
+    kw = dict(qcfg=qcfg, rk=128, rv=384, sliding_window=window)
+    n = palu_decode_seq_quantized.launches
+    got = palu_decode_seq_quantized(q, b_k, kv_len=kv_len, **bufs, **kw)
+    assert palu_decode_seq_quantized.launches == n + 1
+    want = palu_decode_seq_quantized_ref(q, b_k, kv_len=kv_len, **bufs, **kw)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 2e-3 * want.abs().max()
+
+
+@pytest.mark.parametrize("mode", ["int8_dots", "int8_rot"])
+@pytest.mark.parametrize("block_s", [64, 512])
+@pytest.mark.parametrize("sym", [True, False])
+def test_decode_int8_modes_match_plain(gen, mode, block_s, sym):
+    """Both int8 K-path modes on 2 lanes at the 7B group shapes: within
+    2e-3 of the plain version (an operand value on a rounding tie may take
+    the neighbouring int8 code) and within the JAX tests' class of the
+    exact kernel."""
+    qcfg = QuantConfig(bits=3, sym=sym, container=4)
+    q, b_k, bufs = _packed_case(gen, "rank", qcfg, 2, 2, 4, 128, 384, 128, 1024)
+    kv_len = torch.tensor([300, 1024], dtype=torch.int32, device="cuda")
+    kw = dict(qcfg=qcfg, rk=128, rv=384, sliding_window=None if sym else 700,
+              block_s=block_s)
+    n = palu_decode.mode_launches[mode]
+    got = palu_decode(q, b_k, kv_len=kv_len, **bufs, **kw, **{mode: True})
+    assert palu_decode.mode_launches[mode] == n + 1
+    want = palu_decode_ref(q, b_k, kv_len=kv_len, **bufs, **kw, **{mode: True})
+    exact = palu_decode(q, b_k, kv_len=kv_len, **bufs, **kw)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 2e-3 * want.abs().max()
+    atol, rtol = (4e-2, 2e-2) if mode == "int8_dots" else (8e-2, 4e-2)
+    assert torch.allclose(got, exact, atol=atol, rtol=rtol)
+    with pytest.raises(ValueError):  # a 64-token tile would straddle two blocks
+        palu_decode(q, b_k, kv_len=kv_len, **bufs, **dict(kw, block_s=32), **{mode: True})
