@@ -55,10 +55,31 @@ Phases, each printing one JSON line:
                 decode path and launches per step asserted and a decode
                 breakdown;
      serve_bench_int8_rot - serve_bench --int8_rot at 32 layers, 8 lanes, 16
-                requests on the native scheduler.
+                requests on the native scheduler;
+  7. the compression path (palu_tpu_torch/compression):
+     compress  - a dense 32-layer Llama-2-7B-width model on the card through
+                search_ranks (fisher_uniform, ratio 0.5, synthetic
+                calibration), whitening and compress_params with Hadamard
+                fusion (the FWHT kernel: exact launches asserted), then
+                served over the 3-bit cache at group ranks above 128
+                (one more step holds each layer's palu_decode against its
+                plain version on the served cache), with the phase's time
+                split into Fisher, whiten, decomposition and serve;
+     compress_check - at 2 layers: with and without Hadamard fusion the
+                forward logits agree, the card's engine over the fused
+                params and bf16 latents agrees with the CPU's f32 forward,
+                and over the 3-bit cache every palu_decode launch agrees
+                with palu_decode_ref on the same inputs and the per-step
+                logits with an engine that runs palu_decode_ref instead;
+     compress_cli - `python -m palu_tpu_torch.cli.compress` on a 2-layer
+                checkpoint written by hf_io.save_checkpoint, read back by
+                hf_io.load_params and served.
   Phase 3 also holds the seq-major packed decode (check_decode_seq) and the
   packed decode's int8 K-path modes (check_decode_int8, also against the
-  exact decode) against their plain versions, and the engine's dense-KV
+  exact decode) against their plain versions, every decode kernel at group
+  ranks 256 and 512 and at ranks that end in a partial rank chunk
+  (check_decode_ranks), the Hadamard transform at the
+  compression path's shapes (check_hadamard), and the engine's dense-KV
   decode on CUDA (one scaled_dot_product_attention call) against its plain
   version (dense_sdpa);
 then the nvidia-smi line, the {"kernels": [...]} line, and last
@@ -72,9 +93,13 @@ import dataclasses
 import io
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -82,10 +107,13 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from palu_tpu_torch.cli import run_latency_attention, run_latency_kernel, serve_bench
+from palu_tpu_torch.compression import (compress_params, search_ranks, synthetic_batches,
+                                        whiten_scale_matrices)
 from palu_tpu_torch.core import wquant
+from palu_tpu_torch.core.hadamard import full_hadamard_matrix, get_hadK
 from palu_tpu_torch.core.quant import (QuantConfig, pack_codes, packed_nrows, pack_codes_t,
                                        quantize, quantize_affine)
-from palu_tpu_torch.models import llama
+from palu_tpu_torch.models import hf_io, llama
 from palu_tpu_torch.models.config import ModelConfig
 from palu_tpu_torch.ops import build
 from palu_tpu_torch.ops.attention import dense_decode_sdpa, dense_flash_decode
@@ -95,12 +123,15 @@ from palu_tpu_torch.ops.gemv_int4 import (gemv_int4, gemv_int4_ref, mlp_gemv_int
                                           mlp_gemv_int4_ref)
 from palu_tpu_torch.ops.gemv_int8 import (gemv_int8, gemv_int8_ref, mlp_gemv_int8,
                                           mlp_gemv_int8_ref)
+from palu_tpu_torch.ops.hadamard import (MAX_N, hadamard_transform,
+                                         hadamard_transform_ref)
 from palu_tpu_torch.ops.palu_decode import palu_decode, palu_decode_ref
 from palu_tpu_torch.ops.palu_decode_fp import (palu_decode_fp, palu_decode_fp_ref,
                                                palu_decode_fp_t, palu_decode_fp_t_ref)
 from palu_tpu_torch.ops.palu_decode_seq import (palu_decode_seq_quantized,
                                                 palu_decode_seq_quantized_ref)
 from palu_tpu_torch.ops.prefill_flash import prefill_flash, prefill_flash_ref
+from palu_tpu_torch.runtime import engine as engine_mod
 from palu_tpu_torch.runtime import profiler
 from palu_tpu_torch.runtime.cache import cache_nbytes, decode_latents
 from palu_tpu_torch.runtime.engine import Engine, EngineConfig
@@ -145,7 +176,7 @@ W4 = dict(weight_bits=4, vt_bits=8, embed_bits=8)  # the README's configuration
 W8 = dict(weight_bits=8, vt_bits=8, embed_bits=8)
 COUNTERS = (append_token_quantized, palu_decode, palu_decode_fp, palu_decode_fp_t,
             palu_decode_seq_quantized, prefill_flash, gemv_int4, mlp_gemv_int4, gemv_int8,
-            mlp_gemv_int8)
+            mlp_gemv_int8, hadamard_transform)
 INT8_MODES = ("int8_dots", "int8_rot")  # palu_decode's int8 K-path modes
 # the int8 modes' deviation from the exact decode: the JAX kernel tests'
 # class (tests/test_pallas_decode4.py), (atol, rtol) for allclose
@@ -329,12 +360,13 @@ def check_append(gen) -> dict:
     return out
 
 
-def _decode_inputs(qcfg: QuantConfig, b: int, g: int, hpg: int, s_max: int, gen, rv: int = RV):
+def _decode_inputs(qcfg: QuantConfig, b: int, g: int, hpg: int, s_max: int, gen, rv: int = RV,
+                   rk: int = RK):
     q = torch.randn((b, g * hpg, HD), generator=gen, device="cuda").to(torch.bfloat16)
-    b_k = (torch.randn((g, hpg, RK, HD), generator=gen, device="cuda")
-           / math.sqrt(RK)).to(torch.bfloat16)
+    b_k = (torch.randn((g, hpg, rk, HD), generator=gen, device="cuda")
+           / math.sqrt(rk)).to(torch.bfloat16)
     bufs = {}
-    for side, r in (("k", RK), ("v", rv)):
+    for side, r in (("k", rk), ("v", rv)):
         lat = torch.randn((b, g, s_max, r), generator=gen, device="cuda")
         codes, scales, zeros = quantize_affine(lat, qcfg)
         bufs[f"x{side}_codes"] = pack_codes_t(codes, qcfg.pack_bits).contiguous()
@@ -513,15 +545,16 @@ def check_decode_int8(gen) -> list:
     return lines
 
 
-def _seq_inputs(qcfg: QuantConfig, b: int, s_max: int, gen):
+def _seq_inputs(qcfg: QuantConfig, b: int, s_max: int, gen, rk: int = RK, rv: int = RV,
+                g: int = G, hpg: int = HPG):
     """q, b_k and a seq-major packed cache (quantize + pack_codes) at the 7B
-    group shapes."""
-    q = torch.randn((b, NH, HD), generator=gen, device="cuda").to(torch.bfloat16)
-    b_k = (torch.randn((G, HPG, RK, HD), generator=gen, device="cuda")
-           / math.sqrt(RK)).to(torch.bfloat16)
+    group shapes (ranks rk / rv)."""
+    q = torch.randn((b, g * hpg, HD), generator=gen, device="cuda").to(torch.bfloat16)
+    b_k = (torch.randn((g, hpg, rk, HD), generator=gen, device="cuda")
+           / math.sqrt(rk)).to(torch.bfloat16)
     bufs = {}
-    for side, r in (("k", RK), ("v", RV)):
-        lat = torch.randn((b, G, s_max, r), generator=gen, device="cuda")
+    for side, r in (("k", rk), ("v", rv)):
+        lat = torch.randn((b, g, s_max, r), generator=gen, device="cuda")
         codes, scales, base = quantize(lat, qcfg)
         bufs[f"x{side}_codes"] = pack_codes(codes, qcfg.pack_bits).contiguous()
         bufs[f"x{side}_scales"] = scales.contiguous()
@@ -636,14 +669,14 @@ def check_dense_sdpa(gen) -> None:
           "bound_ms": bms, "bound_by": by})
 
 
-def _fp_inputs(b: int, g: int, hpg: int, s_max: int, gen):
+def _fp_inputs(b: int, g: int, hpg: int, s_max: int, gen, rk: int = RK, rv: int = RV):
     """q, b_k and bf16 latents in both layouts: seq-major (B, G, S, r) and
     rank-major (B, G, r, S) holding the same values."""
     q = torch.randn((b, g * hpg, HD), generator=gen, device="cuda").to(torch.bfloat16)
-    b_k = (torch.randn((g, hpg, RK, HD), generator=gen, device="cuda")
-           / math.sqrt(RK)).to(torch.bfloat16)
+    b_k = (torch.randn((g, hpg, rk, HD), generator=gen, device="cuda")
+           / math.sqrt(rk)).to(torch.bfloat16)
     lat = [torch.randn((b, g, s_max, r), generator=gen, device="cuda").to(torch.bfloat16)
-           for r in (RK, RV)]
+           for r in (rk, rv)]
     return q, b_k, lat, [x.transpose(-1, -2).contiguous() for x in lat]
 
 
@@ -731,6 +764,183 @@ def check_decode_fp(gen) -> list:
               "library_call": SDPA_YARDSTICK, "timed": timed, **out})
         lines.append(out)
     return lines
+
+
+# the ranks a compressed 7B model's groups reach: 512 is group_dim (group
+# size 4, hd 128), 256 the uniform search at ratio 0.5
+BIG_RANKS = (256, 512)
+# (rk, rv) pairs of the `compress` phase's layers whose K rank ends in a
+# partial rank chunk (128 + 64, 256 + 32, 256 + 96, 384 + 32)
+PARTIAL_RANKS = ((192, 192), (288, 320), (352, 384), (416, 448))
+
+
+def _rot_overflows(rk: int) -> bool:
+    """JAX's int32 overflow check of int8_rot at FLAGSHIP's pack width and
+    hd 128 (palu_decode4.py:691): rk 280 and above raise."""
+    return 63 * 127 * (2**FLAGSHIP.pack_bits - 1) * rk * (HD // 2) >= 2**31
+
+
+def check_decode_ranks(gen) -> dict:
+    """Every decode kernel against its plain version at rk 256 and 512 with
+    rv 384 and 512, at the compress phase's (rk, rv) pairs whose last rank
+    chunk is partial (PARTIAL_RANKS), over two ragged lanes at S 8192:
+    palu_decode exact (3-bit in nibble containers, exact 3-bit, 4-bit asym)
+    and int8_dots; int8_rot below rk 280, and above it must raise (JAX's
+    int32 overflow check); palu_decode_fp, palu_decode_fp_t and
+    palu_decode_seq_quantized; and 16 q-heads per group (GQA) at rk = rv =
+    512. Then each one's device time at
+    batch 1, S 8192, rv 384 and rk 256 / 512 (the rk-128 times are those of
+    the kernel phases)."""
+    s_max = 8192
+    worst, cases = {}, 0
+
+    def held(name, what, got, want):
+        nonlocal cases
+        err, rel = _held_decode(f"{name} {what}", got, want)
+        w = worst.setdefault(name, [0.0, 0.0])
+        worst[name] = [max(w[0], rel), max(w[1], err)]
+        cases += 1
+
+    seq_q = QuantConfig(bits=3, group_size=0)  # run_latency_kernel --lt_bits 3
+    shapes = [(rk, rv, G, HPG) for rk in BIG_RANKS for rv in (RV, 512)]
+    shapes += [(rk, rv, G, HPG) for rk, rv in PARTIAL_RANKS]
+    shapes.append((512, 512, NH // 16, 16))
+    for rk, rv, g, hpg in shapes:
+        kv_len = torch.tensor((777, 8192), dtype=torch.int32, device="cuda")
+        what = f"rk {rk} rv {rv} hpg {hpg}"
+        for qcfg in (FLAGSHIP, QuantConfig(bits=3, sym=True), QuantConfig(bits=4, sym=False)):
+            q, b_k, bufs = _decode_inputs(qcfg, 2, g, hpg, s_max, gen, rv, rk)
+            kw = dict(qcfg=qcfg, rk=rk, rv=rv)
+            held("palu_decode", f"{what} {qcfg}", palu_decode(q, b_k, kv_len=kv_len, **bufs, **kw),
+                 palu_decode_ref(q, b_k, kv_len=kv_len, **bufs, **kw))
+            if qcfg == FLAGSHIP:
+                for mode in INT8_MODES:
+                    mk = dict(kw, block_s=512, **{mode: True})
+                    if mode == "int8_rot" and _rot_overflows(rk):
+                        try:
+                            palu_decode(q, b_k, kv_len=kv_len, **bufs, **mk)
+                        except ValueError:
+                            continue
+                        raise AssertionError(f"int8_rot at rk {rk} did not raise")
+                    held(f"palu_decode_{mode}", what,
+                         palu_decode(q, b_k, kv_len=kv_len, **bufs, **mk),
+                         palu_decode_ref(q, b_k, kv_len=kv_len, **bufs, **mk))
+            del q, b_k, bufs
+        q, b_k, seq, rank = _fp_inputs(2, g, hpg, s_max, gen, rk, rv)
+        held("palu_decode_fp", what, palu_decode_fp(q, b_k, *seq, kv_len),
+             palu_decode_fp_ref(q, b_k, *seq, kv_len))
+        held("palu_decode_fp_t", what, palu_decode_fp_t(q, b_k, *rank, kv_len),
+             palu_decode_fp_t_ref(q, b_k, *rank, kv_len))
+        del q, b_k, seq, rank
+        q, b_k, bufs = _seq_inputs(seq_q, 2, s_max, gen, rk, rv, g, hpg)
+        kw = dict(qcfg=seq_q, rk=rk, rv=rv)
+        held("palu_decode_seq_quantized", what,
+             palu_decode_seq_quantized(q, b_k, kv_len=kv_len, **bufs, **kw),
+             palu_decode_seq_quantized_ref(q, b_k, kv_len=kv_len, **bufs, **kw))
+        del q, b_k, bufs
+
+    times = {}
+    kv1 = torch.tensor([s_max], dtype=torch.int32, device="cuda")
+    for rk in BIG_RANKS:
+        t = times[f"rk{rk}"] = {}
+        q, b_k, bufs = _decode_inputs(FLAGSHIP, 1, G, HPG, s_max, gen, RV, rk)
+        kw = dict(qcfg=FLAGSHIP, rk=rk, rv=RV)
+        t["palu_decode"] = device_ms(lambda: palu_decode(q, b_k, kv_len=kv1, **bufs, **kw), 20)
+        for mode in INT8_MODES:
+            if mode == "int8_rot" and _rot_overflows(rk):
+                continue
+            t[f"palu_decode_{mode}"] = device_ms(lambda: palu_decode(
+                q, b_k, kv_len=kv1, **bufs, **kw, block_s=512, **{mode: True}), 20)
+        del q, b_k, bufs
+        q, b_k, seq, rank = _fp_inputs(1, G, HPG, s_max, gen, rk, RV)
+        t["palu_decode_fp"] = device_ms(lambda: palu_decode_fp(q, b_k, *seq, kv1), 20)
+        t["palu_decode_fp_t"] = device_ms(lambda: palu_decode_fp_t(q, b_k, *rank, kv1), 20)
+        del q, b_k, seq, rank
+        q, b_k, bufs = _seq_inputs(seq_q, 1, s_max, gen, rk, RV)
+        kw = dict(qcfg=seq_q, rk=rk, rv=RV)
+        t["palu_decode_seq_quantized"] = device_ms(
+            lambda: palu_decode_seq_quantized(q, b_k, kv_len=kv1, **bufs, **kw), 20)
+        del q, b_k, bufs
+    out = {"phase": "decode_ranks", "cases": cases, "tol": DECODE_TOL,
+           "max_rel_err": {k: v[0] for k, v in worst.items()},
+           "max_abs_err": {k: v[1] for k, v in worst.items()},
+           "partial_chunk_ranks": PARTIAL_RANKS,
+           "int8_rot_from_rk280": "raised ValueError (int32 overflow check)",
+           "b1_s8192_rv384_ms": times}
+    emit(out)
+    return out
+
+
+# Hadamard tolerances, as a share of max|plain| (plain in f32 on the same
+# input): f32 butterfly sums against the dense product's sums in another
+# order; a bf16 output is one bf16 rounding more, as PREFILL_TOL
+HAD_TOL = {torch.float32: 1e-5, torch.bfloat16: PREFILL_TOL}
+# the fuse_hadamard path's ranks: every multiple of 32 up to 512 covers each
+# K of get_hadK (1, 12, 28, 36, 40, 44, 52, 60)
+HAD_RANKS = tuple(range(32, 513, 32))
+
+
+def check_hadamard(gen) -> dict:
+    """hadamard_transform against its plain version in f32 on the same
+    input (TF32 off): f32 and bf16 at fuse_hadamard's shapes, VT_g^T (4096, r) and U_g (512, r), for r
+    in 128 / 256 / 352 / 384 / 480 / 512, (512, r) for every rank multiple
+    of 32 and n 4096, both orientations of H_K, and the JAX kernel test's
+    sizes (tests/test_fwht_kernel.py). Then device times at (4096, 256)
+    f32, the uniform 0.5 search's rank, and at the other path ranks, beside
+    the plain version's and one torch.matmul against the dense matrix."""
+    shapes = [(rows, r) for rows in (4096, 512) for r in (128, 256, 352, 384, 480, 512)]
+    shapes += [(512, r) for r in HAD_RANKS] + [(512, 4096), (37, 128), (37, 96), (37, 352),
+                                               (37, 1024), (3, 5, 128)]
+    worst = {str(dt): [0.0, 0.0] for dt in HAD_TOL}
+    cases = 0
+    for shape in shapes:
+        for dt, tol in HAD_TOL.items():
+            for transpose in ((False, True) if shape[-1] in (96, 352, 480) else (False,)):
+                x = torch.randn(shape, generator=gen, device="cuda").to(dt)
+                got = hadamard_transform(x, transpose=transpose)
+                want = hadamard_transform_ref(x.float(), transpose=transpose)
+                torch.cuda.synchronize()
+                err = (got.float() - want).abs().max().item()
+                rel = err / want.abs().max().item()
+                if not (got.dtype == dt and torch.isfinite(got).all() and rel <= tol):
+                    raise AssertionError(f"hadamard {shape} {dt} transpose {transpose}: "
+                                         f"rel err {rel}")
+                w = worst[str(dt)]
+                worst[str(dt)] = [max(w[0], rel), max(w[1], err)]
+                cases += 1
+    for n in (4097, 8192):
+        try:
+            hadamard_transform(torch.zeros((2, n), device="cuda"))
+        except ValueError:
+            continue
+        raise AssertionError(f"hadamard_transform took n {n} > {MAX_N}")
+
+    timed = {}
+    for rows, r in [(4096, 256), (512, 256), (4096, 128), (4096, 352), (4096, 480),
+                    (4096, 512)]:
+        x = torch.randn((rows, r), generator=gen, device="cuda")
+        h = torch.from_numpy(full_hadamard_matrix(r)).cuda()
+        _, k = get_hadK(r)
+        nbytes = 2 * rows * r * 4
+        f32_flops = rows * r * (math.log2(r // k) + k + 1)
+        bms, by = bound_ms(nbytes, 0.0, f32_flops=f32_flops)
+        timed[f"{rows}x{r}"] = {
+            "K": k, "ms": device_ms(lambda: hadamard_transform(x), 50),
+            "plain_ms": device_ms(lambda: hadamard_transform_ref(x), 20),
+            "library_ms": device_ms(lambda: torch.matmul(x, h.T), 50),
+            "bytes": nbytes, "f32_flops": f32_flops, "bound_ms": bms, "bound_by": by}
+    main = timed["4096x256"]
+    out = {"name": "hadamard_transform", "route": "cuda",
+           "source": "palu_tpu_torch/csrc/hadamard.cu",
+           "replaces": "palu_tpu/ops/pallas/fwht.py:56",
+           "max_abs_err": max(w[1] for w in worst.values()), "ms": main["ms"],
+           "kernel_ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+           "bound_by": main["bound_by"], "library_ms": main["library_ms"]}
+    emit({"phase": "kernel", "cases": cases, "tol": {str(k): v for k, v in HAD_TOL.items()},
+          "max_rel_err": {k: v[0] for k, v in worst.items()}, "timed": timed,
+          "library_call": "torch.matmul(x, H.T) against the dense f32 Hadamard matrix",
+          **out})
+    return out
 
 
 def _prefill_inputs(b, nh, nkv, cq, s, gen):
@@ -1523,6 +1733,258 @@ def phase_serve_bench_int8_rot() -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# 7. the compression path (palu_tpu_torch/compression, cli/compress)
+# ---------------------------------------------------------------------------
+
+COMPRESS_RATIO = 0.5  # fisher_uniform at 0.5: about half of group_dim (512) per group
+
+
+def dense7b(layers: int) -> ModelConfig:
+    """Llama-2-7B widths, dense k/v projections (no Palu ranks yet)."""
+    return dataclasses.replace(llama7b(layers), head_wise_ranks=None)
+
+
+@contextlib.contextmanager
+def _palu_cache_dir():
+    """PALU_CACHE_DIR in a temporary directory, so the Fisher and whiten
+    caches are neither read from nor written into the repository's own."""
+    old = os.environ.get("PALU_CACHE_DIR")
+    d = tempfile.mkdtemp(prefix="palu_cache_")
+    os.environ["PALU_CACHE_DIR"] = d
+    try:
+        yield d
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+        if old is None:
+            del os.environ["PALU_CACHE_DIR"]
+        else:
+            os.environ["PALU_CACHE_DIR"] = old
+
+
+def _compress_on_card(layers: int, hadamard=(True,)):
+    """A dense Llama-2-7B-width model (bf16, random from seed 0) on the
+    card, rank search (fisher_uniform at COMPRESS_RATIO, groups of 4) and
+    whitened G-LRD on synthetic calibration (4 batches of 512 tokens), once
+    per entry of `hadamard`. Returns ({hadamard: (params, cfg)}, the dense
+    params, seconds per step, the launch counts of each compression and
+    the rank search's print)."""
+    cfg = dense7b(layers)
+    params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                               dtype=torch.bfloat16)
+    calib = synthetic_batches(cfg.vocab_size, 4, 512)
+    secs = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        sel = search_ranks(params, cfg, COMPRESS_RATIO, "fisher_uniform", 4,
+                           calib_batches=calib)
+    torch.cuda.synchronize()
+    secs["fisher_and_search"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scales = whiten_scale_matrices(params, cfg, calib)
+    torch.cuda.synchronize()
+    secs["whiten"] = time.perf_counter() - t0
+    out, launches = {}, {}
+    for had in hadamard:
+        reset_counts()
+        t0 = time.perf_counter()
+        out[had] = compress_params(params, cfg, sel, "whiten", 4, whiten_scales=scales,
+                                   hadamard=had, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        secs[f"decompose{'_hadamard' if had else ''}"] = time.perf_counter() - t0
+        launches[had] = read_counts()
+    return out, params, secs, launches, printed.getvalue().strip()
+
+
+@contextlib.contextmanager
+def _engine_decode(fn):
+    """Engines run `fn` in place of ops/palu_decode.palu_decode inside."""
+    real = engine_mod.palu_decode
+    engine_mod.palu_decode = fn
+    try:
+        yield
+    finally:
+        engine_mod.palu_decode = real
+
+
+def _held_engine_decode(held: list, what: str):
+    """palu_decode that also runs palu_decode_ref on the same inputs (the
+    engine's own cache) and holds the kernel at DECODE_TOL, appending (rk,
+    rv, abs err, rel err) to `held`."""
+    def decode(*args, **kw):
+        got = palu_decode(*args, **kw)
+        held.append((kw["rk"], kw["rv"], *_held_decode(what, got, palu_decode_ref(*args, **kw))))
+        return got
+    return decode
+
+
+def phase_compress(layers: int = LAYERS) -> dict:
+    """The compression path end to end on the card at Llama-2-7B width:
+    dense model -> Fisher rank search (fisher_uniform) -> whitened G-LRD ->
+    Hadamard fusion (the FWHT kernel, 2 launches per group: 2 * 8 groups *
+    2 sides * layers, counts set to 0 just before and read just after the
+    decomposition) -> fused o_proj, then the compressed model served by
+    Engine over the 3-bit cache: a 1000-token prompt, 32 greedy tokens,
+    through palu_decode's kernel at group ranks above 128. One more decode
+    step over the served cache then holds each layer's palu_decode launch
+    at DECODE_TOL against palu_decode_ref on the same inputs: the model's
+    own ranks, 192-512, several ending in a partial rank chunk. Returns the
+    decomposition's counts."""
+    t_all = time.perf_counter()
+    with _palu_cache_dir():
+        comp, dense, secs, launches, printed = _compress_on_card(layers)
+    del dense
+    params, cfg = comp[True]
+    del comp
+    ranks = sorted({r for rs in cfg.head_wise_ranks.values() for r in rs})
+    want = {"hadamard_transform": 2 * G * 2 * layers}
+    _only(launches[True], want, "compress: decomposition")
+    if max(ranks) <= 128:
+        raise AssertionError(f"compress: ranks {ranks} hold none above 128")
+    torch.cuda.empty_cache()
+    eng, _ = _engine(cfg, {}, params=params)
+    t0 = time.perf_counter()
+    serve("compress", eng, _prompts(5, (1000,)), 32,
+          {"search": "fisher_uniform", "ratio": COMPRESS_RATIO, "decompose": "whiten",
+           "hadamard": True, "calibration": "synthetic_batches(32000, 4, 512)",
+           "rank_search_print": printed, "group_ranks": ranks,
+           "k_ranks_per_layer": [cfg.head_wise_ranks[f"model.layers.{i}.self_attn.k_proj"][0]
+                                 for i in range(layers)],
+           "v_ranks_per_layer": [cfg.head_wise_ranks[f"model.layers.{i}.self_attn.v_proj"][0]
+                                 for i in range(layers)],
+           "decomposition_launches": launches[True]})
+    secs["serve"] = time.perf_counter() - t0
+    held = []
+    with _engine_decode(_held_engine_decode(held, "compress: the served model's palu_decode")):
+        eng.decode(np.zeros((1, 1), np.int64), eng.last_cache)
+    pairs = sorted({h[:2] for h in held})
+    emit({"phase": "compress_decode_held", "layers": layers, "calls": len(held),
+          "context": int(eng.last_cache["length"][0]), "rk_rv": pairs, "tol": DECODE_TOL,
+          "max_rel_err": max(h[3] for h in held), "max_abs_err": max(h[2] for h in held)})
+    if len(held) != layers or not any(rk % 128 for rk, _ in pairs):
+        raise AssertionError(f"compress: held {len(held)} decode calls at {pairs}")
+    emit({"phase": "compress_time", "layers": layers, "seconds": secs,
+          "phase_s": time.perf_counter() - t_all})
+    del eng, params
+    torch.cuda.empty_cache()
+    return launches[True]
+
+
+def phase_compress_check() -> None:
+    """The numbers at 2 layers of the same width, a 1024-token prompt and 15
+    teacher-forced steps: compress_params with and without Hadamard fusion
+    give forward logits on the card within E2E_TOL of each other (the
+    rotation cancels in U VT^T: JAX's
+    test_compress_with_hadamard_preserves_logits); the card's engine over
+    the fused params and unquantized latents (palu_decode_fp, group ranks
+    up to 512) gives per-step logits within E2E_TOL of the port's f32 CPU
+    forward of the same params. Over the 3-bit cache, every palu_decode
+    launch of the card's engine is held at DECODE_TOL against palu_decode_ref
+    on the same inputs (the card's own cache, at the model's ranks), and
+    its per-step logits within E2E_TOL of an engine on the card that runs
+    palu_decode_ref in its place. The 3-bit engines against the CPU's f32
+    engine and forward are reported, not held: at these random whitened
+    factors the 3-bit cache's own error is most of max|logits| (the JAX
+    engine's too, tests/test_torch_compression.py)."""
+    with _palu_cache_dir():
+        comp, dense, secs, launches, _ = _compress_on_card(2, hadamard=(True, False))
+    del dense
+    (had, cfg), (plain, _) = comp[True], comp[False]
+    ids = np.random.default_rng(6).integers(0, VOCAB, (1, 1024))
+    forced = np.random.default_rng(7).integers(0, VOCAB, 15)
+    full = torch.as_tensor(np.concatenate([ids, forced[None, :]], 1), device="cuda")
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    had_cpu = _tree_to(had, "cpu", torch.float32)
+    with torch.no_grad():
+        had_rel = rel(llama.forward(had, full, cfg).float(),
+                      llama.forward(plain, full, cfg).float())
+        fwd = llama.forward(had_cpu, full.cpu(), cfg)[:, 1023:]
+    held = []
+    decode_held = _held_engine_decode(held, "compress_check: the 3-bit engine's palu_decode")
+    ecfg = EngineConfig(s_max=2048, batch=1, qcfg=None, decode_chunk=512)
+    runs = {}
+    for tag, qcfg, decode in (("fp", None, palu_decode), ("3bit", FLAGSHIP, decode_held),
+                              ("3bit_plain_decode", FLAGSHIP, palu_decode_ref)):
+        with _engine_decode(decode):
+            gpu = Engine(had, cfg, dataclasses.replace(ecfg, qcfg=qcfg))
+            runs[tag] = (_stepwise(gpu, ids, forced)[0], sorted(gpu._decode_paths))
+        del gpu
+    cpu = Engine(had_cpu, cfg,
+                 dataclasses.replace(ecfg, qcfg=FLAGSHIP, dtype=torch.float32, device="cpu"))
+    cpu3 = _stepwise(cpu, ids, forced)[0]
+    fp_rel, plain3_rel = rel(runs["fp"][0], fwd), rel(runs["3bit"][0], runs["3bit_plain_decode"][0])
+    emit({"phase": "compress_check", "layers": 2, "prompt": 1024, "steps": 15,
+          "hadamard_vs_plain_forward_max_rel_err": had_rel, "tol": E2E_TOL,
+          "engine_fp_card_vs_cpu_f32_forward_max_rel_err": fp_rel,
+          "engine_3bit_decode_calls_held": len(held), "decode_tol": DECODE_TOL,
+          "engine_3bit_decode_vs_plain_max_rel_err": max(h[3] for h in held),
+          "engine_3bit_decode_vs_plain_max_abs_err": max(h[2] for h in held),
+          "engine_3bit_vs_plain_decode_engine_max_rel_err": plain3_rel,
+          "reported_engine_3bit_card_vs_cpu_f32_engine_max_rel_err": rel(runs["3bit"][0], cpu3),
+          "reported_engine_3bit_cpu_f32_vs_forward_max_rel_err": rel(cpu3, fwd),
+          "top1_agreement_3bit_vs_cpu": (runs["3bit"][0].argmax(-1) == cpu3.argmax(-1)).float()
+          .mean().item(),
+          "gpu_decode_paths": {k: v[1] for k, v in runs.items()},
+          "group_ranks": sorted({r for rs in cfg.head_wise_ranks.values() for r in rs}),
+          "seconds": secs, "decomposition_launches": launches})
+    if not (math.isfinite(had_rel) and had_rel <= E2E_TOL):
+        raise AssertionError(f"compress_check: Hadamard vs plain logits rel err {had_rel}")
+    if not (torch.isfinite(runs["fp"][0]).all() and fp_rel <= E2E_TOL):
+        raise AssertionError(f"compress_check: card engine vs CPU forward rel err {fp_rel}")
+    if len(held) != 2 * 15:  # 2 layers x 15 decode steps
+        raise AssertionError(f"compress_check: {len(held)} palu_decode calls held, not 30")
+    if not (torch.isfinite(runs["3bit"][0]).all() and plain3_rel <= E2E_TOL):
+        raise AssertionError(f"compress_check: 3-bit engine vs the plain-decode engine rel "
+                             f"err {plain3_rel}")
+    if runs["fp"][1] != ["palu_decode_fp-kernel"] or runs["3bit"][1] != ["palu_decode-kernel"]:
+        raise AssertionError(f"compress_check: GPU engines took {runs}")
+
+
+def phase_compress_cli() -> None:
+    """cli.compress as a user runs it: hf_io.save_checkpoint writes a
+    2-layer 7B-width dense checkpoint (f16, the port's own safetensors
+    writer), `python -m palu_tpu_torch.cli.compress --search_method uniform
+    --decompose_method svd --hadamard --param_ratio_target 0.5` compresses
+    it in a subprocess (default output directory), hf_io.load_params reads
+    the result back (rank 256 in every group) and the engine serves it."""
+    root = Path(__file__).resolve().parent
+    with _palu_cache_dir() as d:
+        src = os.path.join(d, "llama-2-7b-width-2-layers")
+        cfg = dense7b(2)
+        params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                   dtype=torch.bfloat16)
+        t0 = time.perf_counter()
+        hf_io.save_checkpoint(params, cfg, src)
+        save_s = time.perf_counter() - t0
+        del params
+        argv = ["--model_name_or_path", src, "--search_method", "uniform",
+                "--decompose_method", "svd", "--hadamard", "--param_ratio_target", "0.5"]
+        env = dict(os.environ, PYTHONPATH=str(root))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "palu_tpu_torch.cli.compress", *argv],
+                              cwd=d, env=env, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        out_dir = os.path.join(d, "llama-2-7b-width-2-layers_ratio-0.5_gs-4-uniform")
+        if proc.returncode != 0:
+            raise AssertionError(f"cli.compress exited {proc.returncode}: {proc.stderr[-3000:]}")
+        params, ccfg = hf_io.load_params(out_dir)
+        ranks = {r for rs in ccfg.head_wise_ranks.values() for r in rs}
+        eng, _ = _engine(ccfg, {}, params=params, s_max=2048)
+        serve("compress_cli", eng, _prompts(8, (512,)), 8,
+              {"argv": argv, "returncode": proc.returncode, "stdout": proc.stdout.strip(),
+               "group_ranks": sorted(ranks), "checkpoint_bytes": os.path.getsize(
+                   os.path.join(src, "model.safetensors")),
+               "save_s": save_s, "cli_s": cli_s})
+        if ranks != {256}:
+            raise AssertionError(f"compress_cli: ranks {ranks}, expected 256 in every group")
+        del eng, params
+    torch.cuda.empty_cache()
+
+
 def _breakdown(prof, wall_ms: float, per: int) -> dict:
     kernels = [(e.key, e.self_device_time_total / 1e3 / per, e.count // per)
                for e in _device_events(prof)]
@@ -1574,7 +2036,9 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     kernels = [check_append(gen), check_decode(gen), *check_decode_int8(gen),
                check_decode_seq(gen), *check_decode_fp(gen), check_prefill(gen),
-               check_gemv(gen, 4), check_mlp(gen, 4), check_gemv(gen, 8), check_mlp(gen, 8)]
+               check_gemv(gen, 4), check_mlp(gen, 4), check_gemv(gen, 8), check_mlp(gen, 8),
+               check_hadamard(gen)]
+    check_decode_ranks(gen)
     check_dense_sdpa(gen)
     phase_e2e()
     phase_e2e("e2e_w4", W4)
@@ -1588,12 +2052,16 @@ def main() -> int:
     launches_lk = phase_latency_kernel()
     launches_attn = phase_latency_attention()
     phase_serve_bench_int8_rot()
+    launches_compress = phase_compress()
+    phase_compress_check()
+    phase_compress_cli()
     # each kernel's launches on the run of its path: the bf16 serve for the
     # quantized cache's and the prefill kernels, serve_fp for the rank-major
     # fp decode, serving for the seq-major fp decode, serve_w4 for the int4
     # GEMVs and the int8 VT GEMV, serve_w8 for the int8 MLP, the 3-bit
-    # run_latency_kernel for the seq-major packed decode, and the 1-layer
-    # run_latency_attention runs for the int8 modes
+    # run_latency_kernel for the seq-major packed decode, the 1-layer
+    # run_latency_attention runs for the int8 modes, and the compress
+    # phase's decomposition for the Hadamard transform
     source = {"cache_append": ("append_token_quantized", launches),
               "palu_decode": ("palu_decode", launches),
               "palu_decode_int8_dots": ("palu_decode_int8_dots",
@@ -1607,7 +2075,8 @@ def main() -> int:
               "gemv_int4": ("gemv_int4", launches_w4),
               "mlp_gemv_int4": ("mlp_gemv_int4", launches_w4),
               "gemv_int8": ("gemv_int8", launches_w4),
-              "mlp_gemv_int8": ("mlp_gemv_int8", launches_w8)}
+              "mlp_gemv_int8": ("mlp_gemv_int8", launches_w8),
+              "hadamard_transform": ("hadamard_transform", launches_compress)}
     for k in kernels:
         counter, run = source[k["name"]]
         k["launches"] = run[counter]

@@ -3,8 +3,10 @@
 The JAX package's params are a pytree of dicts and lists with array leaves;
 `jax.tree.map(np.asarray, params)` turns it into numpy leaves, which
 `params_from_numpy` turns into the port's tree of tensors (same keys, same
-layouts). `config_from_dict` takes `dataclasses.asdict` of a JAX
-ModelConfig. Neither function imports JAX: the caller hands over numpy.
+layouts; ragged U tuples stay tuples). `config_from_dict` takes
+`dataclasses.asdict` of a JAX ModelConfig, and `lowrank_from_numpy` the
+fields of a JAX LowRankWeights. None of them imports JAX: the caller hands
+over numpy.
 """
 
 from __future__ import annotations
@@ -14,9 +16,10 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from .core.lowrank import LowRankWeights
 from .models.config import ModelConfig
 
-__all__ = ["params_from_numpy", "config_from_dict"]
+__all__ = ["params_from_numpy", "config_from_dict", "lowrank_from_numpy"]
 
 
 # f32 scales of quantized weights (core/wquant), kept f32 whatever `dtype`
@@ -45,3 +48,13 @@ def params_from_numpy(tree: Any, device="cuda", dtype=None) -> Any:
 def config_from_dict(d: Dict[str, Any]) -> ModelConfig:
     """The port's ModelConfig from the fields of a JAX ModelConfig."""
     return ModelConfig(**d)
+
+
+def lowrank_from_numpy(VT, U_list, ranks, bias=None, device="cpu") -> LowRankWeights:
+    """The port's LowRankWeights from a JAX LowRankWeights' fields (numpy
+    VT (sum(ranks), in), per-group U (group_dim, r_g), ranks, bias)."""
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return LowRankWeights(VT=t(VT), U=[t(u) for u in U_list], ranks=list(ranks),
+                          bias=None if bias is None else [t(b) for b in bias])

@@ -29,8 +29,16 @@
 // tokens: 16-byte loads bring the packed K and V byte rows and the rope
 // rows into shared memory, a per-block table of each rank's byte row and
 // shift turns unpacking into lookups and shifts, and the K codes are
-// unpacked once as a bf16 (rk x 64) tile. Per head, K (64 tokens x hd) =
-// codes^T . B_h runs as mma.sync m16n8k16 (bf16 in, f32 accumulate): warp w
+// unpacked as a bf16 (ranks x 64) tile. Ranks above 128 (a G-LRD group
+// reaches 512 at group size 4 and hd 128) run in rank chunks of at most 128:
+// B_h for 4 heads at rk 512 is 512 KB, beyond a block's 227 KB, and the
+// A fragments of all k-steps would not fit in registers either. RoPE and
+// the q dot are linear in K, so each chunk's partial K (codes of its ranks
+// times its rows of B) is rotated and dotted in registers and its partial
+// logits are summed in f32 across chunks; the chunk's B rows stream through
+// the buffer that holds all of B when it fits (then it is staged once per
+// block). Per head, K (64 tokens x hd) = codes^T . B_h runs as mma.sync
+// m16n8k16 (bf16 in, f32 accumulate): warp w
 // takes 16 tokens and matching quarters of both halves of hd, so the two
 // halves of each RoPE pair sit in one thread's accumulators; RoPE and the
 // q dot run on them in registers and quad shuffles finish each partial
@@ -48,11 +56,13 @@
 // bq1 = a1 B1^T + a2 B2^T and bq2 = a2 B1^T - a1 B2^T, (hd/2, rk) per head
 // each, quantized to int8 per row (int8_dots) or per head and half
 // (int8_rot). The block builds them when its tile walk enters a new
-// rotation block, from B in global memory (L2-resident: 128 KB per group),
-// into shared memory as one int8 (hd, rk) operand per head, with their
+// rotation block, from B in global memory (L2-resident: 128 KB per group at
+// rk 128), into shared memory as one int8 (hd, rk) operand per head (at rk
+// 512 one head's operand is 66 KB: fewer heads per chunk), with their
 // scales and the scaled row sums of the quantized operand (the zero
 // correction). Unsigned codes, unpacked once per tile as an int8 (64 x rk)
-// tile, meet the operand in mma.sync m16n8k32 s8 x s8 -> s32: u and v land
+// tile, meet the operand in mma.sync m16n8k32 s8 x s8 -> s32 (the A
+// fragments of ranks past 128 loaded per k-step): u and v land
 // in one thread's accumulators for the same frequency, exactly as K's two
 // RoPE halves do in the exact mode. int8_dots then rotates in f32 against
 // the block-relative tables (rcos/rsin); int8_rot rotates in int32 against
@@ -87,7 +97,9 @@ constexpr int kTile = 64;      // tokens per tile
 constexpr int kThreads = 256;  // threads per block
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxHeads = 16;  // q-heads per group
-constexpr int kMaxKSteps = 8;  // rk / 16, rk <= 128
+constexpr int kMaxKSteps = 8;  // k-steps of one rank chunk held in registers
+constexpr int kRc = 16 * kMaxKSteps;  // the largest rank chunk, 128
+constexpr int kMaxRank = 512;  // rk limit: a G-LRD group's rank at hd 128, group 4
 constexpr int kByteStride = kTile + 4;  // padded byte rows: odd word stride
 // padded rows (16 bytes) of the bf16 code tile and of B, so the eight row
 // addresses of one ldmatrix fall on distinct banks
@@ -120,6 +132,7 @@ struct DecodeArgs {
   float* part_acc;             // (B, nh, splits, rv)
   int G, hpg, rk, rv, S, nrk, nrv, pbits, qoff, asym, window;
   int splits, tiles_per_split, chunk_heads, block_s;
+  int rc;                      // exact mode: ranks per chunk (rk when one chunk)
   float sqrt_hd, i8r_inv;
 };
 
@@ -144,6 +157,31 @@ __device__ __forceinline__ uint32_t rank_entry(int r, int n, int pbits) {
   }
   const int w = n / (8 / pbits);
   return static_cast<uint32_t>(r % w) | (static_cast<uint32_t>(pbits * (r / w)) << 12);
+}
+
+// The mma A fragment of int8 codes at ra (this lane's first byte of a
+// 16-token x 32-rank k-step; rows of `stride` bytes).
+__device__ __forceinline__ void load_a8(uint32_t (&a)[4], const int8_t* ra, int stride) {
+  a[0] = *reinterpret_cast<const uint32_t*>(ra);
+  a[1] = *reinterpret_cast<const uint32_t*>(ra + 8 * stride);
+  a[2] = *reinterpret_cast<const uint32_t*>(ra + 16);
+  a[3] = *reinterpret_cast<const uint32_t*>(ra + 8 * stride + 16);
+}
+
+// One k-step of the int8 dots: acc[p] += codes . operand rows of column
+// tile p (u), acc[NTW + p] the same rows `vofs` bytes on (v); rb is this
+// lane's first operand byte of tile 0 at this k-step.
+template <int NTW>
+__device__ __forceinline__ void s8_dots(int (&acc)[2 * NTW][4], const uint32_t (&a)[4],
+                                        const int8_t* rb, int stride, int vofs) {
+#pragma unroll
+  for (int p = 0; p < NTW; ++p) {
+    const int8_t* u = rb + p * 8 * stride;
+    mma_s8(acc[p], a, *reinterpret_cast<const uint32_t*>(u),
+           *reinterpret_cast<const uint32_t*>(u + 16));
+    mma_s8(acc[NTW + p], a, *reinterpret_cast<const uint32_t*>(u + vofs),
+           *reinterpret_cast<const uint32_t*>(u + vofs + 16));
+  }
 }
 
 // Code at column t of a (rows, stride) byte tile for a rank_entry.
@@ -180,22 +218,24 @@ struct SplitLayout {
       sk, stat, total;
 };
 
-// mode 0 stages B in bf16 and a bf16 code tile; modes 1 and 2 the int8
-// operand (chunk heads x hd rows of rk bytes) with its five per-row f32 /
-// int arrays (a1|a2, row max, scale, row sum, scaled row sum) and an int8
-// code tile; mode 2 also the int8 rotation rows of the tile.
+// mode 0 stages rc ranks of B in bf16 and a bf16 code tile of rc ranks;
+// modes 1 and 2 the int8 operand (chunk heads x hd rows of rk bytes) with
+// its five per-row f32 / int arrays (a1|a2, row max, scale, row sum, scaled
+// row sum) and an int8 code tile; mode 2 also the int8 rotation rows of
+// the tile.
 __host__ __device__ inline SplitLayout split_layout(int rk, int hd, int hpg, int rv, int nrk,
-                                                    int nrv, int asym, int chunk, int mode) {
+                                                    int nrv, int asym, int chunk, int mode,
+                                                    int rc) {
   const size_t rope = sizeof(float) * kTile * (hd / 2 + 1);
   const size_t i8row = static_cast<size_t>(rk + kI8Pad);
   SplitLayout L;
   size_t off = 0;
   L.bsm = off;
-  off = al(off + (mode == 0 ? sizeof(__nv_bfloat16) * chunk * rk * (hd + kBPad)
+  off = al(off + (mode == 0 ? sizeof(__nv_bfloat16) * chunk * rc * (hd + kBPad)
                             : i8row * chunk * hd));
   L.op = off;     off = al(off + (mode == 0 ? 0 : sizeof(float) * 5 * chunk * hd));
   L.ck = off;
-  off = al(off + (mode == 0 ? sizeof(__nv_bfloat16) * rk * kCk : i8row * kTile));
+  off = al(off + (mode == 0 ? sizeof(__nv_bfloat16) * rc * kCk : i8row * kTile));
   L.cos = off;    off = al(off + rope);
   L.sin = off;    off = al(off + rope);
   L.c8 = off;     off = al(off + (mode == 2 ? static_cast<size_t>(kTile) * (hd / 2) : 0));
@@ -227,17 +267,18 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int fg = lane / 4, ft = lane % 4;  // mma fragment row group / column pair
   const int mi = lane / 8, ri = lane % 8;  // ldmatrix tile / row of this lane
-  const int hpg = a.hpg, rk = a.rk, rv = a.rv, nks = rk / 16;
+  const int hpg = a.hpg, rk = a.rk, rv = a.rv, nks = rk / 16;  // nks: int8 modes
   const int nh = a.G * hpg;
   const int m0 = (warp & 3) * 16;    // this warp's 16 tokens of the tile
   const int jw = (warp >> 2) * NTW;  // its first column tile in each half of hd
 
   extern __shared__ __align__(128) unsigned char smem[];
   const SplitLayout L =
-      split_layout(rk, HD, hpg, rv, a.nrk, a.nrv, a.asym, a.chunk_heads, MODE);
+      split_layout(rk, HD, hpg, rv, a.nrk, a.nrv, a.asym, a.chunk_heads, MODE, a.rc);
   const int i8s = rk + kI8Pad;  // int8 row stride (operand and code tile)
-  __nv_bfloat16* bsm = reinterpret_cast<__nv_bfloat16*>(smem + L.bsm);  // [chunk][rk][HS]
-  __nv_bfloat16* ck = reinterpret_cast<__nv_bfloat16*>(smem + L.ck);    // [rk][kCk]
+  const int rc = a.rc, nrc = (rk + rc - 1) / rc;  // exact mode's rank chunks
+  __nv_bfloat16* bsm = reinterpret_cast<__nv_bfloat16*>(smem + L.bsm);  // [chunk][rc][HS]
+  __nv_bfloat16* ck = reinterpret_cast<__nv_bfloat16*>(smem + L.ck);    // [rc][kCk]
   float* cos_s = reinterpret_cast<float*>(smem + L.cos);                // [kTile][cs]
   float* sin_s = reinterpret_cast<float*>(smem + L.sin);
   uint8_t* kbytes = smem + L.kbytes;                                    // [nrk][kByteStride]
@@ -314,7 +355,7 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
   for (int c0 = 0; c0 < hpg && t_begin < t_end; c0 += a.chunk_heads) {
     const int nc = min(a.chunk_heads, hpg - c0);
     __syncthreads();  // set-up done / the previous chunk's B reads done
-    if (MODE == 0) {
+    if (MODE == 0 && nrc == 1) {  // all of B fits: staged once
       for (int i = tid; i < nc * rk * (HD / 8); i += kThreads) {
         const int row = i / (HD / 8), c = i % (HD / 8);  // row = head * rk + rank
         cp_async16(bsm + row * HS + c * 8,
@@ -432,55 +473,40 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
         }
       }
       __syncthreads();
-      if (MODE == 0) {
-        // K codes -> bf16 (rk x kTile), re-centred for sym; exact in bf16
-        for (int i = tid; i < rk * kTile; i += kThreads) {
-          const int r = i / kTile, t = i % kTile;
-          ck[r * kCk + t] = __float2bfloat16(static_cast<float>(
-              unpack_code(kbytes, kByteStride, t, ktab[r], a.pbits) - a.qoff));
-        }
-      } else {
+      if (MODE != 0) {
         // raw unsigned K codes -> int8 [token][rank]
         for (int i = tid; i < rk * kTile; i += kThreads) {
           const int t = i / rk, r = i % rk;
           ck8[t * i8s + r] =
               static_cast<int8_t>(unpack_code(kbytes, kByteStride, t, ktab[r], a.pbits));
         }
+        __syncthreads();
       }
-      __syncthreads();
       const int tok_a = m0 + fg, tok_b = tok_a + 8;  // accumulator rows of this lane
 
       if (MODE != 0) {
-        // ---- int8 modes: per head u|v (tokens x hd) = codes^T . operand^T
+        // ---- int8 modes: per head u|v (tokens x hd) = codes^T . operand^T.
+        // The A fragments (codes, 16 tokens x 32 ranks) of the first 128
+        // ranks stay in registers for all heads; higher ranks' load per
+        // k-step from shared memory
+        const int8_t* ra = ck8 + (m0 + fg) * i8s + 4 * ft;
         uint32_t a8[kMaxKSteps / 2][4];
 #pragma unroll
-        for (int ks = 0; ks < kMaxKSteps / 2; ++ks) {
-          if (ks < nks / 2) {
-            const int8_t* ra = ck8 + (m0 + fg) * i8s + ks * 32 + 4 * ft;
-            a8[ks][0] = *reinterpret_cast<const uint32_t*>(ra);
-            a8[ks][1] = *reinterpret_cast<const uint32_t*>(ra + 8 * i8s);
-            a8[ks][2] = *reinterpret_cast<const uint32_t*>(ra + 16);
-            a8[ks][3] = *reinterpret_cast<const uint32_t*>(ra + 8 * i8s + 16);
-          }
-        }
+        for (int ks = 0; ks < kMaxKSteps / 2; ++ks)
+          if (ks < nks / 2) load_a8(a8[ks], ra + ks * 32, i8s);
         for (int hc = 0; hc < nc; ++hc) {
           const int h = c0 + hc;
+          const int8_t* nqh = nq + (hc * HD + jw * 8 + fg) * i8s + 4 * ft;
           int acc[2 * NTW][4];
 #pragma unroll
           for (int j = 0; j < 2 * NTW; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
 #pragma unroll
-          for (int ks = 0; ks < kMaxKSteps / 2; ++ks) {
-            if (ks < nks / 2) {
-#pragma unroll
-              for (int p = 0; p < NTW; ++p) {
-                const int8_t* rb = nq + (hc * HD + (jw + p) * 8 + fg) * i8s + ks * 32 + 4 * ft;
-                mma_s8(acc[p], a8[ks], *reinterpret_cast<const uint32_t*>(rb),
-                       *reinterpret_cast<const uint32_t*>(rb + 16));
-                const int8_t* rv2 = rb + half * i8s;
-                mma_s8(acc[NTW + p], a8[ks], *reinterpret_cast<const uint32_t*>(rv2),
-                       *reinterpret_cast<const uint32_t*>(rv2 + 16));
-              }
-            }
+          for (int ks = 0; ks < kMaxKSteps / 2; ++ks)
+            if (ks < nks / 2) s8_dots<NTW>(acc, a8[ks], nqh + ks * 32, i8s, half * i8s);
+          for (int ks = kMaxKSteps / 2; ks < nks / 2; ++ks) {
+            uint32_t at[4];
+            load_a8(at, ra + ks * 32, i8s);
+            s8_dots<NTW>(acc, at, nqh + ks * 32, i8s, half * i8s);
           }
           // acc[j]: u at frequency (jw + j) * 8 + ...; acc[NTW + j]: v there
           float pa = 0.0f, pb = 0.0f, ca = 0.0f, cb = 0.0f;
@@ -551,83 +577,105 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
           }
         }
       } else {
-
-      // A fragments: codes^T (16 tokens x 16 ranks) per k-step, shared by
-      // the heads; the code tile is stored [rank][token], hence .trans
-      uint32_t af[kMaxKSteps][4];
-#pragma unroll
-      for (int ks = 0; ks < kMaxKSteps; ++ks)
-        if (ks < nks)
-          ldmatrix_x4_trans(af[ks],
-                            ck + (ks * 16 + ri + (mi >> 1) * 8) * kCk + m0 + (mi & 1) * 8);
-
-      // ---- per head: K_h (tokens x hd) = codes^T B_h, then RoPE + q . K
-      const float sk_a = sk[tok_a], sk_b = sk[tok_b], zk_a = zk[tok_a], zk_b = zk[tok_b];
-      for (int hc = 0; hc < nc; ++hc) {
-        const int h = c0 + hc;
-        const __nv_bfloat16* bh = bsm + static_cast<size_t>(hc) * rk * HS;
-        // acc[j]: column tile jw + j (first half of hd); acc[NTW + j]: tile
-        // NTH + jw + j, its RoPE partner in the second half
-        float acc[2 * NTW][4];
-#pragma unroll
-        for (int j = 0; j < 2 * NTW; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
-#pragma unroll
-        for (int ks = 0; ks < kMaxKSteps; ++ks) {
-          if (ks < nks) {
-            const __nv_bfloat16* brow = bh + (ks * 16 + ri + (mi & 1) * 8) * HS + (mi >> 1) * 8;
-#pragma unroll
-            for (int p = 0; p < NTW; p += 2) {
-              uint32_t bf[4];
-              ldmatrix_x4_trans(bf, brow + (jw + p) * 8);
-              mma_bf16(acc[p], af[ks], bf[0], bf[1]);
-              mma_bf16(acc[p + 1], af[ks], bf[2], bf[3]);
-              ldmatrix_x4_trans(bf, brow + (NTH + jw + p) * 8);
-              mma_bf16(acc[NTW + p], af[ks], bf[0], bf[1]);
-              mma_bf16(acc[NTW + p + 1], af[ks], bf[2], bf[3]);
+        const float sk_a = sk[tok_a], sk_b = sk[tok_b], zk_a = zk[tok_a], zk_b = zk[tok_b];
+        for (int ci = 0; ci < nrc; ++ci) {
+          // ---- rank chunk ci: ranks [r0, r0 + nr)
+          const int r0 = ci * rc, nr = min(rc, rk - r0), nkc = nr / 16;
+          if (ci > 0) __syncthreads();  // the previous chunk's reads of B and codes done
+          if (nrc > 1) {  // stream this chunk's rows of B for the chunk's heads
+            const int per_head = nr * (HD / 8);
+            for (int i = tid; i < nc * per_head; i += kThreads) {
+              const int hh = i / per_head, row = (i % per_head) / (HD / 8), c = i % (HD / 8);
+              cp_async16(bsm + (hh * rc + row) * HS + c * 8,
+                         bk_g + (static_cast<size_t>(c0 + hh) * rk + r0 + row) * HD + c * 8);
             }
           }
-        }
-        const float* qh = q_s + h * HD;
-        const float* rsh = rs_b + h * HD;
-        float part_a = 0.0f, part_b = 0.0f;
-#pragma unroll
-        for (int j = 0; j < NTW; ++j) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int d = (jw + j) * 8 + 2 * ft + e;
-            const float q1 = qh[d], q2 = qh[d + half];
-            float k1 = acc[j][e] * sk_a, k2 = acc[NTW + j][e] * sk_a;
-            float l1 = acc[j][e + 2] * sk_b, l2 = acc[NTW + j][e + 2] * sk_b;
-            if (a.asym) {  // rs_b exists only for asym caches
-              k1 += zk_a * rsh[d];
-              k2 += zk_a * rsh[d + half];
-              l1 += zk_b * rsh[d];
-              l2 += zk_b * rsh[d + half];
-            }
-            float c = cos_s[tok_a * cs + d], s = sin_s[tok_a * cs + d];
-            part_a += q1 * (k1 * c - k2 * s) + q2 * (k2 * c + k1 * s);
-            c = cos_s[tok_b * cs + d];
-            s = sin_s[tok_b * cs + d];
-            part_b += q1 * (l1 * c - l2 * s) + q2 * (l2 * c + l1 * s);
+          // K codes -> bf16 (nr x kTile), re-centred for sym; exact in bf16
+          for (int i = tid; i < nr * kTile; i += kThreads) {
+            const int r = i / kTile, t = i % kTile;
+            ck[r * kCk + t] = __float2bfloat16(static_cast<float>(
+                unpack_code(kbytes, kByteStride, t, ktab[r0 + r], a.pbits) - a.qoff));
           }
-        }
-        part_a += __shfl_xor_sync(0xffffffffu, part_a, 1);
-        part_a += __shfl_xor_sync(0xffffffffu, part_a, 2);
-        part_b += __shfl_xor_sync(0xffffffffu, part_b, 1);
-        part_b += __shfl_xor_sync(0xffffffffu, part_b, 2);
-        // two warps hold each token's partial logits; buffers alternate by
-        // head parity so one barrier per head suffices
-        float* rh = red + ((hc & 1) * 2 + (warp >> 2)) * kTile;
-        if (ft == 0) {
-          rh[tok_a] = part_a;
-          rh[tok_b] = part_b;
-        }
-        __syncthreads();
-        if (tid < kTile) {
-          const float* r2 = red + (hc & 1) * 2 * kTile;
-          lg[h * kTile + tid] = (r2[tid] + r2[kTile + tid]) / a.sqrt_hd;
-        }
-      }
+          if (nrc > 1) cp_async_wait_all();
+          __syncthreads();
+
+          // A fragments: codes^T (16 tokens x 16 ranks) per k-step, shared by
+          // the heads; the code tile is stored [rank][token], hence .trans
+          uint32_t af[kMaxKSteps][4];
+#pragma unroll
+          for (int ks = 0; ks < kMaxKSteps; ++ks)
+            if (ks < nkc)
+              ldmatrix_x4_trans(af[ks],
+                                ck + (ks * 16 + ri + (mi >> 1) * 8) * kCk + m0 + (mi & 1) * 8);
+
+          // ---- per head: K_h (tokens x hd) = codes^T B_h, then RoPE + q . K
+          for (int hc = 0; hc < nc; ++hc) {
+            const int h = c0 + hc;
+            const __nv_bfloat16* bh = bsm + static_cast<size_t>(hc) * rc * HS;
+            // acc[j]: column tile jw + j (first half of hd); acc[NTW + j]: tile
+            // NTH + jw + j, its RoPE partner in the second half
+            float acc[2 * NTW][4];
+#pragma unroll
+            for (int j = 0; j < 2 * NTW; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+#pragma unroll
+            for (int ks = 0; ks < kMaxKSteps; ++ks) {
+              if (ks < nkc) {
+                const __nv_bfloat16* brow = bh + (ks * 16 + ri + (mi & 1) * 8) * HS + (mi >> 1) * 8;
+#pragma unroll
+                for (int p = 0; p < NTW; p += 2) {
+                  uint32_t bf[4];
+                  ldmatrix_x4_trans(bf, brow + (jw + p) * 8);
+                  mma_bf16(acc[p], af[ks], bf[0], bf[1]);
+                  mma_bf16(acc[p + 1], af[ks], bf[2], bf[3]);
+                  ldmatrix_x4_trans(bf, brow + (NTH + jw + p) * 8);
+                  mma_bf16(acc[NTW + p], af[ks], bf[0], bf[1]);
+                  mma_bf16(acc[NTW + p + 1], af[ks], bf[2], bf[3]);
+                }
+              }
+            }
+            const float* qh = q_s + h * HD;
+            const float* rsh = rs_b + h * HD;
+            float part_a = 0.0f, part_b = 0.0f;
+#pragma unroll
+            for (int j = 0; j < NTW; ++j) {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int d = (jw + j) * 8 + 2 * ft + e;
+                const float q1 = qh[d], q2 = qh[d + half];
+                float k1 = acc[j][e] * sk_a, k2 = acc[NTW + j][e] * sk_a;
+                float l1 = acc[j][e + 2] * sk_b, l2 = acc[NTW + j][e + 2] * sk_b;
+                if (a.asym && ci == 0) {  // rs_b (all ranks) exists only for asym caches
+                  k1 += zk_a * rsh[d];
+                  k2 += zk_a * rsh[d + half];
+                  l1 += zk_b * rsh[d];
+                  l2 += zk_b * rsh[d + half];
+                }
+                float c = cos_s[tok_a * cs + d], s = sin_s[tok_a * cs + d];
+                part_a += q1 * (k1 * c - k2 * s) + q2 * (k2 * c + k1 * s);
+                c = cos_s[tok_b * cs + d];
+                s = sin_s[tok_b * cs + d];
+                part_b += q1 * (l1 * c - l2 * s) + q2 * (l2 * c + l1 * s);
+              }
+            }
+            part_a += __shfl_xor_sync(0xffffffffu, part_a, 1);
+            part_a += __shfl_xor_sync(0xffffffffu, part_a, 2);
+            part_b += __shfl_xor_sync(0xffffffffu, part_b, 1);
+            part_b += __shfl_xor_sync(0xffffffffu, part_b, 2);
+            // two warps hold each token's partial logits; buffers alternate by
+            // head parity so one barrier per head suffices
+            float* rh = red + ((hc & 1) * 2 + (warp >> 2)) * kTile;
+            if (ft == 0) {
+              rh[tok_a] = part_a;
+              rh[tok_b] = part_b;
+            }
+            __syncthreads();
+            if (tid < kTile) {
+              const float* r2 = red + (hc & 1) * 2 * kTile;
+              const float part = (r2[tid] + r2[kTile + tid]) / a.sqrt_hd;
+              lg[h * kTile + tid] = ci == 0 ? part : lg[h * kTile + tid] + part;
+            }
+          }
+        }  // rank chunks
       }  // MODE
       __syncthreads();
 
@@ -700,8 +748,8 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
 
 template <int HD, int MODE>
 int launch_split(const DecodeArgs& a, int B, cudaStream_t st) {
-  const size_t smem =
-      split_layout(a.rk, HD, a.hpg, a.rv, a.nrk, a.nrv, a.asym, a.chunk_heads, MODE).total;
+  const size_t smem = split_layout(a.rk, HD, a.hpg, a.rv, a.nrk, a.nrv, a.asym, a.chunk_heads,
+                                  MODE, a.rc).total;
   cudaError_t err = cudaFuncSetAttribute(palu_decode_split_kernel<HD, MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -721,7 +769,7 @@ int launch_mode(const DecodeArgs& a, int mode, int B, cudaStream_t st) {
 
 // Shapes in the comments of DecodeArgs; out (B, nh, rv) f32. The partial
 // buffers hold B * nh * splits (m, l) and B * nh * splits * rv accumulators.
-// hd is 64 or 128, rk a multiple of 16 up to 128, S a multiple of 16.
+// hd is 64 or 128, rk a multiple of 16 up to 512, S a multiple of 16.
 // mode 0 (exact) reads cos_t / sin_t; modes 1 (int8_dots) and 2
 // (int8_rot) read c0 .. sin8 and need rk % 32 == 0, pack width <= 4,
 // block_s % 64 == 0 and S % block_s == 0.
@@ -734,7 +782,7 @@ extern "C" int palu_decode(const void* q, int q_bf16, const void* bk, const void
                            int hd, int rk, int rv, int S, int nrk, int nrv, int pbits, int qoff,
                            int asym, int window, int splits, int tiles_per_split, int mode,
                            int block_s, float sqrt_hd, float i8r_inv, void* stream) {
-  if ((hd != 64 && hd != 128) || rk % 16 || rk > 16 * kMaxKSteps || hpg > kMaxHeads ||
+  if ((hd != 64 && hd != 128) || rk % 16 || rk > kMaxRank || hpg > kMaxHeads ||
       mode < 0 || mode > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   if (mode != 0 && (rk % 32 || pbits > 4 || block_s % kTile || S % block_s))
@@ -777,11 +825,20 @@ extern "C" int palu_decode(const void* q, int q_bf16, const void* bk, const void
   a.sqrt_hd = sqrt_hd;
   a.block_s = block_s;
   a.i8r_inv = i8r_inv;
-  // as many heads' B (or int8 operands) in shared memory as fit beside the rest
-  a.chunk_heads = hpg;
-  while (a.chunk_heads > 0 &&
-         split_layout(rk, hd, hpg, rv, nrk, nrv, asym, a.chunk_heads, mode).total > kSmemMax)
-    --a.chunk_heads;
+  // as many heads' B (or int8 operands) in shared memory as fit beside the
+  // rest; the exact mode takes ranks in chunks of up to 128, and of fewer
+  // when not even one head's 128 rows of B fit
+  a.chunk_heads = 0;
+  const int rcs[4] = {mode == 0 ? min(rk, kRc) : rk, 64, 32, 16};
+  for (int k = 0; k < (mode == 0 ? 4 : 1) && a.chunk_heads == 0; ++k) {
+    if (k > 0 && rcs[k] >= rcs[0]) continue;
+    a.rc = rcs[k];
+    a.chunk_heads = hpg;
+    while (a.chunk_heads > 0 &&
+           split_layout(rk, hd, hpg, rv, nrk, nrv, asym, a.chunk_heads, mode, a.rc).total >
+               kSmemMax)
+      --a.chunk_heads;
+  }
   if (a.chunk_heads == 0) return static_cast<int>(cudaErrorInvalidValue);
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -50,15 +50,20 @@
 // accumulate): warp w takes 16 tokens and matching quarters of both halves
 // of hd, so both halves of each RoPE pair sit in one thread's
 // accumulators; RoPE and the q dot run on them in registers and quad
-// shuffles finish each partial logit. Each thread reads the f32 cos/sin of
-// its two tokens and its dims straight into registers (the tables the
-// wrapper built exactly as the plain version does); staging them in shared
-// memory would not leave room for the 48 KB V tile at rv 384 beside four
-// heads of B. Each head keeps (m, l) and a latent accumulator (rv) in
-// shared memory; a thread per rank reads its 64 V values once per tile and
-// contracts them against p for every head. Blocks past kv_len (or before
-// the window) do no tile work. Nothing allocates here: the wrapper hands in
-// the partials.
+// shuffles finish each partial logit. Ranks above 128 (up to 512, a G-LRD
+// group's rank at group size 4 and hd 128) run in rank chunks of at most
+// 128 ranks: the latent tiles hold every rank, the chunk's rows of B stream
+// through the B buffer per tile (B of 4 heads at rk 512 is 512 KB), and the
+// chunks' partial logits add up in f32 (RoPE and the q dot are linear in
+// K). When all of B fits it is staged once per block. Each
+// thread reads the f32 cos/sin of its two tokens and its dims straight into
+// registers (the tables the wrapper built exactly as the plain version
+// does); staging them in shared memory would not leave room for the 48 KB
+// V tile at rv 384 beside four heads of B. Each head keeps (m, l) and a
+// latent accumulator (rv) in shared memory; a thread per rank reads its 64
+// V values once per tile and contracts them against p for every head.
+// Blocks past kv_len (or before the window) do no tile work. Nothing
+// allocates here: the wrapper hands in the partials.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,7 +88,9 @@ constexpr int kTile = 64;      // tokens per tile
 constexpr int kThreads = 256;  // threads per block
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxHeads = 16;  // q-heads per group
-constexpr int kMaxKSteps = 8;  // rk / 16, rk <= 128
+constexpr int kMaxKSteps = 8;  // k-steps of one rank chunk held in registers
+constexpr int kRc = 16 * kMaxKSteps;  // the largest rank chunk, 128
+constexpr int kMaxRank = 512;  // rk limit: a G-LRD group's rank at hd 128, group 4
 // padded rows (16 bytes) of the rank-major tiles, the seq-major tiles and
 // B, so the eight row addresses of one ldmatrix fall on distinct banks
 constexpr int kCk = kTile + 8;
@@ -111,6 +118,7 @@ struct FpArgs {
   int G, hpg, rk, rv, S, window;
   int nbk, nbv, pbits, qmin;  // packed variant
   int splits, tiles_per_split, chunk_heads;
+  int rc;             // ranks of B per chunk (rk when one chunk)
   float sqrt_hd;
 };
 
@@ -120,16 +128,17 @@ __host__ __device__ inline size_t tile_elems(bool rm, int r) {
 }
 
 // Byte offsets of the split kernel's shared-memory regions (one place for
-// the kernel's carve and the launcher's size); `chunk` heads of B staged.
+// the kernel's carve and the launcher's size); `chunk` heads of `rc` rows
+// of B staged.
 struct FpLayout {
   size_t bsm, kt, vt, q, acc, lg, pw, red, stat, sc, total;
 };
 
 __host__ __device__ inline FpLayout fp_layout(bool rm, int rk, int hd, int hpg, int rv,
-                                              int chunk, bool quant) {
+                                              int chunk, bool quant, int rc) {
   FpLayout L;
   size_t off = 0;
-  L.bsm = off;  off = al(off + sizeof(bf16) * chunk * rk * (hd + kBPad));
+  L.bsm = off;  off = al(off + sizeof(bf16) * chunk * rc * (hd + kBPad));
   L.kt = off;   off = al(off + sizeof(bf16) * tile_elems(rm, rk));
   L.vt = off;   off = al(off + sizeof(bf16) * tile_elems(rm, rv));
   L.q = off;    off = al(off + sizeof(float) * hpg * hd);
@@ -231,15 +240,16 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int fg = lane / 4, ft = lane % 4;  // mma fragment row group / column pair
   const int mi = lane / 8, ri = lane % 8;  // ldmatrix tile / row of this lane
-  const int hpg = a.hpg, rk = a.rk, rv = a.rv, nks = rk / 16;
+  const int hpg = a.hpg, rk = a.rk, rv = a.rv;
   const int nh = a.G * hpg;
   const int m0 = (warp & 3) * 16;    // this warp's 16 tokens of the tile
   const int jw = (warp >> 2) * NTW;  // its first column tile in each half of hd
   const int kstride = RM ? kCk : rk + kPad;  // K tile row stride (elements)
 
   extern __shared__ __align__(128) unsigned char smem[];
-  const FpLayout L = fp_layout(RM, rk, HD, hpg, rv, a.chunk_heads, QUANT);
-  bf16* bsm = reinterpret_cast<bf16*>(smem + L.bsm);     // [chunk][rk][HS]
+  const FpLayout L = fp_layout(RM, rk, HD, hpg, rv, a.chunk_heads, QUANT, a.rc);
+  const int rc = a.rc, nrc = (rk + rc - 1) / rc;          // rank chunks of B
+  bf16* bsm = reinterpret_cast<bf16*>(smem + L.bsm);     // [chunk][rc][HS]
   bf16* kt = reinterpret_cast<bf16*>(smem + L.kt);       // K latent tile
   bf16* vt = reinterpret_cast<bf16*>(smem + L.vt);       // V latent tile
   float* q_s = reinterpret_cast<float*>(smem + L.q);     // [hpg][hd]
@@ -286,13 +296,15 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
   for (int c0 = 0; c0 < hpg && t_begin < t_end; c0 += a.chunk_heads) {
     const int nc = min(a.chunk_heads, hpg - c0);
     __syncthreads();  // set-up done / the previous chunk's B reads done
-    for (int i = tid; i < nc * rk * (HD / 8); i += kThreads) {
-      const int row = i / (HD / 8), c = i % (HD / 8);  // row = head * rk + rank
-      cp_async16(bsm + row * HS + c * 8,
-                 bk_g + (static_cast<size_t>(c0) * rk + row) * HD + c * 8);
+    if (nrc == 1) {  // all of B fits: staged once
+      for (int i = tid; i < nc * rk * (HD / 8); i += kThreads) {
+        const int row = i / (HD / 8), c = i % (HD / 8);  // row = head * rk + rank
+        cp_async16(bsm + row * HS + c * 8,
+                   bk_g + (static_cast<size_t>(c0) * rk + row) * HD + c * 8);
+      }
+      cp_async_wait_all();
+      __syncthreads();
     }
-    cp_async_wait_all();
-    __syncthreads();
 
     for (int tile = t_begin; tile < t_end; ++tile) {
       const int s0 = tile * kTile;
@@ -331,86 +343,104 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
       cp_async_wait_all();
       __syncthreads();
 
-      // A fragments: x_k^T (16 tokens x 16 ranks) per k-step, shared by the
-      // heads; a rank-major tile is stored [rank][token], hence .trans
-      uint32_t af[kMaxKSteps][4];
-#pragma unroll
-      for (int ks = 0; ks < kMaxKSteps; ++ks) {
-        if (ks < nks) {
-          if (RM)
-            ldmatrix_x4_trans(af[ks],
-                              kt + (ks * 16 + ri + (mi >> 1) * 8) * kCk + m0 + (mi & 1) * 8);
-          else
-            ldmatrix_x4(af[ks],
-                        kt + (m0 + ri + (mi & 1) * 8) * kstride + ks * 16 + (mi >> 1) * 8);
-        }
-      }
-
       // packed: the per-token scales of this lane's two rows
       const float ska = QUANT ? sc_k[tok_a] : 1.0f, skb = QUANT ? sc_k[tok_b] : 1.0f;
 
-      // ---- per head: K_h (tokens x hd) = x_k^T B_h, then RoPE + q . K
-      for (int hc = 0; hc < nc; ++hc) {
-        const int h = c0 + hc;
-        const bf16* bh = bsm + static_cast<size_t>(hc) * rk * HS;
-        // acc[j]: column tile jw + j (first half of hd); acc[NTW + j]: tile
-        // NTH + jw + j, its RoPE partner in the second half
-        float acc[2 * NTW][4];
-#pragma unroll
-        for (int j = 0; j < 2 * NTW; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+      for (int ci = 0; ci < nrc; ++ci) {
+        // ---- rank chunk ci: ranks [r0, r0 + nr)
+        const int r0 = ci * rc, nr = min(rc, rk - r0), nkc = nr / 16;
+        if (nrc > 1) {  // stream this chunk's rows of B for the chunk's heads
+          if (ci > 0) __syncthreads();  // the previous chunk's reads of B done
+          const int per_head = nr * (HD / 8);
+          for (int i = tid; i < nc * per_head; i += kThreads) {
+            const int hh = i / per_head, row = (i % per_head) / (HD / 8), c = i % (HD / 8);
+            cp_async16(bsm + (hh * rc + row) * HS + c * 8,
+                       bk_g + (static_cast<size_t>(c0 + hh) * rk + r0 + row) * HD + c * 8);
+          }
+          cp_async_wait_all();
+          __syncthreads();
+        }
+
+        // A fragments: x_k^T (16 tokens x 16 ranks) per k-step, shared by the
+        // heads; a rank-major tile is stored [rank][token], hence .trans
+        uint32_t af[kMaxKSteps][4];
 #pragma unroll
         for (int ks = 0; ks < kMaxKSteps; ++ks) {
-          if (ks < nks) {
-            const bf16* brow = bh + (ks * 16 + ri + (mi & 1) * 8) * HS + (mi >> 1) * 8;
-#pragma unroll
-            for (int p = 0; p < NTW; p += 2) {
-              uint32_t bf[4];
-              ldmatrix_x4_trans(bf, brow + (jw + p) * 8);
-              mma_bf16(acc[p], af[ks], bf[0], bf[1]);
-              mma_bf16(acc[p + 1], af[ks], bf[2], bf[3]);
-              ldmatrix_x4_trans(bf, brow + (NTH + jw + p) * 8);
-              mma_bf16(acc[NTW + p], af[ks], bf[0], bf[1]);
-              mma_bf16(acc[NTW + p + 1], af[ks], bf[2], bf[3]);
-            }
+          if (ks < nkc) {
+            const int rr = r0 + ks * 16;
+            if (RM)
+              ldmatrix_x4_trans(af[ks],
+                                kt + (rr + ri + (mi >> 1) * 8) * kCk + m0 + (mi & 1) * 8);
+            else
+              ldmatrix_x4(af[ks],
+                          kt + (m0 + ri + (mi & 1) * 8) * kstride + rr + (mi >> 1) * 8);
           }
         }
-        const float* qh = q_s + h * HD;
-        float part_a = 0.0f, part_b = 0.0f;
+
+        // ---- per head: K_h (tokens x hd) = x_k^T B_h, then RoPE + q . K
+        for (int hc = 0; hc < nc; ++hc) {
+          const int h = c0 + hc;
+          const bf16* bh = bsm + static_cast<size_t>(hc) * rc * HS;
+          // acc[j]: column tile jw + j (first half of hd); acc[NTW + j]: tile
+          // NTH + jw + j, its RoPE partner in the second half
+          float acc[2 * NTW][4];
 #pragma unroll
-        for (int j = 0; j < NTW; ++j) {
+          for (int j = 0; j < 2 * NTW; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int d = (jw + j) * 8 + 2 * ft + e;
-            const float q1 = qh[d], q2 = qh[d + half];
-            float k1 = acc[j][e], k2 = acc[NTW + j][e];
-            float l1 = acc[j][e + 2], l2 = acc[NTW + j][e + 2];
-            if constexpr (QUANT) {
-              k1 *= ska;
-              k2 *= ska;
-              l1 *= skb;
-              l2 *= skb;
+          for (int ks = 0; ks < kMaxKSteps; ++ks) {
+            if (ks < nkc) {
+              const bf16* brow = bh + (ks * 16 + ri + (mi & 1) * 8) * HS + (mi >> 1) * 8;
+#pragma unroll
+              for (int p = 0; p < NTW; p += 2) {
+                uint32_t bf[4];
+                ldmatrix_x4_trans(bf, brow + (jw + p) * 8);
+                mma_bf16(acc[p], af[ks], bf[0], bf[1]);
+                mma_bf16(acc[p + 1], af[ks], bf[2], bf[3]);
+                ldmatrix_x4_trans(bf, brow + (NTH + jw + p) * 8);
+                mma_bf16(acc[NTW + p], af[ks], bf[0], bf[1]);
+                mma_bf16(acc[NTW + p + 1], af[ks], bf[2], bf[3]);
+              }
             }
-            part_a += q1 * (k1 * ca[j][e] - k2 * sa[j][e]) + q2 * (k2 * ca[j][e] + k1 * sa[j][e]);
-            part_b += q1 * (l1 * cb[j][e] - l2 * sb[j][e]) + q2 * (l2 * cb[j][e] + l1 * sb[j][e]);
+          }
+          const float* qh = q_s + h * HD;
+          float part_a = 0.0f, part_b = 0.0f;
+#pragma unroll
+          for (int j = 0; j < NTW; ++j) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int d = (jw + j) * 8 + 2 * ft + e;
+              const float q1 = qh[d], q2 = qh[d + half];
+              float k1 = acc[j][e], k2 = acc[NTW + j][e];
+              float l1 = acc[j][e + 2], l2 = acc[NTW + j][e + 2];
+              if constexpr (QUANT) {
+                k1 *= ska;
+                k2 *= ska;
+                l1 *= skb;
+                l2 *= skb;
+              }
+              part_a += q1 * (k1 * ca[j][e] - k2 * sa[j][e]) + q2 * (k2 * ca[j][e] + k1 * sa[j][e]);
+              part_b += q1 * (l1 * cb[j][e] - l2 * sb[j][e]) + q2 * (l2 * cb[j][e] + l1 * sb[j][e]);
+            }
+          }
+          part_a += __shfl_xor_sync(0xffffffffu, part_a, 1);
+          part_a += __shfl_xor_sync(0xffffffffu, part_a, 2);
+          part_b += __shfl_xor_sync(0xffffffffu, part_b, 1);
+          part_b += __shfl_xor_sync(0xffffffffu, part_b, 2);
+          // two warps hold each token's partial logits; buffers alternate by
+          // head parity so one barrier per head suffices
+          float* rh = red + ((hc & 1) * 2 + (warp >> 2)) * kTile;
+          if (ft == 0) {
+            rh[tok_a] = part_a;
+            rh[tok_b] = part_b;
+          }
+          __syncthreads();
+          if (tid < kTile) {
+            const float* r2 = red + (hc & 1) * 2 * kTile;
+            const float part = (r2[tid] + r2[kTile + tid]) / a.sqrt_hd;
+            lg[h * kTile + tid] = ci == 0 ? part : lg[h * kTile + tid] + part;
           }
         }
-        part_a += __shfl_xor_sync(0xffffffffu, part_a, 1);
-        part_a += __shfl_xor_sync(0xffffffffu, part_a, 2);
-        part_b += __shfl_xor_sync(0xffffffffu, part_b, 1);
-        part_b += __shfl_xor_sync(0xffffffffu, part_b, 2);
-        // two warps hold each token's partial logits; buffers alternate by
-        // head parity so one barrier per head suffices
-        float* rh = red + ((hc & 1) * 2 + (warp >> 2)) * kTile;
-        if (ft == 0) {
-          rh[tok_a] = part_a;
-          rh[tok_b] = part_b;
-        }
-        __syncthreads();
-        if (tid < kTile) {
-          const float* r2 = red + (hc & 1) * 2 * kTile;
-          lg[h * kTile + tid] = (r2[tid] + r2[kTile + tid]) / a.sqrt_hd;
-        }
-      }
+      }  // rank chunks
       __syncthreads();
 
       // ---- online softmax, one warp per head
@@ -492,7 +522,7 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
 
 template <int HD, bool RM, bool QUANT>
 int launch_split(const FpArgs& a, int B, cudaStream_t st) {
-  const size_t smem = fp_layout(RM, a.rk, HD, a.hpg, a.rv, a.chunk_heads, QUANT).total;
+  const size_t smem = fp_layout(RM, a.rk, HD, a.hpg, a.rv, a.chunk_heads, QUANT, a.rc).total;
   cudaError_t err = cudaFuncSetAttribute(palu_decode_fp_split_kernel<HD, RM, QUANT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -501,11 +531,20 @@ int launch_split(const FpArgs& a, int B, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Heads of B that fit in shared memory beside the rest; 0 when none do.
-int fit_heads(bool rm, int rk, int hd, int hpg, int rv, bool quant) {
-  int chunk = hpg;
-  while (chunk > 0 && fp_layout(rm, rk, hd, hpg, rv, chunk, quant).total > kSmemMax) --chunk;
-  return chunk;
+// Heads of B that fit in shared memory beside the rest, and the rank chunk
+// (a.rc): up to 128 ranks, fewer when not even one head's 128 rows fit;
+// a.chunk_heads is 0 when nothing fits.
+void fit_heads(FpArgs& a, bool rm, int hd, bool quant) {
+  const int rcs[4] = {min(a.rk, kRc), 64, 32, 16};
+  a.chunk_heads = 0;
+  for (int k = 0; k < 4 && a.chunk_heads == 0; ++k) {
+    if (k > 0 && rcs[k] >= rcs[0]) continue;
+    a.rc = rcs[k];
+    a.chunk_heads = a.hpg;
+    while (a.chunk_heads > 0 &&
+           fp_layout(rm, a.rk, hd, a.hpg, a.rv, a.chunk_heads, quant, a.rc).total > kSmemMax)
+      --a.chunk_heads;
+  }
 }
 
 }  // namespace
@@ -513,14 +552,14 @@ int fit_heads(bool rm, int rk, int hd, int hpg, int rv, bool quant) {
 // Shapes in the comments of FpArgs; rank_major selects the latent layout;
 // out (B, nh, rv) f32. The partial buffers hold B * nh * splits (m, l) and
 // B * nh * splits * rv accumulators. hd is 64 or 128, rk a multiple of 16
-// up to 128, rv and S multiples of 8.
+// up to 512, rv and S multiples of 8.
 extern "C" int palu_decode_fp(const void* q, int q_bf16, const void* bk, const void* xk,
                               const void* xv, const void* kv_len, const void* cos_t,
                               const void* sin_t, void* part_m, void* part_l, void* part_acc,
                               void* out, int B, int G, int hpg, int hd, int rk, int rv, int S,
                               int rank_major, int window, int splits, int tiles_per_split,
                               float sqrt_hd, void* stream) {
-  if ((hd != 64 && hd != 128) || rk % 16 || rk > 16 * kMaxKSteps || rv % 8 || S % 8 ||
+  if ((hd != 64 && hd != 128) || rk % 16 || rk > kMaxRank || rv % 8 || S % 8 ||
       hpg > kMaxHeads)
     return static_cast<int>(cudaErrorInvalidValue);
   FpArgs a{};
@@ -546,7 +585,7 @@ extern "C" int palu_decode_fp(const void* q, int q_bf16, const void* bk, const v
   a.sqrt_hd = sqrt_hd;
   // as many heads' B in shared memory as fit beside the rest
   const bool rm = rank_major != 0;
-  a.chunk_heads = fit_heads(rm, rk, hd, hpg, rv, false);
+  fit_heads(a, rm, hd, false);
   if (a.chunk_heads == 0) return static_cast<int>(cudaErrorInvalidValue);
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -563,7 +602,7 @@ extern "C" int palu_decode_fp(const void* q, int q_bf16, const void* bk, const v
 // The packed seq-major variant: codes (B, G, S, nbk) / (B, G, S, nbv) uint8
 // at pack width pbits (2, 3 or 4), per-token scale and base (B, G, S) f32;
 // x = (code + qmin - base) * scale. hd is 64 or 128, rk a multiple of 32 up
-// to 128, rv a multiple of 32, S a multiple of 8.
+// to 512, rv a multiple of 32, S a multiple of 8.
 extern "C" int palu_decode_seq_q(const void* q, int q_bf16, const void* bk, const void* kc,
                                  const void* ks, const void* kb, const void* vc, const void* vs,
                                  const void* vb, const void* kv_len, const void* cos_t,
@@ -571,7 +610,7 @@ extern "C" int palu_decode_seq_q(const void* q, int q_bf16, const void* bk, cons
                                  void* out, int B, int G, int hpg, int hd, int rk, int rv, int S,
                                  int nbk, int nbv, int pbits, int qmin, int window, int splits,
                                  int tiles_per_split, float sqrt_hd, void* stream) {
-  if ((hd != 64 && hd != 128) || rk % 32 || rk > 16 * kMaxKSteps || rv % 32 || S % 8 ||
+  if ((hd != 64 && hd != 128) || rk % 32 || rk > kMaxRank || rv % 32 || S % 8 ||
       hpg > kMaxHeads || (pbits != 2 && pbits != 3 && pbits != 4))
     return static_cast<int>(cudaErrorInvalidValue);
   FpArgs a{};
@@ -603,7 +642,7 @@ extern "C" int palu_decode_seq_q(const void* q, int q_bf16, const void* bk, cons
   a.nbv = nbv;
   a.pbits = pbits;
   a.qmin = qmin;
-  a.chunk_heads = fit_heads(false, rk, hd, hpg, rv, true);
+  fit_heads(a, false, hd, true);
   if (a.chunk_heads == 0) return static_cast<int>(cudaErrorInvalidValue);
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -83,7 +83,8 @@ class ModelConfig:
         if len(set(ranks)) != 1:
             raise ValueError(
                 f"layer {layer} {which} has ragged ranks {ranks}; the runtime "
-                "engine requires uniform ranks within a layer (pad at build)"
+                "requires uniform ranks within a layer (models/llama."
+                "pad_ragged_params pads them; the Engine does so at build)"
             )
         return ranks[0]
 

@@ -7,10 +7,14 @@ Weights are stored (in_features, out_features) and a projection reads
 `x @ w`. Low-rank projections hold
   VT: (hidden, G * r)       x @ VT -> latents (B, S, G, r)
   U:  (G, r, group_dim)     reconstruct = einsum('bsgr,grd->bsgd')
-with uniform ranks within a layer. Any projection of the serving path may
-be an int8/int4 weight (core/wquant); `wdot` dispatches it, and
-`mlp_forward` runs the fused int8/int4 MLP GEMV at decode sizes. Ragged
-ranks and k/v biases (Qwen2) come with later slices of the port.
+with uniform ranks within a layer, or ragged per-group ranks (the fisher
+search's output) with U a tuple of (r_g, group_dim) matrices and VT
+(hidden, sum r_g): the accuracy forward runs them as they are, and
+`pad_ragged_params` zero-pads them to the layer's largest rank for the
+engine. Any projection of the serving path may be an int8/int4 weight
+(core/wquant); `wdot` dispatches it, and `mlp_forward` runs the fused
+int8/int4 MLP GEMV at decode sizes. k/v biases (Qwen2) in the engine come
+with a later slice of the port.
 
 Two value paths give the same attention output:
   - "reconstruct": rebuild full V, apply probs, then dense o_proj;
@@ -20,6 +24,7 @@ Two value paths give the same attention output:
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -36,8 +41,8 @@ Params = Dict[str, Any]
 
 __all__ = [
     "rms_norm", "rope_cos_sin", "rope_cos_sin_for", "apply_rope",
-    "project_kv", "reconstruct_kv", "attention_core", "mlp_forward",
-    "forward", "init_params", "fuse_o_proj",
+    "is_ragged", "ragged_offsets", "project_kv", "reconstruct_kv", "attention_core",
+    "mlp_forward", "forward", "init_params", "fuse_o_proj", "pad_ragged_params",
 ]
 
 
@@ -97,24 +102,36 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 
 # ---------------------------------------------------------------------------
-# Projections (dense or uniform-rank low-rank)
+# Projections (dense or low-rank)
 # ---------------------------------------------------------------------------
 
 
-def _check_uniform(proj: Params) -> None:
-    if isinstance(proj["U"], (list, tuple)):
-        raise NotImplementedError(
-            "ragged per-group ranks are not ported yet (pad_ragged_params "
-            "comes with a later slice of the port)")
+def is_ragged(proj: Params) -> bool:
+    """True when the low-rank module has non-uniform per-group ranks: U is a
+    tuple of (r_i, group_dim) matrices instead of a stacked (G, r, d) tensor
+    (reference svd_linear.py:72-78 holds a per-group rank list)."""
+    return "VT" in proj and isinstance(proj["U"], (list, tuple))
+
+
+def ragged_offsets(proj: Params):
+    """Per-group (offset, rank) pairs into the flat latent dimension."""
+    offs, o = [], 0
+    for u in proj["U"]:
+        offs.append((o, u.shape[0]))
+        o += u.shape[0]
+    return offs
 
 
 def project_kv(x: torch.Tensor, proj: Params, paths: Optional[set] = None) -> torch.Tensor:
-    """Dense: returns (B, S, out). Low-rank: returns latents (B, S, G, r).
-    `paths` collects the wdot paths taken (core/wquant.wdot_path)."""
+    """Dense: returns (B, S, out). Low-rank: returns latents (B, S, G, r)
+    for uniform ranks, or flat (B, S, sum_ranks) for ragged ranks. `paths`
+    collects the wdot paths taken (core/wquant.wdot_path)."""
     if "VT" in proj:
-        _check_uniform(proj)
         b, s, _ = x.shape
-        return wdot(x, proj["VT"], paths).reshape(b, s, proj["U"].shape[0], -1)
+        lat = wdot(x, proj["VT"], paths)
+        if is_ragged(proj):
+            return lat  # (B, S, sum_ranks); sliced per group at reconstruct
+        return lat.reshape(b, s, proj["U"].shape[0], -1)
     out = wdot(x, proj["w"], paths)
     if proj.get("b") is not None:
         out = out + proj["b"]
@@ -122,8 +139,17 @@ def project_kv(x: torch.Tensor, proj: Params, paths: Optional[set] = None) -> to
 
 
 def reconstruct_kv(latents: torch.Tensor, proj: Params) -> torch.Tensor:
-    """latents (B, S, G, r) -> (B, S, G * group_dim) via the stacked U."""
-    _check_uniform(proj)
+    """Uniform: latents (B, S, G, r) -> (B, S, G * group_dim) via the
+    stacked U. Ragged: latents (B, S, sum_ranks) -> (B, S, G * group_dim)
+    via per-group slices (reference svd_linear.py:107-121)."""
+    if is_ragged(proj):
+        outs = []
+        for gi, (o, r) in enumerate(ragged_offsets(proj)):
+            og = latents[..., o:o + r] @ proj["U"][gi]  # (B, S, d)
+            if proj.get("b") is not None:
+                og = og + proj["b"][gi]
+            outs.append(og)
+        return torch.cat(outs, dim=-1)
     out = torch.einsum("bsgr,grd->bsgd", latents, proj["U"])
     if proj.get("b") is not None:
         out = out + proj["b"]
@@ -247,7 +273,8 @@ def attn_forward(x, p: Params, cfg: ModelConfig, positions, mask,
     qr = apply_rope(q.float(), cos, sin).to(x.dtype)
     kr = apply_rope(k.float(), cos, sin).to(x.dtype)
 
-    if value_mode == "fused" and v_lowrank:
+    # ragged V has no stacked latent layout for the fused path: reconstruct
+    if value_mode == "fused" and v_lowrank and not is_ragged(p["v_proj"]):
         out = attention_core(qr, kr, v_raw, cfg, mask, v_is_latent=True)
         o_w = p["o_proj"]["w_fused"]
     else:
@@ -364,3 +391,51 @@ def fuse_o_proj(o_w: torch.Tensor, u_v: torch.Tensor,
     u_q = u_kv.repeat_interleave(rep, dim=0)
     blocks = torch.bmm(u_q, o_w.float().reshape(nh, hd, hidden))
     return blocks.reshape(nh * rv, hidden)
+
+
+def pad_ragged_params(params: Params, cfg: ModelConfig):
+    """Zero-pad ragged per-group ranks up to each layer's largest rank,
+    giving the uniform stacked layout the engine and its kernels require
+    (the reference's kernel track also requires uniform ranks,
+    kernel/palu_attention.py:111). Padding is exact for an unquantized
+    cache (zero latent dims project and reconstruct to zero); with a
+    quantized cache the padded zeros take part in the per-row scales, a
+    small extra approximation. Computes in f32 on the params' device and
+    keeps VT's dtype. Returns (params, cfg) unchanged when no layer is
+    ragged."""
+    changed = False
+    new_ranks = dict(cfg.head_wise_ranks or {})
+    new_layers = []
+    for i, layer in enumerate(params["layers"]):
+        attn = dict(layer["attn"])
+        layer_changed = False
+        for which in ("k_proj", "v_proj"):
+            p = attn[which]
+            if not is_ragged(p):
+                continue
+            changed = layer_changed = True
+            us = [u.float() for u in p["U"]]
+            g, gd = len(us), us[0].shape[1]
+            rmax = max(u.shape[0] for u in us)
+            vt_old = p["VT"].float()
+            vt = vt_old.new_zeros((vt_old.shape[0], g * rmax))
+            u_new = vt_old.new_zeros((g, rmax, gd))
+            for gi, (o, r) in enumerate(ragged_offsets(p)):
+                vt[:, gi * rmax:gi * rmax + r] = vt_old[:, o:o + r]
+                u_new[gi, :r] = us[gi]
+            dt = p["VT"].dtype
+            newp = {"VT": vt.to(dt), "U": u_new.to(dt)}
+            if p.get("b") is not None:
+                newp["b"] = p["b"]
+            attn[which] = newp
+            new_ranks[f"model.layers.{i}.self_attn.{which}"] = [rmax] * g
+        if layer_changed and "VT" in attn["v_proj"]:
+            attn["o_proj"] = dict(attn["o_proj"])
+            attn["o_proj"]["w_fused"] = fuse_o_proj(
+                attn["o_proj"]["w"].float(), attn["v_proj"]["U"].float(), cfg
+            ).to(attn["v_proj"]["VT"].dtype)
+        new_layers.append({**layer, "attn": attn})
+    if not changed:
+        return params, cfg
+    return ({**params, "layers": new_layers},
+            dataclasses.replace(cfg, head_wise_ranks=new_ranks))

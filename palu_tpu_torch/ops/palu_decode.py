@@ -43,7 +43,7 @@ __all__ = ["palu_decode", "palu_decode_ref", "k_path_mode"]
 
 _TILE = 64        # tokens per kernel tile (kTile in the source)
 _MAX_HEADS = 16   # q-heads per group the kernel holds (kMaxHeads)
-_MAX_RK = 128     # 16 * kMaxKSteps
+_MAX_RK = 512     # kMaxRank: a G-LRD group's rank at group size 4 and hd 128
 
 
 def _check(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, qcfg, rk, rv,

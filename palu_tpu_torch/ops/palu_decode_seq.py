@@ -91,7 +91,7 @@ def palu_decode_seq_quantized(q, b_k, xk_codes, xk_scales, xk_base, xv_codes, xv
     q (B, nh, hd) roped at the current position; b_k (G, hpg, rk, hd);
     codes (B, G, S, packed_nbytes(r)) uint8; scales / base (B, G, S, 1)
     f32; kv_len (B,) valid positions. -> (B, nh, rv) f32. CUDA tensors
-    launch the kernel (b_k bf16; rk a multiple of 32 up to 128, rv a
+    launch the kernel (b_k bf16; rk a multiple of 32 up to 512, rv a
     multiple of 32, S a multiple of 8); CPU tensors run the plain
     version."""
     if not q.is_cuda:

@@ -39,8 +39,10 @@ dense-KV baseline) keep roped K and V and decode with a flash pass over
 them: scaled_dot_product_attention on CUDA tensors, its plain chunked
 version (ops/attention.dense_flash_decode, the JAX engine's
 _dense_flash_decode) on the CPU; their prefill comes with a later slice.
-Qwen2 k/v biases, ragged ranks, layers with one dense side and per-chunk
-scales come with later slices of the port.
+Ragged per-group ranks (the fisher search's output) are zero-padded to each
+layer's largest rank when the engine is built (llama.pad_ragged_params), as
+in the JAX engine. Qwen2 k/v biases, layers with one dense side and
+per-chunk scales come with later slices of the port.
 """
 
 from __future__ import annotations
@@ -159,14 +161,15 @@ class Engine:
                 "(qcfg None); per-chunk caches come with a later slice")
         if cfg.attention_bias:
             raise NotImplementedError("k/v biases (Qwen2) come with a later slice")
+        # ragged (fisher-search) checkpoints: pad per-group ranks up to the
+        # layer max so the cache and the kernels see uniform ranks
+        params, cfg = llama.pad_ragged_params(params, cfg)
         self._dense = []
         for i, layer in enumerate(params["layers"]):
             lowrank = ["VT" in layer["attn"][which] for which in ("k_proj", "v_proj")]
             if lowrank[0] != lowrank[1]:
                 raise NotImplementedError(f"layer {i} has one dense k/v side; the port's "
                                           "engine takes layers with both or neither")
-            for which in ("k_proj", "v_proj"):
-                cfg.uniform_rank_for(i, which)  # raises on ragged ranks
             self._dense.append(not lowrank[0])
         if ecfg.weight_bits not in (16, 8, 4):
             raise ValueError(f"weight_bits must be 16, 8 or 4, got {ecfg.weight_bits}")

@@ -23,19 +23,19 @@ from palu_tpu_torch.runtime.engine import Engine, EngineConfig
 S_MAX, CHUNK, PROMPT, STEPS = 64, 16, 21, 6
 
 
-def _config(window=None):
+def _config(window=None, rk=8, rv=16):
     ranks = {}
     for i in range(2):
-        ranks[f"model.layers.{i}.self_attn.k_proj"] = [8, 8]
-        ranks[f"model.layers.{i}.self_attn.v_proj"] = [16, 16]
+        ranks[f"model.layers.{i}.self_attn.k_proj"] = [rk, rk]
+        ranks[f"model.layers.{i}.self_attn.v_proj"] = [rv, rv]
     return JModelConfig(vocab_size=96, hidden_size=64, intermediate_size=128,
                         num_hidden_layers=2, num_attention_heads=8,
                         num_key_value_heads=4, head_group_size=2,
                         head_wise_ranks=ranks, sliding_window=window)
 
 
-def _engines(qkw, window=None):
-    jcfg = _config(window)
+def _engines(qkw, window=None, rk=8, rv=16):
+    jcfg = _config(window, rk, rv)
     jparams = jllama.init_params(jcfg, jax.random.key(0), dtype=jnp.float32, scale=0.2)
     jeng = JEngine(jparams, jcfg, JEngineConfig(
         s_max=S_MAX, dtype=jnp.float32, qcfg=JQuantConfig(**qkw), decode_chunk=CHUNK,
@@ -104,3 +104,21 @@ def test_chunk_divides_s_max():
         teng.prefill_chunked(np.zeros((1, 10), np.int64), chunk_size=24)
     odd = Engine(teng.params, teng.cfg, dataclasses.replace(teng.ecfg, decode_chunk=24))
     assert odd._chunk == 16  # largest divisor of 64 not above 24
+
+
+@pytest.mark.parametrize("qkw", [QUANTS[0], QUANTS[2]], ids=["flagship", "asym4"])
+def test_engine_matches_jax_at_group_ranks_256_384(qkw):
+    """Group ranks 256 (K) and 384 (V), beyond the 128 that the decode
+    kernels took before they ran ranks in chunks: the engine's shapes at a
+    compressed 7B model's ranks against the JAX engine (the plain decode
+    has no rank limit; tests/test_torch_kernels_cuda.py holds the kernels
+    there)."""
+    jeng, teng = _engines(qkw, rk=256, rv=384)
+    rng = np.random.default_rng(5)
+    ids = rng.integers(0, 96, (1, PROMPT))
+    forced = rng.integers(0, 96, STEPS)
+    want, _ = _stepwise(jeng, ids, forced, np.asarray)
+    got, tcache = _stepwise(teng, ids, forced, lambda t: t.numpy())
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+    assert teng.derived[0]["b_k"].shape == (2, 4, 256, 8)
+    assert teng._decode_paths == {"palu_decode-plain"}

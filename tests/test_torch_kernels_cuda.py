@@ -264,3 +264,105 @@ def test_decode_int8_modes_match_plain(gen, mode, block_s, sym):
     assert torch.allclose(got, exact, atol=atol, rtol=rtol)
     with pytest.raises(ValueError):  # a 64-token tile would straddle two blocks
         palu_decode(q, b_k, kv_len=kv_len, **bufs, **dict(kw, block_s=32), **{mode: True})
+
+
+# group ranks of a compressed 7B model: 512 is group_dim at group size 4 and
+# hd 128, and ranks that are not a multiple of 128 end the K rebuild in a
+# partial rank chunk (192 = 128 + 64, 288, 352, 416); (rk, rv, G, heads per
+# group)
+BIG_RANKS = [(256, 384, 2, 4), (512, 512, 2, 4), (512, 512, 2, 16), (256, 256, 1, 16),
+             (192, 192, 2, 4), (288, 320, 2, 4), (352, 384, 2, 4), (416, 448, 2, 4)]
+
+
+@pytest.mark.parametrize("rk,rv,g,hpg", BIG_RANKS)
+def test_decode_kernels_at_large_ranks(gen, rk, rv, g, hpg):
+    """Every decode kernel at group ranks above 128 (the rank chunks of
+    their K rebuild) against its plain version over 2 lanes of a 1024-token
+    cache: palu_decode exact and int8_dots, int8_rot below rk 280 (from 280
+    the int32 overflow check raises, as in JAX), the two fp kernels and the
+    seq-major packed one."""
+    from palu_tpu_torch.ops.palu_decode_fp import (palu_decode_fp, palu_decode_fp_ref,
+                                                   palu_decode_fp_t, palu_decode_fp_t_ref)
+    from palu_tpu_torch.ops.palu_decode_seq import (palu_decode_seq_quantized,
+                                                    palu_decode_seq_quantized_ref)
+
+    kv_len = torch.tensor([300, 1024], dtype=torch.int32, device="cuda")
+
+    def close(got, want):
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max() <= 2e-3 * want.abs().max()
+
+    qcfg = QuantConfig(bits=3, sym=True, container=4)
+    q, b_k, bufs = _packed_case(gen, "rank", qcfg, 2, g, hpg, rk, rv, 128, 1024)
+    kw = dict(qcfg=qcfg, rk=rk, rv=rv)
+    close(palu_decode(q, b_k, kv_len=kv_len, **bufs, **kw),
+          palu_decode_ref(q, b_k, kv_len=kv_len, **bufs, **kw))
+    for mode in ("int8_dots", "int8_rot"):
+        mk = dict(kw, block_s=512, **{mode: True})
+        if mode == "int8_rot" and rk >= 280:  # 63 * 127 * 15 * rk * 64 >= 2^31
+            with pytest.raises(ValueError, match="overflow"):
+                palu_decode(q, b_k, kv_len=kv_len, **bufs, **mk)
+            continue
+        close(palu_decode(q, b_k, kv_len=kv_len, **bufs, **mk),
+              palu_decode_ref(q, b_k, kv_len=kv_len, **bufs, **mk))
+    lat = [torch.randn((2, g, 1024, r), generator=gen, device="cuda").bfloat16()
+           for r in (rk, rv)]
+    close(palu_decode_fp(q, b_k, *lat, kv_len), palu_decode_fp_ref(q, b_k, *lat, kv_len))
+    lat_t = [x.transpose(-1, -2).contiguous() for x in lat]
+    close(palu_decode_fp_t(q, b_k, *lat_t, kv_len), palu_decode_fp_t_ref(q, b_k, *lat_t, kv_len))
+    sq = QuantConfig(bits=3, sym=False)
+    q, b_k, bufs = _packed_case(gen, "seq", sq, 2, g, hpg, rk, rv, 128, 1024)
+    kw = dict(qcfg=sq, rk=rk, rv=rv)
+    close(palu_decode_seq_quantized(q, b_k, kv_len=kv_len, **bufs, **kw),
+          palu_decode_seq_quantized_ref(q, b_k, kv_len=kv_len, **bufs, **kw))
+
+
+def test_decode_kernels_refuse_ranks_above_512(gen):
+    qcfg = QuantConfig(bits=3, sym=True, container=4)
+    q, b_k, bufs = _packed_case(gen, "rank", qcfg, 1, 1, 4, 528, 64, 128, 128)
+    kv_len = torch.tensor([128], dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="512"):
+        palu_decode(q, b_k, kv_len=kv_len, **bufs, qcfg=qcfg, rk=528, rv=64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4096, 256), (512, 352), (512, 480), (4096, 512), (37, 96),
+                                   (3, 5, 128), (64, 4096), (8, 3904)])
+def test_hadamard_kernel_matches_plain(gen, shape, dtype):
+    """The FWHT kernel at fuse_hadamard's shapes (VT_g^T (4096, r), U_g
+    (512, r)), at JAX's test sizes and at n 4096 and 3904 (K 244), both
+    orientations of H_K, TF32 off, against the plain version in f32 on the
+    same input: within 1e-5 of max|plain| in f32, and one bf16 rounding more
+    (2e-3 + 2^-9) in bf16."""
+    from palu_tpu_torch.ops.hadamard import hadamard_transform, hadamard_transform_ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tol = 1e-5 if dtype == torch.float32 else 2e-3 + 2.0**-9
+    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    for transpose in (False, True):
+        n = hadamard_transform.launches
+        got = hadamard_transform(x, transpose=transpose)
+        assert hadamard_transform.launches == n + 1
+        want = hadamard_transform_ref(x.float(), transpose=transpose)
+        assert got.dtype == dtype and got.shape == x.shape
+        assert (got.float() - want).abs().max() <= tol * want.abs().max()
+    with pytest.raises(ValueError, match="4096"):
+        hadamard_transform(torch.zeros((2, 8192), device="cuda"))
+
+
+def test_fuse_hadamard_on_card_matches_cpu(gen):
+    """core/lowrank.fuse_hadamard on CUDA factors (two kernel launches per
+    group) against the CPU's formulation of the same factors."""
+    from palu_tpu_torch.core import lowrank
+    from palu_tpu_torch.ops.hadamard import hadamard_transform
+
+    w = torch.randn((1024, 4096), generator=gen, device="cuda") * 0.02
+    lr = lowrank.decompose_svd(w, [256, 160])
+    n = hadamard_transform.launches
+    fused = lowrank.fuse_hadamard(lr)
+    assert hadamard_transform.launches == n + 4
+    cpu = lowrank.fuse_hadamard(lowrank.LowRankWeights(
+        VT=lr.VT.cpu(), U=[u.cpu() for u in lr.U], ranks=lr.ranks))
+    assert (fused.VT.cpu() - cpu.VT).abs().max() <= 1e-5 * cpu.VT.abs().max()
+    assert (fused.reconstruct_dense() - lr.reconstruct_dense()).abs().max() <= \
+        1e-4 * lr.reconstruct_dense().abs().max()
