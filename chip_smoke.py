@@ -25,6 +25,16 @@ Phases, each printing one JSON line:
      e2e_w8   - the same under weight_bits=8, vt_bits=8, embed_bits=8;
      e2e_fp, e2e_fp_t - the same over the unquantized bf16 latent caches
                 (qcfg None), seq-major and rank-major;
+     e2e_qwen2, e2e_qwen2_w4 - 2 layers of Qwen2-7B (its published config
+                read by hf_io.config_from_hf; nonzero q/k/v biases; one
+                G-LRD group of 28 q-heads at ranks 256) over the 3-bit cache,
+                a 1024-token request, bf16 and under int4 weights; every
+                decode launch carries the K bias and o_bias_corr equals the
+                CPU's;
+     e2e_chunked - the same 2 layers over the per-chunk cache (3-bit asym,
+                one scale and zero per 32 ranks): each palu_decode launch
+                held against palu_decode_ref, the logits against an engine
+                on palu_decode_ref;
   5. serve    - the main path at full depth: a 32-layer Llama-2-7B-width
                 Palu model (random weights from a seed, 3-bit latents in
                 nibble containers) answers three requests (1000 / 3000 /
@@ -44,6 +54,11 @@ Phases, each printing one JSON line:
                 exact GEMV launch counts per step, and its two breakdowns;
      lanes_w4 - that engine at batch 8 (the GEMV kernels' 8-row edge);
      serve_w8 - int8 weights, 4 layers at full width, one request;
+     serve_qwen2 - Qwen2-7B at full width and 28 layers over the 3-bit cache,
+                serve's traffic, with its breakdowns (the Llama weights freed
+                first);
+     serving_qwen2 - those weights through the ServingEngine over the
+                per-chunk cache: 8 lanes, 16 requests, 4 of them sampled;
   6. the latency entry points (palu_tpu_torch/cli), counts set to 0 just
      before each run and read just after:
      latency_kernel    - run_latency_kernel at 4K / 16K / 64K over bf16
@@ -74,7 +89,11 @@ Phases, each printing one JSON line:
      compress_cli - `python -m palu_tpu_torch.cli.compress` on a 2-layer
                 checkpoint written by hf_io.save_checkpoint, read back by
                 hf_io.load_params and served.
-  Phase 3 also holds the seq-major packed decode (check_decode_seq) and the
+  Phase 3 also holds every decode kernel with Qwen2's K bias at the
+  Qwen2-7B shape (G 1 x 28 heads) and the Llama shape (check_decode_bias),
+  palu_decode over per-chunk scales (check_decode_chunked), every decode
+  kernel with llama3 and yarn RoPE tables (check_decode_rope), the
+  seq-major packed decode (check_decode_seq) and the
   packed decode's int8 K-path modes (check_decode_int8, also against the
   exact decode) against their plain versions, every decode kernel at group
   ranks 256 and 512 and at ranks that end in a partial rank chunk
@@ -109,6 +128,7 @@ from torch.profiler import ProfilerActivity, profile
 from palu_tpu_torch.cli import run_latency_attention, run_latency_kernel, serve_bench
 from palu_tpu_torch.compression import (compress_params, search_ranks, synthetic_batches,
                                         whiten_scale_matrices)
+from palu_tpu_torch.compression.rank_search import rank_search
 from palu_tpu_torch.core import wquant
 from palu_tpu_torch.core.hadamard import full_hadamard_matrix, get_hadK
 from palu_tpu_torch.core.quant import (QuantConfig, pack_codes, packed_nrows, pack_codes_t,
@@ -191,18 +211,24 @@ def emit(obj) -> None:
 
 
 def reset_counts() -> None:
-    """Every wrapper's launch count (and palu_decode's per mode) to 0."""
+    """Every wrapper's launch count (and palu_decode's per mode and with a
+    K bias) to 0."""
     for fn in COUNTERS:
         fn.launches = 0
     for mode in palu_decode.mode_launches:
         palu_decode.mode_launches[mode] = 0
+    palu_decode.k_bias_launches = 0
 
 
 def read_counts() -> dict:
     """Launches per wrapper, plus palu_decode's int8 modes as
-    palu_decode_int8_dots / palu_decode_int8_rot (also in palu_decode's)."""
+    palu_decode_int8_dots / palu_decode_int8_rot, its per-chunk-scale
+    launches as palu_decode_chunked and those with a K bias as
+    palu_decode_k_bias (all also in palu_decode's)."""
     out = {fn.__name__: fn.launches for fn in COUNTERS}
-    out.update({f"palu_decode_{m}": palu_decode.mode_launches[m] for m in INT8_MODES})
+    out.update({f"palu_decode_{m}": palu_decode.mode_launches[m]
+                for m in (*INT8_MODES, "chunked")})
+    out["palu_decode_k_bias"] = palu_decode.k_bias_launches
     return out
 
 
@@ -216,6 +242,56 @@ def llama7b(layers: int) -> ModelConfig:
     return ModelConfig(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
                        num_hidden_layers=layers, num_attention_heads=NH,
                        num_key_value_heads=NH, head_group_size=4, head_wise_ranks=ranks)
+
+
+# Qwen2-7B as published (huggingface.co/Qwen/Qwen2-7B, config.json), read by
+# the port's own config reader (models/hf_io.config_from_hf)
+QWEN2_7B = {"model_type": "qwen2", "hidden_size": 3584, "intermediate_size": 18944,
+            "num_hidden_layers": 28, "num_attention_heads": 28, "num_key_value_heads": 4,
+            "vocab_size": 152064, "rope_theta": 1000000.0, "rms_norm_eps": 1e-06,
+            "tie_word_embeddings": False, "use_sliding_window": False,
+            "sliding_window": 131072, "max_window_layers": 28,
+            "max_position_embeddings": 131072, "hidden_act": "silu",
+            "torch_dtype": "bfloat16"}
+QWEN2_SOURCE = "huggingface.co/Qwen/Qwen2-7B config.json"
+# Palu groups of 4 kv heads: one group (G 1) of 28 q-heads; the uniform rank
+# search at ratio 0.5 gives 256 of the group dim 512 to k and to v
+QG, QHPG, QRANK, QNKV, QNH = 1, 28, 256, 4, 28
+QVOCAB, QHID, QINTER = (QWEN2_7B[k] for k in ("vocab_size", "hidden_size",
+                                                 "intermediate_size"))
+# the ServingEngine cache of serving_qwen2 and e2e_chunked: 3-bit asym with
+# one scale and zero per 32 ranks (the reference's --lt_group_size 32)
+CHUNKED = QuantConfig(bits=3, group_size=32, sym=False, container=4)
+# a chunked 3-bit engine against one on palu_decode_ref, on the same card:
+# only a latent whose code sits on a rounding edge of the bf16-vs-f32
+# difference can move (compress_check's class, PERF.md)
+E2E_CHUNKED_TOL = 1e-2
+
+
+def qwen2_7b(layers: int) -> ModelConfig:
+    """Qwen2-7B from its published config (layers cut to `layers`), Palu
+    ranks from rank_search "uniform" at ratio 0.5 with head groups of 4."""
+    cfg = hf_io.config_from_hf(dict(QWEN2_7B, num_hidden_layers=layers), head_group_size=4)
+    names = [f"model.layers.{i}.self_attn.{w}" for i in range(layers)
+             for w in ("k_proj", "v_proj")]
+    sel, _, _ = rank_search(cfg, names, 0.5, "uniform", 4)
+    if {r for rs in sel.values() for r in rs} != {QRANK}:
+        raise AssertionError(f"uniform 0.5 gave ranks {sel}")
+    return dataclasses.replace(cfg, head_wise_ranks=sel)
+
+
+def qwen2_params(cfg: ModelConfig, device="cuda") -> dict:
+    """Random bf16 weights from seed 0 (llama.init_params) with nonzero q, k
+    and v biases, 0.3 N(0, 1) from the same generator (init_params makes
+    zero biases, which would hide a missing bias fold)."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = llama.init_params(cfg, gen, dtype=torch.bfloat16)
+    for layer in params["layers"]:
+        for which in ("q_proj", "k_proj", "v_proj"):
+            p = layer["attn"][which]
+            p["b"] = (torch.randn(p["b"].shape, generator=gen, device=device) * 0.3).to(
+                torch.bfloat16)
+    return params
 
 
 _FLUSH = None
@@ -362,6 +438,8 @@ def check_append(gen) -> dict:
 
 def _decode_inputs(qcfg: QuantConfig, b: int, g: int, hpg: int, s_max: int, gen, rv: int = RV,
                    rk: int = RK):
+    """q, b_k and a rank-major packed cache: per-row scales (B, G, S), or
+    per-chunk row stacks (B, G, rank // group_size, S)."""
     q = torch.randn((b, g * hpg, HD), generator=gen, device="cuda").to(torch.bfloat16)
     b_k = (torch.randn((g, hpg, rk, HD), generator=gen, device="cuda")
            / math.sqrt(rk)).to(torch.bfloat16)
@@ -370,9 +448,10 @@ def _decode_inputs(qcfg: QuantConfig, b: int, g: int, hpg: int, s_max: int, gen,
         lat = torch.randn((b, g, s_max, r), generator=gen, device="cuda")
         codes, scales, zeros = quantize_affine(lat, qcfg)
         bufs[f"x{side}_codes"] = pack_codes_t(codes, qcfg.pack_bits).contiguous()
-        bufs[f"x{side}_scale"] = scales[..., 0].contiguous()
+        rows = (lambda t: t.transpose(-1, -2)) if qcfg.group_size else (lambda t: t[..., 0])
+        bufs[f"x{side}_scale"] = rows(scales).contiguous()
         if not qcfg.sym:
-            bufs[f"x{side}_zero"] = zeros[..., 0].contiguous()
+            bufs[f"x{side}_zero"] = rows(zeros).contiguous()
     return q, b_k, bufs
 
 
@@ -680,15 +759,15 @@ def _fp_inputs(b: int, g: int, hpg: int, s_max: int, gen, rk: int = RK, rv: int 
     return q, b_k, lat, [x.transpose(-1, -2).contiguous() for x in lat]
 
 
-def _dense_kv_sdpa(b: int, n: int, gen):
+def _dense_kv_sdpa(b: int, n: int, gen, nh: int = NH, nkv: int = NH):
     """The yardstick: one scaled_dot_product_attention call for a decode
-    token over dense bf16 K/V of n positions (the attention Palu replaces,
-    not the same function)."""
-    q = torch.randn((b, NH, 1, HD), generator=gen, device="cuda").to(torch.bfloat16)
-    k = torch.randn((b, NH, n, HD), generator=gen, device="cuda").to(torch.bfloat16)
-    v = torch.randn((b, NH, n, HD), generator=gen, device="cuda").to(torch.bfloat16)
+    token over dense bf16 K/V of n positions, nh q-heads over nkv kv-heads
+    (GQA when fewer) (the attention Palu replaces, not the same function)."""
+    q = torch.randn((b, nh, 1, HD), generator=gen, device="cuda").to(torch.bfloat16)
+    k = torch.randn((b, nkv, n, HD), generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn((b, nkv, n, HD), generator=gen, device="cuda").to(torch.bfloat16)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    return lambda: sdpa(q, k, v)
+    return lambda: sdpa(q, k, v, enable_gqa=nkv != nh)
 
 
 def check_decode_fp(gen) -> list:
@@ -871,6 +950,251 @@ def check_decode_ranks(gen) -> dict:
     return out
 
 
+def _k_bias(g: int, hpg: int, gen):
+    """A pre-RoPE K bias as the engine keeps it: 0.3 N(0, 1) in bf16."""
+    return (torch.randn((g, hpg, HD), generator=gen, device="cuda") * 0.3).to(torch.bfloat16)
+
+
+def _decode_bound(bufs_bytes: int, lanes: int, nh: int, n: int, rk: int, rv: int,
+                  int8: bool = False, block_s: int = 512) -> tuple:
+    """(bound ms, by, bytes, ops) of one latent decode: cache, q, b_k and
+    output bytes; K rebuild, logits and P.V per head and token (the int8
+    modes' K rebuild on the int8 path, their operand build in f32)."""
+    nbytes = bufs_bytes + lanes * nh * HD * 2 + nh * rk * HD * 2 + lanes * nh * rv * 4
+    if int8:
+        int8_ops = 2 * lanes * nh * n * rk * HD
+        flops = 2 * lanes * nh * n * (HD + rv)
+        f32_flops = lanes * (n // block_s) * nh * HD * rk * 4
+        bms, by = bound_ms(nbytes, flops, int8_ops, f32_flops)
+        return bms, by, nbytes, {"int8_ops": int8_ops, "flops": flops, "f32_flops": f32_flops}
+    flops = 2 * lanes * nh * n * (rk * HD + HD + rv)
+    bms, by = bound_ms(nbytes, flops)
+    return bms, by, nbytes, {"flops": flops}
+
+
+# (G, heads per group, rk, rv): Qwen2-7B's one group of 28 q-heads at the
+# uniform 0.5 ranks, and the Llama-2-7B shape
+QWEN2_SHAPE, LLAMA_SHAPE = (QG, QHPG, QRANK, QRANK), (G, HPG, RK, RV)
+LANES8 = (1, 63, 64, 65, 1000, 4097, 8000, 8192)
+
+
+def check_decode_bias(gen) -> dict:
+    """Every decode kernel with Qwen2's pre-RoPE K bias against its plain
+    version at DECODE_TOL: palu_decode in its three K-path modes (rotation
+    blocks of 512), palu_decode_fp and palu_decode_fp_t, at the Qwen2-7B
+    shape (G 1 x 28 q-heads, rk = rv = 256) and the Llama shape (G 8 x 4),
+    batch 1 with S = kv_len = 8192 and 8 lanes of their own kv_len. Then
+    each one's device time at the Qwen2-7B shape, batch 1, S 8192, beside
+    its plain version's and SDPA over dense bf16 GQA K/V (28 q-heads over 4
+    kv-heads), and the exact decode without the bias there. Returns the
+    kernels line's palu_decode_k_bias (the exact mode)."""
+    s_max = 8192
+    worst, cases = {}, 0
+    names = ("palu_decode", "palu_decode_int8_dots", "palu_decode_int8_rot", "palu_decode_fp",
+             "palu_decode_fp_t")
+
+    def held(name, what, got, want):
+        nonlocal cases
+        err, rel = _held_decode(f"{name} with k_bias {what}", got, want)
+        w = worst.setdefault(name, [0.0, 0.0])
+        worst[name] = [max(w[0], rel), max(w[1], err)]
+        cases += 1
+
+    for label, (g, hpg, rk, rv) in (("qwen2", QWEN2_SHAPE), ("llama", LLAMA_SHAPE)):
+        for kvl in ((s_max,), LANES8):
+            what = f"{label} lanes {len(kvl)}"
+            kv_len = torch.tensor(kvl, dtype=torch.int32, device="cuda")
+            kb = _k_bias(g, hpg, gen)
+            q, b_k, bufs = _decode_inputs(FLAGSHIP, len(kvl), g, hpg, s_max, gen, rv, rk)
+            for name, knob in zip(names[:3], ({}, {"int8_dots": True}, {"int8_rot": True})):
+                kw = dict(qcfg=FLAGSHIP, rk=rk, rv=rv, k_bias=kb, block_s=512, **knob)
+                held(name, what, palu_decode(q, b_k, kv_len=kv_len, **bufs, **kw),
+                     palu_decode_ref(q, b_k, kv_len=kv_len, **bufs, **kw))
+            del bufs
+            q, b_k, seq, rank = _fp_inputs(len(kvl), g, hpg, s_max, gen, rk, rv)
+            held("palu_decode_fp", what, palu_decode_fp(q, b_k, *seq, kv_len, k_bias=kb),
+                 palu_decode_fp_ref(q, b_k, *seq, kv_len, k_bias=kb))
+            held("palu_decode_fp_t", what, palu_decode_fp_t(q, b_k, *rank, kv_len, k_bias=kb),
+                 palu_decode_fp_t_ref(q, b_k, *rank, kv_len, k_bias=kb))
+            del q, b_k, seq, rank
+
+    g, hpg, rk, rv = QWEN2_SHAPE
+    nh = g * hpg
+    kv1 = torch.tensor([s_max], dtype=torch.int32, device="cuda")
+    kb = _k_bias(g, hpg, gen)
+    library_ms = device_ms(_dense_kv_sdpa(1, s_max, gen, QNH, QNKV), 20)
+    timed = {}
+    q, b_k, bufs = _decode_inputs(FLAGSHIP, 1, g, hpg, s_max, gen, rv, rk)
+    for name, knob in zip(names[:3], ({}, {"int8_dots": True}, {"int8_rot": True})):
+        kw = dict(qcfg=FLAGSHIP, rk=rk, rv=rv, k_bias=kb, block_s=512, **knob)
+        bms, by, nbytes, ops = _decode_bound(_nbytes(*bufs.values(), kb), 1, nh, s_max,
+                                             rk, rv, int8=bool(knob))
+        timed[name] = {
+            "ms": device_ms(lambda: palu_decode(q, b_k, kv_len=kv1, **bufs, **kw), 20),
+            "plain_ms": device_ms(lambda: palu_decode_ref(q, b_k, kv_len=kv1, **bufs, **kw), 3),
+            "bytes": nbytes, **ops, "bound_ms": bms, "bound_by": by}
+    timed["palu_decode"]["no_bias_ms"] = device_ms(
+        lambda: palu_decode(q, b_k, kv_len=kv1, **bufs, qcfg=FLAGSHIP, rk=rk, rv=rv), 20)
+    del bufs
+    q, b_k, seq, rank = _fp_inputs(1, g, hpg, s_max, gen, rk, rv)
+    for name, fn, ref, lat in (("palu_decode_fp", palu_decode_fp, palu_decode_fp_ref, seq),
+                               ("palu_decode_fp_t", palu_decode_fp_t, palu_decode_fp_t_ref,
+                                rank)):
+        bms, by, nbytes, ops = _decode_bound(_nbytes(*lat, kb), 1, nh, s_max, rk, rv)
+        timed[name] = {"ms": device_ms(lambda: fn(q, b_k, *lat, kv1, k_bias=kb), 20),
+                       "plain_ms": device_ms(lambda: ref(q, b_k, *lat, kv1, k_bias=kb), 3),
+                       "bytes": nbytes, **ops, "bound_ms": bms, "bound_by": by}
+    del q, b_k, seq, rank
+    main = timed["palu_decode"]
+    out = {"name": "palu_decode_k_bias", "route": "cuda",
+           "source": "palu_tpu_torch/csrc/palu_decode.cu",
+           "replaces": "palu_tpu/ops/pallas/palu_decode4.py:932",
+           "max_abs_err": worst["palu_decode"][1], "ms": main["ms"], "kernel_ms": main["ms"],
+           "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+           "bound_by": main["bound_by"], "library_ms": library_ms}
+    emit({"phase": "kernel", "what": "decode kernels with the pre-RoPE K bias (Qwen2)",
+          "cases": cases, "tol": DECODE_TOL,
+          "max_rel_err": {k: v[0] for k, v in worst.items()},
+          "max_abs_err": {k: v[1] for k, v in worst.items()},
+          "b1_s8192_qwen2_g1_hpg28_rk256_rv256": timed,
+          "library_call": "scaled_dot_product_attention(enable_gqa=True), one decode token "
+                          "over dense bf16 K/V of 28 q-heads over 4 kv-heads (a different "
+                          "function: the attention Palu replaces)", **out})
+    return out
+
+
+def check_decode_chunked(gen) -> dict:
+    """palu_decode over per-chunk scales (chunk 32: MODE 3 of the kernel,
+    its K rebuild folded per scale chunk) against its plain version at
+    DECODE_TOL: sym, asym, and asym with the K bias, at the Qwen2-7B shape
+    and the Llama shape over two lanes (kv_len 777 and 8192, S 8192), and at
+    serving_qwen2's shape (8 lanes, S 4096, asym with the bias). Then its
+    device time at the Qwen2-7B shape, batch 1, S 8192 (asym with the bias:
+    serving_qwen2's cache), and at serving_qwen2's 8 lanes, beside the
+    plain version's and SDPA over dense GQA K/V. The int8 modes must
+    raise (per-row scales only). Returns the kernels line's
+    palu_decode_chunked."""
+    s_max, worst_rel, worst_abs, cases = 8192, 0.0, 0.0, 0
+    sym = dataclasses.replace(CHUNKED, sym=True)
+    specs = [(shape, qcfg, bias, kvl, s)
+             for shape in (QWEN2_SHAPE, LLAMA_SHAPE)
+             for qcfg, bias in ((sym, False), (CHUNKED, False), (CHUNKED, True))
+             for kvl, s in (((777, s_max), s_max),)]
+    specs.append((QWEN2_SHAPE, CHUNKED, True, (256, 700, 1024, 1500, 2047, 2048, 2080, 2100),
+                  4096))
+    for (g, hpg, rk, rv), qcfg, bias, kvl, s in specs:
+        q, b_k, bufs = _decode_inputs(qcfg, len(kvl), g, hpg, s, gen, rv, rk)
+        kv_len = torch.tensor(kvl, dtype=torch.int32, device="cuda")
+        kw = dict(qcfg=qcfg, rk=rk, rv=rv, k_bias=_k_bias(g, hpg, gen) if bias else None)
+        err, rel = _held_decode(f"chunked decode g {g} hpg {hpg} {qcfg} bias {bias} kv {kvl}",
+                                palu_decode(q, b_k, kv_len=kv_len, **bufs, **kw),
+                                palu_decode_ref(q, b_k, kv_len=kv_len, **bufs, **kw))
+        worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, err)
+        cases += 1
+        for mode in INT8_MODES:
+            try:
+                palu_decode(q, b_k, kv_len=kv_len, **bufs, **kw, block_s=512, **{mode: True})
+            except ValueError:
+                continue
+            raise AssertionError(f"{mode} took per-chunk scales")
+        del q, b_k, bufs
+
+    g, hpg, rk, rv = QWEN2_SHAPE
+    nh = g * hpg
+    timed = {}
+    for label, lanes, s, n in (("b1_s8192", 1, s_max, s_max), ("b8_s4096", 8, 4096, 2048)):
+        q, b_k, bufs = _decode_inputs(CHUNKED, lanes, g, hpg, s, gen, rv, rk)
+        kv_len = torch.full((lanes,), n, dtype=torch.int32, device="cuda")
+        kb = _k_bias(g, hpg, gen)
+        kw = dict(qcfg=CHUNKED, rk=rk, rv=rv, k_bias=kb)
+        # the bytes of the first n positions: what this run reads
+        per_pos = _nbytes(*bufs.values()) / s
+        bms, by, nbytes, ops = _decode_bound(int(per_pos * n) + kb.numel() * 2, lanes, nh, n,
+                                             rk, rv)
+        timed[label] = {
+            "lanes": lanes, "s_max": s, "kv_len": n,
+            "ms": device_ms(lambda: palu_decode(q, b_k, kv_len=kv_len, **bufs, **kw), 20),
+            "plain_ms": device_ms(lambda: palu_decode_ref(q, b_k, kv_len=kv_len, **bufs, **kw),
+                                  3),
+            "library_ms": device_ms(_dense_kv_sdpa(lanes, n, gen, QNH, QNKV), 20),
+            "bytes": nbytes, **ops, "bound_ms": bms, "bound_by": by}
+        del q, b_k, bufs
+    main = timed["b1_s8192"]
+    out = {"name": "palu_decode_chunked", "route": "cuda",
+           "source": "palu_tpu_torch/csrc/palu_decode.cu",
+           "replaces": "palu_tpu/ops/pallas/palu_decode4.py:968",
+           "max_abs_err": worst_abs, "ms": main["ms"], "kernel_ms": main["ms"],
+           "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+           "bound_by": main["bound_by"], "library_ms": main["library_ms"]}
+    emit({"phase": "kernel", "what": "palu_decode over per-chunk scales (chunk 32)",
+          "cases": cases, "tol": DECODE_TOL, "max_rel_err": worst_rel,
+          "int8_modes": "raised ValueError (per-row scales only)", "timed": timed,
+          "library_call": "scaled_dot_product_attention(enable_gqa=True) over dense bf16 "
+                          "K/V, 28 q-heads over 4 kv-heads", **out})
+    return out
+
+
+# scaled-RoPE tables the decode kernels must hold: Llama-3.1's llama3 and a
+# yarn table (its attention scale is not 1)
+ROPE_SCALING = {
+    "llama3": {"rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0,
+               "high_freq_factor": 4.0, "original_max_position_embeddings": 8192},
+    "yarn": {"rope_type": "yarn", "factor": 4.0, "original_max_position_embeddings": 4096},
+}
+
+
+def check_decode_rope(gen) -> None:
+    """Every decode kernel with scaled-RoPE tables against its plain version
+    on the same tables, at DECODE_TOL: palu_decode in its three modes,
+    palu_decode_fp, palu_decode_fp_t and palu_decode_seq_quantized, at the
+    Llama shape over two lanes (kv_len 777 and 8192, S 8192), with a
+    llama3 table and a yarn table."""
+    from palu_tpu_torch.models import rope as rope_mod
+
+    s_max = 8192
+    kv_len = torch.tensor((777, s_max), dtype=torch.int32, device="cuda")
+    worst, cases, scales = {}, 0, {}
+    for scaling, rs in ROPE_SCALING.items():
+        inv_freq, scale = rope_mod.inv_freq_and_scale(dataclasses.replace(
+            llama7b(1), rope_scaling=rs))
+        rope = dict(inv_freq=np.asarray(inv_freq, np.float32), rope_scale=float(scale))
+        scales[scaling] = rope["rope_scale"]
+
+        def held(name, got, want):
+            nonlocal cases
+            err, rel = _held_decode(f"{name} with {scaling} RoPE", got, want)
+            w = worst.setdefault(name, [0.0, 0.0])
+            worst[name] = [max(w[0], rel), max(w[1], err)]
+            cases += 1
+
+        q, b_k, bufs = _decode_inputs(FLAGSHIP, 2, G, HPG, s_max, gen)
+        for name, knob in (("palu_decode", {}), ("palu_decode_int8_dots", {"int8_dots": True}),
+                           ("palu_decode_int8_rot", {"int8_rot": True})):
+            kw = dict(qcfg=FLAGSHIP, rk=RK, rv=RV, block_s=512, **rope, **knob)
+            held(name, palu_decode(q, b_k, kv_len=kv_len, **bufs, **kw),
+                 palu_decode_ref(q, b_k, kv_len=kv_len, **bufs, **kw))
+        del q, b_k, bufs
+        q, b_k, seq, rank = _fp_inputs(2, G, HPG, s_max, gen)
+        held("palu_decode_fp", palu_decode_fp(q, b_k, *seq, kv_len, **rope),
+             palu_decode_fp_ref(q, b_k, *seq, kv_len, **rope))
+        held("palu_decode_fp_t", palu_decode_fp_t(q, b_k, *rank, kv_len, **rope),
+             palu_decode_fp_t_ref(q, b_k, *rank, kv_len, **rope))
+        del q, b_k, seq, rank
+        sq = QuantConfig(bits=3, group_size=0)
+        q, b_k, bufs = _seq_inputs(sq, 2, s_max, gen)
+        kw = dict(qcfg=sq, rk=RK, rv=RV, **rope)
+        held("palu_decode_seq_quantized",
+             palu_decode_seq_quantized(q, b_k, kv_len=kv_len, **bufs, **kw),
+             palu_decode_seq_quantized_ref(q, b_k, kv_len=kv_len, **bufs, **kw))
+        del q, b_k, bufs
+    if scales["yarn"] == 1.0:
+        raise AssertionError("the yarn table's rope_scale is 1: it would hold nothing")
+    emit({"phase": "decode_rope", "cases": cases, "tol": DECODE_TOL,
+          "rope_scaling": ROPE_SCALING, "rope_scale": scales,
+          "max_rel_err": {k: v[0] for k, v in worst.items()},
+          "max_abs_err": {k: v[1] for k, v in worst.items()}})
+
+
 # Hadamard tolerances, as a share of max|plain| (plain in f32 on the same
 # input): f32 butterfly sums against the dense product's sums in another
 # order; a bf16 output is one bf16 rounding more, as PREFILL_TOL
@@ -949,12 +1273,20 @@ def _prefill_inputs(b, nh, nkv, cq, s, gen):
     return rnd(b, nh, cq, HD), rnd(b, nkv, s, HD), rnd(b, nkv, s, HD)
 
 
+# (q heads, kv heads, window, keys, chunk offsets of the two lanes): the
+# Llama-7B widths (MHA, GQA over 8, a window), and Qwen2-7B's 28 q-heads
+# over 4 kv-heads at serve_qwen2's 7000-token prompt: 7168 keys read, its
+# first chunk and its last (offset 6656)
+PREFILL_CASES = ((NH, NH, None, 4096, (0, 3584)), (NH, 8, None, 4096, (0, 3584)),
+                 (NH, NH, 1024, 4096, (0, 3584)), (QNH, QNKV, None, 7168, (0, 6656)))
+
+
 def check_prefill(gen) -> dict:
-    cq, worst_rel, worst_abs, cases = 512, 0.0, 0.0, 0
-    off = torch.tensor([0, 3584], dtype=torch.int32, device="cuda")
-    kvl = off + cq
-    for nkv, window in ((NH, None), (8, None), (NH, 1024)):
-        q, k, v = _prefill_inputs(2, NH, nkv, cq, 4096, gen)
+    cq, worst_rel, worst_abs, rel_by_case = 512, 0.0, 0.0, {}
+    for nh, nkv, window, s, offs in PREFILL_CASES:
+        off = torch.tensor(offs, dtype=torch.int32, device="cuda")
+        kvl = off + cq
+        q, k, v = _prefill_inputs(2, nh, nkv, cq, s, gen)
         got = prefill_flash(q, k, v, off, kvl, sliding_window=window)
         want = prefill_flash_ref(q.float(), k.float(), v.float(), off, kvl,
                                  sliding_window=window)
@@ -962,9 +1294,10 @@ def check_prefill(gen) -> dict:
         err = (got.float() - want).abs().max().item()
         rel = err / want.abs().max().item()
         if not (torch.isfinite(got).all() and rel <= PREFILL_TOL):
-            raise AssertionError(f"prefill nkv {nkv} window {window}: rel err {rel}")
+            raise AssertionError(f"prefill nh {nh} nkv {nkv} window {window}: rel err {rel}")
         worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, err)
-        cases += 1
+        rel_by_case[f"nh{nh}_nkv{nkv}_window{window}_s{s}"] = rel
+        del q, k, v, got, want
 
     # times at the main path's shape: the 512-row chunk at offset 3584
     q, k, v = _prefill_inputs(1, NH, NH, cq, 4096, gen)
@@ -985,8 +1318,9 @@ def check_prefill(gen) -> dict:
            "replaces": "palu_tpu/ops/pallas/prefill_flash.py:257",
            "max_abs_err": worst_abs, "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
            "bound_ms": bms, "bound_by": by, "library_ms": library_ms}
-    emit({"phase": "kernel", "cases": cases, "max_rel_err": worst_rel, "tol": PREFILL_TOL,
-          "bytes": nbytes, "flops": flops, **out})
+    emit({"phase": "kernel", "cases": len(PREFILL_CASES), "max_rel_err": worst_rel,
+          "rel_err_by_case": rel_by_case, "tol": PREFILL_TOL, "bytes": nbytes, "flops": flops,
+          **out})
     return out
 
 
@@ -1062,9 +1396,10 @@ def _held(name, got, want) -> tuple:
     return err, rel
 
 
-def _kernel_line(name, bits, cases, mix, per, worst_abs, worst_rel, host) -> dict:
+def _kernel_line(name, bits, cases, mix, per, worst_abs, worst_rel, host, qwen2_rel) -> dict:
     """Per-launch numbers on the main path at batch 1: each case's time
-    weighted by its launches per decode step (`mix`)."""
+    weighted by its launches per decode step (`mix`). `qwen2_rel` is the
+    worst rel err of each Qwen2-7B-width shape (held only, not timed)."""
     total = sum(mix.values())
 
     def avg(key):
@@ -1081,35 +1416,60 @@ def _kernel_line(name, bits, cases, mix, per, worst_abs, worst_rel, host) -> dic
     emit({"phase": "kernel", "max_rel_err": worst_rel, "tol": GEMV_TOL, "rows": [1, 8],
           "device_ms": line["ms"],
           "main_path_mix": mix, "per_shape_batch1": per, "host_us_per_call": host,
+          "qwen2_max_rel_err": qwen2_rel,
           "library_call": "bf16 torch.matmul of x by the dequantized weight(s)", **line})
     return line
+
+
+# the GEMV shapes of e2e_qwen2_w4 (Qwen2-7B widths: q_proj, the U_v-fused
+# o_proj of 28 heads at rank 256, lm_head; VT_k / VT_v of its one group at
+# rank 256; the MLP), held against the plain versions but not timed
+QWEN2_GEMV = {"qwen2_q_proj": (QHID, QNH * HD), "qwen2_w_fused": (QNH * QRANK, QHID),
+              "qwen2_lm_head": (QHID, QVOCAB)}
+QWEN2_VT = {"qwen2_vt_k": (QHID, QG * QRANK), "qwen2_vt_v": (QHID, QG * QRANK)}
+
+
+def _held_rows(fn, ref, label, k, ws, gen) -> tuple:
+    """fn against ref at 1 and 8 rows of x (K = k): (max abs err, max rel err)."""
+    worst_abs = worst_rel = 0.0
+    for rows in (1, 8):
+        x = torch.randn((rows, k), generator=gen, device="cuda").to(torch.bfloat16)
+        err, rel = _held(f"{fn.__name__} {label} rows {rows}", fn(x, *ws), ref(x, *ws))
+        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+    return worst_abs, worst_rel
 
 
 def check_gemv(gen, bits: int) -> dict:
     """gemv_int4 at q_proj, w_fused and lm_head; gemv_int8 at VT_k and VT_v
     (the README path), at q_proj, w_fused and the row-major lm_head (the
     weight_bits=8 path: weight 0 in the README mix) and on the transposed
-    tied int8 head (on no served path)."""
+    tied int8 head (on no served path). Both also at the Qwen2-7B widths
+    (QWEN2_GEMV; gemv_int8 at QWEN2_VT too), held only."""
     fn, ref = (gemv_int4, gemv_int4_ref) if bits == 4 else (gemv_int8, gemv_int8_ref)
     dense_shapes = {"q_proj": (HID, NH * HD), "w_fused": (NH * RV, HID), "lm_head": (HID, VOCAB)}
     if bits == 4:
         shapes = dense_shapes
         mix = {"q_proj": LAYERS, "w_fused": LAYERS, "lm_head": 1}
+        held_only = QWEN2_GEMV
     else:
         shapes = {"vt_k": (HID, G * RK), "vt_v": (HID, G * RV), **dense_shapes,
                   "tied_head": (HID, VOCAB)}
         mix = {"vt_k": LAYERS, "vt_v": LAYERS}
-    per, host, worst_abs, worst_rel = {}, {}, 0.0, 0.0
+        held_only = {**QWEN2_VT, **QWEN2_GEMV}
+    per, host, worst_abs, worst_rel, qwen2_rel = {}, {}, 0.0, 0.0, {}
+    for label, (k, n) in held_only.items():
+        w = _qweight(bits, k, n, gen)
+        err, qwen2_rel[label] = _held_rows(fn, ref, label, k, (w,), gen)
+        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, qwen2_rel[label])
+        del w
     for label, (k, n) in shapes.items():
         if label == "tied_head":
             emb = torch.randn((n, k), generator=gen, device="cuda") * 0.02
             w = wquant.tied_head({"embed": wquant.quantize_embed(emb)})  # a transposed view
         else:
             w = _qweight(bits, k, n, gen)
-        for rows in (1, 8):
-            x = torch.randn((rows, k), generator=gen, device="cuda").to(torch.bfloat16)
-            err, rel = _held(f"{fn.__name__} {label} rows {rows}", fn(x, w), ref(x, w))
-            worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+        err, rel = _held_rows(fn, ref, label, k, (w,), gen)
+        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
         x1 = torch.randn((1, k), generator=gen, device="cuda").to(torch.bfloat16)
         dense = _dense(w)
         lib, lib_name = _int_library(w)
@@ -1129,20 +1489,25 @@ def check_gemv(gen, bits: int) -> dict:
                     "bf16_matmul": host_us(lambda: torch.matmul(x1, dense))}
         del w, dense, lib
     cases = "139" if bits == 4 else "126"
-    return _kernel_line(fn.__name__, bits, cases, mix, per, worst_abs, worst_rel, host)
+    return _kernel_line(fn.__name__, bits, cases, mix, per, worst_abs, worst_rel, host,
+                        qwen2_rel)
 
 
 def check_mlp(gen, bits: int) -> dict:
-    """The fused SwiGLU MLP at H 4096, I 11008 (every layer of its path)."""
+    """The fused SwiGLU MLP at H 4096, I 11008 (every layer of its path),
+    and held only at Qwen2-7B's H 3584, I 18944."""
     fn, ref = (mlp_gemv_int4, mlp_gemv_int4_ref) if bits == 4 else (mlp_gemv_int8,
                                                                       mlp_gemv_int8_ref)
-    ws = [_qweight(bits, HID, INTER, gen), _qweight(bits, HID, INTER, gen),
-          _qweight(bits, INTER, HID, gen)]
-    worst_abs, worst_rel = 0.0, 0.0
-    for rows in (1, 8):
-        x = torch.randn((rows, HID), generator=gen, device="cuda").to(torch.bfloat16)
-        err, rel = _held(f"{fn.__name__} rows {rows}", fn(x, *ws), ref(x, *ws))
-        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+
+    def weights(h, inter):
+        return [_qweight(bits, h, inter, gen), _qweight(bits, h, inter, gen),
+                _qweight(bits, inter, h, gen)]
+
+    ws = weights(QHID, QINTER)
+    worst_abs, qwen2_rel = _held_rows(fn, ref, "qwen2_mlp", QHID, ws, gen)
+    ws = weights(HID, INTER)
+    err, rel = _held_rows(fn, ref, "mlp", HID, ws, gen)
+    worst_abs, worst_rel = max(worst_abs, err), max(qwen2_rel, rel)
     x1 = torch.randn((1, HID), generator=gen, device="cuda").to(torch.bfloat16)
     dg, du, dd = (_dense(w) for w in ws)
 
@@ -1163,7 +1528,7 @@ def check_mlp(gen, bits: int) -> dict:
             "bf16_matmul": host_us(dense_mlp)}
     cases = "96" if bits == 4 else "80"
     return _kernel_line(fn.__name__, bits, cases, {"mlp": LAYERS}, per, worst_abs, worst_rel,
-                        host)
+                        host, {"qwen2_mlp": qwen2_rel})
 
 
 # ---------------------------------------------------------------------------
@@ -1204,18 +1569,38 @@ def _e2e_inputs():
             rng.integers(0, cfg.vocab_size, 16))
 
 
-def phase_e2e(tag: str = "e2e", wkw=None) -> None:
+def _qwen2_e2e_inputs():
+    """The Qwen2 e2e phases' 2-layer model at Qwen2-7B width (bf16 weights
+    with nonzero biases, made from seed 0 on the card and kept on the CPU),
+    its 1024-token prompt and 16 teacher-forced tokens (vocab 152064 makes
+    the CPU's f32 run about 6 GB: the prompt is half the Llama one's)."""
+    cfg = qwen2_7b(2)
+    params = _tree_to(qwen2_params(cfg), "cpu", torch.bfloat16)
+    rng = np.random.default_rng(10)
+    return (cfg, params, rng.integers(0, QVOCAB, (1, 1024)), rng.integers(0, QVOCAB, 16))
+
+
+def phase_e2e(tag: str = "e2e", wkw=None, inputs=None) -> None:
+    """2 layers at full width, card (bf16, kernels) against CPU (f32, plain
+    versions) on the same bf16-rounded weights: `inputs` is (cfg, params,
+    prompt, forced tokens), the Llama-2-7B-width model by default. With
+    biases, every decode launch of the card carries the K bias, and under
+    quantized weights the v bias's o_bias_corr (from the dequantized o_proj
+    codes) equals the CPU's to f32 rounding."""
     wkw = wkw or {}
-    cfg, params, ids, forced = _e2e_inputs()
+    cfg, params, ids, forced = inputs or _e2e_inputs()
     params_gpu = _tree_to(params, "cuda", torch.bfloat16)
     params_cpu = _tree_to(params, "cpu", torch.float32)
     ecfg = EngineConfig(s_max=4096, batch=1, qcfg=FLAGSHIP, decode_chunk=512, **wkw)
     gpu = Engine(params_gpu, cfg, ecfg)
     del params_gpu
+    reset_counts()
     t0 = time.perf_counter()
     got, gcache = _stepwise(gpu, ids, forced)
     gpu_s = time.perf_counter() - t0
+    launches = read_counts()
     cpu = Engine(params_cpu, cfg, dataclasses.replace(ecfg, dtype=torch.float32, device="cpu"))
+    del params_cpu
     t0 = time.perf_counter()
     want, ccache = _stepwise(cpu, ids, forced)
     cpu_s = time.perf_counter() - t0
@@ -1231,7 +1616,23 @@ def phase_e2e(tag: str = "e2e", wkw=None) -> None:
     qleaves = dict(_quantized_leaves(cpu.params))
     qdiff = [p for p, t in _quantized_leaves(gpu.params)
              if p not in qleaves or not torch.equal(t.cpu(), qleaves[p])]
-    emit({"phase": tag, "layers": 2, "prompt": 2048, "steps": 16, **wkw,
+    bias = {}
+    if cfg.attention_bias:
+        # o_bias_corr in f32 from each engine's own (quantized) params, and
+        # as each engine keeps it (bf16 on the card, f32 on the CPU)
+        f32_rel = max(
+            ((engine_mod._o_bias_corr(gl["attn"], cfg, ecfg.weight_bits).cpu()
+              - engine_mod._o_bias_corr(cl["attn"], cfg, ecfg.weight_bits)).abs().max()
+             / engine_mod._o_bias_corr(cl["attn"], cfg, ecfg.weight_bits).abs().max()).item()
+            for gl, cl in zip(gpu.params["layers"], cpu.params["layers"]))
+        kept_rel = max(((gd["o_bias_corr"].float().cpu() - cd["o_bias_corr"]).abs().max()
+                        / cd["o_bias_corr"].abs().max()).item()
+                       for gd, cd in zip(gpu.derived, cpu.derived))
+        bias = {"o_bias_corr_f32_max_rel_err": f32_rel, "o_bias_corr_kept_max_rel_err": kept_rel,
+                "decode_launches": launches["palu_decode"],
+                "decode_launches_with_k_bias": launches["palu_decode_k_bias"]}
+    emit({"phase": tag, "model": _model_name(cfg), "layers": 2, "prompt": int(ids.shape[1]),
+          "steps": len(forced), **wkw, **bias,
           "max_rel_err": rel, "tol": E2E_TOL, "top1_agreement": top1,
           "cache_code_bytes_differing": diff, "cache_code_bytes": total,
           "quantized_tensors": len(qleaves), "quantized_tensors_differing": qdiff,
@@ -1247,6 +1648,85 @@ def phase_e2e(tag: str = "e2e", wkw=None) -> None:
         raise AssertionError(f"{tag}: card and CPU quantized weights differ: {qdiff}")
     if wkw and not all(p.endswith("-kernel") for p in gpu._gemv_paths):
         raise AssertionError(f"{tag}: GPU engine took {gpu._gemv_paths}")
+    if cfg.attention_bias:
+        if not 0 < launches["palu_decode_k_bias"] == launches["palu_decode"]:
+            raise AssertionError(f"{tag}: {bias}: not every decode launch carried the K bias")
+        # one bf16 rounding of the kept correction apart
+        if bias["o_bias_corr_f32_max_rel_err"] > 1e-5 or bias["o_bias_corr_kept_max_rel_err"] \
+                > 2.0**-8:
+            raise AssertionError(f"{tag}: card and CPU o_bias_corr differ: {bias}")
+
+
+def _model_name(cfg: ModelConfig) -> str:
+    base = ("Qwen2-7B widths" if cfg.model_family == "qwen2" else "Llama-2-7B widths")
+    return f"{base}, {cfg.num_hidden_layers} layers, bf16, random (seed 0)"
+
+
+def phase_e2e_chunked(inputs) -> None:
+    """The per-chunk cache end to end: the 2-layer Qwen2-7B-width model over
+    the asym 3-bit cache with one scale and zero per 32 ranks (CHUNKED),
+    a 1024-token prompt and 16 teacher-forced steps on the card. Every
+    palu_decode launch is held at DECODE_TOL against palu_decode_ref on the
+    same inputs (the engine's own cache), and the per-step logits within
+    E2E_CHUNKED_TOL of an engine on the card that runs palu_decode_ref in
+    its place (3-bit codes on either side of a rounding edge between the
+    card's bf16 and the CPU's f32 would make a CPU comparison loose)."""
+    cfg, params, ids, forced = inputs
+    params_gpu = _tree_to(params, "cuda", torch.bfloat16)
+    ecfg = EngineConfig(s_max=4096, batch=1, qcfg=CHUNKED, decode_chunk=512)
+    held, runs = [], {}
+    for tag, decode in (("kernel", _held_engine_decode(held, "e2e_chunked: palu_decode")),
+                        ("plain_decode", palu_decode_ref)):
+        reset_counts()
+        with _engine_decode(decode):
+            eng = Engine(params_gpu, cfg, ecfg)
+            t0 = time.perf_counter()
+            logits, cache = _stepwise(eng, ids, forced)
+            runs[tag] = (logits, sorted(eng._decode_paths), read_counts(),
+                         time.perf_counter() - t0, cache)
+        del eng
+    del params_gpu
+    got, want = runs["kernel"][0], runs["plain_decode"][0]
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    launches = runs["kernel"][2]
+    # where the two engines part: cache bytes (codes, and the per-chunk scale
+    # and zero rows) of the tokens each wrote, and the logits in bf16 ulps of
+    # max|logits| (the card's logits are bf16: one ulp flip in the top binade
+    # reads between 2^-8 and 2^-7 of max|logits|)
+    parted = {"codes_t": 0, "scale_t": 0, "zero_t": 0}
+    for gl, wl in zip(runs["kernel"][4]["layers"], runs["plain_decode"][4]["layers"]):
+        for side in ("k", "v"):
+            for key in parted:
+                parted[key] += int((gl[side][key] != wl[side][key]).sum())
+    code_bytes = sum(l[s]["codes_t"].numel() for l in runs["kernel"][4]["layers"]
+                     for s in ("k", "v"))
+    top = want.abs().max().item()
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+    diff = (got - want).abs()
+    emit({"phase": "e2e_chunked", "model": _model_name(cfg), "layers": 2,
+          "prompt": int(ids.shape[1]), "steps": len(forced), "qcfg": dataclasses.asdict(CHUNKED),
+          "decode_calls_held": len(held), "decode_tol": DECODE_TOL,
+          "decode_max_rel_err": max(h[3] for h in held),
+          "decode_max_abs_err": max(h[2] for h in held),
+          "vs_plain_decode_engine_max_rel_err": rel, "tol": E2E_CHUNKED_TOL,
+          "max_abs_logit": top, "max_abs_err": diff.max().item(),
+          "max_abs_err_in_bf16_ulps_of_max": diff.max().item() / ulp,
+          "logits_differing_by_step": (diff > 0).sum(dim=(0, 2)).tolist(),
+          "cache_bytes_differing": parted, "cache_code_bytes": code_bytes,
+          "top1_agreement": (got.argmax(-1) == want.argmax(-1)).float().mean().item(),
+          "launches": {k: launches[k] for k in ("palu_decode", "palu_decode_chunked",
+                                                "palu_decode_k_bias",
+                                                "append_token_quantized")},
+          "gpu_decode_paths": {k: v[1] for k, v in runs.items()},
+          "gpu_s": {k: v[3] for k, v in runs.items()}})
+    if len(held) != 2 * len(forced):
+        raise AssertionError(f"e2e_chunked: {len(held)} palu_decode calls held")
+    if not (torch.isfinite(got).all() and rel <= E2E_CHUNKED_TOL):
+        raise AssertionError(f"e2e_chunked: vs the plain-decode engine rel err {rel}")
+    if runs["kernel"][1] != ["palu_decode-kernel"] or not (
+            launches["palu_decode_chunked"] == launches["palu_decode_k_bias"]
+            == launches["palu_decode"] == len(held)) or launches["append_token_quantized"]:
+        raise AssertionError(f"e2e_chunked: paths {runs['kernel'][1]}, launches {launches}")
 
 
 def _decode_path(ecfg) -> str:
@@ -1338,15 +1818,22 @@ class _CheckedEngine(Engine):
         return logits, cache
 
 
-def expected_launches(layers: int, ecfg: EngineConfig, steps: int) -> dict:
+def expected_launches(layers: int, ecfg: EngineConfig, steps: int, bias: bool = False) -> dict:
     """Exact launches of every kernel but prefill_flash in `steps` decode
     steps at batch <= 8 (prefill runs the matmul paths, never the GEMVs):
-    the cache's append (quantized caches) and decode attention kernels,
-    and the GEMVs of the weights' width."""
+    the cache's append (per-row quantized caches) and decode attention
+    kernels (with the K bias for a model with biases, and per-chunk
+    scales for a per-chunk cache), and the GEMVs of the weights' width."""
     bits = ecfg.weight_bits
     vt8 = ecfg.vt_bits == 8
     per_step = {fn.__name__: 0 for fn in COUNTERS if fn is not prefill_flash}
-    per_step[_decode_path(ecfg)] = layers
+    per_step.update(palu_decode_k_bias=0, palu_decode_chunked=0)
+    path = _decode_path(ecfg)
+    per_step[path] = layers
+    if bias:
+        per_step["palu_decode_k_bias"] = layers if path == "palu_decode" else 0
+    if ecfg.qcfg is not None and ecfg.qcfg.group_size > 0:
+        per_step["palu_decode_chunked"] = layers
     if append_supported(ecfg.qcfg):
         per_step["append_token_quantized"] = 2 * layers
     if bits == 4:
@@ -1395,8 +1882,8 @@ def serve(tag: str, eng: "_CheckedEngine", prompts, new_tokens: int, extra=None)
     ecfg = eng.ecfg
     wkw = {k: getattr(ecfg, k) for k in ("weight_bits", "vt_bits", "embed_bits")}
     path = _decode_path(ecfg)
-    emit({"phase": tag, "model": f"Llama-2-7B widths, {cfg.num_hidden_layers} layers, bf16, "
-          "random (seed 0)", "qcfg": ecfg.qcfg and dataclasses.asdict(ecfg.qcfg),
+    emit({"phase": tag, "model": _model_name(cfg),
+          "qcfg": ecfg.qcfg and dataclasses.asdict(ecfg.qcfg),
           "rank_major_fp": ecfg.rank_major_fp, **wkw,
           "requests": requests, "decode_steps": steps, "launches": launches,
           "logits_finite": finite, "decode_paths": sorted(eng._decode_paths),
@@ -1408,7 +1895,8 @@ def serve(tag: str, eng: "_CheckedEngine", prompts, new_tokens: int, extra=None)
         raise AssertionError(f"{tag}: took {eng._decode_paths}")
     if not all(p.endswith("-kernel") or p == "dense-matmul" for p in eng._gemv_paths):
         raise AssertionError(f"{tag}: decode took {eng._gemv_paths}")
-    for name, n in expected_launches(cfg.num_hidden_layers, ecfg, steps).items():
+    for name, n in expected_launches(cfg.num_hidden_layers, ecfg, steps,
+                                     cfg.attention_bias).items():
         if launches[name] != n:
             raise AssertionError(f"{tag}: {name} launched {launches[name]} times, expected {n}")
     if launches["prefill_flash"] <= 0:
@@ -1430,9 +1918,9 @@ def _engine(cfg, wkw, batch=1, params=None, s_max=8192, qcfg=FLAGSHIP, rank_majo
     return eng, time.perf_counter() - t0
 
 
-def _prompts(seed: int, lens, lanes: int = 1):
+def _prompts(seed: int, lens, lanes: int = 1, vocab: int = VOCAB):
     rng = np.random.default_rng(seed)
-    return [rng.integers(0, VOCAB, (lanes, n)) for n in lens]
+    return [rng.integers(0, vocab, (lanes, n)) for n in lens]
 
 
 def phase_serve() -> tuple:
@@ -1482,26 +1970,35 @@ def phase_serving(params) -> dict:
     seq-major latents (palu_decode_fp), 8 lanes, s_max 4096, two prefill
     chunks per decode step, the native scheduler. 24 requests, prompt
     lengths drawn from 256-2048 (numpy seed 4), 64 new tokens each, every
-    fourth sampled (temperature 1.0, top-k 32, top-p 0.9). Counters are
-    set to 0 just before the run and read just after. Then two greedy
-    requests again through batch-1 Engine.generate on the same weights: the
-    share of equal tokens is reported, not asserted (at batch 8 the decode
-    split count and the GEMMs' row count differ, so bf16 ties may break
-    differently; the CPU tests hold exact equality)."""
+    fourth sampled (temperature 1.0, top-k 32, top-p 0.9)."""
     cfg = llama7b(LAYERS)
     ecfg = EngineConfig(s_max=4096, batch=8, decode_chunk=512, qcfg=None)
+    return _serving("serving", params, cfg, ecfg, 24, 64, 4, VOCAB)
+
+
+def _serving(tag: str, params, cfg: ModelConfig, ecfg: EngineConfig, n_requests: int,
+             new_tokens: int, seed: int, vocab: int) -> dict:
+    """ServingEngine over `params` on the native scheduler, two prefill
+    chunks per decode step: `n_requests` requests with prompt lengths drawn
+    from 256-2048 (numpy `seed`), `new_tokens` each, every fourth sampled
+    (temperature 1.0, top-k 32, top-p 0.9). Counters are set to 0 just
+    before the run and read just after; every request must finish and the
+    decode launches be exact. Then two greedy requests again through
+    batch-1 Engine.generate on the same weights: the share of equal tokens
+    is reported, not asserted (at batch 8 the decode split count and the
+    GEMMs' row count differ, so bf16 ties may break differently; the CPU
+    tests hold exact equality)."""
     srv = ServingEngine(params, cfg, ecfg, prefer_native=True, prefill_chunks_per_step=2)
     if not isinstance(srv.sched, NativeScheduler):
-        raise AssertionError(f"serving runs {type(srv.sched).__name__}")
-    rng = np.random.default_rng(4)
-    lens = rng.integers(256, 2049, 24)
-    prompts = {rid: rng.integers(0, VOCAB, (1, int(n))) for rid, n in enumerate(lens)}
+        raise AssertionError(f"{tag} runs {type(srv.sched).__name__}")
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(256, 2049, n_requests)
+    prompts = {rid: rng.integers(0, vocab, (1, int(n))) for rid, n in enumerate(lens)}
     sampled = {rid for rid in prompts if rid % 4 == 3}
-    new_tokens = 64
     for rid, p in prompts.items():
         if not srv.submit(rid, p, new_tokens,
                           sampling=SERVING_SAMPLING if rid in sampled else None):
-            raise AssertionError(f"request {rid} refused")
+            raise AssertionError(f"{tag}: request {rid} refused")
     decode_steps = [0]
     decode = srv.engine.decode
 
@@ -1526,15 +2023,17 @@ def phase_serving(params) -> dict:
     stats = srv.sched.stats()
     out = srv.outputs
     n_tokens = sum(len(out[r]) for r in prompts)
-    in_vocab = all(0 <= t < VOCAB for r in prompts for t in out[r])
+    in_vocab = all(0 <= t < vocab for r in prompts for t in out[r])
     greedy = [r for r in prompts if r not in sampled][:2]
     match, forced = {}, {}
     for r in greedy:
         ref = srv.prefill_engine.generate(prompts[r], max_new_tokens=new_tokens)[0]
         match[r] = float(np.mean(ref == np.asarray(out[r])))
         forced[r] = _forced_margin(srv.prefill_engine, prompts[r], out[r])
-    emit({"phase": "serving", "model": "Llama-2-7B widths, 32 layers, bf16, random (seed 0)",
-          "qcfg": None, "lanes": ecfg.batch, "s_max": ecfg.s_max, "prefill_chunks_per_step": 2,
+    path = _decode_path(ecfg)
+    emit({"phase": tag, "model": _model_name(cfg),
+          "qcfg": ecfg.qcfg and dataclasses.asdict(ecfg.qcfg), "lanes": ecfg.batch,
+          "s_max": ecfg.s_max, "prefill_chunks_per_step": 2,
           "scheduler": type(srv.sched).__name__, "requests": len(prompts),
           "prompt_lens": [int(n) for n in lens], "sampled": sorted(sampled),
           "new_tokens": new_tokens, "finished": stats["finished"], "tokens": n_tokens,
@@ -1543,23 +2042,57 @@ def phase_serving(params) -> dict:
           "median_step_ms": float(np.median(step_s)) * 1e3,
           "p90_step_ms": float(np.percentile(step_s, 90)) * 1e3,
           "launches": launches, "decode_paths": sorted(srv.engine._decode_paths),
+          "weight_bytes": _weight_bytes(srv.engine.params),
           "cache_nbytes": cache_nbytes(srv.cache),
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "greedy_equal_to_batch1_generate": match,
           "greedy_teacher_forced_batch1": forced})
-    if stats != {"admitted": 24, "finished": 24, "tokens": 24 * new_tokens} or \
+    if stats != {"admitted": n_requests, "finished": n_requests,
+                 "tokens": n_requests * new_tokens} or \
             n_tokens != stats["tokens"] or any(len(out[r]) != new_tokens for r in prompts):
-        raise AssertionError(f"serving: {stats}, {n_tokens} tokens")
+        raise AssertionError(f"{tag}: {stats}, {n_tokens} tokens")
     if not in_vocab:
-        raise AssertionError("serving: a token outside the vocabulary")
-    if srv.engine._decode_paths != {"palu_decode_fp-kernel"}:
-        raise AssertionError(f"serving took {srv.engine._decode_paths}")
-    want = expected_launches(LAYERS, ecfg, decode_steps[0])
+        raise AssertionError(f"{tag}: a token outside the vocabulary")
+    if srv.engine._decode_paths != {f"{path}-kernel"}:
+        raise AssertionError(f"{tag} took {srv.engine._decode_paths}")
+    want = expected_launches(cfg.num_hidden_layers, ecfg, decode_steps[0], cfg.attention_bias)
     for name, n in want.items():
         if launches[name] != n:
-            raise AssertionError(f"serving: {name} launched {launches[name]} times, "
+            raise AssertionError(f"{tag}: {name} launched {launches[name]} times, "
                                  f"expected {n}")
     return launches
+
+
+def phase_serve_qwen2() -> tuple:
+    """Qwen2-7B at full width and depth (28 layers, bf16 random weights with
+    nonzero q/k/v biases) through Engine.generate over the per-row 3-bit
+    cache: serve's traffic (1000 / 3000 / 7000-token prompts, 32 new tokens,
+    s_max 8192), every decode launch with the K bias and the exact launches
+    per step asserted, then its decode and prefill breakdowns. Returns the
+    launches and the weights, which serving_qwen2 reuses."""
+    cfg = qwen2_7b(QWEN2_7B["num_hidden_layers"])
+    t0 = time.perf_counter()
+    params = qwen2_params(cfg)
+    eng, init_s = _engine(cfg, {}, params=params)
+    prompts = _prompts(11, (1000, 3000, 7000), vocab=QVOCAB)
+    launches = serve("serve_qwen2", eng, prompts, 32,
+                     {"init_s": time.perf_counter() - t0, "config": QWEN2_SOURCE,
+                      "group_ranks": QRANK, "heads_per_group": QHPG,
+                      "reduced": "random weights (no checkpoint in the repository)"})
+    decode_breakdown(eng, "serve_qwen2")
+    prefill_breakdown(eng, prompts[-1], "serve_qwen2")
+    del eng
+    return launches, params
+
+
+def phase_serving_qwen2(params) -> dict:
+    """The same Qwen2-7B weights through the ServingEngine on the native
+    scheduler over the per-chunk cache (3-bit asym, one scale and zero per
+    32 ranks, CHUNKED): 8 lanes, s_max 4096, 16 requests of 256-2048
+    tokens (numpy seed 12), 32 new tokens each, 4 of them sampled."""
+    cfg = qwen2_7b(QWEN2_7B["num_hidden_layers"])
+    ecfg = EngineConfig(s_max=4096, batch=8, decode_chunk=512, qcfg=CHUNKED)
+    return _serving("serving_qwen2", params, cfg, ecfg, 16, 32, 12, QVOCAB)
 
 
 def phase_serve_w4() -> dict:
@@ -2037,18 +2570,29 @@ def main() -> int:
     kernels = [check_append(gen), check_decode(gen), *check_decode_int8(gen),
                check_decode_seq(gen), *check_decode_fp(gen), check_prefill(gen),
                check_gemv(gen, 4), check_mlp(gen, 4), check_gemv(gen, 8), check_mlp(gen, 8),
-               check_hadamard(gen)]
+               check_hadamard(gen), check_decode_bias(gen), check_decode_chunked(gen)]
     check_decode_ranks(gen)
+    check_decode_rope(gen)
     check_dense_sdpa(gen)
     phase_e2e()
     phase_e2e("e2e_w4", W4)
     phase_e2e("e2e_w8", W8)
     phase_e2e_fp()
+    qwen2_inputs = _qwen2_e2e_inputs()
+    phase_e2e("e2e_qwen2", inputs=qwen2_inputs)
+    phase_e2e("e2e_qwen2_w4", W4, inputs=qwen2_inputs)
+    phase_e2e_chunked(qwen2_inputs)
+    del qwen2_inputs
     launches, launches_fp, params = phase_serve()
     launches_serving = phase_serving(params)
     del params
     launches_w4 = phase_serve_w4()
     launches_w8 = phase_serve_w8()
+    torch.cuda.empty_cache()  # the Llama weights are gone: room for Qwen2-7B's
+    launches_qwen2, params = phase_serve_qwen2()
+    launches_serving_qwen2 = phase_serving_qwen2(params)
+    del params
+    torch.cuda.empty_cache()
     launches_lk = phase_latency_kernel()
     launches_attn = phase_latency_attention()
     phase_serve_bench_int8_rot()
@@ -2061,7 +2605,8 @@ def main() -> int:
     # GEMVs and the int8 VT GEMV, serve_w8 for the int8 MLP, the 3-bit
     # run_latency_kernel for the seq-major packed decode, the 1-layer
     # run_latency_attention runs for the int8 modes, and the compress
-    # phase's decomposition for the Hadamard transform
+    # phase's decomposition for the Hadamard transform; serve_qwen2 for the
+    # decode with the K bias, serving_qwen2 for the per-chunk-scale decode
     source = {"cache_append": ("append_token_quantized", launches),
               "palu_decode": ("palu_decode", launches),
               "palu_decode_int8_dots": ("palu_decode_int8_dots",
@@ -2076,7 +2621,9 @@ def main() -> int:
               "mlp_gemv_int4": ("mlp_gemv_int4", launches_w4),
               "gemv_int8": ("gemv_int8", launches_w4),
               "mlp_gemv_int8": ("mlp_gemv_int8", launches_w8),
-              "hadamard_transform": ("hadamard_transform", launches_compress)}
+              "hadamard_transform": ("hadamard_transform", launches_compress),
+              "palu_decode_k_bias": ("palu_decode_k_bias", launches_qwen2),
+              "palu_decode_chunked": ("palu_decode_chunked", launches_serving_qwen2)}
     for k in kernels:
         counter, run = source[k["name"]]
         k["launches"] = run[counter]

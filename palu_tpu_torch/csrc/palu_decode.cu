@@ -4,13 +4,19 @@
 // Replaces: palu_tpu/ops/pallas/palu_decode4.py::palu_flash_decode4_quantized
 // (body _make_kernel4, launch _call4), per-row scales, sym and asym, in its
 // three K-path modes: exact (the default), int8_dots and int8_rot (MODE 0,
-// 1, 2 below; the V path and the combine are the same in all three).
+// 1, 2 below; the V path and the combine are the same in all three); its
+// per-chunk scales (group_chunk, the reference's --lt_group_size) in the
+// exact mode (MODE 3); and its pre-RoPE K bias (k_bias, Qwen2) in all four.
 //
 // What it computes, per lane b, group g and q-head h of the group:
 //   K_h(s) = scale_k(s) * B_h^T (code_k(s) - qoff)  [+ zero_k(s) * rowsum B_h]
+//            [+ b_h, the K bias]
 //   logit(s) = q_h . RoPE_s(K_h(s)) / sqrt(hd), masked by kv_len and window
 //   out_h = sum_s softmax(logit)(s) * (scale_v(s) * (code_v(s) - qoff) [+ zero_v(s)])
-// -> (B, nh, rv) in latent space (o_proj is U_v-fused).
+// -> (B, nh, rv) in latent space (o_proj is U_v-fused). With per-chunk
+// scales each contiguous chunk of gs ranks has its own scale (and zero)
+// per token: K_h(s) = sum_c scale_c(s) * B_hc^T (code_c(s) - qoff)
+// [+ zero_c(s) * rowsum B_hc], and the V values likewise.
 //
 // Bound on this card: rebuilding K costs rk * hd multiply-adds per head per
 // token (2 * nh * rk * hd flops per token, ~8.6 GFLOP per layer at 8K
@@ -49,6 +55,26 @@
 // p * scale_v. Blocks past kv_len (or before the window) do no tile work.
 // The combine kernel merges the per-split (m, l, acc) with the usual
 // rescaling. Nothing allocates here: the wrapper hands in the partials.
+//
+// Per-chunk scales (MODE 3): a scale that changes inside a row cannot
+// multiply the f32 result of the whole rank sum, so the K rebuild keeps one
+// more set of accumulators: each chunk's k-steps (16 ranks each; a chunk of
+// 8 takes one half of a k-step's A fragment, the other half zeroed) sum
+// codes^T B into it, and at the chunk's end the thread adds it to the main
+// accumulators times the chunk's scale of the accumulator row's token. The
+// asym zero term zero_c(s) * rowsum B_hc comes from a third set, the same
+// mma with an A fragment of ones, times the chunk's zero. So K stays exact
+// up to f32 summation order, as in the per-row mode (the JAX kernel instead
+// dequantizes the chunk into its bf16 operand). The V side dequantizes each
+// rank's 64 codes in registers with its chunk's scale and zero.
+//
+// The K bias (k_bias, f32 (G, hpg, hd)): the exact modes add b_h to the two
+// RoPE halves of K in registers before the rotation, as JAX's XLA fallback
+// does. The int8 modes add JAX's cache-independent logit term instead,
+// U_b . rcos(t) + V_b . rsin(t) with U_b = a1 b1 + a2 b2, V_b = a2 b1 - a1 b2
+// (a1 / a2 the scaled query rotated to the block's start), formed per
+// rotation block beside the operand and summed per token with the zero
+// correction, after the per-token scale.
 //
 // The int8 modes (k_path / k_path_i8 of the JAX kernel) fold the query into
 // the reconstruction operand per rotation block of block_s tokens: with
@@ -96,7 +122,7 @@ using decode::warp_sum;
 constexpr int kTile = 64;      // tokens per tile
 constexpr int kThreads = 256;  // threads per block
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxHeads = 16;  // q-heads per group
+constexpr int kMaxHeads = 32;  // q-heads per group (Qwen2-7B: 28 over one kv group of 4)
 constexpr int kMaxKSteps = 8;  // k-steps of one rank chunk held in registers
 constexpr int kRc = 16 * kMaxKSteps;  // the largest rank chunk, 128
 constexpr int kMaxRank = 512;  // rk limit: a G-LRD group's rank at hd 128, group 4
@@ -106,15 +132,16 @@ constexpr int kByteStride = kTile + 4;  // padded byte rows: odd word stride
 constexpr int kCk = kTile + 8;
 constexpr int kBPad = 8;
 constexpr int kI8Pad = 16;  // int8 rows of rk + 16 bytes: (rk + 16) / 4 words, 4 mod 32 banks
-constexpr int kRed = 12;    // reduction rows: [head parity][3 sums][warp half]
+constexpr int kRed = 16;    // reduction rows: [head parity][4 sums][warp half]
+constexpr uint32_t kOnes = 0x3F803F80u;  // two bf16 ones: the A fragment of rowsum B
 
 struct DecodeArgs {
   const void* q;               // (B, nh, hd) bf16 or f32, roped at the current position
   int q_bf16;
   const __nv_bfloat16* bk;     // (G, hpg, rk, hd)
   const uint8_t* kc;           // (B, G, nrk, S)
-  const float* ks;             // (B, G, S)
-  const float* kz;             // (B, G, S) asym only
+  const float* ks;             // (B, G, nsk, S): nsk 1 per row, rk / gs per chunk
+  const float* kz;             // the same, asym only
   const uint8_t* vc;           // (B, G, nrv, S)
   const float* vs;
   const float* vz;
@@ -127,12 +154,14 @@ struct DecodeArgs {
   const float* rsin;
   const int8_t* cos8;          // int8_rot: (block_s, hd/2) at scale 63 / cmax
   const int8_t* sin8;
+  const float* kbias;          // (G, hpg, hd) pre-RoPE K bias, or null
   float* part_m;               // (B, nh, splits)
   float* part_l;
   float* part_acc;             // (B, nh, splits, rv)
   int G, hpg, rk, rv, S, nrk, nrv, pbits, qoff, asym, window;
   int splits, tiles_per_split, chunk_heads, block_s;
-  int rc;                      // exact mode: ranks per chunk (rk when one chunk)
+  int rc;                      // exact modes: ranks per chunk (rk when one chunk)
+  int gs, nsk, nsv;            // MODE 3: ranks per scale chunk, scale rows of K and V
   float sqrt_hd, i8r_inv;
 };
 
@@ -218,24 +247,26 @@ struct SplitLayout {
       sk, stat, total;
 };
 
-// mode 0 stages rc ranks of B in bf16 and a bf16 code tile of rc ranks;
-// modes 1 and 2 the int8 operand (chunk heads x hd rows of rk bytes) with
-// its five per-row f32 / int arrays (a1|a2, row max, scale, row sum, scaled
-// row sum) and an int8 code tile; mode 2 also the int8 rotation rows of
-// the tile.
+// modes 0 and 3 stage rc ranks of B in bf16 and a bf16 code tile of rc
+// ranks; modes 1 and 2 the int8 operand (chunk heads x hd rows of rk bytes)
+// with its six per-row f32 / int arrays (a1|a2, row max, scale, row sum,
+// scaled row sum, the bias fold U_b|V_b) and an int8 code tile; mode 2 also
+// the int8 rotation rows of the tile. Mode 3 adds the tile's per-chunk
+// scale and zero rows (nsk + nsv of each).
 __host__ __device__ inline SplitLayout split_layout(int rk, int hd, int hpg, int rv, int nrk,
                                                     int nrv, int asym, int chunk, int mode,
-                                                    int rc) {
+                                                    int rc, int nsk, int nsv) {
+  const bool exact = mode == 0 || mode == 3;
   const size_t rope = sizeof(float) * kTile * (hd / 2 + 1);
   const size_t i8row = static_cast<size_t>(rk + kI8Pad);
   SplitLayout L;
   size_t off = 0;
   L.bsm = off;
-  off = al(off + (mode == 0 ? sizeof(__nv_bfloat16) * chunk * rc * (hd + kBPad)
-                            : i8row * chunk * hd));
-  L.op = off;     off = al(off + (mode == 0 ? 0 : sizeof(float) * 5 * chunk * hd));
+  off = al(off + (exact ? sizeof(__nv_bfloat16) * chunk * rc * (hd + kBPad)
+                        : i8row * chunk * hd));
+  L.op = off;     off = al(off + (exact ? 0 : sizeof(float) * 6 * chunk * hd));
   L.ck = off;
-  off = al(off + (mode == 0 ? sizeof(__nv_bfloat16) * rc * kCk : i8row * kTile));
+  off = al(off + (exact ? sizeof(__nv_bfloat16) * rc * kCk : i8row * kTile));
   L.cos = off;    off = al(off + rope);
   L.sin = off;    off = al(off + rope);
   L.c8 = off;     off = al(off + (mode == 2 ? static_cast<size_t>(kTile) * (hd / 2) : 0));
@@ -249,15 +280,21 @@ __host__ __device__ inline SplitLayout split_layout(int rk, int hd, int hpg, int
   L.acc = off;    off = al(off + sizeof(float) * hpg * rv);
   L.lg = off;     off = al(off + sizeof(float) * hpg * kTile);
   L.pw = off;     off = al(off + sizeof(float) * hpg * kTile);
-  L.red = off;    off = al(off + sizeof(float) * (mode == 0 ? 4 : kRed) * kTile);
-  L.sk = off;     off = al(off + sizeof(float) * 4 * kTile);
+  L.red = off;    off = al(off + sizeof(float) * (exact ? 4 : kRed) * kTile);
+  L.sk = off;
+  off = al(off + sizeof(float) * (4 + (mode == 3 ? 2 * (nsk + nsv) : 0)) * kTile);
   L.stat = off;   off = al(off + sizeof(float) * 4 * kMaxHeads);
   L.total = off;
   return L;
 }
 
-template <int HD, int MODE>
+// BIAS compiles the K bias in (a.kbias set); without it the kernel carries
+// no trace of the bias (a null test in the inner loops slowed the decodes
+// that take none).
+template <int HD, int MODE, bool BIAS>
 __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs a) {
+  constexpr bool EXACT = MODE == 0 || MODE == 3;  // K rebuilt in bf16 mma
+  constexpr bool CHUNKED = MODE == 3;             // per-chunk scales
   constexpr int half = HD / 2;
   constexpr int HS = HD + kBPad;  // B row stride
   constexpr int NTH = HD / 16;    // 8-wide column tiles per half of hd
@@ -273,8 +310,8 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
   const int jw = (warp >> 2) * NTW;  // its first column tile in each half of hd
 
   extern __shared__ __align__(128) unsigned char smem[];
-  const SplitLayout L =
-      split_layout(rk, HD, hpg, rv, a.nrk, a.nrv, a.asym, a.chunk_heads, MODE, a.rc);
+  const SplitLayout L = split_layout(rk, HD, hpg, rv, a.nrk, a.nrv, a.asym, a.chunk_heads,
+                                     MODE, a.rc, a.nsk, a.nsv);
   const int i8s = rk + kI8Pad;  // int8 row stride (operand and code tile)
   const int rc = a.rc, nrc = (rk + rc - 1) / rc;  // exact mode's rank chunks
   __nv_bfloat16* bsm = reinterpret_cast<__nv_bfloat16*>(smem + L.bsm);  // [chunk][rc][HS]
@@ -292,6 +329,11 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
   float* pw = reinterpret_cast<float*>(smem + L.pw);    // [hpg][kTile] p * scale_v
   float* red = reinterpret_cast<float*>(smem + L.red);  // [head parity][warp half][kTile]
   float* sk = reinterpret_cast<float*>(smem + L.sk);    // [4][kTile]: sk, zk, sv, zv
+  // MODE 3: the tile's chunk scales and zeros, [nsk][kTile] twice, then [nsv][kTile] twice
+  float* csk = sk + 4 * kTile;
+  float* czk = csk + a.nsk * kTile;
+  float* csv = czk + a.nsk * kTile;
+  float* czv = csv + a.nsv * kTile;
   float* stat = reinterpret_cast<float*>(smem + L.stat);  // [4][kMaxHeads]: m, l, alpha, zsum
   // int8 modes: the operand [chunk][hd][i8s] and its per-row arrays
   int8_t* nq = reinterpret_cast<int8_t*>(smem + L.bsm);
@@ -304,6 +346,7 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
   float* osc = aq + 2 * nop;                               // operand scale per row
   int* rsn = reinterpret_cast<int*>(aq + 3 * nop);         // row sum of the int8 operand
   float* ors = aq + 4 * nop;                               // rsn * osc
+  float* bqb = aq + 5 * nop;  // the K bias fold per head: U_b | V_b
   float* zk = sk + kTile;
   float* sv = sk + 2 * kTile;
   float* zv = sk + 3 * kTile;
@@ -315,10 +358,11 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
   const size_t bg = static_cast<size_t>(b) * a.G + g;
   const uint8_t* kc = a.kc + bg * a.nrk * a.S;
   const uint8_t* vc = a.vc + bg * a.nrv * a.S;
-  const float* ksc = a.ks + bg * a.S;
-  const float* vsc = a.vs + bg * a.S;
-  const float* kzp = a.asym ? a.kz + bg * a.S : nullptr;
-  const float* vzp = a.asym ? a.vz + bg * a.S : nullptr;
+  const float* ksc = a.ks + bg * a.nsk * a.S;
+  const float* vsc = a.vs + bg * a.nsv * a.S;
+  const float* kzp = a.asym ? a.kz + bg * a.nsk * a.S : nullptr;
+  const float* vzp = a.asym ? a.vz + bg * a.nsv * a.S : nullptr;
+  const float* kb_g = BIAS ? a.kbias + static_cast<size_t>(g) * hpg * HD : nullptr;
   const __nv_bfloat16* bk_g = a.bk + static_cast<size_t>(g) * hpg * rk * HD;
 
   for (int r = tid; r < rk; r += kThreads) ktab[r] = rank_entry(r, rk, a.pbits);
@@ -355,7 +399,7 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
   for (int c0 = 0; c0 < hpg && t_begin < t_end; c0 += a.chunk_heads) {
     const int nc = min(a.chunk_heads, hpg - c0);
     __syncthreads();  // set-up done / the previous chunk's B reads done
-    if (MODE == 0 && nrc == 1) {  // all of B fits: staged once
+    if (EXACT && nrc == 1) {  // all of B fits: staged once
       for (int i = tid; i < nc * rk * (HD / 8); i += kThreads) {
         const int row = i / (HD / 8), c = i % (HD / 8);  // row = head * rk + rank
         cp_async16(bsm + row * HS + c * 8,
@@ -368,8 +412,8 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
     int cur_blk = -1;
     for (int tile = t_begin; tile < t_end; ++tile) {
       const int s0 = tile * kTile;
-      const int blk = MODE == 0 ? 0 : s0 / a.block_s;
-      if (MODE != 0 && blk != cur_blk) {
+      const int blk = EXACT ? 0 : s0 / a.block_s;
+      if (!EXACT && blk != cur_blk) {
         // ---- int8 modes: the query-folded operand of this rotation block
         cur_blk = blk;
         for (int i = tid; i < nc * half; i += kThreads) {
@@ -385,6 +429,15 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
           rsn[i] = 0;
         }
         __syncthreads();
+        if (BIAS) {  // the bias fold of this block's rotated query (cache-independent)
+          for (int i = tid; i < nc * half; i += kThreads) {
+            const int h = i / half, e = i % half;
+            const float kb1 = kb_g[(c0 + h) * HD + e], kb2 = kb_g[(c0 + h) * HD + half + e];
+            const float a1 = aq[h * HD + e], a2 = aq[h * HD + half + e];
+            bqb[h * HD + e] = __fadd_rn(__fmul_rn(a1, kb1), __fmul_rn(a2, kb2));
+            bqb[h * HD + half + e] = __fsub_rn(__fmul_rn(a2, kb1), __fmul_rn(a1, kb2));
+          }
+        }
         const int e = tid % half, rstep = kThreads / half;  // half divides kThreads
         for (int h = 0; h < nc; ++h) {
           const float a1 = aq[h * HD + e], a2 = aq[h * HD + half + e];
@@ -437,19 +490,34 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
       load_byte_tile(kbytes, kc, a.nrk, a.S, s0, tid);
       load_byte_tile(vbytes, vc, a.nrv, a.S, s0, tid);
       if (tid < kTile) {
+        // per-chunk scales and zeros enter the dots below: unit rows here
         const int s = s0 + tid;
         const bool in = s < a.S;
-        sk[tid] = in ? ksc[s] : 0.0f;
-        sv[tid] = in ? vsc[s] : 0.0f;
+        sk[tid] = in ? (CHUNKED ? 1.0f : ksc[s]) : 0.0f;
+        sv[tid] = in ? (CHUNKED ? 1.0f : vsc[s]) : 0.0f;
         // int8 modes fold the symmetric offset into the zero correction
-        zk[tid] = (in && a.asym) ? kzp[s]
-                  : (in && MODE != 0) ? sk[tid] * static_cast<float>(-a.qoff) : 0.0f;
-        zv[tid] = (in && a.asym) ? vzp[s] : 0.0f;
+        zk[tid] = (in && a.asym && !CHUNKED) ? kzp[s]
+                  : (in && !EXACT) ? sk[tid] * static_cast<float>(-a.qoff) : 0.0f;
+        zv[tid] = (in && a.asym && !CHUNKED) ? vzp[s] : 0.0f;
+      }
+      if (CHUNKED) {
+        for (int i = tid; i < (a.nsk + a.nsv) * kTile; i += kThreads) {
+          const int row = i / kTile, t = i % kTile, s = s0 + t;
+          const bool in = s < a.S;
+          const bool kside = row < a.nsk;
+          const int c = kside ? row : row - a.nsk;
+          const float* sc = kside ? ksc : vsc;
+          const float* zp = kside ? kzp : vzp;
+          float* dst = kside ? csk : csv;
+          const int n = kside ? a.nsk : a.nsv;
+          dst[c * kTile + t] = in ? sc[static_cast<size_t>(c) * a.S + s] : 0.0f;
+          dst[(n + c) * kTile + t] = (in && a.asym) ? zp[static_cast<size_t>(c) * a.S + s] : 0.0f;
+        }
       }
       // rope rows: absolute positions (exact), block-relative ones (int8)
-      const float* cos_src = MODE == 0 ? a.cos_t : a.rcos;
-      const float* sin_src = MODE == 0 ? a.sin_t : a.rsin;
-      const int row0 = MODE == 0 ? s0 : s0 - blk * a.block_s;
+      const float* cos_src = EXACT ? a.cos_t : a.rcos;
+      const float* sin_src = EXACT ? a.sin_t : a.rsin;
+      const int row0 = EXACT ? s0 : s0 - blk * a.block_s;
       for (int i = tid; i < kTile * (half / 4); i += kThreads) {
         const int t = i / (half / 4), f = (i % (half / 4)) * 4, s = s0 + t;
         float4 c = make_float4(0.f, 0.f, 0.f, 0.f), n = c;
@@ -473,7 +541,7 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
         }
       }
       __syncthreads();
-      if (MODE != 0) {
+      if (!EXACT) {
         // raw unsigned K codes -> int8 [token][rank]
         for (int i = tid; i < rk * kTile; i += kThreads) {
           const int t = i / rk, r = i % rk;
@@ -484,7 +552,7 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
       }
       const int tok_a = m0 + fg, tok_b = tok_a + 8;  // accumulator rows of this lane
 
-      if (MODE != 0) {
+      if (!EXACT) {
         // ---- int8 modes: per head u|v (tokens x hd) = codes^T . operand^T.
         // The A fragments (codes, 16 tokens x 32 ranks) of the first 128
         // ranks stay in registers for all heads; higher ranks' load per
@@ -509,7 +577,7 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
             s8_dots<NTW>(acc, at, nqh + ks * 32, i8s, half * i8s);
           }
           // acc[j]: u at frequency (jw + j) * 8 + ...; acc[NTW + j]: v there
-          float pa = 0.0f, pb = 0.0f, ca = 0.0f, cb = 0.0f;
+          float pa = 0.0f, pb = 0.0f, ca = 0.0f, cb = 0.0f, ba = 0.0f, bb = 0.0f;
           int ia1 = 0, ia2 = 0, ib1 = 0, ib2 = 0;
 #pragma unroll
           for (int j = 0; j < NTW; ++j) {
@@ -521,6 +589,11 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
               const float cosb = cos_s[tok_b * cs + d], sinb = sin_s[tok_b * cs + d];
               ca += r1 * cosa + r2 * sina;
               cb += r1 * cosb + r2 * sinb;
+              if (BIAS) {
+                const float u1 = bqb[hc * HD + d], u2 = bqb[hc * HD + half + d];
+                ba += u1 * cosa + u2 * sina;
+                bb += u1 * cosb + u2 * sinb;
+              }
               if (MODE == 1) {
                 const float sc1 = osc[hc * HD + d], sc2 = osc[hc * HD + half + d];
                 pa += (static_cast<float>(acc[j][e]) * sc1) * cosa +
@@ -539,6 +612,10 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
           for (int o = 1; o <= 2; o <<= 1) {
             ca += __shfl_xor_sync(0xffffffffu, ca, o);
             cb += __shfl_xor_sync(0xffffffffu, cb, o);
+            if (BIAS) {
+              ba += __shfl_xor_sync(0xffffffffu, ba, o);
+              bb += __shfl_xor_sync(0xffffffffu, bb, o);
+            }
             if (MODE == 1) {
               pa += __shfl_xor_sync(0xffffffffu, pa, o);
               pb += __shfl_xor_sync(0xffffffffu, pb, o);
@@ -549,8 +626,8 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
               ib2 += __shfl_xor_sync(0xffffffffu, ib2, o);
             }
           }
-          // [parity][sum: main | int8_rot's sin part | correction][warp half][kTile]
-          float* rh = red + ((hc & 1) * 6 + (warp >> 2)) * kTile;
+          // [parity][sum: main | int8_rot's sin part | correction | bias][warp half][kTile]
+          float* rh = red + ((hc & 1) * 8 + (warp >> 2)) * kTile;
           if (ft == 0) {
             rh[tok_a] = MODE == 1 ? pa : __int_as_float(ia1);
             rh[tok_b] = MODE == 1 ? pb : __int_as_float(ib1);
@@ -558,11 +635,16 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
             rh[2 * kTile + tok_b] = __int_as_float(ib2);
             rh[4 * kTile + tok_a] = ca;
             rh[4 * kTile + tok_b] = cb;
+            if (BIAS) {
+              rh[6 * kTile + tok_a] = ba;
+              rh[6 * kTile + tok_b] = bb;
+            }
           }
           __syncthreads();
           if (tid < kTile) {
-            const float* r2 = red + (hc & 1) * 6 * kTile;
+            const float* r2 = red + (hc & 1) * 8 * kTile;
             const float corr = r2[4 * kTile + tid] + r2[5 * kTile + tid];
+            const float bias = BIAS ? r2[6 * kTile + tid] + r2[7 * kTile + tid] : 0.0f;
             float main;
             if (MODE == 1) {
               main = r2[tid] + r2[kTile + tid];
@@ -573,11 +655,15 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
               main = static_cast<float>(t1) * (osc[hc * HD] * a.i8r_inv) +
                      static_cast<float>(t2) * (osc[hc * HD + half] * a.i8r_inv);
             }
-            lg[h * kTile + tid] = main * sk[tid] + corr * zk[tid];
+            // the bias term is cache-independent: after the per-token scale
+            lg[h * kTile + tid] = main * sk[tid] + corr * zk[tid] + bias;
           }
         }
       } else {
         const float sk_a = sk[tok_a], sk_b = sk[tok_b], zk_a = zk[tok_a], zk_b = zk[tok_b];
+        // MODE 3: k-step halves per scale chunk boundary check (chunks of 8
+        // end inside a k-step)
+        const int nsub = CHUNKED && a.gs % 16 ? 2 : 1;
         for (int ci = 0; ci < nrc; ++ci) {
           // ---- rank chunk ci: ranks [r0, r0 + nr)
           const int r0 = ci * rc, nr = min(rc, rk - r0), nkc = nr / 16;
@@ -617,24 +703,86 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
             float acc[2 * NTW][4];
 #pragma unroll
             for (int j = 0; j < 2 * NTW; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+            if constexpr (CHUNKED) {
+              // tk: codes^T B_h of the current scale chunk; tz: rowsum of its
+              // B_h rows (asym), the same mma on an A fragment of ones
+              float tk[2 * NTW][4], tz[2 * NTW][4];
 #pragma unroll
-            for (int ks = 0; ks < kMaxKSteps; ++ks) {
-              if (ks < nkc) {
-                const __nv_bfloat16* brow = bh + (ks * 16 + ri + (mi & 1) * 8) * HS + (mi >> 1) * 8;
+              for (int j = 0; j < 2 * NTW; ++j)
 #pragma unroll
-                for (int p = 0; p < NTW; p += 2) {
-                  uint32_t bf[4];
-                  ldmatrix_x4_trans(bf, brow + (jw + p) * 8);
-                  mma_bf16(acc[p], af[ks], bf[0], bf[1]);
-                  mma_bf16(acc[p + 1], af[ks], bf[2], bf[3]);
-                  ldmatrix_x4_trans(bf, brow + (NTH + jw + p) * 8);
-                  mma_bf16(acc[NTW + p], af[ks], bf[0], bf[1]);
-                  mma_bf16(acc[NTW + p + 1], af[ks], bf[2], bf[3]);
+                for (int u = 0; u < 4; ++u) tk[j][u] = tz[j][u] = 0.0f;
+#pragma unroll
+              for (int ks = 0; ks < kMaxKSteps; ++ks) {
+                if (ks < nkc) {
+                  const __nv_bfloat16* brow =
+                      bh + (ks * 16 + ri + (mi & 1) * 8) * HS + (mi >> 1) * 8;
+                  for (int sub = 0; sub < nsub; ++sub) {
+                    // a0/a1 hold ranks 0-7 of the k-step, a2/a3 ranks 8-15
+                    const bool lo = nsub == 1 || sub == 0, hi = nsub == 1 || sub == 1;
+                    const uint32_t am[4] = {lo ? af[ks][0] : 0u, lo ? af[ks][1] : 0u,
+                                            hi ? af[ks][2] : 0u, hi ? af[ks][3] : 0u};
+                    const uint32_t om[4] = {lo ? kOnes : 0u, lo ? kOnes : 0u,
+                                            hi ? kOnes : 0u, hi ? kOnes : 0u};
+#pragma unroll
+                    for (int p = 0; p < NTW; p += 2) {
+                      uint32_t bf[4];
+                      ldmatrix_x4_trans(bf, brow + (jw + p) * 8);
+                      mma_bf16(tk[p], am, bf[0], bf[1]);
+                      mma_bf16(tk[p + 1], am, bf[2], bf[3]);
+                      if (a.asym) {
+                        mma_bf16(tz[p], om, bf[0], bf[1]);
+                        mma_bf16(tz[p + 1], om, bf[2], bf[3]);
+                      }
+                      ldmatrix_x4_trans(bf, brow + (NTH + jw + p) * 8);
+                      mma_bf16(tk[NTW + p], am, bf[0], bf[1]);
+                      mma_bf16(tk[NTW + p + 1], am, bf[2], bf[3]);
+                      if (a.asym) {
+                        mma_bf16(tz[NTW + p], om, bf[0], bf[1]);
+                        mma_bf16(tz[NTW + p + 1], om, bf[2], bf[3]);
+                      }
+                    }
+                    // the end of a scale chunk (or of this rank chunk): fold
+                    // with the chunk's scale and zero of each row's token
+                    const int r_end = r0 + ks * 16 + (sub + 1) * (16 / nsub);
+                    if (r_end % a.gs == 0 || r_end == r0 + nr) {
+                      const int c = (r_end - 1) / a.gs;
+                      const float sa = csk[c * kTile + tok_a], sb = csk[c * kTile + tok_b];
+                      const float za = czk[c * kTile + tok_a], zb = czk[c * kTile + tok_b];
+#pragma unroll
+                      for (int j = 0; j < 2 * NTW; ++j) {
+#pragma unroll
+                        for (int u = 0; u < 4; ++u) {
+                          const float sc = u < 2 ? sa : sb, z = u < 2 ? za : zb;
+                          acc[j][u] += tk[j][u] * sc + tz[j][u] * z;
+                          tk[j][u] = tz[j][u] = 0.0f;
+                        }
+                      }
+                    }
+                  }
+                }
+              }
+            } else {
+#pragma unroll
+              for (int ks = 0; ks < kMaxKSteps; ++ks) {
+                if (ks < nkc) {
+                  const __nv_bfloat16* brow =
+                      bh + (ks * 16 + ri + (mi & 1) * 8) * HS + (mi >> 1) * 8;
+#pragma unroll
+                  for (int p = 0; p < NTW; p += 2) {
+                    uint32_t bf[4];
+                    ldmatrix_x4_trans(bf, brow + (jw + p) * 8);
+                    mma_bf16(acc[p], af[ks], bf[0], bf[1]);
+                    mma_bf16(acc[p + 1], af[ks], bf[2], bf[3]);
+                    ldmatrix_x4_trans(bf, brow + (NTH + jw + p) * 8);
+                    mma_bf16(acc[NTW + p], af[ks], bf[0], bf[1]);
+                    mma_bf16(acc[NTW + p + 1], af[ks], bf[2], bf[3]);
+                  }
                 }
               }
             }
             const float* qh = q_s + h * HD;
             const float* rsh = rs_b + h * HD;
+            const float* kbh = BIAS ? kb_g + static_cast<size_t>(h) * HD : nullptr;
             float part_a = 0.0f, part_b = 0.0f;
 #pragma unroll
             for (int j = 0; j < NTW; ++j) {
@@ -644,11 +792,18 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
                 const float q1 = qh[d], q2 = qh[d + half];
                 float k1 = acc[j][e] * sk_a, k2 = acc[NTW + j][e] * sk_a;
                 float l1 = acc[j][e + 2] * sk_b, l2 = acc[NTW + j][e + 2] * sk_b;
-                if (a.asym && ci == 0) {  // rs_b (all ranks) exists only for asym caches
+                if (MODE == 0 && a.asym && ci == 0) {  // rs_b (all ranks): per-row asym only
                   k1 += zk_a * rsh[d];
                   k2 += zk_a * rsh[d + half];
                   l1 += zk_b * rsh[d];
                   l2 += zk_b * rsh[d + half];
+                }
+                if (BIAS && ci == 0) {  // the K bias, pre-RoPE, once per token
+                  const float b1 = __ldg(kbh + d), b2 = __ldg(kbh + d + half);
+                  k1 += b1;
+                  k2 += b2;
+                  l1 += b1;
+                  l2 += b2;
                 }
                 float c = cos_s[tok_a * cs + d], s = sin_s[tok_a * cs + d];
                 part_a += q1 * (k1 * c - k2 * s) + q2 * (k2 * c + k1 * s);
@@ -719,9 +874,18 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
       for (int r = tid; r < rv; r += kThreads) {
         const uint32_t e = vtab[r];
         float cv[kTile];
+        if (CHUNKED) {  // dequantized with the rank's chunk scale and zero
+          const float* svc = csv + (r / a.gs) * kTile;
+          const float* zvc = czv + (r / a.gs) * kTile;
 #pragma unroll
-        for (int t = 0; t < kTile; ++t)
-          cv[t] = static_cast<float>(unpack_code(vbytes, kByteStride, t, e, a.pbits) - a.qoff);
+          for (int t = 0; t < kTile; ++t)
+            cv[t] = static_cast<float>(unpack_code(vbytes, kByteStride, t, e, a.pbits) - a.qoff) *
+                        svc[t] + zvc[t];
+        } else {
+#pragma unroll
+          for (int t = 0; t < kTile; ++t)
+            cv[t] = static_cast<float>(unpack_code(vbytes, kByteStride, t, e, a.pbits) - a.qoff);
+        }
         for (int h = c0; h < c0 + nc; ++h) {
           float acc = acc_s[h * rv + r] * alpha_s[h];
           const float* ph = pw + h * kTile;
@@ -746,23 +910,29 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
   }
 }
 
-template <int HD, int MODE>
+template <int HD, int MODE, bool BIAS>
 int launch_split(const DecodeArgs& a, int B, cudaStream_t st) {
   const size_t smem = split_layout(a.rk, HD, a.hpg, a.rv, a.nrk, a.nrv, a.asym, a.chunk_heads,
-                                  MODE, a.rc).total;
-  cudaError_t err = cudaFuncSetAttribute(palu_decode_split_kernel<HD, MODE>,
+                                  MODE, a.rc, a.nsk, a.nsv).total;
+  cudaError_t err = cudaFuncSetAttribute(palu_decode_split_kernel<HD, MODE, BIAS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  palu_decode_split_kernel<HD, MODE><<<dim3(a.splits, a.G, B), kThreads, smem, st>>>(a);
+  palu_decode_split_kernel<HD, MODE, BIAS><<<dim3(a.splits, a.G, B), kThreads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD>
+template <int HD, bool BIAS>
 int launch_mode(const DecodeArgs& a, int mode, int B, cudaStream_t st) {
-  if (mode == 1) return launch_split<HD, 1>(a, B, st);
-  if (mode == 2) return launch_split<HD, 2>(a, B, st);
-  return launch_split<HD, 0>(a, B, st);
+  if (mode == 1) return launch_split<HD, 1, BIAS>(a, B, st);
+  if (mode == 2) return launch_split<HD, 2, BIAS>(a, B, st);
+  if (mode == 3) return launch_split<HD, 3, BIAS>(a, B, st);
+  return launch_split<HD, 0, BIAS>(a, B, st);
+}
+
+template <int HD>
+int launch_bias(const DecodeArgs& a, int mode, int B, cudaStream_t st) {
+  return a.kbias ? launch_mode<HD, true>(a, mode, B, st) : launch_mode<HD, false>(a, mode, B, st);
 }
 
 }  // namespace
@@ -770,22 +940,27 @@ int launch_mode(const DecodeArgs& a, int mode, int B, cudaStream_t st) {
 // Shapes in the comments of DecodeArgs; out (B, nh, rv) f32. The partial
 // buffers hold B * nh * splits (m, l) and B * nh * splits * rv accumulators.
 // hd is 64 or 128, rk a multiple of 16 up to 512, S a multiple of 16.
-// mode 0 (exact) reads cos_t / sin_t; modes 1 (int8_dots) and 2
-// (int8_rot) read c0 .. sin8 and need rk % 32 == 0, pack width <= 4,
-// block_s % 64 == 0 and S % block_s == 0.
+// modes 0 (exact) and 3 (exact over per-chunk scales: gs, a multiple of 8
+// that divides rk and rv, ranks per scale chunk; 0 otherwise) read cos_t /
+// sin_t; modes 1 (int8_dots) and 2 (int8_rot) read c0 .. sin8 and need
+// rk % 32 == 0, pack width <= 4, block_s % 64 == 0 and S % block_s == 0.
+// kbias is null or the (G, hpg, hd) f32 pre-RoPE K bias.
 extern "C" int palu_decode(const void* q, int q_bf16, const void* bk, const void* kc,
                            const void* ks, const void* kz, const void* vc, const void* vs,
                            const void* vz, const void* kv_len, const void* cos_t,
                            const void* sin_t, const void* c0, const void* s0, const void* rcos,
-                           const void* rsin, const void* cos8, const void* sin8, void* part_m,
-                           void* part_l, void* part_acc, void* out, int B, int G, int hpg,
-                           int hd, int rk, int rv, int S, int nrk, int nrv, int pbits, int qoff,
-                           int asym, int window, int splits, int tiles_per_split, int mode,
-                           int block_s, float sqrt_hd, float i8r_inv, void* stream) {
+                           const void* rsin, const void* cos8, const void* sin8,
+                           const void* kbias, void* part_m, void* part_l, void* part_acc,
+                           void* out, int B, int G, int hpg, int hd, int rk, int rv, int S,
+                           int nrk, int nrv, int pbits, int qoff, int asym, int window,
+                           int splits, int tiles_per_split, int mode, int block_s, int gs,
+                           float sqrt_hd, float i8r_inv, void* stream) {
   if ((hd != 64 && hd != 128) || rk % 16 || rk > kMaxRank || hpg > kMaxHeads ||
-      mode < 0 || mode > 2)
+      mode < 0 || mode > 3)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (mode != 0 && (rk % 32 || pbits > 4 || block_s % kTile || S % block_s))
+  if ((mode == 1 || mode == 2) && (rk % 32 || pbits > 4 || block_s % kTile || S % block_s))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (mode == 3 ? (gs <= 0 || gs % 8 || rk % gs || rv % gs) : gs != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   DecodeArgs a{};
   a.q = q;
@@ -806,6 +981,7 @@ extern "C" int palu_decode(const void* q, int q_bf16, const void* bk, const void
   a.rsin = static_cast<const float*>(rsin);
   a.cos8 = static_cast<const int8_t*>(cos8);
   a.sin8 = static_cast<const int8_t*>(sin8);
+  a.kbias = static_cast<const float*>(kbias);
   a.part_m = static_cast<float*>(part_m);
   a.part_l = static_cast<float*>(part_l);
   a.part_acc = static_cast<float*>(part_acc);
@@ -825,25 +1001,28 @@ extern "C" int palu_decode(const void* q, int q_bf16, const void* bk, const void
   a.sqrt_hd = sqrt_hd;
   a.block_s = block_s;
   a.i8r_inv = i8r_inv;
+  a.gs = gs;
+  a.nsk = mode == 3 ? rk / gs : 1;
+  a.nsv = mode == 3 ? rv / gs : 1;
   // as many heads' B (or int8 operands) in shared memory as fit beside the
-  // rest; the exact mode takes ranks in chunks of up to 128, and of fewer
+  // rest; the exact modes take ranks in chunks of up to 128, and of fewer
   // when not even one head's 128 rows of B fit
+  const bool exact = mode == 0 || mode == 3;
   a.chunk_heads = 0;
-  const int rcs[4] = {mode == 0 ? min(rk, kRc) : rk, 64, 32, 16};
-  for (int k = 0; k < (mode == 0 ? 4 : 1) && a.chunk_heads == 0; ++k) {
+  const int rcs[4] = {exact ? min(rk, kRc) : rk, 64, 32, 16};
+  for (int k = 0; k < (exact ? 4 : 1) && a.chunk_heads == 0; ++k) {
     if (k > 0 && rcs[k] >= rcs[0]) continue;
     a.rc = rcs[k];
     a.chunk_heads = hpg;
-    while (a.chunk_heads > 0 &&
-           split_layout(rk, hd, hpg, rv, nrk, nrv, asym, a.chunk_heads, mode, a.rc).total >
-               kSmemMax)
+    while (a.chunk_heads > 0 && split_layout(rk, hd, hpg, rv, nrk, nrv, asym, a.chunk_heads,
+                                             mode, a.rc, a.nsk, a.nsv).total > kSmemMax)
       --a.chunk_heads;
   }
   if (a.chunk_heads == 0) return static_cast<int>(cudaErrorInvalidValue);
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int err =
-      hd == 128 ? launch_mode<128>(a, mode, B, st) : launch_mode<64>(a, mode, B, st);
+      hd == 128 ? launch_bias<128>(a, mode, B, st) : launch_bias<64>(a, mode, B, st);
   if (err != 0) return err;
   return decode::launch_combine(a.part_m, a.part_l, a.part_acc, static_cast<float*>(out),
                                 B * G * hpg, splits, rv, st);

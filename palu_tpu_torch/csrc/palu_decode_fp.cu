@@ -9,10 +9,13 @@
 // palu_tpu/ops/pallas/palu_decode.py::palu_flash_decode_quantized, the v1
 // kernel over seq-major packed codes (B, G, S, nbytes) with per-token
 // scale and base (B, G, S, 1). One kernel template serves the three; only
-// the tile load (and, for codes, the per-token scales) differ.
+// the tile load (and, for codes, the per-token scales) differ. The two
+// latent variants take the v4 kernel's pre-RoPE K bias (k_bias, Qwen2);
+// JAX's engine runs the seq-major cache with a bias through its XLA
+// fallback, flash_decode_latent, which this kernel computes all the same.
 //
 // What it computes, per lane b, group g and q-head h of the group:
-//   K_h(s) = B_h^T x_k(s)
+//   K_h(s) = B_h^T x_k(s) [+ b_h, the K bias, added before RoPE]
 //   logit(s) = q_h . RoPE_s(K_h(s)) / sqrt(hd), masked by kv_len and window
 //   out_h = sum_s softmax(logit)(s) x_v(s)
 // -> (B, nh, rv) f32 in latent space (o_proj is U_v-fused).
@@ -87,7 +90,7 @@ using bf16 = __nv_bfloat16;
 constexpr int kTile = 64;      // tokens per tile
 constexpr int kThreads = 256;  // threads per block
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxHeads = 16;  // q-heads per group
+constexpr int kMaxHeads = 32;  // q-heads per group (Qwen2-7B: 28 over one kv group of 4)
 constexpr int kMaxKSteps = 8;  // k-steps of one rank chunk held in registers
 constexpr int kRc = 16 * kMaxKSteps;  // the largest rank chunk, 128
 constexpr int kMaxRank = 512;  // rk limit: a G-LRD group's rank at hd 128, group 4
@@ -112,6 +115,7 @@ struct FpArgs {
   const int* kv_len;  // (B,)
   const float* cos_t; // (S, hd/2)
   const float* sin_t;
+  const float* kbias; // (G, hpg, hd) f32 pre-RoPE K bias, or null
   float* part_m;      // (B, nh, splits)
   float* part_l;
   float* part_acc;    // (B, nh, splits, rv)
@@ -230,7 +234,8 @@ __device__ __forceinline__ void unpack_tile(bf16* dst, const uint8_t* src, const
   }
 }
 
-template <int HD, bool RM, bool QUANT>
+// BIAS compiles the K bias in (a.kbias set; the latent variants only).
+template <int HD, bool RM, bool QUANT, bool BIAS>
 __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a) {
   constexpr int half = HD / 2;
   constexpr int HS = HD + kBPad;  // B row stride
@@ -270,6 +275,7 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
   const uint8_t* kc = QUANT ? a.kc + bg * a.nbk * a.S : nullptr;
   const uint8_t* vc = QUANT ? a.vc + bg * a.nbv * a.S : nullptr;
   const bf16* bk_g = a.bk + static_cast<size_t>(g) * hpg * rk * HD;
+  const float* kb_g = BIAS ? a.kbias + static_cast<size_t>(g) * hpg * HD : nullptr;
 
   for (int i = tid; i < hpg * HD; i += kThreads) {
     const size_t qi = (static_cast<size_t>(b) * nh + g * hpg) * HD + i;
@@ -403,6 +409,7 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
             }
           }
           const float* qh = q_s + h * HD;
+          const float* kbh = BIAS ? kb_g + static_cast<size_t>(h) * HD : nullptr;
           float part_a = 0.0f, part_b = 0.0f;
 #pragma unroll
           for (int j = 0; j < NTW; ++j) {
@@ -417,6 +424,13 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
                 k2 *= ska;
                 l1 *= skb;
                 l2 *= skb;
+              }
+              if (BIAS && ci == 0) {  // the K bias, pre-RoPE, once per token
+                const float b1 = __ldg(kbh + d), b2 = __ldg(kbh + d + half);
+                k1 += b1;
+                k2 += b2;
+                l1 += b1;
+                l2 += b2;
               }
               part_a += q1 * (k1 * ca[j][e] - k2 * sa[j][e]) + q2 * (k2 * ca[j][e] + k1 * sa[j][e]);
               part_b += q1 * (l1 * cb[j][e] - l2 * sb[j][e]) + q2 * (l2 * cb[j][e] + l1 * sb[j][e]);
@@ -520,15 +534,25 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
   }
 }
 
-template <int HD, bool RM, bool QUANT>
+template <int HD, bool RM, bool QUANT, bool BIAS = false>
 int launch_split(const FpArgs& a, int B, cudaStream_t st) {
   const size_t smem = fp_layout(RM, a.rk, HD, a.hpg, a.rv, a.chunk_heads, QUANT, a.rc).total;
-  cudaError_t err = cudaFuncSetAttribute(palu_decode_fp_split_kernel<HD, RM, QUANT>,
+  cudaError_t err = cudaFuncSetAttribute(palu_decode_fp_split_kernel<HD, RM, QUANT, BIAS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  palu_decode_fp_split_kernel<HD, RM, QUANT><<<dim3(a.splits, a.G, B), kThreads, smem, st>>>(a);
+  palu_decode_fp_split_kernel<HD, RM, QUANT, BIAS>
+      <<<dim3(a.splits, a.G, B), kThreads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The latent variants: rank-major or seq-major, with or without the K bias.
+template <int HD>
+int launch_latent(const FpArgs& a, bool rm, int B, cudaStream_t st) {
+  if (a.kbias)
+    return rm ? launch_split<HD, true, false, true>(a, B, st)
+              : launch_split<HD, false, false, true>(a, B, st);
+  return rm ? launch_split<HD, true, false>(a, B, st) : launch_split<HD, false, false>(a, B, st);
 }
 
 // Heads of B that fit in shared memory beside the rest, and the rank chunk
@@ -552,11 +576,13 @@ void fit_heads(FpArgs& a, bool rm, int hd, bool quant) {
 // Shapes in the comments of FpArgs; rank_major selects the latent layout;
 // out (B, nh, rv) f32. The partial buffers hold B * nh * splits (m, l) and
 // B * nh * splits * rv accumulators. hd is 64 or 128, rk a multiple of 16
-// up to 512, rv and S multiples of 8.
+// up to 512, rv and S multiples of 8. kbias is null or the (G, hpg, hd) f32
+// pre-RoPE K bias.
 extern "C" int palu_decode_fp(const void* q, int q_bf16, const void* bk, const void* xk,
                               const void* xv, const void* kv_len, const void* cos_t,
-                              const void* sin_t, void* part_m, void* part_l, void* part_acc,
-                              void* out, int B, int G, int hpg, int hd, int rk, int rv, int S,
+                              const void* sin_t, const void* kbias, void* part_m, void* part_l,
+                              void* part_acc, void* out, int B, int G, int hpg, int hd, int rk,
+                              int rv, int S,
                               int rank_major, int window, int splits, int tiles_per_split,
                               float sqrt_hd, void* stream) {
   if ((hd != 64 && hd != 128) || rk % 16 || rk > kMaxRank || rv % 8 || S % 8 ||
@@ -571,6 +597,7 @@ extern "C" int palu_decode_fp(const void* q, int q_bf16, const void* bk, const v
   a.kv_len = static_cast<const int*>(kv_len);
   a.cos_t = static_cast<const float*>(cos_t);
   a.sin_t = static_cast<const float*>(sin_t);
+  a.kbias = static_cast<const float*>(kbias);
   a.part_m = static_cast<float*>(part_m);
   a.part_l = static_cast<float*>(part_l);
   a.part_acc = static_cast<float*>(part_acc);
@@ -589,11 +616,7 @@ extern "C" int palu_decode_fp(const void* q, int q_bf16, const void* bk, const v
   if (a.chunk_heads == 0) return static_cast<int>(cudaErrorInvalidValue);
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err;
-  if (hd == 128)
-    err = rm ? launch_split<128, true, false>(a, B, st) : launch_split<128, false, false>(a, B, st);
-  else
-    err = rm ? launch_split<64, true, false>(a, B, st) : launch_split<64, false, false>(a, B, st);
+  const int err = hd == 128 ? launch_latent<128>(a, rm, B, st) : launch_latent<64>(a, rm, B, st);
   if (err != 0) return err;
   return decode::launch_combine(a.part_m, a.part_l, a.part_acc, static_cast<float*>(out),
                                 B * G * hpg, splits, rv, st);

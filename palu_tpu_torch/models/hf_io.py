@@ -35,8 +35,8 @@ import torch
 from .config import ModelConfig
 from .llama import fuse_o_proj
 
-__all__ = ["load_config", "load_params", "save_checkpoint", "read_safetensors",
-           "write_safetensors"]
+__all__ = ["load_config", "config_from_hf", "load_params", "save_checkpoint",
+           "read_safetensors", "write_safetensors"]
 
 _FAMILY_BY_MODEL_TYPE = {
     "llama": "llama",
@@ -116,7 +116,12 @@ def write_safetensors(tensors: Dict[str, torch.Tensor], path: str,
 
 def load_config(model_dir: str, head_group_size: int = 4) -> ModelConfig:
     with open(os.path.join(model_dir, "config.json")) as f:
-        raw = json.load(f)
+        return config_from_hf(json.load(f), head_group_size)
+
+
+def config_from_hf(raw: Dict[str, Any], head_group_size: int = 4) -> ModelConfig:
+    """ModelConfig from the fields of an HF config.json (llama, mistral,
+    qwen2 and the reference's palu model types)."""
     model_type = raw.get("model_type", "llama")
     family = _FAMILY_BY_MODEL_TYPE.get(model_type)
     if family is None:

@@ -13,8 +13,8 @@ search's output) with U a tuple of (r_g, group_dim) matrices and VT
 `pad_ragged_params` zero-pads them to the layer's largest rank for the
 engine. Any projection of the serving path may be an int8/int4 weight
 (core/wquant); `wdot` dispatches it, and `mlp_forward` runs the fused
-int8/int4 MLP GEMV at decode sizes. k/v biases (Qwen2) in the engine come
-with a later slice of the port.
+int8/int4 MLP GEMV at decode sizes. Qwen2's q/k/v biases ride the
+projections (a low-rank bias on U's output, (G, group_dim)).
 
 Two value paths give the same attention output:
   - "reconstruct": rebuild full V, apply probs, then dense o_proj;

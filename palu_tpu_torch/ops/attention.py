@@ -38,13 +38,15 @@ def flash_decode_latent(
     sliding_window: Optional[int] = None,
     inv_freq=None,  # (hd/2,) rope_scaling override (models/rope.py)
     rope_scale: float = 1.0,
+    k_bias: Optional[torch.Tensor] = None,  # (G, hpg, hd) pre-RoPE K bias (Qwen2)
 ) -> torch.Tensor:
     """Latent decode attention -> (B, nh, rv) latent-space output, f32.
 
     One pass over the cache with an online softmax: per chunk, rebuild the
-    K block (latent @ B), apply RoPE at absolute positions, and accumulate
-    (m, l, acc). Matmul operands are rounded to q's dtype and accumulated
-    in f32; softmax statistics are f32."""
+    K block (latent @ B, plus k_bias in f32 before RoPE: Qwen2's K = lat @
+    U + b), apply RoPE at absolute positions, and accumulate (m, l, acc).
+    Matmul operands are rounded to q's dtype and accumulated in f32;
+    softmax statistics are f32."""
     b, nh, hd = q.shape
     g, hpg = b_k.shape[0], b_k.shape[1]
     dev = q.device
@@ -54,6 +56,7 @@ def flash_decode_latent(
     inv = _inv_freq(head_dim, rope_theta, inv_freq, dev)
     half = hd // 2
     kv_len = kv_len.to(dev)
+    kb = None if k_bias is None else k_bias.float().to(dev)[None, :, :, None, :]
 
     m = torch.full((b, g, hpg), -1e30, dtype=torch.float32, device=dev)
     l = torch.zeros((b, g, hpg), dtype=torch.float32, device=dev)
@@ -62,6 +65,8 @@ def flash_decode_latent(
         xk = read_k_chunk(idx).to(cdt).float()  # (B, G, C, rk)
         xv = read_v_chunk(idx).to(cdt).float()  # (B, G, C, rv)
         kblk = torch.einsum("bgcr,ghrd->bghcd", xk, b_kc)
+        if kb is not None:
+            kblk = kblk + kb
         pos = idx * chunk + torch.arange(chunk, device=dev)
         freqs = pos.float()[:, None] * inv  # (C, hd/2)
         emb = torch.cat([freqs, freqs], dim=-1)

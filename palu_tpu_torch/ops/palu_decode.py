@@ -3,9 +3,14 @@ palu_tpu/ops/pallas/palu_decode4.py::palu_flash_decode4_quantized; the
 kernel is csrc/palu_decode.cu).
 
 `palu_decode` launches the kernel for CUDA tensors and runs `palu_decode_ref`,
-its plain version, for CPU tensors. Per-row scales, symmetric or
-asymmetric, pack widths 2/3/4/8. Returns (B, nh, rv) f32 latent-space
-outputs for the U_v-fused o_proj.
+its plain version, for CPU tensors. Per-row scales (B, G, S) or per-chunk
+row stacks (B, G, rank // group_size, S) (the reference's --lt_group_size),
+symmetric or asymmetric, pack widths 2/3/4/8. Returns (B, nh, rv) f32
+latent-space outputs for the U_v-fused o_proj. `k_bias` (G, hpg, hd) adds
+Qwen2's pre-RoPE K bias: K = lat @ B + b before RoPE in the exact mode; in
+the int8 modes, as in the JAX kernel, the cache-independent logit term
+U_b . rcos + V_b . rsin with U_b = a1 b1 + a2 b2 and V_b = a2 b1 - a1 b2 (a1 /
+a2 the query rotated to the block's start), added after the per-token scale.
 
 The K path runs in one of three modes, as in the JAX kernel:
   exact     - K rebuilt from the codes in f32 (the plain version is
@@ -22,7 +27,9 @@ The K path runs in one of three modes, as in the JAX kernel:
 Both int8 modes take unsigned codes and fold the symmetric offset, or the
 asymmetric zero rows, into a correction built from the quantized
 operand's row sums (the JAX default `fold_qoff`); their result depends on
-`block_s`.
+`block_s`. They take per-row scales only: a per-chunk scale cannot fold
+past the dots (JAX's asserts, palu_decode4.py:678-690), so per-chunk caches
+run the exact mode, which dequantizes each rank chunk before its dots.
 """
 
 from __future__ import annotations
@@ -42,14 +49,18 @@ from .attention import _inv_freq, flash_decode_latent
 __all__ = ["palu_decode", "palu_decode_ref", "k_path_mode"]
 
 _TILE = 64        # tokens per kernel tile (kTile in the source)
-_MAX_HEADS = 16   # q-heads per group the kernel holds (kMaxHeads)
+_MAX_HEADS = 32   # q-heads per group the kernel holds (kMaxHeads): Qwen2-7B has 28
 _MAX_RK = 512     # kMaxRank: a G-LRD group's rank at group size 4 and hd 128
 
 
 def _check(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, qcfg, rk, rv,
-           xk_zero, xv_zero):
-    if not (qcfg.enabled and qcfg.group_size == 0):
-        raise ValueError(f"decode needs per-row quantized latents, got {qcfg}")
+           xk_zero, xv_zero, k_bias=None):
+    if not qcfg.enabled:
+        raise ValueError(f"decode needs quantized latents, got {qcfg}")
+    gs = qcfg.group_size
+    if gs > 0 and (gs % 8 or rk % gs or rv % gs):
+        raise ValueError(f"per-chunk scales need a chunk that is a multiple of 8 and divides "
+                         f"rk {rk} and rv {rv}, got group_size {gs}")
     if qcfg.pack_bits not in (2, 3, 4, 8):
         raise ValueError(f"unsupported pack width {qcfg.pack_bits}")
     if qcfg.sym != (xk_zero is None and xv_zero is None):
@@ -65,13 +76,20 @@ def _check(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, qcfg, rk, rv,
         want = (b, g, packed_nrows(r, qcfg.pack_bits), s_max)
         if tuple(c.shape) != want or c.dtype != torch.uint8:
             raise ValueError(f"{name} must be uint8 {want}, got {c.dtype} {tuple(c.shape)}")
-    for name, t in (("xk_scale", xk_scale), ("xv_scale", xv_scale),
-                    ("xk_zero", xk_zero), ("xv_zero", xv_zero)):
-        if t is not None and (t.numel() != b * g * s_max or t.shape[-1] != s_max
-                              or t.dtype != torch.float32):
+    for name, t, r in (("xk_scale", xk_scale, rk), ("xv_scale", xv_scale, rv),
+                       ("xk_zero", xk_zero, rk), ("xv_zero", xv_zero, rv)):
+        if t is None:
+            continue
+        if gs > 0:
+            if tuple(t.shape) != (b, g, r // gs, s_max) or t.dtype != torch.float32:
+                raise ValueError(f"{name} must be f32 (B, G, {r // gs}, S) row stacks")
+        elif t.numel() != b * g * s_max or t.shape[-1] != s_max or t.dtype != torch.float32:
             raise ValueError(f"{name} must be f32 (B, G, S) or (B, G, 1, S)")
     if tuple(kv_len.shape) != (b,):
         raise ValueError(f"kv_len must be (B,), got {tuple(kv_len.shape)}")
+    if k_bias is not None and tuple(k_bias.shape) != (g, hpg, hd):
+        raise ValueError(f"k_bias must be (G, hpg, hd) = {(g, hpg, hd)}, "
+                         f"got {tuple(k_bias.shape)}")
 
 
 def k_path_mode(qcfg: QuantConfig, rk: int, hd: int, *, int8_dots: bool = False,
@@ -80,6 +98,9 @@ def k_path_mode(qcfg: QuantConfig, rk: int, hd: int, *, int8_dots: bool = False,
     the mode: "exact", "int8_dots" or "int8_rot" (which wins over
     int8_dots, as in the JAX kernel)."""
     pb = qcfg.pack_bits
+    if (int8_dots or int8_rot) and qcfg.group_size > 0:
+        raise ValueError("int8_dots / int8_rot need per-row scales (group_size 0): a "
+                         "per-chunk scale cannot fold past the int8 dots")
     if (int8_dots or int8_rot) and pb > 4:
         raise ValueError("int8_dots / int8_rot need sub-byte codes (pack width <= 4)")
     if int8_rot and 63 * 127 * (2**pb - 1) * rk * (hd // 2) >= 2**31:
@@ -89,10 +110,12 @@ def k_path_mode(qcfg: QuantConfig, rk: int, hd: int, *, int8_dots: bool = False,
 
 
 def _bufs(codes, scale, zero):
+    """A cache-layer view (codes_t, scale_t, zero_t) with (B, G, n_sc, S)
+    scale rows."""
     b, g, _, s_max = codes.shape
-    out = {"codes_t": codes, "scale_t": scale.reshape(b, g, 1, s_max)}
+    out = {"codes_t": codes, "scale_t": scale.reshape(b, g, -1, s_max)}
     if zero is not None:
-        out["zero_t"] = zero.reshape(b, g, 1, s_max)
+        out["zero_t"] = zero.reshape(b, g, -1, s_max)
     return out
 
 
@@ -134,10 +157,11 @@ def _tables8(s_max, block_s, hd, theta, inv_freq, rope_scale, device) -> dict:
 
 
 def _int8_ref(q, b_k, kb, vb, kv_len, qcfg, rk, rv, theta, sliding_window, inv_freq,
-              rope_scale, block_s, rot: bool) -> torch.Tensor:
+              rope_scale, block_s, rot: bool, k_bias=None) -> torch.Tensor:
     """Plain version of the int8 K-path modes, block by block as the JAX
     kernel runs them; the int32 dots are f32 products of integers (exact
-    below 2^24) and int8_rot's int32 rotation sums run in f64 (exact)."""
+    below 2^24) and int8_rot's int32 rotation sums run in f64 (exact).
+    k_bias adds its logit term in f32 after the scale and the correction."""
     b, nh, hd = q.shape
     g, hpg = b_k.shape[0], b_k.shape[1]
     half = hd // 2
@@ -152,6 +176,8 @@ def _int8_ref(q, b_k, kb, vb, kv_len, qcfg, rk, rv, theta, sliding_window, inv_f
     kz = kb["zero_t"].reshape(b, g, 1, s_max) if "zero_t" in kb else ks * float(-qoff)
     rcos, rsin = tab["rcos"].t(), tab["rsin"].t()  # (hd/2, block_s)
     kvl = kv_len.to(q.device).long()[:, None]
+    if k_bias is not None:
+        kb1, kb2 = k_bias.float()[..., :half], k_bias.float()[..., half:]  # (G, hpg, hd/2)
     m = torch.full((b, g, hpg), -1e30, dtype=torch.float32, device=q.device)
     l = torch.zeros_like(m)
     acc = torch.zeros((b, g, hpg, rv), dtype=torch.float32, device=q.device)
@@ -186,6 +212,11 @@ def _int8_ref(q, b_k, kb, vb, kv_len, qcfg, rk, rv, theta, sliding_window, inv_f
         r2 = n2.sum(-1) * s2
         corr = torch.einsum("bghe,et->bght", r1, rcos) + torch.einsum("bghe,et->bght", r2, rsin)
         lg = lg + corr * kz[..., p0:p0 + block_s]
+        if k_bias is not None:  # cache-independent: after the scale and correction
+            ub = a1[..., 0] * kb1 + a2[..., 0] * kb2  # (B, G, hpg, hd/2)
+            vb_ = a2[..., 0] * kb1 - a1[..., 0] * kb2
+            lg = lg + (torch.einsum("bghe,et->bght", ub, rcos)
+                       + torch.einsum("bghe,et->bght", vb_, rsin))
         pos = p0 + torch.arange(block_s, device=q.device)[None, :]
         valid = pos < kvl
         if sliding_window is not None:
@@ -208,17 +239,18 @@ def palu_decode_ref(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, *,
                     sliding_window: Optional[int] = None, inv_freq=None,
                     rope_scale: float = 1.0, xk_zero=None, xv_zero=None,
                     block_s: int = 1024, int8_dots: bool = False,
-                    int8_rot: bool = False) -> torch.Tensor:
-    """Plain version. Exact mode: dequantize the cache (decode_latents) and
-    run flash_decode_latent in f32 on the same inputs, in chunks of up to
-    512 positions. int8 modes: _int8_ref."""
+                    int8_rot: bool = False, k_bias=None) -> torch.Tensor:
+    """Plain version. Exact mode: dequantize the cache (decode_latents, per
+    row or per chunk) and run flash_decode_latent in f32 on the same inputs,
+    in chunks of up to 512 positions. int8 modes: _int8_ref."""
     _check(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, qcfg, rk, rv,
-           xk_zero, xv_zero)
+           xk_zero, xv_zero, k_bias)
     mode = k_path_mode(qcfg, rk, q.shape[-1], int8_dots=int8_dots, int8_rot=int8_rot)
     if mode != "exact":
         return _int8_ref(q, b_k, _bufs(xk_codes, xk_scale, xk_zero),
                          _bufs(xv_codes, xv_scale, xv_zero), kv_len, qcfg, rk, rv, theta,
-                         sliding_window, inv_freq, rope_scale, block_s, mode == "int8_rot")
+                         sliding_window, inv_freq, rope_scale, block_s, mode == "int8_rot",
+                         k_bias)
     s_max = xk_codes.shape[-1]
     chunk = min(512, s_max)
     while s_max % chunk:
@@ -235,7 +267,7 @@ def palu_decode_ref(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, *,
     return flash_decode_latent(
         q.float(), reader(kb, rk), reader(vb, rv), b_k.float(), s_max // chunk,
         chunk, kv_len, q.shape[-1], theta, rv, sliding_window,
-        inv_freq=inv_freq, rope_scale=rope_scale)
+        inv_freq=inv_freq, rope_scale=rope_scale, k_bias=k_bias)
 
 
 @functools.lru_cache(maxsize=8)
@@ -273,27 +305,33 @@ def palu_decode(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, *,
                 sliding_window: Optional[int] = None, inv_freq=None,
                 rope_scale: float = 1.0, xk_zero=None, xv_zero=None,
                 block_s: int = 1024, int8_dots: bool = False,
-                int8_rot: bool = False) -> torch.Tensor:
+                int8_rot: bool = False, k_bias=None) -> torch.Tensor:
     """Decode attention over an affine-quantized rank-major latent cache.
 
     q (B, nh, hd) roped at the current position; b_k (G, hpg, rk, hd);
     codes (B, G, packed_nrows, S) uint8; scales/zeros (B, G, S) or
-    (B, G, 1, S) f32; kv_len (B,) valid positions. -> (B, nh, rv) f32.
-    int8_dots / int8_rot select the int8 K-path modes over rotation blocks
-    of block_s tokens (module docstring). CUDA tensors launch the kernel
-    (b_k must be bf16, as the engine keeps it; the int8 modes need rk % 32
-    == 0 and block_s % 64 == 0); CPU tensors run the plain version. Each
-    launch adds one to `palu_decode.launches` and to its mode's count in
-    `palu_decode.mode_launches`."""
+    (B, G, 1, S) f32 per row, (B, G, rank // group_size, S) per chunk;
+    kv_len (B,) valid positions; k_bias None or (G, hpg, hd) pre-RoPE K
+    bias. -> (B, nh, rv) f32. int8_dots / int8_rot select the int8 K-path
+    modes over rotation blocks of block_s tokens (module docstring; per-row
+    scales only). CUDA tensors launch the kernel (b_k must be bf16, as the
+    engine keeps it; the int8 modes need rk % 32 == 0 and block_s % 64 ==
+    0); CPU tensors run the plain version. Each launch adds one to
+    `palu_decode.launches` and to its mode's count in
+    `palu_decode.mode_launches` ("chunked" for per-chunk scales), and one
+    to `palu_decode.k_bias_launches` when it carries a bias."""
     if not q.is_cuda:
         return palu_decode_ref(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len,
                                qcfg=qcfg, rk=rk, rv=rv, theta=theta,
                                sliding_window=sliding_window, inv_freq=inv_freq,
                                rope_scale=rope_scale, xk_zero=xk_zero, xv_zero=xv_zero,
-                               block_s=block_s, int8_dots=int8_dots, int8_rot=int8_rot)
+                               block_s=block_s, int8_dots=int8_dots, int8_rot=int8_rot,
+                               k_bias=k_bias)
     _check(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, qcfg, rk, rv,
-           xk_zero, xv_zero)
+           xk_zero, xv_zero, k_bias)
     mode = k_path_mode(qcfg, rk, q.shape[-1], int8_dots=int8_dots, int8_rot=int8_rot)
+    if qcfg.group_size > 0:
+        mode = "chunked"
     b, nh, hd = q.shape
     g, hpg = b_k.shape[0], b_k.shape[1]
     s_max = xk_codes.shape[-1]
@@ -305,14 +343,14 @@ def palu_decode(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, *,
                          f"group (hd={hd}, rk={rk}, S={s_max}, hpg={hpg})")
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"q must be bf16 or f32, got {q.dtype}")
-    ts = [q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, xk_zero, xv_zero]
+    ts = [q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, xk_zero, xv_zero, k_bias]
     if len({t.device for t in ts if t is not None}) != 1:
         raise ValueError("all tensors must be on one device")
     bufs = [xk_codes, xk_scale, xv_codes, xv_scale, xk_zero, xv_zero]
     if any(t is not None and not t.is_contiguous() for t in bufs):
         raise ValueError("cache buffers must be contiguous")
     dev = q.device
-    if mode == "exact":
+    if mode in ("exact", "chunked"):
         cos_t, sin_t = _rope_tables(s_max, hd, theta, inv_freq, rope_scale, dev)
         tab = {}
     else:
@@ -323,6 +361,7 @@ def palu_decode(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, *,
         tab = _tables8(s_max, block_s, hd, theta, inv_freq, rope_scale, dev)
     qc = q.contiguous()
     bk = b_k.contiguous()
+    kbias = None if k_bias is None else k_bias.float().contiguous()
     kvl = kv_len.to(torch.int32).contiguous()
     splits, per = _splits(dev, b * g, s_max)
     # one allocation: per-split m, l, accumulators, then the output
@@ -335,23 +374,27 @@ def palu_decode(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, *,
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
-    err = build.launcher("palu_decode", "palu_decode", "pi" + "p" * 20 + "i" * 17 + "ffp")(
+    err = build.launcher("palu_decode", "palu_decode", "pi" + "p" * 21 + "i" * 18 + "ffp")(
         qc.data_ptr(), int(q.dtype == torch.bfloat16), bk.data_ptr(), xk_codes.data_ptr(),
         xk_scale.data_ptr(), ptr(xk_zero), xv_codes.data_ptr(), xv_scale.data_ptr(),
         ptr(xv_zero), kvl.data_ptr(), ptr(cos_t), ptr(sin_t),
         *(ptr(tab.get(k)) for k in ("c0", "s0", "rcos", "rsin", "cos8", "sin8")),
-        scratch.data_ptr(), scratch[n_part:].data_ptr(), scratch[2 * n_part:].data_ptr(),
-        out.data_ptr(),
+        ptr(kbias), scratch.data_ptr(), scratch[n_part:].data_ptr(),
+        scratch[2 * n_part:].data_ptr(), out.data_ptr(),
         b, g, hpg, hd, rk, rv, s_max, xk_codes.shape[2], xv_codes.shape[2],
         qcfg.pack_bits, qoff, int(asym), int(sliding_window or 0), splits, per,
-        _MODES[mode], block_s, float(math.sqrt(hd)), float(tab.get("i8r_inv", 0.0)),
-        build.stream_ptr(dev))
+        _MODES[mode], block_s, qcfg.group_size, float(math.sqrt(hd)),
+        float(tab.get("i8r_inv", 0.0)), build.stream_ptr(dev))
     build.check(err, f"palu_decode ({mode})")
     palu_decode.launches += 1
     palu_decode.mode_launches[mode] += 1
+    palu_decode.k_bias_launches += k_bias is not None
     return out
 
 
-_MODES = {"exact": 0, "int8_dots": 1, "int8_rot": 2}
+# the kernel's MODE template argument: exact and chunked are the exact K
+# path over per-row and per-chunk scales
+_MODES = {"exact": 0, "int8_dots": 1, "int8_rot": 2, "chunked": 3}
 palu_decode.launches = 0
 palu_decode.mode_launches = dict.fromkeys(_MODES, 0)
+palu_decode.k_bias_launches = 0

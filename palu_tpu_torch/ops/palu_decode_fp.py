@@ -8,8 +8,11 @@ rank-major latents (B, G, r, S). Each launches the kernel for CUDA tensors
 (latents and b_k in bf16, as the engine keeps them) and runs its plain
 version, flash_decode_latent over the raw latents in f32, for CPU tensors.
 Both return (B, nh, rv) f32 latent-space outputs for the U_v-fused o_proj
-and count their launches separately. The JAX kernels' `k_bias`,
-`return_stats` and `layer_idx` come with later slices.
+and count their launches separately. Both take `k_bias` (G, hpg, hd),
+Qwen2's pre-RoPE K bias, added to the rebuilt K before RoPE: the v4
+kernel's `k_bias`, and for the seq-major layout what JAX's engine runs
+through its XLA flash_decode_latent (the JAX v1 kernel has no bias). The
+JAX kernels' `return_stats` and `layer_idx` come with later slices.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from .palu_decode import _MAX_HEADS, _MAX_RK, _rope_tables, _splits
 __all__ = ["palu_decode_fp", "palu_decode_fp_ref", "palu_decode_fp_t", "palu_decode_fp_t_ref"]
 
 
-def _check(q, b_k, x_k, x_v, kv_len, rank_major: bool):
+def _check(q, b_k, x_k, x_v, kv_len, rank_major: bool, k_bias=None):
     """Validate shapes; returns (rk, rv, S)."""
     if q.dim() != 3 or b_k.dim() != 4 or x_k.dim() != 4 or x_v.dim() != 4:
         raise ValueError("q must be (B, nh, hd), b_k (G, hpg, rk, hd) and the latents 4-D")
@@ -44,12 +47,15 @@ def _check(q, b_k, x_k, x_v, kv_len, rank_major: bool):
                              f"got {tuple(x.shape)}")
     if tuple(kv_len.shape) != (b,):
         raise ValueError(f"kv_len must be (B,), got {tuple(kv_len.shape)}")
+    if k_bias is not None and tuple(k_bias.shape) != (g, hpg, hd):
+        raise ValueError(f"k_bias must be (G, hpg, hd) = {(g, hpg, hd)}, "
+                         f"got {tuple(k_bias.shape)}")
     return rk, rv, s_max
 
 
 def _ref(q, b_k, x_k, x_v, kv_len, rank_major, theta, sliding_window, inv_freq,
-         rope_scale) -> torch.Tensor:
-    rk, rv, s_max = _check(q, b_k, x_k, x_v, kv_len, rank_major)
+         rope_scale, k_bias) -> torch.Tensor:
+    rk, rv, s_max = _check(q, b_k, x_k, x_v, kv_len, rank_major, k_bias)
     chunk = min(512, s_max)
     while s_max % chunk:
         chunk -= 1
@@ -64,12 +70,12 @@ def _ref(q, b_k, x_k, x_v, kv_len, rank_major, theta, sliding_window, inv_freq,
     return flash_decode_latent(
         q.float(), reader(x_k, rk), reader(x_v, rv), b_k.float(), s_max // chunk, chunk,
         kv_len, q.shape[-1], theta, rv, sliding_window, inv_freq=inv_freq,
-        rope_scale=rope_scale)
+        rope_scale=rope_scale, k_bias=k_bias)
 
 
 def _launch(q, b_k, x_k, x_v, kv_len, rank_major, theta, sliding_window, inv_freq,
-            rope_scale) -> torch.Tensor:
-    rk, rv, s_max = _check(q, b_k, x_k, x_v, kv_len, rank_major)
+            rope_scale, k_bias) -> torch.Tensor:
+    rk, rv, s_max = _check(q, b_k, x_k, x_v, kv_len, rank_major, k_bias)
     b, nh, hd = q.shape
     g, hpg = b_k.shape[0], b_k.shape[1]
     if b_k.dtype != torch.bfloat16 or x_k.dtype != torch.bfloat16 or x_v.dtype != torch.bfloat16:
@@ -82,7 +88,7 @@ def _launch(q, b_k, x_k, x_v, kv_len, rank_major, theta, sliding_window, inv_fre
                          f"group (hd={hd}, rk={rk}, rv={rv}, S={s_max}, hpg={hpg})")
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"q must be bf16 or f32, got {q.dtype}")
-    if len({t.device for t in (q, b_k, x_k, x_v, kv_len)}) != 1:
+    if len({t.device for t in (q, b_k, x_k, x_v, kv_len, k_bias) if t is not None}) != 1:
         raise ValueError("all tensors must be on one device")
     if not (x_k.is_contiguous() and x_v.is_contiguous()):
         raise ValueError("cache buffers must be contiguous")
@@ -91,16 +97,17 @@ def _launch(q, b_k, x_k, x_v, kv_len, rank_major, theta, sliding_window, inv_fre
     qc = q.contiguous()
     bk = b_k.contiguous()
     kvl = kv_len.to(torch.int32).contiguous()
+    kbias = None if k_bias is None else k_bias.float().contiguous()
     splits, per = _splits(dev, b * g, s_max)
     # one allocation: per-split m, l, accumulators, then the output
     n_part = b * nh * splits
     scratch = torch.empty(n_part * (2 + rv) + b * nh * rv, dtype=torch.float32, device=dev)
     out = scratch[n_part * (2 + rv):].view(b, nh, rv)
-    err = build.launcher("palu_decode_fp", "palu_decode_fp", "pi" + "p" * 10 + "i" * 11 + "fp")(
+    err = build.launcher("palu_decode_fp", "palu_decode_fp", "pi" + "p" * 11 + "i" * 11 + "fp")(
         qc.data_ptr(), int(q.dtype == torch.bfloat16), bk.data_ptr(), x_k.data_ptr(),
         x_v.data_ptr(), kvl.data_ptr(), cos_t.data_ptr(), sin_t.data_ptr(),
-        scratch.data_ptr(), scratch[n_part:].data_ptr(), scratch[2 * n_part:].data_ptr(),
-        out.data_ptr(),
+        None if kbias is None else kbias.data_ptr(), scratch.data_ptr(),
+        scratch[n_part:].data_ptr(), scratch[2 * n_part:].data_ptr(), out.data_ptr(),
         b, g, hpg, hd, rk, rv, s_max, int(rank_major), int(sliding_window or 0), splits, per,
         float(math.sqrt(hd)), build.stream_ptr(dev))
     build.check(err, "palu_decode_fp_t" if rank_major else "palu_decode_fp")
@@ -109,48 +116,52 @@ def _launch(q, b_k, x_k, x_v, kv_len, rank_major, theta, sliding_window, inv_fre
 
 def palu_decode_fp_ref(q, b_k, x_k, x_v, kv_len, *, theta: float = 10000.0,
                        sliding_window: Optional[int] = None, inv_freq=None,
-                       rope_scale: float = 1.0) -> torch.Tensor:
+                       rope_scale: float = 1.0, k_bias=None) -> torch.Tensor:
     """Plain version of palu_decode_fp: flash_decode_latent in f32 over the
     seq-major latents, in chunks of up to 512 positions."""
-    return _ref(q, b_k, x_k, x_v, kv_len, False, theta, sliding_window, inv_freq, rope_scale)
+    return _ref(q, b_k, x_k, x_v, kv_len, False, theta, sliding_window, inv_freq, rope_scale,
+                k_bias)
 
 
 def palu_decode_fp(q, b_k, x_k, x_v, kv_len, *, theta: float = 10000.0,
                    sliding_window: Optional[int] = None, inv_freq=None,
-                   rope_scale: float = 1.0) -> torch.Tensor:
+                   rope_scale: float = 1.0, k_bias=None) -> torch.Tensor:
     """Decode attention over seq-major latents.
 
     q (B, nh, hd) roped at the current position; b_k (G, hpg, rk, hd);
     x_k (B, G, S, rk), x_v (B, G, S, rv) pre-RoPE latents; kv_len (B,)
-    valid positions. -> (B, nh, rv) f32. CUDA tensors launch the kernel;
-    CPU tensors run the plain version."""
+    valid positions; k_bias None or (G, hpg, hd). -> (B, nh, rv) f32. CUDA
+    tensors launch the kernel; CPU tensors run the plain version."""
     if not q.is_cuda:
         return palu_decode_fp_ref(q, b_k, x_k, x_v, kv_len, theta=theta,
                                   sliding_window=sliding_window, inv_freq=inv_freq,
-                                  rope_scale=rope_scale)
-    out = _launch(q, b_k, x_k, x_v, kv_len, False, theta, sliding_window, inv_freq, rope_scale)
+                                  rope_scale=rope_scale, k_bias=k_bias)
+    out = _launch(q, b_k, x_k, x_v, kv_len, False, theta, sliding_window, inv_freq, rope_scale,
+                  k_bias)
     palu_decode_fp.launches += 1
     return out
 
 
 def palu_decode_fp_t_ref(q, b_k, xk_t, xv_t, kv_len, *, theta: float = 10000.0,
                          sliding_window: Optional[int] = None, inv_freq=None,
-                         rope_scale: float = 1.0) -> torch.Tensor:
+                         rope_scale: float = 1.0, k_bias=None) -> torch.Tensor:
     """Plain version of palu_decode_fp_t: flash_decode_latent in f32 over
     the rank-major latents, in chunks of up to 512 positions."""
-    return _ref(q, b_k, xk_t, xv_t, kv_len, True, theta, sliding_window, inv_freq, rope_scale)
+    return _ref(q, b_k, xk_t, xv_t, kv_len, True, theta, sliding_window, inv_freq, rope_scale,
+                k_bias)
 
 
 def palu_decode_fp_t(q, b_k, xk_t, xv_t, kv_len, *, theta: float = 10000.0,
                      sliding_window: Optional[int] = None, inv_freq=None,
-                     rope_scale: float = 1.0) -> torch.Tensor:
+                     rope_scale: float = 1.0, k_bias=None) -> torch.Tensor:
     """Decode attention over rank-major latents xk_t (B, G, rk, S), xv_t
     (B, G, rv, S); otherwise as palu_decode_fp."""
     if not q.is_cuda:
         return palu_decode_fp_t_ref(q, b_k, xk_t, xv_t, kv_len, theta=theta,
                                     sliding_window=sliding_window, inv_freq=inv_freq,
-                                    rope_scale=rope_scale)
-    out = _launch(q, b_k, xk_t, xv_t, kv_len, True, theta, sliding_window, inv_freq, rope_scale)
+                                    rope_scale=rope_scale, k_bias=k_bias)
+    out = _launch(q, b_k, xk_t, xv_t, kv_len, True, theta, sliding_window, inv_freq, rope_scale,
+                  k_bias)
     palu_decode_fp_t.launches += 1
     return out
 

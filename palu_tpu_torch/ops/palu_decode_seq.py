@@ -8,9 +8,11 @@ over `dequantize`d chunks, in f32), for CPU tensors. The cache is the
 layout of core/quant.quantize + pack_codes: codes (B, G, S, nbytes) uint8,
 per-token scales and base (B, G, S, 1) f32, x = (code + q_min - base) *
 scale. Per-row scales only, pack widths 2/3/4 (8 raises, as the JAX
-kernel's unpack does) and no scaled-RoPE tables (the JAX v1 kernel has
-none either). Its `impl` and `head_major_acc` arguments choose TPU block
-layouts and are not carried over.
+kernel's unpack does). Scaled RoPE (`inv_freq`, `rope_scale`, as JAX's
+`inv_freq_static` / `rope_scale`) reaches the kernel through its f32 cos /
+sin tables, built as palu_decode builds them. Its `impl` and
+`head_major_acc` arguments choose TPU block layouts and are not carried
+over.
 """
 
 from __future__ import annotations
@@ -29,13 +31,11 @@ __all__ = ["palu_decode_seq_quantized", "palu_decode_seq_quantized_ref"]
 
 
 def _check(q, b_k, xk_codes, xk_scales, xk_base, xv_codes, xv_scales, xv_base, kv_len,
-           qcfg, rk, rv, inv_freq):
+           qcfg, rk, rv):
     if not (qcfg.enabled and qcfg.group_size == 0):
         raise ValueError(f"seq-major decode needs per-row quantized latents, got {qcfg}")
     if qcfg.pack_bits not in (2, 3, 4):
         raise ValueError(f"seq-major decode unpacks 2/3/4-bit codes, got {qcfg.pack_bits}")
-    if inv_freq is not None:
-        raise ValueError("the seq-major decode takes no scaled-RoPE tables")
     if q.dim() != 3 or b_k.dim() != 4:
         raise ValueError("q must be (B, nh, hd) and b_k (G, hpg, rk, hd)")
     b, nh, hd = q.shape
@@ -64,7 +64,7 @@ def palu_decode_seq_quantized_ref(q, b_k, xk_codes, xk_scales, xk_base, xv_codes
     """Plain version: dequantize the cache in f32 chunks of up to 512
     positions and run flash_decode_latent on them."""
     s_max = _check(q, b_k, xk_codes, xk_scales, xk_base, xv_codes, xv_scales, xv_base,
-                   kv_len, qcfg, rk, rv, inv_freq)
+                   kv_len, qcfg, rk, rv)
     chunk = min(512, s_max)
     while s_max % chunk:
         chunk -= 1
@@ -79,7 +79,8 @@ def palu_decode_seq_quantized_ref(q, b_k, xk_codes, xk_scales, xk_base, xv_codes
     return flash_decode_latent(
         q.float(), reader(xk_codes, xk_scales, xk_base, rk),
         reader(xv_codes, xv_scales, xv_base, rv), b_k.float(), s_max // chunk, chunk,
-        kv_len, q.shape[-1], theta, rv, sliding_window, rope_scale=rope_scale)
+        kv_len, q.shape[-1], theta, rv, sliding_window, inv_freq=inv_freq,
+        rope_scale=rope_scale)
 
 
 def palu_decode_seq_quantized(q, b_k, xk_codes, xk_scales, xk_base, xv_codes, xv_scales,
@@ -100,7 +101,7 @@ def palu_decode_seq_quantized(q, b_k, xk_codes, xk_scales, xk_base, xv_codes, xv
             qcfg=qcfg, rk=rk, rv=rv, theta=theta, sliding_window=sliding_window,
             inv_freq=inv_freq, rope_scale=rope_scale)
     s_max = _check(q, b_k, xk_codes, xk_scales, xk_base, xv_codes, xv_scales, xv_base,
-                   kv_len, qcfg, rk, rv, inv_freq)
+                   kv_len, qcfg, rk, rv)
     b, nh, hd = q.shape
     g, hpg = b_k.shape[0], b_k.shape[1]
     if b_k.dtype != torch.bfloat16:
@@ -119,7 +120,7 @@ def palu_decode_seq_quantized(q, b_k, xk_codes, xk_scales, xk_base, xv_codes, xv
     if any(not t.is_contiguous() for t in bufs):
         raise ValueError("cache buffers must be contiguous")
     dev = q.device
-    cos_t, sin_t = _rope_tables(s_max, hd, theta, None, rope_scale, dev)
+    cos_t, sin_t = _rope_tables(s_max, hd, theta, inv_freq, rope_scale, dev)
     qc = q.contiguous()
     bk = b_k.contiguous()
     kvl = kv_len.to(torch.int32).contiguous()

@@ -16,10 +16,16 @@ the engine dtype, as in the JAX package. Buffer names, layouts and key
 order are the JAX package's, so caches compare byte for byte and the
 profiler seeds them from one numpy stream in the same order.
 
+With per-chunk quantization (group_size > 0, the reference's
+--lt_group_size) the scale and zero rows stack one row per contiguous
+rank chunk, (B, G, rank // group_size, S), when the chunk is a multiple
+of 8 and divides the rank (`rank_major_chunked`); the decode kernel
+dequantizes each chunk before its dots. JAX keeps other chunk sizes in a
+seq-major codes / scales / base layout, which comes with a later slice of
+the port (the cache raises on it).
+
 The JAX package returns new buffers and relies on buffer donation for
 in-place updates; here the write helpers update the buffers in place.
-Per-chunk (group_size > 0) scales and seq-major quantized caches come
-with later slices of the port.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ from ..models.config import ModelConfig
 from ..ops import build
 
 __all__ = [
-    "rank_major", "quantized", "init_cache", "cache_nbytes", "decode_latents",
+    "rank_major", "rank_major_chunked", "quantized", "init_cache", "cache_nbytes", "decode_latents",
     "seq_slice", "write_at_lanes", "write_at_lanes_masked",
 ]
 
@@ -44,17 +50,29 @@ def rank_major(qcfg: Optional[quant.QuantConfig]) -> bool:
     return qcfg is not None and qcfg.enabled and qcfg.group_size == 0
 
 
+def rank_major_chunked(qcfg: Optional[quant.QuantConfig], rank: int) -> bool:
+    """True when a per-chunk (group_size > 0) cache of this rank takes the
+    rank-major layout: the chunk is a multiple of 8 and divides the rank,
+    so the scale / zero rows are (rank // group_size, S)."""
+    return (qcfg is not None and qcfg.enabled and qcfg.group_size > 0
+            and qcfg.group_size % 8 == 0 and rank % qcfg.group_size == 0)
+
+
 def quantized(qcfg: Optional[quant.QuantConfig]) -> bool:
     """True when the cache holds quantized codes, False for raw latents."""
     return qcfg is not None and qcfg.enabled
 
 
-def _check_layout(qcfg) -> None:
-    if quantized(qcfg) and not rank_major(qcfg):
+def check_layout(qcfg, rank: int) -> None:
+    """Raise for a quantized cache the port does not hold: per-chunk scales
+    whose chunk is not a multiple of 8 dividing the rank (JAX's seq-major
+    codes / scales / base layout)."""
+    if quantized(qcfg) and not (rank_major(qcfg) or rank_major_chunked(qcfg, rank)):
         raise NotImplementedError(
-            "the port's quantized cache holds per-row scales "
-            "(QuantConfig(bits < 16, group_size=0)); per-chunk caches come "
-            "with a later slice of the port")
+            f"group_size {qcfg.group_size} at rank {rank} needs JAX's seq-major "
+            "per-chunk layout (codes / scales / base), which comes with a later slice of "
+            "the port; the port's per-chunk cache takes chunks that are a multiple of 8 "
+            "and divide the rank")
 
 
 def _seq_axis(key: str, ndim: int) -> int:
@@ -66,21 +84,22 @@ def _seq_axis(key: str, ndim: int) -> int:
 def _layer_buffers(batch: int, groups: int, s_max: int, rank: int,
                    qcfg: Optional[quant.QuantConfig], device, dtype=torch.bfloat16,
                    rank_major_fp: bool = False) -> Dict[str, torch.Tensor]:
-    _check_layout(qcfg)
+    check_layout(qcfg, rank)
     if not quantized(qcfg):
         if rank_major_fp:
             return {"lat_t": torch.zeros((batch, groups, rank, s_max), dtype=dtype,
                                          device=device)}
         return {"lat": torch.zeros((batch, groups, s_max, rank), dtype=dtype, device=device)}
     nrows = quant.packed_nrows(rank, qcfg.pack_bits)
+    n_sc = rank // qcfg.group_size if qcfg.group_size > 0 else 1
     bufs = {
         "codes_t": torch.zeros((batch, groups, nrows, s_max), dtype=torch.uint8,
                                device=device),
-        "scale_t": torch.zeros((batch, groups, 1, s_max), dtype=torch.float32,
+        "scale_t": torch.zeros((batch, groups, n_sc, s_max), dtype=torch.float32,
                                device=device),
     }
     if not qcfg.sym:
-        bufs["zero_t"] = torch.zeros((batch, groups, 1, s_max),
+        bufs["zero_t"] = torch.zeros((batch, groups, n_sc, s_max),
                                      dtype=torch.float32, device=device)
     return bufs
 
@@ -120,12 +139,13 @@ def _encode(latents: torch.Tensor, qcfg: Optional[quant.QuantConfig], dtype=None
             rank_major_fp: bool = False) -> Dict[str, torch.Tensor]:
     """latents (B, G, S, r) -> buffer update dict in the cache's layout;
     unquantized latents are stored in `dtype`."""
-    _check_layout(qcfg)
     if not quantized(qcfg):
         lat = latents.to(dtype)
         return {"lat_t": lat.transpose(-1, -2)} if rank_major_fp else {"lat": lat}
+    check_layout(qcfg, latents.shape[-1])
     codes, scales, zeros = quant.quantize_affine(latents, qcfg)
-    # scales (B, G, S, 1) -> (B, G, 1, S): sequence on the last axis
+    # scales (B, G, S, n_sc) -> (B, G, n_sc, S): sequence on the last axis
+    # (n_sc = 1 per row, rank // group_size per chunk)
     upd = {
         "codes_t": quant.pack_codes_t(codes, qcfg.pack_bits),
         "scale_t": scales.float().transpose(-1, -2),
@@ -143,10 +163,14 @@ def decode_latents(buf: Dict[str, torch.Tensor], qcfg: Optional[quant.QuantConfi
     if "lat" in buf:
         return buf["lat"].to(dtype)
     codes = quant.unpack_codes_t(buf["codes_t"], qcfg.pack_bits, rank).float()
+
+    def rows(a):  # (B, G, n_sc, S) -> one row per rank
+        return a if a.shape[-2] == 1 else a.repeat_interleave(rank // a.shape[-2], dim=-2)
+
     if qcfg.sym:
-        lat = (codes - 2 ** (qcfg.bits - 1)) * buf["scale_t"]
+        lat = (codes - 2 ** (qcfg.bits - 1)) * rows(buf["scale_t"])
     else:  # affine: x = scale * code + zero
-        lat = codes * buf["scale_t"] + buf["zero_t"]
+        lat = codes * rows(buf["scale_t"]) + rows(buf["zero_t"])
     return lat.transpose(-1, -2).to(dtype)
 
 

@@ -11,8 +11,10 @@ one-chunk prefill for serving, decode and generate with sampling).
            latent decode attention over the cache -> U_v-fused o_proj ->
            MLP; lm_head once per step.
 
-The cache is quantized (qcfg: per-row rank-major codes; the append is
-quantize-pack-write, ops/cache_append, and decode reads the codes,
+The cache is quantized (qcfg: rank-major codes with per-row scales, whose
+append is quantize-pack-write, ops/cache_append, or with per-chunk scale
+rows (group_size > 0, the reference's --lt_group_size), written by a
+masked plain write as in the JAX engine; decode reads the codes,
 ops/palu_decode) or holds the raw latents in `dtype` (qcfg None, the
 paper's low-rank-only mode): seq-major (B, G, S, r) decoded by
 ops/palu_decode_fp.palu_decode_fp, or rank-major (B, G, r, S) with
@@ -41,8 +43,15 @@ version (ops/attention.dense_flash_decode, the JAX engine's
 _dense_flash_decode) on the CPU; their prefill comes with a later slice.
 Ragged per-group ranks (the fisher search's output) are zero-padded to each
 layer's largest rank when the engine is built (llama.pad_ragged_params), as
-in the JAX engine. Qwen2 k/v biases, layers with one dense side and
-per-chunk scales come with later slices of the port.
+in the JAX engine. Qwen2's attention biases (cfg.attention_bias): the q
+bias adds to q; the k bias, per q-head (`derived[i]["k_bias"]`, G x hpg x
+hd), enters every decode kernel before RoPE; the v bias passes softmax
+unchanged, so it becomes one constant row after the fused o_proj
+(`derived[i]["o_bias_corr"]`, per-q-head v bias times o_proj, from the
+dequantized codes under weight_bits 8 / 4 so that an engine built from
+quantized params computes the same); prefill rebuilds K and V with their
+biases. Layers with one dense side and per-chunk caches whose chunk does
+not divide the rank (JAX's seq-major layout) come with later slices.
 """
 
 from __future__ import annotations
@@ -117,6 +126,31 @@ def build_decode_b(u_k: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return per_kv.repeat_interleave(rep, dim=1).contiguous()
 
 
+def _per_q_head(b: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """A k or v projection's bias (G, group_dim) per q-head: (G, hpg, hd),
+    the `rep` q-heads of a kv head sharing its slice, as build_decode_b."""
+    nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    per_kv = b.float().reshape(b.shape[0], cfg.head_group_size, hd)
+    return per_kv.repeat_interleave(nh // nkv, dim=1)
+
+
+def _o_bias_corr(attn, cfg: ModelConfig, weight_bits: int) -> torch.Tensor:
+    """(H,) f32: the per-q-head v bias times o_proj, the constant the v bias
+    adds after the fused o_proj (JAX's _build_derived). o_proj enters as the
+    engine computes with it: dequantized when the params are quantized, and
+    quantized then dequantized when the engine is about to quantize them."""
+    o_w = attn["o_proj"]["w"]
+    if wquant.is_quantized_weight(o_w):
+        o_w = (wquant.unpack_weight4(o_w) if "wq4" in o_w
+               else o_w["wq8"].float() * o_w["ws"].float())
+    elif weight_bits == 4:
+        o_w = wquant.unpack_weight4(wquant.quantize_weight4(o_w))
+    elif weight_bits == 8:
+        qw = wquant.quantize_weight(o_w)
+        o_w = qw["wq8"].float() * qw["ws"].float()
+    return _per_q_head(attn["v_proj"]["b"], cfg).reshape(-1) @ o_w.float()
+
+
 def _kernel_knobs(ecfg: EngineConfig) -> dict:
     """The packed decode's formulation knobs, validated and resolved as the
     JAX engine does: v_byte_dot None turns on for per-row nibble-container
@@ -154,13 +188,6 @@ class Engine:
 
     def __init__(self, params, cfg: ModelConfig, ecfg: EngineConfig):
         self.device = build.require_cuda(ecfg.device)
-        if cache_lib.quantized(ecfg.qcfg) and not cache_lib.rank_major(ecfg.qcfg):
-            raise NotImplementedError(
-                "the port's engine serves per-row quantized latents "
-                "(QuantConfig(bits < 16, group_size=0)) or unquantized ones "
-                "(qcfg None); per-chunk caches come with a later slice")
-        if cfg.attention_bias:
-            raise NotImplementedError("k/v biases (Qwen2) come with a later slice")
         # ragged (fisher-search) checkpoints: pad per-group ranks up to the
         # layer max so the cache and the kernels see uniform ranks
         params, cfg = llama.pad_ragged_params(params, cfg)
@@ -171,6 +198,9 @@ class Engine:
                 raise NotImplementedError(f"layer {i} has one dense k/v side; the port's "
                                           "engine takes layers with both or neither")
             self._dense.append(not lowrank[0])
+            if lowrank[0]:
+                for which in ("k_proj", "v_proj"):
+                    cache_lib.check_layout(ecfg.qcfg, layer["attn"][which]["U"].shape[1])
         if ecfg.weight_bits not in (16, 8, 4):
             raise ValueError(f"weight_bits must be 16, 8 or 4, got {ecfg.weight_bits}")
         if ecfg.vt_bits not in (16, 8):
@@ -208,16 +238,26 @@ class Engine:
         # default schedule -> None: the decode paths compute it from theta
         self._inv_freq = inv_freq if cfg.rope_scaling else None
         self._rope_scale = float(rope_scale) if cfg.rope_scaling else 1.0
-        self.derived = [
-            {} if dense else
-            {"b_k": build_decode_b(l["attn"]["k_proj"]["U"].float(), cfg).to(ecfg.dtype)}
-            for l, dense in zip(params["layers"], self._dense)
-        ]
+        self.derived = [{} if dense else self._build_derived(l["attn"])
+                        for l, dense in zip(params["layers"], self._dense)]
         if ecfg.weight_bits in (8, 4):
             # after the decode weights: b_k comes from the float U
             self.params = wquant.quantize_params(
                 params, vt=ecfg.vt_bits == 8, embed=ecfg.embed_bits == 8,
                 bits=ecfg.weight_bits)
+
+    def _build_derived(self, attn) -> dict:
+        """A low-rank layer's decode weights: b_k (G, hpg, rk, hd), and with
+        biases k_bias (G, hpg, hd) and o_bias_corr (H,), in the engine
+        dtype; k_bias is kept in f32 after that rounding, as the decode
+        wrappers take it, so that no launch casts it."""
+        cfg, dt = self.cfg, self.ecfg.dtype
+        der = {"b_k": build_decode_b(attn["k_proj"]["U"].float(), cfg).to(dt)}
+        if attn["k_proj"].get("b") is not None:
+            der["k_bias"] = _per_q_head(attn["k_proj"]["b"], cfg).to(dt).float()
+        if attn["v_proj"].get("b") is not None:
+            der["o_bias_corr"] = _o_bias_corr(attn, cfg, self.ecfg.weight_bits).to(dt)
+        return der
 
     def init_cache(self):
         return cache_lib.init_cache(self.cfg, self.ecfg.batch, self.ecfg.s_max,
@@ -288,7 +328,10 @@ class Engine:
 
             for c in range(m):
                 sl = slice(c * c_len, (c + 1) * c_len)
-                q = wdot(h[:, sl], q_w).reshape(b, c_len, nh, hd)
+                q = wdot(h[:, sl], q_w)
+                if attn["q_proj"].get("b") is not None:
+                    q = q + attn["q_proj"]["b"]
+                q = q.reshape(b, c_len, nh, hd)
                 q = llama.apply_rope(q.float(), cos_all[:, sl], sin_all[:, sl]).to(ecfg.dtype)
                 q_off = base + c * c_len
                 out = prefill_flash(q.transpose(1, 2), k_full, v_full,
@@ -369,7 +412,8 @@ class Engine:
         kb, vb = entry["k"], entry["v"]
         side = "kernel" if q.is_cuda else "plain"
         kw = dict(theta=cfg.rope_theta, sliding_window=cfg.sliding_window,
-                  inv_freq=self._inv_freq, rope_scale=self._rope_scale)
+                  inv_freq=self._inv_freq, rope_scale=self._rope_scale,
+                  k_bias=der.get("k_bias"))
         if cache_lib.quantized(ecfg.qcfg):
             self._decode_paths.add(f"{self._packed_path}-{side}")
             lat_out = palu_decode(
@@ -382,8 +426,11 @@ class Engine:
                        else (palu_decode_fp, "lat"))
             self._decode_paths.add(f"{fn.__name__}-{side}")
             lat_out = fn(q, der["b_k"], kb[key], vb[key], kv_len, **kw)
-        return wdot(lat_out.to(ecfg.dtype).reshape(b, nh * rv), attn["o_proj"]["w_fused"],
-                    self._gemv_paths)
+        out = wdot(lat_out.to(ecfg.dtype).reshape(b, nh * rv), attn["o_proj"]["w_fused"],
+                   self._gemv_paths)
+        if "o_bias_corr" in der:
+            out = out + der["o_bias_corr"]
+        return out
 
     def _dense_attention(self, q, entry, attn, kv_len):
         """Decode attention of a dense layer over its roped K/V, then the
@@ -438,7 +485,10 @@ class Engine:
                                               self.derived, self._dense):
             attn = p_layer["attn"]
             h = llama.rms_norm(x, p_layer["input_norm"], cfg.rms_norm_eps)
-            q = wdot(h, attn["q_proj"]["w"], self._gemv_paths).reshape(b, 1, nh, hd)
+            q = wdot(h, attn["q_proj"]["w"], self._gemv_paths)
+            if attn["q_proj"].get("b") is not None:
+                q = q + attn["q_proj"]["b"]
+            q = q.reshape(b, 1, nh, hd)
             q = llama.apply_rope(q.float(), cos, sin).to(ecfg.dtype)[:, 0]
             if dense:
                 self._append_dense(entry, h, attn, cos, sin, pos_w, writeable)

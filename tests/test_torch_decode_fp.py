@@ -3,7 +3,8 @@ against the JAX kernels over unquantized latents: palu_flash_decode (v1,
 seq-major) and palu_flash_decode4 (v4, rank-major), in interpret mode at
 f32 compute, on the same latents. Tolerance 1e-5 of max|ref|: both sides
 compute in f32 and differ only in summation order and in how the RoPE
-angles are formed."""
+angles are formed. The plain versions run on one intra-op thread (a
+fixture), so their summation order is fixed."""
 
 import numpy as np
 import pytest
@@ -17,6 +18,16 @@ from palu_tpu_torch.ops.palu_decode_fp import (palu_decode_fp, palu_decode_fp_re
                                                palu_decode_fp_t, palu_decode_fp_t_ref)
 
 TOL = 1e-5
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Pin the plain versions' reduction order: one intra-op thread, so the
+    f32 sums do not depend on how the machine's threads are shared."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _case(b, g, hpg, rk, rv, hd, s_max, kv_len, seed):

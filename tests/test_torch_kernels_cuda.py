@@ -62,9 +62,11 @@ def test_decode_kernel_matches_plain(gen, kw, window):
     assert (got - want).abs().max() <= 2e-3 * want.abs().max()
 
 
-@pytest.mark.parametrize("nkv,window", [(4, None), (2, None), (4, 40)])
-def test_prefill_kernel_matches_plain(gen, nkv, window):
-    b, nh, cq, s, hd = 2, 4, 96, 256, 128
+@pytest.mark.parametrize("nh,nkv,window", [(4, 4, None), (4, 2, None), (4, 4, 40),
+                                            (28, 4, None)])
+def test_prefill_kernel_matches_plain(gen, nh, nkv, window):
+    """MHA, GQA, a window, and Qwen2-7B's 28 q-heads over 4 kv-heads."""
+    b, cq, s, hd = 2, 96, 256, 128
     q, k, v = (torch.randn(shape, generator=gen, device="cuda").bfloat16()
                for shape in ((b, nh, cq, hd), (b, nkv, s, hd), (b, nkv, s, hd)))
     off = torch.tensor([0, 150], dtype=torch.int32, device="cuda")
@@ -102,6 +104,41 @@ def test_gemv_kernels_match_plain(gen, bits, rows, dtype):
     got, want = mlp(x, wg, wu, wd), mlp_ref(x, wg, wu, wd)
     assert (got.float() - want.float()).abs().max() <= tol * want.float().abs().max()
     assert torch.equal(mlp(x, wg, wu, wd), got)  # fixed-order split sums repeat
+
+
+# Qwen2-7B's GEMV widths (K, N): q_proj, the U_v-fused o_proj of 28 heads at
+# rank 256, lm_head, VT_k / VT_v of its one group at rank 256
+QWEN2_GEMV = [(3584, 3584), (7168, 3584), (3584, 152064), (3584, 256)]
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("kn", QWEN2_GEMV, ids=["q_proj", "w_fused", "lm_head", "vt"])
+def test_gemv_kernels_at_qwen2_widths(gen, bits, kn):
+    from palu_tpu_torch.ops import gemv_int4, gemv_int8
+
+    mod = gemv_int4 if bits == 4 else gemv_int8
+    gemv, gemv_ref = getattr(mod, f"gemv_int{bits}"), getattr(mod, f"gemv_int{bits}_ref")
+    k, n = kn
+    w = _wq(gen, bits, k, n)
+    for rows in (1, 8):
+        x = torch.randn((rows, k), generator=gen, device="cuda").bfloat16()
+        got, want = gemv(x, w).float(), gemv_ref(x, w).float()
+        assert (got - want).abs().max() <= 2.0**-7 * want.abs().max()
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_mlp_kernels_at_qwen2_widths(gen, bits):
+    """The fused SwiGLU MLP at Qwen2-7B's H 3584, I 18944."""
+    from palu_tpu_torch.ops import gemv_int4, gemv_int8
+
+    mod = gemv_int4 if bits == 4 else gemv_int8
+    mlp, mlp_ref = getattr(mod, f"mlp_gemv_int{bits}"), getattr(mod, f"mlp_gemv_int{bits}_ref")
+    h, inter = 3584, 18944
+    ws = (_wq(gen, bits, h, inter), _wq(gen, bits, h, inter), _wq(gen, bits, inter, h))
+    for rows in (1, 8):
+        x = torch.randn((rows, h), generator=gen, device="cuda").bfloat16()
+        got, want = mlp(x, *ws).float(), mlp_ref(x, *ws).float()
+        assert (got - want).abs().max() <= 2.0**-7 * want.abs().max()
 
 
 @pytest.mark.parametrize("rows", [1, 8])
@@ -366,3 +403,149 @@ def test_fuse_hadamard_on_card_matches_cpu(gen):
     assert (fused.VT.cpu() - cpu.VT).abs().max() <= 1e-5 * cpu.VT.abs().max()
     assert (fused.reconstruct_dense() - lr.reconstruct_dense()).abs().max() <= \
         1e-4 * lr.reconstruct_dense().abs().max()
+
+
+def _k_bias(gen, g, hpg, hd=128):
+    """A pre-RoPE K bias of Qwen2's size class: 0.3 N(0, 1), as JAX's kernel
+    tests draw it, in the engine's bf16."""
+    return (torch.randn((g, hpg, hd), generator=gen, device="cuda") * 0.3).bfloat16()
+
+
+# (G, heads per group, rk, rv): the Llama shape (G 8 x hpg 4 cut to 2
+# groups) and Qwen2-7B's one group of 28 q-heads at ranks 256
+BIAS_SHAPES = {"llama_g2_hpg4": (2, 4, 128, 384), "qwen2_g1_hpg28": (1, 28, 256, 256)}
+
+
+@pytest.mark.parametrize("shape", list(BIAS_SHAPES))
+@pytest.mark.parametrize("mode", ["exact", "int8_dots", "int8_rot"])
+def test_decode_k_bias_matches_plain(gen, shape, mode):
+    """palu_decode with Qwen2's K bias in each K-path mode, and (with the
+    exact mode) both fp kernels, against their plain versions over 2 lanes of
+    a 1024-token cache; 28 heads per group runs past the old 16-head limit."""
+    from palu_tpu_torch.ops.palu_decode_fp import (palu_decode_fp, palu_decode_fp_ref,
+                                                   palu_decode_fp_t, palu_decode_fp_t_ref)
+
+    g, hpg, rk, rv = BIAS_SHAPES[shape]
+    qcfg = QuantConfig(bits=3, sym=mode != "int8_rot", container=4)
+    q, b_k, bufs = _packed_case(gen, "rank", qcfg, 2, g, hpg, rk, rv, 128, 1024)
+    kb = _k_bias(gen, g, hpg)
+    kv_len = torch.tensor([300, 1024], dtype=torch.int32, device="cuda")
+    kw = dict(qcfg=qcfg, rk=rk, rv=rv, block_s=512, k_bias=kb,
+              **({} if mode == "exact" else {mode: True}))
+    n, nb = palu_decode.launches, palu_decode.k_bias_launches
+    got = palu_decode(q, b_k, kv_len=kv_len, **bufs, **kw)
+    assert (palu_decode.launches, palu_decode.k_bias_launches) == (n + 1, nb + 1)
+    want = palu_decode_ref(q, b_k, kv_len=kv_len, **bufs, **kw)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 2e-3 * want.abs().max()
+    unbiased = palu_decode_ref(q, b_k, kv_len=kv_len, **bufs, **dict(kw, k_bias=None))
+    assert (got - unbiased).abs().max() > 1e-2 * want.abs().max()
+    if mode != "exact":
+        return
+    lat = [torch.randn((2, g, 1024, r), generator=gen, device="cuda").bfloat16()
+           for r in (rk, rv)]
+    lat_t = [x.transpose(-1, -2).contiguous() for x in lat]
+    for fn, ref, x in ((palu_decode_fp, palu_decode_fp_ref, lat),
+                       (palu_decode_fp_t, palu_decode_fp_t_ref, lat_t)):
+        got, want = fn(q, b_k, *x, kv_len, k_bias=kb), ref(q, b_k, *x, kv_len, k_bias=kb)
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max() <= 2e-3 * want.abs().max(), fn.__name__
+
+
+def _chunked_case(gen, qcfg, b, g, hpg, rk, rv, s_max):
+    """q, b_k and a rank-major per-chunk cache: scale / zero row stacks
+    (B, G, rank // group_size, S)."""
+    q = torch.randn((b, g * hpg, 128), generator=gen, device="cuda").bfloat16()
+    b_k = (torch.randn((g, hpg, rk, 128), generator=gen, device="cuda") / rk**0.5).bfloat16()
+    bufs = {}
+    for side, r in (("k", rk), ("v", rv)):
+        c, s, z = quantize_affine(torch.randn((b, g, s_max, r), generator=gen, device="cuda"),
+                                  qcfg)
+        bufs[f"x{side}_codes"] = pack_codes_t(c, qcfg.pack_bits).contiguous()
+        bufs[f"x{side}_scale"] = s.transpose(-1, -2).contiguous()
+        if not qcfg.sym:
+            bufs[f"x{side}_zero"] = z.transpose(-1, -2).contiguous()
+    return q, b_k, bufs
+
+
+@pytest.mark.parametrize("gs", [8, 16, 32])
+@pytest.mark.parametrize("sym", [True, False], ids=["sym", "asym"])
+@pytest.mark.parametrize("bias", [False, True], ids=["no_bias", "k_bias"])
+def test_decode_chunked_matches_plain(gen, gs, sym, bias):
+    """palu_decode over per-chunk scales (the exact K path with a fold per
+    scale chunk; chunks of 8 split a k-step) against its plain version:
+    the Llama shape at chunks 8 / 16 (rk 128, rv 384) and Qwen2-7B's one
+    group of 28 heads at chunk 32 (rk = rv = 256)."""
+    g, hpg, rk, rv = (1, 28, 256, 256) if gs == 32 else (2, 4, 128, 384)
+    qcfg = QuantConfig(bits=3, group_size=gs, sym=sym, container=4)
+    q, b_k, bufs = _chunked_case(gen, qcfg, 2, g, hpg, rk, rv, 1024)
+    kv_len = torch.tensor([500, 1024], dtype=torch.int32, device="cuda")
+    kw = dict(qcfg=qcfg, rk=rk, rv=rv, k_bias=_k_bias(gen, g, hpg) if bias else None)
+    n = palu_decode.mode_launches["chunked"]
+    got = palu_decode(q, b_k, kv_len=kv_len, **bufs, **kw)
+    assert palu_decode.mode_launches["chunked"] == n + 1
+    want = palu_decode_ref(q, b_k, kv_len=kv_len, **bufs, **kw)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 2e-3 * want.abs().max()
+    for mode in ("int8_dots", "int8_rot"):  # JAX's asserts: per-row scales only
+        with pytest.raises(ValueError):
+            palu_decode(q, b_k, kv_len=kv_len, **bufs, **kw, block_s=512, **{mode: True})
+
+
+ROPE_SCALING = {
+    "llama3": {"rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0,
+               "high_freq_factor": 4.0, "original_max_position_embeddings": 8192},
+    "yarn": {"rope_type": "yarn", "factor": 4.0, "original_max_position_embeddings": 4096},
+}
+
+
+def _rope_kw(scaling):
+    import numpy as np
+
+    from palu_tpu_torch.models import rope as rope_mod
+    from palu_tpu_torch.models.config import ModelConfig
+
+    inv_freq, scale = rope_mod.inv_freq_and_scale(ModelConfig(
+        hidden_size=4096, num_attention_heads=32, num_key_value_heads=32,
+        rope_scaling=ROPE_SCALING[scaling]))
+    return dict(inv_freq=np.asarray(inv_freq, np.float32), rope_scale=float(scale))
+
+
+@pytest.mark.parametrize("scaling", list(ROPE_SCALING))
+def test_decode_kernels_scaled_rope_match_plain(gen, scaling):
+    """Every decode kernel with scaled-RoPE tables (llama3; yarn, whose
+    attention scale is not 1) against its plain version on the same tables:
+    palu_decode in its three modes, palu_decode_fp, palu_decode_fp_t and
+    palu_decode_seq_quantized, at the 7B group shapes over 2 lanes."""
+    from palu_tpu_torch.ops.palu_decode_fp import (palu_decode_fp, palu_decode_fp_ref,
+                                                   palu_decode_fp_t, palu_decode_fp_t_ref)
+    from palu_tpu_torch.ops.palu_decode_seq import (palu_decode_seq_quantized,
+                                                    palu_decode_seq_quantized_ref)
+
+    rope = _rope_kw(scaling)
+    assert (rope["rope_scale"] != 1.0) == (scaling == "yarn")
+    kv_len = torch.tensor([300, 1024], dtype=torch.int32, device="cuda")
+
+    def close(got, want, what):
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max() <= 2e-3 * want.abs().max(), what
+
+    qcfg = QuantConfig(bits=3, sym=True, container=4)
+    q, b_k, bufs = _packed_case(gen, "rank", qcfg, 2, 2, 4, 128, 384, 128, 1024)
+    for mode in ("exact", "int8_dots", "int8_rot"):
+        kw = dict(qcfg=qcfg, rk=128, rv=384, block_s=512, **rope,
+                  **({} if mode == "exact" else {mode: True}))
+        close(palu_decode(q, b_k, kv_len=kv_len, **bufs, **kw),
+              palu_decode_ref(q, b_k, kv_len=kv_len, **bufs, **kw), mode)
+    lat = [torch.randn((2, 2, 1024, r), generator=gen, device="cuda").bfloat16()
+           for r in (128, 384)]
+    close(palu_decode_fp(q, b_k, *lat, kv_len, **rope),
+          palu_decode_fp_ref(q, b_k, *lat, kv_len, **rope), "fp")
+    lat_t = [x.transpose(-1, -2).contiguous() for x in lat]
+    close(palu_decode_fp_t(q, b_k, *lat_t, kv_len, **rope),
+          palu_decode_fp_t_ref(q, b_k, *lat_t, kv_len, **rope), "fp_t")
+    sq = QuantConfig(bits=3, sym=False)
+    q, b_k, bufs = _packed_case(gen, "seq", sq, 2, 2, 4, 128, 384, 128, 1024)
+    kw = dict(qcfg=sq, rk=128, rv=384, **rope)
+    close(palu_decode_seq_quantized(q, b_k, kv_len=kv_len, **bufs, **kw),
+          palu_decode_seq_quantized_ref(q, b_k, kv_len=kv_len, **bufs, **kw), "seq")
