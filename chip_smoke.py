@@ -101,6 +101,17 @@ Phases, each printing one JSON line:
   compression path's shapes (check_hadamard), and the engine's dense-KV
   decode on CUDA (one scaled_dot_product_attention call) against its plain
   version (dense_sdpa);
+  8. probes - after phase 3, the four probe entry points
+     (palu_tpu_torch/tools: dissect, stream_probe, unpack_probe,
+     gemv_probe) at the JAX tools' default sizes (S 64K, g 8, rk 128, rv
+     384; GEMV 4096 x 4096) with every variant, counts 0 just before each
+     and read just after: each kernel variant held against its plain
+     version (checksums and integer totals exact, the dissect within
+     DECODE_TOL and its `full` mode bit-identical to palu_decode_fp, the
+     unpack products within the bf16 class, the GEMVs within GEMV_TOL),
+     with its device time, bound and yardstick; the kernels line gains
+     palu_decode_fp_dissect, stream_probe, unpack_probe, gemv_bf16 and
+     gemv_bf16_t with the launches of that run;
 then the nvidia-smi line, the {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 """
@@ -157,6 +168,7 @@ from palu_tpu_torch.runtime.cache import cache_nbytes, decode_latents
 from palu_tpu_torch.runtime.engine import Engine, EngineConfig
 from palu_tpu_torch.runtime.sampling import SamplingParams
 from palu_tpu_torch.runtime.serving import NativeScheduler, ServingEngine
+from palu_tpu_torch.tools import dissect, gemv_probe, stream_probe, unpack_probe
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, dense bf16
 # and int8 tensor-core rates and the f32 rate outside the tensor cores, for
@@ -196,7 +208,9 @@ W4 = dict(weight_bits=4, vt_bits=8, embed_bits=8)  # the README's configuration
 W8 = dict(weight_bits=8, vt_bits=8, embed_bits=8)
 COUNTERS = (append_token_quantized, palu_decode, palu_decode_fp, palu_decode_fp_t,
             palu_decode_seq_quantized, prefill_flash, gemv_int4, mlp_gemv_int4, gemv_int8,
-            mlp_gemv_int8, hadamard_transform)
+            mlp_gemv_int8, hadamard_transform, dissect.palu_decode_fp_dissect,
+            stream_probe.stream_probe, unpack_probe.unpack_probe, gemv_probe.gemv_bf16,
+            gemv_probe.gemv_bf16_t)
 INT8_MODES = ("int8_dots", "int8_rot")  # palu_decode's int8 K-path modes
 # the int8 modes' deviation from the exact decode: the JAX kernel tests'
 # class (tests/test_pallas_decode4.py), (atol, rtol) for allclose
@@ -2518,6 +2532,117 @@ def phase_compress_cli() -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# 8. the probes (palu_tpu_torch/tools)
+# ---------------------------------------------------------------------------
+
+# (entry point, argv: the JAX tools' default sizes with every variant, the
+# kernel entry, the TPU kernel it replaces, the headline variant of the
+# kernels line); gemv_probe's two kernels share its run
+PROBES = (
+    ("dissect", dissect, [], "palu_decode_fp_dissect", "palu_tpu_torch/csrc/palu_decode_fp.cu",
+     "tools/tpu_dissect.py:127", "full"),
+    ("stream_probe", stream_probe, [], "stream_probe", "palu_tpu_torch/csrc/stream_probe.cu",
+     "tools/tpu_stream_probe.py:60", "bs1024"),
+    ("unpack_probe", unpack_probe, [], "unpack_probe", "palu_tpu_torch/csrc/unpack_probe.cu",
+     "tools/tpu_unpack_probe.py:57", "ext4cc"),
+    ("gemv_probe", gemv_probe, gemv_probe.ALL_PROBES, "gemv_bf16",
+     "palu_tpu_torch/csrc/gemv_bf16.cu", "tools/tpu_gemv_probe.py:54", "pallas"),
+)
+GEMV_T_LINE = ("gemv_bf16_t", "tools/tpu_gemv_probe.py:73", "pallasT")
+# the unpack probe's products (bf16 operands, f32 accumulation) against the
+# plain version's f64 sums: the bf16 class
+UNPACK_MM_TOL = 2e-3
+
+
+def _probe_held(tag: str, rec: dict) -> None:
+    """Raise unless a probe record was held at this script's tolerances:
+    checksums and integer totals exact, the dissect's outputs and
+    statistics within DECODE_TOL and `full` bit-identical to
+    palu_decode_fp, the products within the bf16 class, the GEMVs within
+    GEMV_TOL."""
+    h, v = rec.get("held"), rec["variant"]
+    if h is None:
+        return
+    if tag == "dissect" and v == "novalue":
+        ok = all(h[k]["max_rel_err"] <= DECODE_TOL for k in ("m", "l"))
+    elif tag == "dissect" and v in ("full", "nologits"):
+        ok = h["max_rel_err"] <= DECODE_TOL
+        if v == "full":
+            ok = ok and rec["bitwise_equal_palu_decode_fp"] and \
+                rec["vs_palu_decode_fp_ref"]["max_rel_err"] <= DECODE_TOL
+    elif tag == "unpack_probe" and v in ("ext4mm", "ext4ccmm"):
+        ok = h["max_rel_err"] <= UNPACK_MM_TOL
+    elif tag == "gemv_probe":
+        ok = h["max_rel_err"] <= GEMV_TOL
+    else:  # checksums, counts and integer totals
+        parts = [x for x in (h, *h.values()) if isinstance(x, dict) and "tol" in x]
+        ok = bool(parts) and all(x["tol"] == "exact" for x in parts)
+    if not (ok and h["ok"]):
+        raise AssertionError(f"probes {tag} {v}: not held: {rec}")
+
+
+def _kernel_recs(name: str, recs: list) -> list:
+    """The records of a probe run that launched kernel `name`."""
+    if name in ("gemv_bf16", "gemv_bf16_t"):
+        return [r for r in recs if r["variant"] == ("pallas" if name == "gemv_bf16"
+                                                    else "pallasT")]
+    return [r for r in recs if "launches" in r]
+
+
+def _probe_line(name: str, source: str, replaces: str, head: str, recs: list,
+                counts: dict) -> dict:
+    """The kernels line of one probe kernel: its headline variant's error,
+    device time, plain time, bound and yardstick, every variant's time, and
+    its launches in the probe run."""
+    mine = _kernel_recs(name, recs)
+    main = next(r for r in mine if r["variant"] == head)
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": counts[name], "max_abs_err": main["held"]["max_abs_err"],
+            "ms": main["us"] / 1e3,
+            "plain_ms": main["plain_us"] / 1e3, "bound_ms": main["bound_us"] / 1e3,
+            "bound_by": main["bound_by"],
+            "library_ms": None if main.get("library_us") is None else main["library_us"] / 1e3,
+            "variant": head, "variants_ms": {r["variant"]: r["us"] / 1e3 for r in mine}}
+
+
+def phase_probes() -> list:
+    """The four probe entry points (python -m palu_tpu_torch.tools.<name>)
+    on the card at the JAX tools' default sizes with every variant: counts
+    set to 0 just before each and read just after; every kernel variant
+    held against its plain version (_probe_held) and its launches asserted
+    against the run's own count. Returns the kernels lines of the five
+    probe kernels."""
+    lines = []
+    for tag, mod, argv, name, source, replaces, head in PROBES:
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):  # the tool's own lines
+            recs = mod.main([*argv, "--json"])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        for rec in recs:
+            _probe_held(tag, rec)
+        names = (name, GEMV_T_LINE[0]) if tag == "gemv_probe" else (name,)
+        want = {n: sum(r["launches"] for r in _kernel_recs(n, recs)) for n in names}
+        if tag == "dissect":  # the production call it is held and timed against
+            want["palu_decode_fp"] = counts["palu_decode_fp"]
+        if tag == "gemv_probe":  # kgemv / kmlp: the ported int8 kernels
+            want.update({k: counts[k] for k in ("gemv_int8", "mlp_gemv_int8")})
+        _only(counts, want, f"probes {tag}")
+        for n in names:
+            if counts[n] <= 0:
+                raise AssertionError(f"probes {tag}: {n} never launched")
+        emit({"phase": "probes", "tool": f"palu_tpu_torch.tools.{tag}", "argv": argv,
+              "records": recs, "launches": {k: v for k, v in counts.items() if v},
+              "seconds": time.perf_counter() - t0})
+        lines.append(_probe_line(name, source, replaces, head, recs, counts))
+        if tag == "gemv_probe":
+            lines.append(_probe_line(GEMV_T_LINE[0], source, GEMV_T_LINE[1], GEMV_T_LINE[2],
+                                     recs, counts))
+    return lines
+
+
 def _breakdown(prof, wall_ms: float, per: int) -> dict:
     kernels = [(e.key, e.self_device_time_total / 1e3 / per, e.count // per)
                for e in _device_events(prof)]
@@ -2574,6 +2699,7 @@ def main() -> int:
     check_decode_ranks(gen)
     check_decode_rope(gen)
     check_dense_sdpa(gen)
+    probe_lines = phase_probes()
     phase_e2e()
     phase_e2e("e2e_w4", W4)
     phase_e2e("e2e_w8", W8)
@@ -2629,6 +2755,7 @@ def main() -> int:
         k["launches"] = run[counter]
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} never launched on its path")
+    kernels += probe_lines  # launches: the probe phase's own run
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -67,6 +67,22 @@
 // V values once per tile and contracts them against p for every head.
 // Blocks past kv_len (or before the window) do no tile work. Nothing
 // allocates here: the wrapper hands in the partials.
+//
+// The dissection (palu_decode_fp_dissect; port of
+// tools/tpu_dissect.py::call, the TPU tool that splits the v1 kernel's
+// time): the split kernel's MODE removes parts of the seq-major bf16
+// variant, so that each mode times the kernel that serves, minus a part.
+// kFull (0) is the production instantiation itself. kNoValue drops the V
+// contraction and emits each head's softmax statistics (m, l). kNoLogits
+// replaces the B staging, the K rebuild and the q dot with the tool's fake
+// logits, 1e-6 times the sum over ranks of each token's x_k, and keeps the
+// value path (the TPU block holds every group and sums group 0's x_k; a
+// block here holds one group and sums its own). kDmaOnly keeps the
+// cp.async tile loads and adds every staged element's 16-bit pattern into
+// an exact checksum; kNoop keeps the tile loads and folds each 16-byte
+// piece once (the XOR of its four words) into the checksum, as the TPU
+// kept its BlockSpec copies in its noop (a grid with no loads would time
+// only the launch). The four cut modes stage no B and read no RoPE rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,6 +116,9 @@ constexpr int kCk = kTile + 8;
 constexpr int kPad = 8;
 constexpr int kBPad = 8;
 
+// dissection modes of the split kernel (kFull: production)
+constexpr int kFull = 0, kNoValue = 1, kNoLogits = 2, kDmaOnly = 3, kNoop = 4;
+
 struct FpArgs {
   const void* q;      // (B, nh, hd) bf16 or f32, roped at the current position
   int q_bf16;
@@ -119,6 +138,7 @@ struct FpArgs {
   float* part_m;      // (B, nh, splits)
   float* part_l;
   float* part_acc;    // (B, nh, splits, rv)
+  unsigned long long* part_ck;  // dissection: (B, G, splits) checksums
   int G, hpg, rk, rv, S, window;
   int nbk, nbv, pbits, qmin;  // packed variant
   int splits, tiles_per_split, chunk_heads;
@@ -234,9 +254,35 @@ __device__ __forceinline__ void unpack_tile(bf16* dst, const uint8_t* src, const
   }
 }
 
+// Fold every 16-byte piece this thread copied into the seq-major tile of
+// `rows` ranks (load_tile's index pattern, so no barrier is needed): the
+// pieces' 16-bit patterns summed (kDmaOnly) or the XOR of their words
+// (kNoop). Zero-filled pieces past S add 0.
+template <int MODE>
+__device__ __forceinline__ unsigned long long fold_tile(const bf16* src, int rows, int tid) {
+  const int vec = rows / 8;
+  unsigned long long ck = 0;
+  for (int i = tid; i < kTile * vec; i += kThreads) {
+    const int t = i / vec, c = i % vec;
+    const uint4 u = *reinterpret_cast<const uint4*>(src + t * (rows + kPad) + c * 8);
+    if (MODE == kNoop) {
+      ck += u.x ^ u.y ^ u.z ^ u.w;
+    } else {
+      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) ck += (w[k] & 0xffffu) + (w[k] >> 16);
+    }
+  }
+  return ck;
+}
+
 // BIAS compiles the K bias in (a.kbias set; the latent variants only).
-template <int HD, bool RM, bool QUANT, bool BIAS>
+// MODE is kFull except in the dissection (seq-major bf16 latents only).
+template <int HD, bool RM, bool QUANT, bool BIAS, int MODE = kFull>
 __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a) {
+  static_assert(MODE == kFull || (!RM && !QUANT && !BIAS), "dissection: seq-major bf16 only");
+  constexpr bool kRebuild = MODE == kFull || MODE == kNoValue;  // K rebuilt, q dotted
+  constexpr bool kStream = MODE == kDmaOnly || MODE == kNoop;   // loads only
   constexpr int half = HD / 2;
   constexpr int HS = HD + kBPad;  // B row stride
   constexpr int NTH = HD / 16;    // 8-wide column tiles per half of hd
@@ -297,12 +343,14 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
   const int t_end = min((split + 1) * a.tiles_per_split, tile_hi);
   const int tok_a = m0 + fg, tok_b = tok_a + 8;  // accumulator rows of this lane
 
+  unsigned long long ck = 0;  // kDmaOnly / kNoop checksum
+
   // heads in chunks whose B fits in shared memory (one chunk when all fit);
   // each chunk walks the block's tiles
   for (int c0 = 0; c0 < hpg && t_begin < t_end; c0 += a.chunk_heads) {
     const int nc = min(a.chunk_heads, hpg - c0);
     __syncthreads();  // set-up done / the previous chunk's B reads done
-    if (nrc == 1) {  // all of B fits: staged once
+    if (kRebuild && nrc == 1) {  // all of B fits: staged once
       for (int i = tid; i < nc * rk * (HD / 8); i += kThreads) {
         const int row = i / (HD / 8), c = i % (HD / 8);  // row = head * rk + rank
         cp_async16(bsm + row * HS + c * 8,
@@ -328,7 +376,7 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
         load_tile<RM>(vt, xv, rv, a.S, s0, tid);
       }
       float ca[NTW][2], sa[NTW][2], cb[NTW][2], sb[NTW][2];
-      {
+      if constexpr (kRebuild) {
         const int pa = s0 + tok_a, pb = s0 + tok_b;
 #pragma unroll
         for (int j = 0; j < NTW; ++j) {
@@ -349,10 +397,27 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
       cp_async_wait_all();
       __syncthreads();
 
+      if constexpr (kStream) {
+        ck += fold_tile<MODE>(kt, rk, tid) + fold_tile<MODE>(vt, rv, tid);
+        __syncthreads();  // as after the V contraction: the next loads overwrite
+        continue;
+      }
+
+      if constexpr (MODE == kNoLogits) {
+        // fake logits: 1e-6 * sum over ranks of x_k, four threads per token
+        const int t = tid / 4, part = tid % 4;
+        float cs = 0.0f;
+        for (int r = part; r < rk; r += 4) cs += __bfloat162float(kt[t * kstride + r]);
+        cs += __shfl_xor_sync(0xffffffffu, cs, 1);
+        cs += __shfl_xor_sync(0xffffffffu, cs, 2);
+        if (part == 0)
+          for (int h = c0; h < c0 + nc; ++h) lg[h * kTile + t] = cs * 1e-6f;
+      }
+
       // packed: the per-token scales of this lane's two rows
       const float ska = QUANT ? sc_k[tok_a] : 1.0f, skb = QUANT ? sc_k[tok_b] : 1.0f;
 
-      for (int ci = 0; ci < nrc; ++ci) {
+      for (int ci = 0; ci < (kRebuild ? nrc : 0); ++ci) {
         // ---- rank chunk ci: ranks [r0, r0 + nr)
         const int r0 = ci * rc, nr = min(rc, rk - r0), nkc = nr / 16;
         if (nrc > 1) {  // stream this chunk's rows of B for the chunk's heads
@@ -491,7 +556,7 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
       __syncthreads();
 
       // ---- latent V: acc[h][r] = acc * alpha + sum_t p[h][t] x_v[t][r]
-      for (int r = tid; r < rv; r += kThreads) {
+      for (int r = tid; r < (MODE == kNoValue ? 0 : rv); r += kThreads) {
         float cv[kTile];
         if (RM) {
           const uint4* row = reinterpret_cast<const uint4*>(vt + r * kCk);
@@ -523,8 +588,20 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
   }
   __syncthreads();
 
+  if constexpr (kStream) {  // the block's checksum
+    for (int o = 16; o > 0; o >>= 1) ck += __shfl_xor_sync(0xffffffffu, ck, o);
+    unsigned long long* ck_w = reinterpret_cast<unsigned long long*>(red);
+    if (lane == 0) ck_w[warp] = ck;
+    __syncthreads();
+    if (tid == 0) {
+      unsigned long long s = 0;
+      for (int w = 0; w < kWarps; ++w) s += ck_w[w];
+      a.part_ck[bg * a.splits + split] = s;
+    }
+    return;
+  }
   const size_t head0 = static_cast<size_t>(b) * nh + g * hpg;
-  for (int i = tid; i < hpg * rv; i += kThreads) {
+  for (int i = tid; i < (MODE == kNoValue ? 0 : hpg * rv); i += kThreads) {
     const int h = i / rv, r = i % rv;
     a.part_acc[((head0 + h) * a.splits + split) * rv + r] = acc_s[i];
   }
@@ -534,16 +611,52 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
   }
 }
 
-template <int HD, bool RM, bool QUANT, bool BIAS = false>
+template <int HD, bool RM, bool QUANT, bool BIAS = false, int MODE = kFull>
 int launch_split(const FpArgs& a, int B, cudaStream_t st) {
   const size_t smem = fp_layout(RM, a.rk, HD, a.hpg, a.rv, a.chunk_heads, QUANT, a.rc).total;
-  cudaError_t err = cudaFuncSetAttribute(palu_decode_fp_split_kernel<HD, RM, QUANT, BIAS>,
+  cudaError_t err = cudaFuncSetAttribute(palu_decode_fp_split_kernel<HD, RM, QUANT, BIAS, MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  palu_decode_fp_split_kernel<HD, RM, QUANT, BIAS>
+  palu_decode_fp_split_kernel<HD, RM, QUANT, BIAS, MODE>
       <<<dim3(a.splits, a.G, B), kThreads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The dissection's second pass. kNoValue: per (lane, q-head) row, the
+// splits' statistics merged, out[row] = (M, L) with M = max m_s and
+// L = sum_s e^(m_s - M) l_s. kDmaOnly / kNoop: one block adds the n block
+// checksums into ck_out[0].
+__global__ void __launch_bounds__(256) dissect_finish(const float* __restrict__ part_m,
+                                                      const float* __restrict__ part_l,
+                                                      const unsigned long long* __restrict__ ck,
+                                                      float* __restrict__ stats,
+                                                      unsigned long long* __restrict__ ck_out,
+                                                      int rows, int splits, int n_ck) {
+  if (ck != nullptr) {
+    __shared__ unsigned long long w_s[8];
+    unsigned long long s = 0;
+    for (int i = threadIdx.x; i < n_ck; i += blockDim.x) s += ck[i];
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (threadIdx.x % 32 == 0) w_s[threadIdx.x / 32] = s;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      unsigned long long t = 0;
+      for (int w = 0; w < 8; ++w) t += w_s[w];
+      ck_out[0] = t;
+    }
+    return;
+  }
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= rows) return;
+  const float* m = part_m + static_cast<size_t>(row) * splits;
+  const float* l = part_l + static_cast<size_t>(row) * splits;
+  float mx = -1e30f;
+  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, m[s]);
+  float den = 0.0f;
+  for (int s = 0; s < splits; ++s) den += expf(m[s] - mx) * l[s];
+  stats[2 * row] = mx;
+  stats[2 * row + 1] = den;
 }
 
 // The latent variants: rank-major or seq-major, with or without the K bias.
@@ -620,6 +733,76 @@ extern "C" int palu_decode_fp(const void* q, int q_bf16, const void* bk, const v
   if (err != 0) return err;
   return decode::launch_combine(a.part_m, a.part_l, a.part_acc, static_cast<float*>(out),
                                 B * G * hpg, splits, rv, st);
+}
+
+// The dissection of palu_decode_fp over seq-major bf16 latents (no bias, no
+// window), in the same split grid: mode 0 (kFull) launches the production
+// kernel and combine, so its out (B, nh, rv) f32 is palu_decode_fp's;
+// kNoLogits also writes out. kNoValue writes stats (B, nh, 2) f32 = (m, l);
+// kDmaOnly / kNoop write the checksum ck_out (one u64) from part_ck (B * G
+// * splits). Every head's B must fit in shared memory in one rank chunk
+// (rk <= 128), so each block walks its tiles once.
+extern "C" int palu_decode_fp_dissect(int mode, const void* q, int q_bf16, const void* bk,
+                                      const void* xk, const void* xv, const void* kv_len,
+                                      const void* cos_t, const void* sin_t, void* part_m,
+                                      void* part_l, void* part_acc, void* part_ck, void* out,
+                                      void* stats, void* ck_out, int B, int G, int hpg, int hd,
+                                      int rk, int rv, int S, int splits, int tiles_per_split,
+                                      float sqrt_hd, void* stream) {
+  if ((hd != 64 && hd != 128) || rk % 16 || rk > kRc || rv % 8 || S % 8 || hpg > kMaxHeads ||
+      mode < kFull || mode > kNoop)
+    return static_cast<int>(cudaErrorInvalidValue);
+  FpArgs a{};
+  a.q = q;
+  a.q_bf16 = q_bf16;
+  a.bk = static_cast<const bf16*>(bk);
+  a.xk = static_cast<const bf16*>(xk);
+  a.xv = static_cast<const bf16*>(xv);
+  a.kv_len = static_cast<const int*>(kv_len);
+  a.cos_t = static_cast<const float*>(cos_t);
+  a.sin_t = static_cast<const float*>(sin_t);
+  a.part_m = static_cast<float*>(part_m);
+  a.part_l = static_cast<float*>(part_l);
+  a.part_acc = static_cast<float*>(part_acc);
+  a.part_ck = static_cast<unsigned long long*>(part_ck);
+  a.G = G;
+  a.hpg = hpg;
+  a.rk = rk;
+  a.rv = rv;
+  a.S = S;
+  a.splits = splits;
+  a.tiles_per_split = tiles_per_split;
+  a.sqrt_hd = sqrt_hd;
+  fit_heads(a, false, hd, false);
+  if (a.chunk_heads != hpg) return static_cast<int>(cudaErrorInvalidValue);
+
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err;
+#define PALU_DISSECT(M)                                                               \
+  (hd == 128 ? launch_split<128, false, false, false, M>(a, B, st)                  \
+             : launch_split<64, false, false, false, M>(a, B, st))
+  switch (mode) {
+    case kFull: err = PALU_DISSECT(kFull); break;
+    case kNoValue: err = PALU_DISSECT(kNoValue); break;
+    case kNoLogits: err = PALU_DISSECT(kNoLogits); break;
+    case kDmaOnly: err = PALU_DISSECT(kDmaOnly); break;
+    default: err = PALU_DISSECT(kNoop); break;
+  }
+#undef PALU_DISSECT
+  if (err != 0) return err;
+  if (mode == kFull || mode == kNoLogits)
+    return decode::launch_combine(a.part_m, a.part_l, a.part_acc, static_cast<float*>(out),
+                                  B * G * hpg, splits, rv, st);
+  const int rows = B * G * hpg;
+  if (mode == kNoValue)
+    dissect_finish<<<(rows + 255) / 256, 256, 0, st>>>(a.part_m, a.part_l, nullptr,
+                                                      static_cast<float*>(stats), nullptr, rows,
+                                                      splits, 0);
+  else
+    dissect_finish<<<1, 256, 0, st>>>(nullptr, nullptr, a.part_ck, nullptr,
+                                      static_cast<unsigned long long*>(ck_out), rows, splits,
+                                      B * G * splits);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The packed seq-major variant: codes (B, G, S, nbk) / (B, G, S, nbv) uint8

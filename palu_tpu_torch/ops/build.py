@@ -30,7 +30,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("cache_append", "palu_decode", "palu_decode_fp", "prefill_flash", "gemv_int4",
-           "gemv_int8", "hadamard")
+           "gemv_int8", "hadamard", "stream_probe", "unpack_probe", "gemv_bf16")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

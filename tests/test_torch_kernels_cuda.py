@@ -549,3 +549,102 @@ def test_decode_kernels_scaled_rope_match_plain(gen, scaling):
     kw = dict(qcfg=sq, rk=128, rv=384, **rope)
     close(palu_decode_seq_quantized(q, b_k, kv_len=kv_len, **bufs, **kw),
           palu_decode_seq_quantized_ref(q, b_k, kv_len=kv_len, **bufs, **kw), "seq")
+
+
+# ---- the probes (palu_tpu_torch/tools): each kernel against its plain
+# version, at a small size and at the JAX tools' own
+
+@pytest.mark.parametrize("size", ["small", "tool"])
+@pytest.mark.parametrize("mode", ["full", "novalue", "nologits", "dmaonly", "noop"])
+def test_dissect_modes_match_plain(gen, size, mode):
+    """Each dissection mode against its plain version; full bit-identical
+    to palu_decode_fp on the same inputs."""
+    from palu_tpu_torch.ops.palu_decode_fp import palu_decode_fp
+    from palu_tpu_torch.tools import dissect
+
+    if size == "small":
+        b, g, hpg, rk, rv, hd, s = 2, 2, 4, 32, 64, 64, 512
+        q = torch.randn((b, g * hpg, hd), generator=gen, device="cuda").bfloat16()
+        b_k = (torch.randn((g, hpg, rk, hd), generator=gen, device="cuda") * 0.1).bfloat16()
+        x_k, x_v = (torch.randn((b, g, s, r), generator=gen, device="cuda").bfloat16()
+                    for r in (rk, rv))
+        kv_len = torch.tensor([300, 512], dtype=torch.int32, device="cuda")
+        ops = (q, b_k, x_k, x_v, kv_len)
+    else:
+        x = dissect.make_inputs(65536, torch.device("cuda"), gen)
+        ops = (x["q"], x["b_k"], x["x_k"], x["x_v"], x["kv_len"])
+    n0 = dissect.palu_decode_fp_dissect.launches
+    got = dissect.palu_decode_fp_dissect(mode, *ops)
+    assert dissect.palu_decode_fp_dissect.launches == n0 + 1
+    ref = dissect.dissect_ref(mode, *ops)
+    if mode in ("dmaonly", "noop"):
+        assert torch.equal(got.cpu(), ref["checksum"].cpu())
+    elif mode == "novalue":
+        for i in (0, 1):
+            want = ref["stats"][..., i]
+            assert (got[..., i] - want).abs().max() <= 2e-3 * want.abs().max()
+    else:
+        assert (got - ref["out"]).abs().max() <= 2e-3 * ref["out"].abs().max()
+    if mode == "full":
+        assert torch.equal(got, palu_decode_fp(*ops))
+
+
+@pytest.mark.parametrize("probe", ["bs1024", "bs4096", "merged1024", "konly1024", "bs64"])
+@pytest.mark.parametrize("seq", [4096, 65536])
+def test_stream_probe_matches_plain(gen, probe, seq):
+    from palu_tpu_torch.tools import stream_probe as sp
+
+    x = sp.make_inputs(seq, torch.device("cuda"), gen)
+    arrays, rows, tile = sp._kernel_probe(probe, x)
+    c = torch.rand((8, 128), generator=gen, device="cuda")
+    out, ck = sp.stream_probe(c, arrays, rows, tile)
+    want_out, want_ck = sp.stream_probe_ref(c, arrays, rows)
+    assert torch.equal(out, want_out) and torch.equal(ck, want_ck)
+
+
+@pytest.mark.parametrize("variant", ["base", "ext4nc", "ext4cc", "ext4mm", "ext4ccmm", "ext3nc",
+                                     "ext3cc", "conv8"])
+@pytest.mark.parametrize("size", ["small", "tool"])
+def test_unpack_probe_matches_plain(gen, variant, size):
+    from palu_tpu_torch.tools import unpack_probe as up
+
+    if size == "small":
+        seq, bs, kw = 1024, 256, dict(rk=32, rv=64, bs=256)
+        g = 2
+        codes = {"ext3nc": (3 * 32 // 8, 3 * 64 // 8), "ext3cc": (12, 24), "conv8": (32, 64)}
+        rows = codes.get(variant, (16, 32))
+        dt = torch.int8 if variant == "conv8" else torch.uint8
+        lo = -127 if variant == "conv8" else 0
+        kc, vc = (torch.randint(lo, 127 if lo else 255, (g, r, seq), generator=gen,
+                                device="cuda").to(dt) for r in rows)
+        b1 = (torch.randn((g, 32, 16), generator=gen, device="cuda") * 0.1).bfloat16()
+        p = (torch.randn((g, bs, 8), generator=gen, device="cuda") * 0.1).bfloat16()
+        ops = (kc, vc, b1, p) if variant in ("ext4mm", "ext4ccmm") else (kc, vc)
+    else:
+        kw = dict(rk=up.RK, rv=up.RV, bs=1024)
+        ops = [t for t in up._operands(variant, up.make_inputs(65536, 1024,
+                                                               torch.device("cuda"), gen))
+               if t is not None]
+    got = up.unpack_probe(variant, *ops, **kw)
+    want = up.unpack_probe_ref(variant, *ops, **kw)
+    if variant in ("ext4mm", "ext4ccmm"):
+        assert (got - want).abs().max() <= up.MM_TOL * want.abs().max()
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("rows", [1, 8])
+@pytest.mark.parametrize("kn,bn", [((512, 1024), 64), ((4096, 4096), 512), ((4096, 4096), 128),
+                                   ((4096, 11008), 256)])
+def test_gemv_bf16_kernels_match_plain(gen, rows, kn, bn):
+    """The blocked bf16 GEMV and its W^T twin; the split sums repeat."""
+    from palu_tpu_torch.tools import gemv_probe as gp
+
+    k, n = kn
+    w = (torch.randn((k, n), generator=gen, device="cuda") * 0.02).bfloat16()
+    wt = w.t().contiguous()
+    x = (torch.randn((rows, k), generator=gen, device="cuda") * 0.1).bfloat16()
+    want = gp.gemv_bf16_ref(x, w).float()
+    for got in (gp.gemv_bf16(x, w, bn), gp.gemv_bf16_t(x, wt, bn)):
+        assert (got.float() - want).abs().max() <= gp.GEMV_TOL * want.abs().max()
+    assert torch.equal(gp.gemv_bf16(x, w, bn), gp.gemv_bf16(x, w, bn))

@@ -1,5 +1,6 @@
 """The port stands alone: no module of palu_tpu_torch (nor chip_smoke)
-imports jax or palu_tpu, and asking for CUDA where there is none raises."""
+imports jax, palu_tpu or the JAX tools under tools/, and asking for CUDA
+where there is none raises."""
 
 import ast
 import os
@@ -42,6 +43,14 @@ def test_imports_without_jax_or_reference_package():
     assert res.stdout.strip().endswith("ok")
 
 
+def test_probe_entry_points_are_scanned():
+    """The probes subpackage (palu_tpu_torch/tools) is among the modules
+    both tests above import and scan."""
+    mods = _port_modules()
+    for name in ("dissect", "stream_probe", "unpack_probe", "gemv_probe"):
+        assert f"palu_tpu_torch.tools.{name}" in mods
+
+
 def test_no_jax_import_in_source():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for path in files:
@@ -55,7 +64,8 @@ def test_no_jax_import_in_source():
                 continue
             for name in names:
                 root = name.split(".")[0]
-                assert root not in ("jax", "jaxlib", "palu_tpu"), f"{path}: imports {name}"
+                assert root not in ("jax", "jaxlib", "palu_tpu", "tools"), \
+                    f"{path}: imports {name}"
 
 
 def test_cuda_request_without_cuda_raises():
