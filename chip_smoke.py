@@ -111,7 +111,14 @@ Phases, each printing one JSON line:
      unpack products within the bf16 class, the GEMVs within GEMV_TOL),
      with its device time, bound and yardstick; the kernels line gains
      palu_decode_fp_dissect, stream_probe, unpack_probe, gemv_bf16 and
-     gemv_bf16_t with the launches of that run;
+     gemv_bf16_t with the launches of that run; then the last two tool
+     entry points: ab_v2 (the decode generations' A/B at S 64K with
+     every variant kind, v1 .. v4 and the PyTorch composite, then v2, v2q3
+     and v3q3 again at kv_len 40000 < S) and mlp_a8_probe (H 4096, I
+     11008, bn 256), each decode variant held within DECODE_TOL and mlp_a8
+     within GEMV_TOL with its activation codes bit-exact and every code of
+     h within 1; the kernels line gains palu_decode2,
+     palu_decode2_quantized, palu_decode3_quantized and mlp_a8;
 then the nvidia-smi line, the {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 """
@@ -147,6 +154,8 @@ from palu_tpu_torch.core.quant import (QuantConfig, pack_codes, packed_nrows, pa
 from palu_tpu_torch.models import hf_io, llama
 from palu_tpu_torch.models.config import ModelConfig
 from palu_tpu_torch.ops import build
+from palu_tpu_torch.ops.archive.palu_decode2 import palu_decode2, palu_decode2_quantized
+from palu_tpu_torch.ops.archive.palu_decode3 import palu_decode3_quantized
 from palu_tpu_torch.ops.attention import dense_decode_sdpa, dense_flash_decode
 from palu_tpu_torch.ops.cache_append import (append_supported, append_token_quantized,
                                              append_token_quantized_ref)
@@ -168,7 +177,8 @@ from palu_tpu_torch.runtime.cache import cache_nbytes, decode_latents
 from palu_tpu_torch.runtime.engine import Engine, EngineConfig
 from palu_tpu_torch.runtime.sampling import SamplingParams
 from palu_tpu_torch.runtime.serving import NativeScheduler, ServingEngine
-from palu_tpu_torch.tools import dissect, gemv_probe, stream_probe, unpack_probe
+from palu_tpu_torch.tools import (ab_v2, dissect, gemv_probe, mlp_a8_probe, stream_probe,
+                                  unpack_probe)
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, dense bf16
 # and int8 tensor-core rates and the f32 rate outside the tensor cores, for
@@ -210,7 +220,8 @@ COUNTERS = (append_token_quantized, palu_decode, palu_decode_fp, palu_decode_fp_
             palu_decode_seq_quantized, prefill_flash, gemv_int4, mlp_gemv_int4, gemv_int8,
             mlp_gemv_int8, hadamard_transform, dissect.palu_decode_fp_dissect,
             stream_probe.stream_probe, unpack_probe.unpack_probe, gemv_probe.gemv_bf16,
-            gemv_probe.gemv_bf16_t)
+            gemv_probe.gemv_bf16_t, palu_decode2, palu_decode2_quantized,
+            palu_decode3_quantized, mlp_a8_probe.mlp_a8)
 INT8_MODES = ("int8_dots", "int8_rot")  # palu_decode's int8 K-path modes
 # the int8 modes' deviation from the exact decode: the JAX kernel tests'
 # class (tests/test_pallas_decode4.py), (atol, rtol) for allclose
@@ -2538,7 +2549,9 @@ def phase_compress_cli() -> None:
 
 # (entry point, argv: the JAX tools' default sizes with every variant, the
 # kernel entry, the TPU kernel it replaces, the headline variant of the
-# kernels line); gemv_probe's two kernels share its run
+# kernels line); gemv_probe's two kernels share its run, and so do ab_v2's
+# three (EXTRA_LINES); ab_v2_kvl runs three of them again at kv_len < S
+# (held and counted, no kernels line)
 PROBES = (
     ("dissect", dissect, [], "palu_decode_fp_dissect", "palu_tpu_torch/csrc/palu_decode_fp.cu",
      "tools/tpu_dissect.py:127", "full"),
@@ -2548,8 +2561,26 @@ PROBES = (
      "tools/tpu_unpack_probe.py:57", "ext4cc"),
     ("gemv_probe", gemv_probe, gemv_probe.ALL_PROBES, "gemv_bf16",
      "palu_tpu_torch/csrc/gemv_bf16.cu", "tools/tpu_gemv_probe.py:54", "pallas"),
+    ("ab_v2", ab_v2, ab_v2.ALL_VARIANTS, "palu_decode2", "palu_tpu_torch/csrc/palu_decode_fp.cu",
+     "palu_tpu/ops/pallas/archive/palu_decode2.py:287", "v2"),
+    ("ab_v2_kvl", ab_v2, ["--kvl", "40000", "v2", "v2q3", "v3q3"], None, None, None, None),
+    ("mlp_a8_probe", mlp_a8_probe, [], "mlp_a8", "palu_tpu_torch/csrc/mlp_a8.cu",
+     "tools/tpu_mlp_a8_probe.py:86", "a8"),
 )
-GEMV_T_LINE = ("gemv_bf16_t", "tools/tpu_gemv_probe.py:73", "pallasT")
+# more kernels of one probe run: (name, source, replaces, headline variant)
+EXTRA_LINES = {
+    "gemv_probe": [("gemv_bf16_t", "palu_tpu_torch/csrc/gemv_bf16.cu",
+                    "tools/tpu_gemv_probe.py:73", "pallasT")],
+    "ab_v2": [("palu_decode2_quantized", "palu_tpu_torch/csrc/palu_decode2.cu",
+               "palu_tpu/ops/pallas/archive/palu_decode2.py:337", "v2q3"),
+              ("palu_decode3_quantized", "palu_tpu_torch/csrc/palu_decode3.cu",
+               "palu_tpu/ops/pallas/archive/palu_decode3.py:242", "v3q3")],
+}
+# the decode kernels that ab_v2 runs beside the new ones (its v1 / v1q / v4*
+# variants), counted in its records by wrapper name
+AB_V2_COUNTERS = ("palu_decode2", "palu_decode2_quantized", "palu_decode3_quantized",
+                  "palu_decode_fp", "palu_decode_fp_t", "palu_decode_seq_quantized",
+                  "palu_decode")
 # the unpack probe's products (bf16 operands, f32 accumulation) against the
 # plain version's f64 sums: the bf16 class
 UNPACK_MM_TOL = 2e-3
@@ -2564,7 +2595,12 @@ def _probe_held(tag: str, rec: dict) -> None:
     h, v = rec.get("held"), rec["variant"]
     if h is None:
         return
-    if tag == "dissect" and v == "novalue":
+    if tag.startswith("ab_v2"):
+        ok = h["max_rel_err"] <= DECODE_TOL
+    elif tag == "mlp_a8_probe":
+        ok = h["max_rel_err"] <= GEMV_TOL and h["xq"]["tol"] == "exact" and \
+            h["xq"]["ok"] and h["hq"]["max_code_diff"] <= 1
+    elif tag == "dissect" and v == "novalue":
         ok = all(h[k]["max_rel_err"] <= DECODE_TOL for k in ("m", "l"))
     elif tag == "dissect" and v in ("full", "nologits"):
         ok = h["max_rel_err"] <= DECODE_TOL
@@ -2587,6 +2623,8 @@ def _kernel_recs(name: str, recs: list) -> list:
     if name in ("gemv_bf16", "gemv_bf16_t"):
         return [r for r in recs if r["variant"] == ("pallas" if name == "gemv_bf16"
                                                     else "pallasT")]
+    if any("kernel" in r for r in recs):  # ab_v2 / mlp_a8_probe name each record's kernel
+        return [r for r in recs if r.get("kernel") == name]
     return [r for r in recs if "launches" in r]
 
 
@@ -2603,16 +2641,17 @@ def _probe_line(name: str, source: str, replaces: str, head: str, recs: list,
             "plain_ms": main["plain_us"] / 1e3, "bound_ms": main["bound_us"] / 1e3,
             "bound_by": main["bound_by"],
             "library_ms": None if main.get("library_us") is None else main["library_us"] / 1e3,
-            "variant": head, "variants_ms": {r["variant"]: r["us"] / 1e3 for r in mine}}
+            "library": main.get("library"), "variant": head,
+            "variants_ms": {r["variant"]: r["us"] / 1e3 for r in mine}}
 
 
 def phase_probes() -> list:
-    """The four probe entry points (python -m palu_tpu_torch.tools.<name>)
+    """The six tool entry points (python -m palu_tpu_torch.tools.<name>)
     on the card at the JAX tools' default sizes with every variant: counts
     set to 0 just before each and read just after; every kernel variant
     held against its plain version (_probe_held) and its launches asserted
-    against the run's own count. Returns the kernels lines of the five
-    probe kernels."""
+    against the run's own count. Returns the kernels lines of the nine
+    tool kernels."""
     lines = []
     for tag, mod, argv, name, source, replaces, head in PROBES:
         reset_counts()
@@ -2623,23 +2662,34 @@ def phase_probes() -> list:
         counts = read_counts()
         for rec in recs:
             _probe_held(tag, rec)
-        names = (name, GEMV_T_LINE[0]) if tag == "gemv_probe" else (name,)
-        want = {n: sum(r["launches"] for r in _kernel_recs(n, recs)) for n in names}
+        extra = EXTRA_LINES.get(tag, [])
+        if tag.startswith("ab_v2"):
+            names = AB_V2_COUNTERS
+            want = {n: sum(r["launches"] for r in _kernel_recs(n, recs)) for n in names}
+            want["palu_decode_chunked"] = sum(r["launches"] for r in recs
+                                              if r["variant"].startswith("v4g"))
+            news = ("palu_decode2", "palu_decode2_quantized", "palu_decode3_quantized")
+        else:
+            news = names = (name, *(e[0] for e in extra))
+            want = {n: sum(r["launches"] for r in _kernel_recs(n, recs)) for n in names}
         if tag == "dissect":  # the production call it is held and timed against
             want["palu_decode_fp"] = counts["palu_decode_fp"]
         if tag == "gemv_probe":  # kgemv / kmlp: the ported int8 kernels
             want.update({k: counts[k] for k in ("gemv_int8", "mlp_gemv_int8")})
+        if tag == "mlp_a8_probe":  # w8a16 and the yardstick: the production kernel
+            want["mlp_gemv_int8"] = counts["mlp_gemv_int8"]
         _only(counts, want, f"probes {tag}")
-        for n in names:
+        for n in news:
             if counts[n] <= 0:
                 raise AssertionError(f"probes {tag}: {n} never launched")
-        emit({"phase": "probes", "tool": f"palu_tpu_torch.tools.{tag}", "argv": argv,
-              "records": recs, "launches": {k: v for k, v in counts.items() if v},
+        emit({"phase": "probes", "tool": f"palu_tpu_torch.tools.{mod.__name__.split('.')[-1]}",
+              "argv": argv, "records": recs, "launches": {k: v for k, v in counts.items() if v},
               "seconds": time.perf_counter() - t0})
+        if name is None:
+            continue
         lines.append(_probe_line(name, source, replaces, head, recs, counts))
-        if tag == "gemv_probe":
-            lines.append(_probe_line(GEMV_T_LINE[0], source, GEMV_T_LINE[1], GEMV_T_LINE[2],
-                                     recs, counts))
+        for e_name, e_source, e_replaces, e_head in extra:
+            lines.append(_probe_line(e_name, e_source, e_replaces, e_head, recs, counts))
     return lines
 
 

@@ -83,6 +83,15 @@
 // piece once (the XOR of its four words) into the checksum, as the TPU
 // kept its BlockSpec copies in its noop (a grid with no loads would time
 // only the launch). The four cut modes stage no B and read no RoPE rows.
+//
+// The archived v2 decode (palu_decode_fp_v2; replaces
+// palu_tpu/ops/pallas/archive/palu_decode2.py::palu_flash_decode2, an A/B
+// baseline with no product call site): the split kernel's V2 argument
+// takes K seq-major and V rank-major, the v2 cache's layouts, and computes
+// each thread's cos/sin in registers with sincosf of the f32 angle
+// position * inv_freq[j] (times rope_scale), as the v2 TPU kernel forms
+// them, in place of reading the wrapper's tables; no K bias. Same function
+// and bound as palu_decode_fp.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -135,6 +144,7 @@ struct FpArgs {
   const float* cos_t; // (S, hd/2)
   const float* sin_t;
   const float* kbias; // (G, hpg, hd) f32 pre-RoPE K bias, or null
+  const float* inv_freq;  // V2: (hd/2,) f32 RoPE frequencies
   float* part_m;      // (B, nh, splits)
   float* part_l;
   float* part_acc;    // (B, nh, splits, rv)
@@ -144,6 +154,7 @@ struct FpArgs {
   int splits, tiles_per_split, chunk_heads;
   int rc;             // ranks of B per chunk (rk when one chunk)
   float sqrt_hd;
+  float rope_scale;   // V2: multiplies cos and sin
 };
 
 // Elements of one latent tile in shared memory (rows padded).
@@ -158,13 +169,13 @@ struct FpLayout {
   size_t bsm, kt, vt, q, acc, lg, pw, red, stat, sc, total;
 };
 
-__host__ __device__ inline FpLayout fp_layout(bool rm, int rk, int hd, int hpg, int rv,
-                                              int chunk, bool quant, int rc) {
+__host__ __device__ inline FpLayout fp_layout(bool rmk, bool rmv, int rk, int hd, int hpg,
+                                              int rv, int chunk, bool quant, int rc) {
   FpLayout L;
   size_t off = 0;
   L.bsm = off;  off = al(off + sizeof(bf16) * chunk * rc * (hd + kBPad));
-  L.kt = off;   off = al(off + sizeof(bf16) * tile_elems(rm, rk));
-  L.vt = off;   off = al(off + sizeof(bf16) * tile_elems(rm, rv));
+  L.kt = off;   off = al(off + sizeof(bf16) * tile_elems(rmk, rk));
+  L.vt = off;   off = al(off + sizeof(bf16) * tile_elems(rmv, rv));
   L.q = off;    off = al(off + sizeof(float) * hpg * hd);
   L.acc = off;  off = al(off + sizeof(float) * hpg * rv);
   L.lg = off;   off = al(off + sizeof(float) * hpg * kTile);
@@ -278,9 +289,13 @@ __device__ __forceinline__ unsigned long long fold_tile(const bf16* src, int row
 
 // BIAS compiles the K bias in (a.kbias set; the latent variants only).
 // MODE is kFull except in the dissection (seq-major bf16 latents only).
-template <int HD, bool RM, bool QUANT, bool BIAS, int MODE = kFull>
+// V2 is the archived v2 decode: seq-major K, rank-major V, cos/sin
+// computed here from the positions.
+template <int HD, bool RM, bool QUANT, bool BIAS, int MODE = kFull, bool V2 = false>
 __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a) {
   static_assert(MODE == kFull || (!RM && !QUANT && !BIAS), "dissection: seq-major bf16 only");
+  static_assert(!V2 || (!RM && !QUANT && !BIAS && MODE == kFull), "v2: bf16 latents only");
+  constexpr bool RMV = RM || V2;  // V tile layout (rank-major for V2)
   constexpr bool kRebuild = MODE == kFull || MODE == kNoValue;  // K rebuilt, q dotted
   constexpr bool kStream = MODE == kDmaOnly || MODE == kNoop;   // loads only
   constexpr int half = HD / 2;
@@ -298,7 +313,7 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
   const int kstride = RM ? kCk : rk + kPad;  // K tile row stride (elements)
 
   extern __shared__ __align__(128) unsigned char smem[];
-  const FpLayout L = fp_layout(RM, rk, HD, hpg, rv, a.chunk_heads, QUANT, a.rc);
+  const FpLayout L = fp_layout(RM, RMV, rk, HD, hpg, rv, a.chunk_heads, QUANT, a.rc);
   const int rc = a.rc, nrc = (rk + rc - 1) / rc;          // rank chunks of B
   bf16* bsm = reinterpret_cast<bf16*>(smem + L.bsm);     // [chunk][rc][HS]
   bf16* kt = reinterpret_cast<bf16*>(smem + L.kt);       // K latent tile
@@ -373,7 +388,7 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
         }
       } else {
         load_tile<RM>(kt, xk, rk, a.S, s0, tid);
-        load_tile<RM>(vt, xv, rv, a.S, s0, tid);
+        load_tile<RMV>(vt, xv, rv, a.S, s0, tid);
       }
       float ca[NTW][2], sa[NTW][2], cb[NTW][2], sb[NTW][2];
       if constexpr (kRebuild) {
@@ -381,6 +396,20 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
 #pragma unroll
         for (int j = 0; j < NTW; ++j) {
           const int d = (jw + j) * 8 + 2 * ft;
+          if constexpr (V2) {  // sincosf of the f32 angle, times rope_scale
+            const float2 f = *reinterpret_cast<const float2*>(a.inv_freq + d);
+            const float fr[2] = {f.x, f.y};
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              sincosf(static_cast<float>(pa) * fr[e], &sa[j][e], &ca[j][e]);
+              sincosf(static_cast<float>(pb) * fr[e], &sb[j][e], &cb[j][e]);
+              ca[j][e] *= a.rope_scale;
+              sa[j][e] *= a.rope_scale;
+              cb[j][e] *= a.rope_scale;
+              sb[j][e] *= a.rope_scale;
+            }
+            continue;
+          }
           float2 c = make_float2(0.f, 0.f), s = c, c2 = c, s2 = c;
           if (pa < a.S) {
             c = *reinterpret_cast<const float2*>(a.cos_t + static_cast<size_t>(pa) * half + d);
@@ -558,7 +587,7 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
       // ---- latent V: acc[h][r] = acc * alpha + sum_t p[h][t] x_v[t][r]
       for (int r = tid; r < (MODE == kNoValue ? 0 : rv); r += kThreads) {
         float cv[kTile];
-        if (RM) {
+        if (RMV) {
           const uint4* row = reinterpret_cast<const uint4*>(vt + r * kCk);
 #pragma unroll
           for (int c = 0; c < kTile / 8; ++c) {
@@ -611,14 +640,15 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
   }
 }
 
-template <int HD, bool RM, bool QUANT, bool BIAS = false, int MODE = kFull>
+template <int HD, bool RM, bool QUANT, bool BIAS = false, int MODE = kFull, bool V2 = false>
 int launch_split(const FpArgs& a, int B, cudaStream_t st) {
-  const size_t smem = fp_layout(RM, a.rk, HD, a.hpg, a.rv, a.chunk_heads, QUANT, a.rc).total;
-  cudaError_t err = cudaFuncSetAttribute(palu_decode_fp_split_kernel<HD, RM, QUANT, BIAS, MODE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  const size_t smem =
+      fp_layout(RM, RM || V2, a.rk, HD, a.hpg, a.rv, a.chunk_heads, QUANT, a.rc).total;
+  cudaError_t err =
+      cudaFuncSetAttribute(palu_decode_fp_split_kernel<HD, RM, QUANT, BIAS, MODE, V2>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  palu_decode_fp_split_kernel<HD, RM, QUANT, BIAS, MODE>
+  palu_decode_fp_split_kernel<HD, RM, QUANT, BIAS, MODE, V2>
       <<<dim3(a.splits, a.G, B), kThreads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -671,7 +701,7 @@ int launch_latent(const FpArgs& a, bool rm, int B, cudaStream_t st) {
 // Heads of B that fit in shared memory beside the rest, and the rank chunk
 // (a.rc): up to 128 ranks, fewer when not even one head's 128 rows fit;
 // a.chunk_heads is 0 when nothing fits.
-void fit_heads(FpArgs& a, bool rm, int hd, bool quant) {
+void fit_heads(FpArgs& a, bool rmk, bool rmv, int hd, bool quant) {
   const int rcs[4] = {min(a.rk, kRc), 64, 32, 16};
   a.chunk_heads = 0;
   for (int k = 0; k < 4 && a.chunk_heads == 0; ++k) {
@@ -679,7 +709,8 @@ void fit_heads(FpArgs& a, bool rm, int hd, bool quant) {
     a.rc = rcs[k];
     a.chunk_heads = a.hpg;
     while (a.chunk_heads > 0 &&
-           fp_layout(rm, a.rk, hd, a.hpg, a.rv, a.chunk_heads, quant, a.rc).total > kSmemMax)
+           fp_layout(rmk, rmv, a.rk, hd, a.hpg, a.rv, a.chunk_heads, quant, a.rc).total >
+               kSmemMax)
       --a.chunk_heads;
   }
 }
@@ -725,7 +756,7 @@ extern "C" int palu_decode_fp(const void* q, int q_bf16, const void* bk, const v
   a.sqrt_hd = sqrt_hd;
   // as many heads' B in shared memory as fit beside the rest
   const bool rm = rank_major != 0;
-  fit_heads(a, rm, hd, false);
+  fit_heads(a, rm, rm, hd, false);
   if (a.chunk_heads == 0) return static_cast<int>(cudaErrorInvalidValue);
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -773,7 +804,7 @@ extern "C" int palu_decode_fp_dissect(int mode, const void* q, int q_bf16, const
   a.splits = splits;
   a.tiles_per_split = tiles_per_split;
   a.sqrt_hd = sqrt_hd;
-  fit_heads(a, false, hd, false);
+  fit_heads(a, false, false, hd, false);
   if (a.chunk_heads != hpg) return static_cast<int>(cudaErrorInvalidValue);
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -848,12 +879,58 @@ extern "C" int palu_decode_seq_q(const void* q, int q_bf16, const void* bk, cons
   a.nbv = nbv;
   a.pbits = pbits;
   a.qmin = qmin;
-  fit_heads(a, false, hd, true);
+  fit_heads(a, false, false, hd, true);
   if (a.chunk_heads == 0) return static_cast<int>(cudaErrorInvalidValue);
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int err = hd == 128 ? launch_split<128, false, true>(a, B, st)
                             : launch_split<64, false, true>(a, B, st);
+  if (err != 0) return err;
+  return decode::launch_combine(a.part_m, a.part_l, a.part_acc, static_cast<float*>(out),
+                                B * G * hpg, splits, rv, st);
+}
+
+// The archived v2 decode over bf16 latents: x_k (B, G, S, rk) seq-major,
+// x_v_t (B, G, rv, S) rank-major; inv_freq (hd/2,) f32, the RoPE angle of
+// position s and frequency j is the f32 product s * inv_freq[j], cos and
+// sin times rope_scale. Otherwise as palu_decode_fp (hd 64 or 128, rk a
+// multiple of 16 up to 512, rv and S multiples of 8; no K bias).
+extern "C" int palu_decode_fp_v2(const void* q, int q_bf16, const void* bk, const void* xk,
+                                 const void* xv_t, const void* kv_len, const void* inv_freq,
+                                 void* part_m, void* part_l, void* part_acc, void* out, int B,
+                                 int G, int hpg, int hd, int rk, int rv, int S, int window,
+                                 int splits, int tiles_per_split, float rope_scale,
+                                 float sqrt_hd, void* stream) {
+  if ((hd != 64 && hd != 128) || rk % 16 || rk > kMaxRank || rv % 8 || S % 8 ||
+      hpg > kMaxHeads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  FpArgs a{};
+  a.q = q;
+  a.q_bf16 = q_bf16;
+  a.bk = static_cast<const bf16*>(bk);
+  a.xk = static_cast<const bf16*>(xk);
+  a.xv = static_cast<const bf16*>(xv_t);
+  a.kv_len = static_cast<const int*>(kv_len);
+  a.inv_freq = static_cast<const float*>(inv_freq);
+  a.part_m = static_cast<float*>(part_m);
+  a.part_l = static_cast<float*>(part_l);
+  a.part_acc = static_cast<float*>(part_acc);
+  a.G = G;
+  a.hpg = hpg;
+  a.rk = rk;
+  a.rv = rv;
+  a.S = S;
+  a.window = window;
+  a.splits = splits;
+  a.tiles_per_split = tiles_per_split;
+  a.sqrt_hd = sqrt_hd;
+  a.rope_scale = rope_scale;
+  fit_heads(a, false, true, hd, false);
+  if (a.chunk_heads == 0) return static_cast<int>(cudaErrorInvalidValue);
+
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = hd == 128 ? launch_split<128, false, false, false, kFull, true>(a, B, st)
+                            : launch_split<64, false, false, false, kFull, true>(a, B, st);
   if (err != 0) return err;
   return decode::launch_combine(a.part_m, a.part_l, a.part_acc, static_cast<float*>(out),
                                 B * G * hpg, splits, rv, st);

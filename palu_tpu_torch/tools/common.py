@@ -20,7 +20,8 @@ from typing import Callable, Optional
 import torch
 
 __all__ = ["PEAK_BYTES_PER_S", "PEAK_BF16_FLOPS", "bound_us", "device_us", "time_call",
-           "held", "emit", "device_of", "device_name", "generator", "fold16", "env_int"]
+           "held", "emit", "device_of", "device_name", "generator", "fold16", "env_int",
+           "dense_sdpa", "SDPA_YARDSTICK"]
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and dense
 # bf16 tensor-core rate
@@ -155,3 +156,19 @@ def device_name(use_cpu: bool) -> str:
 
 def generator(dev: torch.device, seed: int = 0) -> torch.Generator:
     return torch.Generator(device=dev).manual_seed(seed)
+
+
+SDPA_YARDSTICK = ("scaled_dot_product_attention over dense bf16 K/V of the same context (the "
+                  "attention Palu replaces)")
+
+
+def dense_sdpa(q_shape: tuple, s: int, dev: torch.device) -> Callable[[], torch.Tensor]:
+    """One scaled_dot_product_attention call for the decode token over dense
+    bf16 K/V of s positions, every q-head its own K/V head (q_shape (B, nh,
+    hd)): the decode probes' yardstick."""
+    gen = generator(dev, 1)
+    b, nh, hd = q_shape
+    q = torch.randn((b, nh, 1, hd), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((b, nh, s, hd), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((b, nh, s, hd), generator=gen, device=dev).to(torch.bfloat16)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)

@@ -267,9 +267,8 @@ def run(args) -> List[dict]:
                     lambda: [torch.sum(t, dtype=torch.float32) for t in ops[2:4]], args.nch)
             else:
                 if sdpa is None:
-                    sdpa = _dense_sdpa(x, dev)
-                rec["library"] = ("scaled_dot_product_attention over dense bf16 K/V of the "
-                                  "same context (the attention Palu replaces)")
+                    sdpa = common.dense_sdpa(x["q"].shape, x["x_k"].shape[2], dev)
+                rec["library"] = common.SDPA_YARDSTICK
                 rec["library_us"] = common.device_us(sdpa, args.nch)
             rec["bound_us"], rec["bound_by"] = common.bound_us(nbytes, flops)
             us[mode] = rec["us"]
@@ -289,18 +288,6 @@ def run(args) -> List[dict]:
                 split[f"{mode}_us"] = us[mode]
         recs.append(split)
     return recs
-
-
-def _dense_sdpa(x: dict, dev: torch.device):
-    """One scaled_dot_product_attention call for the decode token over dense
-    bf16 K/V of the same context (32 heads, hd 128): the yardstick."""
-    gen = common.generator(dev, 1)
-    b, nh, hd = x["q"].shape
-    s = x["x_k"].shape[2]
-    q = torch.randn((b, nh, 1, hd), generator=gen, device=dev).to(torch.bfloat16)
-    k = torch.randn((b, nh, s, hd), generator=gen, device=dev).to(torch.bfloat16)
-    v = torch.randn((b, nh, s, hd), generator=gen, device=dev).to(torch.bfloat16)
-    return lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)
 
 
 def main(argv=None) -> List[dict]:

@@ -648,3 +648,104 @@ def test_gemv_bf16_kernels_match_plain(gen, rows, kn, bn):
     for got in (gp.gemv_bf16(x, w, bn), gp.gemv_bf16_t(x, wt, bn)):
         assert (got.float() - want).abs().max() <= gp.GEMV_TOL * want.abs().max()
     assert torch.equal(gp.gemv_bf16(x, w, bn), gp.gemv_bf16(x, w, bn))
+
+
+# ---- the archived v2 / v3 decodes and the W8A8 MLP (palu_tpu_torch.tools
+# ab_v2 / mlp_a8_probe): each kernel against its plain version, at a small
+# size and at the tools' own
+
+ARCHIVE_SIZES = {"small": (2, 2, 4, 32, 64, 1024), "tool": (1, 8, 4, 128, 384, 65536)}
+
+
+def _archive_case(gen, size, kvl, bits, rope, sym=False):
+    """q, b_k, bf16 latents and the v2 / v3 packed caches of one size
+    (b, g, hpg, rk, rv, S), with kv_len kvl and the rope keywords."""
+    from palu_tpu_torch.ops.archive.palu_decode3 import sz_pack
+
+    b, g, hpg, rk, rv, s = ARCHIVE_SIZES[size]
+    q = torch.randn((b, g * hpg, 128), generator=gen, device="cuda").bfloat16()
+    b_k = (torch.randn((g, hpg, rk, 128), generator=gen, device="cuda") * 0.1).bfloat16()
+    x_k, x_v = (torch.randn((b, g, s, r), generator=gen, device="cuda").bfloat16()
+                for r in (rk, rv))
+    qcfg = QuantConfig(bits=bits, sym=sym)
+    packed = {}
+    for side, x in (("k", x_k), ("v", x_v)):
+        c, sc, z = quantize_affine(x, qcfg)
+        packed[side] = (pack_codes_t(c, bits).contiguous(), sc[..., 0].contiguous(),
+                        z[..., 0].contiguous())
+    kv_len = torch.tensor(kvl[:b], dtype=torch.int32, device="cuda")
+    return {"q": q, "b_k": b_k, "x_k": x_k, "x_v_t": x_v.transpose(2, 3).contiguous(),
+            "v2q": (*packed["k"], *packed["v"]),
+            "v3q": (packed["k"][0], sz_pack(*packed["k"][1:]), packed["v"][0],
+                    sz_pack(*packed["v"][1:])),
+            "kv_len": kv_len, "qcfg": qcfg, "rk": rk, "rv": rv, "rope": rope}
+
+
+def _held_decode(got, want):
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 2e-3 * want.abs().max()
+
+
+@pytest.mark.parametrize("size,kvl", [("small", (300, 1024)), ("tool", (65536,)),
+                                      ("tool", (40000,))])
+@pytest.mark.parametrize("rope", ["theta", "llama3"])
+def test_decode2_bf16_kernel_matches_plain(gen, size, kvl, rope):
+    from palu_tpu_torch.ops.archive.palu_decode2 import palu_decode2, palu_decode2_ref
+
+    x = _archive_case(gen, size, kvl, 3, {} if rope == "theta" else _rope_kw(rope))
+    ops = (x["q"], x["b_k"], x["x_k"], x["x_v_t"], x["kv_len"])
+    n0 = palu_decode2.launches
+    got = palu_decode2(*ops, **x["rope"])
+    assert palu_decode2.launches == n0 + 1
+    _held_decode(got, palu_decode2_ref(*ops, **x["rope"]))
+
+
+@pytest.mark.parametrize("size,kvl", [("small", (300, 1024)), ("tool", (65536,)),
+                                      ("tool", (40000,))])
+@pytest.mark.parametrize("bits", [2, 3, 4])
+@pytest.mark.parametrize("gen_", ["v2q", "v3q"])
+def test_decode2_decode3_quantized_kernels_match_plain(gen, size, kvl, bits, gen_):
+    from palu_tpu_torch.ops.archive import palu_decode2 as d2, palu_decode3 as d3
+
+    x = _archive_case(gen, size, kvl, bits, {}, sym=bits == 4)
+    fn, ref = ((d2.palu_decode2_quantized, d2.palu_decode2_quantized_ref) if gen_ == "v2q"
+               else (d3.palu_decode3_quantized, d3.palu_decode3_quantized_ref))
+    kw = dict(qcfg=x["qcfg"], rk=x["rk"], rv=x["rv"], block_s=1024)
+    ops = (x["q"], x["b_k"], *x[gen_], x["kv_len"])
+    n0 = fn.launches
+    got = fn(*ops, **kw)
+    assert fn.launches == n0 + 1
+    _held_decode(got, ref(*ops, **kw))
+
+
+@pytest.mark.parametrize("rope", ["llama3", "yarn"])
+@pytest.mark.parametrize("gen_", ["v2q", "v3q"])
+def test_decode2_decode3_scaled_rope_and_window(gen, rope, gen_):
+    """Scaled RoPE (llama3; yarn, whose attention scale is not 1), a
+    sliding window and a rotation block of 256 on the small shape."""
+    from palu_tpu_torch.ops.archive import palu_decode2 as d2, palu_decode3 as d3
+
+    x = _archive_case(gen, "small", (300, 1024), 3, _rope_kw(rope))
+    fn, ref = ((d2.palu_decode2_quantized, d2.palu_decode2_quantized_ref) if gen_ == "v2q"
+               else (d3.palu_decode3_quantized, d3.palu_decode3_quantized_ref))
+    kw = dict(qcfg=x["qcfg"], rk=x["rk"], rv=x["rv"], block_s=256, sliding_window=200,
+              **x["rope"])
+    ops = (x["q"], x["b_k"], *x[gen_], x["kv_len"])
+    _held_decode(fn(*ops, **kw), ref(*ops, **kw))
+
+
+@pytest.mark.parametrize("rows,hi,bn", [(1, (256, 512), 128), (4, (512, 1024), 64),
+                                        (8, (256, 384), 128), (1, (4096, 11008), 256)])
+def test_mlp_a8_kernel_matches_plain(gen, rows, hi, bn):
+    from palu_tpu_torch.tools import mlp_a8_probe as p
+
+    dev = torch.device("cuda")
+    h, inter = hi
+    x = (torch.randn((rows, h), generator=gen, device=dev) * 0.1).bfloat16()
+    w = [p.qw(gen, shape, dev) for shape in ((h, inter), (h, inter), (inter, h))]
+    n0 = p.mlp_a8.launches
+    got = p.mlp_a8(x, *w, bn=bn, codes=True)
+    assert p.mlp_a8.launches == n0 + 1
+    held = p.held_codes(got, p.mlp_a8_ref(x, *w, bn=bn, codes=True))
+    assert held["ok"], held
+    assert torch.equal(p.mlp_a8(x, *w, bn=bn), got[0])

@@ -44,11 +44,15 @@ def test_imports_without_jax_or_reference_package():
 
 
 def test_probe_entry_points_are_scanned():
-    """The probes subpackage (palu_tpu_torch/tools) is among the modules
-    both tests above import and scan."""
+    """The probes subpackage (palu_tpu_torch/tools) and the archived decodes
+    (palu_tpu_torch/ops/archive) are among the modules both tests above
+    import and scan."""
     mods = _port_modules()
-    for name in ("dissect", "stream_probe", "unpack_probe", "gemv_probe"):
+    for name in ("dissect", "stream_probe", "unpack_probe", "gemv_probe", "ab_v2",
+                 "mlp_a8_probe"):
         assert f"palu_tpu_torch.tools.{name}" in mods
+    for name in ("", ".palu_decode2", ".palu_decode3"):
+        assert f"palu_tpu_torch.ops.archive{name}" in mods
 
 
 def test_no_jax_import_in_source():
