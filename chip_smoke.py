@@ -119,6 +119,34 @@ Phases, each printing one JSON line:
      within GEMV_TOL with its activation codes bit-exact and every code of
      h within 1; the kernels line gains palu_decode2,
      palu_decode2_quantized, palu_decode3_quantized and mlp_a8;
+  9. the v4 decode's features (pos_offset, return_stats, layer_idx):
+     decode_stats - with phase 3: a 64K cache (BASELINE.md's point) cut
+                into four 16384-column shards, each through palu_decode
+                (exact, int8_dots, int8_rot; per-chunk scales and the K bias
+                at Qwen2-7B's shape) and palu_decode_fp_t with pos_offset
+                and return_stats, held against its plain version (a shard
+                with no valid column exactly m -1e30, l 0, acc 0), the
+                shards combined against the one-call kernel, layer_idx on
+                L = 4 stacks bit-identical to the per-layer call; times of
+                the one call, each shard, the statistics variant and the
+                layer_idx call beside their bounds and SDPA over the same
+                columns;
+     serve_stacked - after serve, on its weights: Engine.generate with
+                stacked_decode=True (32 layers, the 7000-token request, every
+                palu_decode launched with layer_idx), then held against the
+                unrolled engine over 8 steps (logits and cache bytes
+                identical), both decode breakdowns; the same at 2 layers over
+                rank_major_fp (palu_decode_fp_t with layer_idx);
+     serve_seq  - the engine on a 1 x 1 ("data", "seq") mesh under NCCL at
+                world size 1, serve's request at 32 layers with every decode
+                launch a statistics one, logits against the unsharded
+                engine's; and 2 layers over rank_major_fp;
+     seq_ranks  - after serve_w8: two processes on the one card under gloo
+                (seq 2, 4 layers), each step's logits against the world-1
+                engine's on the same cache;
+     the kernels line gains palu_decode_stats and palu_decode_fp_t_stats
+     (launches of serve_seq) and palu_decode_layer_idx and
+     palu_decode_fp_t_layer_idx (launches of serve_stacked);
 then the nvidia-smi line, the {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 """
@@ -235,25 +263,39 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+# the v4 decodes whose launches count their features (pos_offset,
+# return_stats, layer_idx), and the names those counts take
+FEATURED = (palu_decode, palu_decode_fp_t)
+FEATURE_NAMES = {"pos_offset": "pos_offset", "return_stats": "stats", "layer_idx": "layer_idx"}
+
+
 def reset_counts() -> None:
     """Every wrapper's launch count (and palu_decode's per mode and with a
-    K bias) to 0."""
+    K bias, and the v4 decodes' per feature) to 0."""
     for fn in COUNTERS:
         fn.launches = 0
     for mode in palu_decode.mode_launches:
         palu_decode.mode_launches[mode] = 0
     palu_decode.k_bias_launches = 0
+    for fn in FEATURED:
+        for f in fn.feature_launches:
+            fn.feature_launches[f] = 0
 
 
 def read_counts() -> dict:
     """Launches per wrapper, plus palu_decode's int8 modes as
     palu_decode_int8_dots / palu_decode_int8_rot, its per-chunk-scale
     launches as palu_decode_chunked and those with a K bias as
-    palu_decode_k_bias (all also in palu_decode's)."""
+    palu_decode_k_bias (all also in palu_decode's), and the launches of
+    palu_decode and palu_decode_fp_t with each feature as <name>_stats,
+    <name>_pos_offset and <name>_layer_idx."""
     out = {fn.__name__: fn.launches for fn in COUNTERS}
     out.update({f"palu_decode_{m}": palu_decode.mode_launches[m]
                 for m in (*INT8_MODES, "chunked")})
     out["palu_decode_k_bias"] = palu_decode.k_bias_launches
+    for fn in FEATURED:
+        out.update({f"{fn.__name__}_{FEATURE_NAMES[f]}": n
+                    for f, n in fn.feature_launches.items()})
     return out
 
 
@@ -1761,6 +1803,13 @@ def _decode_path(ecfg) -> str:
     return (palu_decode_fp_t if ecfg.rank_major_fp else palu_decode_fp).__name__
 
 
+def _path_tag(ecfg) -> str:
+    """The engine's record of its decode path: the wrapper, then
+    [layer_idx] for the stacked decode or [seq] for a sequence shard."""
+    tag = "[layer_idx]" if ecfg.stacked_decode else "[seq]" if ecfg.seq_axis else ""
+    return f"{_decode_path(ecfg)}{tag}-kernel"
+
+
 def phase_e2e_fp() -> None:
     """e2e over the unquantized bf16 latent caches (qcfg None): seq-major
     (e2e_fp, palu_decode_fp) and rank-major (e2e_fp_t, palu_decode_fp_t)
@@ -1853,8 +1902,13 @@ def expected_launches(layers: int, ecfg: EngineConfig, steps: int, bias: bool = 
     vt8 = ecfg.vt_bits == 8
     per_step = {fn.__name__: 0 for fn in COUNTERS if fn is not prefill_flash}
     per_step.update(palu_decode_k_bias=0, palu_decode_chunked=0)
+    per_step.update({f"{fn.__name__}_{f}": 0 for fn in FEATURED for f in FEATURE_NAMES.values()})
     path = _decode_path(ecfg)
     per_step[path] = layers
+    if ecfg.seq_axis is not None:  # each shard's decode: offset and statistics
+        per_step[f"{path}_stats"] = per_step[f"{path}_pos_offset"] = layers
+    if ecfg.stacked_decode:  # the kernel reads the stacked cache's layer
+        per_step[f"{path}_layer_idx"] = layers
     if bias:
         per_step["palu_decode_k_bias"] = layers if path == "palu_decode" else 0
     if ecfg.qcfg is not None and ecfg.qcfg.group_size > 0:
@@ -1916,7 +1970,7 @@ def serve(tag: str, eng: "_CheckedEngine", prompts, new_tokens: int, extra=None)
           "max_memory_allocated": torch.cuda.max_memory_allocated(), **(extra or {})})
     if not finite:
         raise AssertionError(f"{tag}: non-finite logits")
-    if eng._decode_paths != {f"{path}-kernel"}:
+    if eng._decode_paths != {_path_tag(ecfg)}:
         raise AssertionError(f"{tag}: took {eng._decode_paths}")
     if not all(p.endswith("-kernel") or p == "dense-matmul" for p in eng._gemv_paths):
         raise AssertionError(f"{tag}: decode took {eng._gemv_paths}")
@@ -1929,16 +1983,18 @@ def serve(tag: str, eng: "_CheckedEngine", prompts, new_tokens: int, extra=None)
     return launches
 
 
-def _engine(cfg, wkw, batch=1, params=None, s_max=8192, qcfg=FLAGSHIP, rank_major_fp=False):
+def _engine(cfg, wkw, batch=1, params=None, s_max=8192, qcfg=FLAGSHIP, rank_major_fp=False,
+            **ekw):
     """A checked engine on seeded random bf16 weights (or `params`); returns
-    it and the seconds the weights took to make."""
+    it and the seconds the weights took to make. ekw: more EngineConfig
+    fields (stacked_decode, mesh, seq_axis)."""
     t0 = time.perf_counter()
     if params is None:
         params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                                    dtype=torch.bfloat16)
     eng = _CheckedEngine(params, cfg, EngineConfig(s_max=s_max, batch=batch, decode_chunk=512,
                                                    qcfg=qcfg, rank_major_fp=rank_major_fp,
-                                                   **wkw))
+                                                   **wkw, **ekw))
     torch.cuda.synchronize()
     return eng, time.perf_counter() - t0
 
@@ -2735,6 +2791,533 @@ def decode_breakdown(eng, tag: str, steps: int = 4) -> None:
           "per": "step", **_breakdown(prof, wall_ms, steps)})
 
 
+# ---------------------------------------------------------------------------
+# 9. the v4 decode's features: sequence shards, raw statistics, stacked layers
+# ---------------------------------------------------------------------------
+
+S64, N_SHARDS = 65536, 4  # BASELINE.md's point, cut into four sequence shards
+
+
+def _shard(bufs: dict, r: int, s_local: int) -> dict:
+    """Columns [r * s_local, (r + 1) * s_local) of every leaf (last axis)."""
+    return {k: v[..., r * s_local:(r + 1) * s_local].contiguous() for k, v in bufs.items()}
+
+
+def _combine(parts) -> torch.Tensor:
+    """The flash-decoding combine of shards' (acc, m, l), in f32."""
+    m_g = torch.stack([p[1] for p in parts]).amax(0)
+    w = [torch.exp(p[1] - m_g) for p in parts]
+    l_g = sum(wi * p[2] for wi, p in zip(w, parts))
+    return sum(wi[..., None] * p[0] for wi, p in zip(w, parts)) / l_g[..., None]
+
+
+def _held_stats(what: str, got, want) -> float:
+    """A kernel's (acc, m, l) against its plain version's: acc and l within
+    DECODE_TOL of their max|plain|, m within DECODE_TOL of max|m| on the
+    rows with a valid column and exactly -1e30 (l = 0, acc = 0) on the
+    others; returns acc's max abs error."""
+    torch.cuda.synchronize()
+    (acc, m, l), (wacc, wm, wl) = got, want
+    empty = wl == 0
+    if not torch.equal(l == 0, empty):
+        raise AssertionError(f"{what}: rows without a valid column differ")
+    if not (torch.isfinite(acc).all() and torch.isfinite(l).all()):
+        raise AssertionError(f"{what}: non-finite statistics")
+    if not (bool((m[empty] == -1e30).all()) and bool((acc[empty] == 0).all())):
+        raise AssertionError(f"{what}: an empty row is not (m -1e30, l 0, acc 0)")
+    err = (acc - wacc).abs().max().item()
+    for name, x, y in (("acc", acc, wacc), ("l", l, wl), ("m", m[~empty], wm[~empty])):
+        if x.numel() and (x - y).abs().max().item() > DECODE_TOL * y.abs().max().item():
+            raise AssertionError(f"{what}: {name} off by {(x - y).abs().max().item()}")
+    return err
+
+
+def _stacked(make, n_layers: int) -> dict:
+    """An (L, ...) stack of n_layers caches from make() (a dict of leaves)."""
+    layers = [make() for _ in range(n_layers)]
+    return {k: torch.stack([c[k] for c in layers]).contiguous() for k in layers[0]}
+
+
+def check_decode_stats(gen) -> list:
+    """The three features at BASELINE.md's point (64K, G 8 x 4 heads, rk
+    128, rv 384): the cache cut into four 16384-column shards, each through
+    palu_decode (exact, int8_dots, int8_rot over 512-token rotation blocks;
+    per-chunk scales and the K bias at Qwen2-7B's shape) and
+    palu_decode_fp_t with pos_offset and return_stats, held against its
+    plain version; the shards combined against the one-call kernel; an
+    L = 4 stack through layer_idx, each layer bit-identical to the
+    per-layer call. Times of the one-call kernel, each shard, the
+    statistics variant and the layer_idx call, with their bounds and SDPA
+    over the same columns. Returns the four kernel lines."""
+    t_phase = time.perf_counter()
+    s_loc = S64 // N_SHARDS
+    lanes2 = torch.tensor([S64, 20000], dtype=torch.int32, device="cuda")  # lane 2: 2 shards empty
+    kv1 = torch.tensor([S64], dtype=torch.int32, device="cuda")
+    worst, cases, report = {}, 0, {}
+
+    def held_shards(name, call, ref, bufs, kv_len):
+        """Each shard against its plain version, then the combine against
+        the one-call kernel; returns the shards' (acc, m, l)."""
+        nonlocal cases
+        parts = []
+        for r in range(N_SHARDS):
+            sh = _shard(bufs, r, s_loc)
+            got = call(sh, kv_len, r * s_loc)
+            err = _held_stats(f"{name} shard {r}", got, ref(sh, kv_len, r * s_loc))
+            worst[name] = max(worst.get(name, 0.0), err)
+            parts.append(got)
+            cases += 1
+        _held_decode(f"{name} shards combined", _combine(parts), call(bufs, kv_len, None))
+        cases += 1
+
+    # ---- palu_decode: exact / int8 modes at the Llama shape, per-chunk and
+    # the K bias at Qwen2-7B's
+    specs = [("exact", FLAGSHIP, LLAMA_SHAPE, {}, False),
+             ("int8_dots", FLAGSHIP, LLAMA_SHAPE, {"int8_dots": True}, False),
+             ("int8_rot", FLAGSHIP, LLAMA_SHAPE, {"int8_rot": True}, False),
+             ("chunked", CHUNKED, QWEN2_SHAPE, {}, False),
+             ("k_bias", FLAGSHIP, QWEN2_SHAPE, {}, True)]
+    for label, qcfg, (g, hpg, rk, rv), knob, bias in specs:
+        q, b_k, bufs = _decode_inputs(qcfg, 2, g, hpg, S64, gen, rv, rk)
+        kw = dict(qcfg=qcfg, rk=rk, rv=rv, block_s=512,
+                  k_bias=_k_bias(g, hpg, gen).float() if bias else None, **knob)
+
+        def call(bf, kv_len, off, kw=kw, q=q, b_k=b_k):
+            return palu_decode(q, b_k, kv_len=kv_len, **bf, **kw, pos_offset=off,
+                               return_stats=off is not None)
+
+        def ref(bf, kv_len, off, kw=kw, q=q, b_k=b_k):
+            return palu_decode_ref(q, b_k, kv_len=kv_len, **bf, **kw, pos_offset=off,
+                                   return_stats=True)
+        held_shards(f"palu_decode {label}", call, ref, bufs, lanes2)
+        del q, b_k, bufs
+
+    # ---- palu_decode_fp_t at the Llama shape
+    g, hpg, rk, rv = LLAMA_SHAPE
+    q, b_k, _, lat = _fp_inputs(2, g, hpg, S64, gen)
+    fbufs = {"xk_t": lat[0], "xv_t": lat[1]}
+    del lat
+
+    def fcall(bf, kv_len, off):
+        return palu_decode_fp_t(q, b_k, bf["xk_t"], bf["xv_t"], kv_len, pos_offset=off,
+                                return_stats=off is not None)
+
+    def fref(bf, kv_len, off):
+        return palu_decode_fp_t_ref(q, b_k, bf["xk_t"], bf["xv_t"], kv_len, pos_offset=off,
+                                    return_stats=True)
+    held_shards("palu_decode_fp_t", fcall, fref, fbufs, lanes2)
+    del q, b_k, fbufs
+
+    # ---- layer_idx on L = 4 stacks: each layer the per-layer call's bits
+    nh = G * HPG
+    q, b_k, _ = _decode_inputs(FLAGSHIP, 1, G, HPG, 16, gen)
+    stack = _stacked(lambda: _decode_inputs(FLAGSHIP, 1, G, HPG, S64, gen)[2], 4)
+    kw = dict(qcfg=FLAGSHIP, rk=RK, rv=RV)
+    for li in range(4):
+        got = palu_decode(q, b_k, kv_len=kv1, **stack, **kw, layer_idx=li)
+        one = palu_decode(q, b_k, kv_len=kv1, **{k: v[li].contiguous() for k, v in stack.items()},
+                          **kw)
+        if not torch.equal(got, one):
+            raise AssertionError(f"palu_decode layer_idx {li}: differs from the per-layer call")
+        cases += 1
+    layer_err, _ = _held_decode("palu_decode layer_idx 3", got,
+                                palu_decode_ref(q, b_k, kv_len=kv1, **stack, **kw, layer_idx=3))
+    q_fp, bk_fp, _, _ = _fp_inputs(1, G, HPG, 16, gen)
+    fstack = _stacked(lambda: dict(zip(("xk_t", "xv_t"), _fp_inputs(1, G, HPG, S64, gen)[3])), 4)
+    for li in range(4):
+        got = palu_decode_fp_t(q_fp, bk_fp, fstack["xk_t"], fstack["xv_t"], kv1, layer_idx=li)
+        one = palu_decode_fp_t(q_fp, bk_fp, fstack["xk_t"][li].contiguous(),
+                               fstack["xv_t"][li].contiguous(), kv1)
+        if not torch.equal(got, one):
+            raise AssertionError(f"palu_decode_fp_t layer_idx {li}: differs from the per-layer "
+                                 "call")
+        cases += 1
+    fp_layer_err, _ = _held_decode(
+        "palu_decode_fp_t layer_idx 3", got,
+        palu_decode_fp_t_ref(q_fp, bk_fp, fstack["xk_t"], fstack["xv_t"], kv1, layer_idx=3))
+
+    # ---- times at batch 1, every column valid: the one-call kernel, each
+    # shard with pos_offset and return_stats, the statistics variant over
+    # all 64K, and the layer_idx call on the stack
+    one = {k: v[0] for k, v in stack.items()}  # layer 0 (contiguous: the stack's first plane)
+    fone = {k: v[0] for k, v in fstack.items()}
+    sdpa64 = device_ms(_dense_kv_sdpa(1, S64, gen), 20)
+    sdpa16 = device_ms(_dense_kv_sdpa(1, s_loc, gen), 20)
+    lines = []
+    for name, call, ref, bufs, st in (
+            ("palu_decode", lambda bf, off, stats, li=None: palu_decode(
+                q, b_k, kv_len=kv1, **bf, **kw, pos_offset=off, return_stats=stats,
+                layer_idx=li),
+             lambda bf, off, stats, li=None: palu_decode_ref(
+                q, b_k, kv_len=kv1, **bf, **kw, pos_offset=off, return_stats=stats,
+                layer_idx=li), one, stack),
+            ("palu_decode_fp_t", lambda bf, off, stats, li=None: palu_decode_fp_t(
+                q_fp, bk_fp, bf["xk_t"], bf["xv_t"], kv1, pos_offset=off, return_stats=stats,
+                layer_idx=li),
+             lambda bf, off, stats, li=None: palu_decode_fp_t_ref(
+                q_fp, bk_fp, bf["xk_t"], bf["xv_t"], kv1, pos_offset=off, return_stats=stats,
+                layer_idx=li), fone, fstack)):
+        n64 = _nbytes(*bufs.values())
+
+        def bound(nbytes, n, stats=False):
+            bms, by, _, _ = _decode_bound(nbytes, 1, nh, n, RK, RV)
+            return bms + (2 * nh * 4 / PEAK_BYTES_PER_S * 1e3 if stats else 0.0), by
+        t = {"one_call": {"ms": device_ms(lambda: call(bufs, None, False), 20),
+                          "bound": bound(n64, S64), "sdpa_ms": sdpa64},
+             "stats_64k": {"ms": device_ms(lambda: call(bufs, None, True), 20),
+                           "bound": bound(n64, S64, True)},
+             "layer_idx": {"ms": device_ms(lambda: call(st, None, False, 2), 20),
+                           "plain_ms": device_ms(lambda: ref(st, None, False, 2), 3),
+                           "bound": bound(n64, S64), "sdpa_ms": sdpa64}}
+        for r in range(N_SHARDS):
+            sh = _shard(bufs, r, s_loc)
+            t[f"shard{r}"] = {"ms": device_ms(lambda: call(sh, r * s_loc, True), 20),
+                              "bound": bound(_nbytes(*sh.values()), s_loc, True),
+                              "sdpa_ms": sdpa16}
+            if r == 0:
+                t["shard0"]["plain_ms"] = device_ms(lambda: ref(sh, 0, True), 3)
+            del sh
+        report[name] = t
+        stats_err = worst["palu_decode exact" if name == "palu_decode" else name]
+        s0, li = t["shard0"], t["layer_idx"]
+        lines.append({"name": f"{name}_stats", "route": "cuda",
+                      "source": "palu_tpu_torch/csrc/" + ("palu_decode.cu" if name ==
+                                                          "palu_decode" else "palu_decode_fp.cu"),
+                      "replaces": "palu_tpu/ops/pallas/palu_decode4.py:"
+                                  + ("922" if name == "palu_decode" else "1015"),
+                      "max_abs_err": stats_err, "ms": s0["ms"], "plain_ms": s0["plain_ms"],
+                      "bound_ms": s0["bound"][0], "bound_by": s0["bound"][1],
+                      "library_ms": sdpa16})
+        lines.append({"name": f"{name}_layer_idx", "route": "cuda",
+                      "source": lines[-1]["source"],
+                      "replaces": "palu_tpu/ops/pallas/palu_decode4.py:"
+                                  + ("923" if name == "palu_decode" else "1016"),
+                      "max_abs_err": layer_err if name == "palu_decode" else fp_layer_err,
+                      "ms": li["ms"], "plain_ms": li["plain_ms"], "bound_ms": li["bound"][0],
+                      "bound_by": li["bound"][1], "library_ms": sdpa64})
+    emit({"phase": "kernel", "what": "decode_stats: pos_offset, return_stats and layer_idx "
+          f"at S {S64} cut into {N_SHARDS} shards of {s_loc}; layer_idx on L = 4 stacks",
+          "cases": cases, "tol": DECODE_TOL, "max_abs_err": worst, "times": report,
+          "library_call": SDPA_YARDSTICK, "lines": lines,
+          "phase_s": time.perf_counter() - t_phase})
+    return lines
+
+
+def _forced_run(eng, prompt, steps: int, forced=None):
+    """prefill_auto then `steps` decodes, each fed the token `forced` gives
+    (or this engine's argmax): the per-step last-token logits (steps + 1,
+    V) f32, the tokens fed, and the cache."""
+    logits, cache = eng.prefill_auto(prompt)
+    out, fed = [logits[0, -1].float()], []
+    for t in range(steps):
+        tok = forced[t] if forced is not None else int(out[-1].argmax())
+        fed.append(tok)
+        logits, cache = eng.decode(np.full((1, 1), tok, np.int64), cache)
+        out.append(logits[0, -1].float())
+    return torch.stack(out), fed, cache
+
+
+def _same_cache(a: dict, b: dict) -> dict:
+    """Bytes of an unrolled cache (a) that differ from a stacked one (b)."""
+    diff, total = 0, 0
+    for i, entry in enumerate(a["layers"]):
+        for side, bufs in entry.items():
+            for k, v in bufs.items():
+                w = b["stack"][side][k][i]
+                diff += int((v.reshape(w.shape).view(torch.uint8) != w.view(torch.uint8)).sum())
+                total += v.numel() * v.element_size()
+    return {"bytes": total, "bytes_differing": diff}
+
+
+def phase_serve_stacked(params) -> tuple:
+    """Engine.generate with stacked_decode=True at Llama-2-7B width: 32
+    layers over the 3-bit cache answering the 7000-token request of
+    `serve` (32 new tokens) with exact launches per step, every
+    palu_decode with layer_idx; then the same request teacher-forced
+    through the unrolled engine on the same params: logits, tokens and
+    cache bytes compared, and both engines' decode breakdowns. Then a
+    2-layer rank_major_fp case (palu_decode_fp_t with layer_idx). Returns
+    both runs' launches."""
+    t_phase = time.perf_counter()
+    cfg = llama7b(LAYERS)
+    prompt = _prompts(1, (7000,))
+    stacked, init_s = _engine(cfg, {}, params=params, stacked_decode=True)
+    launches = serve("serve_stacked", stacked, prompt, 32, {"init_s": init_s})
+    unrolled, _ = _engine(cfg, {}, params=params)
+    held = {}
+    got, fed, scache = _forced_run(stacked, prompt[0], 8)
+    want, _, ucache = _forced_run(unrolled, prompt[0], 8, fed)
+    held["3bit"] = {"logits_identical": bool(torch.equal(got, want)),
+                    "max_abs_diff": (got - want).abs().max().item(),
+                    "max_abs_logit": want.abs().max().item(), **_same_cache(ucache, scache)}
+    decode_breakdown(stacked, "serve_stacked")
+    decode_breakdown(unrolled, "serve_stacked_unrolled")
+    del stacked, unrolled, scache, ucache
+    cfg2 = llama7b(2)
+    p2 = dict(params, layers=params["layers"][:2])
+    fp, _ = _engine(cfg2, {}, params=p2, qcfg=None, rank_major_fp=True, stacked_decode=True)
+    launches_fp = serve("serve_stacked_fp", fp, prompt, 32)
+    fp_un, _ = _engine(cfg2, {}, params=p2, qcfg=None, rank_major_fp=True)
+    got, fed, scache = _forced_run(fp, prompt[0], 8)
+    want, _, ucache = _forced_run(fp_un, prompt[0], 8, fed)
+    held["fp_rank_major"] = {"logits_identical": bool(torch.equal(got, want)),
+                             "max_abs_diff": (got - want).abs().max().item(),
+                             "max_abs_logit": want.abs().max().item(),
+                             **_same_cache(ucache, scache)}
+    emit({"phase": "serve_stacked_vs_unrolled", "steps": 8, "held": held,
+          "tol": "identical, else 1e-2 of max|logits|",
+          "phase_s": time.perf_counter() - t_phase})
+    for k, h in held.items():
+        if h["max_abs_diff"] > 1e-2 * h["max_abs_logit"] or h["bytes_differing"]:
+            raise AssertionError(f"serve_stacked {k}: {h}")
+    return launches, launches_fp
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def phase_serve_seq(params) -> tuple:
+    """The engine on a ("data", "seq") mesh of 1 x 1 under NCCL at world
+    size 1: 32 layers at Llama-2-7B width over the 3-bit cache, the
+    7000-token request with s_max 8192 and 32 new tokens through
+    Engine.generate, every decode layer launching the statistics variant
+    (pos_offset and return_stats); teacher-forced, its logits within 1e-2
+    of max|logits| of the unsharded engine's. Then a 2-layer rank_major_fp
+    case (palu_decode_fp_t's statistics). Returns both runs' launches."""
+    import torch.distributed as dist
+
+    from palu_tpu_torch.parallel import make_mesh
+
+    t_phase = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, seq=1, device_type="cuda")
+        cfg = llama7b(LAYERS)
+        prompt = _prompts(1, (7000,))
+        seq, init_s = _engine(cfg, {}, params=params, mesh=mesh, seq_axis="seq")
+        launches = serve("serve_seq", seq, prompt, 32, {"init_s": init_s, "mesh": "1x1",
+                                                        "backend": dist.get_backend()})
+        got, fed, _ = _forced_run(seq, prompt[0], 8)
+        decode_breakdown(seq, "serve_seq")
+        del seq
+        unsharded, _ = _engine(cfg, {}, params=params)
+        want, _, _ = _forced_run(unsharded, prompt[0], 8, fed)
+        del unsharded
+        held = {"3bit": ((got - want).abs().max() / want.abs().max()).item()}
+        cfg2 = llama7b(2)
+        p2 = dict(params, layers=params["layers"][:2])
+        fp, _ = _engine(cfg2, {}, params=p2, qcfg=None, rank_major_fp=True, mesh=mesh,
+                        seq_axis="seq")
+        launches_fp = serve("serve_seq_fp", fp, prompt, 32)
+        got, fed, _ = _forced_run(fp, prompt[0], 8)
+        fp_un, _ = _engine(cfg2, {}, params=p2, qcfg=None, rank_major_fp=True)
+        want, _, _ = _forced_run(fp_un, prompt[0], 8, fed)
+        held["fp_rank_major"] = ((got - want).abs().max() / want.abs().max()).item()
+        emit({"phase": "serve_seq_vs_unsharded", "steps": 8, "max_rel_err": held, "tol": 1e-2,
+              "phase_s": time.perf_counter() - t_phase})
+        if max(held.values()) > 1e-2:
+            raise AssertionError(f"serve_seq: logits off the unsharded engine's by {held}")
+    finally:
+        dist.destroy_process_group()
+    return launches, launches_fp
+
+
+SEQ_RANK_LAYERS = 4
+# seq_ranks' per-step logit limit, in bf16 ulps of max|logits| (the logits
+# are bf16; one ulp of the top binade is 2^-8 to 2^-7 of max|logits|). Two
+# shards merged in f32 reorder the attention's sums against the one call,
+# which moves a logit by a few roundings (1-2 ulps read, PERF.md); a shard
+# that misses or doubles columns moves whole logits
+SEQ_RANK_ULPS = 4
+# the written columns' scales against the world-1 engine's: the latents of
+# layers past the first come from hidden states a few bf16 roundings apart
+# (about 1e-3 relative); a column not written, or written elsewhere, is
+# off by its whole scale
+SEQ_RANK_SCALE_TOL = 2e-2
+
+
+def _cpu_cache(cache: dict) -> dict:
+    return {"layers": [{side: {k: v.cpu() for k, v in b.items()} for side, b in e.items()}
+                       for e in cache["layers"]], "length": cache["length"].cpu()}
+
+
+def _seq_rank_worker(rank: int, port: int, prompt, steps: int, out_dir: str) -> None:
+    """One of seq_ranks' two processes: gloo over the one card, a (1, 2)
+    ("data", "seq") mesh, the 4-layer engine at full width (weights from
+    the phase's seed), teacher-forced steps, then a profiled window of 4
+    more steps (busy, wall and idle share per step). Its logits, launches,
+    breakdown and the cache shard before each step and after the last go
+    to out_dir."""
+    import torch.distributed as dist
+
+    from palu_tpu_torch.parallel import initialize_multihost, make_mesh
+
+    initialize_multihost(f"localhost:{port}", 2, rank, device="cuda", backend="gloo")
+    mesh = make_mesh(1, seq=2, device_type="cuda")
+    cfg = llama7b(SEQ_RANK_LAYERS)
+    eng, _ = _engine(cfg, {}, mesh=mesh, seq_axis="seq")
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = eng.prefill_auto(prompt)
+    out, fed, shards = [logits[0, -1].float()], [], []
+    for _ in range(steps):
+        shards.append(_cpu_cache(cache))
+        fed.append(int(out[-1].argmax()))
+        logits, cache = eng.decode(np.full((1, 1), fed[-1], np.int64), cache)
+        out.append(logits[0, -1].float())
+    torch.cuda.synchronize()
+    seconds, launches = time.perf_counter() - t0, read_counts()
+    shards.append(_cpu_cache(cache))
+    tok, n = np.full((1, 1), fed[-1], np.int64), 4
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for _ in range(n):
+            eng.decode(tok, cache)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) / n * 1e3
+    torch.save({"logits": torch.stack(out).cpu(), "fed": fed, "launches": launches,
+                "paths": sorted(eng._decode_paths), "s_local": eng._seq["s_local"],
+                "seconds": seconds, "backend": dist.get_backend(), "shards": shards,
+                "breakdown": _breakdown(prof, wall_ms, n)},
+               os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def _held_seq_cache(joined: dict, want: dict, n_prompt: int) -> dict:
+    """The two ranks' cache, joined, against the world-1 engine's own at the
+    same step. Every byte of the prompt's columns and of the columns not
+    yet written must be identical, and of layer 0's written columns (its
+    latents come from the token's embedding alone); past layer 0 the
+    written columns' elements (code bytes, scales) are counted where they
+    differ, of all written, and their scales held within
+    SEQ_RANK_SCALE_TOL of max|scale|."""
+    n = int(want["length"][0])
+    if not torch.equal(joined["length"], want["length"]):
+        raise AssertionError(f"seq_ranks: lengths {joined['length']} vs {want['length']}")
+    differing, written, worst = {}, {}, 0.0
+    for i, (jl, wl) in enumerate(zip(joined["layers"], want["layers"])):
+        for side in ("k", "v"):
+            for key, w in wl[side].items():
+                g = jl[side][key]
+                bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[w.element_size()]
+                same = g.view(bits) == w.view(bits)
+                if not (bool(same[..., :n_prompt].all()) and bool(same[..., n:].all())):
+                    raise AssertionError(f"seq_ranks: layer {i} {side}/{key} differs outside "
+                                         f"the decoded columns")
+                new = ~same[..., n_prompt:n]
+                if i == 0 and bool(new.any()):
+                    raise AssertionError(f"seq_ranks: layer 0 {side}/{key} differs")
+                differing[key] = differing.get(key, 0) + int(new.sum())
+                written[key] = written.get(key, 0) + new.numel()
+                if key != "codes_t" and n > n_prompt:
+                    gw, ww = g[..., n_prompt:n], w[..., n_prompt:n]
+                    worst = max(worst, ((gw - ww).abs().max() / ww.abs().max()).item())
+    if worst > SEQ_RANK_SCALE_TOL:
+        raise AssertionError(f"seq_ranks: written scales off by {worst} of max|scale|")
+    return {"length": n, "differing": differing, "written": written,
+            "scale_max_rel_err": worst}
+
+
+def phase_seq_ranks() -> dict:
+    """Two processes on the one card, seq = 2 under gloo (NCCL refuses two
+    ranks on one device; the combine uses only all_reduce, which gloo
+    takes on CUDA tensors): 4 layers at Llama-2-7B width over the 3-bit
+    cache, the 7000-token prompt and 8 greedy steps, the kernels on the
+    card in both. Held against the world-1 engine on the same weights,
+    teacher-forced with the ranks' tokens: its cache before each step and
+    after the last against the ranks' shards joined (_held_seq_cache),
+    and each step's logits, both against that engine's own run and
+    against its decode of the same token from the ranks' joined cache,
+    within SEQ_RANK_ULPS bf16 ulps of max|logits|. Returns rank 0's
+    launches."""
+    import torch.multiprocessing as mp
+
+    prompt = _prompts(1, (7000,))[0]
+    n_prompt = int(prompt.shape[1])
+    steps = 8
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        ctx = mp.get_context("spawn")
+        port = _free_port()
+        procs = [ctx.Process(target=_seq_rank_worker, args=(r, port, prompt, steps, out))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + 300
+        for p in procs:
+            p.join(timeout=max(1.0, deadline - time.monotonic()))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        codes = [p.exitcode for p in procs]
+        if codes != [0, 0]:
+            raise AssertionError(f"seq_ranks: worker exit codes {codes}")
+        runs = [torch.load(os.path.join(out, f"rank{r}.pt")) for r in range(2)]
+    wall_s = time.perf_counter() - t0
+    eng, _ = _engine(llama7b(SEQ_RANK_LAYERS), {})
+    logits, cache = eng.prefill_auto(prompt)
+    free, caches = [logits[0, -1].float()], []
+    for tok in runs[0]["fed"]:
+        caches.append(_cpu_cache(cache))
+        logits, cache = eng.decode(np.full((1, 1), tok, np.int64), cache)
+        free.append(logits[0, -1].float())
+    caches.append(_cpu_cache(cache))
+    free = torch.stack(free).cpu()
+    joined = [{"layers": [{side: {k: torch.cat([r["shards"][t]["layers"][i][side][k]
+                                                for r in runs], dim=-1)
+                                  for k in b} for side, b in e.items()}
+                          for i, e in enumerate(runs[0]["shards"][t]["layers"])],
+               "length": runs[0]["shards"][t]["length"]} for t in range(steps + 1)]
+    held_cache = [_held_seq_cache(j, w, n_prompt) for j, w in zip(joined, caches)]
+    got = runs[0]["logits"]
+    on_joined = [free[0]]  # the prefill: no cache read yet
+    for t in range(steps):
+        c = {"layers": [{side: {k: v.cuda() for k, v in b.items()} for side, b in e.items()}
+                        for e in joined[t]["layers"]], "length": joined[t]["length"].cuda()}
+        logits, _ = eng.decode(np.full((1, 1), runs[0]["fed"][t], np.int64), c)
+        on_joined.append(logits[0, -1].float().cpu())
+    del eng
+    on_joined = torch.stack(on_joined)
+    top = max(got.abs().max().item(), free.abs().max().item())
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+    step_ulps = [(got[t] - on_joined[t]).abs().max().item() / ulp for t in range(steps + 1)]
+    free_ulps = [(got[t] - free[t]).abs().max().item() / ulp for t in range(steps + 1)]
+    emit({"phase": "seq_ranks", "processes": 2, "mesh": "1x2", "layers": SEQ_RANK_LAYERS,
+          "prompt": n_prompt, "steps": steps, "wall_s": wall_s,
+          "per_rank": [{k: r[k] for k in ("paths", "s_local", "seconds", "backend")}
+                       for r in runs],
+          "launches": [r["launches"] for r in runs],
+          "decode_breakdown": [r["breakdown"] for r in runs],
+          "max_abs_logit": top, "ulp": ulp, "tol_ulps": SEQ_RANK_ULPS,
+          "max_err_ulps_on_joined_cache": step_ulps,
+          "max_err_ulps_free_running": free_ulps,
+          "max_rel_err_on_joined_cache": [u * ulp / top for u in step_ulps],
+          "max_rel_err_free_running": [u * ulp / top for u in free_ulps],
+          "cache_vs_world1": held_cache, "scale_tol": SEQ_RANK_SCALE_TOL,
+          "phase_s": time.perf_counter() - t0,
+          "ranks_agree": bool(torch.equal(runs[0]["logits"], runs[1]["logits"]))})
+    if max(step_ulps + free_ulps) > SEQ_RANK_ULPS or step_ulps[0] or any(
+            r["paths"] != ["palu_decode[seq]-kernel"] for r in runs):
+        raise AssertionError(f"seq_ranks: ulps on the joined cache {step_ulps}, free "
+                             f"running {free_ulps}, paths {[r['paths'] for r in runs]}")
+    if not torch.equal(runs[0]["logits"], runs[1]["logits"]):
+        raise AssertionError("seq_ranks: the two ranks' logits differ")
+    for r in runs:
+        n = r["launches"]
+        if not (n["palu_decode_stats"] == n["palu_decode"] == SEQ_RANK_LAYERS * steps):
+            raise AssertionError(f"seq_ranks: launches {n}")
+    return runs[0]["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2745,7 +3328,8 @@ def main() -> int:
     kernels = [check_append(gen), check_decode(gen), *check_decode_int8(gen),
                check_decode_seq(gen), *check_decode_fp(gen), check_prefill(gen),
                check_gemv(gen, 4), check_mlp(gen, 4), check_gemv(gen, 8), check_mlp(gen, 8),
-               check_hadamard(gen), check_decode_bias(gen), check_decode_chunked(gen)]
+               check_hadamard(gen), check_decode_bias(gen), check_decode_chunked(gen),
+               *check_decode_stats(gen)]
     check_decode_ranks(gen)
     check_decode_rope(gen)
     check_dense_sdpa(gen)
@@ -2760,10 +3344,13 @@ def main() -> int:
     phase_e2e_chunked(qwen2_inputs)
     del qwen2_inputs
     launches, launches_fp, params = phase_serve()
+    launches_stacked, launches_stacked_fp = phase_serve_stacked(params)
+    launches_seq, launches_seq_fp = phase_serve_seq(params)
     launches_serving = phase_serving(params)
     del params
     launches_w4 = phase_serve_w4()
     launches_w8 = phase_serve_w8()
+    phase_seq_ranks()
     torch.cuda.empty_cache()  # the Llama weights are gone: room for Qwen2-7B's
     launches_qwen2, params = phase_serve_qwen2()
     launches_serving_qwen2 = phase_serving_qwen2(params)
@@ -2782,7 +3369,9 @@ def main() -> int:
     # run_latency_kernel for the seq-major packed decode, the 1-layer
     # run_latency_attention runs for the int8 modes, and the compress
     # phase's decomposition for the Hadamard transform; serve_qwen2 for the
-    # decode with the K bias, serving_qwen2 for the per-chunk-scale decode
+    # decode with the K bias, serving_qwen2 for the per-chunk-scale decode;
+    # serve_seq (and its rank-major fp case) for the statistics variants,
+    # serve_stacked (and its fp case) for the layer_idx calls
     source = {"cache_append": ("append_token_quantized", launches),
               "palu_decode": ("palu_decode", launches),
               "palu_decode_int8_dots": ("palu_decode_int8_dots",
@@ -2799,7 +3388,12 @@ def main() -> int:
               "mlp_gemv_int8": ("mlp_gemv_int8", launches_w8),
               "hadamard_transform": ("hadamard_transform", launches_compress),
               "palu_decode_k_bias": ("palu_decode_k_bias", launches_qwen2),
-              "palu_decode_chunked": ("palu_decode_chunked", launches_serving_qwen2)}
+              "palu_decode_chunked": ("palu_decode_chunked", launches_serving_qwen2),
+              "palu_decode_stats": ("palu_decode_stats", launches_seq),
+              "palu_decode_layer_idx": ("palu_decode_layer_idx", launches_stacked),
+              "palu_decode_fp_t_stats": ("palu_decode_fp_t_stats", launches_seq_fp),
+              "palu_decode_fp_t_layer_idx": ("palu_decode_fp_t_layer_idx",
+                                             launches_stacked_fp)}
     for k in kernels:
         counter, run = source[k["name"]]
         k["launches"] = run[counter]

@@ -7,7 +7,8 @@
 // The split pass writes, per (lane, q-head) row and split s, the running
 // max m_s, the softmax denominator l_s and the unnormalised latent
 // accumulator acc_s (rv values); the combine kernel merges the splits with
-// the usual rescaling: out = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s.
+// the usual rescaling: out = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s,
+// or hands out the numerator, M and the denominator (return_stats).
 
 #pragma once
 
@@ -79,9 +80,16 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // One block per (lane-head, 128 ranks): merge the splits' (m, l, acc).
+// STATS writes the raw statistics instead of their quotient: out the
+// accumulator sum_s e^(m_s - M) acc_s, m_out the running max M and l_out
+// the denominator sum_s e^(m_s - M) l_s, as a sequence shard hands them to
+// the cross-shard combine. A row with no valid column in any split keeps
+// m = -1e30, l = 0 and acc = 0 there (the normalised quotient is 0 / 0).
+template <bool STATS>
 __global__ void __launch_bounds__(128) combine_kernel(
     const float* __restrict__ part_m, const float* __restrict__ part_l,
-    const float* __restrict__ part_acc, float* __restrict__ out, int splits, int rv) {
+    const float* __restrict__ part_acc, float* __restrict__ out, int splits, int rv,
+    float* __restrict__ m_out, float* __restrict__ l_out) {
   extern __shared__ float wgt[];  // [splits] exp(m_s - max m)
   __shared__ float den_s;
   const size_t bh = blockIdx.x;
@@ -98,21 +106,35 @@ __global__ void __launch_bounds__(128) combine_kernel(
       den += w * l[s];
     }
     den = warp_sum(den);
-    if (threadIdx.x == 0) den_s = den;
+    if (threadIdx.x == 0) {
+      den_s = den;
+      if (STATS && blockIdx.y == 0) {
+        m_out[bh] = mx;
+        l_out[bh] = den;
+      }
+    }
   }
   __syncthreads();
   const int r = blockIdx.y * 128 + threadIdx.x;
   if (r >= rv) return;
   float num = 0.0f;
   for (int s = 0; s < splits; ++s) num += wgt[s] * part_acc[(bh * splits + s) * rv + r];
-  out[bh * rv + r] = num / den_s;
+  out[bh * rv + r] = STATS ? num : num / den_s;
 }
 
-// Launch the combine over `rows` (lane, q-head) rows; returns the launch error.
+// Launch the combine over `rows` (lane, q-head) rows, normalised or (m_out
+// and l_out given) raw; returns the launch error.
 inline int launch_combine(const float* part_m, const float* part_l, const float* part_acc,
-                          float* out, int rows, int splits, int rv, cudaStream_t st) {
-  combine_kernel<<<dim3(rows, (rv + 127) / 128), 128, sizeof(float) * splits, st>>>(
-      part_m, part_l, part_acc, out, splits, rv);
+                          float* out, int rows, int splits, int rv, cudaStream_t st,
+                          float* m_out = nullptr, float* l_out = nullptr) {
+  const dim3 grid(rows, (rv + 127) / 128);
+  const size_t smem = sizeof(float) * splits;
+  if (m_out != nullptr)
+    combine_kernel<true><<<grid, 128, smem, st>>>(part_m, part_l, part_acc, out, splits, rv,
+                                                  m_out, l_out);
+  else
+    combine_kernel<false><<<grid, 128, smem, st>>>(part_m, part_l, part_acc, out, splits, rv,
+                                                   nullptr, nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -115,6 +115,13 @@
 // sin_t; modes 1 (int8_dots) and 2 (int8_rot) read c0 .. sin8 and need
 // rk % 32 == 0, pack width <= 4, block_s % 64 == 0 and S % block_s == 0.
 // kbias is null or the (G, hpg, hd) f32 pre-RoPE K bias.
+// layer selects one layer of (L, B, G, ...) stacked cache buffers (0 for a
+// single layer's); the kernel offsets every cache plane by it. pos_offset is
+// the absolute position of column 0 (a sequence shard's start): kv_len
+// stays absolute and cos_t / sin_t (or c0 / s0) must already start at that
+// position. With m_out and l_out (B * nh f32 each) the combine writes the
+// raw statistics: out the unnormalised accumulator, m_out the running max,
+// l_out the softmax denominator.
 extern "C" int palu_decode(const void* q, int q_bf16, const void* bk, const void* kc,
                            const void* ks, const void* kz, const void* vc, const void* vs,
                            const void* vz, const void* kv_len, const void* cos_t,
@@ -124,9 +131,10 @@ extern "C" int palu_decode(const void* q, int q_bf16, const void* bk, const void
                            void* out, int B, int G, int hpg, int hd, int rk, int rv, int S,
                            int nrk, int nrv, int pbits, int qoff, int asym, int window,
                            int splits, int tiles_per_split, int mode, int block_s, int gs,
-                           float sqrt_hd, float i8r_inv, void* stream) {
+                           float sqrt_hd, float i8r_inv, int layer, int pos_offset,
+                           void* m_out, void* l_out, void* stream) {
   if ((hd != 64 && hd != 128) || rk % 16 || rk > kMaxRank || hpg > kMaxHeads ||
-      mode < 0 || mode > 3)
+      mode < 0 || mode > 3 || layer < 0 || (m_out == nullptr) != (l_out == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if ((mode == 1 || mode == 2) && (rk % 32 || pbits > 4 || block_s % kTile || S % block_s))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -174,6 +182,9 @@ extern "C" int palu_decode(const void* q, int q_bf16, const void* bk, const void
   a.gs = gs;
   a.nsk = mode == 3 ? rk / gs : 1;
   a.nsv = mode == 3 ? rv / gs : 1;
+  a.layer = layer;
+  a.pos_offset = pos_offset;
   return run_split<4>(a, mode, B, hd, static_cast<float*>(out),
-                      static_cast<cudaStream_t>(stream));
+                      static_cast<cudaStream_t>(stream), static_cast<float*>(m_out),
+                      static_cast<float*>(l_out));
 }

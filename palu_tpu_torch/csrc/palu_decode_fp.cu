@@ -140,8 +140,8 @@ struct FpArgs {
   const float* kb;
   const float* vs;
   const float* vb;
-  const int* kv_len;  // (B,)
-  const float* cos_t; // (S, hd/2)
+  const int* kv_len;  // (B,) absolute positions: column t is position pos_offset + t
+  const float* cos_t; // (S, hd/2), row t at position pos_offset + t
   const float* sin_t;
   const float* kbias; // (G, hpg, hd) f32 pre-RoPE K bias, or null
   const float* inv_freq;  // V2: (hd/2,) f32 RoPE frequencies
@@ -155,6 +155,8 @@ struct FpArgs {
   int rc;             // ranks of B per chunk (rk when one chunk)
   float sqrt_hd;
   float rope_scale;   // V2: multiplies cos and sin
+  int layer;          // the layer of (L, B, G, ...) stacked latents (0: one layer)
+  int pos_offset;     // absolute position of column 0 (a sequence shard's start)
 };
 
 // Elements of one latent tile in shared memory (rows padded).
@@ -331,10 +333,13 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
   float* alpha_s = stat + 2 * kMaxHeads;
 
   const size_t bg = static_cast<size_t>(b) * a.G + g;
-  const bf16* xk = QUANT ? nullptr : a.xk + bg * rk * a.S;
-  const bf16* xv = QUANT ? nullptr : a.xv + bg * rv * a.S;
-  const uint8_t* kc = QUANT ? a.kc + bg * a.nbk * a.S : nullptr;
-  const uint8_t* vc = QUANT ? a.vc + bg * a.nbv * a.S : nullptr;
+  // the cache planes of (layer, lane, group): a layer-stacked buffer holds
+  // L copies of the (B, G, ...) planes and a.layer picks one
+  const size_t bgc = (static_cast<size_t>(a.layer) * gridDim.z + b) * a.G + g;
+  const bf16* xk = QUANT ? nullptr : a.xk + bgc * rk * a.S;
+  const bf16* xv = QUANT ? nullptr : a.xv + bgc * rv * a.S;
+  const uint8_t* kc = QUANT ? a.kc + bgc * a.nbk * a.S : nullptr;
+  const uint8_t* vc = QUANT ? a.vc + bgc * a.nbv * a.S : nullptr;
   const bf16* bk_g = a.bk + static_cast<size_t>(g) * hpg * rk * HD;
   const float* kb_g = BIAS ? a.kbias + static_cast<size_t>(g) * hpg * HD : nullptr;
 
@@ -350,10 +355,12 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
     alpha_s[tid] = 1.0f;
   }
 
-  const int kvl = a.kv_len[b];
+  // kv_len and the window in column coordinates: a sequence shard past
+  // kv_len gets kvl <= 0 and walks no tile
+  const int kvl = a.kv_len[b] - a.pos_offset;
   const int lo_pos = a.window > 0 ? max(0, kvl - a.window) : 0;
   const int tile_lo = lo_pos / kTile;
-  const int tile_hi = (min(kvl, a.S) + kTile - 1) / kTile;
+  const int tile_hi = (max(0, min(kvl, a.S)) + kTile - 1) / kTile;
   const int t_begin = max(split * a.tiles_per_split, tile_lo);
   const int t_end = min((split + 1) * a.tiles_per_split, tile_hi);
   const int tok_a = m0 + fg, tok_b = tok_a + 8;  // accumulator rows of this lane
@@ -379,12 +386,12 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
       const int s0 = tile * kTile;
       // ---- load: K and V latent tiles (cp.async), this thread's rope rows
       if constexpr (QUANT) {
-        unpack_tile(kt, kc, a.kb + bg * a.S, rk, a.nbk, a.pbits, a.qmin, a.S, s0, tid);
-        unpack_tile(vt, vc, a.vb + bg * a.S, rv, a.nbv, a.pbits, a.qmin, a.S, s0, tid);
+        unpack_tile(kt, kc, a.kb + bgc * a.S, rk, a.nbk, a.pbits, a.qmin, a.S, s0, tid);
+        unpack_tile(vt, vc, a.vb + bgc * a.S, rv, a.nbv, a.pbits, a.qmin, a.S, s0, tid);
         if (tid < kTile) {
           const int s = s0 + tid;
-          sc_k[tid] = s < a.S ? a.ks[bg * a.S + s] : 0.0f;
-          sc_v[tid] = s < a.S ? a.vs[bg * a.S + s] : 0.0f;
+          sc_k[tid] = s < a.S ? a.ks[bgc * a.S + s] : 0.0f;
+          sc_v[tid] = s < a.S ? a.vs[bgc * a.S + s] : 0.0f;
         }
       } else {
         load_tile<RM>(kt, xk, rk, a.S, s0, tid);
@@ -721,16 +728,21 @@ void fit_heads(FpArgs& a, bool rmk, bool rmv, int hd, bool quant) {
 // out (B, nh, rv) f32. The partial buffers hold B * nh * splits (m, l) and
 // B * nh * splits * rv accumulators. hd is 64 or 128, rk a multiple of 16
 // up to 512, rv and S multiples of 8. kbias is null or the (G, hpg, hd) f32
-// pre-RoPE K bias.
+// pre-RoPE K bias. layer selects one layer of (L, B, G, ...) stacked
+// latents (0 for a single layer's); pos_offset is the absolute position of
+// column 0 (kv_len stays absolute, cos_t / sin_t start at that position);
+// with m_out and l_out (B * nh f32 each) the combine writes the raw
+// statistics, out unnormalised (palu_decode.cu).
 extern "C" int palu_decode_fp(const void* q, int q_bf16, const void* bk, const void* xk,
                               const void* xv, const void* kv_len, const void* cos_t,
                               const void* sin_t, const void* kbias, void* part_m, void* part_l,
                               void* part_acc, void* out, int B, int G, int hpg, int hd, int rk,
                               int rv, int S,
                               int rank_major, int window, int splits, int tiles_per_split,
-                              float sqrt_hd, void* stream) {
+                              float sqrt_hd, int layer, int pos_offset, void* m_out,
+                              void* l_out, void* stream) {
   if ((hd != 64 && hd != 128) || rk % 16 || rk > kMaxRank || rv % 8 || S % 8 ||
-      hpg > kMaxHeads)
+      hpg > kMaxHeads || layer < 0 || (m_out == nullptr) != (l_out == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   FpArgs a{};
   a.q = q;
@@ -754,6 +766,8 @@ extern "C" int palu_decode_fp(const void* q, int q_bf16, const void* bk, const v
   a.splits = splits;
   a.tiles_per_split = tiles_per_split;
   a.sqrt_hd = sqrt_hd;
+  a.layer = layer;
+  a.pos_offset = pos_offset;
   // as many heads' B in shared memory as fit beside the rest
   const bool rm = rank_major != 0;
   fit_heads(a, rm, rm, hd, false);
@@ -763,7 +777,8 @@ extern "C" int palu_decode_fp(const void* q, int q_bf16, const void* bk, const v
   const int err = hd == 128 ? launch_latent<128>(a, rm, B, st) : launch_latent<64>(a, rm, B, st);
   if (err != 0) return err;
   return decode::launch_combine(a.part_m, a.part_l, a.part_acc, static_cast<float*>(out),
-                                B * G * hpg, splits, rv, st);
+                                B * G * hpg, splits, rv, st, static_cast<float*>(m_out),
+                                static_cast<float*>(l_out));
 }
 
 // The dissection of palu_decode_fp over seq-major bf16 latents (no bias, no

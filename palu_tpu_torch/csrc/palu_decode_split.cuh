@@ -69,8 +69,8 @@ struct DecodeArgs {
   const uint8_t* vc;           // (B, G, nrv, S)
   const float* vs;
   const float* vz;
-  const int* kv_len;           // (B,)
-  const float* cos_t;          // exact: (S, hd/2)
+  const int* kv_len;           // (B,) absolute positions: column t is position pos_offset + t
+  const float* cos_t;          // exact: (S, hd/2), row t at position pos_offset + t
   const float* sin_t;
   const float* c0;             // int8 modes: (S / block_s, hd/2) block-start rotation
   const float* s0;
@@ -89,6 +89,8 @@ struct DecodeArgs {
   int gs, nsk, nsv;            // MODE 3: ranks per scale chunk, scale rows of K and V
   float sqrt_hd, i8r_inv;
   float rope_scale;            // GEN 2: multiplies cos and sin
+  int layer;                   // the layer of (L, B, G, ...) stacked cache buffers (0: one layer)
+  int pos_offset;              // absolute position of column 0 (a sequence shard's start)
 };
 
 // The two rows of the query-folded operand for one (frequency, rank), in
@@ -289,7 +291,9 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
   float* alpha_s = stat + 2 * kMaxHeads;
   float* zsum = stat + 3 * kMaxHeads;
 
-  const size_t bg = static_cast<size_t>(b) * a.G + g;
+  // the cache planes of (layer, lane, group): a layer-stacked buffer holds
+  // L copies of the (B, G, ...) planes and a.layer picks one
+  const size_t bg = (static_cast<size_t>(a.layer) * gridDim.z + b) * a.G + g;
   const uint8_t* kc = a.kc + bg * a.nrk * a.S;
   const uint8_t* vc = a.vc + bg * a.nrv * a.S;
   // per-row scales and zeros of token s at [s * sst]: (B, G, S) rows, or
@@ -323,10 +327,12 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
     zsum[tid] = 0.0f;
   }
 
-  const int kvl = a.kv_len[b];
+  // kv_len and the window in column coordinates: a sequence shard past
+  // kv_len gets kvl <= 0 and walks no tile
+  const int kvl = a.kv_len[b] - a.pos_offset;
   const int lo_pos = a.window > 0 ? max(0, kvl - a.window) : 0;
   const int tile_lo = lo_pos / kTile;
-  const int tile_hi = (min(kvl, a.S) + kTile - 1) / kTile;
+  const int tile_hi = (max(0, min(kvl, a.S)) + kTile - 1) / kTile;
   const int t_begin = max(split * a.tiles_per_split, tile_lo);
   const int t_end = min((split + 1) * a.tiles_per_split, tile_hi);
 
@@ -900,9 +906,11 @@ int launch_bias(const DecodeArgs& a, int mode, int B, cudaStream_t st) {
 // the rest (the exact modes take ranks in chunks of up to 128, and of
 // fewer when not even one head's 128 rows of B fit), launch the split pass
 // of generation GEN (4: any mode, with or without bias; 2 and 3: mode 0,
-// no bias) and then the combine into out (B, nh, rv). hd is 64 or 128.
+// no bias) and then the combine into out (B, nh, rv): normalised, or with
+// m_out / l_out given the raw statistics (decode_common.cuh). hd is 64 or 128.
 template <int GEN>
-int run_split(DecodeArgs& a, int mode, int B, int hd, float* out, cudaStream_t st) {
+int run_split(DecodeArgs& a, int mode, int B, int hd, float* out, cudaStream_t st,
+              float* m_out = nullptr, float* l_out = nullptr) {
   const bool exact = mode == 0 || mode == 3;
   a.chunk_heads = 0;
   const int rcs[4] = {exact ? min(a.rk, kRc) : a.rk, 64, 32, 16};
@@ -924,7 +932,7 @@ int run_split(DecodeArgs& a, int mode, int B, int hd, float* out, cudaStream_t s
                     : launch_split<64, 0, false, GEN>(a, B, st);
   if (err != 0) return err;
   return decode::launch_combine(a.part_m, a.part_l, a.part_acc, out, B * a.G * a.hpg, a.splits,
-                                a.rv, st);
+                                a.rv, st, m_out, l_out);
 }
 
 }  // namespace

@@ -30,6 +30,24 @@ operand's row sums (the JAX default `fold_qoff`); their result depends on
 `block_s`. They take per-row scales only: a per-chunk scale cannot fold
 past the dots (JAX's asserts, palu_decode4.py:678-690), so per-chunk caches
 run the exact mode, which dequantizes each rank chunk before its dots.
+
+Three more features of the JAX kernel serve the sequence-parallel and the
+layer-stacked decodes, in every mode:
+  pos_offset   - the buffer holds one sequence shard: column t is absolute
+                 position pos_offset + t. RoPE takes the absolute position
+                 (the exact mode reads the cos / sin rows from there, the
+                 int8 modes rotate the query by each block's absolute
+                 start); kv_len stays absolute and the window with it.
+  return_stats - return (acc (B, nh, rv), m (B, nh), l (B, nh)) f32: the
+                 accumulator not divided by the softmax denominator l, and
+                 the running max m, for the cross-shard combine
+                 (ops/attention.py). A shard with no valid column gives
+                 m = -1e30, l = 0, acc = 0.
+  layer_idx    - the cache buffers carry a leading layer axis, codes
+                 (L, B, G, nrows, S), per-row scales and zeros (L, B, G, S)
+                 (runtime/cache.stacked_squeeze) or per-chunk row stacks
+                 (L, B, G, n_sc, S); the kernel reads layer layer_idx of
+                 them itself.
 """
 
 from __future__ import annotations
@@ -46,7 +64,7 @@ from ..runtime import cache as cache_lib
 from . import build
 from .attention import _inv_freq, flash_decode_latent
 
-__all__ = ["palu_decode", "palu_decode_ref", "k_path_mode"]
+__all__ = ["palu_decode", "palu_decode_ref", "k_path_mode", "FEATURES"]
 
 _TILE = 64        # tokens per kernel tile (kTile in the source)
 _MAX_HEADS = 32   # q-heads per group the kernel holds (kMaxHeads): Qwen2-7B has 28
@@ -54,7 +72,7 @@ _MAX_RK = 512     # kMaxRank: a G-LRD group's rank at group size 4 and hd 128
 
 
 def _check(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, qcfg, rk, rv,
-           xk_zero, xv_zero, k_bias=None):
+           xk_zero, xv_zero, k_bias=None, layer_idx=None):
     if not qcfg.enabled:
         raise ValueError(f"decode needs quantized latents, got {qcfg}")
     gs = qcfg.group_size
@@ -72,24 +90,49 @@ def _check(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, qcfg, rk, rv,
     if g * hpg != nh or tuple(b_k.shape[2:]) != (rk, hd):
         raise ValueError(f"b_k {tuple(b_k.shape)} does not match q {tuple(q.shape)} / rk {rk}")
     s_max = xk_codes.shape[-1]
+    lead = _lead(xk_codes, layer_idx)
     for name, c, r in (("xk_codes", xk_codes, rk), ("xv_codes", xv_codes, rv)):
-        want = (b, g, packed_nrows(r, qcfg.pack_bits), s_max)
+        want = lead + (b, g, packed_nrows(r, qcfg.pack_bits), s_max)
         if tuple(c.shape) != want or c.dtype != torch.uint8:
             raise ValueError(f"{name} must be uint8 {want}, got {c.dtype} {tuple(c.shape)}")
+    n_l = lead[0] if lead else 1
     for name, t, r in (("xk_scale", xk_scale, rk), ("xv_scale", xv_scale, rv),
                        ("xk_zero", xk_zero, rk), ("xv_zero", xv_zero, rv)):
         if t is None:
             continue
         if gs > 0:
-            if tuple(t.shape) != (b, g, r // gs, s_max) or t.dtype != torch.float32:
-                raise ValueError(f"{name} must be f32 (B, G, {r // gs}, S) row stacks")
-        elif t.numel() != b * g * s_max or t.shape[-1] != s_max or t.dtype != torch.float32:
-            raise ValueError(f"{name} must be f32 (B, G, S) or (B, G, 1, S)")
+            if tuple(t.shape) != lead + (b, g, r // gs, s_max) or t.dtype != torch.float32:
+                raise ValueError(f"{name} must be f32 {lead} + (B, G, {r // gs}, S) row stacks")
+        elif (t.numel() != n_l * b * g * s_max or t.shape[:len(lead)] != lead
+              or t.shape[-1] != s_max or t.dtype != torch.float32):
+            raise ValueError(f"{name} must be f32 {lead} + (B, G, S) or (B, G, 1, S)")
     if tuple(kv_len.shape) != (b,):
         raise ValueError(f"kv_len must be (B,), got {tuple(kv_len.shape)}")
     if k_bias is not None and tuple(k_bias.shape) != (g, hpg, hd):
         raise ValueError(f"k_bias must be (G, hpg, hd) = {(g, hpg, hd)}, "
                          f"got {tuple(k_bias.shape)}")
+
+
+def _lead(buf: torch.Tensor, layer_idx) -> tuple:
+    """The leading layer axis, (L,), of a layer-stacked buffer (layer_idx
+    given; raises when it is out of range), else ()."""
+    if layer_idx is None:
+        return ()
+    n_l = buf.shape[0]
+    if not 0 <= int(layer_idx) < n_l:
+        raise ValueError(f"layer_idx {layer_idx} outside a stack of {n_l} layers")
+    return (n_l,)
+
+
+def _layer(t, layer_idx):
+    """Layer layer_idx of a stacked buffer, for the plain versions."""
+    return t if t is None or layer_idx is None else t[int(layer_idx)]
+
+
+def _stats(m, l, acc, b: int, nh: int, rv: int) -> tuple:
+    """(m, l, acc) over (B, G, hpg[, rv]) -> (acc (B, nh, rv), m (B, nh),
+    l (B, nh)), the JAX kernel's return_stats order."""
+    return acc.reshape(b, nh, rv), m.reshape(b, nh), l.reshape(b, nh)
 
 
 def k_path_mode(qcfg: QuantConfig, rk: int, hd: int, *, int8_dots: bool = False,
@@ -127,18 +170,22 @@ def _inv_freq64(half: int, theta: float, inv_key) -> np.ndarray:
 
 @functools.lru_cache(maxsize=8)
 def _int8_tables(s_max: int, block_s: int, half: int, theta: float, inv_key,
-                 rope_scale: float, device: str) -> dict:
+                 rope_scale: float, device: str, pos_offset: int = 0) -> dict:
     """The int8 modes' tables, built in f64 and rounded as the JAX wrapper
     does: c0 / s0 (S / block_s, hd/2) f32, the rotation at each block's
-    start; rcos / rsin (block_s, hd/2) f32, the block-relative rotation;
-    cos8 / sin8 (block_s, hd/2) int8 at scale 63 / cmax, and its inverse."""
+    absolute start pos_offset + j * block_s; rcos / rsin (block_s, hd/2)
+    f32, the block-relative rotation; cos8 / sin8 (block_s, hd/2) int8 at
+    scale 63 / cmax, and its inverse. (JAX forms the offset block angles in
+    f32, palu_decode4.py:743-751; f64 here: at 64K that is ~4e-3 rad
+    closer to the exact angle.)"""
     inv = _inv_freq64(half, theta, inv_key)
     rel = np.arange(block_s, dtype=np.float64)[:, None] * inv[None, :]
     rcos = (np.cos(rel) * rope_scale).astype(np.float32)
     rsin = (np.sin(rel) * rope_scale).astype(np.float32)
     cmax = float(max(np.abs(rcos).max(), np.abs(rsin).max(), 1e-9))
     i8q = 63.0 / cmax
-    ang0 = (np.arange(s_max // block_s, dtype=np.float64) * block_s)[:, None] * inv[None, :]
+    ang0 = (pos_offset + np.arange(s_max // block_s, dtype=np.float64) * block_s)[:, None] \
+        * inv[None, :]
     dev = torch.device(device)
     out = {"c0": np.cos(ang0).astype(np.float32), "s0": np.sin(ang0).astype(np.float32),
            "rcos": rcos, "rsin": rsin, "cos8": np.round(rcos * i8q).astype(np.int8),
@@ -148,16 +195,17 @@ def _int8_tables(s_max: int, block_s: int, half: int, theta: float, inv_key,
     return out
 
 
-def _tables8(s_max, block_s, hd, theta, inv_freq, rope_scale, device) -> dict:
+def _tables8(s_max, block_s, hd, theta, inv_freq, rope_scale, device, pos_offset=0) -> dict:
     if block_s < 1 or s_max % block_s:
         raise ValueError(f"block_s {block_s} must divide S {s_max}")
     key = None if inv_freq is None else tuple(float(x) for x in np.asarray(inv_freq))
     return _int8_tables(s_max, block_s, hd // 2, float(theta), key, float(rope_scale),
-                        str(torch.device(device)))
+                        str(torch.device(device)), int(pos_offset))
 
 
 def _int8_ref(q, b_k, kb, vb, kv_len, qcfg, rk, rv, theta, sliding_window, inv_freq,
-              rope_scale, block_s, rot: bool, k_bias=None) -> torch.Tensor:
+              rope_scale, block_s, rot: bool, k_bias=None, pos_offset: int = 0,
+              return_stats: bool = False):
     """Plain version of the int8 K-path modes, block by block as the JAX
     kernel runs them; the int32 dots are f32 products of integers (exact
     below 2^24) and int8_rot's int32 rotation sums run in f64 (exact).
@@ -166,7 +214,7 @@ def _int8_ref(q, b_k, kb, vb, kv_len, qcfg, rk, rv, theta, sliding_window, inv_f
     g, hpg = b_k.shape[0], b_k.shape[1]
     half = hd // 2
     s_max = kb["codes_t"].shape[-1]
-    tab = _tables8(s_max, block_s, hd, theta, inv_freq, rope_scale, q.device)
+    tab = _tables8(s_max, block_s, hd, theta, inv_freq, rope_scale, q.device, pos_offset)
     qf = (q.float() / math.sqrt(hd)).reshape(b, g, hpg, hd)
     q1, q2 = qf[..., :half], qf[..., half:]
     bkt = b_k.float().transpose(-1, -2)  # (G, hpg, hd, rk)
@@ -175,7 +223,7 @@ def _int8_ref(q, b_k, kb, vb, kv_len, qcfg, rk, rv, theta, sliding_window, inv_f
     qoff = 2 ** (qcfg.bits - 1)
     kz = kb["zero_t"].reshape(b, g, 1, s_max) if "zero_t" in kb else ks * float(-qoff)
     rcos, rsin = tab["rcos"].t(), tab["rsin"].t()  # (hd/2, block_s)
-    kvl = kv_len.to(q.device).long()[:, None]
+    kvl = kv_len.to(q.device).long()[:, None] - pos_offset  # column coordinates
     if k_bias is not None:
         kb1, kb2 = k_bias.float()[..., :half], k_bias.float()[..., half:]  # (G, hpg, hd/2)
     m = torch.full((b, g, hpg), -1e30, dtype=torch.float32, device=q.device)
@@ -231,6 +279,8 @@ def _int8_ref(q, b_k, kb, vb, kv_len, qcfg, rk, rv, theta, sliding_window, inv_f
                                       torch.float32)
         acc = acc * alpha[..., None] + torch.einsum("bght,bgtr->bghr", p, xv)
         m = m_new
+    if return_stats:
+        return _stats(m, l, acc, b, nh, rv)
     return (acc / l[..., None]).reshape(b, nh, rv)
 
 
@@ -239,18 +289,23 @@ def palu_decode_ref(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, *,
                     sliding_window: Optional[int] = None, inv_freq=None,
                     rope_scale: float = 1.0, xk_zero=None, xv_zero=None,
                     block_s: int = 1024, int8_dots: bool = False,
-                    int8_rot: bool = False, k_bias=None) -> torch.Tensor:
+                    int8_rot: bool = False, k_bias=None, pos_offset: Optional[int] = None,
+                    return_stats: bool = False, layer_idx: Optional[int] = None):
     """Plain version. Exact mode: dequantize the cache (decode_latents, per
     row or per chunk) and run flash_decode_latent in f32 on the same inputs,
-    in chunks of up to 512 positions. int8 modes: _int8_ref."""
+    in chunks of up to 512 positions. int8 modes: _int8_ref. layer_idx
+    takes layer layer_idx of the stacked buffers."""
     _check(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, qcfg, rk, rv,
-           xk_zero, xv_zero, k_bias)
+           xk_zero, xv_zero, k_bias, layer_idx)
+    xk_codes, xk_scale, xk_zero, xv_codes, xv_scale, xv_zero = (
+        _layer(t, layer_idx) for t in (xk_codes, xk_scale, xk_zero, xv_codes, xv_scale, xv_zero))
+    off = int(pos_offset or 0)
     mode = k_path_mode(qcfg, rk, q.shape[-1], int8_dots=int8_dots, int8_rot=int8_rot)
     if mode != "exact":
         return _int8_ref(q, b_k, _bufs(xk_codes, xk_scale, xk_zero),
                          _bufs(xv_codes, xv_scale, xv_zero), kv_len, qcfg, rk, rv, theta,
                          sliding_window, inv_freq, rope_scale, block_s, mode == "int8_rot",
-                         k_bias)
+                         k_bias, off, return_stats)
     s_max = xk_codes.shape[-1]
     chunk = min(512, s_max)
     while s_max % chunk:
@@ -264,10 +319,14 @@ def palu_decode_ref(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, *,
             return cache_lib.decode_latents(sl, qcfg, rank, torch.float32)
         return read
 
-    return flash_decode_latent(
+    out = flash_decode_latent(
         q.float(), reader(kb, rk), reader(vb, rv), b_k.float(), s_max // chunk,
         chunk, kv_len, q.shape[-1], theta, rv, sliding_window,
-        inv_freq=inv_freq, rope_scale=rope_scale, k_bias=k_bias)
+        inv_freq=inv_freq, rope_scale=rope_scale, k_bias=k_bias, pos_offset=off,
+        return_stats=return_stats)
+    if return_stats:
+        return _stats(*out, q.shape[0], q.shape[1], rv)
+    return out
 
 
 @functools.lru_cache(maxsize=8)
@@ -281,12 +340,18 @@ def _tables(s_max: int, half: int, theta: float, inv_key, rope_scale: float,
 
 
 def _rope_tables(s_max: int, head_dim: int, theta: float, inv_freq, rope_scale: float,
-                device) -> tuple:
-    """f32 (S, hd/2) cos/sin tables at absolute positions, computed with the
-    same f32 operations flash_decode_latent applies per chunk."""
+                device, pos_offset: int = 0) -> tuple:
+    """f32 (S, hd/2) cos/sin tables at absolute positions pos_offset + t,
+    computed with the same f32 operations flash_decode_latent applies per
+    chunk. With an offset the rows are a view of a table of pos_offset + S
+    rows (each row is computed on its own, so the table's length does not
+    change its values)."""
     key = None if inv_freq is None else tuple(float(x) for x in np.asarray(inv_freq))
-    return _tables(s_max, head_dim // 2, float(theta), key, float(rope_scale),
-                   str(torch.device(device)))
+    cos_t, sin_t = _tables(pos_offset + s_max, head_dim // 2, float(theta), key, float(rope_scale),
+                           str(torch.device(device)))
+    if pos_offset:
+        return cos_t[pos_offset:pos_offset + s_max], sin_t[pos_offset:pos_offset + s_max]
+    return cos_t, sin_t
 
 
 @functools.lru_cache(maxsize=32)
@@ -305,7 +370,8 @@ def palu_decode(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, *,
                 sliding_window: Optional[int] = None, inv_freq=None,
                 rope_scale: float = 1.0, xk_zero=None, xv_zero=None,
                 block_s: int = 1024, int8_dots: bool = False,
-                int8_rot: bool = False, k_bias=None) -> torch.Tensor:
+                int8_rot: bool = False, k_bias=None, pos_offset: Optional[int] = None,
+                return_stats: bool = False, layer_idx: Optional[int] = None):
     """Decode attention over an affine-quantized rank-major latent cache.
 
     q (B, nh, hd) roped at the current position; b_k (G, hpg, rk, hd);
@@ -318,17 +384,21 @@ def palu_decode(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, *,
     engine keeps it; the int8 modes need rk % 32 == 0 and block_s % 64 ==
     0); CPU tensors run the plain version. Each launch adds one to
     `palu_decode.launches` and to its mode's count in
-    `palu_decode.mode_launches` ("chunked" for per-chunk scales), and one
-    to `palu_decode.k_bias_launches` when it carries a bias."""
+    `palu_decode.mode_launches` ("chunked" for per-chunk scales), one to
+    `palu_decode.k_bias_launches` when it carries a bias, and one to each
+    feature it uses in `palu_decode.feature_launches` ("pos_offset",
+    "return_stats", "layer_idx"). pos_offset, return_stats and layer_idx:
+    the module docstring; with return_stats the result is (acc, m, l)."""
     if not q.is_cuda:
         return palu_decode_ref(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len,
                                qcfg=qcfg, rk=rk, rv=rv, theta=theta,
                                sliding_window=sliding_window, inv_freq=inv_freq,
                                rope_scale=rope_scale, xk_zero=xk_zero, xv_zero=xv_zero,
                                block_s=block_s, int8_dots=int8_dots, int8_rot=int8_rot,
-                               k_bias=k_bias)
+                               k_bias=k_bias, pos_offset=pos_offset,
+                               return_stats=return_stats, layer_idx=layer_idx)
     _check(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, qcfg, rk, rv,
-           xk_zero, xv_zero, k_bias)
+           xk_zero, xv_zero, k_bias, layer_idx)
     mode = k_path_mode(qcfg, rk, q.shape[-1], int8_dots=int8_dots, int8_rot=int8_rot)
     if qcfg.group_size > 0:
         mode = "chunked"
@@ -350,46 +420,68 @@ def palu_decode(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, *,
     if any(t is not None and not t.is_contiguous() for t in bufs):
         raise ValueError("cache buffers must be contiguous")
     dev = q.device
+    off = int(pos_offset or 0)
+    if off < 0:
+        raise ValueError(f"pos_offset must be >= 0, got {off}")
     if mode in ("exact", "chunked"):
-        cos_t, sin_t = _rope_tables(s_max, hd, theta, inv_freq, rope_scale, dev)
+        cos_t, sin_t = _rope_tables(s_max, hd, theta, inv_freq, rope_scale, dev, off)
         tab = {}
     else:
         if rk % 32 or block_s % _TILE:
             raise ValueError(f"the int8 modes' kernel needs rk % 32 == 0 and block_s % "
                              f"{_TILE} == 0 (rk={rk}, block_s={block_s})")
         cos_t = sin_t = None
-        tab = _tables8(s_max, block_s, hd, theta, inv_freq, rope_scale, dev)
+        tab = _tables8(s_max, block_s, hd, theta, inv_freq, rope_scale, dev, off)
     qc = q.contiguous()
     bk = b_k.contiguous()
     kbias = None if k_bias is None else k_bias.float().contiguous()
     kvl = kv_len.to(torch.int32).contiguous()
     splits, per = _splits(dev, b * g, s_max)
-    # one allocation: per-split m, l, accumulators, then the output
+    # one allocation: per-split m, l, accumulators, then the output (and
+    # with return_stats its m and l)
     n_part = b * nh * splits
-    scratch = torch.empty(n_part * (2 + rv) + b * nh * rv, dtype=torch.float32, device=dev)
-    out = scratch[n_part * (2 + rv):].view(b, nh, rv)
+    n_out = b * nh * (rv + (2 if return_stats else 0))
+    scratch = torch.empty(n_part * (2 + rv) + n_out, dtype=torch.float32, device=dev)
+    out = scratch[n_part * (2 + rv):n_part * (2 + rv) + b * nh * rv].view(b, nh, rv)
+    m_out = l_out = None
+    if return_stats:
+        m_out = scratch[-2 * b * nh:-b * nh].view(b, nh)
+        l_out = scratch[-b * nh:].view(b, nh)
     asym = not qcfg.sym
     qoff = 0 if asym else 2 ** (qcfg.bits - 1)
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
-    err = build.launcher("palu_decode", "palu_decode", "pi" + "p" * 21 + "i" * 18 + "ffp")(
+    err = build.launcher("palu_decode", "palu_decode",
+                         "pi" + "p" * 21 + "i" * 18 + "ff" + "ii" + "ppp")(
         qc.data_ptr(), int(q.dtype == torch.bfloat16), bk.data_ptr(), xk_codes.data_ptr(),
         xk_scale.data_ptr(), ptr(xk_zero), xv_codes.data_ptr(), xv_scale.data_ptr(),
         ptr(xv_zero), kvl.data_ptr(), ptr(cos_t), ptr(sin_t),
         *(ptr(tab.get(k)) for k in ("c0", "s0", "rcos", "rsin", "cos8", "sin8")),
         ptr(kbias), scratch.data_ptr(), scratch[n_part:].data_ptr(),
         scratch[2 * n_part:].data_ptr(), out.data_ptr(),
-        b, g, hpg, hd, rk, rv, s_max, xk_codes.shape[2], xv_codes.shape[2],
+        b, g, hpg, hd, rk, rv, s_max, xk_codes.shape[-2], xv_codes.shape[-2],
         qcfg.pack_bits, qoff, int(asym), int(sliding_window or 0), splits, per,
         _MODES[mode], block_s, qcfg.group_size, float(math.sqrt(hd)),
-        float(tab.get("i8r_inv", 0.0)), build.stream_ptr(dev))
+        float(tab.get("i8r_inv", 0.0)), int(layer_idx or 0), off, ptr(m_out), ptr(l_out),
+        build.stream_ptr(dev))
     build.check(err, f"palu_decode ({mode})")
     palu_decode.launches += 1
     palu_decode.mode_launches[mode] += 1
     palu_decode.k_bias_launches += k_bias is not None
-    return out
+    count_features(palu_decode, pos_offset, return_stats, layer_idx)
+    return (out, m_out, l_out) if return_stats else out
+
+
+FEATURES = ("pos_offset", "return_stats", "layer_idx")
+
+
+def count_features(fn, pos_offset, return_stats: bool, layer_idx) -> None:
+    """Add one launch of `fn` to each feature the call used."""
+    fn.feature_launches["pos_offset"] += pos_offset is not None
+    fn.feature_launches["return_stats"] += bool(return_stats)
+    fn.feature_launches["layer_idx"] += layer_idx is not None
 
 
 # the kernel's MODE template argument: exact and chunked are the exact K
@@ -398,3 +490,4 @@ _MODES = {"exact": 0, "int8_dots": 1, "int8_rot": 2, "chunked": 3}
 palu_decode.launches = 0
 palu_decode.mode_launches = dict.fromkeys(_MODES, 0)
 palu_decode.k_bias_launches = 0
+palu_decode.feature_launches = dict.fromkeys(FEATURES, 0)

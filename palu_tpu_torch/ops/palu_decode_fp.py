@@ -11,8 +11,11 @@ Both return (B, nh, rv) f32 latent-space outputs for the U_v-fused o_proj
 and count their launches separately. Both take `k_bias` (G, hpg, hd),
 Qwen2's pre-RoPE K bias, added to the rebuilt K before RoPE: the v4
 kernel's `k_bias`, and for the seq-major layout what JAX's engine runs
-through its XLA flash_decode_latent (the JAX v1 kernel has no bias). The
-JAX kernels' `return_stats` and `layer_idx` come with later slices.
+through its XLA flash_decode_latent (the JAX v1 kernel has no bias).
+`palu_decode_fp_t` also takes the v4 kernel's `pos_offset`, `return_stats`
+and `layer_idx` (ops/palu_decode.py's docstring; the stacked latents are
+(L, B, G, r, S)) for the sequence-parallel and the layer-stacked decodes;
+the v1 kernel has none of them.
 """
 
 from __future__ import annotations
@@ -25,15 +28,23 @@ import torch
 from ..runtime import cache as cache_lib
 from . import build
 from .attention import flash_decode_latent
-from .palu_decode import _MAX_HEADS, _MAX_RK, _rope_tables, _splits
+from .palu_decode import (_MAX_HEADS, _MAX_RK, FEATURES, _lead, _layer, _rope_tables, _splits,
+                          _stats, count_features)
 
 __all__ = ["palu_decode_fp", "palu_decode_fp_ref", "palu_decode_fp_t", "palu_decode_fp_t_ref"]
 
 
-def _check(q, b_k, x_k, x_v, kv_len, rank_major: bool, k_bias=None):
-    """Validate shapes; returns (rk, rv, S)."""
+def _check(q, b_k, x_k, x_v, kv_len, rank_major: bool, k_bias=None, layer_idx=None):
+    """Validate shapes (of one layer of stacked latents with layer_idx);
+    returns (rk, rv, S)."""
+    lead = _lead(x_k, layer_idx)
+    if lead:
+        if x_v.shape[0] != lead[0]:
+            raise ValueError(f"x_k and x_v stack {lead[0]} and {x_v.shape[0]} layers")
+        x_k, x_v = x_k[0], x_v[0]
     if q.dim() != 3 or b_k.dim() != 4 or x_k.dim() != 4 or x_v.dim() != 4:
-        raise ValueError("q must be (B, nh, hd), b_k (G, hpg, rk, hd) and the latents 4-D")
+        raise ValueError("q must be (B, nh, hd), b_k (G, hpg, rk, hd) and the latents 4-D "
+                         "(5-D stacked)")
     b, nh, hd = q.shape
     g, hpg, rk = b_k.shape[0], b_k.shape[1], b_k.shape[2]
     if g * hpg != nh or b_k.shape[3] != hd:
@@ -54,8 +65,9 @@ def _check(q, b_k, x_k, x_v, kv_len, rank_major: bool, k_bias=None):
 
 
 def _ref(q, b_k, x_k, x_v, kv_len, rank_major, theta, sliding_window, inv_freq,
-         rope_scale, k_bias) -> torch.Tensor:
-    rk, rv, s_max = _check(q, b_k, x_k, x_v, kv_len, rank_major, k_bias)
+         rope_scale, k_bias, pos_offset=None, return_stats=False, layer_idx=None):
+    rk, rv, s_max = _check(q, b_k, x_k, x_v, kv_len, rank_major, k_bias, layer_idx)
+    x_k, x_v = _layer(x_k, layer_idx), _layer(x_v, layer_idx)
     chunk = min(512, s_max)
     while s_max % chunk:
         chunk -= 1
@@ -67,15 +79,19 @@ def _ref(q, b_k, x_k, x_v, kv_len, rank_major, theta, sliding_window, inv_freq,
             return cache_lib.decode_latents(sl, None, rank, torch.float32)
         return read
 
-    return flash_decode_latent(
+    out = flash_decode_latent(
         q.float(), reader(x_k, rk), reader(x_v, rv), b_k.float(), s_max // chunk, chunk,
         kv_len, q.shape[-1], theta, rv, sliding_window, inv_freq=inv_freq,
-        rope_scale=rope_scale, k_bias=k_bias)
+        rope_scale=rope_scale, k_bias=k_bias, pos_offset=int(pos_offset or 0),
+        return_stats=return_stats)
+    if return_stats:
+        return _stats(*out, q.shape[0], q.shape[1], rv)
+    return out
 
 
 def _launch(q, b_k, x_k, x_v, kv_len, rank_major, theta, sliding_window, inv_freq,
-            rope_scale, k_bias) -> torch.Tensor:
-    rk, rv, s_max = _check(q, b_k, x_k, x_v, kv_len, rank_major, k_bias)
+            rope_scale, k_bias, pos_offset=None, return_stats=False, layer_idx=None):
+    rk, rv, s_max = _check(q, b_k, x_k, x_v, kv_len, rank_major, k_bias, layer_idx)
     b, nh, hd = q.shape
     g, hpg = b_k.shape[0], b_k.shape[1]
     if b_k.dtype != torch.bfloat16 or x_k.dtype != torch.bfloat16 or x_v.dtype != torch.bfloat16:
@@ -93,25 +109,37 @@ def _launch(q, b_k, x_k, x_v, kv_len, rank_major, theta, sliding_window, inv_fre
     if not (x_k.is_contiguous() and x_v.is_contiguous()):
         raise ValueError("cache buffers must be contiguous")
     dev = q.device
-    cos_t, sin_t = _rope_tables(s_max, hd, theta, inv_freq, rope_scale, dev)
+    off = int(pos_offset or 0)
+    if off < 0:
+        raise ValueError(f"pos_offset must be >= 0, got {off}")
+    cos_t, sin_t = _rope_tables(s_max, hd, theta, inv_freq, rope_scale, dev, off)
     qc = q.contiguous()
     bk = b_k.contiguous()
     kvl = kv_len.to(torch.int32).contiguous()
     kbias = None if k_bias is None else k_bias.float().contiguous()
     splits, per = _splits(dev, b * g, s_max)
-    # one allocation: per-split m, l, accumulators, then the output
+    # one allocation: per-split m, l, accumulators, then the output (and
+    # with return_stats its m and l)
     n_part = b * nh * splits
-    scratch = torch.empty(n_part * (2 + rv) + b * nh * rv, dtype=torch.float32, device=dev)
-    out = scratch[n_part * (2 + rv):].view(b, nh, rv)
-    err = build.launcher("palu_decode_fp", "palu_decode_fp", "pi" + "p" * 11 + "i" * 11 + "fp")(
+    n_out = b * nh * (rv + (2 if return_stats else 0))
+    scratch = torch.empty(n_part * (2 + rv) + n_out, dtype=torch.float32, device=dev)
+    out = scratch[n_part * (2 + rv):n_part * (2 + rv) + b * nh * rv].view(b, nh, rv)
+    m_out = l_out = None
+    if return_stats:
+        m_out = scratch[-2 * b * nh:-b * nh].view(b, nh)
+        l_out = scratch[-b * nh:].view(b, nh)
+    err = build.launcher("palu_decode_fp", "palu_decode_fp",
+                         "pi" + "p" * 11 + "i" * 11 + "f" + "ii" + "ppp")(
         qc.data_ptr(), int(q.dtype == torch.bfloat16), bk.data_ptr(), x_k.data_ptr(),
         x_v.data_ptr(), kvl.data_ptr(), cos_t.data_ptr(), sin_t.data_ptr(),
         None if kbias is None else kbias.data_ptr(), scratch.data_ptr(),
         scratch[n_part:].data_ptr(), scratch[2 * n_part:].data_ptr(), out.data_ptr(),
         b, g, hpg, hd, rk, rv, s_max, int(rank_major), int(sliding_window or 0), splits, per,
-        float(math.sqrt(hd)), build.stream_ptr(dev))
+        float(math.sqrt(hd)), int(layer_idx or 0), off,
+        None if m_out is None else m_out.data_ptr(),
+        None if l_out is None else l_out.data_ptr(), build.stream_ptr(dev))
     build.check(err, "palu_decode_fp_t" if rank_major else "palu_decode_fp")
-    return out
+    return (out, m_out, l_out) if return_stats else out
 
 
 def palu_decode_fp_ref(q, b_k, x_k, x_v, kv_len, *, theta: float = 10000.0,
@@ -144,27 +172,38 @@ def palu_decode_fp(q, b_k, x_k, x_v, kv_len, *, theta: float = 10000.0,
 
 def palu_decode_fp_t_ref(q, b_k, xk_t, xv_t, kv_len, *, theta: float = 10000.0,
                          sliding_window: Optional[int] = None, inv_freq=None,
-                         rope_scale: float = 1.0, k_bias=None) -> torch.Tensor:
+                         rope_scale: float = 1.0, k_bias=None,
+                         pos_offset: Optional[int] = None, return_stats: bool = False,
+                         layer_idx: Optional[int] = None):
     """Plain version of palu_decode_fp_t: flash_decode_latent in f32 over
-    the rank-major latents, in chunks of up to 512 positions."""
+    the rank-major latents (layer layer_idx of stacked ones), in chunks of
+    up to 512 positions."""
     return _ref(q, b_k, xk_t, xv_t, kv_len, True, theta, sliding_window, inv_freq, rope_scale,
-                k_bias)
+                k_bias, pos_offset, return_stats, layer_idx)
 
 
 def palu_decode_fp_t(q, b_k, xk_t, xv_t, kv_len, *, theta: float = 10000.0,
                      sliding_window: Optional[int] = None, inv_freq=None,
-                     rope_scale: float = 1.0, k_bias=None) -> torch.Tensor:
+                     rope_scale: float = 1.0, k_bias=None, pos_offset: Optional[int] = None,
+                     return_stats: bool = False, layer_idx: Optional[int] = None):
     """Decode attention over rank-major latents xk_t (B, G, rk, S), xv_t
-    (B, G, rv, S); otherwise as palu_decode_fp."""
+    (B, G, rv, S), or (L, ...) stacks of them with layer_idx; otherwise as
+    palu_decode_fp. pos_offset and return_stats as in palu_decode (then
+    (acc, m, l) is returned); each feature a launch uses adds one to
+    `palu_decode_fp_t.feature_launches`."""
     if not q.is_cuda:
         return palu_decode_fp_t_ref(q, b_k, xk_t, xv_t, kv_len, theta=theta,
                                     sliding_window=sliding_window, inv_freq=inv_freq,
-                                    rope_scale=rope_scale, k_bias=k_bias)
+                                    rope_scale=rope_scale, k_bias=k_bias,
+                                    pos_offset=pos_offset, return_stats=return_stats,
+                                    layer_idx=layer_idx)
     out = _launch(q, b_k, xk_t, xv_t, kv_len, True, theta, sliding_window, inv_freq, rope_scale,
-                  k_bias)
+                  k_bias, pos_offset, return_stats, layer_idx)
     palu_decode_fp_t.launches += 1
+    count_features(palu_decode_fp_t, pos_offset, return_stats, layer_idx)
     return out
 
 
 palu_decode_fp.launches = 0
 palu_decode_fp_t.launches = 0
+palu_decode_fp_t.feature_launches = dict.fromkeys(FEATURES, 0)

@@ -26,6 +26,23 @@ the port (the cache raises on it).
 
 The JAX package returns new buffers and relies on buffer donation for
 in-place updates; here the write helpers update the buffers in place.
+
+Two more layouts serve the layer-stacked and the sequence-parallel
+decodes:
+  stacked  - init_cache_stacked: {"stack": {"k": bufs, "v": bufs},
+             "length"}, every leaf with a leading (L, ...) layer axis and
+             per-row scale / zero leaves squeezed to (L, B, G, S)
+             (stacked_squeeze), the shapes the decode kernels read with
+             layer_idx; layer_view / stacked_unsqueeze give one layer's
+             buffers in the per-layer shapes, as views, so writes through
+             them land in the stack;
+  seq shard - init_cache with s_max = S_local: a process of a mesh with a
+             `seq` axis of n holds S_local = s_max / n columns of every
+             leaf (per-chunk row stacks too: their last axis is the
+             sequence), absolute positions [rank * S_local, (rank + 1) *
+             S_local). shard_write places a write at position p on the
+             process that owns p, at p - rank * S_local; the others write
+             nothing.
 """
 
 from __future__ import annotations
@@ -40,7 +57,9 @@ from ..ops import build
 
 __all__ = [
     "rank_major", "rank_major_chunked", "quantized", "init_cache", "cache_nbytes", "decode_latents",
-    "seq_slice", "write_at_lanes", "write_at_lanes_masked",
+    "seq_slice", "write_at_lanes", "write_at_lanes_masked", "init_cache_stacked",
+    "stacked_squeeze", "stacked_unsqueeze", "layer_view", "write_at_lanes_stacked",
+    "shard_write",
 ]
 
 
@@ -126,10 +145,80 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
             "length": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
 
+def init_cache_stacked(cfg: ModelConfig, batch: int, s_max: int,
+                       qcfg: Optional[quant.QuantConfig], device="cuda", dtype=torch.bfloat16,
+                       rank_major_fp: bool = False) -> Dict[str, Any]:
+    """The layer-stacked cache: {"stack": {"k": bufs, "v": bufs}, "length"}
+    with every leaf (L, ...) and per-row scales squeezed (stacked_squeeze).
+    Needs every layer low-rank at one k rank and one v rank."""
+    device = build.require_cuda(device)
+    n_l = cfg.num_hidden_layers
+    ranks = {side: {cfg.uniform_rank_for(i, f"{side}_proj") for i in range(n_l)}
+             for side in ("k", "v")}
+    if any(len(r) != 1 for r in ranks.values()):
+        raise ValueError("stacked cache requires uniform ranks per layer")
+    if any(None in r for r in ranks.values()):
+        raise ValueError("stacked cache requires low-rank k and v")
+    stack = {}
+    for side, (r,) in ranks.items():
+        one = stacked_squeeze(_layer_buffers(batch, cfg.num_kv_groups, s_max, r, qcfg, device,
+                                             dtype, rank_major_fp), qcfg)
+        stack[side] = {k: torch.zeros((n_l,) + tuple(v.shape), dtype=v.dtype, device=device)
+                       for k, v in one.items()}
+    return {"stack": stack, "length": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def stacked_squeeze(bufs: Dict[str, torch.Tensor], qcfg) -> Dict[str, torch.Tensor]:
+    """Per-row (group_size 0) scale / zero leaves without their unit n_sc
+    axis, (.., G, 1, S) -> (.., G, S), as the stacked layout keeps them;
+    per-chunk row stacks unchanged."""
+    if not quantized(qcfg) or qcfg.group_size > 0:
+        return bufs
+    return {k: v[..., 0, :] if k in ("scale_t", "zero_t") else v for k, v in bufs.items()}
+
+
+def stacked_unsqueeze(bufs: Dict[str, torch.Tensor], qcfg) -> Dict[str, torch.Tensor]:
+    """Inverse of stacked_squeeze on one layer's view: the unit n_sc axis
+    back, so decode_latents and seq_slice see the per-layer shapes."""
+    if not quantized(qcfg) or qcfg.group_size > 0:
+        return bufs
+    return {k: v[..., None, :] if k in ("scale_t", "zero_t") else v for k, v in bufs.items()}
+
+
+def layer_view(stack: Dict[str, Any], i: int) -> Dict[str, Any]:
+    """Layer i of a stacked {"k", "v"} tree, as views of the stack."""
+    return {side: {k: v[i] for k, v in bufs.items()} for side, bufs in stack.items()}
+
+
+def write_at_lanes_stacked(buf: Dict[str, torch.Tensor], update: Dict[str, torch.Tensor],
+                           pos: torch.Tensor, layer_idx: int,
+                           mask: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """Per-lane write of update (stacked_squeeze'd leaves (B, G, .., S_new))
+    into layer layer_idx of a stacked buffer tree, in place; with `mask`
+    (B,) the masked-out lanes keep their content. Returns buf."""
+    view = {k: v[layer_idx] for k, v in buf.items()}
+    if mask is None:
+        write_at_lanes(view, update, pos)
+    else:
+        write_at_lanes_masked(view, update, pos, mask)
+    return buf
+
+
+def shard_write(pos: torch.Tensor, writeable: torch.Tensor, lo: int,
+                s_local: int) -> tuple:
+    """Where one token's write at absolute positions pos (B,) lands in a
+    sequence shard holding [lo, lo + s_local): (local positions, clamped
+    into the shard, and the write mask writeable & owned). A lane whose
+    position another shard owns writes nothing here."""
+    owned = (pos >= lo) & (pos < lo + s_local)
+    return torch.clamp(pos - lo, 0, s_local - 1), writeable & owned
+
+
 def cache_nbytes(cache: Dict[str, Any]) -> int:
     """Total cache footprint in bytes."""
     total = cache["length"].numel() * cache["length"].element_size()
-    for entry in cache["layers"]:
+    entries = [cache["stack"]] if "stack" in cache else cache["layers"]
+    for entry in entries:
         for side in entry.values():
             total += sum(t.numel() * t.element_size() for t in side.values())
     return total

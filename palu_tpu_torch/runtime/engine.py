@@ -52,6 +52,26 @@ dequantized codes under weight_bits 8 / 4 so that an engine built from
 quantized params computes the same); prefill rebuilds K and V with their
 biases. Layers with one dense side and per-chunk caches whose chunk does
 not divide the rank (JAX's seq-major layout) come with later slices.
+
+Layer-stacked decode (EngineConfig.stacked_decode, JAX's scanned decode):
+the weights and the cache carry a leading (L, ...) axis
+(params["layers_stacked"], cache_lib.init_cache_stacked); each layer
+computes with views of the stacked weights, and the decode kernels read
+the whole stacked cache with layer_idx = the layer (no per-layer slice of
+the cache reaches a kernel). None resolves to False, as in JAX; True
+raises when the configuration cannot stack (_stacked_ineligible_reason).
+An engine built from another stacked engine's params is stacked.
+
+Sequence-parallel decode (EngineConfig.mesh with a `seq` axis named by
+seq_axis, parallel/mesh.py): this process holds S_local = s_max / n of
+every cache column range of its data lanes (runtime/cache.py) and decodes
+them with pos_offset and return_stats; ops/attention.py merges the shards
+over the axis's process group. A token's append lands only on the process
+that owns its position. Prefill runs whole on every process (the same
+computation), each keeping its own columns; a prefill chunk past offset 0
+would need the other shards' columns and comes with the serving slice.
+A mesh without a seq axis shards the batch lanes over `data` only; a
+`model` axis above 1 (tensor parallelism) comes with a later slice.
 """
 
 from __future__ import annotations
@@ -70,7 +90,9 @@ from ..models import rope as rope_mod
 from ..models.config import ModelConfig
 from ..ops import build
 from ..ops.cache_append import append_supported, append_token_quantized
-from ..ops.attention import dense_decode_sdpa, dense_flash_decode
+from ..ops.attention import (dense_decode_sdpa, dense_flash_decode,
+                             flash_decode_latent_seq_sharded,
+                             flash_decode_latent_seq_sharded_rank_major)
 from ..ops.gemv_int8 import MAX_ROWS
 from ..ops.palu_decode import k_path_mode, palu_decode
 from ..ops.palu_decode_fp import palu_decode_fp, palu_decode_fp_t
@@ -113,6 +135,14 @@ class EngineConfig:
     kernel_int8_dots: bool = False
     kernel_fuse_uv: bool = False
     kernel_int8_rot: bool = False
+    # a torch.distributed DeviceMesh (parallel/mesh.py): "data" shards the
+    # batch lanes (batch is the global batch), "seq" (named by seq_axis)
+    # the cache's sequence; a "model" axis must be 1
+    mesh: Any = None
+    seq_axis: Optional[str] = None
+    # stack the layers' weights and cache on a leading axis and decode with
+    # the kernels' layer_idx; None resolves to False (the JAX default)
+    stacked_decode: Optional[bool] = None
 
 
 def build_decode_b(u_k: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -175,6 +205,34 @@ def _kernel_knobs(ecfg: EngineConfig) -> dict:
     return {k: True for k, on in knobs.items() if on}
 
 
+def _stack_layers(layers: list):
+    """Per-layer param trees -> one tree with a leading (L,) axis on every
+    tensor leaf (None leaves stay None); raises unless the layers share one
+    structure, shape and dtype per leaf."""
+    first = layers[0]
+    if isinstance(first, dict):
+        if any(not isinstance(n, dict) or n.keys() != first.keys() for n in layers):
+            raise ValueError("stacked_decode requires homogeneous layers")
+        return {k: _stack_layers([n[k] for n in layers]) for k in first}
+    if first is None:
+        if any(n is not None for n in layers):
+            raise ValueError("stacked_decode requires homogeneous layers")
+        return None
+    if any(not isinstance(n, torch.Tensor) or n.shape != first.shape or n.dtype != first.dtype
+           for n in layers):
+        raise ValueError("stacked_decode requires homogeneous layers")
+    return torch.stack(layers)
+
+
+def _layer_views(stacked, n_layers: int) -> list:
+    """Per-layer trees of views into a stacked tree (no copy)."""
+    def view(node, i):
+        if isinstance(node, dict):
+            return {k: view(v, i) for k, v in node.items()}
+        return None if node is None else node[i]
+    return [view(stacked, i) for i in range(n_layers)]
+
+
 def _largest_divisor(n: int, at_most: int) -> int:
     d = max(1, min(at_most, n))
     while n % d:
@@ -188,11 +246,18 @@ class Engine:
 
     def __init__(self, params, cfg: ModelConfig, ecfg: EngineConfig):
         self.device = build.require_cuda(ecfg.device)
-        # ragged (fisher-search) checkpoints: pad per-group ranks up to the
-        # layer max so the cache and the kernels see uniform ranks
-        params, cfg = llama.pad_ragged_params(params, cfg)
+        pre_stacked = "layers_stacked" in params
+        if pre_stacked:
+            # another stacked engine's params: stacked (and quantized
+            # under weight_bits 8 / 4) already
+            layers = _layer_views(params["layers_stacked"], cfg.num_hidden_layers)
+        else:
+            # ragged (fisher-search) checkpoints: pad per-group ranks up to
+            # the layer max so the cache and the kernels see uniform ranks
+            params, cfg = llama.pad_ragged_params(params, cfg)
+            layers = params["layers"]
         self._dense = []
-        for i, layer in enumerate(params["layers"]):
+        for i, layer in enumerate(layers):
             lowrank = ["VT" in layer["attn"][which] for which in ("k_proj", "v_proj")]
             if lowrank[0] != lowrank[1]:
                 raise NotImplementedError(f"layer {i} has one dense k/v side; the port's "
@@ -214,6 +279,7 @@ class Engine:
         self.params = params
         self.cfg = cfg
         self.ecfg = ecfg
+        self._init_mesh()
         # Chunks read fixed-size slices of the cache, so the chunk must
         # divide s_max: take the largest divisor not above decode_chunk.
         self._chunk = _largest_divisor(ecfg.s_max, ecfg.decode_chunk)
@@ -226,7 +292,7 @@ class Engine:
                             if k in self._kernel_knobs}
         mode = "exact"
         if cache_lib.quantized(ecfg.qcfg):
-            for layer, dense in zip(params["layers"], self._dense):
+            for layer, dense in zip(layers, self._dense):
                 if not dense:
                     mode = k_path_mode(ecfg.qcfg, layer["attn"]["k_proj"]["U"].shape[1],
                                        cfg.head_dim, **self._int8_knobs)
@@ -239,12 +305,113 @@ class Engine:
         self._inv_freq = inv_freq if cfg.rope_scaling else None
         self._rope_scale = float(rope_scale) if cfg.rope_scaling else 1.0
         self.derived = [{} if dense else self._build_derived(l["attn"])
-                        for l, dense in zip(params["layers"], self._dense)]
-        if ecfg.weight_bits in (8, 4):
-            # after the decode weights: b_k comes from the float U
-            self.params = wquant.quantize_params(
-                params, vt=ecfg.vt_bits == 8, embed=ecfg.embed_bits == 8,
-                bits=ecfg.weight_bits)
+                        for l, dense in zip(layers, self._dense)]
+        if pre_stacked:
+            self._stacked = True
+            if ecfg.stacked_decode is False:
+                raise ValueError("params are layer-stacked; stacked_decode cannot be "
+                                 "disabled for them")
+            reason = self._stacked_ineligible_reason()
+            if reason:
+                raise ValueError(f"stacked params but ineligible config: {reason}")
+        else:
+            if ecfg.weight_bits in (8, 4):
+                # after the decode weights: b_k comes from the float U
+                self.params = wquant.quantize_params(
+                    params, vt=ecfg.vt_bits == 8, embed=ecfg.embed_bits == 8,
+                    bits=ecfg.weight_bits)
+            reason = self._stacked_ineligible_reason()
+            if ecfg.stacked_decode and reason:
+                raise ValueError(f"stacked_decode unavailable: {reason}")
+            self._stacked = bool(ecfg.stacked_decode)  # None -> False, as in JAX
+            if self._stacked:
+                new = dict(self.params)
+                new["layers_stacked"] = _stack_layers(new.pop("layers"))
+                self.params = new
+        self._layers = (_layer_views(self.params["layers_stacked"], cfg.num_hidden_layers)
+                        if self._stacked else self.params["layers"])
+        if self._stacked:
+            self._build_derived_stacks()
+
+    def _init_mesh(self) -> None:
+        """The mesh's share of this process: its data lanes (self._lanes,
+        self.batch) and, with seq_axis, its sequence shard (self._seq: its
+        index on the axis, S_local and its first position); the ctor's
+        checks of JAX's engine for a seq-sharded cache."""
+        ecfg, cfg = self.ecfg, self.cfg
+        self.batch, self._lanes, self._seq = ecfg.batch, slice(0, ecfg.batch), None
+        if ecfg.mesh is None:
+            if ecfg.seq_axis is not None:
+                raise ValueError("seq_axis needs a mesh")
+            return
+        from ..parallel.mesh import axis_group
+        from ..parallel.multihost import host_local_batch_slice
+
+        names = tuple(ecfg.mesh.mesh_dim_names or ())
+        if "data" not in names:
+            raise ValueError(f"the mesh needs a 'data' axis, got {names}")
+        if "model" in names and ecfg.mesh.shape[names.index("model")] > 1:
+            raise NotImplementedError(
+                "tensor parallelism over a 'model' mesh axis comes with a later slice of the "
+                "port (ROADMAP A item 5); use a ('data', 'seq') mesh or model = 1")
+        self._lanes = host_local_batch_slice(ecfg.batch, ecfg.mesh)
+        self.batch = self._lanes.stop - self._lanes.start
+        if ecfg.seq_axis is None:
+            return
+        _, idx, n = axis_group(ecfg.mesh, ecfg.seq_axis)
+        if ecfg.s_max % n:
+            raise ValueError(f"s_max {ecfg.s_max} does not split over {n} sequence shards")
+        if any(self._dense):
+            raise NotImplementedError("seq_axis with dense k/v layers comes with a later slice")
+        qk = ecfg.qcfg
+        if cache_lib.quantized(qk) and qk.group_size > 0:
+            # per-chunk caches shard over seq only in the rank-major layout
+            for i in range(cfg.num_hidden_layers):
+                for which in ("k_proj", "v_proj"):
+                    r = cfg.uniform_rank_for(i, which)
+                    if r is not None and not cache_lib.rank_major_chunked(qk, r):
+                        raise ValueError(
+                            "seq_axis with per-chunk scales requires the rank-major layout: "
+                            f"group_size must be a multiple of 8 dividing every rank (layer "
+                            f"{i} {which} rank {r}, group_size {qk.group_size})")
+        s_local = ecfg.s_max // n
+        self._seq = {"index": idx, "s_local": s_local, "lo": idx * s_local}
+
+    def _stacked_ineligible_reason(self) -> Optional[str]:
+        """None when the layer-stacked decode can serve this configuration,
+        else why not (JAX's checks; the port always runs its kernels)."""
+        ecfg, cfg = self.ecfg, self.cfg
+        if ecfg.mesh is not None or ecfg.seq_axis is not None:
+            return "mesh/seq_axis decode runs the per-layer sharded paths"
+        n = cfg.num_hidden_layers
+        rks = {cfg.uniform_rank_for(i, "k_proj") for i in range(n)}
+        rvs = {cfg.uniform_rank_for(i, "v_proj") for i in range(n)}
+        if len(rks) != 1 or len(rvs) != 1 or None in rks or None in rvs:
+            return "requires all-low-rank k/v with uniform ranks across layers"
+        rk, rv = rks.pop(), rvs.pop()
+        if cache_lib.quantized(ecfg.qcfg):
+            if not (cache_lib.rank_major(ecfg.qcfg)
+                    or (cache_lib.rank_major_chunked(ecfg.qcfg, rk)
+                        and cache_lib.rank_major_chunked(ecfg.qcfg, rv))):
+                return "quantized cache layout is not rank-major"
+        elif not ecfg.rank_major_fp:
+            return "fp cache must be rank_major_fp (the v4 kernel's layout)"
+        if any(self._dense):
+            return "dense k/v layer present"
+        for key in ("k_bias", "o_bias_corr"):
+            if len({key in d for d in self.derived}) > 1:
+                return f"{key} present in only some layers"
+        return None
+
+    def _build_derived_stacks(self) -> None:
+        """Stack the derived decode weights (b_k, and k_bias / o_bias_corr
+        when every layer has them) and let each layer's entry view its
+        row."""
+        for key in ("b_k", "k_bias", "o_bias_corr"):
+            if all(key in d for d in self.derived):
+                st = torch.stack([d[key] for d in self.derived])
+                for i, d in enumerate(self.derived):
+                    d[key] = st[i]
 
     def _build_derived(self, attn) -> dict:
         """A low-rank layer's decode weights: b_k (G, hpg, rk, hd), and with
@@ -260,9 +427,59 @@ class Engine:
         return der
 
     def init_cache(self):
-        return cache_lib.init_cache(self.cfg, self.ecfg.batch, self.ecfg.s_max,
-                                    self.ecfg.qcfg, device=self.device, dtype=self.ecfg.dtype,
-                                    rank_major_fp=self.ecfg.rank_major_fp)
+        """This process's cache: per layer, layer-stacked, or its sequence
+        shard (S_local columns) of its data lanes."""
+        ecfg = self.ecfg
+        init = cache_lib.init_cache_stacked if self._stacked else cache_lib.init_cache
+        s_max = ecfg.s_max if self._seq is None else self._seq["s_local"]
+        return init(self.cfg, self.batch, s_max, ecfg.qcfg, device=self.device,
+                    dtype=ecfg.dtype, rank_major_fp=ecfg.rank_major_fp)
+
+    def _layer_entry(self, cache, i: int) -> dict:
+        """Layer i's {"k", "v"} buffers in the per-layer shapes: the cache's
+        own, or views of the stacked cache (writes land in the stack)."""
+        if self._stacked:
+            view = cache_lib.layer_view(cache["stack"], i)
+            return {side: cache_lib.stacked_unsqueeze(b, self.ecfg.qcfg)
+                    for side, b in view.items()}
+        return cache["layers"][i]
+
+    def _prefill_entry(self, cache, i: int) -> dict:
+        """Where prefill writes and reads layer i: its cache entry, or for a
+        sequence shard full-length buffers (every process computes the
+        whole prefill; _keep_columns keeps its own)."""
+        if self._seq is None:
+            return self._layer_entry(cache, i)
+        ecfg = self.ecfg
+        attn = self._layers[i]["attn"]
+        return {side: cache_lib._layer_buffers(
+                    self.batch, self.cfg.num_kv_groups, ecfg.s_max,
+                    attn[f"{side}_proj"]["U"].shape[1], ecfg.qcfg, self.device, ecfg.dtype,
+                    ecfg.rank_major_fp) for side in ("k", "v")}
+
+    def _keep_columns(self, cache, i: int, full: dict, n: int) -> None:
+        """A sequence shard keeps the columns it owns of the first n that
+        prefill wrote into `full`."""
+        if self._seq is None:
+            return
+        lo, s_local = self._seq["lo"], self._seq["s_local"]
+        keep = min(n, lo + s_local) - lo
+        if keep <= 0:
+            return
+        for side, bufs in full.items():
+            own = cache_lib.seq_slice(cache["layers"][i][side], 0, keep)
+            src = cache_lib.seq_slice(bufs, lo, keep)
+            for k, t in own.items():
+                t.copy_(src[k])
+
+    def _local_rows(self, x, what: str):
+        """This process's data lanes of a global batch of ecfg.batch rows
+        (under a mesh every process is given the whole batch, as JAX's
+        engine takes global arrays)."""
+        if x.shape[0] != self.ecfg.batch:
+            raise ValueError(f"{what}: batch {x.shape[0]} is not the engine batch "
+                             f"{self.ecfg.batch}")
+        return x if self.batch == self.ecfg.batch else x[self._lanes]
 
     def _encode(self, lat):
         """Latents (B, G, S, r) -> the cache's buffer update."""
@@ -311,7 +528,12 @@ class Engine:
         cos_all, sin_all = llama.rope_cos_sin_for(cfg, positions)
         offset = torch.full((b,), base, dtype=torch.int32, device=dev)
 
-        for p_layer, entry in zip(self.params["layers"], cache["layers"]):
+        if self._seq is not None and base > 0:
+            raise NotImplementedError(
+                "a prefill chunk past offset 0 on a sequence shard needs the other shards' "
+                "columns; it comes with the serving slice (ROADMAP A item 5)")
+        for i, p_layer in enumerate(self._layers):
+            entry = self._prefill_entry(cache, i)
             attn = p_layer["attn"]
             h = llama.rms_norm(x, p_layer["input_norm"], cfg.rms_norm_eps)
             for side, proj in (("k", "k_proj"), ("v", "v_proj")):
@@ -320,6 +542,8 @@ class Engine:
             rk = attn["k_proj"]["U"].shape[1]
             rv = attn["v_proj"]["U"].shape[1]
             k_full, v_full = self._reconstruct_dense(entry, attn, rk, rv, n_read)
+            self._keep_columns(cache, i, entry, base + run)
+            del entry
             q_w, o_w, mlp = attn["q_proj"]["w"], attn["o_proj"]["w"], p_layer["mlp"]
             if b * c_len > MAX_ROWS:
                 # the chunk loop takes wdot's matmul paths: dequantize once
@@ -350,10 +574,8 @@ class Engine:
         """Stream a prompt through fixed-size chunks (one layer-major run;
         pad positions are causally invisible and decode overwrites them).
         Returns (last-token logits (B, 1, V), cache)."""
-        input_ids = np.asarray(input_ids)
+        input_ids = self._local_rows(np.asarray(input_ids), "prefill")
         b, total = input_ids.shape
-        if b != self.ecfg.batch:
-            raise ValueError(f"batch {b} != engine batch {self.ecfg.batch}")
         if total > self.ecfg.s_max:
             raise ValueError(f"prompt {total} exceeds s_max {self.ecfg.s_max}")
         if self.ecfg.s_max % chunk_size:
@@ -383,8 +605,8 @@ class Engine:
         when the prompt is complete."""
         ids = torch.as_tensor(np.asarray(ids_chunk), device=self.device)
         b, c_len = ids.shape
-        if b != self.ecfg.batch or c_len != self._chunk:
-            raise ValueError(f"chunk must be ({self.ecfg.batch}, {self._chunk}), got "
+        if b != self.batch or c_len != self._chunk:
+            raise ValueError(f"chunk must be ({self.batch}, {self._chunk}), got "
                              f"{tuple(ids.shape)}")
         if off < 0 or off + c_len > self.ecfg.s_max:
             raise ValueError(f"chunk at {off} does not fit s_max {self.ecfg.s_max}")
@@ -404,7 +626,11 @@ class Engine:
         else:
             cache_lib.write_at_lanes_masked(bufs, self._encode(lat), pos_w, writeable)
 
-    def _decode_attention(self, q, entry, attn, der, kv_len):
+    def _decode_attention(self, q, entry, attn, der, kv_len, layer_idx=None):
+        """Latent decode attention of one layer and the U_v-fused o_proj.
+        `entry` is the layer's buffers, or with layer_idx the stacked
+        cache's {"k", "v"} (the kernel reads layer layer_idx of it); on a
+        sequence shard the shards are merged (ops/attention.py)."""
         cfg, ecfg = self.cfg, self.ecfg
         b, nh, _ = q.shape
         rk = attn["k_proj"]["U"].shape[1]
@@ -414,13 +640,20 @@ class Engine:
         kw = dict(theta=cfg.rope_theta, sliding_window=cfg.sliding_window,
                   inv_freq=self._inv_freq, rope_scale=self._rope_scale,
                   k_bias=der.get("k_bias"))
-        if cache_lib.quantized(ecfg.qcfg):
-            self._decode_paths.add(f"{self._packed_path}-{side}")
+        if self._seq is not None:
+            lat_out = self._decode_seq(q, kb, vb, der["b_k"], kv_len, rk, rv, side, kw)
+        elif cache_lib.quantized(ecfg.qcfg):
+            tag = "" if layer_idx is None else "[layer_idx]"
+            self._decode_paths.add(f"{self._packed_path}{tag}-{side}")
             lat_out = palu_decode(
                 q, der["b_k"], kb["codes_t"], kb["scale_t"], vb["codes_t"], vb["scale_t"],
                 kv_len, qcfg=ecfg.qcfg, rk=rk, rv=rv, xk_zero=kb.get("zero_t"),
                 xv_zero=vb.get("zero_t"), block_s=self._pallas_block, **self._int8_knobs,
-                **kw)
+                layer_idx=layer_idx, **kw)
+        elif layer_idx is not None:
+            self._decode_paths.add(f"palu_decode_fp_t[layer_idx]-{side}")
+            lat_out = palu_decode_fp_t(q, der["b_k"], kb["lat_t"], vb["lat_t"], kv_len,
+                                       layer_idx=layer_idx, **kw)
         else:
             fn, key = ((palu_decode_fp_t, "lat_t") if ecfg.rank_major_fp
                        else (palu_decode_fp, "lat"))
@@ -431,6 +664,27 @@ class Engine:
         if "o_bias_corr" in der:
             out = out + der["o_bias_corr"]
         return out
+
+    def _decode_seq(self, q, kb, vb, b_k, kv_len, rk: int, rv: int, side: str, kw: dict):
+        """This process's sequence shard decoded and merged with the other
+        shards: the rank-major caches through their kernels with
+        pos_offset and return_stats, the seq-major bf16 cache in plain
+        PyTorch (as JAX runs it in XLA)."""
+        ecfg, cfg = self.ecfg, self.cfg
+        mesh, axis, s_local = ecfg.mesh, ecfg.seq_axis, self._seq["s_local"]
+        if cache_lib.quantized(ecfg.qcfg) or ecfg.rank_major_fp:
+            quant = cache_lib.quantized(ecfg.qcfg)
+            name = self._packed_path if quant else "palu_decode_fp_t"
+            self._decode_paths.add(f"{name}[seq]-{side}")
+            return flash_decode_latent_seq_sharded_rank_major(
+                q, kb, vb, b_k, kv_len, mesh, axis, qcfg=ecfg.qcfg if quant else None,
+                rk=rk, rv=rv, block_s=min(self._pallas_block, s_local),
+                kernel_knobs=self._int8_knobs, **kw)
+        self._decode_paths.add(f"flash_decode_latent[seq]-{side}")
+        kw = dict(kw, rope_theta=kw.pop("theta"))
+        return flash_decode_latent_seq_sharded(
+            q, kb["lat"], vb["lat"], b_k, kv_len, mesh, axis,
+            _largest_divisor(s_local, self._chunk), cfg.head_dim, **kw)
 
     def _dense_attention(self, q, entry, attn, kv_len):
         """Decode attention of a dense layer over its roped K/V, then the
@@ -469,20 +723,27 @@ class Engine:
         dev = self.device
         if not isinstance(token_ids, torch.Tensor):
             token_ids = torch.as_tensor(np.asarray(token_ids))
-        token_ids = token_ids.to(dev)
+        token_ids = self._local_rows(token_ids.to(dev), "decode")
         b = token_ids.shape[0]
         if active is None:
             active = torch.ones((b,), dtype=torch.bool, device=dev)
+        else:
+            active = self._local_rows(active.to(dev), "decode active")
         pos = cache["length"]
         writeable = active & (pos < ecfg.s_max)
         pos_w = torch.clamp(pos, max=ecfg.s_max - 1)
         kv_len = torch.where(writeable, pos + 1, pos)
+        # where this token's column lands: the owning sequence shard only
+        pos_a, wr_a = ((pos_w, writeable) if self._seq is None else
+                       cache_lib.shard_write(pos_w, writeable, self._seq["lo"],
+                                             self._seq["s_local"]))
         x = embed_rows(self.params["embed"], token_ids, ecfg.dtype)  # (B, 1, H)
         nh, hd = cfg.num_attention_heads, cfg.head_dim
         cos, sin = llama.rope_cos_sin_for(cfg, pos[:, None])
 
-        for p_layer, entry, der, dense in zip(self.params["layers"], cache["layers"],
-                                              self.derived, self._dense):
+        for i, (p_layer, der, dense) in enumerate(zip(self._layers, self.derived,
+                                                      self._dense)):
+            entry = self._layer_entry(cache, i)
             attn = p_layer["attn"]
             h = llama.rms_norm(x, p_layer["input_norm"], cfg.rms_norm_eps)
             q = wdot(h, attn["q_proj"]["w"], self._gemv_paths)
@@ -496,8 +757,12 @@ class Engine:
             else:
                 for side, proj in (("k", "k_proj"), ("v", "v_proj")):
                     lat = llama.project_kv(h, attn[proj], self._gemv_paths).transpose(1, 2)
-                    self._append(entry[side], lat, pos_w, writeable)
-                x = x + self._decode_attention(q, entry, attn, der, kv_len)[:, None, :]
+                    self._append(entry[side], lat, pos_a, wr_a)
+                if self._stacked:  # the kernel reads layer i of the whole stack
+                    x = x + self._decode_attention(q, cache["stack"], attn, der, kv_len,
+                                                   layer_idx=i)[:, None, :]
+                else:
+                    x = x + self._decode_attention(q, entry, attn, der, kv_len)[:, None, :]
             h2 = llama.rms_norm(x, p_layer["post_norm"], cfg.rms_norm_eps)
             x = x + llama.mlp_forward(h2, p_layer["mlp"], self._gemv_paths)
 

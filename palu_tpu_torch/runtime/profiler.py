@@ -44,7 +44,11 @@ def seed_cache_random(engine, prompt_len: int, seed: int = 0) -> dict:
     latents)."""
     rng = np.random.default_rng(seed)
     cache = engine.init_cache()
-    for entry in cache["layers"]:
+    if "stack" in cache:  # layer-stacked engine: one (L, ...) leaf per buffer
+        entries, prompt_len = [cache["stack"]], min(prompt_len, engine.ecfg.s_max)
+    else:
+        entries = cache["layers"]
+    for entry in entries:
         for bufs in entry.values():
             for key, buf in bufs.items():
                 buf.copy_(torch.from_numpy(_random_buf(rng, key, buf)))

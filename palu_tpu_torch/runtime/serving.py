@@ -234,6 +234,12 @@ class ServingEngine:
         (sampling_seed, rid, t)."""
         if ecfg.batch < 1:
             raise ValueError(f"batch must be >= 1, got {ecfg.batch}")
+        if ecfg.mesh is not None:
+            raise NotImplementedError("serving on a mesh (JAX's _lane_write, "
+                                      "_insert_hostside, _sync_tokens) comes with the "
+                                      "tensor-parallel slice of the port")
+        if ecfg.stacked_decode is None:  # None -> False, as JAX's ServingEngine resolves it
+            ecfg = dataclasses.replace(ecfg, stacked_decode=False)
         self.prefill_chunks_per_step = prefill_chunks_per_step
         self._sampling: Dict[int, sampling_lib.SamplingParams] = {}
         self._sampling_seed = sampling_seed
@@ -255,11 +261,18 @@ class ServingEngine:
         self.eos_token_id: Optional[int] = None
 
     def _insert(self, single_cache, lane: int) -> None:
-        """Copy a batch-1 prefilled cache into lane `lane`, in place."""
-        for b_entry, s_entry in zip(self.cache["layers"], single_cache["layers"]):
-            for side, bufs in b_entry.items():
+        """Copy a batch-1 prefilled cache into lane `lane`, in place: the
+        per-layer cache (lane on axis 0 of every leaf) or the layer-stacked
+        one (lane on axis 1, behind the layer axis)."""
+        if "stack" in self.cache:
+            for side, bufs in self.cache["stack"].items():
                 for k, buf in bufs.items():
-                    buf[lane].copy_(s_entry[side][k][0])
+                    buf[:, lane].copy_(single_cache["stack"][side][k][:, 0])
+        else:
+            for b_entry, s_entry in zip(self.cache["layers"], single_cache["layers"]):
+                for side, bufs in b_entry.items():
+                    for k, buf in bufs.items():
+                        buf[lane].copy_(s_entry[side][k][0])
         self.cache["length"][lane] = single_cache["length"][0]
 
     def submit(self, rid: int, prompt_ids, max_new_tokens: int,

@@ -749,3 +749,124 @@ def test_mlp_a8_kernel_matches_plain(gen, rows, hi, bn):
     held = p.held_codes(got, p.mlp_a8_ref(x, *w, bn=bn, codes=True))
     assert held["ok"], held
     assert torch.equal(p.mlp_a8(x, *w, bn=bn), got[0])
+
+
+def _stacked_packed(gen, qcfg, n_layers, b, g, rk, rv, s_max):
+    """An (L, B, G, ...) stack of rank-major packed caches: per-row scales
+    squeezed to (L, B, G, S), per-chunk row stacks (L, B, G, n_sc, S)."""
+    bufs = {}
+    for side, r in (("k", rk), ("v", rv)):
+        x = torch.randn((n_layers, b, g, s_max, r), generator=gen, device="cuda")
+        c, s, z = quantize_affine(x, qcfg)
+        rows = (lambda t: t.transpose(-1, -2)) if qcfg.group_size else (lambda t: t[..., 0])
+        bufs[f"x{side}_codes"] = pack_codes_t(c, qcfg.pack_bits).contiguous()
+        bufs[f"x{side}_scale"] = rows(s).contiguous()
+        if not qcfg.sym:
+            bufs[f"x{side}_zero"] = rows(z).contiguous()
+    return bufs
+
+
+def _held_stats(got, want, tol=2e-3):
+    """(acc, m, l) of a kernel against its plain version: acc and l within
+    tol of their max, m within tol of max|m| on the rows with a valid
+    column and exactly -1e30 (l = 0, acc = 0) on the others."""
+    (acc, m, l), (wacc, wm, wl) = got, want
+    empty = wl == 0
+    assert torch.equal(l == 0, empty)
+    assert torch.isfinite(acc).all() and torch.isfinite(l).all()
+    assert (acc - wacc).abs().max() <= tol * wacc.abs().max()
+    assert (l - wl).abs().max() <= tol * wl.abs().max()
+    assert bool((m[empty] == -1e30).all()) and bool((acc[empty] == 0).all())
+    assert (m[~empty] - wm[~empty]).abs().max() <= tol * wm[~empty].abs().max()
+
+
+# the packed decode's modes: (QuantConfig, int8 knob)
+FEATURE_MODES = {"exact": (QuantConfig(bits=3, sym=True, container=4), None),
+                 "exact_asym": (QuantConfig(bits=4, sym=False), None),
+                 "int8_dots": (QuantConfig(bits=3, sym=True, container=4), "int8_dots"),
+                 "int8_rot": (QuantConfig(bits=3, sym=False, container=4), "int8_rot"),
+                 "chunked": (QuantConfig(bits=3, group_size=32, sym=False, container=4), None)}
+
+
+@pytest.mark.parametrize("bias", [False, True], ids=["no_bias", "k_bias"])
+@pytest.mark.parametrize("mode", list(FEATURE_MODES))
+def test_decode_features_match_plain(gen, mode, bias):
+    """pos_offset, return_stats and layer_idx in every mode of the packed
+    decode, with and without the K bias, at the 7B group shapes: an L = 2
+    stack of 1024-column shards at offset 1024 with kv_len (1700, 900) (the
+    second lane's shard holds no valid column), against the plain version;
+    each layer bit-identical to the per-layer call; the features counted."""
+    from palu_tpu_torch.ops.palu_decode import FEATURES
+
+    qcfg, knob = FEATURE_MODES[mode]
+    b, g, hpg, rk, rv, s_loc, off = 2, 2, 4, 128, 384, 1024, 1024
+    q = torch.randn((b, g * hpg, 128), generator=gen, device="cuda").bfloat16()
+    b_k = (torch.randn((g, hpg, rk, 128), generator=gen, device="cuda") / rk**0.5).bfloat16()
+    k_bias = (torch.randn((g, hpg, 128), generator=gen, device="cuda") * 0.3
+              ).bfloat16().float() if bias else None
+    bufs = _stacked_packed(gen, qcfg, 2, b, g, rk, rv, s_loc)
+    kv_len = torch.tensor([1700, 900], dtype=torch.int32, device="cuda")
+    kw = dict(qcfg=qcfg, rk=rk, rv=rv, block_s=512, k_bias=k_bias, **({knob: True} if knob
+                                                                       else {}))
+    before = dict(palu_decode.feature_launches)
+    for li in range(2):
+        got = palu_decode(q, b_k, kv_len=kv_len, **bufs, **kw, pos_offset=off,
+                          return_stats=True, layer_idx=li)
+        want = palu_decode_ref(q, b_k, kv_len=kv_len, **bufs, **kw, pos_offset=off,
+                               return_stats=True, layer_idx=li)
+        _held_stats(got, want)
+        one = {k: v[li].contiguous() for k, v in bufs.items()}
+        alone = palu_decode(q, b_k, kv_len=kv_len, **one, **kw, pos_offset=off,
+                            return_stats=True)
+        for x, y in zip(got, alone):
+            assert torch.equal(x, y)
+        norm = palu_decode(q, b_k, kv_len=kv_len, **one, **kw, pos_offset=off)
+        plain = palu_decode_ref(q, b_k, kv_len=kv_len, **one, **kw, pos_offset=off)
+        assert (norm[0] - plain[0]).abs().max() <= 2e-3 * plain[0].abs().max()
+    after = palu_decode.feature_launches
+    assert {f: after[f] - before[f] for f in FEATURES} == {
+        "pos_offset": 6, "return_stats": 4, "layer_idx": 2}
+
+
+@pytest.mark.parametrize("bias", [False, True], ids=["no_bias", "k_bias"])
+def test_decode_fp_t_features_match_plain(gen, bias):
+    from palu_tpu_torch.ops.palu_decode_fp import palu_decode_fp_t, palu_decode_fp_t_ref
+
+    b, g, hpg, rk, rv, s_loc, off = 2, 8, 4, 128, 384, 1024, 1024
+    q = torch.randn((b, g * hpg, 128), generator=gen, device="cuda").bfloat16()
+    b_k = (torch.randn((g, hpg, rk, 128), generator=gen, device="cuda") / 11.3).bfloat16()
+    k_bias = (torch.randn((g, hpg, 128), generator=gen, device="cuda") * 0.3
+              ).bfloat16().float() if bias else None
+    lat = [torch.randn((2, b, g, r, s_loc), generator=gen, device="cuda").bfloat16()
+           for r in (rk, rv)]
+    kv_len = torch.tensor([1700, 900], dtype=torch.int32, device="cuda")
+    for li in range(2):
+        got = palu_decode_fp_t(q, b_k, *lat, kv_len, k_bias=k_bias, pos_offset=off,
+                               return_stats=True, layer_idx=li)
+        want = palu_decode_fp_t_ref(q, b_k, *lat, kv_len, k_bias=k_bias, pos_offset=off,
+                                    return_stats=True, layer_idx=li)
+        _held_stats(got, want)
+        alone = palu_decode_fp_t(q, b_k, *(x[li].contiguous() for x in lat), kv_len,
+                                 k_bias=k_bias, pos_offset=off, return_stats=True)
+        for x, y in zip(got, alone):
+            assert torch.equal(x, y)
+
+
+def test_decode_shards_combine_to_one_call(gen):
+    """Four 2048-column shards through the kernel with pos_offset and
+    return_stats, merged with the flash-decoding combine, against the
+    one-call kernel over the 8192-column cache."""
+    qcfg = QuantConfig(bits=3, sym=True, container=4)
+    q, b_k, bufs = _packed_case(gen, "rank", qcfg, 1, 8, 4, 128, 384, 128, 8192)
+    kv_len = torch.tensor([7000], dtype=torch.int32, device="cuda")
+    kw = dict(qcfg=qcfg, rk=128, rv=384)
+    whole = palu_decode(q, b_k, kv_len=kv_len, **bufs, **kw)
+    parts = [palu_decode(q, b_k, kv_len=kv_len, pos_offset=r * 2048, return_stats=True,
+                         **{k: v[..., r * 2048:(r + 1) * 2048].contiguous()
+                            for k, v in bufs.items()}, **kw) for r in range(4)]
+    m_g = torch.stack([p[1] for p in parts]).amax(0)
+    w = [torch.exp(p[1] - m_g) for p in parts]
+    l_g = sum(wi * p[2] for wi, p in zip(w, parts))
+    acc_g = sum(wi[..., None] * p[0] for wi, p in zip(w, parts))
+    got = acc_g / l_g[..., None]
+    assert (got - whole).abs().max() <= 2e-3 * whole.abs().max()

@@ -55,6 +55,15 @@ def test_probe_entry_points_are_scanned():
         assert f"palu_tpu_torch.ops.archive{name}" in mods
 
 
+def test_parallel_package_is_scanned():
+    """The mesh and multi-host modules (palu_tpu_torch/parallel) are among
+    the modules the import test loads without JAX and the source scan
+    reads."""
+    mods = _port_modules()
+    for name in ("", ".mesh", ".multihost"):
+        assert f"palu_tpu_torch.parallel{name}" in mods
+
+
 def test_no_jax_import_in_source():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for path in files:
