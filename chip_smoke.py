@@ -7,7 +7,9 @@ Usage (from the repository root, on a machine with a CUDA GPU and nvcc):
 
 Phases, each printing one JSON line:
   1. device   - the card (nvidia-smi name and power limit), TF32 off;
-  2. build    - nvcc builds every kernel from csrc/, all sources at once;
+  2. build    - nvcc builds every kernel from csrc/, all sources at once,
+                and the prefill kernel's SASS must hold wgmma (HGMMA) and TMA
+                loads (UTMALDG);
   3. kernels  - each kernel against its plain PyTorch version on the card at
                 the main path's shapes (7B widths), with the device times
                 (torch.profiler, L2 cold) of the kernel, the plain version
@@ -15,8 +17,10 @@ Phases, each printing one JSON line:
                 product that weight quantization replaces, and PyTorch's
                 own int4 / int8 weight-only call where the card's torch
                 has one; for the fp decode kernels: scaled_dot_product_attention
-                over dense bf16 K/V, the attention Palu replaces), and for
-                the GEMVs the host time of one call;
+                over dense bf16 K/V, the attention Palu replaces; for the
+                prefill, SDPA with the same mask, also at Qwen2-7B's 28 / 4
+                heads), and for the GEMVs the host time of one call and the
+                device kernels per call;
   4. e2e      - a 2-layer model at 7B widths: one 2048-token request and 16
                 teacher-forced decode steps through the kernels (bf16) on the
                 card, against the same run on the CPU (plain versions, f32);
@@ -159,6 +163,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -439,7 +444,23 @@ def phase_build() -> None:
             regs[name] = [l.strip() for l in log.read_text().splitlines()
                           if "registers" in l or "spill" in l]
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-          "per_source_s": {k: round(v, 3) for k, v in per.items()}, "ptxas": regs})
+          "per_source_s": {k: round(v, 3) for k, v in per.items()}, "ptxas": regs,
+          "prefill_sass": prefill_sass()})
+
+
+def prefill_sass() -> dict:
+    """Counts of the Hopper instructions in the prefill kernel's SASS
+    (cuobjdump -sass): HGMMA (wgmma) and UTMALDG (TMA loads). Raises when
+    either is missing; reports why when cuobjdump is not there."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {"cuobjdump": "not found"}
+    sass = subprocess.run([tool, "-sass", str(build._lib_path("prefill_flash"))],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG")}
+    if not all(counts.values()):
+        raise AssertionError(f"prefill_flash SASS lacks wgmma or TMA loads: {counts}")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1380,6 +1401,7 @@ def check_prefill(gen) -> dict:
     flops = 4 * NH * HD * pairs
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     bms, by = bound_ms(nbytes, flops)
+    del q, k, v
     out = {"name": "prefill_flash", "route": "cuda",
            "source": "palu_tpu_torch/csrc/prefill_flash.cu",
            "replaces": "palu_tpu/ops/pallas/prefill_flash.py:257",
@@ -1387,8 +1409,25 @@ def check_prefill(gen) -> dict:
            "bound_ms": bms, "bound_by": by, "library_ms": library_ms}
     emit({"phase": "kernel", "cases": len(PREFILL_CASES), "max_rel_err": worst_rel,
           "rel_err_by_case": rel_by_case, "tol": PREFILL_TOL, "bytes": nbytes, "flops": flops,
-          **out})
+          "qwen2_7b": _qwen2_prefill_times(gen, cq), **out})
     return out
+
+
+def _qwen2_prefill_times(gen, cq: int) -> dict:
+    """Device times at serve_qwen2's last chunk of its 7000-token prompt
+    (28 q-heads over 4 kv-heads, offset 6656, 7168 keys): the kernel and
+    SDPA with the same mask (GQA), beside the bound."""
+    q, k, v = _prefill_inputs(1, QNH, QNKV, cq, 7168, gen)
+    o1 = torch.tensor([6656], dtype=torch.int32, device="cuda")
+    k1 = o1 + cq
+    pos = torch.arange(7168, device="cuda")
+    mask = pos[None, :] <= (6656 + torch.arange(cq, device="cuda"))[:, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    flops = 4 * QNH * HD * sum(6656 + i + 1 for i in range(cq))
+    bms, by = bound_ms(2 * (2 * q.numel() + k.numel() + v.numel()), flops)
+    return {"ms": device_ms(lambda: prefill_flash(q, k, v, o1, k1), 20),
+            "library_ms": device_ms(lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True), 20),
+            "bound_ms": bms, "bound_by": by, "flops": flops}
 
 
 def _qweight(bits: int, k: int, n: int, gen):
@@ -1424,6 +1463,17 @@ def host_us(fn, iters: int = 100) -> dict:
     woke = asleep.query()
     torch.cuda.synchronize()
     return {"us": t / iters * 1e6, "device_woke": woke}
+
+
+def kernels_per_call(fn, iters: int = 10) -> float:
+    """Device kernels the profiler sees per call of fn."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA) / iters
 
 
 def _has_cuda_kernel(op: str) -> bool:
@@ -1546,6 +1596,7 @@ def check_gemv(gen, bits: int) -> dict:
                       "int_library_call": lib_name,
                       "int_library_ms": None if lib is None else device_ms(lambda: lib(x1), 20),
                       "bytes": _nbytes(*w.values()) + 2 * (k + n), "flops": 2 * k * n}
+        per[label]["kernels_per_call"] = kernels_per_call(lambda: fn(x1, w))
         if lib is not None:  # how close the yardstick's function is to ours
             want = ref(x1, w).float()
             per[label]["int_library_rel_err"] = (

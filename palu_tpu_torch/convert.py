@@ -18,6 +18,7 @@ import torch
 
 from .core.lowrank import LowRankWeights
 from .models.config import ModelConfig
+from .ops.build import require_cuda
 
 __all__ = ["params_from_numpy", "config_from_dict", "lowrank_from_numpy"]
 
@@ -50,9 +51,13 @@ def config_from_dict(d: Dict[str, Any]) -> ModelConfig:
     return ModelConfig(**d)
 
 
-def lowrank_from_numpy(VT, U_list, ranks, bias=None, device="cpu") -> LowRankWeights:
+def lowrank_from_numpy(VT, U_list, ranks, bias=None, device="cuda") -> LowRankWeights:
     """The port's LowRankWeights from a JAX LowRankWeights' fields (numpy
-    VT (sum(ranks), in), per-group U (group_dim, r_g), ranks, bias)."""
+    VT (sum(ranks), in), per-group U (group_dim, r_g), ranks, bias), on the
+    card unless `device` asks for another; raises when CUDA is asked for and
+    absent."""
+    device = require_cuda(device)
+
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 

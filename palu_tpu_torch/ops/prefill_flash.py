@@ -6,8 +6,8 @@ csrc/prefill_flash.cu).
 Query row i of lane b attends key positions p with p <= q_offset[b] + i and
 p < kv_len[b] (and p > q_offset[b] + i - sliding_window when a window is
 set); q-head h reads kv head h * nkv // nh. `prefill_flash` launches the
-kernel for CUDA tensors and runs `prefill_flash_ref`, its plain version,
-for CPU tensors.
+kernel (Hopper wgmma products, K/V tiles by TMA) for CUDA tensors and runs
+`prefill_flash_ref`, its plain version, for CPU tensors.
 """
 
 from __future__ import annotations
@@ -85,6 +85,8 @@ def prefill_flash(q, k, v, q_offset, kv_len, *,
         raise ValueError("q, k, v must be on one device")
     dev = q.device
     qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    if any(t.data_ptr() % 16 for t in (qc, kc, vc)):
+        raise ValueError("the prefill kernel needs q, k, v on 16-byte boundaries (TMA)")
     off = _lanes(q_offset, b, dev)
     kvl = _lanes(kv_len, b, dev)
     out = torch.empty_like(qc)

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions on the card, at
 small shapes. Needs an NVIDIA GPU and nvcc; skips elsewhere. Run on the
-card with: python -m pytest tests/test_torch_kernels_cuda.py -q"""
+card with: python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
+(the prefill and GEMV kernels alone: -k "prefill or gemv")."""
 
 import pytest
 import torch
@@ -76,6 +77,45 @@ def test_prefill_kernel_matches_plain(gen, nh, nkv, window):
     assert (got - want).abs().max() <= (2e-3 + 2.0**-9) * want.abs().max()
 
 
+# (nh, nkv, hd, cq, keys, lane offsets, kv_len below offset + cq by, window):
+# hd 64; chunks of 1, 63, 65 and 200 rows at offsets that put the causal
+# diagonal inside a 128-key tile; kv_len short of the chunk's end (padded
+# tail rows); a window smaller than one key tile; 7 q-heads per kv-head
+PREFILL_EDGES = {
+    "hd64": (4, 2, 64, 96, 256, (0, 150), 0, None),
+    "cq1": (4, 4, 128, 1, 512, (0, 300), 0, None),
+    "cq63": (4, 2, 128, 63, 512, (37, 301), 0, None),
+    "cq65": (4, 4, 128, 65, 512, (5, 190), 0, None),
+    "cq200": (4, 1, 128, 200, 640, (0, 411), 0, None),
+    "kv_short": (4, 2, 128, 200, 512, (20, 250), 57, None),
+    "window40": (4, 4, 128, 200, 512, (0, 277), 0, 40),
+    "window40_hd64": (4, 2, 64, 65, 512, (100, 333), 0, 40),
+    "gqa7": (28, 4, 128, 65, 512, (0, 200), 0, None),
+    "gqa7_short": (28, 4, 128, 130, 512, (70, 250), 33, 100),
+}
+
+
+@pytest.mark.parametrize("case", list(PREFILL_EDGES))
+def test_prefill_kernel_edges_match_plain(gen, case):
+    """The wgmma kernel's tile edges against the plain version. K and V hold
+    NaN at and past kv_len (a cache may hold anything there): those keys
+    must contribute nothing, and the padded tail rows stay finite."""
+    nh, nkv, hd, cq, s, offs, short, window = PREFILL_EDGES[case]
+    b = len(offs)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").bfloat16()
+               for shape in ((b, nh, cq, hd), (b, nkv, s, hd), (b, nkv, s, hd)))
+    off = torch.tensor(offs, dtype=torch.int32, device="cuda")
+    kvl = off + cq - short
+    past = torch.arange(s, device="cuda")[None, None, :, None] >= kvl[:, None, None, None].long()
+    want = prefill_flash_ref(q.float(), k.float(), v.float(), off, kvl, sliding_window=window)
+    n0 = prefill_flash.launches
+    got = prefill_flash(q, k.masked_fill(past, float("nan")), v.masked_fill(past, float("nan")),
+                        off, kvl, sliding_window=window).float()
+    assert prefill_flash.launches == n0 + 1
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= (2e-3 + 2.0**-9) * want.abs().max()
+
+
 def _wq(gen, bits, k, n):
     from palu_tpu_torch.core import wquant
 
@@ -100,10 +140,36 @@ def test_gemv_kernels_match_plain(gen, bits, rows, dtype):
     assert gemv.launches == n0 + 1 and got.dtype == dtype
     tol = 2.0**-7 if dtype == torch.bfloat16 else 1e-5
     assert (got.float() - want.float()).abs().max() <= tol * want.float().abs().max()
+    assert torch.equal(gemv(x, w), got)  # fixed-order sums repeat
     wg, wu, wd = _wq(gen, bits, h, inter), _wq(gen, bits, h, inter), _wq(gen, bits, inter, h)
     got, want = mlp(x, wg, wu, wd), mlp_ref(x, wg, wu, wd)
     assert (got.float() - want.float()).abs().max() <= tol * want.float().abs().max()
     assert torch.equal(mlp(x, wg, wu, wd), got)  # fixed-order split sums repeat
+
+
+@pytest.mark.parametrize("kn", [(128, 128), (128, 512), (1152, 256), (1152, 128), (4096, 384)],
+                         ids=["k128_n128", "k128", "k1152", "k1152_n128", "k4096"])
+@pytest.mark.parametrize("rows", range(1, 9))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gemv_int4_edge_shapes(gen, kn, rows, dtype):
+    """One group (K 128), an odd group count (K 1152: 9 groups, which no
+    split of the contraction divides evenly), one column block (N 128);
+    every row count in both dtypes; two calls bit-identical (the splits are
+    added in a fixed order)."""
+    from palu_tpu_torch.ops.gemv_int4 import gemv_int4, gemv_int4_ref
+
+    k, n = kn
+    # quantize_weight4 would shrink the group below 128 rows at these K
+    # (it wants K % 256 == 0): codes and scales of 128-row groups directly
+    w = {"wq4": torch.randint(0, 256, (k // 2, n), generator=gen, device="cuda",
+                              dtype=torch.uint8),
+         "ws": torch.rand((k // 128, n), generator=gen, device="cuda") * 0.01 + 1e-3}
+    x = torch.randn((rows, k), generator=gen, device="cuda").to(dtype)
+    got, want = gemv_int4(x, w), gemv_int4_ref(x, w)
+    tol = 2.0**-7 if dtype == torch.bfloat16 else 1e-5
+    assert got.dtype == dtype and got.shape == (rows, n)
+    assert (got.float() - want.float()).abs().max() <= tol * want.float().abs().max()
+    assert torch.equal(gemv_int4(x, w), got)
 
 
 # Qwen2-7B's GEMV widths (K, N): q_proj, the U_v-fused o_proj of 28 heads at

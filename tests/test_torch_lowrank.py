@@ -94,7 +94,7 @@ def test_cholesky_with_psd_repair_matches_jax(psd):
 def test_fuse_hadamard_matches_jax(ranks):
     w = _weight(6, out=128, inp=96)
     j = jlr.decompose_svd(w, ranks)
-    t = lowrank_from_numpy(j.VT, j.U, j.ranks)
+    t = lowrank_from_numpy(j.VT, j.U, j.ranks, device="cpu")
     jf, tf = jlr.fuse_hadamard(j), tlr.fuse_hadamard(t)
     _close(tf.VT, jf.VT, 1e-6)
     for tu, ju in zip(tf.U, jf.U):
@@ -102,3 +102,13 @@ def test_fuse_hadamard_matches_jax(ranks):
     # the rotation cancels in U VT^T
     _close(tf.reconstruct_dense(), j.reconstruct_dense())
     assert not np.allclose(tf.VT.numpy(), j.VT)
+
+
+def test_lowrank_from_numpy_defaults_to_the_card():
+    """Without a device it asks for CUDA, which raises where there is none."""
+    j = jlr.decompose_svd(_weight(7, out=64, inp=32), [16])
+    if torch.cuda.is_available():
+        assert lowrank_from_numpy(j.VT, j.U, j.ranks).VT.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            lowrank_from_numpy(j.VT, j.U, j.ranks)
