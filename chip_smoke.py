@@ -8,8 +8,9 @@ Usage (from the repository root, on a machine with a CUDA GPU and nvcc):
 Phases, each printing one JSON line:
   1. device   - the card (nvidia-smi name and power limit), TF32 off;
   2. build    - nvcc builds every kernel from csrc/, all sources at once,
-                and the prefill kernel's SASS must hold wgmma (HGMMA) and TMA
-                loads (UTMALDG);
+                and the SASS of the prefill kernel and of the exact decode
+                kernel must hold wgmma (HGMMA) and TMA loads (UTMALDG); the
+                decode kernel's registers and spills from ptxas;
   3. kernels  - each kernel against its plain PyTorch version on the card at
                 the main path's shapes (7B widths), with the device times
                 (torch.profiler, L2 cold) of the kernel, the plain version
@@ -52,7 +53,8 @@ Phases, each printing one JSON line:
      serving  - the same weights through the ServingEngine (serve_bench's
                 default: unquantized seq-major latents, palu_decode_fp) on
                 the native scheduler: 8 lanes, chunked prefill interleaved
-                with decode, 24 requests of 64 new tokens, 6 of them sampled;
+                with decode, 24 requests of 64 new tokens, 6 of them sampled,
+                then a decode breakdown with all 8 lanes decoding;
      serve_w4 - the same model and traffic as serve under the README's
                 configuration (int4 weights, int8 VT and embedding) with
                 exact GEMV launch counts per step, and its two breakdowns;
@@ -62,7 +64,8 @@ Phases, each printing one JSON line:
                 serve's traffic, with its breakdowns (the Llama weights freed
                 first);
      serving_qwen2 - those weights through the ServingEngine over the
-                per-chunk cache: 8 lanes, 16 requests, 4 of them sampled;
+                per-chunk cache: 8 lanes, 16 requests, 4 of them sampled,
+                and its 8-lane decode breakdown;
   6. the latency entry points (palu_tpu_torch/cli), counts set to 0 just
      before each run and read just after:
      latency_kernel    - run_latency_kernel at 4K / 16K / 64K over bf16
@@ -170,6 +173,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -442,24 +446,26 @@ def phase_build() -> None:
         log = build._lib_path(name).with_suffix(".log")
         if log.exists():
             regs[name] = [l.strip() for l in log.read_text().splitlines()
-                          if "registers" in l or "spill" in l]
+                          if re.search(r"Used \d+ registers", l) or "spill" in l]
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "per_source_s": {k: round(v, 3) for k, v in per.items()}, "ptxas": regs,
-          "prefill_sass": prefill_sass()})
+          "prefill_sass": hopper_sass("prefill_flash"),
+          "decode_sass": {**hopper_sass("palu_decode_exact"),
+                          "ptxas": regs.get("palu_decode_exact", [])}})
 
 
-def prefill_sass() -> dict:
-    """Counts of the Hopper instructions in the prefill kernel's SASS
+def hopper_sass(source: str) -> dict:
+    """Counts of the Hopper instructions in the SASS of csrc/<source>.cu
     (cuobjdump -sass): HGMMA (wgmma) and UTMALDG (TMA loads). Raises when
     either is missing; reports why when cuobjdump is not there."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return {"cuobjdump": "not found"}
-    sass = subprocess.run([tool, "-sass", str(build._lib_path("prefill_flash"))],
+    sass = subprocess.run([tool, "-sass", str(build._lib_path(source))],
                           capture_output=True, text=True, check=True, timeout=120).stdout
     counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG")}
     if not all(counts.values()):
-        raise AssertionError(f"prefill_flash SASS lacks wgmma or TMA loads: {counts}")
+        raise AssertionError(f"{source} SASS lacks wgmma or TMA loads: {counts}")
     return counts
 
 
@@ -583,7 +589,7 @@ def check_decode(gen) -> dict:
     flops = 2 * NH * n * (RK * HD + HD + RV)
     bms, by = bound_ms(nbytes, flops)
     out = {"name": "palu_decode", "route": "cuda",
-           "source": "palu_tpu_torch/csrc/palu_decode.cu",
+           "source": "palu_tpu_torch/csrc/palu_decode_exact.cu",
            "replaces": "palu_tpu/ops/pallas/palu_decode4.py:899",
            "max_abs_err": worst_abs, "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
            "bound_ms": bms, "bound_by": by,
@@ -1044,18 +1050,22 @@ def _k_bias(g: int, hpg: int, gen):
 
 
 def _decode_bound(bufs_bytes: int, lanes: int, nh: int, n: int, rk: int, rv: int,
-                  int8: bool = False, block_s: int = 512) -> tuple:
+                  int8: bool = False, block_s: int = 512, nkv: Optional[int] = None) -> tuple:
     """(bound ms, by, bytes, ops) of one latent decode: cache, q, b_k and
-    output bytes; K rebuild, logits and P.V per head and token (the int8
-    modes' K rebuild on the int8 path, their operand build in f32)."""
-    nbytes = bufs_bytes + lanes * nh * HD * 2 + nh * rk * HD * 2 + lanes * nh * rv * 4
+    output bytes; the K rebuild once per distinct kv-head and token (nkv
+    of them in all groups; nh when every q-head has its own B), the
+    logits and P.V per head and token (the int8 modes' K rebuild, which
+    folds the query in per head, on the int8 path, their operand build in
+    f32)."""
+    nkv = nh if nkv is None else nkv
+    nbytes = bufs_bytes + lanes * nh * HD * 2 + nkv * rk * HD * 2 + lanes * nh * rv * 4
     if int8:
         int8_ops = 2 * lanes * nh * n * rk * HD
         flops = 2 * lanes * nh * n * (HD + rv)
         f32_flops = lanes * (n // block_s) * nh * HD * rk * 4
         bms, by = bound_ms(nbytes, flops, int8_ops, f32_flops)
         return bms, by, nbytes, {"int8_ops": int8_ops, "flops": flops, "f32_flops": f32_flops}
-    flops = 2 * lanes * nh * n * (rk * HD + HD + rv)
+    flops = 2 * lanes * n * (nkv * rk * HD + nh * (HD + rv))
     bms, by = bound_ms(nbytes, flops)
     return bms, by, nbytes, {"flops": flops}
 
@@ -1071,11 +1081,15 @@ def check_decode_bias(gen) -> dict:
     version at DECODE_TOL: palu_decode in its three K-path modes (rotation
     blocks of 512), palu_decode_fp and palu_decode_fp_t, at the Qwen2-7B
     shape (G 1 x 28 q-heads, rk = rv = 256) and the Llama shape (G 8 x 4),
-    batch 1 with S = kv_len = 8192 and 8 lanes of their own kv_len. Then
-    each one's device time at the Qwen2-7B shape, batch 1, S 8192, beside
+    batch 1 with S = kv_len = 8192 and 8 lanes of their own kv_len;
+    palu_decode also on the compact form at Qwen2-7B's (b_k and the bias
+    per kv-head: 4 for 28 q-heads, as the engine keeps them). Then each
+    one's device time at the Qwen2-7B shape, batch 1, S 8192 (palu_decode
+    on the compact form, the exact mode also on the repeated one), beside
     its plain version's and SDPA over dense bf16 GQA K/V (28 q-heads over 4
     kv-heads), and the exact decode without the bias there. Returns the
-    kernels line's palu_decode_k_bias (the exact mode)."""
+    kernels line's palu_decode_k_bias (the exact mode); its bound counts
+    the K rebuild once per kv-head."""
     s_max = 8192
     worst, cases = {}, 0
     names = ("palu_decode", "palu_decode_int8_dots", "palu_decode_int8_rot", "palu_decode_fp",
@@ -1094,10 +1108,15 @@ def check_decode_bias(gen) -> dict:
             kv_len = torch.tensor(kvl, dtype=torch.int32, device="cuda")
             kb = _k_bias(g, hpg, gen)
             q, b_k, bufs = _decode_inputs(FLAGSHIP, len(kvl), g, hpg, s_max, gen, rv, rk)
-            for name, knob in zip(names[:3], ({}, {"int8_dots": True}, {"int8_rot": True})):
-                kw = dict(qcfg=FLAGSHIP, rk=rk, rv=rv, k_bias=kb, block_s=512, **knob)
-                held(name, what, palu_decode(q, b_k, kv_len=kv_len, **bufs, **kw),
-                     palu_decode_ref(q, b_k, kv_len=kv_len, **bufs, **kw))
+            forms = [("", b_k, kb)]
+            if label == "qwen2":  # the engine's compact form: one B and bias per kv-head
+                rep = hpg // QNKV
+                forms.append((" compact", b_k[:, ::rep].contiguous(), kb[:, ::rep].contiguous()))
+            for form, bk_f, kb_f in forms:
+                for name, knob in zip(names[:3], ({}, {"int8_dots": True}, {"int8_rot": True})):
+                    kw = dict(qcfg=FLAGSHIP, rk=rk, rv=rv, k_bias=kb_f, block_s=512, **knob)
+                    held(name, what + form, palu_decode(q, bk_f, kv_len=kv_len, **bufs, **kw),
+                         palu_decode_ref(q, bk_f, kv_len=kv_len, **bufs, **kw))
             del bufs
             q, b_k, seq, rank = _fp_inputs(len(kvl), g, hpg, s_max, gen, rk, rv)
             held("palu_decode_fp", what, palu_decode_fp(q, b_k, *seq, kv_len, k_bias=kb),
@@ -1113,16 +1132,22 @@ def check_decode_bias(gen) -> dict:
     library_ms = device_ms(_dense_kv_sdpa(1, s_max, gen, QNH, QNKV), 20)
     timed = {}
     q, b_k, bufs = _decode_inputs(FLAGSHIP, 1, g, hpg, s_max, gen, rv, rk)
+    rep = hpg // QNKV
+    b_kc, kbc = b_k[:, ::rep].contiguous(), kb[:, ::rep].contiguous()
     for name, knob in zip(names[:3], ({}, {"int8_dots": True}, {"int8_rot": True})):
-        kw = dict(qcfg=FLAGSHIP, rk=rk, rv=rv, k_bias=kb, block_s=512, **knob)
-        bms, by, nbytes, ops = _decode_bound(_nbytes(*bufs.values(), kb), 1, nh, s_max,
-                                             rk, rv, int8=bool(knob))
+        kw = dict(qcfg=FLAGSHIP, rk=rk, rv=rv, k_bias=kbc, block_s=512, **knob)
+        bms, by, nbytes, ops = _decode_bound(_nbytes(*bufs.values(), kbc), 1, nh, s_max,
+                                             rk, rv, int8=bool(knob), nkv=g * QNKV)
         timed[name] = {
-            "ms": device_ms(lambda: palu_decode(q, b_k, kv_len=kv1, **bufs, **kw), 20),
-            "plain_ms": device_ms(lambda: palu_decode_ref(q, b_k, kv_len=kv1, **bufs, **kw), 3),
+            "ms": device_ms(lambda: palu_decode(q, b_kc, kv_len=kv1, **bufs, **kw), 20),
+            "plain_ms": device_ms(lambda: palu_decode_ref(q, b_kc, kv_len=kv1, **bufs, **kw),
+                                  3),
             "bytes": nbytes, **ops, "bound_ms": bms, "bound_by": by}
     timed["palu_decode"]["no_bias_ms"] = device_ms(
-        lambda: palu_decode(q, b_k, kv_len=kv1, **bufs, qcfg=FLAGSHIP, rk=rk, rv=rv), 20)
+        lambda: palu_decode(q, b_kc, kv_len=kv1, **bufs, qcfg=FLAGSHIP, rk=rk, rv=rv), 20)
+    timed["palu_decode"]["repeated_form_ms"] = device_ms(  # 28 B, one per q-head
+        lambda: palu_decode(q, b_k, kv_len=kv1, **bufs, qcfg=FLAGSHIP, rk=rk, rv=rv, k_bias=kb),
+        20)
     del bufs
     q, b_k, seq, rank = _fp_inputs(1, g, hpg, s_max, gen, rk, rv)
     for name, fn, ref, lat in (("palu_decode_fp", palu_decode_fp, palu_decode_fp_ref, seq),
@@ -1135,7 +1160,7 @@ def check_decode_bias(gen) -> dict:
     del q, b_k, seq, rank
     main = timed["palu_decode"]
     out = {"name": "palu_decode_k_bias", "route": "cuda",
-           "source": "palu_tpu_torch/csrc/palu_decode.cu",
+           "source": "palu_tpu_torch/csrc/palu_decode_exact.cu",
            "replaces": "palu_tpu/ops/pallas/palu_decode4.py:932",
            "max_abs_err": worst["palu_decode"][1], "ms": main["ms"], "kernel_ms": main["ms"],
            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
@@ -1152,16 +1177,18 @@ def check_decode_bias(gen) -> dict:
 
 
 def check_decode_chunked(gen) -> dict:
-    """palu_decode over per-chunk scales (chunk 32: MODE 3 of the kernel,
-    its K rebuild folded per scale chunk) against its plain version at
+    """palu_decode over per-chunk scales (chunk 32: the exact kernel's K
+    rebuild folded per scale chunk) against its plain version at
     DECODE_TOL: sym, asym, and asym with the K bias, at the Qwen2-7B shape
     and the Llama shape over two lanes (kv_len 777 and 8192, S 8192), and at
     serving_qwen2's shape (8 lanes, S 4096, asym with the bias). Then its
     device time at the Qwen2-7B shape, batch 1, S 8192 (asym with the bias:
     serving_qwen2's cache), and at serving_qwen2's 8 lanes, beside the
-    plain version's and SDPA over dense GQA K/V. The int8 modes must
-    raise (per-row scales only). Returns the kernels line's
-    palu_decode_chunked."""
+    plain version's and SDPA over dense GQA K/V. At the Qwen2-7B shape
+    the kernel is also held, and timed, on the compact form (b_k and the
+    bias per kv-head, as the engine keeps them). The int8 modes must raise
+    (per-row scales only). Returns the kernels line's palu_decode_chunked;
+    its bound counts the K rebuild once per kv-head."""
     s_max, worst_rel, worst_abs, cases = 8192, 0.0, 0.0, 0
     sym = dataclasses.replace(CHUNKED, sym=True)
     specs = [(shape, qcfg, bias, kvl, s)
@@ -1173,12 +1200,21 @@ def check_decode_chunked(gen) -> dict:
     for (g, hpg, rk, rv), qcfg, bias, kvl, s in specs:
         q, b_k, bufs = _decode_inputs(qcfg, len(kvl), g, hpg, s, gen, rv, rk)
         kv_len = torch.tensor(kvl, dtype=torch.int32, device="cuda")
-        kw = dict(qcfg=qcfg, rk=rk, rv=rv, k_bias=_k_bias(g, hpg, gen) if bias else None)
-        err, rel = _held_decode(f"chunked decode g {g} hpg {hpg} {qcfg} bias {bias} kv {kvl}",
-                                palu_decode(q, b_k, kv_len=kv_len, **bufs, **kw),
-                                palu_decode_ref(q, b_k, kv_len=kv_len, **bufs, **kw))
-        worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, err)
-        cases += 1
+        kb = _k_bias(g, hpg, gen) if bias else None
+        kw = dict(qcfg=qcfg, rk=rk, rv=rv, k_bias=kb)
+        forms = [("", b_k, kb)]
+        if hpg == QHPG:  # the engine's compact form: one B and bias per kv-head
+            rep = hpg // QNKV
+            forms.append((" compact", b_k[:, ::rep].contiguous(),
+                          None if kb is None else kb[:, ::rep].contiguous()))
+        for form, bk_f, kb_f in forms:
+            kwf = dict(kw, k_bias=kb_f)
+            err, rel = _held_decode(
+                f"chunked decode g {g} hpg {hpg} {qcfg} bias {bias} kv {kvl}{form}",
+                palu_decode(q, bk_f, kv_len=kv_len, **bufs, **kwf),
+                palu_decode_ref(q, bk_f, kv_len=kv_len, **bufs, **kwf))
+            worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, err)
+            cases += 1
         for mode in INT8_MODES:
             try:
                 palu_decode(q, b_k, kv_len=kv_len, **bufs, **kw, block_s=512, **{mode: True})
@@ -1193,12 +1229,13 @@ def check_decode_chunked(gen) -> dict:
     for label, lanes, s, n in (("b1_s8192", 1, s_max, s_max), ("b8_s4096", 8, 4096, 2048)):
         q, b_k, bufs = _decode_inputs(CHUNKED, lanes, g, hpg, s, gen, rv, rk)
         kv_len = torch.full((lanes,), n, dtype=torch.int32, device="cuda")
-        kb = _k_bias(g, hpg, gen)
+        rep = hpg // QNKV  # the engine's compact form
+        b_k, kb = b_k[:, ::rep].contiguous(), _k_bias(g, hpg, gen)[:, ::rep].contiguous()
         kw = dict(qcfg=CHUNKED, rk=rk, rv=rv, k_bias=kb)
         # the bytes of the first n positions: what this run reads
         per_pos = _nbytes(*bufs.values()) / s
         bms, by, nbytes, ops = _decode_bound(int(per_pos * n) + kb.numel() * 2, lanes, nh, n,
-                                             rk, rv)
+                                             rk, rv, nkv=g * QNKV)
         timed[label] = {
             "lanes": lanes, "s_max": s, "kv_len": n,
             "ms": device_ms(lambda: palu_decode(q, b_k, kv_len=kv_len, **bufs, **kw), 20),
@@ -1209,7 +1246,7 @@ def check_decode_chunked(gen) -> dict:
         del q, b_k, bufs
     main = timed["b1_s8192"]
     out = {"name": "palu_decode_chunked", "route": "cuda",
-           "source": "palu_tpu_torch/csrc/palu_decode.cu",
+           "source": "palu_tpu_torch/csrc/palu_decode_exact.cu",
            "replaces": "palu_tpu/ops/pallas/palu_decode4.py:968",
            "max_abs_err": worst_abs, "ms": main["ms"], "kernel_ms": main["ms"],
            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
@@ -2192,6 +2229,8 @@ def _serving(tag: str, params, cfg: ModelConfig, ecfg: EngineConfig, n_requests:
         if launches[name] != n:
             raise AssertionError(f"{tag}: {name} launched {launches[name]} times, "
                                  f"expected {n}")
+    srv.engine.decode = decode
+    decode_breakdown(srv.engine, tag, cache=srv.cache)  # all lanes, after the counts
     return launches
 
 
@@ -2824,12 +2863,13 @@ def prefill_breakdown(eng, ids, tag: str) -> None:
           **_breakdown(prof, wall_ms, 1)})
 
 
-def decode_breakdown(eng, tag: str, steps: int = 4) -> None:
-    """Where one decode step's time goes at the last request's context:
-    wall time per step, device busy time (kernels, torch.profiler), the
-    device's idle share, and the kernels that take the most device time."""
-    cache = eng.last_cache
-    tok = np.zeros((1, 1), np.int64)
+def decode_breakdown(eng, tag: str, steps: int = 4, cache=None) -> None:
+    """Where one decode step's time goes at the last request's context (or
+    on `cache`, every lane decoding): wall time per step, device busy time
+    (kernels, torch.profiler), the device's idle share, and the kernels that
+    take the most device time."""
+    cache = eng.last_cache if cache is None else cache
+    tok = np.zeros((eng.batch, 1), np.int64)
     eng.decode(tok, cache)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2838,8 +2878,9 @@ def decode_breakdown(eng, tag: str, steps: int = 4) -> None:
             eng.decode(tok, cache)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / steps * 1e3
-    emit({"phase": "decode_breakdown", "of": tag, "context": int(cache["length"][0]),
-          "per": "step", **_breakdown(prof, wall_ms, steps)})
+    emit({"phase": "decode_breakdown", "of": tag, "lanes": eng.batch,
+          "context": int(cache["length"].max()), "per": "step",
+          **_breakdown(prof, wall_ms, steps)})
 
 
 # ---------------------------------------------------------------------------
@@ -3032,7 +3073,7 @@ def check_decode_stats(gen) -> list:
         stats_err = worst["palu_decode exact" if name == "palu_decode" else name]
         s0, li = t["shard0"], t["layer_idx"]
         lines.append({"name": f"{name}_stats", "route": "cuda",
-                      "source": "palu_tpu_torch/csrc/" + ("palu_decode.cu" if name ==
+                      "source": "palu_tpu_torch/csrc/" + ("palu_decode_exact.cu" if name ==
                                                           "palu_decode" else "palu_decode_fp.cu"),
                       "replaces": "palu_tpu/ops/pallas/palu_decode4.py:"
                                   + ("922" if name == "palu_decode" else "1015"),

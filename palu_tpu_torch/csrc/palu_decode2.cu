@@ -74,7 +74,7 @@ extern "C" int palu_decode2_quantized(const void* q, int q_bf16, const void* bk,
   a.tiles_per_split = tiles_per_split;
   a.sqrt_hd = sqrt_hd;
   a.rope_scale = rope_scale;
-  a.nsk = a.nsv = 1;
+  a.rep = 1;
   return run_split<2>(a, 0, B, hd, static_cast<float*>(out),
                       static_cast<cudaStream_t>(stream));
 }

@@ -75,7 +75,7 @@ extern "C" int palu_decode3_quantized(const void* q, int q_bf16, const void* bk,
   a.tiles_per_split = tiles_per_split;
   a.sqrt_hd = 1.0f;  // the query comes pre-scaled
   a.block_s = block_s;
-  a.nsk = a.nsv = 1;
+  a.rep = 1;
   return run_split<3>(a, 0, B, hd, static_cast<float*>(out),
                       static_cast<cudaStream_t>(stream));
 }

@@ -1,12 +1,11 @@
 // The split pass of the latent decode over the rank-major packed cache and
 // its host-side launch, shared by three generations of the decode:
-// palu_decode.cu (v4, the production decode; its header describes the
-// design), and the archived A/B baselines palu_decode2.cu (v2) and
-// palu_decode3.cu (v3). They compute one function, the exact K path over
-// per-row affine scales, and differ only in how RoPE and the scales reach
-// the kernel (the template argument GEN):
-//   4 - f32 cos/sin rows of every absolute position, read from tables the
-//       wrapper built (S x hd/2 each); scales (B, G, S);
+// palu_decode.cu (v4's int8 K-path modes; its header describes the design;
+// v4's exact modes run on palu_decode_exact.cu), and the archived A/B
+// baselines palu_decode2.cu (v2) and palu_decode3.cu (v3), which run the
+// exact K path over per-row affine scales and differ only in how RoPE and
+// the scales reach the kernel (the template argument GEN):
+//   4 - the int8 modes (MODE 1 and 2): block-relative tables (below);
 //   2 - cos/sin computed in the kernel, sincosf of the f32 angle
 //       (position * inv_freq[j]) times rope_scale, as the v2 TPU kernel
 //       forms them; no table of positions is read;
@@ -57,36 +56,32 @@ constexpr int kCk = kTile + 8;
 constexpr int kBPad = 8;
 constexpr int kI8Pad = 16;  // int8 rows of rk + 16 bytes: (rk + 16) / 4 words, 4 mod 32 banks
 constexpr int kRed = 16;    // reduction rows: [head parity][4 sums][warp half]
-constexpr uint32_t kOnes = 0x3F803F80u;  // two bf16 ones: the A fragment of rowsum B
 
 struct DecodeArgs {
   const void* q;               // (B, nh, hd) bf16 or f32, roped at the current position
   int q_bf16;
-  const __nv_bfloat16* bk;     // (G, hpg, rk, hd)
+  const __nv_bfloat16* bk;     // (G, hpg / rep, rk, hd): q-head h reads B of h / rep
   const uint8_t* kc;           // (B, G, nrk, S)
-  const float* ks;             // (B, G, nsk, S): nsk 1 per row, rk / gs per chunk
+  const float* ks;             // (B, G, S)
   const float* kz;             // the same, asym only
   const uint8_t* vc;           // (B, G, nrv, S)
   const float* vs;
   const float* vz;
   const int* kv_len;           // (B,) absolute positions: column t is position pos_offset + t
-  const float* cos_t;          // exact: (S, hd/2), row t at position pos_offset + t
-  const float* sin_t;
   const float* c0;             // int8 modes: (S / block_s, hd/2) block-start rotation
   const float* s0;
   const float* rcos;           // (block_s, hd/2) block-relative rotation
   const float* rsin;
   const int8_t* cos8;          // int8_rot: (block_s, hd/2) at scale 63 / cmax
   const int8_t* sin8;
-  const float* kbias;          // (G, hpg, hd) pre-RoPE K bias, or null
+  const float* kbias;          // (G, hpg / rep, hd) pre-RoPE K bias, or null
   const float* inv_freq;       // GEN 2: (hd/2,) f32 RoPE frequencies
   float* part_m;               // (B, nh, splits)
   float* part_l;
   float* part_acc;             // (B, nh, splits, rv)
-  int G, hpg, rk, rv, S, nrk, nrv, pbits, qoff, asym, window;
+  int G, hpg, rep, rk, rv, S, nrk, nrv, pbits, qoff, asym, window;
   int splits, tiles_per_split, chunk_heads, block_s;
-  int rc;                      // exact modes: ranks per chunk (rk when one chunk)
-  int gs, nsk, nsv;            // MODE 3: ranks per scale chunk, scale rows of K and V
+  int rc;                      // exact mode: ranks per chunk (rk when one chunk)
   float sqrt_hd, i8r_inv;
   float rope_scale;            // GEN 2: multiplies cos and sin
   int layer;                   // the layer of (L, B, G, ...) stacked cache buffers (0: one layer)
@@ -181,16 +176,15 @@ struct SplitLayout {
       sk, stat, total;
 };
 
-// modes 0 and 3 stage rc ranks of B in bf16 and a bf16 code tile of rc
-// ranks; modes 1 and 2 the int8 operand (chunk heads x hd rows of rk bytes)
-// with its six per-row f32 / int arrays (a1|a2, row max, scale, row sum,
-// scaled row sum, the bias fold U_b|V_b) and an int8 code tile; mode 2 also
-// the int8 rotation rows of the tile. Mode 3 adds the tile's per-chunk
-// scale and zero rows (nsk + nsv of each).
+// mode 0 stages rc ranks of B in bf16 and a bf16 code tile of rc ranks;
+// modes 1 and 2 the int8 operand (chunk heads x hd rows of rk bytes) with
+// its six per-row f32 / int arrays (a1|a2, row max, scale, row sum, scaled
+// row sum, the bias fold U_b|V_b) and an int8 code tile; mode 2 also the
+// int8 rotation rows of the tile.
 __host__ __device__ inline SplitLayout split_layout(int rk, int hd, int hpg, int rv, int nrk,
                                                     int nrv, int asym, int chunk, int mode,
-                                                    int rc, int nsk, int nsv) {
-  const bool exact = mode == 0 || mode == 3;
+                                                    int rc) {
+  const bool exact = mode == 0;
   const size_t rope = sizeof(float) * kTile * (hd / 2 + 1);
   const size_t i8row = static_cast<size_t>(rk + kI8Pad);
   SplitLayout L;
@@ -215,8 +209,7 @@ __host__ __device__ inline SplitLayout split_layout(int rk, int hd, int hpg, int
   L.lg = off;     off = al(off + sizeof(float) * hpg * kTile);
   L.pw = off;     off = al(off + sizeof(float) * hpg * kTile);
   L.red = off;    off = al(off + sizeof(float) * (exact ? 4 : kRed) * kTile);
-  L.sk = off;
-  off = al(off + sizeof(float) * (4 + (mode == 3 ? 2 * (nsk + nsv) : 0)) * kTile);
+  L.sk = off;     off = al(off + sizeof(float) * 4 * kTile);
   L.stat = off;   off = al(off + sizeof(float) * 4 * kMaxHeads);
   L.total = off;
   return L;
@@ -227,10 +220,10 @@ __host__ __device__ inline SplitLayout split_layout(int rk, int hd, int hpg, int
 // that take none). GEN: the decode generation (this file's header).
 template <int HD, int MODE, bool BIAS, int GEN = 4>
 __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs a) {
-  static_assert(GEN == 4 || ((GEN == 2 || GEN == 3) && MODE == 0 && !BIAS),
-                "v2 / v3: the exact mode over per-row scales, no bias");
-  constexpr bool EXACT = MODE == 0 || MODE == 3;  // K rebuilt in bf16 mma
-  constexpr bool CHUNKED = MODE == 3;             // per-chunk scales
+  static_assert((GEN == 4 && (MODE == 1 || MODE == 2)) ||
+                    ((GEN == 2 || GEN == 3) && MODE == 0 && !BIAS),
+                "v4: the int8 modes; v2 / v3: the exact mode over per-row scales, no bias");
+  constexpr bool EXACT = MODE == 0;  // K rebuilt in bf16 mma
   constexpr int half = HD / 2;
   constexpr int HS = HD + kBPad;  // B row stride
   constexpr int NTH = HD / 16;    // 8-wide column tiles per half of hd
@@ -247,7 +240,7 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
 
   extern __shared__ __align__(128) unsigned char smem[];
   const SplitLayout L = split_layout(rk, HD, hpg, rv, a.nrk, a.nrv, a.asym, a.chunk_heads,
-                                     MODE, a.rc, a.nsk, a.nsv);
+                                     MODE, a.rc);
   const int i8s = rk + kI8Pad;  // int8 row stride (operand and code tile)
   const int rc = a.rc, nrc = (rk + rc - 1) / rc;  // exact mode's rank chunks
   __nv_bfloat16* bsm = reinterpret_cast<__nv_bfloat16*>(smem + L.bsm);  // [chunk][rc][HS]
@@ -265,11 +258,6 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
   float* pw = reinterpret_cast<float*>(smem + L.pw);    // [hpg][kTile] p * scale_v
   float* red = reinterpret_cast<float*>(smem + L.red);  // [head parity][warp half][kTile]
   float* sk = reinterpret_cast<float*>(smem + L.sk);    // [4][kTile]: sk, zk, sv, zv
-  // MODE 3: the tile's chunk scales and zeros, [nsk][kTile] twice, then [nsv][kTile] twice
-  float* csk = sk + 4 * kTile;
-  float* czk = csk + a.nsk * kTile;
-  float* csv = czk + a.nsk * kTile;
-  float* czv = csv + a.nsv * kTile;
   float* stat = reinterpret_cast<float*>(smem + L.stat);  // [4][kMaxHeads]: m, l, alpha, zsum
   // int8 modes: the operand [chunk][hd][i8s] and its per-row arrays
   int8_t* nq = reinterpret_cast<int8_t*>(smem + L.bsm);
@@ -300,12 +288,14 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
   // v3's (B, S, 2G) packed rows (scale in column g, zero in column G + g)
   const int sst = GEN == 3 ? 2 * a.G : 1;
   const size_t sz0 = static_cast<size_t>(b) * a.S * sst + g;  // GEN 3
-  const float* ksc = GEN == 3 ? a.ks + sz0 : a.ks + bg * a.nsk * a.S;
-  const float* vsc = GEN == 3 ? a.vs + sz0 : a.vs + bg * a.nsv * a.S;
-  const float* kzp = GEN == 3 ? ksc + a.G : a.asym ? a.kz + bg * a.nsk * a.S : nullptr;
-  const float* vzp = GEN == 3 ? vsc + a.G : a.asym ? a.vz + bg * a.nsv * a.S : nullptr;
-  const float* kb_g = BIAS ? a.kbias + static_cast<size_t>(g) * hpg * HD : nullptr;
-  const __nv_bfloat16* bk_g = a.bk + static_cast<size_t>(g) * hpg * rk * HD;
+  const float* ksc = GEN == 3 ? a.ks + sz0 : a.ks + bg * a.S;
+  const float* vsc = GEN == 3 ? a.vs + sz0 : a.vs + bg * a.S;
+  const float* kzp = GEN == 3 ? ksc + a.G : a.asym ? a.kz + bg * a.S : nullptr;
+  const float* vzp = GEN == 3 ? vsc + a.G : a.asym ? a.vz + bg * a.S : nullptr;
+  // B and the K bias of q-head h are kv-head h / rep's (rep 1: the repeated form)
+  const int nkv = hpg / a.rep;
+  const float* kb_g = BIAS ? a.kbias + static_cast<size_t>(g) * nkv * HD : nullptr;
+  const __nv_bfloat16* bk_g = a.bk + static_cast<size_t>(g) * nkv * rk * HD;
 
   for (int r = tid; r < rk; r += kThreads) ktab[r] = rank_entry(r, rk, a.pbits);
   for (int r = tid; r < rv; r += kThreads) vtab[r] = rank_entry(r, rv, a.pbits);
@@ -388,7 +378,8 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
         if (BIAS) {  // the bias fold of this block's rotated query (cache-independent)
           for (int i = tid; i < nc * half; i += kThreads) {
             const int h = i / half, e = i % half;
-            const float kb1 = kb_g[(c0 + h) * HD + e], kb2 = kb_g[(c0 + h) * HD + half + e];
+            const float* kbh = kb_g + (c0 + h) / a.rep * HD;
+            const float kb1 = kbh[e], kb2 = kbh[half + e];
             const float a1 = aq[h * HD + e], a2 = aq[h * HD + half + e];
             bqb[h * HD + e] = __fadd_rn(__fmul_rn(a1, kb1), __fmul_rn(a2, kb2));
             bqb[h * HD + half + e] = __fsub_rn(__fmul_rn(a2, kb1), __fmul_rn(a1, kb2));
@@ -397,7 +388,7 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
         const int e = tid % half, rstep = kThreads / half;  // half divides kThreads
         for (int h = 0; h < nc; ++h) {
           const float a1 = aq[h * HD + e], a2 = aq[h * HD + half + e];
-          const __nv_bfloat16* bh = bk_g + static_cast<size_t>(c0 + h) * rk * HD;
+          const __nv_bfloat16* bh = bk_g + static_cast<size_t>((c0 + h) / a.rep) * rk * HD;
           float m1 = 0.0f, m2 = 0.0f;
           for (int r = tid / half; r < rk; r += rstep) {
             float v1, v2;
@@ -422,7 +413,7 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
         for (int h = 0; h < nc; ++h) {
           const float a1 = aq[h * HD + e], a2 = aq[h * HD + half + e];
           const float sc1 = osc[h * HD + e], sc2 = osc[h * HD + half + e];
-          const __nv_bfloat16* bh = bk_g + static_cast<size_t>(c0 + h) * rk * HD;
+          const __nv_bfloat16* bh = bk_g + static_cast<size_t>((c0 + h) / a.rep) * rk * HD;
           int n1s = 0, n2s = 0;
           for (int r = tid / half; r < rk; r += rstep) {
             float v1, v2;
@@ -446,35 +437,20 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
       load_byte_tile(kbytes, kc, a.nrk, a.S, s0, tid);
       load_byte_tile(vbytes, vc, a.nrv, a.S, s0, tid);
       if (tid < kTile) {
-        // per-chunk scales and zeros enter the dots below: unit rows here
         const int s = s0 + tid;
         const bool in = s < a.S;
-        sk[tid] = in ? (CHUNKED ? 1.0f : ksc[s * sst]) : 0.0f;
-        sv[tid] = in ? (CHUNKED ? 1.0f : vsc[s * sst]) : 0.0f;
+        sk[tid] = in ? ksc[s * sst] : 0.0f;
+        sv[tid] = in ? vsc[s * sst] : 0.0f;
         // int8 modes fold the symmetric offset into the zero correction
-        zk[tid] = (in && a.asym && !CHUNKED) ? kzp[s * sst]
+        zk[tid] = (in && a.asym) ? kzp[s * sst]
                   : (in && !EXACT) ? sk[tid] * static_cast<float>(-a.qoff) : 0.0f;
-        zv[tid] = (in && a.asym && !CHUNKED) ? vzp[s * sst] : 0.0f;
+        zv[tid] = (in && a.asym) ? vzp[s * sst] : 0.0f;
       }
-      if (CHUNKED) {
-        for (int i = tid; i < (a.nsk + a.nsv) * kTile; i += kThreads) {
-          const int row = i / kTile, t = i % kTile, s = s0 + t;
-          const bool in = s < a.S;
-          const bool kside = row < a.nsk;
-          const int c = kside ? row : row - a.nsk;
-          const float* sc = kside ? ksc : vsc;
-          const float* zp = kside ? kzp : vzp;
-          float* dst = kside ? csk : csv;
-          const int n = kside ? a.nsk : a.nsv;
-          dst[c * kTile + t] = in ? sc[static_cast<size_t>(c) * a.S + s] : 0.0f;
-          dst[(n + c) * kTile + t] = (in && a.asym) ? zp[static_cast<size_t>(c) * a.S + s] : 0.0f;
-        }
-      }
-      // rope rows: absolute positions (exact), block-relative ones (int8,
-      // v3), or computed here from the positions (v2)
-      const float* cos_src = EXACT && GEN != 3 ? a.cos_t : a.rcos;
-      const float* sin_src = EXACT && GEN != 3 ? a.sin_t : a.rsin;
-      const int row0 = EXACT && GEN != 3 ? s0 : s0 - blk * a.block_s;
+      // rope rows: block-relative ones (int8, v3), or computed here from the
+      // positions (v2)
+      const float* cos_src = a.rcos;
+      const float* sin_src = a.rsin;
+      const int row0 = s0 - blk * a.block_s;
       if constexpr (GEN == 2) {
         for (int i = tid; i < kTile * half; i += kThreads) {
           const int t = i / half, f = i % half;
@@ -627,9 +603,6 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
         }
       } else {
         const float sk_a = sk[tok_a], sk_b = sk[tok_b], zk_a = zk[tok_a], zk_b = zk[tok_b];
-        // MODE 3: k-step halves per scale chunk boundary check (chunks of 8
-        // end inside a k-step)
-        const int nsub = CHUNKED && a.gs % 16 ? 2 : 1;
         for (int ci = 0; ci < nrc; ++ci) {
           // ---- rank chunk ci: ranks [r0, r0 + nr)
           const int r0 = ci * rc, nr = min(rc, rk - r0), nkc = nr / 16;
@@ -669,80 +642,20 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
             float acc[2 * NTW][4];
 #pragma unroll
             for (int j = 0; j < 2 * NTW; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
-            if constexpr (CHUNKED) {
-              // tk: codes^T B_h of the current scale chunk; tz: rowsum of its
-              // B_h rows (asym), the same mma on an A fragment of ones
-              float tk[2 * NTW][4], tz[2 * NTW][4];
 #pragma unroll
-              for (int j = 0; j < 2 * NTW; ++j)
+            for (int ks = 0; ks < kMaxKSteps; ++ks) {
+              if (ks < nkc) {
+                const __nv_bfloat16* brow =
+                    bh + (ks * 16 + ri + (mi & 1) * 8) * HS + (mi >> 1) * 8;
 #pragma unroll
-                for (int u = 0; u < 4; ++u) tk[j][u] = tz[j][u] = 0.0f;
-#pragma unroll
-              for (int ks = 0; ks < kMaxKSteps; ++ks) {
-                if (ks < nkc) {
-                  const __nv_bfloat16* brow =
-                      bh + (ks * 16 + ri + (mi & 1) * 8) * HS + (mi >> 1) * 8;
-                  for (int sub = 0; sub < nsub; ++sub) {
-                    // a0/a1 hold ranks 0-7 of the k-step, a2/a3 ranks 8-15
-                    const bool lo = nsub == 1 || sub == 0, hi = nsub == 1 || sub == 1;
-                    const uint32_t am[4] = {lo ? af[ks][0] : 0u, lo ? af[ks][1] : 0u,
-                                            hi ? af[ks][2] : 0u, hi ? af[ks][3] : 0u};
-                    const uint32_t om[4] = {lo ? kOnes : 0u, lo ? kOnes : 0u,
-                                            hi ? kOnes : 0u, hi ? kOnes : 0u};
-#pragma unroll
-                    for (int p = 0; p < NTW; p += 2) {
-                      uint32_t bf[4];
-                      ldmatrix_x4_trans(bf, brow + (jw + p) * 8);
-                      mma_bf16(tk[p], am, bf[0], bf[1]);
-                      mma_bf16(tk[p + 1], am, bf[2], bf[3]);
-                      if (a.asym) {
-                        mma_bf16(tz[p], om, bf[0], bf[1]);
-                        mma_bf16(tz[p + 1], om, bf[2], bf[3]);
-                      }
-                      ldmatrix_x4_trans(bf, brow + (NTH + jw + p) * 8);
-                      mma_bf16(tk[NTW + p], am, bf[0], bf[1]);
-                      mma_bf16(tk[NTW + p + 1], am, bf[2], bf[3]);
-                      if (a.asym) {
-                        mma_bf16(tz[NTW + p], om, bf[0], bf[1]);
-                        mma_bf16(tz[NTW + p + 1], om, bf[2], bf[3]);
-                      }
-                    }
-                    // the end of a scale chunk (or of this rank chunk): fold
-                    // with the chunk's scale and zero of each row's token
-                    const int r_end = r0 + ks * 16 + (sub + 1) * (16 / nsub);
-                    if (r_end % a.gs == 0 || r_end == r0 + nr) {
-                      const int c = (r_end - 1) / a.gs;
-                      const float sa = csk[c * kTile + tok_a], sb = csk[c * kTile + tok_b];
-                      const float za = czk[c * kTile + tok_a], zb = czk[c * kTile + tok_b];
-#pragma unroll
-                      for (int j = 0; j < 2 * NTW; ++j) {
-#pragma unroll
-                        for (int u = 0; u < 4; ++u) {
-                          const float sc = u < 2 ? sa : sb, z = u < 2 ? za : zb;
-                          acc[j][u] += tk[j][u] * sc + tz[j][u] * z;
-                          tk[j][u] = tz[j][u] = 0.0f;
-                        }
-                      }
-                    }
-                  }
-                }
-              }
-            } else {
-#pragma unroll
-              for (int ks = 0; ks < kMaxKSteps; ++ks) {
-                if (ks < nkc) {
-                  const __nv_bfloat16* brow =
-                      bh + (ks * 16 + ri + (mi & 1) * 8) * HS + (mi >> 1) * 8;
-#pragma unroll
-                  for (int p = 0; p < NTW; p += 2) {
-                    uint32_t bf[4];
-                    ldmatrix_x4_trans(bf, brow + (jw + p) * 8);
-                    mma_bf16(acc[p], af[ks], bf[0], bf[1]);
-                    mma_bf16(acc[p + 1], af[ks], bf[2], bf[3]);
-                    ldmatrix_x4_trans(bf, brow + (NTH + jw + p) * 8);
-                    mma_bf16(acc[NTW + p], af[ks], bf[0], bf[1]);
-                    mma_bf16(acc[NTW + p + 1], af[ks], bf[2], bf[3]);
-                  }
+                for (int p = 0; p < NTW; p += 2) {
+                  uint32_t bf[4];
+                  ldmatrix_x4_trans(bf, brow + (jw + p) * 8);
+                  mma_bf16(acc[p], af[ks], bf[0], bf[1]);
+                  mma_bf16(acc[p + 1], af[ks], bf[2], bf[3]);
+                  ldmatrix_x4_trans(bf, brow + (NTH + jw + p) * 8);
+                  mma_bf16(acc[NTW + p], af[ks], bf[0], bf[1]);
+                  mma_bf16(acc[NTW + p + 1], af[ks], bf[2], bf[3]);
                 }
               }
             }
@@ -840,18 +753,9 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
       for (int r = tid; r < rv; r += kThreads) {
         const uint32_t e = vtab[r];
         float cv[kTile];
-        if (CHUNKED) {  // dequantized with the rank's chunk scale and zero
-          const float* svc = csv + (r / a.gs) * kTile;
-          const float* zvc = czv + (r / a.gs) * kTile;
 #pragma unroll
-          for (int t = 0; t < kTile; ++t)
-            cv[t] = static_cast<float>(unpack_code(vbytes, kByteStride, t, e, a.pbits) - a.qoff) *
-                        svc[t] + zvc[t];
-        } else {
-#pragma unroll
-          for (int t = 0; t < kTile; ++t)
-            cv[t] = static_cast<float>(unpack_code(vbytes, kByteStride, t, e, a.pbits) - a.qoff);
-        }
+        for (int t = 0; t < kTile; ++t)
+          cv[t] = static_cast<float>(unpack_code(vbytes, kByteStride, t, e, a.pbits) - a.qoff);
         for (int h = c0; h < c0 + nc; ++h) {
           float acc = acc_s[h * rv + r] * alpha_s[h];
           const float* ph = pw + h * kTile;
@@ -879,7 +783,7 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
 template <int HD, int MODE, bool BIAS, int GEN = 4>
 int launch_split(const DecodeArgs& a, int B, cudaStream_t st) {
   const size_t smem = split_layout(a.rk, HD, a.hpg, a.rv, a.nrk, a.nrv, a.asym, a.chunk_heads,
-                                  MODE, a.rc, a.nsk, a.nsv).total;
+                                  MODE, a.rc).total;
   cudaError_t err = cudaFuncSetAttribute(palu_decode_split_kernel<HD, MODE, BIAS, GEN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -891,10 +795,7 @@ int launch_split(const DecodeArgs& a, int B, cudaStream_t st) {
 
 template <int HD, bool BIAS>
 int launch_mode(const DecodeArgs& a, int mode, int B, cudaStream_t st) {
-  if (mode == 1) return launch_split<HD, 1, BIAS>(a, B, st);
-  if (mode == 2) return launch_split<HD, 2, BIAS>(a, B, st);
-  if (mode == 3) return launch_split<HD, 3, BIAS>(a, B, st);
-  return launch_split<HD, 0, BIAS>(a, B, st);
+  return mode == 1 ? launch_split<HD, 1, BIAS>(a, B, st) : launch_split<HD, 2, BIAS>(a, B, st);
 }
 
 template <int HD>
@@ -903,15 +804,15 @@ int launch_bias(const DecodeArgs& a, int mode, int B, cudaStream_t st) {
 }
 
 // Fit as many heads' B (or int8 operands) in shared memory as fit beside
-// the rest (the exact modes take ranks in chunks of up to 128, and of
-// fewer when not even one head's 128 rows of B fit), launch the split pass
-// of generation GEN (4: any mode, with or without bias; 2 and 3: mode 0,
-// no bias) and then the combine into out (B, nh, rv): normalised, or with
+// the rest (the exact mode takes ranks in chunks of up to 128, and of fewer
+// when not even one head's 128 rows of B fit), launch the split pass of
+// generation GEN (4: mode 1 or 2, with or without bias; 2 and 3: mode 0, no
+// bias) and then the combine into out (B, nh, rv): normalised, or with
 // m_out / l_out given the raw statistics (decode_common.cuh). hd is 64 or 128.
 template <int GEN>
 int run_split(DecodeArgs& a, int mode, int B, int hd, float* out, cudaStream_t st,
               float* m_out = nullptr, float* l_out = nullptr) {
-  const bool exact = mode == 0 || mode == 3;
+  const bool exact = mode == 0;
   a.chunk_heads = 0;
   const int rcs[4] = {exact ? min(a.rk, kRc) : a.rk, 64, 32, 16};
   for (int k = 0; k < (exact ? 4 : 1) && a.chunk_heads == 0; ++k) {
@@ -919,7 +820,7 @@ int run_split(DecodeArgs& a, int mode, int B, int hd, float* out, cudaStream_t s
     a.rc = rcs[k];
     a.chunk_heads = a.hpg;
     while (a.chunk_heads > 0 && split_layout(a.rk, hd, a.hpg, a.rv, a.nrk, a.nrv, a.asym,
-                                             a.chunk_heads, mode, a.rc, a.nsk, a.nsv).total >
+                                             a.chunk_heads, mode, a.rc).total >
                                     kSmemMax)
       --a.chunk_heads;
   }

@@ -34,7 +34,7 @@ import torch
 
 from ...core.quant import QuantConfig, packed_nrows, unpack_codes_t
 from .. import build
-from ..palu_decode import _MAX_HEADS, _MAX_RK, _splits
+from ..palu_decode import _MAX_HEADS, _MAX_RK, _device_splits
 
 __all__ = ["palu_decode2", "palu_decode2_ref", "palu_decode2_quantized",
            "palu_decode2_quantized_ref", "v2_inv_freq"]
@@ -183,7 +183,7 @@ def _launch_setup(q, b_k, tensors, s_max: int, rk: int, what: str):
         raise ValueError("all tensors must be on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("cache buffers, scales and zeros must be contiguous")
-    return (q.device, *_splits(q.device, b * g, s_max))
+    return (q.device, *_device_splits(q.device, b * g, s_max)[:2])
 
 
 def _scratch(b: int, nh: int, rv: int, splits: int, dev) -> tuple:

@@ -1,12 +1,19 @@
 """Latent decode attention over the rank-major packed cache (port of
 palu_tpu/ops/pallas/palu_decode4.py::palu_flash_decode4_quantized; the
-kernel is csrc/palu_decode.cu).
+kernels are csrc/palu_decode_exact.cu for the exact modes and
+csrc/palu_decode.cu for the int8 ones).
 
 `palu_decode` launches the kernel for CUDA tensors and runs `palu_decode_ref`,
-its plain version, for CPU tensors. Per-row scales (B, G, S) or per-chunk
-row stacks (B, G, rank // group_size, S) (the reference's --lt_group_size),
-symmetric or asymmetric, pack widths 2/3/4/8. Returns (B, nh, rv) f32
-latent-space outputs for the U_v-fused o_proj. `k_bias` (G, hpg, hd) adds
+its plain version, for CPU tensors. b_k is JAX's (G, hpg, rk, hd), one B
+per q-head, or the compact GQA form (G, hpg / rep, rk, hd), one per
+kv-head, where the rep q-heads h * rep .. h * rep + rep - 1 of a group read
+kv-head h (rep = nh / (G * b_k.shape[1]), from the shapes); k_bias follows
+b_k's form. The plain version expands the compact form with
+repeat_interleave; the kernels rebuild K once per kv-head. Per-row scales
+(B, G, S) or per-chunk row stacks (B, G, rank // group_size, S) (the
+reference's --lt_group_size), symmetric or asymmetric, pack widths
+2/3/4/8. Returns (B, nh, rv) f32 latent-space outputs for the U_v-fused
+o_proj. `k_bias` adds
 Qwen2's pre-RoPE K bias: K = lat @ B + b before RoPE in the exact mode; in
 the int8 modes, as in the JAX kernel, the cache-independent logit term
 U_b . rcos + V_b . rsin with U_b = a1 b1 + a2 b2 and V_b = a2 b1 - a1 b2 (a1 /
@@ -35,9 +42,10 @@ Three more features of the JAX kernel serve the sequence-parallel and the
 layer-stacked decodes, in every mode:
   pos_offset   - the buffer holds one sequence shard: column t is absolute
                  position pos_offset + t. RoPE takes the absolute position
-                 (the exact mode reads the cos / sin rows from there, the
-                 int8 modes rotate the query by each block's absolute
-                 start); kv_len stays absolute and the window with it.
+                 (the exact mode's kernel forms each token's rotation from
+                 it, the int8 modes rotate the query by each block's
+                 absolute start); kv_len stays absolute and the window
+                 with it.
   return_stats - return (acc (B, nh, rv), m (B, nh), l (B, nh)) f32: the
                  accumulator not divided by the softmax denominator l, and
                  the running max m, for the cross-shard combine
@@ -66,8 +74,8 @@ from .attention import _inv_freq, flash_decode_latent
 
 __all__ = ["palu_decode", "palu_decode_ref", "k_path_mode", "FEATURES"]
 
-_TILE = 64        # tokens per kernel tile (kTile in the source)
-_MAX_HEADS = 32   # q-heads per group the kernel holds (kMaxHeads): Qwen2-7B has 28
+_TILE = 64        # tokens per kernel tile (kTile in the sources)
+_MAX_HEADS = 32   # q-heads per group the kernels hold (kMaxHeads): Qwen2-7B has 28
 _MAX_RK = 512     # kMaxRank: a G-LRD group's rank at group size 4 and hd 128
 
 
@@ -84,11 +92,12 @@ def _check(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, qcfg, rk, rv,
     if qcfg.sym != (xk_zero is None and xv_zero is None):
         raise ValueError("zero rows must be given exactly when qcfg is asymmetric")
     if q.dim() != 3 or b_k.dim() != 4:
-        raise ValueError("q must be (B, nh, hd) and b_k (G, hpg, rk, hd)")
+        raise ValueError("q must be (B, nh, hd) and b_k (G, hpg or hpg / rep, rk, hd)")
     b, nh, hd = q.shape
-    g, hpg = b_k.shape[0], b_k.shape[1]
-    if g * hpg != nh or tuple(b_k.shape[2:]) != (rk, hd):
-        raise ValueError(f"b_k {tuple(b_k.shape)} does not match q {tuple(q.shape)} / rk {rk}")
+    g, nkv = b_k.shape[0], b_k.shape[1]
+    if nh % g or (nh // g) % nkv or tuple(b_k.shape[2:]) != (rk, hd):
+        raise ValueError(f"b_k {tuple(b_k.shape)} does not match q {tuple(q.shape)} / rk {rk}: "
+                         f"its second axis must divide the {nh // max(g, 1)} q-heads per group")
     s_max = xk_codes.shape[-1]
     lead = _lead(xk_codes, layer_idx)
     for name, c, r in (("xk_codes", xk_codes, rk), ("xv_codes", xv_codes, rv)):
@@ -108,9 +117,19 @@ def _check(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, qcfg, rk, rv,
             raise ValueError(f"{name} must be f32 {lead} + (B, G, S) or (B, G, 1, S)")
     if tuple(kv_len.shape) != (b,):
         raise ValueError(f"kv_len must be (B,), got {tuple(kv_len.shape)}")
-    if k_bias is not None and tuple(k_bias.shape) != (g, hpg, hd):
-        raise ValueError(f"k_bias must be (G, hpg, hd) = {(g, hpg, hd)}, "
+    if k_bias is not None and tuple(k_bias.shape) != (g, nkv, hd):
+        raise ValueError(f"k_bias must follow b_k's form, (G, {nkv}, hd) = {(g, nkv, hd)}, "
                          f"got {tuple(k_bias.shape)}")
+
+
+def _expand(q, b_k, k_bias) -> tuple:
+    """b_k and k_bias in JAX's repeated form, one row per q-head (a copy
+    only when given the compact form)."""
+    rep = q.shape[1] // (b_k.shape[0] * b_k.shape[1])
+    if rep == 1:
+        return b_k, k_bias
+    return (b_k.repeat_interleave(rep, dim=1),
+            None if k_bias is None else k_bias.repeat_interleave(rep, dim=1))
 
 
 def _lead(buf: torch.Tensor, layer_idx) -> tuple:
@@ -294,9 +313,11 @@ def palu_decode_ref(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, *,
     """Plain version. Exact mode: dequantize the cache (decode_latents, per
     row or per chunk) and run flash_decode_latent in f32 on the same inputs,
     in chunks of up to 512 positions. int8 modes: _int8_ref. layer_idx
-    takes layer layer_idx of the stacked buffers."""
+    takes layer layer_idx of the stacked buffers. The compact b_k / k_bias
+    form is expanded first."""
     _check(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, qcfg, rk, rv,
            xk_zero, xv_zero, k_bias, layer_idx)
+    b_k, k_bias = _expand(q, b_k, k_bias)
     xk_codes, xk_scale, xk_zero, xv_codes, xv_scale, xv_zero = (
         _layer(t, layer_idx) for t in (xk_codes, xk_scale, xk_zero, xv_codes, xv_scale, xv_zero))
     off = int(pos_offset or 0)
@@ -354,15 +375,41 @@ def _rope_tables(s_max: int, head_dim: int, theta: float, inv_freq, rope_scale: 
     return cos_t, sin_t
 
 
-@functools.lru_cache(maxsize=32)
-def _splits(dev: torch.device, n_bg: int, s_max: int):
-    """Sequence splits so that about one block (it fills an SM's shared
-    memory) runs per SM: (splits, tiles per split)."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+def _splits(sms: int, blocks_per_sm: int, n_bg: int, s_max: int) -> tuple:
+    """The sequence split of a decode launch over n_bg (lane, group) pairs:
+    (splits, tiles per split, blocks). A work item is one (lane, group,
+    split); the items number at most sms * blocks_per_sm when n_bg allows
+    (at least one split each), and the blocks, which loop over the items,
+    never exceed one wave."""
     tiles = -(-s_max // _TILE)
-    splits = min(tiles, max(1, -(-sms // n_bg)))
+    slots = sms * blocks_per_sm
+    splits = min(tiles, max(1, slots // n_bg))
     per = -(-tiles // splits)
-    return -(-tiles // per), per
+    splits = -(-tiles // per)
+    return splits, per, min(n_bg * splits, slots)
+
+
+@functools.lru_cache(maxsize=32)
+def _device_splits(dev: torch.device, n_bg: int, s_max: int) -> tuple:
+    """_splits on the device's SMs at one block per SM (each decode block
+    fills most of an SM's shared memory)."""
+    return _splits(torch.cuda.get_device_properties(dev).multi_processor_count, 1, n_bg, s_max)
+
+
+@functools.lru_cache(maxsize=8)
+def _inv_freq_t(hd: int, theta: float, inv_key, device: str) -> torch.Tensor:
+    """The (hd / 2,) f32 RoPE frequencies flash_decode_latent uses, on the
+    device, for the exact kernel's in-kernel rotation."""
+    return _inv_freq(hd, theta, None if inv_key is None else np.asarray(inv_key),
+                     torch.device(device)).contiguous()
+
+
+@functools.lru_cache(maxsize=64)
+def _exact_smem(hd, rk, rv, hpg, nkv, nrk, nrv, nsk, nsv, asym) -> int:
+    """The exact kernel's shared memory at these shapes, or -1 when no plan
+    of it fits in one block."""
+    return build.launcher("palu_decode_exact", "palu_decode_exact_smem", "i" * 10)(
+        hd, rk, rv, hpg, nkv, nrk, nrv, nsk, nsv, asym)
 
 
 def palu_decode(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, *,
@@ -374,21 +421,26 @@ def palu_decode(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, *,
                 return_stats: bool = False, layer_idx: Optional[int] = None):
     """Decode attention over an affine-quantized rank-major latent cache.
 
-    q (B, nh, hd) roped at the current position; b_k (G, hpg, rk, hd);
-    codes (B, G, packed_nrows, S) uint8; scales/zeros (B, G, S) or
-    (B, G, 1, S) f32 per row, (B, G, rank // group_size, S) per chunk;
-    kv_len (B,) valid positions; k_bias None or (G, hpg, hd) pre-RoPE K
-    bias. -> (B, nh, rv) f32. int8_dots / int8_rot select the int8 K-path
-    modes over rotation blocks of block_s tokens (module docstring; per-row
-    scales only). CUDA tensors launch the kernel (b_k must be bf16, as the
-    engine keeps it; the int8 modes need rk % 32 == 0 and block_s % 64 ==
-    0); CPU tensors run the plain version. Each launch adds one to
-    `palu_decode.launches` and to its mode's count in
-    `palu_decode.mode_launches` ("chunked" for per-chunk scales), one to
-    `palu_decode.k_bias_launches` when it carries a bias, and one to each
-    feature it uses in `palu_decode.feature_launches` ("pos_offset",
-    "return_stats", "layer_idx"). pos_offset, return_stats and layer_idx:
-    the module docstring; with return_stats the result is (acc, m, l)."""
+    q (B, nh, hd) roped at the current position; b_k (G, hpg, rk, hd), or
+    the compact (G, hpg / rep, rk, hd) (module docstring); codes (B, G,
+    packed_nrows, S) uint8; scales/zeros (B, G, S) or (B, G, 1, S) f32 per
+    row, (B, G, rank // group_size, S) per chunk; kv_len (B,) valid
+    positions; k_bias None or (G, b_k.shape[1], hd) pre-RoPE K bias. ->
+    (B, nh, rv) f32. int8_dots / int8_rot select the int8 K-path modes over
+    rotation blocks of block_s tokens (module docstring; per-row scales
+    only). CUDA tensors launch a kernel: the exact modes
+    csrc/palu_decode_exact.cu (hd 64 or 128, rk a multiple of 16 up to 512,
+    rv up to 512, S a multiple of 16 and at least 64, <= 32 heads per group,
+    and shapes whose tile ring and B fit in a block's shared memory: others
+    raise), the int8 modes csrc/palu_decode.cu (rk % 32 == 0, block_s % 64
+    == 0); b_k must be bf16, as the engine keeps it. CPU tensors run the
+    plain version. Each launch adds one to `palu_decode.launches` and to
+    its mode's count in `palu_decode.mode_launches` ("chunked" for
+    per-chunk scales), one to `palu_decode.k_bias_launches` when it carries
+    a bias, and one to each feature it uses in
+    `palu_decode.feature_launches` ("pos_offset", "return_stats",
+    "layer_idx"). pos_offset, return_stats and layer_idx: the module
+    docstring; with return_stats the result is (acc, m, l)."""
     if not q.is_cuda:
         return palu_decode_ref(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len,
                                qcfg=qcfg, rk=rk, rv=rv, theta=theta,
@@ -402,15 +454,20 @@ def palu_decode(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, *,
     mode = k_path_mode(qcfg, rk, q.shape[-1], int8_dots=int8_dots, int8_rot=int8_rot)
     if qcfg.group_size > 0:
         mode = "chunked"
+    exact = mode in ("exact", "chunked")
     b, nh, hd = q.shape
-    g, hpg = b_k.shape[0], b_k.shape[1]
+    g, nkv = b_k.shape[0], b_k.shape[1]
+    hpg = nh // g
     s_max = xk_codes.shape[-1]
+    nrk, nrv = xk_codes.shape[-2], xv_codes.shape[-2]
     if b_k.dtype != torch.bfloat16:
-        raise ValueError(f"the decode kernel reads b_k as bf16, got {b_k.dtype}")
-    if hd not in (64, 128) or rk % 16 or rk > _MAX_RK or hpg > _MAX_HEADS or s_max % 16:
+        raise ValueError(f"the decode kernels read b_k as bf16, got {b_k.dtype}")
+    if (hd not in (64, 128) or rk % 16 or rk > _MAX_RK or hpg > _MAX_HEADS or s_max % 16
+            or (exact and (rv > _MAX_RK or s_max < _TILE))):
         raise ValueError(f"decode kernel needs hd 64 or 128, rk a multiple of 16 up to "
                          f"{_MAX_RK}, S a multiple of 16 and <= {_MAX_HEADS} heads per "
-                         f"group (hd={hd}, rk={rk}, S={s_max}, hpg={hpg})")
+                         f"group; the exact modes also rv <= {_MAX_RK} and S >= {_TILE} "
+                         f"(hd={hd}, rk={rk}, rv={rv}, S={s_max}, hpg={hpg})")
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"q must be bf16 or f32, got {q.dtype}")
     ts = [q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, xk_zero, xv_zero, k_bias]
@@ -423,49 +480,63 @@ def palu_decode(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, *,
     off = int(pos_offset or 0)
     if off < 0:
         raise ValueError(f"pos_offset must be >= 0, got {off}")
-    if mode in ("exact", "chunked"):
-        cos_t, sin_t = _rope_tables(s_max, hd, theta, inv_freq, rope_scale, dev, off)
-        tab = {}
-    else:
-        if rk % 32 or block_s % _TILE:
-            raise ValueError(f"the int8 modes' kernel needs rk % 32 == 0 and block_s % "
-                             f"{_TILE} == 0 (rk={rk}, block_s={block_s})")
-        cos_t = sin_t = None
-        tab = _tables8(s_max, block_s, hd, theta, inv_freq, rope_scale, dev, off)
+    asym = not qcfg.sym
+    nsk = rk // qcfg.group_size if mode == "chunked" else 1
+    nsv = rv // qcfg.group_size if mode == "chunked" else 1
+    if exact and _exact_smem(hd, rk, rv, hpg, nkv, nrk, nrv, nsk, nsv, int(asym)) < 0:
+        raise ValueError(f"the exact decode kernel's tile ring and B do not fit in a block's "
+                         f"shared memory at hd {hd}, rk {rk}, rv {rv}, {hpg} heads per group, "
+                         f"{nrk} + {nrv} code rows and {nsk} + {nsv} scale rows per token"
+                         f"{' (asym)' if asym else ''}")
+    if not exact and (rk % 32 or block_s % _TILE):
+        raise ValueError(f"the int8 modes' kernel needs rk % 32 == 0 and block_s % "
+                         f"{_TILE} == 0 (rk={rk}, block_s={block_s})")
     qc = q.contiguous()
     bk = b_k.contiguous()
     kbias = None if k_bias is None else k_bias.float().contiguous()
     kvl = kv_len.to(torch.int32).contiguous()
-    splits, per = _splits(dev, b * g, s_max)
-    # one allocation: per-split m, l, accumulators, then the output (and
-    # with return_stats its m and l)
+    splits, per, grid = _device_splits(dev, b * g, s_max)
+    # one allocation: per-split m, l, accumulators, the output (and with
+    # return_stats its m and l), then the exact kernel's asym row sums of B
     n_part = b * nh * splits
     n_out = b * nh * (rv + (2 if return_stats else 0))
-    scratch = torch.empty(n_part * (2 + rv) + n_out, dtype=torch.float32, device=dev)
-    out = scratch[n_part * (2 + rv):n_part * (2 + rv) + b * nh * rv].view(b, nh, rv)
+    n_rs = g * nkv * nsk * hd if exact and asym else 0
+    scratch = torch.empty(n_part * (2 + rv) + n_out + n_rs, dtype=torch.float32, device=dev)
+    o0 = n_part * (2 + rv)
+    out = scratch[o0:o0 + b * nh * rv].view(b, nh, rv)
     m_out = l_out = None
     if return_stats:
-        m_out = scratch[-2 * b * nh:-b * nh].view(b, nh)
-        l_out = scratch[-b * nh:].view(b, nh)
-    asym = not qcfg.sym
+        m_out = scratch[o0 + b * nh * rv:o0 + b * nh * (rv + 1)].view(b, nh)
+        l_out = scratch[o0 + b * nh * (rv + 1):o0 + n_out].view(b, nh)
     qoff = 0 if asym else 2 ** (qcfg.bits - 1)
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
-    err = build.launcher("palu_decode", "palu_decode",
-                         "pi" + "p" * 21 + "i" * 18 + "ff" + "ii" + "ppp")(
-        qc.data_ptr(), int(q.dtype == torch.bfloat16), bk.data_ptr(), xk_codes.data_ptr(),
-        xk_scale.data_ptr(), ptr(xk_zero), xv_codes.data_ptr(), xv_scale.data_ptr(),
-        ptr(xv_zero), kvl.data_ptr(), ptr(cos_t), ptr(sin_t),
-        *(ptr(tab.get(k)) for k in ("c0", "s0", "rcos", "rsin", "cos8", "sin8")),
-        ptr(kbias), scratch.data_ptr(), scratch[n_part:].data_ptr(),
-        scratch[2 * n_part:].data_ptr(), out.data_ptr(),
-        b, g, hpg, hd, rk, rv, s_max, xk_codes.shape[-2], xv_codes.shape[-2],
-        qcfg.pack_bits, qoff, int(asym), int(sliding_window or 0), splits, per,
-        _MODES[mode], block_s, qcfg.group_size, float(math.sqrt(hd)),
-        float(tab.get("i8r_inv", 0.0)), int(layer_idx or 0), off, ptr(m_out), ptr(l_out),
-        build.stream_ptr(dev))
+    common = (qc.data_ptr(), int(q.dtype == torch.bfloat16), bk.data_ptr(), xk_codes.data_ptr(),
+              xk_scale.data_ptr(), ptr(xk_zero), xv_codes.data_ptr(), xv_scale.data_ptr(),
+              ptr(xv_zero), kvl.data_ptr())
+    parts = (scratch.data_ptr(), scratch[n_part:].data_ptr(), scratch[2 * n_part:].data_ptr(),
+             out.data_ptr())
+    if exact:
+        inv = _inv_freq_t(hd, float(theta), None if inv_freq is None else tuple(
+            float(x) for x in np.asarray(inv_freq)), str(dev))
+        err = build.launcher("palu_decode_exact", "palu_decode_exact",
+                             "pi" + "p" * 15 + "i" * 22 + "ff" + "ppp")(
+            *common, ptr(kbias), inv.data_ptr(), scratch[o0 + n_out:].data_ptr(), *parts,
+            b, g, hpg, nkv, hd, rk, rv, s_max, nrk, nrv, qcfg.pack_bits, qoff, int(asym),
+            int(sliding_window or 0), nsk, nsv, splits, per, grid, int(layer_idx or 0),
+            xk_codes.shape[0] if layer_idx is not None else 1, off, float(1.0 / math.sqrt(hd)),
+            float(rope_scale), ptr(m_out), ptr(l_out), build.stream_ptr(dev))
+    else:
+        tab = _tables8(s_max, block_s, hd, theta, inv_freq, rope_scale, dev, off)
+        err = build.launcher("palu_decode", "palu_decode",
+                             "pi" + "p" * 19 + "i" * 18 + "ff" + "ii" + "ppp")(
+            *common, *(ptr(tab.get(k)) for k in ("c0", "s0", "rcos", "rsin", "cos8", "sin8")),
+            ptr(kbias), *parts, b, g, hpg, nkv, hd, rk, rv, s_max, nrk, nrv, qcfg.pack_bits,
+            qoff, int(asym), int(sliding_window or 0), splits, per, _MODES[mode], block_s,
+            float(math.sqrt(hd)), float(tab["i8r_inv"]), int(layer_idx or 0), off,
+            ptr(m_out), ptr(l_out), build.stream_ptr(dev))
     build.check(err, f"palu_decode ({mode})")
     palu_decode.launches += 1
     palu_decode.mode_launches[mode] += 1
@@ -484,8 +555,9 @@ def count_features(fn, pos_offset, return_stats: bool, layer_idx) -> None:
     fn.feature_launches["layer_idx"] += layer_idx is not None
 
 
-# the kernel's MODE template argument: exact and chunked are the exact K
-# path over per-row and per-chunk scales
+# the modes counted per launch; the int8 ones are the split kernel's MODE
+# template argument (csrc/palu_decode.cu), exact and chunked (the exact K
+# path over per-row and per-chunk scales) run csrc/palu_decode_exact.cu
 _MODES = {"exact": 0, "int8_dots": 1, "int8_rot": 2, "chunked": 3}
 palu_decode.launches = 0
 palu_decode.mode_launches = dict.fromkeys(_MODES, 0)

@@ -28,8 +28,8 @@ import torch
 from ..runtime import cache as cache_lib
 from . import build
 from .attention import flash_decode_latent
-from .palu_decode import (_MAX_HEADS, _MAX_RK, FEATURES, _lead, _layer, _rope_tables, _splits,
-                          _stats, count_features)
+from .palu_decode import (_MAX_HEADS, _MAX_RK, FEATURES, _device_splits, _layer, _lead,
+                          _rope_tables, _stats, count_features)
 
 __all__ = ["palu_decode_fp", "palu_decode_fp_ref", "palu_decode_fp_t", "palu_decode_fp_t_ref"]
 
@@ -117,7 +117,7 @@ def _launch(q, b_k, x_k, x_v, kv_len, rank_major, theta, sliding_window, inv_fre
     bk = b_k.contiguous()
     kvl = kv_len.to(torch.int32).contiguous()
     kbias = None if k_bias is None else k_bias.float().contiguous()
-    splits, per = _splits(dev, b * g, s_max)
+    splits, per, _ = _device_splits(dev, b * g, s_max)
     # one allocation: per-split m, l, accumulators, then the output (and
     # with return_stats its m and l)
     n_part = b * nh * splits

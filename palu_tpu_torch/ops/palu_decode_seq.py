@@ -25,7 +25,7 @@ import torch
 from ..core.quant import QuantConfig, dequantize, packed_nbytes, unpack_codes
 from . import build
 from .attention import flash_decode_latent
-from .palu_decode import _MAX_HEADS, _MAX_RK, _rope_tables, _splits
+from .palu_decode import _MAX_HEADS, _MAX_RK, _device_splits, _rope_tables
 
 __all__ = ["palu_decode_seq_quantized", "palu_decode_seq_quantized_ref"]
 
@@ -124,7 +124,7 @@ def palu_decode_seq_quantized(q, b_k, xk_codes, xk_scales, xk_base, xv_codes, xv
     qc = q.contiguous()
     bk = b_k.contiguous()
     kvl = kv_len.to(torch.int32).contiguous()
-    splits, per = _splits(dev, b * g, s_max)
+    splits, per, _ = _device_splits(dev, b * g, s_max)
     # one allocation: per-split m, l, accumulators, then the output
     n_part = b * nh * splits
     scratch = torch.empty(n_part * (2 + rv) + b * nh * rv, dtype=torch.float32, device=dev)

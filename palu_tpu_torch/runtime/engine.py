@@ -43,9 +43,13 @@ version (ops/attention.dense_flash_decode, the JAX engine's
 _dense_flash_decode) on the CPU; their prefill comes with a later slice.
 Ragged per-group ranks (the fisher search's output) are zero-padded to each
 layer's largest rank when the engine is built (llama.pad_ragged_params), as
-in the JAX engine. Qwen2's attention biases (cfg.attention_bias): the q
-bias adds to q; the k bias, per q-head (`derived[i]["k_bias"]`, G x hpg x
-hd), enters every decode kernel before RoPE; the v bias passes softmax
+in the JAX engine. The decode reconstruction B (`derived[i]["b_k"]`) and
+the k bias are kept per q-head (G x hpg x ...), as JAX keeps them, except
+over the packed cache: palu_decode takes them per kv-head (G x hpg / rep x
+...), built once here, and rebuilds K once per kv-head. Qwen2's attention
+biases (cfg.attention_bias): the q
+bias adds to q; the k bias (`derived[i]["k_bias"]`), enters every decode
+kernel before RoPE; the v bias passes softmax
 unchanged, so it becomes one constant row after the fused o_proj
 (`derived[i]["o_bias_corr"]`, per-q-head v bias times o_proj, from the
 dequantized codes under weight_bits 8 / 4 so that an engine built from
@@ -145,23 +149,24 @@ class EngineConfig:
     stacked_decode: Optional[bool] = None
 
 
-def build_decode_b(u_k: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def build_decode_b(u_k: torch.Tensor, cfg: ModelConfig, compact: bool = False) -> torch.Tensor:
     """Group the per-kv-head U_k (G, rk, gs * hd) into per-q-head
     reconstruction matrices B: (G, heads_per_group, rk, hd); the `rep`
-    q-heads of a kv head share its block (GQA)."""
+    q-heads of a kv head share its block (GQA). compact: one block per
+    kv-head, (G, gs, rk, hd), the form palu_decode also takes."""
     nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    rep = nh // nkv
     g, rk = u_k.shape[0], u_k.shape[1]
     per_kv = u_k.reshape(g, rk, cfg.head_group_size, hd).permute(0, 2, 1, 3)
-    return per_kv.repeat_interleave(rep, dim=1).contiguous()
+    return (per_kv if compact else per_kv.repeat_interleave(nh // nkv, dim=1)).contiguous()
 
 
-def _per_q_head(b: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _per_q_head(b: torch.Tensor, cfg: ModelConfig, compact: bool = False) -> torch.Tensor:
     """A k or v projection's bias (G, group_dim) per q-head: (G, hpg, hd),
-    the `rep` q-heads of a kv head sharing its slice, as build_decode_b."""
+    the `rep` q-heads of a kv head sharing its slice, as build_decode_b
+    (compact: per kv-head, (G, gs, hd))."""
     nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     per_kv = b.float().reshape(b.shape[0], cfg.head_group_size, hd)
-    return per_kv.repeat_interleave(nh // nkv, dim=1)
+    return per_kv if compact else per_kv.repeat_interleave(nh // nkv, dim=1)
 
 
 def _o_bias_corr(attn, cfg: ModelConfig, weight_bits: int) -> torch.Tensor:
@@ -417,11 +422,14 @@ class Engine:
         """A low-rank layer's decode weights: b_k (G, hpg, rk, hd), and with
         biases k_bias (G, hpg, hd) and o_bias_corr (H,), in the engine
         dtype; k_bias is kept in f32 after that rounding, as the decode
-        wrappers take it, so that no launch casts it."""
+        wrappers take it, so that no launch casts it. Over the packed cache
+        b_k and k_bias are per kv-head (hpg / rep), palu_decode's compact
+        form."""
         cfg, dt = self.cfg, self.ecfg.dtype
-        der = {"b_k": build_decode_b(attn["k_proj"]["U"].float(), cfg).to(dt)}
+        compact = cache_lib.quantized(self.ecfg.qcfg)
+        der = {"b_k": build_decode_b(attn["k_proj"]["U"].float(), cfg, compact).to(dt)}
         if attn["k_proj"].get("b") is not None:
-            der["k_bias"] = _per_q_head(attn["k_proj"]["b"], cfg).to(dt).float()
+            der["k_bias"] = _per_q_head(attn["k_proj"]["b"], cfg, compact).to(dt).float()
         if attn["v_proj"].get("b") is not None:
             der["o_bias_corr"] = _o_bias_corr(attn, cfg, self.ecfg.weight_bits).to(dt)
         return der

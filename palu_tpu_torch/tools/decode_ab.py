@@ -1,0 +1,91 @@
+"""A/B of the packed decode between two checkouts on one card.
+
+Run it by path, once per checkout and in turns (parent, this, this,
+parent), from the root of this checkout:
+
+    python3 palu_tpu_torch/tools/decode_ab.py <checkout root> <tag>
+
+It imports the given checkout's own chip_smoke (so its own kernels and
+helpers; run by path, this package is not imported first) and prints one
+JSON line of device times (chip_smoke.device_ms: torch.profiler, L2 cold)
+of palu_decode at the Llama-2-7B group shapes at 8K and at
+latency_attention's 64K point, Qwen2-7B's exact decode with the K bias at
+8K and its per-chunk decode at 8 lanes (S 4096, kv_len 2048) on JAX's
+repeated b_k and, with a tag starting with "new", on the compact one, rk
+256 and 512 at 8K, one 16K shard with return_stats, the one 64K call and
+layer_idx on an L = 4 stack; and palu_decode_fp / palu_decode_fp_t at 64K
+(they share the sequence split)."""
+import json
+import os
+import sys
+import time
+
+
+def main(root: str, tag: str) -> None:
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    os.chdir(root)
+    import torch
+
+    import chip_smoke as cs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    pd = cs.palu_decode
+    res = {}
+
+    def kv(*n):
+        return torch.tensor(n, dtype=torch.int32, device="cuda")
+
+    def t(name, fn, iters=20):
+        res[name] = cs.device_ms(fn, iters)
+
+    kw = dict(qcfg=cs.FLAGSHIP, rk=cs.RK, rv=cs.RV)
+    q, b_k, bufs = cs._decode_inputs(cs.FLAGSHIP, 1, cs.G, cs.HPG, 8192, gen)
+    t("llama_8k", lambda: pd(q, b_k, kv_len=kv(8192), **bufs, **kw))
+    q, b_k, bufs = cs._decode_inputs(cs.FLAGSHIP, 1, cs.G, cs.HPG, cs.ATTN_S, gen)
+    t("llama_64k", lambda: pd(q, b_k, kv_len=kv(cs.ATTN_KV), **bufs, **kw), 10)
+    del q, b_k, bufs
+
+    g, hpg, rk, rv = cs.QWEN2_SHAPE
+    rep = hpg // cs.QNKV
+    for label, qcfg, lanes, s, n in (("qwen2_bias_8k", cs.FLAGSHIP, 1, 8192, 8192),
+                                     ("qwen2_chunked_8lanes", cs.CHUNKED, 8, 4096, 2048)):
+        q, b_k, bufs = cs._decode_inputs(qcfg, lanes, g, hpg, s, gen, rv, rk)
+        kb = cs._k_bias(g, hpg, gen)
+        kvl = torch.full((lanes,), n, dtype=torch.int32, device="cuda")
+        qkw = dict(qcfg=qcfg, rk=rk, rv=rv)
+        t(f"{label}_repeated", lambda: pd(q, b_k, kv_len=kvl, **bufs, **qkw, k_bias=kb))
+        if tag.startswith("new"):  # the engine's form: one B and bias per kv-head
+            bc, kbc = b_k[:, ::rep].contiguous(), kb[:, ::rep].contiguous()
+            t(f"{label}_compact", lambda: pd(q, bc, kv_len=kvl, **bufs, **qkw, k_bias=kbc))
+        del q, b_k, bufs
+
+    for r in cs.BIG_RANKS:
+        q, b_k, bufs = cs._decode_inputs(cs.FLAGSHIP, 1, cs.G, cs.HPG, 8192, gen, cs.RV, r)
+        t(f"rk{r}_8k", lambda: pd(q, b_k, kv_len=kv(8192), **bufs, qcfg=cs.FLAGSHIP, rk=r,
+                                  rv=cs.RV))
+        del q, b_k, bufs
+
+    s_loc = cs.S64 // cs.N_SHARDS
+    q, b_k, _ = cs._decode_inputs(cs.FLAGSHIP, 1, cs.G, cs.HPG, 16, gen)
+    stack = cs._stacked(lambda: cs._decode_inputs(cs.FLAGSHIP, 1, cs.G, cs.HPG, cs.S64, gen)[2],
+                        4)
+    one = {k: v[0] for k, v in stack.items()}
+    sh = cs._shard(one, 1, s_loc)
+    t("shard16k_stats", lambda: pd(q, b_k, kv_len=kv(cs.S64), **sh, **kw, pos_offset=s_loc,
+                                   return_stats=True))
+    t("one_call_64k", lambda: pd(q, b_k, kv_len=kv(cs.S64), **one, **kw), 10)
+    t("layer_idx_64k", lambda: pd(q, b_k, kv_len=kv(cs.S64), **stack, **kw, layer_idx=2), 10)
+    del stack, one, sh
+
+    q, b_k, seq, rank = cs._fp_inputs(1, cs.G, cs.HPG, cs.S64, gen)
+    t("fp_64k", lambda: cs.palu_decode_fp(q, b_k, *seq, kv(cs.S64)), 10)
+    t("fp_t_64k", lambda: cs.palu_decode_fp_t(q, b_k, *rank, kv(cs.S64)), 10)
+    print(json.dumps({"ab": tag, "root": root, "seconds": round(time.perf_counter() - t0, 1),
+                      **res}), flush=True)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], sys.argv[2])

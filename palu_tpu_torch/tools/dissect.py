@@ -36,7 +36,7 @@ from typing import List
 import torch
 
 from ..ops import build
-from ..ops.palu_decode import _rope_tables, _splits
+from ..ops.palu_decode import _device_splits, _rope_tables
 from ..ops.palu_decode_fp import palu_decode_fp, palu_decode_fp_ref
 from . import common
 
@@ -153,7 +153,7 @@ def palu_decode_fp_dissect(mode: str, q, b_k, x_k, x_v, kv_len, *,
         raise ValueError("cache buffers must be contiguous")
     dev = q.device
     cos_t, sin_t = _rope_tables(s_max, hd, theta, None, 1.0, dev)
-    splits, per = _splits(dev, b * g, s_max)
+    splits, per, _ = _device_splits(dev, b * g, s_max)
     # palu_decode_fp's scratch layout (per-split m, l, accumulators, out),
     # then the statistics and the checksums
     n_part = b * nh * splits

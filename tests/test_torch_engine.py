@@ -120,5 +120,7 @@ def test_engine_matches_jax_at_group_ranks_256_384(qkw):
     want, _ = _stepwise(jeng, ids, forced, np.asarray)
     got, tcache = _stepwise(teng, ids, forced, lambda t: t.numpy())
     assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
-    assert teng.derived[0]["b_k"].shape == (2, 4, 256, 8)
+    # per kv-head over the packed cache (palu_decode's compact form): 2 groups
+    # of 2 kv-heads, where JAX keeps (2, 4, 256, 8), one per q-head
+    assert teng.derived[0]["b_k"].shape == (2, 2, 256, 8)
     assert teng._decode_paths == {"palu_decode-plain"}

@@ -936,3 +936,151 @@ def test_decode_shards_combine_to_one_call(gen):
     acc_g = sum(wi[..., None] * p[0] for wi, p in zip(w, parts))
     got = acc_g / l_g[..., None]
     assert (got - whole).abs().max() <= 2e-3 * whole.abs().max()
+
+
+# ---------------------------------------------------------------------------
+# The exact decode kernel (csrc/palu_decode_exact.cu): its edges, the compact
+# GQA form, layer stacks, head dims, pack widths, scale chunks and ranks.
+# ---------------------------------------------------------------------------
+
+
+def _exact_case(gen, qcfg, b, g, hpg, nkv, rk, rv, s_max, hd=128, n_layers=None):
+    """q, a compact b_k (G, nkv, rk, hd) with a K bias of the same form, and a
+    rank-major packed cache (per-row or per-chunk rows; an (L, ...) stack
+    when n_layers is given)."""
+    q = torch.randn((b, g * hpg, hd), generator=gen, device="cuda").bfloat16()
+    b_k = (torch.randn((g, nkv, rk, hd), generator=gen, device="cuda") / rk**0.5).bfloat16()
+    k_bias = (torch.randn((g, nkv, hd), generator=gen, device="cuda") * 0.3).bfloat16().float()
+    lead = () if n_layers is None else (n_layers,)
+    bufs = {}
+    for side, r in (("k", rk), ("v", rv)):
+        c, s, z = quantize_affine(torch.randn(lead + (b, g, s_max, r), generator=gen,
+                                              device="cuda"), qcfg)
+        rows = (lambda t: t.transpose(-1, -2)) if qcfg.group_size else (lambda t: t[..., 0])
+        bufs[f"x{side}_codes"] = pack_codes_t(c, qcfg.pack_bits).contiguous()
+        bufs[f"x{side}_scale"] = rows(s).contiguous()
+        if not qcfg.sym:
+            bufs[f"x{side}_zero"] = rows(z).contiguous()
+    return q, b_k, k_bias, bufs
+
+
+def _close(got, want, tol=2e-3):
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= tol * want.abs().max()
+
+
+FLAG = QuantConfig(bits=3, sym=True, container=4)
+# (kv_len per lane, S, window, pos_offset): the tile edges, an S that is not a
+# multiple of the 64-token tile, a window, and a shard at offset 1024 whose
+# second lane's kv_len lies before it (no valid column: m -1e30, l 0)
+EXACT_EDGES = {"tile_edges": ((1, 63, 64, 65, 1024), 1024, None, None),
+               "s_1008": ((1008, 1000, 17), 1008, None, None),
+               "window": ((1008, 700, 64), 1008, 100, None),
+               "shard": ((3000, 900), 1024, None, 1024)}
+
+
+@pytest.mark.parametrize("case", list(EXACT_EDGES))
+@pytest.mark.parametrize("bias", [False, True], ids=["no_bias", "k_bias"])
+def test_exact_decode_edges_match_plain(gen, case, bias):
+    kvl, s_max, window, off = EXACT_EDGES[case]
+    q, b_k, kb, bufs = _exact_case(gen, FLAG, len(kvl), 2, 4, 4, 128, 384, s_max)
+    kv_len = torch.tensor(kvl, dtype=torch.int32, device="cuda")
+    kw = dict(qcfg=FLAG, rk=128, rv=384, sliding_window=window, k_bias=kb if bias else None,
+              pos_offset=off, return_stats=off is not None)
+    n = palu_decode.mode_launches["exact"]
+    got = palu_decode(q, b_k, kv_len=kv_len, **bufs, **kw)
+    assert palu_decode.mode_launches["exact"] == n + 1
+    want = palu_decode_ref(q, b_k, kv_len=kv_len, **bufs, **kw)
+    if off is None:
+        _close(got, want)
+    else:
+        _held_stats(got, want)
+
+
+@pytest.mark.parametrize("rep", [1, 2, 7])
+@pytest.mark.parametrize("qkw", [dict(bits=3, sym=True, container=4),
+                                 dict(bits=3, group_size=32, sym=False, container=4)],
+                         ids=["per_row", "chunk32_asym"])
+def test_exact_decode_compact_gqa(gen, rep, qkw):
+    """The compact b_k / k_bias (4 kv-heads per group, rep q-heads each)
+    against the plain version (which expands it) and against the kernel on
+    JAX's repeated form; rep 7 is Qwen2-7B's group (28 q-heads, ranks 256)."""
+    qcfg = QuantConfig(**qkw)
+    rk = rv = 256 if rep == 7 else 128
+    q, b_k, kb, bufs = _exact_case(gen, qcfg, 2, 1, 4 * rep, 4, rk, rv, 1024)
+    kv_len = torch.tensor([1024, 333], dtype=torch.int32, device="cuda")
+    kw = dict(qcfg=qcfg, rk=rk, rv=rv)
+    got = palu_decode(q, b_k, kv_len=kv_len, **bufs, **kw, k_bias=kb)
+    _close(got, palu_decode_ref(q, b_k, kv_len=kv_len, **bufs, **kw, k_bias=kb))
+    rep_b, rep_kb = b_k.repeat_interleave(rep, 1), kb.repeat_interleave(rep, 1)
+    _close(got, palu_decode(q, rep_b, kv_len=kv_len, **bufs, **kw, k_bias=rep_kb))
+
+
+@pytest.mark.parametrize("qkw", [dict(bits=3, sym=True, container=4),
+                                 dict(bits=4, group_size=16, sym=False)], ids=["row", "chunk16"])
+def test_exact_decode_layer_idx(gen, qkw):
+    """layer_idx on an L = 4 stack: each layer bit-identical to the
+    per-layer call and within 2e-3 of the plain version."""
+    qcfg = QuantConfig(**qkw)
+    q, b_k, kb, bufs = _exact_case(gen, qcfg, 2, 2, 8, 4, 128, 384, 1024, n_layers=4)
+    kv_len = torch.tensor([1024, 500], dtype=torch.int32, device="cuda")
+    kw = dict(qcfg=qcfg, rk=128, rv=384, k_bias=kb)
+    for li in range(4):
+        got = palu_decode(q, b_k, kv_len=kv_len, **bufs, **kw, layer_idx=li)
+        one = {k: v[li].contiguous() for k, v in bufs.items()}
+        assert torch.equal(got, palu_decode(q, b_k, kv_len=kv_len, **one, **kw))
+        _close(got, palu_decode_ref(q, b_k, kv_len=kv_len, **bufs, **kw, layer_idx=li))
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("qkw", [dict(bits=2, sym=True), dict(bits=3, sym=False),
+                                 dict(bits=3, sym=True, container=4), dict(bits=4, sym=True),
+                                 dict(bits=8, sym=False)],
+                         ids=["pack2", "pack3", "pack4_3bit", "pack4", "pack8"])
+def test_exact_decode_head_dims_and_packs(gen, hd, qkw):
+    qcfg = QuantConfig(**qkw)
+    q, b_k, kb, bufs = _exact_case(gen, qcfg, 2, 2, 4, 4, 64, 128, 1024, hd=hd)
+    kv_len = torch.tensor([1024, 700], dtype=torch.int32, device="cuda")
+    kw = dict(qcfg=qcfg, rk=64, rv=128, k_bias=kb, sliding_window=300)
+    _close(palu_decode(q, b_k, kv_len=kv_len, **bufs, **kw),
+           palu_decode_ref(q, b_k, kv_len=kv_len, **bufs, **kw))
+
+
+@pytest.mark.parametrize("gs", [8, 16, 32])
+@pytest.mark.parametrize("sym", [True, False], ids=["sym", "asym"])
+def test_exact_decode_scale_chunks(gen, gs, sym):
+    """Per-chunk scales: chunks of 8 end inside a k-step; rk 192 puts a
+    scale chunk across the 128-rank chunks of B."""
+    qcfg = QuantConfig(bits=3, group_size=gs, sym=sym, container=4)
+    q, b_k, kb, bufs = _exact_case(gen, qcfg, 2, 2, 8, 4, 192, 128, 1024)
+    kv_len = torch.tensor([1024, 411], dtype=torch.int32, device="cuda")
+    kw = dict(qcfg=qcfg, rk=192, rv=128, k_bias=kb)
+    n = palu_decode.mode_launches["chunked"]
+    got = palu_decode(q, b_k, kv_len=kv_len, **bufs, **kw)
+    assert palu_decode.mode_launches["chunked"] == n + 1
+    _close(got, palu_decode_ref(q, b_k, kv_len=kv_len, **bufs, **kw))
+
+
+@pytest.mark.parametrize("rk,rv", [(16, 16), (48, 80), (112, 512), (144, 384), (240, 256),
+                                   (512, 512)])
+def test_exact_decode_ranks(gen, rk, rv):
+    """rk from 16 to 512 (B resident or streamed in rank chunks) and rv up
+    to 512, asym per-row scales, 4 kv-heads of 2 q-heads."""
+    qcfg = QuantConfig(bits=3, sym=False, container=4)
+    q, b_k, kb, bufs = _exact_case(gen, qcfg, 2, 2, 8, 4, rk, rv, 1024)
+    kv_len = torch.tensor([1024, 641], dtype=torch.int32, device="cuda")
+    kw = dict(qcfg=qcfg, rk=rk, rv=rv, k_bias=kb)
+    _close(palu_decode(q, b_k, kv_len=kv_len, **bufs, **kw),
+           palu_decode_ref(q, b_k, kv_len=kv_len, **bufs, **kw))
+
+
+def test_exact_decode_refuses_what_does_not_fit(gen):
+    """Chunks of 8 at rk = rv = 512, asym: 128 scale rows per token and
+    side, a tile ring past a block's shared memory: raises, no fallback."""
+    qcfg = QuantConfig(bits=3, group_size=8, sym=False, container=4)
+    q, b_k, _, bufs = _exact_case(gen, qcfg, 1, 1, 4, 4, 512, 512, 256)
+    kv_len = torch.tensor([256], dtype=torch.int32, device="cuda")
+    n = palu_decode.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        palu_decode(q, b_k, kv_len=kv_len, **bufs, qcfg=qcfg, rk=512, rv=512)
+    assert palu_decode.launches == n

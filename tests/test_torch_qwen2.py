@@ -142,8 +142,11 @@ def test_qwen2_engine_matches_jax(model, cache):
     qkw, ekw = CACHES[cache]
     jeng, teng = engine_pair(*model, qkw, **ekw)
     assert_engines_agree(jeng, teng)
-    assert teng.derived[0]["k_bias"].shape == (1, NH, HD)
-    assert teng.derived[0]["b_k"].shape == (1, NH, RANK, HD)
+    # over the packed cache palu_decode takes B and the k bias per kv-head
+    # (the compact form: the group's 4 kv-heads), else per q-head as JAX
+    heads = NKV if qkw else NH
+    assert teng.derived[0]["k_bias"].shape == (1, heads, HD)
+    assert teng.derived[0]["b_k"].shape == (1, heads, RANK, HD)
 
 
 @pytest.mark.parametrize("bits", [16, 8, 4])
@@ -151,7 +154,10 @@ def test_qwen2_derived_matches_jax(model, bits):
     wkw = {} if bits == 16 else dict(weight_bits=bits)
     jeng, teng = engine_pair(*model, dict(bits=3, group_size=0, sym=True, container=4), **wkw)
     for jd, td in zip(jeng.derived, teng.derived):
-        np.testing.assert_array_equal(td["k_bias"].numpy(), np.asarray(jd["k_bias"]))
+        # over the packed cache the k bias is kept per kv-head: JAX's rows of
+        # the first q-head of each kv-head (JAX repeats each one rep times)
+        np.testing.assert_array_equal(td["k_bias"].numpy(),
+                                      np.asarray(jd["k_bias"])[:, ::NH // NKV])
         want = np.asarray(jd["o_bias_corr"])
         got = td["o_bias_corr"].numpy()
         assert got.shape == want.shape == (NH * HD,)
