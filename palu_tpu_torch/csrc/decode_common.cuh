@@ -79,6 +79,50 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// sin and cos of an f32 angle, branch-free (sincosf branches, which keeps
+// its instances from overlapping): x - j pi/2 by a three-part Cody-Waite
+// reduction with fused multiply-adds (accurate for |j| < 2^22), then
+// minimax polynomials on [-pi/4, pi/4] (Cephes' sinf / cosf), ~2 ulp.
+__device__ __forceinline__ void sincos_fast(float x, float& sn, float& cs) {
+  const float j = rintf(x * 0x1.45f306p-1f);  // 2 / pi
+  float r = fmaf(j, -0x1.921fb6p+0f, x);      // pi/2 in three parts
+  r = fmaf(j, 0x1.777a5cp-25f, r);
+  r = fmaf(j, 0x1.ee59dap-50f, r);
+  const float r2 = r * r;
+  const float s = fmaf(r * r2, fmaf(r2, fmaf(r2, -1.9515295891e-4f, 8.3321608736e-3f),
+                                     -1.6666654611e-1f), r);
+  const float c = fmaf(r2 * r2, fmaf(r2, fmaf(r2, 2.443315711809948e-5f, -1.388731625493765e-3f),
+                                     4.166664568298827e-2f), fmaf(r2, -0.5f, 1.0f));
+  const int q = static_cast<int>(j) & 3;
+  const float a = (q & 1) ? c : s, b = (q & 1) ? s : c;
+  sn = (q & 2) ? -a : a;
+  cs = ((q + 1) & 2) ? -b : b;
+}
+
+// The work item of a one-wave decode: lane b's valid columns [vlo, vhi)
+// (kv_len and the window in column coordinates: column t is absolute
+// position pos_offset + t, so a shard past kv_len has none) and the tiles
+// [t0, t1) of split `split` of `splits`, which cut the lane's valid tiles
+// (not the buffer's S) into runs of ceil(valid tiles / splits): every valid
+// tile falls in exactly one split; a split past them is empty (t1 <= t0).
+// ops/palu_decode.py::_item_tiles is the same function in Python.
+struct TileRange {
+  int t0, t1, vlo, vhi;
+};
+
+__device__ __forceinline__ TileRange tile_range(int kv_len, int pos_offset, int window, int S,
+                                                int splits, int split, int tile) {
+  TileRange r;
+  const int kvl = kv_len - pos_offset;
+  r.vlo = window > 0 ? max(0, kvl - window) : 0;
+  r.vhi = max(0, min(kvl, S));
+  const int lo = r.vlo / tile, n = max(0, (r.vhi + tile - 1) / tile - lo);
+  const int per = (n + splits - 1) / splits;
+  r.t0 = lo + split * per;
+  r.t1 = min(r.t0 + per, lo + n);
+  return r;
+}
+
 // One block per (lane-head, 128 ranks): merge the splits' (m, l, acc).
 // STATS writes the raw statistics instead of their quotient: out the
 // accumulator sum_s e^(m_s - M) acc_s, m_out the running max M and l_out

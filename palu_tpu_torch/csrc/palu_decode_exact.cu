@@ -73,7 +73,8 @@
 //
 // The grid is one wave: work items (lane, group, sequence split) number at
 // most SMs (the wrapper's _splits), blocks min(items, SMs), each looping
-// over items; a split with no valid column writes m = -1e30, l = 0, acc = 0.
+// over items; the splits of a (lane, group) cut its valid tiles
+// (decode::tile_range); a split with none writes m = -1e30, l = 0, acc = 0.
 // The combine kernel (decode_common.cuh) merges the splits.
 
 #include <cuda.h>
@@ -116,7 +117,7 @@ struct ExactArgs {
   float* part_acc;         // (B, nh, splits, rv)
   int B, G, hpg, nkv, rep, rk, rv, S, pbits, qoff, asym, window;
   int nsk, nsv, gsk, gsv;  // scale rows per token of K / V, ranks per scale chunk
-  int splits, per, n_items, layer, pos_offset;
+  int splits, n_items, layer, pos_offset;
   float inv_sqrt_hd, rope_scale;
   Plan L;
 };
@@ -325,26 +326,6 @@ __device__ __forceinline__ void k_chain_n(int n, float (&kv)[HD / 2],
   }
 }
 
-// sin and cos of an f32 angle, branch-free (sincosf branches, which keeps
-// its instances from overlapping): x - j pi/2 by a three-part Cody-Waite
-// reduction with fused multiply-adds (accurate for |j| < 2^22), then
-// minimax polynomials on [-pi/4, pi/4] (Cephes' sinf / cosf), ~2 ulp.
-__device__ __forceinline__ void sincos_fast(float x, float& sn, float& cs) {
-  const float j = rintf(x * 0x1.45f306p-1f);  // 2 / pi
-  float r = fmaf(j, -0x1.921fb6p+0f, x);      // pi/2 in three parts
-  r = fmaf(j, 0x1.777a5cp-25f, r);
-  r = fmaf(j, 0x1.ee59dap-50f, r);
-  const float r2 = r * r;
-  const float s = fmaf(r * r2, fmaf(r2, fmaf(r2, -1.9515295891e-4f, 8.3321608736e-3f),
-                                     -1.6666654611e-1f), r);
-  const float c = fmaf(r2 * r2, fmaf(r2, fmaf(r2, 2.443315711809948e-5f, -1.388731625493765e-3f),
-                                     4.166664568298827e-2f), fmaf(r2, -0.5f, 1.0f));
-  const int q = static_cast<int>(j) & 3;
-  const float a = (q & 1) ? c : s, b = (q & 1) ? s : c;
-  sn = (q & 2) ? -a : a;
-  cs = ((q + 1) & 2) ? -b : b;
-}
-
 // One bf16 pair (v0, v1) split into its bf16 high part and the bf16 of the rest.
 __device__ __forceinline__ void split_bf16(float v0, float v1, uint32_t& hi, uint32_t& lo) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
@@ -450,7 +431,7 @@ __device__ __forceinline__ void k_finish(float (&kf)[HD / 2], const float* bias,
 
 // A work item's coordinates and its tile range [t0, t1) (empty when t1 <= t0).
 struct Item {
-  int b, g, split, kvl, t0, t1, vlo, vhi;  // vlo / vhi: valid columns [vlo, vhi)
+  int b, g, split, t0, t1, vlo, vhi;  // vlo / vhi: valid columns [vlo, vhi)
 };
 
 __device__ __forceinline__ Item item_at(const ExactArgs& a, int item) {
@@ -459,12 +440,10 @@ __device__ __forceinline__ Item item_at(const ExactArgs& a, int item) {
   const int bg = item / a.splits;
   it.g = bg % a.G;
   it.b = bg / a.G;
-  // kv_len and the window in column coordinates: a shard past kv_len walks no tile
-  it.kvl = a.kv_len[it.b] - a.pos_offset;
-  it.vlo = a.window > 0 ? max(0, it.kvl - a.window) : 0;
-  it.vhi = max(0, min(it.kvl, a.S));
-  it.t0 = max(it.split * a.per, it.vlo / kTile);
-  it.t1 = min((it.split + 1) * a.per, (it.vhi + kTile - 1) / kTile);
+  // the splits cut this lane's valid tiles (decode_common.cuh)
+  const decode::TileRange r = decode::tile_range(a.kv_len[it.b], a.pos_offset, a.window, a.S,
+                                                 a.splits, it.split, kTile);
+  it.t0 = r.t0, it.t1 = r.t1, it.vlo = r.vlo, it.vhi = r.vhi;
   return it;
 }
 
@@ -878,7 +857,7 @@ palu_decode_exact_kernel(const __grid_constant__ CUtensorMap tm_kc,
 #pragma unroll 4
           for (int t = wt / HALF; t < kTile; t += t_step) {
             float sn, cs;
-            sincos_fast(__fmul_rn(static_cast<float>(a.pos_offset + s0 + t), inv), sn, cs);
+            decode::sincos_fast(__fmul_rn(static_cast<float>(a.pos_offset + s0 + t), inv), sn, cs);
             cos_s[t * RS + fr] = cs * a.rope_scale;
             sin_s[t * RS + fr] = sn * a.rope_scale;
           }
@@ -1050,8 +1029,8 @@ extern "C" int palu_decode_exact_smem(int hd, int rk, int rv, int hpg, int nkv, 
 // f32; inv_freq (hd / 2,) f32; rsum scratch of G * nkv * nsk * hd f32
 // (asym); partials as in palu_decode.cu; out (B, nh, rv) f32, or with m_out
 // / l_out the raw statistics. hd 64 or 128, rk and rv multiples of 16 up to
-// 512, hpg <= 32, S a multiple of 16. splits, per: the wrapper's _splits;
-// grid blocks loop over the B * G * splits work items.
+// 512, hpg <= 32, S a multiple of 16. splits: the wrapper's _splits; grid
+// blocks loop over the B * G * splits work items.
 extern "C" int palu_decode_exact(const void* q, int q_bf16, const void* bk, const void* kc,
                                  const void* ks, const void* kz, const void* vc, const void* vs,
                                  const void* vz, const void* kv_len, const void* kbias,
@@ -1059,7 +1038,7 @@ extern "C" int palu_decode_exact(const void* q, int q_bf16, const void* bk, cons
                                  void* part_acc, void* out, int B, int G, int hpg, int nkv,
                                  int hd, int rk, int rv, int S, int nrk, int nrv, int pbits,
                                  int qoff, int asym, int window, int nsk, int nsv, int splits,
-                                 int per, int grid, int layer, int n_layers, int pos_offset,
+                                 int grid, int layer, int n_layers, int pos_offset,
                                  float inv_sqrt_hd, float rope_scale, void* m_out, void* l_out,
                                  void* stream) {
   if ((hd != 64 && hd != 128) || rk % 16 || rv % 16 || rk > kMaxRank || rv > kMaxRank ||
@@ -1083,7 +1062,7 @@ extern "C" int palu_decode_exact(const void* q, int q_bf16, const void* bk, cons
   a.B = B, a.G = G, a.hpg = hpg, a.nkv = nkv, a.rep = hpg / nkv, a.rk = rk, a.rv = rv, a.S = S;
   a.pbits = pbits, a.qoff = qoff, a.asym = asym, a.window = window;
   a.nsk = nsk, a.nsv = nsv, a.gsk = rk / nsk, a.gsv = rv / nsv;
-  a.splits = splits, a.per = per, a.n_items = B * G * splits;
+  a.splits = splits, a.n_items = B * G * splits;
   a.layer = layer, a.pos_offset = pos_offset;
   a.inv_sqrt_hd = inv_sqrt_hd, a.rope_scale = rope_scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

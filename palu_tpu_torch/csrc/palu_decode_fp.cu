@@ -1,31 +1,25 @@
-// Latent decode attention over the unquantized (bf16) latent caches and
-// over the seq-major packed cache, split over the sequence (flash-decoding)
-// with a second kernel that combines the splits (decode_common.cuh).
+// Latent decode attention over seq-major latents, split over the sequence
+// (flash-decoding) with a second kernel that combines the splits
+// (decode_common.cuh): the split kernel that served every unquantized and
+// seq-major decode before the bf16 decodes moved to palu_decode_fp_wg.cu.
 //
-// Replaces: palu_tpu/ops/pallas/palu_decode.py::palu_flash_decode, the v1
-// kernel over seq-major latents (B, G, S, r);
-// palu_tpu/ops/pallas/palu_decode4.py::palu_flash_decode4, the v4 kernel
-// over rank-major latents (B, G, r, S); and
-// palu_tpu/ops/pallas/palu_decode.py::palu_flash_decode_quantized, the v1
-// kernel over seq-major packed codes (B, G, S, nbytes) with per-token
-// scale and base (B, G, S, 1). One kernel template serves the three; only
-// the tile load (and, for codes, the per-token scales) differ. The two
-// latent variants take the v4 kernel's pre-RoPE K bias (k_bias, Qwen2);
-// JAX's engine runs the seq-major cache with a bias through its XLA
-// fallback, flash_decode_latent, which this kernel computes all the same.
+// Replaces: palu_tpu/ops/pallas/palu_decode.py::palu_flash_decode_quantized,
+// the v1 kernel over seq-major packed codes (B, G, S, nbytes) with per-token
+// scale and base (B, G, S, 1) (palu_decode_seq_q); and two tools' kernels
+// below, the archived v2 decode and the dissection. One kernel template
+// serves them; only the tile load (and, for codes, the per-token scales)
+// differ.
 //
 // What it computes, per lane b, group g and q-head h of the group:
-//   K_h(s) = B_h^T x_k(s) [+ b_h, the K bias, added before RoPE]
+//   K_h(s) = B_h^T x_k(s)
 //   logit(s) = q_h . RoPE_s(K_h(s)) / sqrt(hd), masked by kv_len and window
 //   out_h = sum_s softmax(logit)(s) x_v(s)
 // -> (B, nh, rv) f32 in latent space (o_proj is U_v-fused).
 //
-// Bound on this card: the latents are (rk + rv) * 2 bytes per token and
-// group (67 MB per layer at 8K tokens of the 7B shapes: 20 us at 3.35
-// TB/s), the K rebuild 2 * nh * rk * hd flops per token (8.6 GFLOP, 9 us
-// on the bf16 tensor cores): bound by bytes, where the packed cache of
-// palu_decode.cu is bound by operations. The rebuild runs on the tensor
-// cores all the same (on the f32 pipes it would take ~130 us).
+// Bound on this card: at 3 bits the packed tile is 208 bytes per token and
+// group against 1024 for bf16 latents, and the K rebuild (2 * nh * rk * hd
+// flops per token, 8.6 GFLOP per layer at 8K) bounds it; over bf16
+// latents (v2, dissection) the bytes do.
 //
 // The packed variant (QUANT) dequantizes in its tile load: each thread
 // reads 4-byte words of a token's packed row (a 64-token tile is one
@@ -35,20 +29,17 @@
 // the integer base that quantize gives), into the same bf16 tile the
 // latent variants fill. The per-token scale multiplies the f32 K
 // accumulators before RoPE and folds into p on the V side, so K and V are
-// exact up to f32 summation order. At 3 bits the packed tile is 208 bytes
-// per token and group against 1024 for bf16 latents: the K rebuild (2 * nh
-// * rk * hd flops per token, 8.6 GFLOP per layer at 8K) bounds it.
+// exact up to f32 summation order.
 //
-// Design: the split pass of palu_decode.cu without the unpack and the
-// per-token scales. Grid (splits, G, B), 8 warps, about one block per SM.
+// Design: Grid (splits, G, B), 8 warps, about one block per SM.
 // A block stages the B_h of its group's heads in shared memory once with
 // cp.async (in chunks of heads when they do not all fit), then walks its
 // tiles of 64 tokens. Each tile of K and V latents comes into shared memory
 // with 16-byte cp.async copies in the cache's own layout, so global reads
-// stay coalesced: rank-major as r rows of 64 tokens (128 B, padded to 144 B
-// so ldmatrix rows fall on distinct banks), seq-major as 64 rows of r ranks
-// (padded by 16 B). ldmatrix (.trans for rank-major) turns the K tile into
-// the mma A operand x^T (16 tokens x 16 ranks) directly. Per head, K (64
+// stay coalesced: seq-major as 64 rows of r ranks (padded by 16 B so
+// ldmatrix rows fall on distinct banks), the v2 V tile rank-major as r rows
+// of 64 tokens (128 B, padded to 144 B). ldmatrix turns the K tile into the
+// mma A operand x^T (16 tokens x 16 ranks) directly. Per head, K (64
 // tokens x hd) = x^T . B_h runs as mma.sync m16n8k16 (bf16 in, f32
 // accumulate): warp w takes 16 tokens and matching quarters of both halves
 // of hd, so both halves of each RoPE pair sit in one thread's
@@ -70,9 +61,9 @@
 //
 // The dissection (palu_decode_fp_dissect; port of
 // tools/tpu_dissect.py::call, the TPU tool that splits the v1 kernel's
-// time): the split kernel's MODE removes parts of the seq-major bf16
-// variant, so that each mode times the kernel that serves, minus a part.
-// kFull (0) is the production instantiation itself. kNoValue drops the V
+// time): the split kernel's MODE removes parts of its seq-major bf16
+// variant (the kernel palu_decode_fp ran before palu_decode_fp_wg.cu), so
+// that each mode times that kernel minus a part. kFull (0) is it whole. kNoValue drops the V
 // contraction and emits each head's softmax statistics (m, l). kNoLogits
 // replaces the B staging, the K rebuild and the q dot with the tool's fake
 // logits, 1e-6 times the sum over ranks of each token's x_k, and keeps the
@@ -132,18 +123,17 @@ struct FpArgs {
   const void* q;      // (B, nh, hd) bf16 or f32, roped at the current position
   int q_bf16;
   const bf16* bk;     // (G, hpg, rk, hd)
-  const bf16* xk;     // (B, G, S, rk) seq-major or (B, G, rk, S) rank-major
-  const bf16* xv;     // (B, G, S, rv) or (B, G, rv, S)
+  const bf16* xk;     // (B, G, S, rk) seq-major
+  const bf16* xv;     // (B, G, S, rv), or V2: (B, G, rv, S) rank-major
   const uint8_t* kc;  // packed variant: (B, G, S, nbk) codes
   const uint8_t* vc;  // (B, G, S, nbv)
   const float* ks;    // (B, G, S) per-token scale and base
   const float* kb;
   const float* vs;
   const float* vb;
-  const int* kv_len;  // (B,) absolute positions: column t is position pos_offset + t
-  const float* cos_t; // (S, hd/2), row t at position pos_offset + t
+  const int* kv_len;  // (B,)
+  const float* cos_t; // (S, hd/2)
   const float* sin_t;
-  const float* kbias; // (G, hpg, hd) f32 pre-RoPE K bias, or null
   const float* inv_freq;  // V2: (hd/2,) f32 RoPE frequencies
   float* part_m;      // (B, nh, splits)
   float* part_l;
@@ -155,8 +145,6 @@ struct FpArgs {
   int rc;             // ranks of B per chunk (rk when one chunk)
   float sqrt_hd;
   float rope_scale;   // V2: multiplies cos and sin
-  int layer;          // the layer of (L, B, G, ...) stacked latents (0: one layer)
-  int pos_offset;     // absolute position of column 0 (a sequence shard's start)
 };
 
 // Elements of one latent tile in shared memory (rows padded).
@@ -190,8 +178,9 @@ __host__ __device__ inline FpLayout fp_layout(bool rmk, bool rmv, int rk, int hd
 }
 
 // cp.async the latent tile of tokens [s0, s0 + kTile) of one (b, g) plane
-// with `rows` ranks into shared memory: rank-major as [rank][token]
-// (stride kCk), seq-major as [token][rank] (stride rows + kPad). Tokens at
+// with `rows` ranks into shared memory: rank-major (the v2 V tile) as
+// [rank][token] (stride kCk), seq-major as [token][rank] (stride rows +
+// kPad). Tokens at
 // or past S are zero (S and rows are multiples of 8, so a 16-byte piece is
 // wholly in or out).
 template <bool RM>
@@ -289,15 +278,14 @@ __device__ __forceinline__ unsigned long long fold_tile(const bf16* src, int row
   return ck;
 }
 
-// BIAS compiles the K bias in (a.kbias set; the latent variants only).
-// MODE is kFull except in the dissection (seq-major bf16 latents only).
-// V2 is the archived v2 decode: seq-major K, rank-major V, cos/sin
-// computed here from the positions.
-template <int HD, bool RM, bool QUANT, bool BIAS, int MODE = kFull, bool V2 = false>
+// QUANT: the packed seq-major cache. MODE is kFull except in the
+// dissection (bf16 latents only). V2 is the archived v2 decode: rank-major
+// V, cos/sin computed here from the positions.
+template <int HD, bool QUANT, int MODE = kFull, bool V2 = false>
 __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a) {
-  static_assert(MODE == kFull || (!RM && !QUANT && !BIAS), "dissection: seq-major bf16 only");
-  static_assert(!V2 || (!RM && !QUANT && !BIAS && MODE == kFull), "v2: bf16 latents only");
-  constexpr bool RMV = RM || V2;  // V tile layout (rank-major for V2)
+  static_assert(MODE == kFull || !QUANT, "dissection: bf16 latents only");
+  static_assert(!V2 || (!QUANT && MODE == kFull), "v2: bf16 latents only");
+  constexpr bool RMV = V2;  // V tile layout (rank-major for V2)
   constexpr bool kRebuild = MODE == kFull || MODE == kNoValue;  // K rebuilt, q dotted
   constexpr bool kStream = MODE == kDmaOnly || MODE == kNoop;   // loads only
   constexpr int half = HD / 2;
@@ -312,10 +300,10 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
   const int nh = a.G * hpg;
   const int m0 = (warp & 3) * 16;    // this warp's 16 tokens of the tile
   const int jw = (warp >> 2) * NTW;  // its first column tile in each half of hd
-  const int kstride = RM ? kCk : rk + kPad;  // K tile row stride (elements)
+  const int kstride = rk + kPad;  // K tile row stride (elements)
 
   extern __shared__ __align__(128) unsigned char smem[];
-  const FpLayout L = fp_layout(RM, RMV, rk, HD, hpg, rv, a.chunk_heads, QUANT, a.rc);
+  const FpLayout L = fp_layout(false, RMV, rk, HD, hpg, rv, a.chunk_heads, QUANT, a.rc);
   const int rc = a.rc, nrc = (rk + rc - 1) / rc;          // rank chunks of B
   bf16* bsm = reinterpret_cast<bf16*>(smem + L.bsm);     // [chunk][rc][HS]
   bf16* kt = reinterpret_cast<bf16*>(smem + L.kt);       // K latent tile
@@ -333,15 +321,11 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
   float* alpha_s = stat + 2 * kMaxHeads;
 
   const size_t bg = static_cast<size_t>(b) * a.G + g;
-  // the cache planes of (layer, lane, group): a layer-stacked buffer holds
-  // L copies of the (B, G, ...) planes and a.layer picks one
-  const size_t bgc = (static_cast<size_t>(a.layer) * gridDim.z + b) * a.G + g;
-  const bf16* xk = QUANT ? nullptr : a.xk + bgc * rk * a.S;
-  const bf16* xv = QUANT ? nullptr : a.xv + bgc * rv * a.S;
-  const uint8_t* kc = QUANT ? a.kc + bgc * a.nbk * a.S : nullptr;
-  const uint8_t* vc = QUANT ? a.vc + bgc * a.nbv * a.S : nullptr;
+  const bf16* xk = QUANT ? nullptr : a.xk + bg * rk * a.S;
+  const bf16* xv = QUANT ? nullptr : a.xv + bg * rv * a.S;
+  const uint8_t* kc = QUANT ? a.kc + bg * a.nbk * a.S : nullptr;
+  const uint8_t* vc = QUANT ? a.vc + bg * a.nbv * a.S : nullptr;
   const bf16* bk_g = a.bk + static_cast<size_t>(g) * hpg * rk * HD;
-  const float* kb_g = BIAS ? a.kbias + static_cast<size_t>(g) * hpg * HD : nullptr;
 
   for (int i = tid; i < hpg * HD; i += kThreads) {
     const size_t qi = (static_cast<size_t>(b) * nh + g * hpg) * HD + i;
@@ -355,9 +339,7 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
     alpha_s[tid] = 1.0f;
   }
 
-  // kv_len and the window in column coordinates: a sequence shard past
-  // kv_len gets kvl <= 0 and walks no tile
-  const int kvl = a.kv_len[b] - a.pos_offset;
+  const int kvl = a.kv_len[b];
   const int lo_pos = a.window > 0 ? max(0, kvl - a.window) : 0;
   const int tile_lo = lo_pos / kTile;
   const int tile_hi = (max(0, min(kvl, a.S)) + kTile - 1) / kTile;
@@ -386,15 +368,15 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
       const int s0 = tile * kTile;
       // ---- load: K and V latent tiles (cp.async), this thread's rope rows
       if constexpr (QUANT) {
-        unpack_tile(kt, kc, a.kb + bgc * a.S, rk, a.nbk, a.pbits, a.qmin, a.S, s0, tid);
-        unpack_tile(vt, vc, a.vb + bgc * a.S, rv, a.nbv, a.pbits, a.qmin, a.S, s0, tid);
+        unpack_tile(kt, kc, a.kb + bg * a.S, rk, a.nbk, a.pbits, a.qmin, a.S, s0, tid);
+        unpack_tile(vt, vc, a.vb + bg * a.S, rv, a.nbv, a.pbits, a.qmin, a.S, s0, tid);
         if (tid < kTile) {
           const int s = s0 + tid;
-          sc_k[tid] = s < a.S ? a.ks[bgc * a.S + s] : 0.0f;
-          sc_v[tid] = s < a.S ? a.vs[bgc * a.S + s] : 0.0f;
+          sc_k[tid] = s < a.S ? a.ks[bg * a.S + s] : 0.0f;
+          sc_v[tid] = s < a.S ? a.vs[bg * a.S + s] : 0.0f;
         }
       } else {
-        load_tile<RM>(kt, xk, rk, a.S, s0, tid);
+        load_tile<false>(kt, xk, rk, a.S, s0, tid);
         load_tile<RMV>(vt, xv, rv, a.S, s0, tid);
       }
       float ca[NTW][2], sa[NTW][2], cb[NTW][2], sb[NTW][2];
@@ -469,18 +451,13 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
         }
 
         // A fragments: x_k^T (16 tokens x 16 ranks) per k-step, shared by the
-        // heads; a rank-major tile is stored [rank][token], hence .trans
+        // heads
         uint32_t af[kMaxKSteps][4];
 #pragma unroll
         for (int ks = 0; ks < kMaxKSteps; ++ks) {
           if (ks < nkc) {
             const int rr = r0 + ks * 16;
-            if (RM)
-              ldmatrix_x4_trans(af[ks],
-                                kt + (rr + ri + (mi >> 1) * 8) * kCk + m0 + (mi & 1) * 8);
-            else
-              ldmatrix_x4(af[ks],
-                          kt + (m0 + ri + (mi & 1) * 8) * kstride + rr + (mi >> 1) * 8);
+            ldmatrix_x4(af[ks], kt + (m0 + ri + (mi & 1) * 8) * kstride + rr + (mi >> 1) * 8);
           }
         }
 
@@ -510,7 +487,6 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
             }
           }
           const float* qh = q_s + h * HD;
-          const float* kbh = BIAS ? kb_g + static_cast<size_t>(h) * HD : nullptr;
           float part_a = 0.0f, part_b = 0.0f;
 #pragma unroll
           for (int j = 0; j < NTW; ++j) {
@@ -525,13 +501,6 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
                 k2 *= ska;
                 l1 *= skb;
                 l2 *= skb;
-              }
-              if (BIAS && ci == 0) {  // the K bias, pre-RoPE, once per token
-                const float b1 = __ldg(kbh + d), b2 = __ldg(kbh + d + half);
-                k1 += b1;
-                k2 += b2;
-                l1 += b1;
-                l2 += b2;
               }
               part_a += q1 * (k1 * ca[j][e] - k2 * sa[j][e]) + q2 * (k2 * ca[j][e] + k1 * sa[j][e]);
               part_b += q1 * (l1 * cb[j][e] - l2 * sb[j][e]) + q2 * (l2 * cb[j][e] + l1 * sb[j][e]);
@@ -647,15 +616,15 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
   }
 }
 
-template <int HD, bool RM, bool QUANT, bool BIAS = false, int MODE = kFull, bool V2 = false>
+template <int HD, bool QUANT, int MODE = kFull, bool V2 = false>
 int launch_split(const FpArgs& a, int B, cudaStream_t st) {
   const size_t smem =
-      fp_layout(RM, RM || V2, a.rk, HD, a.hpg, a.rv, a.chunk_heads, QUANT, a.rc).total;
+      fp_layout(false, V2, a.rk, HD, a.hpg, a.rv, a.chunk_heads, QUANT, a.rc).total;
   cudaError_t err =
-      cudaFuncSetAttribute(palu_decode_fp_split_kernel<HD, RM, QUANT, BIAS, MODE, V2>,
+      cudaFuncSetAttribute(palu_decode_fp_split_kernel<HD, QUANT, MODE, V2>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  palu_decode_fp_split_kernel<HD, RM, QUANT, BIAS, MODE, V2>
+  palu_decode_fp_split_kernel<HD, QUANT, MODE, V2>
       <<<dim3(a.splits, a.G, B), kThreads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -696,15 +665,6 @@ __global__ void __launch_bounds__(256) dissect_finish(const float* __restrict__ 
   stats[2 * row + 1] = den;
 }
 
-// The latent variants: rank-major or seq-major, with or without the K bias.
-template <int HD>
-int launch_latent(const FpArgs& a, bool rm, int B, cudaStream_t st) {
-  if (a.kbias)
-    return rm ? launch_split<HD, true, false, true>(a, B, st)
-              : launch_split<HD, false, false, true>(a, B, st);
-  return rm ? launch_split<HD, true, false>(a, B, st) : launch_split<HD, false, false>(a, B, st);
-}
-
 // Heads of B that fit in shared memory beside the rest, and the rank chunk
 // (a.rc): up to 128 ranks, fewer when not even one head's 128 rows fit;
 // a.chunk_heads is 0 when nothing fits.
@@ -724,67 +684,9 @@ void fit_heads(FpArgs& a, bool rmk, bool rmv, int hd, bool quant) {
 
 }  // namespace
 
-// Shapes in the comments of FpArgs; rank_major selects the latent layout;
-// out (B, nh, rv) f32. The partial buffers hold B * nh * splits (m, l) and
-// B * nh * splits * rv accumulators. hd is 64 or 128, rk a multiple of 16
-// up to 512, rv and S multiples of 8. kbias is null or the (G, hpg, hd) f32
-// pre-RoPE K bias. layer selects one layer of (L, B, G, ...) stacked
-// latents (0 for a single layer's); pos_offset is the absolute position of
-// column 0 (kv_len stays absolute, cos_t / sin_t start at that position);
-// with m_out and l_out (B * nh f32 each) the combine writes the raw
-// statistics, out unnormalised (palu_decode.cu).
-extern "C" int palu_decode_fp(const void* q, int q_bf16, const void* bk, const void* xk,
-                              const void* xv, const void* kv_len, const void* cos_t,
-                              const void* sin_t, const void* kbias, void* part_m, void* part_l,
-                              void* part_acc, void* out, int B, int G, int hpg, int hd, int rk,
-                              int rv, int S,
-                              int rank_major, int window, int splits, int tiles_per_split,
-                              float sqrt_hd, int layer, int pos_offset, void* m_out,
-                              void* l_out, void* stream) {
-  if ((hd != 64 && hd != 128) || rk % 16 || rk > kMaxRank || rv % 8 || S % 8 ||
-      hpg > kMaxHeads || layer < 0 || (m_out == nullptr) != (l_out == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  FpArgs a{};
-  a.q = q;
-  a.q_bf16 = q_bf16;
-  a.bk = static_cast<const bf16*>(bk);
-  a.xk = static_cast<const bf16*>(xk);
-  a.xv = static_cast<const bf16*>(xv);
-  a.kv_len = static_cast<const int*>(kv_len);
-  a.cos_t = static_cast<const float*>(cos_t);
-  a.sin_t = static_cast<const float*>(sin_t);
-  a.kbias = static_cast<const float*>(kbias);
-  a.part_m = static_cast<float*>(part_m);
-  a.part_l = static_cast<float*>(part_l);
-  a.part_acc = static_cast<float*>(part_acc);
-  a.G = G;
-  a.hpg = hpg;
-  a.rk = rk;
-  a.rv = rv;
-  a.S = S;
-  a.window = window;
-  a.splits = splits;
-  a.tiles_per_split = tiles_per_split;
-  a.sqrt_hd = sqrt_hd;
-  a.layer = layer;
-  a.pos_offset = pos_offset;
-  // as many heads' B in shared memory as fit beside the rest
-  const bool rm = rank_major != 0;
-  fit_heads(a, rm, rm, hd, false);
-  if (a.chunk_heads == 0) return static_cast<int>(cudaErrorInvalidValue);
-
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err = hd == 128 ? launch_latent<128>(a, rm, B, st) : launch_latent<64>(a, rm, B, st);
-  if (err != 0) return err;
-  return decode::launch_combine(a.part_m, a.part_l, a.part_acc, static_cast<float*>(out),
-                                B * G * hpg, splits, rv, st, static_cast<float*>(m_out),
-                                static_cast<float*>(l_out));
-}
-
-// The dissection of palu_decode_fp over seq-major bf16 latents (no bias, no
-// window), in the same split grid: mode 0 (kFull) launches the production
-// kernel and combine, so its out (B, nh, rv) f32 is palu_decode_fp's;
-// kNoLogits also writes out. kNoValue writes stats (B, nh, 2) f32 = (m, l);
+// The dissection of the split kernel over seq-major bf16 latents (no bias,
+// no window): mode 0 (kFull) launches it whole, with the combine, so its
+// out (B, nh, rv) f32 is the decode's; kNoLogits also writes out. kNoValue writes stats (B, nh, 2) f32 = (m, l);
 // kDmaOnly / kNoop write the checksum ck_out (one u64) from part_ck (B * G
 // * splits). Every head's B must fit in shared memory in one rank chunk
 // (rk <= 128), so each block walks its tiles once.
@@ -825,8 +727,8 @@ extern "C" int palu_decode_fp_dissect(int mode, const void* q, int q_bf16, const
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int err;
 #define PALU_DISSECT(M)                                                               \
-  (hd == 128 ? launch_split<128, false, false, false, M>(a, B, st)                  \
-             : launch_split<64, false, false, false, M>(a, B, st))
+  (hd == 128 ? launch_split<128, false, M>(a, B, st)                                \
+             : launch_split<64, false, M>(a, B, st))
   switch (mode) {
     case kFull: err = PALU_DISSECT(kFull); break;
     case kNoValue: err = PALU_DISSECT(kNoValue); break;
@@ -898,8 +800,8 @@ extern "C" int palu_decode_seq_q(const void* q, int q_bf16, const void* bk, cons
   if (a.chunk_heads == 0) return static_cast<int>(cudaErrorInvalidValue);
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err = hd == 128 ? launch_split<128, false, true>(a, B, st)
-                            : launch_split<64, false, true>(a, B, st);
+  const int err = hd == 128 ? launch_split<128, true>(a, B, st)
+                            : launch_split<64, true>(a, B, st);
   if (err != 0) return err;
   return decode::launch_combine(a.part_m, a.part_l, a.part_acc, static_cast<float*>(out),
                                 B * G * hpg, splits, rv, st);
@@ -944,8 +846,8 @@ extern "C" int palu_decode_fp_v2(const void* q, int q_bf16, const void* bk, cons
   if (a.chunk_heads == 0) return static_cast<int>(cudaErrorInvalidValue);
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err = hd == 128 ? launch_split<128, false, false, false, kFull, true>(a, B, st)
-                            : launch_split<64, false, false, false, kFull, true>(a, B, st);
+  const int err = hd == 128 ? launch_split<128, false, kFull, true>(a, B, st)
+                            : launch_split<64, false, kFull, true>(a, B, st);
   if (err != 0) return err;
   return decode::launch_combine(a.part_m, a.part_l, a.part_acc, static_cast<float*>(out),
                                 B * G * hpg, splits, rv, st);

@@ -1,0 +1,798 @@
+// Latent decode attention over the unquantized (bf16) latent caches, for
+// Hopper: the K rebuild on warpgroup MMA (wgmma) once per kv-head, the
+// value product on mma.sync, a TMA-fed mbarrier ring of cache chunks, one
+// wave of blocks whose splits cut each lane's valid tiles.
+//
+// Replaces: palu_tpu/ops/pallas/palu_decode.py::palu_flash_decode (the v1
+// kernel over seq-major latents (B, G, S, r)) and
+// palu_tpu/ops/pallas/palu_decode4.py::palu_flash_decode4 (the v4 kernel
+// over rank-major latents (B, G, r, S), with k_bias, pos_offset,
+// return_stats and layer_idx); RM selects the layout, nothing else differs.
+//
+// What it computes, per lane b, group g, kv-head j of the group and each of
+// the rep q-heads h that read it (rep = hpg / nkv; 1 for JAX's repeated
+// form):
+//   K_j(s) = B_j^T x_k(s) [+ b_j, the K bias, before RoPE]
+//   logit_h(s) = q_h . RoPE_s(K_j(s)) / sqrt(hd), masked by kv_len and window
+//   out_h = sum_s softmax(logit_h)(s) x_v(s)
+// -> (B, nh, rv) f32 in latent space (o_proj is U_v-fused).
+//
+// Bound on this card: bytes. A token costs (rk + rv) * 2 bytes of latents
+// per group and 2 * nkv * rk * hd flops of K rebuild: at the Llama-2-7B
+// group (4 kv-heads, rk 128, rv 384) 1024 bytes against 131 kflop, 128
+// flops per byte, under the card's ~295 bf16 flops per byte. At the byte
+// bound a 64-token tile (64 KB) streams in ~2.5 us per SM, against ~1.1 us
+// of tensor time for its four K rebuilds: the products must run on the
+// tensor cores and everything around them must hide under the stream.
+//
+// Design. A block is 3 warpgroups (roles broadcast warp-uniform):
+//  - producer (setmaxnreg 40): thread 0 keeps a ring of ns 16 KB chunks
+//    full by TMA (cp.async.bulk.tensor, 128-byte swizzle), each chunk 64
+//    tokens x 128 ranks of one side taken straight from the cache's layout:
+//    rank-major planes as one (64 tokens, up to 128 ranks) box, seq-major
+//    ones as two (64 ranks, 64 tokens) boxes; per tile the K chunks, then
+//    the V chunks. Threads 32 and 64 stream B for consumer warpgroups 0 and
+//    1 (each kv-head's 128-rank chunks of rows, hd in 64-column boxes): once
+//    per work item when the warpgroups' B fits beside the ring (resident),
+//    else per tile through a ring of nb >= 2 slots (streamed); the boxes
+//    of the K chunks and of B always span 128 ranks, so the ranks past rk
+//    arrive as zeros;
+//  - two consumer warpgroups (setmaxnreg 232), each owning a contiguous
+//    half of the group's q-heads (at most 16) and the kv-heads they read,
+//    so neither waits on the other. Per tile: the RoPE rotation in
+//    registers (each thread's 2 tokens x hd/4 frequencies, sin and cos of
+//    the same f32 angle position * inv_freq the plain version takes, one
+//    token on the special-function unit and one by polynomial; no table is
+//    read); per kv-head K (64 tokens x hd) = x_k^T B_j as m64n(hd)k16 wgmma,
+//    8 k-steps per 128-rank chunk, both operands in shared memory (x_k^T
+//    from the ring chunk: M-major for rank-major chunks, K-major for
+//    seq-major ones; B_j MN-major from its slot), then on the accumulator
+//    registers the K bias, RoPE (the pair d, d + hd/2 falls in one thread),
+//    the dot with each q-head that reads the kv-head and a quad shuffle per
+//    logit (no block barrier per head); the online softmax (one warp per
+//    head), which writes P^T in bf16 high and low parts in the 128-byte
+//    swizzle; and out^T (rv x heads) += V (rv x 64 tokens) . P^T on wgmma
+//    m64n16k16 per 64-rank block, V straight from the ring chunk, P^T's
+//    high and low rows side by side in one product when a consumer has at
+//    most 8 heads (hi.V + lo.V: the f32 class), the accumulators in
+//    registers for the whole item.
+// Shared memory (227 KB): the ring (ns x 16 KB, ns 3-8), B (resident: the
+// group's kv-heads x 128-rank chunks x hd x 2 bytes, 128 KB at the Llama
+// group; streamed: 2 x nb slots), per consumer P^T (2 x heads x 128 B), q
+// (heads x hd f32), logits (heads x 64 f32), softmax statistics and the
+// mbarriers. At the Llama group: B 128 KB resident, 5 chunks (80 KB: a
+// whole 64 KB tile plus one chunk in flight), ~16 KB of the rest.
+// Registers per consumer thread (232 at most): the K accumulator (hd / 2),
+// the tile's rotation (hd / 2), the V accumulators (MT x 8: 48 at the Llama
+// group) and ~40 more.
+//
+// Where a tile's time goes: palu_tpu_torch/tools/decode_timeline.py stamps
+// a copy of this kernel per phase and times the loads alone. At the Llama
+// group the loads alone nearly reach the byte bound; the consumers' work
+// (the rotation, both kv-heads' products and epilogues, the softmax and
+// the V products, each a sizable share) sets the pace. Small wgmma cost
+// about the same whatever their width, hence the fold of P^T's high and
+// low rows into one product. Tried and slower: the value product on
+// mma.sync (however its loops were ordered), the rotation or the previous
+// tile's V products placed under the K products, the V products retired a
+// tile later.
+//
+// The grid is one wave: work items (lane, group, sequence split) number at
+// most SMs (the wrapper's _splits), blocks min(items, SMs), each looping
+// over items; the splits of a (lane, group) cut its valid tiles (from
+// kv_len, the window and pos_offset, read on the device:
+// decode::tile_range), so every valid tile is read once and no block walks
+// past kv_len; a split with no tile writes m = -1e30, l = 0, acc = 0. The
+// combine kernel (decode_common.cuh) merges the splits.
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "decode_common.cuh"
+#include "hopper.cuh"
+
+namespace {
+
+using namespace hopper;
+
+constexpr int kTile = 64;          // tokens per tile (the wgmma M of the K rebuild)
+constexpr int kWG = 128;           // threads per warpgroup
+constexpr int kThreads = 3 * kWG;  // two consumer warpgroups, one producer
+constexpr int kMaxHeads = 32;      // q-heads per group (Qwen2-7B: 28)
+constexpr int kWgHeads = 16;       // q-heads per consumer warpgroup
+constexpr int kMaxRank = 512;
+constexpr int kChunk = 128;        // ranks per ring chunk
+constexpr uint32_t kChunkBytes = kTile * kChunk * 2;  // 16 KB
+constexpr int kMaxKSteps = kChunk / 16;
+constexpr int kSmemBudget = static_cast<int>(decode::kSmemMax) - 1024;  // - alignment slack
+
+struct Plan {
+  int ok, ns, nb, resident, nck, ncv, rows_v;
+  uint32_t slot_bytes;                      // one B slot: 128 ranks x hd, hd / 64 boxes
+  uint32_t bslots, p, q, lg, stats, bars, total;
+};
+
+struct Args {
+  const void* q;           // (B, nh, hd) bf16 or f32, roped at the current position
+  int q_bf16;
+  const float* kbias;      // (G, nkv, hd) pre-RoPE K bias, or null
+  const float* inv_freq;   // (hd / 2,) RoPE frequencies
+  const int* kv_len;       // (B,) absolute
+  float* part_m;           // (B, nh, splits)
+  float* part_l;
+  float* part_acc;         // (B, nh, splits, rv)
+  int B, G, hpg, nkv, rep, rk, rv, S, window;
+  int hsplit;              // consumer 0 owns q-heads [0, hsplit), consumer 1 the rest
+  int splits, n_items, layer, pos_offset;
+  float inv_sqrt_hd, rope_scale;
+  Plan L;
+};
+
+inline uint32_t up(uint32_t x, uint32_t a) { return (x + a - 1) / a * a; }
+
+// The shared-memory plan: ns ring chunks, B (resident: every kv-head of
+// both consumers, all rank chunks; streamed: nb slots per consumer, each one
+// 128-rank chunk of one kv-head), then per consumer P^T (high, low), q, the
+// logits and the softmax statistics, then the mbarriers. Preference: B
+// resident with the deepest ring up to 8 chunks and at least one tile's K
+// chunks plus one; else B streamed, a whole tile plus one chunk in flight
+// if it fits. ok = 0 when nothing fits.
+Plan make_plan(int hd, int rk, int rv, int nkv0, int nkv1, int npw) {
+  Plan p{};
+  p.nck = (rk + kChunk - 1) / kChunk;
+  p.ncv = (rv + kChunk - 1) / kChunk;
+  p.rows_v = rv < kChunk ? rv : kChunk;
+  auto tail = [&](int ns, int nb, uint32_t slot) {
+    uint32_t o = ns * kChunkBytes;
+    p.bslots = o;
+    o = up(o + 2 * nb * slot, 1024);
+    p.p = o; o += 2 * 2 * npw * 128;
+    p.q = o; o += 2 * npw * hd * 4;
+    p.lg = o; o += 2 * npw * kTile * 4;
+    p.stats = o; o += 2 * 3 * npw * 4;
+    p.bars = up(o, 8);
+    return p.bars + 8 * (2 * ns + 4 * nb);
+  };
+  const int nkvw = nkv0 > nkv1 ? nkv0 : nkv1;
+  const int want = p.nck + p.ncv + 1 < 8 ? p.nck + p.ncv + 1 : 8;
+  const int least = p.nck + 1;
+  const uint32_t slot = kChunk * hd * 2;
+  auto take = [&](int ns, int nb, int resident) {
+    p.ok = 1, p.ns = ns, p.nb = nb, p.resident = resident, p.slot_bytes = slot;
+    p.total = tail(ns, nb, slot);
+  };
+  const int nb_res = nkvw * p.nck > 0 ? nkvw * p.nck : 1;
+  for (int ns = 8; ns >= least; --ns)  // resident
+    if (tail(ns, nb_res, slot) <= static_cast<uint32_t>(kSmemBudget)) {
+      take(ns, nb_res, 1);
+      return p;
+    }
+  for (int ns = want; ns >= least; --ns) {  // streamed
+    int nb = 2;
+    if (tail(ns, nb, slot) > static_cast<uint32_t>(kSmemBudget)) continue;
+    while (nb < 8 && tail(ns, nb + 1, slot) <= static_cast<uint32_t>(kSmemBudget)) ++nb;
+    take(ns, nb, 0);
+    return p;
+  }
+  p.ok = 0;
+  return p;
+}
+
+// The q-head split between the consumers: by whole kv-heads when each half
+// stays within kWgHeads, else by halves of the group's q-heads (both then
+// rebuild the kv-head across the cut).
+int head_split(int hpg, int nkv) {
+  const int rep = hpg / nkv, hs = rep * ((nkv + 1) / 2);
+  return hs <= kWgHeads && hpg - hs <= kWgHeads ? hs : (hpg + 1) / 2;
+}
+
+#define PALU_ACC64                                                                                 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),  \
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),     \
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),   \
+      "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),   \
+      "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define PALU_ACC128                                                                                \
+  PALU_ACC64, "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),       \
+      "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),   \
+      "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),   \
+      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]),   \
+      "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define PALU_REGS32                                                                          \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define PALU_REGS64                                                                          \
+  PALU_REGS32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, " \
+              "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+
+// d (64 tokens x N, f32) (+)= A (64 tokens x 16 ranks, shared memory: K-major
+// when TA is 0, M-major when 1) . B (16 ranks x N dims, MN-major in shared
+// memory), scale_d 0 on a chain's first product.
+template <int N, int TA>
+__device__ __forceinline__ void wgmma_k(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                        int scale_d) {
+  if constexpr (N == 128) {
+    if constexpr (TA) {
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+                   "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" PALU_REGS64
+                   "}, %64, %65, p, 1, 1, 1, 1;\n}\n"
+                   : PALU_ACC128
+                   : "l"(da), "l"(db), "r"(scale_d));
+    } else {
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+                   "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" PALU_REGS64
+                   "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+                   : PALU_ACC128
+                   : "l"(da), "l"(db), "r"(scale_d));
+    }
+  } else {
+    if constexpr (TA) {
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                   "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" PALU_REGS32
+                   "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+                   : PALU_ACC64
+                   : "l"(da), "l"(db), "r"(scale_d));
+    } else {
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                   "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" PALU_REGS32
+                   "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+                   : PALU_ACC64
+                   : "l"(da), "l"(db), "r"(scale_d));
+    }
+  }
+}
+
+// d (64 ranks x 16 columns, f32) += A (64 ranks x 16 tokens, shared memory:
+// K-major when TA is 0, M-major when 1) . B (16 tokens x 16 columns,
+// K-major in shared memory)
+template <int TA>
+__device__ __forceinline__ void wgmma_v(float (&d)[8], uint64_t da, uint64_t db) {
+  if constexpr (TA) {
+    asm volatile("wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+                 "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, 1, 1, 1, 1, 0;\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+                   "+f"(d[6]), "+f"(d[7])
+                 : "l"(da), "l"(db));
+  } else {
+    asm volatile("wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+                 "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, 1, 1, 1, 0, 0;\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+                   "+f"(d[6]), "+f"(d[7])
+                 : "l"(da), "l"(db));
+  }
+}
+
+// kv (+)= the 8 k-steps of one 128-rank chunk, x_k^T (ring chunk at
+// `aslot`) . B (slot `bslot`), one unguarded chain of fixed length: a chain
+// length picked at run time (a switch), beside the mma.sync value product,
+// makes ptxas serialize every product (C7520). Ranks past rk are zero in
+// both operands (TMA fills the boxes' out-of-range rows with zeros). The A
+// descriptor: rank-major chunks hold 16 ranks per 2048 bytes (M-major);
+// seq-major ones 64 ranks per 8 KB box, 16 per 32 bytes of a swizzled row
+// (K-major).
+template <int HD, bool RM>
+__device__ __forceinline__ void k_chain(float (&kv)[HD / 2], uint32_t aslot, uint32_t bslot,
+                                        int first) {
+#pragma unroll
+  for (int kk = 0; kk < kMaxKSteps; ++kk) {
+    const uint64_t da = RM ? sw128_desc(aslot + kk * 2048, kChunkBytes, 1024)
+                           : sw128_desc(aslot + (kk >> 2) * 8192 + (kk & 3) * 32, 16, 1024);
+    wgmma_k<HD, RM ? 1 : 0>(kv, da, sw128_desc(bslot + kk * 2048, kChunk * 128, 1024),
+                            kk > 0 || !first);
+  }
+}
+
+// sin and cos of an f32 angle: decode::sincos_fast's reduction to r in
+// [-pi/4, pi/4] and quadrant, then the special-function unit on r (absolute
+// error ~2^-21 there): about half of the polynomial's instructions.
+__device__ __forceinline__ void sincos_sfu(float x, float& sn, float& cs) {
+  const float j = rintf(x * 0x1.45f306p-1f);  // 2 / pi
+  float r = fmaf(j, -0x1.921fb6p+0f, x);      // pi/2 in three parts
+  r = fmaf(j, 0x1.777a5cp-25f, r);
+  r = fmaf(j, 0x1.ee59dap-50f, r);
+  const float s = __sinf(r), c = __cosf(r);
+  const int q = static_cast<int>(j) & 3;
+  const float a = (q & 1) ? c : s, b = (q & 1) ? s : c;
+  sn = (q & 2) ? -a : a;
+  cs = ((q + 1) & 2) ? -b : b;
+}
+
+// The tile's RoPE rotation in this thread's registers: its tokens ta and ta
+// + 8 (rows of the K accumulator) at frequencies 8jj + 2qd + e (jj < hd/16),
+// sin and cos of the f32 angle position * inv_freq, times rope_scale; token
+// ta's on the special-function unit, ta + 8's by polynomial on the FMA pipe,
+// so that the two units share the work.
+template <int HD>
+__device__ __forceinline__ void rotation(float (&rc)[HD / 16][2][2], float (&rs)[HD / 16][2][2],
+                                         const float* inv_freq, float pa, int qd,
+                                         float rope_scale) {
+#pragma unroll
+  for (int jj = 0; jj < HD / 16; ++jj) {
+    const float2 f = __ldg(reinterpret_cast<const float2*>(inv_freq + 8 * jj + 2 * qd));
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float inv = e ? f.y : f.x;
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        float sn, cs;
+        const float x = __fmul_rn(pa + 8.0f * t, inv);
+        if (t == 0)
+          sincos_sfu(x, sn, cs);
+        else
+          decode::sincos_fast(x, sn, cs);
+        rc[jj][e][t] = cs * rope_scale;
+        rs[jj][e][t] = sn * rope_scale;
+      }
+    }
+  }
+}
+
+// The epilogue of one kv-head on its K registers (element 4jj + 2t + e: token
+// ta + 8t, column 8jj + 2qd + e): the K bias (its hd values, or null), RoPE,
+// and the logits of the consumer's q-heads hw0 .. hw1 - 1 into lg (q_s
+// pre-scaled by 1 / sqrt(hd)); a quad shuffle finishes each logit.
+template <int HD>
+__device__ __forceinline__ void k_finish(float (&kf)[HD / 2], const float (&rc)[HD / 16][2][2],
+                                         const float (&rs)[HD / 16][2][2], const float* bias,
+                                         const float* q_s, float* lg, int hw0, int hw1, int ta,
+                                         int qd) {
+  constexpr int NJ = HD / 8, H = NJ / 2;
+  if (bias != nullptr) {
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) {
+      const float2 bb = __ldg(reinterpret_cast<const float2*>(bias + 8 * jj + 2 * qd));
+      kf[4 * jj] += bb.x, kf[4 * jj + 1] += bb.y;
+      kf[4 * jj + 2] += bb.x, kf[4 * jj + 3] += bb.y;
+    }
+  }
+#pragma unroll
+  for (int jj = 0; jj < H; ++jj)
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {  // column f < hd / 2 pairs with f + hd / 2
+        const int u = 4 * jj + 2 * t + e, v = u + 4 * H;
+        const float c = rc[jj][e][t], s = rs[jj][e][t], k1 = kf[u], k2 = kf[v];
+        kf[u] = k1 * c - k2 * s;
+        kf[v] = k2 * c + k1 * s;
+      }
+  for (int h = hw0; h < hw1; ++h) {
+    const float* qh = q_s + h * HD;
+    float la = 0.0f, lb = 0.0f, la2 = 0.0f, lb2 = 0.0f;  // two chains per token
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) {
+      const float2 qv = *reinterpret_cast<const float2*>(qh + 8 * jj + 2 * qd);
+      la = fmaf(qv.x, kf[4 * jj], la);
+      la2 = fmaf(qv.y, kf[4 * jj + 1], la2);
+      lb = fmaf(qv.x, kf[4 * jj + 2], lb);
+      lb2 = fmaf(qv.y, kf[4 * jj + 3], lb2);
+    }
+    la += la2;
+    lb += lb2;
+    la += __shfl_xor_sync(0xffffffffu, la, 1);
+    la += __shfl_xor_sync(0xffffffffu, la, 2);
+    lb += __shfl_xor_sync(0xffffffffu, lb, 1);
+    lb += __shfl_xor_sync(0xffffffffu, lb, 2);
+    if (qd == 0) {  // every lane of the quad holds the sums
+      lg[h * kTile + ta] = la;
+      lg[h * kTile + ta + 8] = lb;
+    }
+  }
+}
+
+// A work item's coordinates and its tiles [t0, t1) (empty when t1 <= t0).
+struct Item {
+  int b, g, split, t0, t1, vlo, vhi;
+};
+
+__device__ __forceinline__ Item item_at(const Args& a, int item) {
+  Item it;
+  it.split = item % a.splits;
+  const int bg = item / a.splits;
+  it.g = bg % a.G;
+  it.b = bg / a.G;
+  const decode::TileRange r = decode::tile_range(a.kv_len[it.b], a.pos_offset, a.window, a.S,
+                                                 a.splits, it.split, kTile);
+  it.t0 = r.t0, it.t1 = r.t1, it.vlo = r.vlo, it.vhi = r.vhi;
+  return it;
+}
+
+// HD: head dim; RM: rank-major latents; NT: 8-head tiles of a consumer's
+// q-heads; MT: 64-rank blocks of the V accumulators, rv <= 64 MT
+template <int HD, bool RM, int NT, int MT>
+__global__ void __launch_bounds__(kThreads, 1)
+palu_decode_fp_wg_kernel(const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_b, const Args a) {
+  constexpr int NACC = HD / 2;  // K accumulator registers per thread
+  constexpr int NPW = 8 * NT;   // q-head rows of a consumer's P^T
+  const Plan& L = a.L;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* sm = smem_raw + (base - raw);
+  const uint32_t bars = base + L.bars;
+  const uint32_t full = bars, empty = bars + 8 * L.ns;
+  const uint32_t bfull = bars + 16 * L.ns, bempty = bfull + 16 * L.nb;  // [consumer][nb]
+
+  // the warpgroup's role, broadcast from lane 0 so that ptxas sees it warp-
+  // uniform: wgmma under a branch it takes for divergent runs serialized (C7520)
+  const int tid = threadIdx.x, wg = __shfl_sync(0xffffffffu, tid / kWG, 0);
+  const int nh = a.G * a.hpg;
+  if (tid == 0) {
+    for (int s = 0; s < L.ns; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2 * kWG);
+    }
+    for (int s = 0; s < 2 * L.nb; ++s) {
+      mbar_init(bfull + 8 * s, 1);
+      mbar_init(bempty + 8 * s, kWG);
+    }
+    mbar_init_fence();
+  }
+  for (int i = tid; i < 2 * 2 * NPW * 128 / 4; i += kThreads)
+    reinterpret_cast<uint32_t*>(sm + L.p)[i] = 0u;  // P^T rows past a consumer's heads stay 0
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: thread 0 streams the ring, threads 32 and 64 the B of
+    // consumers 0 and 1
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    const int lt = tid - 2 * kWG;
+    if (lt == 0) {
+      int it = 0;
+      for (int item = blockIdx.x; item < a.n_items; item += gridDim.x) {
+        const Item w = item_at(a, item);
+        const int plane = (a.layer * a.B + w.b) * a.G + w.g;
+        for (int tile = w.t0; tile < w.t1; ++tile) {
+          const int s0 = tile * kTile;
+          for (int ch = 0; ch < L.nck + L.ncv; ++ch, ++it) {
+            const int st = it % L.ns;
+            mbar_wait(empty + 8 * st, ((it / L.ns) & 1) ^ 1);
+            const uint32_t fb = full + 8 * st, dst = base + st * kChunkBytes;
+            const bool v = ch >= L.nck;
+            const int c = v ? ch - L.nck : ch, r = v ? a.rv : a.rk;
+            const CUtensorMap* map = v ? &tm_v : &tm_k;
+            if (RM) {
+              mbar_expect_tx(fb, kTile * (v ? L.rows_v : kChunk) * 2);
+              tma_load(dst, map, fb, s0, c * kChunk, plane);
+            } else {  // the K chunk whole (its k-steps read both boxes), V as far as rv
+              const int nbox = !v || r - c * kChunk > 64 ? 2 : 1;
+              mbar_expect_tx(fb, nbox * kTile * 128);
+              for (int x = 0; x < nbox; ++x)
+                tma_load(dst + x * kTile * 128, map, fb, c * kChunk + 64 * x, s0, plane);
+            }
+          }
+        }
+      }
+    } else if (lt == 32 || lt == 64) {
+      const int c = lt / 32 - 1;
+      const int h0 = c ? a.hsplit : 0, h1 = c ? a.hpg : a.hsplit;
+      const int j0 = h0 / a.rep, j1 = h1 > h0 ? (h1 - 1) / a.rep + 1 : j0;
+      int kb = 0;
+      for (int item = blockIdx.x; item < a.n_items; item += gridDim.x) {
+        const Item w = item_at(a, item);
+        if (w.t1 <= w.t0) continue;
+        const int nt = L.resident ? 1 : w.t1 - w.t0;
+        for (int t = 0; t < nt; ++t)
+          for (int j = j0; j < j1; ++j)
+            for (int bc = 0; bc < L.nck; ++bc, ++kb) {
+              const int slot = kb % L.nb;
+              mbar_wait(bempty + 8 * (c * L.nb + slot), ((kb / L.nb) & 1) ^ 1);
+              const uint32_t fb = bfull + 8 * (c * L.nb + slot);
+              const uint32_t dst = base + L.bslots + (c * L.nb + slot) * L.slot_bytes;
+              mbar_expect_tx(fb, L.slot_bytes);
+#pragma unroll
+              for (int cc = 0; cc < HD / 64; ++cc)
+                tma_load(dst + cc * kChunk * 128, &tm_b, fb, cc * 64, bc * kChunk, w.g * a.nkv + j);
+            }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int c = wg;  // this consumer
+  const int wt = tid % kWG, warp = wt / 32, lane = tid % 32;
+  const int gq = lane / 4, qd = lane % 4;
+  const int ta = 16 * warp + gq;  // this thread's K rows: tokens ta and ta + 8
+  const int h0 = c ? a.hsplit : 0, h1 = c ? a.hpg : a.hsplit;  // its q-heads
+  const int nhw = h1 - h0;
+  const int j0 = h0 / a.rep, j1 = h1 > h0 ? (h1 - 1) / a.rep + 1 : j0;  // its kv-heads
+  const int sync_id = 1 + c;
+  float* q_s = reinterpret_cast<float*>(sm + L.q) + c * NPW * HD;  // [head][HD] / sqrt(hd)
+  float* lg = reinterpret_cast<float*>(sm + L.lg) + c * NPW * kTile;  // [head][kTile]
+  float* m_s = reinterpret_cast<float*>(sm + L.stats) + c * 3 * NPW;
+  float* l_s = m_s + NPW;
+  float* alpha_s = m_s + 2 * NPW;
+  const uint32_t p_hi = base + L.p + c * 2 * NPW * 128, p_lo = p_hi + NPW * 128;
+  uint8_t* p_sm = sm + L.p + c * 2 * NPW * 128;
+  const uint32_t my_bfull = bfull + 8 * c * L.nb, my_bempty = bempty + 8 * c * L.nb;
+  const uint32_t my_bslots = base + L.bslots + c * L.nb * L.slot_bytes;
+
+  int it = 0, kb = 0;
+  constexpr bool FOLD = NT == 1;  // P^T high and low side by side in one product
+  float vacc[MT][8];  // out^T: element 4j + e of block mt is rank 64mt + 16warp + gq (+8 for
+                      // e >= 2), column 8j + 2qd + e % 2: head (FOLD: 2qd + e % 2, high
+                      // part for j 0, low for j 1)
+  for (int item = blockIdx.x; item < a.n_items; item += gridDim.x) {
+    const Item w = item_at(a, item);
+    const size_t head0 = static_cast<size_t>(w.b) * nh + static_cast<size_t>(w.g) * a.hpg;
+    named_sync(sync_id, kWG);  // the last item's reads of q_s and the statistics are done
+    for (int i = wt; i < nhw * HD; i += kWG) {
+      const size_t qi = (head0 + h0) * HD + i;
+      const float qv = a.q_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(a.q)[qi])
+                                : static_cast<const float*>(a.q)[qi];
+      q_s[i] = qv * a.inv_sqrt_hd;
+    }
+    if (wt < NPW) {
+      m_s[wt] = -1e30f;
+      l_s[wt] = 0.0f;
+      alpha_s[wt] = 1.0f;
+    }
+    named_sync(sync_id, kWG);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) vacc[mt][e] = 0.0f;
+    // out^T (rv x heads) = out^T * alpha + V . P^T of the tile whose chunks
+    // start at ring index q0, on wgmma m64n16k16: per 16-token k-step, each
+    // 64-rank block mt of the 128-rank chunks (A: V from the ring chunk,
+    // K-major for rank-major chunks, M-major for seq-major ones) times 16
+    // rows of P^T (B: K-major). FOLD (<= 8 heads): rows 0-7 P^T high and
+    // 8-15 its low part, one product, and the two column halves add up at
+    // the end; else 16 heads, high then low, two products. A product costs
+    // about the same at n8 as at n16 (measured), hence the fold. One fixed
+    // chain: a block past rv reads some other bytes into accumulator rows
+    // that are never written out.
+    auto v_product = [&](int q0) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {  // column 8j + 2qd + e of the accumulators
+        const float2 al =
+            *reinterpret_cast<const float2*>(alpha_s + (FOLD ? 0 : 8 * j) + 2 * qd);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          vacc[mt][4 * j] *= al.x, vacc[mt][4 * j + 1] *= al.y;
+          vacc[mt][4 * j + 2] *= al.x, vacc[mt][4 * j + 3] *= al.y;
+        }
+      }
+      for (int cv = 0; cv < L.ncv; ++cv) {
+        const int q = q0 + cv;
+        mbar_wait(full + 8 * (q % L.ns), (q / L.ns) & 1);
+      }
+      uint32_t blk[MT];  // each 64-rank block's first byte
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        blk[mt] = base + ((q0 + mt / 2) % L.ns) * kChunkBytes + (mt % 2) * 8192;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) fence_regs(vacc[mt]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // blocks innermost: consecutive products
+#pragma unroll                         // feed different accumulators
+        for (int part = 0; part < (FOLD ? 1 : 2); ++part)
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            wgmma_v<RM ? 0 : 1>(vacc[mt],
+                                RM ? sw128_desc(blk[mt] + kk * 32, 16, 1024)
+                                   : sw128_desc(blk[mt] + kk * 2048, 8192, 1024),
+                                sw128_desc((part ? p_lo : p_hi) + kk * 32, 16, 1024));
+      wgmma_commit();
+      wgmma_wait0();
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) fence_regs(vacc[mt]);
+      for (int cv = 0; cv < L.ncv; ++cv) mbar_arrive(empty + 8 * ((q0 + cv) % L.ns));
+    };
+    const int kb0 = kb;
+    for (int tile = w.t0; tile < w.t1; ++tile, it += L.nck + L.ncv) {
+      const int s0 = tile * kTile;
+      float rcs[HD / 16][2][2], rsn[HD / 16][2][2];  // the tile's rotation (cos, sin)
+      rotation<HD>(rcs, rsn, a.inv_freq, static_cast<float>(a.pos_offset + s0 + ta), qd,
+                   a.rope_scale);
+      for (int ck = 0; ck < L.nck; ++ck)
+        mbar_wait(full + 8 * ((it + ck) % L.ns), ((it + ck) / L.ns) & 1);
+      for (int j = j0; j < j1; ++j) {
+        float kv[NACC];
+        for (int bc = 0; bc < L.nck; ++bc) {  // the 128-rank chunks of B_j
+          const int use = L.resident ? kb0 + (j - j0) * L.nck + bc : kb++;
+          const int slot = use % L.nb;
+          mbar_wait(my_bfull + 8 * slot, (use / L.nb) & 1);  // (resident: done after the first)
+          fence_regs(kv);
+          wgmma_fence();
+          k_chain<HD, RM>(kv, base + ((it + bc) % L.ns) * kChunkBytes,
+                          my_bslots + slot * L.slot_bytes, bc == 0);
+          wgmma_commit();
+          wgmma_wait0();
+          fence_regs(kv);
+          if (!L.resident) mbar_arrive(my_bempty + 8 * slot);
+        }
+        const float* bias =
+            a.kbias ? a.kbias + (static_cast<size_t>(w.g) * a.nkv + j) * HD : nullptr;
+        k_finish<HD>(kv, rcs, rsn, bias, q_s, lg, max(h0, j * a.rep) - h0,
+                     min(h1, (j + 1) * a.rep) - h0, ta, qd);
+      }
+      for (int ck = 0; ck < L.nck; ++ck) mbar_arrive(empty + 8 * ((it + ck) % L.ns));
+      named_sync(sync_id, kWG);  // every head's logits of the tile are in lg; the last
+                                 // tile's V products (their reads of P^T and alpha) are done
+      // ---- online softmax, one warp per head; P^T in bf16 high and low
+      // parts (a uniform loop: h < NPW as nhw <= NPW)
+      for (int hb = 0; hb < nhw; hb += 4) {
+        const int h = hb + warp;
+        const bool hv = h < nhw;
+        float x[2], mx = -1e30f;
+        bool ok[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int t = lane + 32 * u, s = s0 + t;
+          ok[u] = hv && s >= w.vlo && s < w.vhi;
+          x[u] = ok[u] ? lg[h * kTile + t] : -1e30f;
+          mx = fmaxf(mx, x[u]);
+        }
+        mx = decode::warp_max(mx);
+        const float m_old = m_s[h], m_new = fmaxf(m_old, mx);
+        const float alpha = expf(m_old - m_new);
+        float sum = 0.0f;
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int t = lane + 32 * u;
+          const float p = ok[u] ? expf(x[u] - m_new) : 0.0f;
+          sum += p;
+          const __nv_bfloat16 ph = __float2bfloat16_rn(p);
+          const __nv_bfloat16 pl = __float2bfloat16_rn(p - __bfloat162float(ph));
+          const uint32_t off = h * 128 + ((((t >> 3) ^ (h & 7)) << 4) | ((t & 7) << 1));
+          if (hv) {
+            *reinterpret_cast<__nv_bfloat16*>(p_sm + off) = ph;
+            *reinterpret_cast<__nv_bfloat16*>(p_sm + NPW * 128 + off) = pl;
+          }
+        }
+        sum = decode::warp_sum(sum);
+        if (hv) {  // every lane holds the warp's results
+          m_s[h] = m_new;
+          l_s[h] = l_s[h] * alpha + sum;
+          alpha_s[h] = alpha;
+        }
+      }
+      fence_async_shared();      // P^T is read by wgmma (the async proxy)
+      named_sync(sync_id, kWG);  // P^T and alpha are ready
+      v_product(it + L.nck);
+    }
+    if (L.resident && w.t1 > w.t0) {
+      const int n = (j1 - j0) * L.nck;
+      for (int k = kb0; k < kb0 + n; ++k) mbar_arrive(my_bempty + 8 * (k % L.nb));
+      kb = kb0 + n;
+    }
+    // this item's partials (the statistics are final since the last softmax's barrier)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < (FOLD ? 1 : 2); ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 64 * mt + 16 * warp + gq + 8 * (e >> 1), hw = 8 * j + 2 * qd + (e & 1);
+          const float v = FOLD ? vacc[mt][e] + vacc[mt][4 + e] : vacc[mt][4 * j + e];
+          if (r < a.rv && hw < nhw)
+            a.part_acc[((head0 + h0 + hw) * a.splits + w.split) * a.rv + r] = v;
+        }
+    if (wt < nhw) {
+      a.part_m[(head0 + h0 + wt) * a.splits + w.split] = m_s[wt];
+      a.part_l[(head0 + h0 + wt) * a.splits + w.split] = l_s[wt];
+    }
+  }
+}
+
+template <int HD, bool RM, int NT, int MT>
+int launch(int grid, const CUtensorMap (&tm)[3], const Args& a, cudaStream_t st) {
+  const int smem = static_cast<int>(a.L.total) + 1024;
+  auto kern = palu_decode_fp_wg_kernel<HD, RM, NT, MT>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<grid, kThreads, smem, st>>>(tm[0], tm[1], tm[2], a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The instantiation for the consumers' heads and rv: NT 1 (<= 8 heads each)
+// or 2, and MT 64-rank blocks, 4 (rv <= 256), 6 (NT 1, rv <= 384) or 8.
+template <int HD, bool RM>
+int launch_shape(int nt, int rv, int grid, const CUtensorMap (&tm)[3], const Args& a,
+                 cudaStream_t st) {
+  if (nt == 1) {
+    if (rv <= 256) return launch<HD, RM, 1, 4>(grid, tm, a, st);
+    if (rv <= 384) return launch<HD, RM, 1, 6>(grid, tm, a, st);
+    return launch<HD, RM, 1, 8>(grid, tm, a, st);
+  }
+  if (rv <= 256) return launch<HD, RM, 2, 4>(grid, tm, a, st);
+  return launch<HD, RM, 2, 8>(grid, tm, a, st);
+}
+
+template <int HD>
+int launch_hd(bool rm, int nt, int rv, int grid, const CUtensorMap (&tm)[3], const Args& a,
+              cudaStream_t st) {
+  return rm ? launch_shape<HD, true>(nt, rv, grid, tm, a, st)
+            : launch_shape<HD, false>(nt, rv, grid, tm, a, st);
+}
+
+Plan plan_for(int hd, int rk, int rv, int hpg, int nkv, int* hs_out, int* nt_out) {
+  const int hs = head_split(hpg, nkv), rep = hpg / nkv;
+  const int nkv0 = hs > 0 ? (hs - 1) / rep + 1 : 0;
+  const int nkv1 = hpg > hs ? (hpg - 1) / rep + 1 - hs / rep : 0;
+  const int nhw = hs > hpg - hs ? hs : hpg - hs;
+  const int nt = nhw > 8 ? 2 : 1;
+  if (hs_out) *hs_out = hs;
+  if (nt_out) *nt_out = nt;
+  return make_plan(hd, rk, rv, nkv0, nkv1, 8 * nt);
+}
+
+}  // namespace
+
+// The shared memory a launch at these shapes takes, or -1 when no plan of
+// the kernel fits in one block (the wrapper raises then).
+extern "C" int palu_decode_fp_wg_smem(int hd, int rk, int rv, int hpg, int nkv) {
+  if (nkv <= 0 || hpg % nkv) return -1;
+  const Plan p = plan_for(hd, rk, rv, hpg, nkv, nullptr, nullptr);
+  return p.ok ? static_cast<int>(p.total) + 1024 : -1;
+}
+
+// q (B, nh, hd) bf16 or f32; bk (G, nkv, rk, hd) bf16 with nkv dividing hpg
+// = nh / G (q-head h of a group reads kv-head h / (hpg / nkv)); latents xk /
+// xv bf16, rank-major (L, B, G, r, S) or seq-major (L, B, G, S, r) (L =
+// n_layers, 1 for one layer's buffers; layer picks one); kv_len (B,) int32
+// absolute; kbias null or (G, nkv, hd) f32; inv_freq (hd / 2,) f32;
+// partials as in palu_decode.cu; out (B, nh, rv) f32, or with m_out / l_out
+// the raw statistics. hd 64 or 128, rk a multiple of 16 up to 512, rv a
+// multiple of 8 up to 512, hpg <= 32, S a multiple of 8. splits: the
+// wrapper's _splits; grid blocks loop over the B * G * splits work items.
+extern "C" int palu_decode_fp_wg(const void* q, int q_bf16, const void* bk, const void* xk,
+                                 const void* xv, const void* kv_len, const void* kbias,
+                                 const void* inv_freq, void* part_m, void* part_l,
+                                 void* part_acc, void* out, int B, int G, int hpg, int nkv,
+                                 int hd, int rk, int rv, int S, int rank_major, int window,
+                                 int splits, int grid, int layer, int n_layers, int pos_offset,
+                                 float inv_sqrt_hd, float rope_scale, void* m_out, void* l_out,
+                                 void* stream) {
+  if ((hd != 64 && hd != 128) || rk % 16 || rv % 8 || rk > kMaxRank || rv > kMaxRank ||
+      hpg > kMaxHeads || nkv <= 0 || hpg % nkv || S % 8 || layer < 0 || layer >= n_layers ||
+      (m_out == nullptr) != (l_out == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{};
+  int nt = 1;
+  a.L = plan_for(hd, rk, rv, hpg, nkv, &a.hsplit, &nt);
+  if (!a.L.ok) return static_cast<int>(cudaErrorInvalidValue);
+  a.q = q;
+  a.q_bf16 = q_bf16;
+  a.kbias = static_cast<const float*>(kbias);
+  a.inv_freq = static_cast<const float*>(inv_freq);
+  a.kv_len = static_cast<const int*>(kv_len);
+  a.part_m = static_cast<float*>(part_m);
+  a.part_l = static_cast<float*>(part_l);
+  a.part_acc = static_cast<float*>(part_acc);
+  a.B = B, a.G = G, a.hpg = hpg, a.nkv = nkv, a.rep = hpg / nkv, a.rk = rk, a.rv = rv, a.S = S;
+  a.window = window;
+  a.splits = splits, a.n_items = B * G * splits;
+  a.layer = layer, a.pos_offset = pos_offset;
+  a.inv_sqrt_hd = inv_sqrt_hd, a.rope_scale = rope_scale;
+  const uint64_t planes = static_cast<uint64_t>(n_layers) * B * G;
+  const auto bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  CUtensorMap tm[3];
+  bool ok;
+  if (rank_major)
+    ok = make_map_3d(&tm[0], bf, 2, xk, S, rk, planes, kTile, kChunk, sw) &&
+         make_map_3d(&tm[1], bf, 2, xv, S, rv, planes, kTile, a.L.rows_v, sw);
+  else
+    ok = make_map_3d(&tm[0], bf, 2, xk, rk, S, planes, 64, kTile, sw) &&
+         make_map_3d(&tm[1], bf, 2, xv, rv, S, planes, 64, kTile, sw);
+  ok = ok && make_map_3d(&tm[2], bf, 2, bk, hd, rk, static_cast<uint64_t>(G) * nkv, 64, kChunk,
+                         sw);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err = hd == 128 ? launch_hd<128>(rank_major != 0, nt, rv, grid, tm, a, st)
+                      : launch_hd<64>(rank_major != 0, nt, rv, grid, tm, a, st);
+  if (err != 0) return err;
+  return decode::launch_combine(static_cast<const float*>(part_m),
+                                static_cast<const float*>(part_l),
+                                static_cast<const float*>(part_acc), static_cast<float*>(out),
+                                B * G * hpg, splits, rv, st, static_cast<float*>(m_out),
+                                static_cast<float*>(l_out));
+}

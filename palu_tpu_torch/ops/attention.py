@@ -181,7 +181,7 @@ def flash_decode_latent_seq_sharded(
     q: torch.Tensor,  # (B, nh, hd) roped, the same on every shard
     x_k: torch.Tensor,  # (B, G, S_local, rk): this shard's columns
     x_v: torch.Tensor,  # (B, G, S_local, rv)
-    b_k: torch.Tensor,  # (G, hpg, rk, hd)
+    b_k: torch.Tensor,  # (G, hpg or hpg / rep, rk, hd)
     kv_len: torch.Tensor,  # (B,) absolute lengths
     mesh,
     axis: str,
@@ -201,10 +201,12 @@ def flash_decode_latent_seq_sharded(
     engine sends that case to its unsharded XLA fallback, which computes
     the same). -> (B, nh, rv) f32."""
     from ..parallel.mesh import axis_group
+    from .palu_decode import _expand
 
     group, idx, _ = axis_group(mesh, axis)
     b, nh, _ = q.shape
     s_local, rv = x_k.shape[2], x_v.shape[3]
+    b_k, k_bias = _expand(q, b_k, k_bias)  # the compact form, one B per kv-head
     if s_local % chunk:
         raise ValueError(f"chunk {chunk} must divide the shard's {s_local} columns")
     m, l, acc = flash_decode_latent(
@@ -219,7 +221,7 @@ def flash_decode_latent_seq_sharded_rank_major(
     q: torch.Tensor,  # (B, nh, hd) roped, the same on every shard
     k_bufs,  # this shard's rank-major buffers: codes_t / scale_t [/ zero_t] or lat_t,
     v_bufs,  # sequence on the last axis (S_local columns)
-    b_k: torch.Tensor,  # (G, hpg, rk, hd)
+    b_k: torch.Tensor,  # (G, hpg or hpg / rep, rk, hd)
     kv_len: torch.Tensor,  # (B,) absolute lengths
     mesh,
     axis: str,

@@ -377,16 +377,36 @@ def _rope_tables(s_max: int, head_dim: int, theta: float, inv_freq, rope_scale: 
 
 def _splits(sms: int, blocks_per_sm: int, n_bg: int, s_max: int) -> tuple:
     """The sequence split of a decode launch over n_bg (lane, group) pairs:
-    (splits, tiles per split, blocks). A work item is one (lane, group,
-    split); the items number at most sms * blocks_per_sm when n_bg allows
-    (at least one split each), and the blocks, which loop over the items,
-    never exceed one wave."""
+    (splits, tiles per split of S, blocks). A work item is one (lane,
+    group, split); the items number at most sms * blocks_per_sm when n_bg
+    allows (at least one split each), and the blocks, which loop over the
+    items, never exceed one wave. The one-wave kernels cut each lane's
+    valid tiles into the splits (_item_tiles); the split kernels of
+    palu_decode.cu and palu_decode_fp.cu take runs of `per` tiles of S."""
     tiles = -(-s_max // _TILE)
     slots = sms * blocks_per_sm
     splits = min(tiles, max(1, slots // n_bg))
     per = -(-tiles // splits)
     splits = -(-tiles // per)
     return splits, per, min(n_bg * splits, slots)
+
+
+def _item_tiles(kv_len: int, pos_offset: int, window: Optional[int], s_max: int, splits: int,
+                split: int) -> tuple:
+    """The tiles [t0, t1) that work item `split` of a (lane, group) walks in
+    the one-wave decode kernels (csrc/decode_common.cuh::tile_range, the
+    same function): the lane's valid columns [vlo, vhi) (kv_len and the
+    window in column coordinates, column t at absolute position pos_offset
+    + t) cover tiles [lo, lo + n), cut into runs of ceil(n / splits); a
+    split past them is empty (t1 <= t0)."""
+    kvl = kv_len - pos_offset
+    vlo = max(0, kvl - window) if window else 0
+    vhi = max(0, min(kvl, s_max))
+    lo = vlo // _TILE
+    n = max(0, -(-vhi // _TILE) - lo)
+    per = -(-n // splits)
+    t0 = lo + split * per
+    return t0, min(t0 + per, lo + n)
 
 
 @functools.lru_cache(maxsize=32)
@@ -522,10 +542,10 @@ def palu_decode(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, *,
         inv = _inv_freq_t(hd, float(theta), None if inv_freq is None else tuple(
             float(x) for x in np.asarray(inv_freq)), str(dev))
         err = build.launcher("palu_decode_exact", "palu_decode_exact",
-                             "pi" + "p" * 15 + "i" * 22 + "ff" + "ppp")(
+                             "pi" + "p" * 15 + "i" * 21 + "ff" + "ppp")(
             *common, ptr(kbias), inv.data_ptr(), scratch[o0 + n_out:].data_ptr(), *parts,
             b, g, hpg, nkv, hd, rk, rv, s_max, nrk, nrv, qcfg.pack_bits, qoff, int(asym),
-            int(sliding_window or 0), nsk, nsv, splits, per, grid, int(layer_idx or 0),
+            int(sliding_window or 0), nsk, nsv, splits, grid, int(layer_idx or 0),
             xk_codes.shape[0] if layer_idx is not None else 1, off, float(1.0 / math.sqrt(hd)),
             float(rope_scale), ptr(m_out), ptr(l_out), build.stream_ptr(dev))
     else:

@@ -1,17 +1,21 @@
 """Latent decode attention over the unquantized latent caches (port of
 palu_tpu/ops/pallas/palu_decode.py::palu_flash_decode, the v1 kernel over
 seq-major latents, and palu_tpu/ops/pallas/palu_decode4.py::palu_flash_decode4,
-the v4 kernel over rank-major latents; both are csrc/palu_decode_fp.cu).
+the v4 kernel over rank-major latents; both are csrc/palu_decode_fp_wg.cu).
 
 `palu_decode_fp` takes seq-major latents (B, G, S, r), `palu_decode_fp_t`
 rank-major latents (B, G, r, S). Each launches the kernel for CUDA tensors
 (latents and b_k in bf16, as the engine keeps them) and runs its plain
 version, flash_decode_latent over the raw latents in f32, for CPU tensors.
 Both return (B, nh, rv) f32 latent-space outputs for the U_v-fused o_proj
-and count their launches separately. Both take `k_bias` (G, hpg, hd),
-Qwen2's pre-RoPE K bias, added to the rebuilt K before RoPE: the v4
-kernel's `k_bias`, and for the seq-major layout what JAX's engine runs
-through its XLA flash_decode_latent (the JAX v1 kernel has no bias).
+and count their launches separately. b_k is JAX's (G, hpg, rk, hd), one B
+per q-head, or the compact GQA form (G, hpg / rep, rk, hd), one per
+kv-head, as palu_decode takes it (its module docstring); the plain
+versions expand the compact form, the kernel rebuilds K once per kv-head.
+Both take `k_bias` in b_k's form, Qwen2's pre-RoPE K bias, added to the
+rebuilt K before RoPE: the v4 kernel's `k_bias`, and for the seq-major
+layout what JAX's engine runs through its XLA flash_decode_latent (the JAX
+v1 kernel has no bias).
 `palu_decode_fp_t` also takes the v4 kernel's `pos_offset`, `return_stats`
 and `layer_idx` (ops/palu_decode.py's docstring; the stacked latents are
 (L, B, G, r, S)) for the sequence-parallel and the layer-stacked decodes;
@@ -20,16 +24,18 @@ the v1 kernel has none of them.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..runtime import cache as cache_lib
 from . import build
 from .attention import flash_decode_latent
-from .palu_decode import (_MAX_HEADS, _MAX_RK, FEATURES, _device_splits, _layer, _lead,
-                          _rope_tables, _stats, count_features)
+from .palu_decode import (_MAX_HEADS, _MAX_RK, FEATURES, _device_splits, _expand, _inv_freq_t,
+                          _layer, _lead, _stats, count_features)
 
 __all__ = ["palu_decode_fp", "palu_decode_fp_ref", "palu_decode_fp_t", "palu_decode_fp_t_ref"]
 
@@ -43,12 +49,13 @@ def _check(q, b_k, x_k, x_v, kv_len, rank_major: bool, k_bias=None, layer_idx=No
             raise ValueError(f"x_k and x_v stack {lead[0]} and {x_v.shape[0]} layers")
         x_k, x_v = x_k[0], x_v[0]
     if q.dim() != 3 or b_k.dim() != 4 or x_k.dim() != 4 or x_v.dim() != 4:
-        raise ValueError("q must be (B, nh, hd), b_k (G, hpg, rk, hd) and the latents 4-D "
-                         "(5-D stacked)")
+        raise ValueError("q must be (B, nh, hd), b_k (G, hpg or hpg / rep, rk, hd) and the "
+                         "latents 4-D (5-D stacked)")
     b, nh, hd = q.shape
-    g, hpg, rk = b_k.shape[0], b_k.shape[1], b_k.shape[2]
-    if g * hpg != nh or b_k.shape[3] != hd:
-        raise ValueError(f"b_k {tuple(b_k.shape)} does not match q {tuple(q.shape)}")
+    g, nkv, rk = b_k.shape[0], b_k.shape[1], b_k.shape[2]
+    if nh % g or (nh // g) % nkv or b_k.shape[3] != hd:
+        raise ValueError(f"b_k {tuple(b_k.shape)} does not match q {tuple(q.shape)}: its "
+                         f"second axis must divide the {nh // max(g, 1)} q-heads per group")
     ax_s, ax_r = (3, 2) if rank_major else (2, 3)
     s_max, rv = x_k.shape[ax_s], x_v.shape[ax_r]
     layout = "(B, G, r, S)" if rank_major else "(B, G, S, r)"
@@ -58,8 +65,8 @@ def _check(q, b_k, x_k, x_v, kv_len, rank_major: bool, k_bias=None, layer_idx=No
                              f"got {tuple(x.shape)}")
     if tuple(kv_len.shape) != (b,):
         raise ValueError(f"kv_len must be (B,), got {tuple(kv_len.shape)}")
-    if k_bias is not None and tuple(k_bias.shape) != (g, hpg, hd):
-        raise ValueError(f"k_bias must be (G, hpg, hd) = {(g, hpg, hd)}, "
+    if k_bias is not None and tuple(k_bias.shape) != (g, nkv, hd):
+        raise ValueError(f"k_bias must follow b_k's form, (G, {nkv}, hd) = {(g, nkv, hd)}, "
                          f"got {tuple(k_bias.shape)}")
     return rk, rv, s_max
 
@@ -67,6 +74,7 @@ def _check(q, b_k, x_k, x_v, kv_len, rank_major: bool, k_bias=None, layer_idx=No
 def _ref(q, b_k, x_k, x_v, kv_len, rank_major, theta, sliding_window, inv_freq,
          rope_scale, k_bias, pos_offset=None, return_stats=False, layer_idx=None):
     rk, rv, s_max = _check(q, b_k, x_k, x_v, kv_len, rank_major, k_bias, layer_idx)
+    b_k, k_bias = _expand(q, b_k, k_bias)
     x_k, x_v = _layer(x_k, layer_idx), _layer(x_v, layer_idx)
     chunk = min(512, s_max)
     while s_max % chunk:
@@ -89,35 +97,51 @@ def _ref(q, b_k, x_k, x_v, kv_len, rank_major, theta, sliding_window, inv_freq,
     return out
 
 
+@functools.lru_cache(maxsize=64)
+def _smem(hd: int, rk: int, rv: int, hpg: int, nkv: int) -> int:
+    """The kernel's shared memory at these shapes, or -1 when no plan of it
+    fits in one block."""
+    return build.launcher("palu_decode_fp_wg", "palu_decode_fp_wg_smem", "i" * 5)(
+        hd, rk, rv, hpg, nkv)
+
+
 def _launch(q, b_k, x_k, x_v, kv_len, rank_major, theta, sliding_window, inv_freq,
             rope_scale, k_bias, pos_offset=None, return_stats=False, layer_idx=None):
     rk, rv, s_max = _check(q, b_k, x_k, x_v, kv_len, rank_major, k_bias, layer_idx)
     b, nh, hd = q.shape
-    g, hpg = b_k.shape[0], b_k.shape[1]
+    g, nkv = b_k.shape[0], b_k.shape[1]
+    hpg = nh // g
     if b_k.dtype != torch.bfloat16 or x_k.dtype != torch.bfloat16 or x_v.dtype != torch.bfloat16:
         raise ValueError(f"the fp decode kernel reads b_k and the latents as bf16, got "
                          f"{b_k.dtype}, {x_k.dtype}, {x_v.dtype}")
-    if (hd not in (64, 128) or rk % 16 or rk > _MAX_RK or rv % 8 or hpg > _MAX_HEADS
-            or s_max % 8):
-        raise ValueError(f"fp decode kernel needs hd 64 or 128, rk a multiple of 16 up to "
-                         f"{_MAX_RK}, rv and S multiples of 8 and <= {_MAX_HEADS} heads per "
-                         f"group (hd={hd}, rk={rk}, rv={rv}, S={s_max}, hpg={hpg})")
+    if (hd not in (64, 128) or rk % 16 or rk > _MAX_RK or rv % 8 or rv > _MAX_RK
+            or hpg > _MAX_HEADS or s_max % 8):
+        raise ValueError(f"fp decode kernel needs hd 64 or 128, rk a multiple of 16 and rv "
+                         f"of 8, both up to {_MAX_RK}, S a multiple of 8 and <= {_MAX_HEADS} "
+                         f"heads per group (hd={hd}, rk={rk}, rv={rv}, S={s_max}, hpg={hpg})")
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"q must be bf16 or f32, got {q.dtype}")
     if len({t.device for t in (q, b_k, x_k, x_v, kv_len, k_bias) if t is not None}) != 1:
         raise ValueError("all tensors must be on one device")
     if not (x_k.is_contiguous() and x_v.is_contiguous()):
         raise ValueError("cache buffers must be contiguous")
+    if any(t.data_ptr() % 16 for t in (x_k, x_v, b_k)):
+        raise ValueError("the kernel's TMA loads need the latents and b_k 16-byte aligned")
+    if _smem(hd, rk, rv, hpg, nkv) < 0:
+        raise ValueError(f"the fp decode kernel's tile ring and B do not fit in a block's "
+                         f"shared memory at hd {hd}, rk {rk}, rv {rv}, {hpg} heads per group "
+                         f"over {nkv} kv-heads")
     dev = q.device
     off = int(pos_offset or 0)
     if off < 0:
         raise ValueError(f"pos_offset must be >= 0, got {off}")
-    cos_t, sin_t = _rope_tables(s_max, hd, theta, inv_freq, rope_scale, dev, off)
+    inv = _inv_freq_t(hd, float(theta), None if inv_freq is None else tuple(
+        float(x) for x in np.asarray(inv_freq)), str(dev))
     qc = q.contiguous()
     bk = b_k.contiguous()
     kvl = kv_len.to(torch.int32).contiguous()
     kbias = None if k_bias is None else k_bias.float().contiguous()
-    splits, per, _ = _device_splits(dev, b * g, s_max)
+    splits, _, grid = _device_splits(dev, b * g, s_max)
     # one allocation: per-split m, l, accumulators, then the output (and
     # with return_stats its m and l)
     n_part = b * nh * splits
@@ -128,15 +152,15 @@ def _launch(q, b_k, x_k, x_v, kv_len, rank_major, theta, sliding_window, inv_fre
     if return_stats:
         m_out = scratch[-2 * b * nh:-b * nh].view(b, nh)
         l_out = scratch[-b * nh:].view(b, nh)
-    err = build.launcher("palu_decode_fp", "palu_decode_fp",
-                         "pi" + "p" * 11 + "i" * 11 + "f" + "ii" + "ppp")(
+    err = build.launcher("palu_decode_fp_wg", "palu_decode_fp_wg",
+                         "pi" + "p" * 10 + "i" * 15 + "ff" + "ppp")(
         qc.data_ptr(), int(q.dtype == torch.bfloat16), bk.data_ptr(), x_k.data_ptr(),
-        x_v.data_ptr(), kvl.data_ptr(), cos_t.data_ptr(), sin_t.data_ptr(),
-        None if kbias is None else kbias.data_ptr(), scratch.data_ptr(),
-        scratch[n_part:].data_ptr(), scratch[2 * n_part:].data_ptr(), out.data_ptr(),
-        b, g, hpg, hd, rk, rv, s_max, int(rank_major), int(sliding_window or 0), splits, per,
-        float(math.sqrt(hd)), int(layer_idx or 0), off,
-        None if m_out is None else m_out.data_ptr(),
+        x_v.data_ptr(), kvl.data_ptr(), None if kbias is None else kbias.data_ptr(),
+        inv.data_ptr(), scratch.data_ptr(), scratch[n_part:].data_ptr(),
+        scratch[2 * n_part:].data_ptr(), out.data_ptr(), b, g, hpg, nkv, hd, rk, rv, s_max,
+        int(rank_major), int(sliding_window or 0), splits, grid, int(layer_idx or 0),
+        x_k.shape[0] if layer_idx is not None else 1, off, float(1.0 / math.sqrt(hd)),
+        float(rope_scale), None if m_out is None else m_out.data_ptr(),
         None if l_out is None else l_out.data_ptr(), build.stream_ptr(dev))
     build.check(err, "palu_decode_fp_t" if rank_major else "palu_decode_fp")
     return (out, m_out, l_out) if return_stats else out
@@ -156,10 +180,14 @@ def palu_decode_fp(q, b_k, x_k, x_v, kv_len, *, theta: float = 10000.0,
                    rope_scale: float = 1.0, k_bias=None) -> torch.Tensor:
     """Decode attention over seq-major latents.
 
-    q (B, nh, hd) roped at the current position; b_k (G, hpg, rk, hd);
-    x_k (B, G, S, rk), x_v (B, G, S, rv) pre-RoPE latents; kv_len (B,)
-    valid positions; k_bias None or (G, hpg, hd). -> (B, nh, rv) f32. CUDA
-    tensors launch the kernel; CPU tensors run the plain version."""
+    q (B, nh, hd) roped at the current position; b_k (G, hpg, rk, hd) or
+    the compact (G, hpg / rep, rk, hd); x_k (B, G, S, rk), x_v (B, G, S,
+    rv) pre-RoPE latents; kv_len (B,) valid positions; k_bias None or (G,
+    b_k.shape[1], hd). -> (B, nh, rv) f32. CUDA tensors launch the kernel
+    (csrc/palu_decode_fp_wg.cu: hd 64 or 128, rk a multiple of 16 and rv of
+    8, both up to 512, S a multiple of 8, <= 32 heads per group, and shapes
+    whose tile ring and B fit in a block's shared memory: others raise);
+    CPU tensors run the plain version."""
     if not q.is_cuda:
         return palu_decode_fp_ref(q, b_k, x_k, x_v, kv_len, theta=theta,
                                   sliding_window=sliding_window, inv_freq=inv_freq,

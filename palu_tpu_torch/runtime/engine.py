@@ -44,9 +44,9 @@ _dense_flash_decode) on the CPU; their prefill comes with a later slice.
 Ragged per-group ranks (the fisher search's output) are zero-padded to each
 layer's largest rank when the engine is built (llama.pad_ragged_params), as
 in the JAX engine. The decode reconstruction B (`derived[i]["b_k"]`) and
-the k bias are kept per q-head (G x hpg x ...), as JAX keeps them, except
-over the packed cache: palu_decode takes them per kv-head (G x hpg / rep x
-...), built once here, and rebuilds K once per kv-head. Qwen2's attention
+the k bias are kept per kv-head (G x hpg / rep x ...; JAX keeps them per
+q-head), built once here: every latent decode takes that form and its
+kernel rebuilds K once per kv-head. Qwen2's attention
 biases (cfg.attention_bias): the q
 bias adds to q; the k bias (`derived[i]["k_bias"]`), enters every decode
 kernel before RoPE; the v bias passes softmax
@@ -419,17 +419,16 @@ class Engine:
                     d[key] = st[i]
 
     def _build_derived(self, attn) -> dict:
-        """A low-rank layer's decode weights: b_k (G, hpg, rk, hd), and with
-        biases k_bias (G, hpg, hd) and o_bias_corr (H,), in the engine
-        dtype; k_bias is kept in f32 after that rounding, as the decode
-        wrappers take it, so that no launch casts it. Over the packed cache
-        b_k and k_bias are per kv-head (hpg / rep), palu_decode's compact
-        form."""
+        """A low-rank layer's decode weights: b_k (G, hpg / rep, rk, hd), and
+        with biases k_bias (G, hpg / rep, hd) and o_bias_corr (H,), in the
+        engine dtype; k_bias is kept in f32 after that rounding, as the
+        decode wrappers take it, so that no launch casts it. b_k and k_bias
+        are per kv-head (rep q-heads read each), the compact form every
+        latent decode takes (JAX keeps one per q-head)."""
         cfg, dt = self.cfg, self.ecfg.dtype
-        compact = cache_lib.quantized(self.ecfg.qcfg)
-        der = {"b_k": build_decode_b(attn["k_proj"]["U"].float(), cfg, compact).to(dt)}
+        der = {"b_k": build_decode_b(attn["k_proj"]["U"].float(), cfg, True).to(dt)}
         if attn["k_proj"].get("b") is not None:
-            der["k_bias"] = _per_q_head(attn["k_proj"]["b"], cfg, compact).to(dt).float()
+            der["k_bias"] = _per_q_head(attn["k_proj"]["b"], cfg, True).to(dt).float()
         if attn["v_proj"].get("b") is not None:
             der["o_bias_corr"] = _o_bias_corr(attn, cfg, self.ecfg.weight_bits).to(dt)
         return der

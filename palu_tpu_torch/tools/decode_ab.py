@@ -1,4 +1,4 @@
-"""A/B of the packed decode between two checkouts on one card.
+"""A/B of the latent decodes between two checkouts on one card.
 
 Run it by path, once per checkout and in turns (parent, this, this,
 parent), from the root of this checkout:
@@ -13,8 +13,12 @@ latency_attention's 64K point, Qwen2-7B's exact decode with the K bias at
 8K and its per-chunk decode at 8 lanes (S 4096, kv_len 2048) on JAX's
 repeated b_k and, with a tag starting with "new", on the compact one, rk
 256 and 512 at 8K, one 16K shard with return_stats, the one 64K call and
-layer_idx on an L = 4 stack; and palu_decode_fp / palu_decode_fp_t at 64K
-(they share the sequence split)."""
+layer_idx on an L = 4 stack; then the bf16 decodes palu_decode_fp /
+palu_decode_fp_t at the Llama-2-7B group at 8K and at 64K, at the
+`serving` phase's shape (8 lanes, S 4096, kv_len 2048), at Qwen2-7B's with
+the K bias (JAX's repeated b_k and, with a tag starting with "new", the
+compact one), at rk 256 and 512, and palu_decode_fp_t on one 16K shard
+with return_stats and with layer_idx on an L = 4 stack at 64K."""
 import json
 import os
 import sys
@@ -80,9 +84,37 @@ def main(root: str, tag: str) -> None:
     t("layer_idx_64k", lambda: pd(q, b_k, kv_len=kv(cs.S64), **stack, **kw, layer_idx=2), 10)
     del stack, one, sh
 
+    fp, fp_t = cs.palu_decode_fp, cs.palu_decode_fp_t
+    q, b_k, seq, rank = cs._fp_inputs(1, cs.G, cs.HPG, 8192, gen)
+    t("fp_8k", lambda: fp(q, b_k, *seq, kv(8192)))
+    t("fp_t_8k", lambda: fp_t(q, b_k, *rank, kv(8192)))
     q, b_k, seq, rank = cs._fp_inputs(1, cs.G, cs.HPG, cs.S64, gen)
-    t("fp_64k", lambda: cs.palu_decode_fp(q, b_k, *seq, kv(cs.S64)), 10)
-    t("fp_t_64k", lambda: cs.palu_decode_fp_t(q, b_k, *rank, kv(cs.S64)), 10)
+    t("fp_64k", lambda: fp(q, b_k, *seq, kv(cs.S64)), 10)
+    t("fp_t_64k", lambda: fp_t(q, b_k, *rank, kv(cs.S64)), 10)
+    del seq
+    stack = [torch.stack([x] * 4) for x in rank]
+    t("fp_t_layer_idx_64k", lambda: fp_t(q, b_k, *stack, kv(cs.S64), layer_idx=2), 10)
+    sh = [x[..., s_loc:2 * s_loc].contiguous() for x in rank]
+    t("fp_t_shard16k_stats", lambda: fp_t(q, b_k, *sh, kv(cs.S64), pos_offset=s_loc,
+                                          return_stats=True))
+    del rank, stack, sh
+    q, b_k, seq, _ = cs._fp_inputs(8, cs.G, cs.HPG, 4096, gen)
+    t("fp_serving_8lanes", lambda: fp(q, b_k, *seq, torch.full((8,), 2048, dtype=torch.int32,
+                                                                   device="cuda")))
+    del seq
+    q, b_k, seq, rank = cs._fp_inputs(1, g, hpg, 8192, gen, rk, rv)
+    kb = cs._k_bias(g, hpg, gen).float()
+    for name, fn, lat in (("fp", fp, seq), ("fp_t", fp_t, rank)):
+        t(f"{name}_qwen2_bias_8k_repeated", lambda: fn(q, b_k, *lat, kv(8192), k_bias=kb))
+        if tag.startswith("new"):
+            bc, kbc = b_k[:, ::rep].contiguous(), kb[:, ::rep].contiguous()
+            t(f"{name}_qwen2_bias_8k_compact", lambda: fn(q, bc, *lat, kv(8192), k_bias=kbc))
+    del seq, rank
+    for r in cs.BIG_RANKS:
+        q, b_k, seq, rank = cs._fp_inputs(1, cs.G, cs.HPG, 8192, gen, r, cs.RV)
+        t(f"fp_rk{r}_8k", lambda: fp(q, b_k, *seq, kv(8192)))
+        t(f"fp_t_rk{r}_8k", lambda: fp_t(q, b_k, *rank, kv(8192)))
+        del seq, rank
     print(json.dumps({"ab": tag, "root": root, "seconds": round(time.perf_counter() - t0, 1),
                       **res}), flush=True)
 

@@ -623,9 +623,10 @@ def test_decode_kernels_scaled_rope_match_plain(gen, scaling):
 @pytest.mark.parametrize("size", ["small", "tool"])
 @pytest.mark.parametrize("mode", ["full", "novalue", "nologits", "dmaonly", "noop"])
 def test_dissect_modes_match_plain(gen, size, mode):
-    """Each dissection mode against its plain version; full bit-identical
-    to palu_decode_fp on the same inputs."""
-    from palu_tpu_torch.ops.palu_decode_fp import palu_decode_fp
+    """Each dissection mode against its plain version; full (the split
+    kernel that served palu_decode_fp before csrc/palu_decode_fp_wg.cu)
+    also within 2e-3 of palu_decode_fp's plain version."""
+    from palu_tpu_torch.ops.palu_decode_fp import palu_decode_fp_ref
     from palu_tpu_torch.tools import dissect
 
     if size == "small":
@@ -651,8 +652,9 @@ def test_dissect_modes_match_plain(gen, size, mode):
             assert (got[..., i] - want).abs().max() <= 2e-3 * want.abs().max()
     else:
         assert (got - ref["out"]).abs().max() <= 2e-3 * ref["out"].abs().max()
-    if mode == "full":
-        assert torch.equal(got, palu_decode_fp(*ops))
+    if mode == "full":  # the pre-redesign split kernel, against palu_decode_fp's plain version
+        want = palu_decode_fp_ref(*ops)
+        assert (got - want).abs().max() <= 2e-3 * want.abs().max()
 
 
 @pytest.mark.parametrize("probe", ["bs1024", "bs4096", "merged1024", "konly1024", "bs64"])
@@ -1084,3 +1086,118 @@ def test_exact_decode_refuses_what_does_not_fit(gen):
     with pytest.raises(ValueError, match="shared memory"):
         palu_decode(q, b_k, kv_len=kv_len, **bufs, qcfg=qcfg, rk=512, rv=512)
     assert palu_decode.launches == n
+
+
+# ---------------------------------------------------------------------------
+# The bf16 latent decode kernel (csrc/palu_decode_fp_wg.cu) behind
+# palu_decode_fp (seq-major) and palu_decode_fp_t (rank-major): its edges,
+# the compact GQA form, head dims, ranks, q-heads per group and q dtypes.
+# ---------------------------------------------------------------------------
+
+LAYOUTS = ["seq_major", "rank_major"]
+
+
+def _fp_case(gen, b, g, hpg, nkv, rk, rv, s_max, hd=128, layout="seq_major", q_dtype=None,
+             n_layers=None):
+    """q, a b_k (G, nkv, rk, hd) with a K bias of the same form, and bf16
+    latents in the layout (an (L, ...) stack when n_layers is given); the
+    wrapper and the plain version of that layout."""
+    from palu_tpu_torch.ops import palu_decode_fp as mod
+
+    q = torch.randn((b, g * hpg, hd), generator=gen, device="cuda").to(q_dtype or torch.bfloat16)
+    b_k = (torch.randn((g, nkv, rk, hd), generator=gen, device="cuda") / rk**0.5).bfloat16()
+    k_bias = (torch.randn((g, nkv, hd), generator=gen, device="cuda") * 0.3).bfloat16().float()
+    lead = () if n_layers is None else (n_layers,)
+    lat = [torch.randn(lead + (b, g, s_max, r), generator=gen, device="cuda").bfloat16()
+           for r in (rk, rv)]
+    if layout == "rank_major":
+        lat = [x.transpose(-1, -2).contiguous() for x in lat]
+        return q, b_k, k_bias, lat, mod.palu_decode_fp_t, mod.palu_decode_fp_t_ref
+    return q, b_k, k_bias, lat, mod.palu_decode_fp, mod.palu_decode_fp_ref
+
+
+# (kv_len per lane, S, window): the tile edges at 8 lanes with kv_len well
+# under S (the splits cut the valid tiles, not S's), an S that is not a
+# multiple of the 64-token tile, and a window
+FP_EDGES = {"lanes8_short": ((1, 63, 64, 65, 130, 700, 1000, 2048), 4096, None),
+            "s_1000": ((1000, 999, 17), 1000, None),
+            "window": ((1000, 640, 64), 1024, 100)}
+
+
+@pytest.mark.parametrize("case", list(FP_EDGES))
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_fp_wg_edges_match_plain(gen, layout, case):
+    kvl, s_max, window = FP_EDGES[case]
+    q, b_k, kb, lat, fn, ref = _fp_case(gen, len(kvl), 2, 4, 4, 128, 384, s_max, layout=layout)
+    kv_len = torch.tensor(kvl, dtype=torch.int32, device="cuda")
+    n = fn.launches
+    got = fn(q, b_k, *lat, kv_len, sliding_window=window, k_bias=kb)
+    assert fn.launches == n + 1
+    _close(got, ref(q, b_k, *lat, kv_len, sliding_window=window, k_bias=kb))
+
+
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32], ids=["q_bf16", "q_f32"])
+@pytest.mark.parametrize("rep", [1, 2, 7])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_fp_wg_compact_gqa(gen, layout, rep, q_dtype):
+    """The compact b_k / k_bias (4 kv-heads per group, rep q-heads each)
+    against the plain version (which expands it) and against the kernel on
+    JAX's repeated form; rep 7 is Qwen2-7B's group (28 q-heads, ranks 256)."""
+    rk = rv = 256 if rep == 7 else 128
+    q, b_k, kb, lat, fn, ref = _fp_case(gen, 2, 1, 4 * rep, 4, rk, rv, 1024, layout=layout,
+                                        q_dtype=q_dtype)
+    kv_len = torch.tensor([1024, 333], dtype=torch.int32, device="cuda")
+    got = fn(q, b_k, *lat, kv_len, k_bias=kb)
+    _close(got, ref(q, b_k, *lat, kv_len, k_bias=kb))
+    _close(got, fn(q, b_k.repeat_interleave(rep, 1), *lat, kv_len,
+                   k_bias=kb.repeat_interleave(rep, 1)))
+
+
+@pytest.mark.parametrize("rk,rv", [(16, 16), (48, 80), (112, 512), (144, 384), (240, 256),
+                                   (512, 512)])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_fp_wg_head_dims_and_ranks(gen, layout, hd, rk, rv):
+    """rk 16 to 512 (B resident or streamed; a partial last rank chunk), rv
+    up to 512, hd 64 and 128, 4 kv-heads of 2 q-heads, with the K bias."""
+    q, b_k, kb, lat, fn, ref = _fp_case(gen, 2, 2, 8, 4, rk, rv, 1024, hd=hd, layout=layout)
+    kv_len = torch.tensor([1024, 641], dtype=torch.int32, device="cuda")
+    _close(fn(q, b_k, *lat, kv_len, k_bias=kb), ref(q, b_k, *lat, kv_len, k_bias=kb))
+
+
+@pytest.mark.parametrize("hpg,nkv", [(1, 1), (3, 3), (12, 3), (32, 1), (32, 32), (28, 4)])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_fp_wg_heads_per_group(gen, layout, hpg, nkv):
+    """1 to 32 q-heads per group over 1 to 32 kv-heads: the consumers split
+    the q-heads by kv-heads, or inside one kv-head when a half would pass 16
+    (32 q-heads over 1)."""
+    q, b_k, kb, lat, fn, ref = _fp_case(gen, 2, 2, hpg, nkv, 128, 256, 512, layout=layout)
+    kv_len = torch.tensor([512, 200], dtype=torch.int32, device="cuda")
+    _close(fn(q, b_k, *lat, kv_len, k_bias=kb), ref(q, b_k, *lat, kv_len, k_bias=kb))
+
+
+def test_fp_wg_shard_and_layer_idx(gen):
+    """palu_decode_fp_t's pos_offset with return_stats over an L = 3 stack,
+    compact b_k and the K bias: one lane's shard holds no valid column (m
+    -1e30, l 0, acc 0); each layer bit-identical to the per-layer call."""
+    q, b_k, kb, lat, fn, ref = _fp_case(gen, 2, 2, 8, 4, 128, 384, 1024, layout="rank_major",
+                                        n_layers=3)
+    kv_len = torch.tensor([1700, 900], dtype=torch.int32, device="cuda")
+    for li in range(3):
+        got = fn(q, b_k, *lat, kv_len, k_bias=kb, pos_offset=1024, return_stats=True,
+                 layer_idx=li)
+        _held_stats(got, ref(q, b_k, *lat, kv_len, k_bias=kb, pos_offset=1024,
+                             return_stats=True, layer_idx=li))
+        assert (got[1][1] == -1e30).all() and (got[2][1] == 0).all() and (got[0][1] == 0).all()
+        alone = fn(q, b_k, *(x[li].contiguous() for x in lat), kv_len, k_bias=kb,
+                   pos_offset=1024, return_stats=True)
+        for x, y in zip(got, alone):
+            assert torch.equal(x, y)
+
+
+def test_fp_wg_refuses_ranks_above_512(gen):
+    q, b_k, _, lat, fn, _ = _fp_case(gen, 1, 1, 4, 4, 528, 64, 128)
+    n = fn.launches
+    with pytest.raises(ValueError, match="512"):
+        fn(q, b_k, *lat, torch.tensor([128], dtype=torch.int32, device="cuda"))
+    assert fn.launches == n

@@ -409,3 +409,15 @@ def test_knobs_and_variant_names_are_the_tools(monkeypatch):
     with pytest.raises(SystemExit):
         gemv_probe.main(["--use_cpu", "--kbn", "256", "--k", "256", "--n", "256",
                          "--k2", "256", "--n2", "256", "kgemv"])
+
+
+def test_decode_timeline_anchors_patch_the_kernel():
+    """The decode timeline tool patches csrc/palu_decode_fp_wg.cu at fixed
+    anchors: each must occur exactly once in the kernel as it stands."""
+    from palu_tpu_torch.ops import build
+    from palu_tpu_torch.tools import decode_timeline as dt
+
+    src = (build.CSRC / "palu_decode_fp_wg.cu").read_text()
+    for edits in (dt._STAMPS, dt._LOADS_ONLY):
+        patched = dt._patch(src, edits)
+        assert len(patched) == len(src) + sum(len(text) for _, _, text in edits)

@@ -142,11 +142,10 @@ def test_qwen2_engine_matches_jax(model, cache):
     qkw, ekw = CACHES[cache]
     jeng, teng = engine_pair(*model, qkw, **ekw)
     assert_engines_agree(jeng, teng)
-    # over the packed cache palu_decode takes B and the k bias per kv-head
-    # (the compact form: the group's 4 kv-heads), else per q-head as JAX
-    heads = NKV if qkw else NH
-    assert teng.derived[0]["k_bias"].shape == (1, heads, HD)
-    assert teng.derived[0]["b_k"].shape == (1, heads, RANK, HD)
+    # every latent decode takes B and the k bias per kv-head (the compact
+    # form: the group's 4 kv-heads), where JAX keeps one per q-head
+    assert teng.derived[0]["k_bias"].shape == (1, NKV, HD)
+    assert teng.derived[0]["b_k"].shape == (1, NKV, RANK, HD)
 
 
 @pytest.mark.parametrize("bits", [16, 8, 4])
