@@ -74,9 +74,9 @@ Phases, each printing one JSON line:
                 (palu_decode_seq_quantized), providers WX, xla and ours;
      latency_attention - run_latency_attention at a 64K prompt: the 3-bit
                 cache exact, with int8_rot and with int8_dots, and dense KV,
-                1 layer each; the 3-bit cache at 32 layers; each with the
-                decode path and launches per step asserted and a decode
-                breakdown;
+                1 layer each; the 3-bit cache at 32 layers, as is and with
+                int8_rot; each with the decode path and launches per step
+                asserted and a decode breakdown;
      serve_bench_int8_rot - serve_bench --int8_rot at 32 layers, 8 lanes, 16
                 requests on the native scheduler;
   7. the compression path (palu_tpu_torch/compression):
@@ -456,20 +456,24 @@ def phase_build() -> None:
           "decode_sass": {**hopper_sass("palu_decode_exact"),
                           "ptxas": regs.get("palu_decode_exact", [])},
           "fp_decode_sass": {**hopper_sass("palu_decode_fp_wg"),
-                             "ptxas": regs.get("palu_decode_fp_wg", [])}})
+                             "ptxas": regs.get("palu_decode_fp_wg", [])},
+          "i8_decode_sass": {**hopper_sass("palu_decode_i8", ("HGMMA", "UTMALDG", "IMMA")),
+                             "ptxas": regs.get("palu_decode_i8", [])}})
 
 
-def hopper_sass(source: str) -> dict:
-    """Counts of the Hopper instructions in the SASS of csrc/<source>.cu
-    (cuobjdump -sass): HGMMA (wgmma) and UTMALDG (TMA loads). Raises when
-    either is missing; reports why when cuobjdump is not there."""
+def hopper_sass(source: str, ops=("HGMMA", "UTMALDG")) -> dict:
+    """Counts of the Hopper instructions `ops` in the SASS of
+    csrc/<source>.cu (cuobjdump -sass): HGMMA (wgmma; its int8 form in the
+    int8 decode), UTMALDG (TMA loads), IMMA (mma.sync's int8 form, which the
+    int8 decode must not use: reported, not required). Raises when HGMMA or
+    UTMALDG is missing; reports why when cuobjdump is not there."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return {"cuobjdump": "not found"}
     sass = subprocess.run([tool, "-sass", str(build._lib_path(source))],
                           capture_output=True, text=True, check=True, timeout=120).stdout
-    counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG")}
-    if not all(counts.values()):
+    counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ops}
+    if not (counts["HGMMA"] and counts["UTMALDG"]):
         raise AssertionError(f"{source} SASS lacks wgmma or TMA loads: {counts}")
     return counts
 
@@ -706,7 +710,7 @@ def check_decode_int8(gen) -> list:
                 "bound_ms": bms, "bound_by": by}
         main = timed["block_512"]  # run_latency_attention's block at 64K
         line = {"name": f"palu_decode_{mode}", "route": "cuda",
-                "source": "palu_tpu_torch/csrc/palu_decode.cu",
+                "source": "palu_tpu_torch/csrc/palu_decode_i8.cu",
                 "replaces": ("palu_tpu/ops/pallas/palu_decode4.py:361" if mode == "int8_dots"
                              else "palu_tpu/ops/pallas/palu_decode4.py:448"),
                 "max_abs_err": worst[mode]["abs"], "ms": main["ms"], "kernel_ms": main["ms"],
@@ -2365,7 +2369,7 @@ def phase_latency_attention() -> dict:
     flagship 3-bit cache as is, with --int8_rot and with --int8_dots, and
     the dense-KV baseline, each at the CLI's default of 1 layer; then the
     3-bit cache at 32 layers and Llama-2-7B's MLP width (BASELINE.md's
-    point at full depth). Each run: counts 0 just before and read just
+    point at full depth), as is and with --int8_rot. Each run: counts 0 just before and read just
     after; the decode path and the launches per step (10 warm-up + 100
     timed) asserted; then a decode breakdown at the 64K context. Returns
     {run: counts}."""
@@ -2379,6 +2383,9 @@ def phase_latency_attention() -> dict:
         ("dense", [], 1, "dense_sdpa-kernel", None),
         ("palu_3bit_32_layers", [*ATTN_3BIT, "--num_layers", "32", "--intermediate_size",
                                  "11008"], 32, "palu_decode-kernel", "palu_decode"),
+        ("palu_3bit_int8_rot_32_layers", [*ATTN_3BIT, "--int8_rot", "--num_layers", "32",
+                                          "--intermediate_size", "11008"], 32,
+         "palu_decode_int8_rot-kernel", "palu_decode_int8_rot"),
     ]
     counts_by_run, tpot = {}, {}
     for tag, extra, layers, path, counter in runs:
@@ -3485,7 +3492,8 @@ def main() -> int:
     # fp decode, serving for the seq-major fp decode, serve_w4 for the int4
     # GEMVs and the int8 VT GEMV, serve_w8 for the int8 MLP, the 3-bit
     # run_latency_kernel for the seq-major packed decode, the 1-layer
-    # run_latency_attention runs for the int8 modes, and the compress
+    # run_latency_attention run for int8_dots and the 32-layer one for
+    # int8_rot, and the compress
     # phase's decomposition for the Hadamard transform; serve_qwen2 for the
     # decode with the K bias, serving_qwen2 for the per-chunk-scale decode;
     # serve_seq (and its rank-major fp case) for the statistics variants,
@@ -3495,7 +3503,7 @@ def main() -> int:
               "palu_decode_int8_dots": ("palu_decode_int8_dots",
                                         launches_attn["palu_3bit_int8_dots"]),
               "palu_decode_int8_rot": ("palu_decode_int8_rot",
-                                       launches_attn["palu_3bit_int8_rot"]),
+                                       launches_attn["palu_3bit_int8_rot_32_layers"]),
               "palu_decode_seq_quantized": ("palu_decode_seq_quantized", launches_lk),
               "palu_decode_fp": ("palu_decode_fp", launches_serving),
               "palu_decode_fp_t": ("palu_decode_fp_t", launches_fp),

@@ -1,6 +1,7 @@
-// Shared pieces of the latent decode kernels (palu_decode.cu over the
-// rank-major packed cache, palu_decode_fp.cu over the unquantized caches
-// and the seq-major packed one): async copies, ldmatrix and mma.sync
+// Shared pieces of the latent decode kernels (palu_decode_exact.cu and
+// palu_decode_i8.cu over the rank-major packed cache, the archived split
+// kernel of palu_decode_split.cuh, palu_decode_fp_wg.cu and palu_decode_fp.cu
+// over the unquantized caches and the seq-major packed one): async copies, ldmatrix and mma.sync
 // wrappers (bf16 and s8), warp reductions, and the kernel that combines
 // the split-sequence partials.
 //

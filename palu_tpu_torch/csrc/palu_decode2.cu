@@ -16,16 +16,16 @@
 // RoPE_s at the f32 angle s * inv_freq[j] (inv_freq f32, 1 / theta^(2j/hd)
 // or the rope_scaling override), cos and sin times rope_scale.
 //
-// Bound on this card: the function of palu_decode.cu's exact mode over the
-// same codes, so the same bound: the K rebuild's 2 * nh * rk * hd flops per
+// Bound on this card: the function of v4's exact mode over the same codes,
+// so the same bound: the K rebuild's 2 * nh * rk * hd flops per
 // token on the bf16 tensor cores (68.7 GFLOP at the A/B's 64K x 32 heads,
 // 0.069 ms) above the codes' bytes (0.033 ms at 3 bits).
 //
-// Design: palu_decode.cu's split pass and combine (palu_decode_split.cuh,
-// GEN 2) in its exact mode, asym (the zero rows carry v2's virtual-key
-// term). Each tile computes its 64 x hd/2 cos/sin rows with sincosf (full
-// accuracy; the angles reach 6.6e4 rad at 64K) into the shared-memory rows
-// that palu_decode fills from its tables; no per-position table is read.
+// Design: the split pass and combine of palu_decode_split.cuh (GEN 2),
+// asym (the zero rows carry v2's virtual-key term). Each tile computes its
+// 64 x hd/2 cos/sin rows with sincosf (full accuracy; the angles reach
+// 6.6e4 rad at 64K) into the shared-memory rows that GEN 3 fills from its
+// tables; no per-position table is read.
 
 #include "palu_decode_split.cuh"
 
@@ -74,7 +74,6 @@ extern "C" int palu_decode2_quantized(const void* q, int q_bf16, const void* bk,
   a.tiles_per_split = tiles_per_split;
   a.sqrt_hd = sqrt_hd;
   a.rope_scale = rope_scale;
-  a.rep = 1;
-  return run_split<2>(a, 0, B, hd, static_cast<float*>(out),
+  return run_split<2>(a, B, hd, static_cast<float*>(out),
                       static_cast<cudaStream_t>(stream));
 }

@@ -18,12 +18,11 @@
 //
 // Bound on this card: palu_decode2.cu's (the same function).
 //
-// Design: palu_decode.cu's split pass and combine (palu_decode_split.cuh,
-// GEN 3) in its exact mode, asym: the rotated query replaces q_s in
-// shared memory when the tile walk enters a new rotation block (block_s %
-// 64 == 0, so a 64-token tile never straddles two), the relative rows come
-// into the shared-memory rows that palu_decode fills from its absolute
-// tables, and each tile's scales and zeros are read with stride 2G.
+// Design: the split pass and combine of palu_decode_split.cuh (GEN 3),
+// asym: the rotated query replaces q_s in shared memory when the tile walk
+// enters a new rotation block (block_s % 64 == 0, so a 64-token tile never
+// straddles two), the relative rows fill the shared-memory rotation rows,
+// and each tile's scales and zeros are read with stride 2G.
 
 #include "palu_decode_split.cuh"
 
@@ -75,7 +74,6 @@ extern "C" int palu_decode3_quantized(const void* q, int q_bf16, const void* bk,
   a.tiles_per_split = tiles_per_split;
   a.sqrt_hd = 1.0f;  // the query comes pre-scaled
   a.block_s = block_s;
-  a.rep = 1;
-  return run_split<3>(a, 0, B, hd, static_cast<float*>(out),
+  return run_split<3>(a, B, hd, static_cast<float*>(out),
                       static_cast<cudaStream_t>(stream));
 }

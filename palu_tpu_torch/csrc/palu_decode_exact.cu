@@ -6,8 +6,9 @@
 // (body _make_kernel4, launch _call4) in its exact mode, over per-row
 // scales and over per-chunk scales (group_chunk, the reference's
 // --lt_group_size), sym and asym, with the pre-RoPE K bias (k_bias),
-// pos_offset, return_stats and layer_idx. The int8 K-path modes stay on
-// the split kernel of palu_decode_split.cuh (palu_decode.cu).
+// pos_offset, return_stats and layer_idx. The int8 K-path modes run on
+// palu_decode_i8.cu; the softmax and the value product are shared with it
+// (packed_wg.cuh).
 //
 // What it computes, per lane b, group g, kv-head j of the group and each of
 // the rep q-heads h that read it (rep = hpg / nkv; 1 for the repeated form):
@@ -84,15 +85,19 @@
 
 #include "decode_common.cuh"
 #include "hopper.cuh"
+#include "packed_wg.cuh"
 
 namespace {
 
 using namespace hopper;
+using packed::code_pair;
+using packed::kMaxHeads;
+using packed::kTile;  // tokens per tile (the wgmma M of the K rebuild)
+using packed::rank_entry;
+using packed::Unpack;
 
-constexpr int kTile = 64;        // tokens per tile (the wgmma M of the K rebuild)
 constexpr int kWG = 128;         // threads per warpgroup
 constexpr int kThreads = 3 * kWG;
-constexpr int kMaxHeads = 32;    // q-heads per group (Qwen2-7B: 28)
 constexpr int kMaxRank = 512;
 constexpr int kMaxKSteps = 8;    // A fragments held in registers: 128 ranks
 constexpr int kSmemBudget = static_cast<int>(decode::kSmemMax) - 1024;  // - alignment slack
@@ -191,45 +196,6 @@ Plan make_plan(int hd, int rk, int rv, int hpg, int nkv, int nrk, int nrv, int n
   return p;
 }
 
-// Where rank r (of n) lives in a packed rank-major plane: byte row and bit
-// shift of its field, and the row and shift of its high bit in the 1-bit
-// plane of exact 3-bit packing (the field's own row otherwise, masked off
-// by the unpack's hmask), in one word.
-__device__ __forceinline__ uint32_t rank_entry(int r, int n, int pbits) {
-  if (pbits == 3) {
-    const int w2 = n / 4, w1 = n / 8;
-    return static_cast<uint32_t>(r % w2) | (static_cast<uint32_t>(2 * (r / w2)) << 12) |
-           (static_cast<uint32_t>(w2 + r % w1) << 16) | (static_cast<uint32_t>(r / w1) << 28);
-  }
-  const int w = n / (8 / pbits);
-  return static_cast<uint32_t>(r % w) | (static_cast<uint32_t>(pbits * (r / w)) << 12) |
-         (static_cast<uint32_t>(r % w) << 16);
-}
-
-// The unpack of one pack width: the field mask, and the high-bit mask (1
-// for exact 3-bit packing, else 0). Branch-free, so that the loads of many
-// codes overlap (each role has one warp per SM sub-partition).
-struct Unpack {
-  uint32_t mask, hmask;
-  __device__ __forceinline__ explicit Unpack(int pbits)
-      : mask(pbits == 3 ? 3u : (1u << pbits) - 1u), hmask(pbits == 3 ? 1u : 0u) {}
-  // the code in field (lo, hi) of a byte pair at bit b (0 or 8) of each
-  __device__ __forceinline__ int code(uint32_t w, uint32_t h, uint32_t e, int b) const {
-    return static_cast<int>(((w >> (b + ((e >> 12) & 0xf))) & mask) |
-                            (((h >> (b + (e >> 28))) & hmask) << 2));
-  }
-};
-
-// The codes of one rank (entry e) at tokens t and t + 1 (t even) of a
-// (rows, 64) byte tile: c0 at t, c1 at t + 1.
-__device__ __forceinline__ void code_pair(const uint8_t* tile, uint32_t e, int t, const Unpack& u,
-                                          int& c0, int& c1) {
-  const uint32_t w = *reinterpret_cast<const uint16_t*>(tile + (e & 0xfff) * kTile + t);
-  const uint32_t h = *reinterpret_cast<const uint16_t*>(tile + ((e >> 16) & 0xfff) * kTile + t);
-  c0 = u.code(w, h, e, 0);
-  c1 = u.code(w, h, e, 8);
-}
-
 // The K rebuild's A fragments (codes^T, 64 tokens x 16 ranks per k-step) of
 // ranks [r0, r0 + 16 * nks): this thread's rows are tokens ta and ta + 1,
 // its columns ranks 2q, 2q + 1, 2q + 8, 2q + 9 of each k-step.
@@ -324,14 +290,6 @@ __device__ __forceinline__ void k_chain_n(int n, float (&kv)[HD / 2],
     case 7: k_chain<HD, 7>(kv, af, 0, bsl, lbo, first); break;
     default: k_chain<HD, kMaxKSteps>(kv, af, 0, bsl, lbo, first); break;
   }
-}
-
-// One bf16 pair (v0, v1) split into its bf16 high part and the bf16 of the rest.
-__device__ __forceinline__ void split_bf16(float v0, float v1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(v0 - hf.x, v1 - hf.y);
 }
 
 // Fold the finished scale chunk sc, whose partial sum codes^T B is in kv,
@@ -485,6 +443,7 @@ palu_decode_exact_kernel(const __grid_constant__ CUtensorMap tm_kc,
   float* l_s = m_s + kMaxHeads;
   float* alpha_s = m_s + 2 * kMaxHeads;
   float* zsum_s = m_s + 3 * kMaxHeads;
+  const packed::Stats stats{m_s, l_s, alpha_s, zsum_s};
 
   // the warpgroup's role, broadcast from lane 0 so that ptxas sees it warp-
   // uniform: wgmma under a branch it takes for divergent runs serialized (C7520)
@@ -769,53 +728,8 @@ palu_decode_exact_kernel(const __grid_constant__ CUtensorMap tm_kc,
         named_sync(1, kWG);           // every head's logits of the tile are in lg
         if (it > 0) mbar_wait(p_empty, (it - 1) & 1);  // the last tile's P^T and alpha are read
         // ---- online softmax, one warp per head; P^T in bf16 high + low parts
-        // (per-row scales: p * scale_v, the V product's A being the raw codes,
-        // and the zero term's sum of p * zero_v per head)
-        // (a uniform loop: heads h past hpg are padding rows of P^T, which
-        // stay 0; h < NP and < kMaxHeads as hpg <= NP)
-        for (int hb = 0; hb < a.hpg; hb += 4) {
-          const int h = hb + warp;
-          const bool hv = h < a.hpg;
-          float x[2], mx = -1e30f;
-          bool ok[2];
-#pragma unroll
-          for (int u = 0; u < 2; ++u) {
-            const int t = lane + 32 * u, s = s0 + t;
-            ok[u] = hv && s >= vlo && s < vhi;
-            x[u] = ok[u] ? lg[min(h, a.hpg - 1) * kTile + t] : -1e30f;
-            mx = fmaxf(mx, x[u]);
-          }
-          mx = decode::warp_max(mx);
-          const float m_old = m_s[h], m_new = fmaxf(m_old, mx);
-          const float alpha = expf(m_old - m_new);
-          float sum = 0.0f, zs = 0.0f;
-#pragma unroll
-          for (int u = 0; u < 2; ++u) {
-            const int t = lane + 32 * u;
-            const float p = ok[u] ? expf(x[u] - m_new) : 0.0f;
-            sum += p;
-            float pw = p;
-            if constexpr (!CHUNKED) {
-              pw = ok[u] ? p * vsc[t] : 0.0f;
-              zs += ok[u] && a.asym ? p * vzc[t] : 0.0f;
-            }
-            const __nv_bfloat16 ph = __float2bfloat16_rn(pw);
-            const __nv_bfloat16 pl = __float2bfloat16_rn(pw - __bfloat162float(ph));
-            // K column of token t (the V warpgroup's A holds tokens 16q .. 16q + 15)
-            const int k = 16 * ((t & 15) >> 2) + 8 * ((t & 3) >> 1) + 2 * (t >> 4) + (t & 1);
-            const uint32_t off = h * 128 + ((((k >> 3) ^ (h & 7)) << 4) | ((k & 7) << 1));
-            *reinterpret_cast<__nv_bfloat16*>(sm + L.p + off) = ph;
-            *reinterpret_cast<__nv_bfloat16*>(sm + L.p + NP * 128 + off) = pl;
-          }
-          sum = decode::warp_sum(sum);
-          if constexpr (!CHUNKED) zs = decode::warp_sum(zs);
-          m_s[h] = m_new;  // every lane holds the warp's results
-          l_s[h] = l_s[h] * alpha + sum;
-          alpha_s[h] = alpha;
-          // (restarted at the item's first tile: the V side wrote the last
-          // item's partials before its p_empty, which this softmax waited)
-          zsum_s[h] = (tile == w.t0 ? 0.0f : zsum_s[h] * alpha) + zs;
-        }
+        packed::softmax_tile<NP, CHUNKED>(sm + L.p, lg, stats, a.hpg, 0, a.hpg, s0, vlo, vhi,
+                                          tile == w.t0, vsc, vzc, a.asym, warp, lane);
         mbar_arrive(empty + 8 * st);  // the stage is read (the V scales above)
         mbar_arrive(p_full);
       }
@@ -834,7 +748,6 @@ palu_decode_exact_kernel(const __grid_constant__ CUtensorMap tm_kc,
     // P^T of tile k - 1 (the K warpgroup's epilogue of k overlaps it)
     const int fr = wt % HALF, t_step = kWG / HALF;
     const float inv = a.inv_freq[fr];
-    const int nmt = (a.rv + 63) / 64;
     const Unpack un(a.pbits);
     float acc[MT][NP / 8][4];  // per 64-rank tile and 8-head tile: rows gq, gq + 8
     int it = 0;
@@ -869,103 +782,17 @@ palu_decode_exact_kernel(const __grid_constant__ CUtensorMap tm_kc,
         const int st = vit % L.ns;
         mbar_wait(full + 8 * st, (vit / L.ns) & 1);
         mbar_wait(p_full, vit & 1);
-        // rescale by the tile's alpha: columns 8j + 2q + {0, 1} are heads
-#pragma unroll
-        for (int j = 0; j < NP / 8; ++j) {
-          const float2 al = *reinterpret_cast<const float2*>(alpha_s + 8 * j + 2 * qd);
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            acc[mt][j][0] *= al.x, acc[mt][j][1] *= al.y;
-            acc[mt][j][2] *= al.x, acc[mt][j][3] *= al.y;
-          }
-        }
         const uint8_t* stage = sm + st * L.stage_bytes;
-        const uint8_t* vbytes = stage + L.vc;
-        const float* vsc = reinterpret_cast<const float*>(stage + L.vs);
-        const float* vzc = reinterpret_cast<const float*>(stage + L.vz);
-        // this thread's 16 tokens 16q .. 16q + 15: K columns 16kk + 8hh + 2q +
-        // {0, 1} hold tokens 16q + 4kk + 2hh + {0, 1} (P^T is stored so). Tokens
-        // outside [kv_len - window, kv_len) weigh p = 0 in P^T.
-        const int t0 = 16 * qd;
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          if (mt >= nmt) continue;
-          // A: per-row scales, the raw codes (code - qoff, exact in bf16; the
-          // scale rides in P); per-chunk, the dequantized values in bf16 high
-          // and low parts
-          uint32_t ah[4][4], al[4][4];
-#pragma unroll
-          for (int rr = 0; rr < 2; ++rr) {
-            // A row: rank r; rows past rv (a real rank's codes) are never written out
-            const int rl = min(mt * 64 + 16 * warp + gq + 8 * rr, a.rv - 1);
-            const uint32_t e = vtab[rl];
-            const uint4 wv = *reinterpret_cast<const uint4*>(vbytes + (e & 0xfff) * kTile + t0);
-            const uint4 hv =
-                *reinterpret_cast<const uint4*>(vbytes + ((e >> 16) & 0xfff) * kTile + t0);
-            // four tokens at a time: x is k-step kk's tokens 4kk .. 4kk + 3
-#pragma unroll
-            for (int x = 0; x < 4; ++x) {
-              const uint32_t wd = x == 0 ? wv.x : x == 1 ? wv.y : x == 2 ? wv.z : wv.w;
-              const uint32_t hd = x == 0 ? hv.x : x == 1 ? hv.y : x == 2 ? hv.z : hv.w;
-              float v[4];
-#pragma unroll
-              for (int y = 0; y < 4; ++y)
-                v[y] = static_cast<float>(un.code(wd, hd, e, 8 * y) - a.qoff);
-              if constexpr (CHUNKED) {
-                const int sc = rl / a.gsv;
-                const float4 s4 = *reinterpret_cast<const float4*>(vsc + sc * kTile + t0 + 4 * x);
-                const float4 z4 =
-                    a.asym ? *reinterpret_cast<const float4*>(vzc + sc * kTile + t0 + 4 * x)
-                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-                v[0] = fmaf(s4.x, v[0], z4.x), v[1] = fmaf(s4.y, v[1], z4.y);
-                v[2] = fmaf(s4.z, v[2], z4.z), v[3] = fmaf(s4.w, v[3], z4.w);
-                split_bf16(v[0], v[1], ah[x][rr], al[x][rr]);
-                split_bf16(v[2], v[3], ah[x][2 + rr], al[x][2 + rr]);
-              } else {
-                ah[x][rr] = pack_bf16(v[0], v[1]);
-                ah[x][2 + rr] = pack_bf16(v[2], v[3]);
-              }
-            }
-          }
-          // per warp: its 16 ranks x NP heads += A (16 ranks x 16 tokens) . P
-          // (16 tokens x 8 heads) per k-step and 8-head tile, mma.sync (the
-          // accumulators hold the m64nNP layout's rows of this warp); B
-          // fragments of P^T high and low by one ldmatrix
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-            for (int j = 0; j < NP / 8; ++j) {
-              const int m = lane >> 3, h = 8 * j + (lane & 7), u = 2 * kk + (m & 1);
-              uint32_t bf[4];
-              decode::ldmatrix_x4(bf, reinterpret_cast<const __nv_bfloat16*>(
-                  sm + L.p + (m >> 1) * NP * 128 + h * 128 + ((u ^ (h & 7)) << 4)));
-              decode::mma_bf16(acc[mt][j], ah[kk], bf[0], bf[1]);  // A (hi) . P hi
-              decode::mma_bf16(acc[mt][j], ah[kk], bf[2], bf[3]);  // A (hi) . P lo
-              if constexpr (CHUNKED)
-                decode::mma_bf16(acc[mt][j], al[kk], bf[0], bf[1]);  // A lo . P hi
-            }
-          }
-        }
+        packed::v_tile<NP, MT, CHUNKED>(acc, sm + L.p, alpha_s, stage + L.vc,
+                                        reinterpret_cast<const float*>(stage + L.vs),
+                                        reinterpret_cast<const float*>(stage + L.vz), vtab, a.rv,
+                                        a.gsv, a.asym, a.qoff, un, warp, lane);
         // P^T and alpha are read (the item's last: after its partials, below)
         if (tile < w.t1) mbar_arrive(p_empty);
         mbar_arrive(empty + 8 * st);
       }
-      // this item's accumulator: element e of tile (mt, j) is rank mt*64 + 16w
-      // + gq (+8 for e >= 2), head 8j + 2q + e % 2; plus, per-row asym, the
-      // zero term sum_s p(s) zero_v(s) of the head
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        if (mt >= nmt) continue;
-#pragma unroll
-        for (int j = 0; j < NP / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int r = mt * 64 + 16 * warp + gq + 8 * (e >> 1), h = 8 * j + 2 * qd + (e & 1);
-            const float zs = w.t1 > w.t0 ? zsum_s[min(h, kMaxHeads - 1)] : 0.0f;
-            if (r < a.rv && h < a.hpg)
-              a.part_acc[((head0 + h) * a.splits + w.split) * a.rv + r] = acc[mt][j][e] + zs;
-          }
-      }
+      packed::v_store<NP, MT>(acc, a.part_acc, zsum_s, w.t1 > w.t0, head0, a.splits, w.split,
+                              a.rv, a.hpg, warp, lane);
       if (w.t1 > w.t0) mbar_arrive(p_empty);  // the item's last P^T is read
     }
   }
@@ -1027,9 +854,9 @@ extern "C" int palu_decode_exact_smem(int hd, int rk, int rv, int hpg, int nkv, 
 // (nsk = nsv = 1: per-row scales; else rank / gs per-chunk rows), zeros
 // only when asym; kv_len (B,) int32 absolute; kbias null or (G, nkv, hd)
 // f32; inv_freq (hd / 2,) f32; rsum scratch of G * nkv * nsk * hd f32
-// (asym); partials as in palu_decode.cu; out (B, nh, rv) f32, or with m_out
-// / l_out the raw statistics. hd 64 or 128, rk and rv multiples of 16 up to
-// 512, hpg <= 32, S a multiple of 16. splits: the wrapper's _splits; grid
+// (asym); partials (B, nh, splits) m and l, (B, nh, splits, rv) accumulators;
+// out (B, nh, rv) f32, or with m_out / l_out the raw statistics. hd 64 or
+// 128, rk and rv multiples of 16 up to 512, hpg <= 32, S a multiple of 16. splits: the wrapper's _splits; grid
 // blocks loop over the B * G * splits work items.
 extern "C" int palu_decode_exact(const void* q, int q_bf16, const void* bk, const void* kc,
                                  const void* ks, const void* kz, const void* vc, const void* vs,

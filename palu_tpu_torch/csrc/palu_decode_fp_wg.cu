@@ -739,9 +739,10 @@ extern "C" int palu_decode_fp_wg_smem(int hd, int rk, int rv, int hpg, int nkv) 
 // xv bf16, rank-major (L, B, G, r, S) or seq-major (L, B, G, S, r) (L =
 // n_layers, 1 for one layer's buffers; layer picks one); kv_len (B,) int32
 // absolute; kbias null or (G, nkv, hd) f32; inv_freq (hd / 2,) f32;
-// partials as in palu_decode.cu; out (B, nh, rv) f32, or with m_out / l_out
-// the raw statistics. hd 64 or 128, rk a multiple of 16 up to 512, rv a
-// multiple of 8 up to 512, hpg <= 32, S a multiple of 8. splits: the
+// partials (B, nh, splits) m and l, (B, nh, splits, rv) accumulators; out
+// (B, nh, rv) f32, or with m_out / l_out the raw statistics. hd 64 or 128,
+// rk a multiple of 16 up to 512, rv a multiple of 8 up to 512, hpg <= 32, S
+// a multiple of 8. splits: the
 // wrapper's _splits; grid blocks loop over the B * G * splits work items.
 extern "C" int palu_decode_fp_wg(const void* q, int q_bf16, const void* bk, const void* xk,
                                  const void* xv, const void* kv_len, const void* kbias,

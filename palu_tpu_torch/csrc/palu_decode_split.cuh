@@ -1,11 +1,8 @@
 // The split pass of the latent decode over the rank-major packed cache and
-// its host-side launch, shared by three generations of the decode:
-// palu_decode.cu (v4's int8 K-path modes; its header describes the design;
-// v4's exact modes run on palu_decode_exact.cu), and the archived A/B
-// baselines palu_decode2.cu (v2) and palu_decode3.cu (v3), which run the
-// exact K path over per-row affine scales and differ only in how RoPE and
-// the scales reach the kernel (the template argument GEN):
-//   4 - the int8 modes (MODE 1 and 2): block-relative tables (below);
+// its host-side launch, shared by the archived A/B baselines palu_decode2.cu
+// (v2) and palu_decode3.cu (v3), which run the exact K path over per-row
+// affine scales and differ only in how RoPE and the scales reach the kernel
+// (the template argument GEN):
 //   2 - cos/sin computed in the kernel, sincosf of the f32 angle
 //       (position * inv_freq[j]) times rope_scale, as the v2 TPU kernel
 //       forms them; no table of positions is read;
@@ -17,10 +14,19 @@
 //       pre-scaled by 1/sqrt(hd); scales and zeros arrive packed as one
 //       (B, S, 2G) array (v3's sz_pack), each token's row read with stride
 //       2G.
-// GEN 2 and 3 run MODE 0 (exact) asym only: the v2 / v3 caches always carry
-// a zero row (zero = (q_min - base) * scale for sym, too), so the zero
-// term rides on palu_decode's asym path (zero(s) * rowsum B added to K
-// before RoPE; RoPE is linear, so this is v2's "virtual key" logit).
+// Both run asym only: the v2 / v3 caches always carry a zero row (zero =
+// (q_min - base) * scale for sym, too), so the zero term is zero(s) *
+// rowsum B added to K before RoPE (RoPE is linear, so this is v2's "virtual
+// key" logit). v4's decode runs on palu_decode_exact.cu and
+// palu_decode_i8.cu.
+//
+// Design: grid (splits, G, B), 8 warps, about one block per SM. A block
+// walks its runs of tiles of 64 tokens: 16-byte loads bring the packed K
+// and V byte rows into shared memory, a per-block table of each rank's byte
+// row and shift turns unpacking into lookups and shifts; K is rebuilt per
+// head on mma.sync (bf16 codes x B in rank chunks of up to 128), each head
+// keeps (m, l) and a latent accumulator (rv) in shared memory, and the
+// combine kernel merges the splits.
 
 #pragma once
 
@@ -38,7 +44,6 @@ using decode::cp_async_wait_all;
 using decode::kSmemMax;
 using decode::ldmatrix_x4_trans;
 using decode::mma_bf16;
-using decode::mma_s8;
 using decode::warp_max;
 using decode::warp_sum;
 
@@ -54,48 +59,32 @@ constexpr int kByteStride = kTile + 4;  // padded byte rows: odd word stride
 // addresses of one ldmatrix fall on distinct banks
 constexpr int kCk = kTile + 8;
 constexpr int kBPad = 8;
-constexpr int kI8Pad = 16;  // int8 rows of rk + 16 bytes: (rk + 16) / 4 words, 4 mod 32 banks
-constexpr int kRed = 16;    // reduction rows: [head parity][4 sums][warp half]
 
 struct DecodeArgs {
   const void* q;               // (B, nh, hd) bf16 or f32, roped at the current position
   int q_bf16;
-  const __nv_bfloat16* bk;     // (G, hpg / rep, rk, hd): q-head h reads B of h / rep
+  const __nv_bfloat16* bk;     // (G, hpg, rk, hd)
   const uint8_t* kc;           // (B, G, nrk, S)
-  const float* ks;             // (B, G, S)
-  const float* kz;             // the same, asym only
+  const float* ks;             // GEN 2: (B, G, S); GEN 3: (B, S, 2G) scale | zero rows
+  const float* kz;             // GEN 2: (B, G, S)
   const uint8_t* vc;           // (B, G, nrv, S)
   const float* vs;
   const float* vz;
-  const int* kv_len;           // (B,) absolute positions: column t is position pos_offset + t
-  const float* c0;             // int8 modes: (S / block_s, hd/2) block-start rotation
+  const int* kv_len;           // (B,)
+  const float* c0;             // GEN 3: (S / block_s, hd/2) block-start rotation
   const float* s0;
-  const float* rcos;           // (block_s, hd/2) block-relative rotation
+  const float* rcos;           // GEN 3: (block_s, hd/2) block-relative rotation
   const float* rsin;
-  const int8_t* cos8;          // int8_rot: (block_s, hd/2) at scale 63 / cmax
-  const int8_t* sin8;
-  const float* kbias;          // (G, hpg / rep, hd) pre-RoPE K bias, or null
   const float* inv_freq;       // GEN 2: (hd/2,) f32 RoPE frequencies
   float* part_m;               // (B, nh, splits)
   float* part_l;
   float* part_acc;             // (B, nh, splits, rv)
-  int G, hpg, rep, rk, rv, S, nrk, nrv, pbits, qoff, asym, window;
+  int G, hpg, rk, rv, S, nrk, nrv, pbits, qoff, asym, window;
   int splits, tiles_per_split, chunk_heads, block_s;
-  int rc;                      // exact mode: ranks per chunk (rk when one chunk)
-  float sqrt_hd, i8r_inv;
+  int rc;                      // ranks per chunk (rk when one chunk)
+  float sqrt_hd;
   float rope_scale;            // GEN 2: multiplies cos and sin
-  int layer;                   // the layer of (L, B, G, ...) stacked cache buffers (0: one layer)
-  int pos_offset;              // absolute position of column 0 (a sequence shard's start)
 };
-
-// The two rows of the query-folded operand for one (frequency, rank), in
-// f32 without contraction (as the plain version and XLA form them).
-__device__ __forceinline__ void fold(float a1, float a2, __nv_bfloat16 b1h, __nv_bfloat16 b2h,
-                                     float& v1, float& v2) {
-  const float b1 = __bfloat162float(b1h), b2 = __bfloat162float(b2h);
-  v1 = __fadd_rn(__fmul_rn(a1, b1), __fmul_rn(a2, b2));
-  v2 = __fsub_rn(__fmul_rn(a2, b1), __fmul_rn(a1, b2));
-}
 
 // Where rank r (of n) lives in a packed rank-major plane: byte row and
 // bit shift of its field (and for exact 3-bit the row and shift of its
@@ -109,31 +98,6 @@ __device__ __forceinline__ uint32_t rank_entry(int r, int n, int pbits) {
   }
   const int w = n / (8 / pbits);
   return static_cast<uint32_t>(r % w) | (static_cast<uint32_t>(pbits * (r / w)) << 12);
-}
-
-// The mma A fragment of int8 codes at ra (this lane's first byte of a
-// 16-token x 32-rank k-step; rows of `stride` bytes).
-__device__ __forceinline__ void load_a8(uint32_t (&a)[4], const int8_t* ra, int stride) {
-  a[0] = *reinterpret_cast<const uint32_t*>(ra);
-  a[1] = *reinterpret_cast<const uint32_t*>(ra + 8 * stride);
-  a[2] = *reinterpret_cast<const uint32_t*>(ra + 16);
-  a[3] = *reinterpret_cast<const uint32_t*>(ra + 8 * stride + 16);
-}
-
-// One k-step of the int8 dots: acc[p] += codes . operand rows of column
-// tile p (u), acc[NTW + p] the same rows `vofs` bytes on (v); rb is this
-// lane's first operand byte of tile 0 at this k-step.
-template <int NTW>
-__device__ __forceinline__ void s8_dots(int (&acc)[2 * NTW][4], const uint32_t (&a)[4],
-                                        const int8_t* rb, int stride, int vofs) {
-#pragma unroll
-  for (int p = 0; p < NTW; ++p) {
-    const int8_t* u = rb + p * 8 * stride;
-    mma_s8(acc[p], a, *reinterpret_cast<const uint32_t*>(u),
-           *reinterpret_cast<const uint32_t*>(u + 16));
-    mma_s8(acc[NTW + p], a, *reinterpret_cast<const uint32_t*>(u + vofs),
-           *reinterpret_cast<const uint32_t*>(u + vofs + 16));
-  }
 }
 
 // Element i of the query (B, nh, hd), bf16 or f32.
@@ -172,58 +136,39 @@ __device__ __forceinline__ void load_byte_tile(uint8_t* dst, const uint8_t* src,
 // Byte offsets of the split kernel's shared-memory regions (one place for
 // the kernel's carve and the launcher's size); `chunk` heads of B staged.
 struct SplitLayout {
-  size_t bsm, ck, cos, sin, c8, s8, op, kbytes, vbytes, ktab, vtab, q, rs, acc, lg, pw, red,
-      sk, stat, total;
+  size_t bsm, ck, cos, sin, kbytes, vbytes, ktab, vtab, q, rs, acc, lg, pw, red, sk, stat, total;
 };
 
-// mode 0 stages rc ranks of B in bf16 and a bf16 code tile of rc ranks;
-// modes 1 and 2 the int8 operand (chunk heads x hd rows of rk bytes) with
-// its six per-row f32 / int arrays (a1|a2, row max, scale, row sum, scaled
-// row sum, the bias fold U_b|V_b) and an int8 code tile; mode 2 also the
-// int8 rotation rows of the tile.
+// rc ranks of B in bf16 for `chunk` heads and a bf16 code tile of rc ranks.
 __host__ __device__ inline SplitLayout split_layout(int rk, int hd, int hpg, int rv, int nrk,
-                                                    int nrv, int asym, int chunk, int mode,
-                                                    int rc) {
-  const bool exact = mode == 0;
+                                                    int nrv, int chunk, int rc) {
   const size_t rope = sizeof(float) * kTile * (hd / 2 + 1);
-  const size_t i8row = static_cast<size_t>(rk + kI8Pad);
   SplitLayout L;
   size_t off = 0;
-  L.bsm = off;
-  off = al(off + (exact ? sizeof(__nv_bfloat16) * chunk * rc * (hd + kBPad)
-                        : i8row * chunk * hd));
-  L.op = off;     off = al(off + (exact ? 0 : sizeof(float) * 6 * chunk * hd));
-  L.ck = off;
-  off = al(off + (exact ? sizeof(__nv_bfloat16) * rc * kCk : i8row * kTile));
+  L.bsm = off;    off = al(off + sizeof(__nv_bfloat16) * chunk * rc * (hd + kBPad));
+  L.ck = off;     off = al(off + sizeof(__nv_bfloat16) * rc * kCk);
   L.cos = off;    off = al(off + rope);
   L.sin = off;    off = al(off + rope);
-  L.c8 = off;     off = al(off + (mode == 2 ? static_cast<size_t>(kTile) * (hd / 2) : 0));
-  L.s8 = off;     off = al(off + (mode == 2 ? static_cast<size_t>(kTile) * (hd / 2) : 0));
   L.kbytes = off; off = al(off + static_cast<size_t>(nrk) * kByteStride);
   L.vbytes = off; off = al(off + static_cast<size_t>(nrv) * kByteStride);
   L.ktab = off;   off = al(off + sizeof(uint32_t) * rk);
   L.vtab = off;   off = al(off + sizeof(uint32_t) * rv);
   L.q = off;      off = al(off + sizeof(float) * hpg * hd);
-  L.rs = off;     off = al(off + (asym && mode == 0 ? sizeof(float) * hpg * hd : 0));
+  L.rs = off;     off = al(off + sizeof(float) * hpg * hd);
   L.acc = off;    off = al(off + sizeof(float) * hpg * rv);
   L.lg = off;     off = al(off + sizeof(float) * hpg * kTile);
   L.pw = off;     off = al(off + sizeof(float) * hpg * kTile);
-  L.red = off;    off = al(off + sizeof(float) * (exact ? 4 : kRed) * kTile);
+  L.red = off;    off = al(off + sizeof(float) * 4 * kTile);
   L.sk = off;     off = al(off + sizeof(float) * 4 * kTile);
   L.stat = off;   off = al(off + sizeof(float) * 4 * kMaxHeads);
   L.total = off;
   return L;
 }
 
-// BIAS compiles the K bias in (a.kbias set); without it the kernel carries
-// no trace of the bias (a null test in the inner loops slowed the decodes
-// that take none). GEN: the decode generation (this file's header).
-template <int HD, int MODE, bool BIAS, int GEN = 4>
+// GEN: the decode generation (this file's header).
+template <int HD, int GEN>
 __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs a) {
-  static_assert((GEN == 4 && (MODE == 1 || MODE == 2)) ||
-                    ((GEN == 2 || GEN == 3) && MODE == 0 && !BIAS),
-                "v4: the int8 modes; v2 / v3: the exact mode over per-row scales, no bias");
-  constexpr bool EXACT = MODE == 0;  // K rebuilt in bf16 mma
+  static_assert(GEN == 2 || GEN == 3, "v2 / v3: the exact mode over per-row scales");
   constexpr int half = HD / 2;
   constexpr int HS = HD + kBPad;  // B row stride
   constexpr int NTH = HD / 16;    // 8-wide column tiles per half of hd
@@ -233,16 +178,14 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int fg = lane / 4, ft = lane % 4;  // mma fragment row group / column pair
   const int mi = lane / 8, ri = lane % 8;  // ldmatrix tile / row of this lane
-  const int hpg = a.hpg, rk = a.rk, rv = a.rv, nks = rk / 16;  // nks: int8 modes
+  const int hpg = a.hpg, rk = a.rk, rv = a.rv;
   const int nh = a.G * hpg;
   const int m0 = (warp & 3) * 16;    // this warp's 16 tokens of the tile
   const int jw = (warp >> 2) * NTW;  // its first column tile in each half of hd
 
   extern __shared__ __align__(128) unsigned char smem[];
-  const SplitLayout L = split_layout(rk, HD, hpg, rv, a.nrk, a.nrv, a.asym, a.chunk_heads,
-                                     MODE, a.rc);
-  const int i8s = rk + kI8Pad;  // int8 row stride (operand and code tile)
-  const int rc = a.rc, nrc = (rk + rc - 1) / rc;  // exact mode's rank chunks
+  const SplitLayout L = split_layout(rk, HD, hpg, rv, a.nrk, a.nrv, a.chunk_heads, a.rc);
+  const int rc = a.rc, nrc = (rk + rc - 1) / rc;  // rank chunks
   __nv_bfloat16* bsm = reinterpret_cast<__nv_bfloat16*>(smem + L.bsm);  // [chunk][rc][HS]
   __nv_bfloat16* ck = reinterpret_cast<__nv_bfloat16*>(smem + L.ck);    // [rc][kCk]
   float* cos_s = reinterpret_cast<float*>(smem + L.cos);                // [kTile][cs]
@@ -259,18 +202,6 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
   float* red = reinterpret_cast<float*>(smem + L.red);  // [head parity][warp half][kTile]
   float* sk = reinterpret_cast<float*>(smem + L.sk);    // [4][kTile]: sk, zk, sv, zv
   float* stat = reinterpret_cast<float*>(smem + L.stat);  // [4][kMaxHeads]: m, l, alpha, zsum
-  // int8 modes: the operand [chunk][hd][i8s] and its per-row arrays
-  int8_t* nq = reinterpret_cast<int8_t*>(smem + L.bsm);
-  int8_t* ck8 = reinterpret_cast<int8_t*>(smem + L.ck);                 // [kTile][i8s]
-  const int8_t* c8s = reinterpret_cast<const int8_t*>(smem + L.c8);     // [kTile][hd/2]
-  const int8_t* s8s = reinterpret_cast<const int8_t*>(smem + L.s8);
-  const int nop = a.chunk_heads * HD;
-  float* aq = reinterpret_cast<float*>(smem + L.op);  // [chunk][hd]: a1 | a2
-  unsigned* amax = reinterpret_cast<unsigned*>(aq + nop);  // row max of |operand|
-  float* osc = aq + 2 * nop;                               // operand scale per row
-  int* rsn = reinterpret_cast<int*>(aq + 3 * nop);         // row sum of the int8 operand
-  float* ors = aq + 4 * nop;                               // rsn * osc
-  float* bqb = aq + 5 * nop;  // the K bias fold per head: U_b | V_b
   float* zk = sk + kTile;
   float* sv = sk + 2 * kTile;
   float* zv = sk + 3 * kTile;
@@ -279,9 +210,7 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
   float* alpha_s = stat + 2 * kMaxHeads;
   float* zsum = stat + 3 * kMaxHeads;
 
-  // the cache planes of (layer, lane, group): a layer-stacked buffer holds
-  // L copies of the (B, G, ...) planes and a.layer picks one
-  const size_t bg = (static_cast<size_t>(a.layer) * gridDim.z + b) * a.G + g;
+  const size_t bg = static_cast<size_t>(b) * a.G + g;
   const uint8_t* kc = a.kc + bg * a.nrk * a.S;
   const uint8_t* vc = a.vc + bg * a.nrv * a.S;
   // per-row scales and zeros of token s at [s * sst]: (B, G, S) rows, or
@@ -292,16 +221,13 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
   const float* vsc = GEN == 3 ? a.vs + sz0 : a.vs + bg * a.S;
   const float* kzp = GEN == 3 ? ksc + a.G : a.asym ? a.kz + bg * a.S : nullptr;
   const float* vzp = GEN == 3 ? vsc + a.G : a.asym ? a.vz + bg * a.S : nullptr;
-  // B and the K bias of q-head h are kv-head h / rep's (rep 1: the repeated form)
-  const int nkv = hpg / a.rep;
-  const float* kb_g = BIAS ? a.kbias + static_cast<size_t>(g) * nkv * HD : nullptr;
-  const __nv_bfloat16* bk_g = a.bk + static_cast<size_t>(g) * nkv * rk * HD;
+  const __nv_bfloat16* bk_g = a.bk + static_cast<size_t>(g) * hpg * rk * HD;
 
   for (int r = tid; r < rk; r += kThreads) ktab[r] = rank_entry(r, rk, a.pbits);
   for (int r = tid; r < rv; r += kThreads) vtab[r] = rank_entry(r, rv, a.pbits);
   for (int i = tid; i < hpg * HD; i += kThreads) {
     q_s[i] = q_at(a, (static_cast<size_t>(b) * nh + g * hpg) * HD + i);
-    if (MODE == 0 && a.asym) {
+    if (a.asym) {
       const int h = i / HD, d = i % HD;
       float rs = 0.0f;
       for (int r = 0; r < rk; ++r)
@@ -317,9 +243,7 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
     zsum[tid] = 0.0f;
   }
 
-  // kv_len and the window in column coordinates: a sequence shard past
-  // kv_len gets kvl <= 0 and walks no tile
-  const int kvl = a.kv_len[b] - a.pos_offset;
+  const int kvl = a.kv_len[b];
   const int lo_pos = a.window > 0 ? max(0, kvl - a.window) : 0;
   const int tile_lo = lo_pos / kTile;
   const int tile_hi = (max(0, min(kvl, a.S)) + kTile - 1) / kTile;
@@ -331,7 +255,7 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
   for (int c0 = 0; c0 < hpg && t_begin < t_end; c0 += a.chunk_heads) {
     const int nc = min(a.chunk_heads, hpg - c0);
     __syncthreads();  // set-up done / the previous chunk's B reads done
-    if (EXACT && nrc == 1) {  // all of B fits: staged once
+    if (nrc == 1) {  // all of B fits: staged once
       for (int i = tid; i < nc * rk * (HD / 8); i += kThreads) {
         const int row = i / (HD / 8), c = i % (HD / 8);  // row = head * rk + rank
         cp_async16(bsm + row * HS + c * 8,
@@ -344,7 +268,7 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
     int cur_blk = -1;
     for (int tile = t_begin; tile < t_end; ++tile) {
       const int s0 = tile * kTile;
-      const int blk = EXACT && GEN != 3 ? 0 : s0 / a.block_s;
+      const int blk = GEN == 3 ? s0 / a.block_s : 0;
       if (GEN == 3 && blk != cur_blk) {
         // ---- v3: the query rotated back by this rotation block's start,
         // q' = R(-s0) q, in f32 (the previous tile's reads of q_s ended at
@@ -359,80 +283,6 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
           q_s[h * HD + half + e] = __fsub_rn(__fmul_rn(q2, c), __fmul_rn(q1, sn));
         }
       }
-      if (!EXACT && blk != cur_blk) {
-        // ---- int8 modes: the query-folded operand of this rotation block
-        cur_blk = blk;
-        for (int i = tid; i < nc * half; i += kThreads) {
-          const int h = i / half, e = i % half;
-          const float qa = q_s[(c0 + h) * HD + e] / a.sqrt_hd;
-          const float qb = q_s[(c0 + h) * HD + half + e] / a.sqrt_hd;
-          const float c = a.c0[blk * half + e], sn = a.s0[blk * half + e];
-          aq[h * HD + e] = __fadd_rn(__fmul_rn(qa, c), __fmul_rn(qb, sn));
-          aq[h * HD + half + e] = __fsub_rn(__fmul_rn(qb, c), __fmul_rn(qa, sn));
-        }
-        for (int i = tid; i < nc * HD; i += kThreads) {
-          amax[i] = 0u;
-          rsn[i] = 0;
-        }
-        __syncthreads();
-        if (BIAS) {  // the bias fold of this block's rotated query (cache-independent)
-          for (int i = tid; i < nc * half; i += kThreads) {
-            const int h = i / half, e = i % half;
-            const float* kbh = kb_g + (c0 + h) / a.rep * HD;
-            const float kb1 = kbh[e], kb2 = kbh[half + e];
-            const float a1 = aq[h * HD + e], a2 = aq[h * HD + half + e];
-            bqb[h * HD + e] = __fadd_rn(__fmul_rn(a1, kb1), __fmul_rn(a2, kb2));
-            bqb[h * HD + half + e] = __fsub_rn(__fmul_rn(a2, kb1), __fmul_rn(a1, kb2));
-          }
-        }
-        const int e = tid % half, rstep = kThreads / half;  // half divides kThreads
-        for (int h = 0; h < nc; ++h) {
-          const float a1 = aq[h * HD + e], a2 = aq[h * HD + half + e];
-          const __nv_bfloat16* bh = bk_g + static_cast<size_t>((c0 + h) / a.rep) * rk * HD;
-          float m1 = 0.0f, m2 = 0.0f;
-          for (int r = tid / half; r < rk; r += rstep) {
-            float v1, v2;
-            fold(a1, a2, bh[r * HD + e], bh[r * HD + half + e], v1, v2);
-            m1 = fmaxf(m1, fabsf(v1));
-            m2 = fmaxf(m2, fabsf(v2));
-          }
-          atomicMax(amax + h * HD + e, __float_as_uint(m1));  // order of non-negative floats
-          atomicMax(amax + h * HD + half + e, __float_as_uint(m2));
-        }
-        __syncthreads();
-        for (int i = tid; i < nc * HD; i += kThreads) {
-          float m = __uint_as_float(amax[i]);
-          if (MODE == 2) {  // one scale per head and half
-            const unsigned* seg = amax + (i / HD) * HD + ((i % HD) < half ? 0 : half);
-            m = 0.0f;
-            for (int k = 0; k < half; ++k) m = fmaxf(m, __uint_as_float(seg[k]));
-          }
-          osc[i] = __fmul_rn(fmaxf(m, 1e-30f), 1.0f / 127.0f);
-        }
-        __syncthreads();
-        for (int h = 0; h < nc; ++h) {
-          const float a1 = aq[h * HD + e], a2 = aq[h * HD + half + e];
-          const float sc1 = osc[h * HD + e], sc2 = osc[h * HD + half + e];
-          const __nv_bfloat16* bh = bk_g + static_cast<size_t>((c0 + h) / a.rep) * rk * HD;
-          int n1s = 0, n2s = 0;
-          for (int r = tid / half; r < rk; r += rstep) {
-            float v1, v2;
-            fold(a1, a2, bh[r * HD + e], bh[r * HD + half + e], v1, v2);
-            const int n1 = static_cast<int>(fminf(fmaxf(rintf(v1 / sc1), -127.0f), 127.0f));
-            const int n2 = static_cast<int>(fminf(fmaxf(rintf(v2 / sc2), -127.0f), 127.0f));
-            nq[(h * HD + e) * i8s + r] = static_cast<int8_t>(n1);
-            nq[(h * HD + half + e) * i8s + r] = static_cast<int8_t>(n2);
-            n1s += n1;
-            n2s += n2;
-          }
-          atomicAdd(rsn + h * HD + e, n1s);
-          atomicAdd(rsn + h * HD + half + e, n2s);
-        }
-        __syncthreads();
-        for (int i = tid; i < nc * HD; i += kThreads)
-          ors[i] = __fmul_rn(static_cast<float>(rsn[i]), osc[i]);
-        // (the tile load below ends in a barrier before anyone reads these)
-      }
       // ---- load: packed K/V byte tiles, scales, rope rows (vector loads)
       load_byte_tile(kbytes, kc, a.nrk, a.S, s0, tid);
       load_byte_tile(vbytes, vc, a.nrv, a.S, s0, tid);
@@ -441,12 +291,10 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
         const bool in = s < a.S;
         sk[tid] = in ? ksc[s * sst] : 0.0f;
         sv[tid] = in ? vsc[s * sst] : 0.0f;
-        // int8 modes fold the symmetric offset into the zero correction
-        zk[tid] = (in && a.asym) ? kzp[s * sst]
-                  : (in && !EXACT) ? sk[tid] * static_cast<float>(-a.qoff) : 0.0f;
+        zk[tid] = (in && a.asym) ? kzp[s * sst] : 0.0f;
         zv[tid] = (in && a.asym) ? vzp[s * sst] : 0.0f;
       }
-      // rope rows: block-relative ones (int8, v3), or computed here from the
+      // rope rows: block-relative ones (v3), or computed here from the
       // positions (v2)
       const float* cos_src = a.rcos;
       const float* sin_src = a.rsin;
@@ -473,135 +321,10 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
         cd[0] = c.x; cd[1] = c.y; cd[2] = c.z; cd[3] = c.w;
         sd[0] = n.x; sd[1] = n.y; sd[2] = n.z; sd[3] = n.w;
       }
-      if (MODE == 2) {  // the int8 rotation rows (block-relative; S % 64 == 0 here)
-        for (int i = tid; i < kTile * (half / 4); i += kThreads) {
-          const size_t row = static_cast<size_t>(row0) * half + i * 4;
-          reinterpret_cast<uint32_t*>(smem + L.c8)[i] =
-              *reinterpret_cast<const uint32_t*>(a.cos8 + row);
-          reinterpret_cast<uint32_t*>(smem + L.s8)[i] =
-              *reinterpret_cast<const uint32_t*>(a.sin8 + row);
-        }
-      }
       __syncthreads();
-      if (!EXACT) {
-        // raw unsigned K codes -> int8 [token][rank]
-        for (int i = tid; i < rk * kTile; i += kThreads) {
-          const int t = i / rk, r = i % rk;
-          ck8[t * i8s + r] =
-              static_cast<int8_t>(unpack_code(kbytes, kByteStride, t, ktab[r], a.pbits));
-        }
-        __syncthreads();
-      }
       const int tok_a = m0 + fg, tok_b = tok_a + 8;  // accumulator rows of this lane
 
-      if (!EXACT) {
-        // ---- int8 modes: per head u|v (tokens x hd) = codes^T . operand^T.
-        // The A fragments (codes, 16 tokens x 32 ranks) of the first 128
-        // ranks stay in registers for all heads; higher ranks' load per
-        // k-step from shared memory
-        const int8_t* ra = ck8 + (m0 + fg) * i8s + 4 * ft;
-        uint32_t a8[kMaxKSteps / 2][4];
-#pragma unroll
-        for (int ks = 0; ks < kMaxKSteps / 2; ++ks)
-          if (ks < nks / 2) load_a8(a8[ks], ra + ks * 32, i8s);
-        for (int hc = 0; hc < nc; ++hc) {
-          const int h = c0 + hc;
-          const int8_t* nqh = nq + (hc * HD + jw * 8 + fg) * i8s + 4 * ft;
-          int acc[2 * NTW][4];
-#pragma unroll
-          for (int j = 0; j < 2 * NTW; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
-#pragma unroll
-          for (int ks = 0; ks < kMaxKSteps / 2; ++ks)
-            if (ks < nks / 2) s8_dots<NTW>(acc, a8[ks], nqh + ks * 32, i8s, half * i8s);
-          for (int ks = kMaxKSteps / 2; ks < nks / 2; ++ks) {
-            uint32_t at[4];
-            load_a8(at, ra + ks * 32, i8s);
-            s8_dots<NTW>(acc, at, nqh + ks * 32, i8s, half * i8s);
-          }
-          // acc[j]: u at frequency (jw + j) * 8 + ...; acc[NTW + j]: v there
-          float pa = 0.0f, pb = 0.0f, ca = 0.0f, cb = 0.0f, ba = 0.0f, bb = 0.0f;
-          int ia1 = 0, ia2 = 0, ib1 = 0, ib2 = 0;
-#pragma unroll
-          for (int j = 0; j < NTW; ++j) {
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int d = (jw + j) * 8 + 2 * ft + e;
-              const float r1 = ors[hc * HD + d], r2 = ors[hc * HD + half + d];
-              const float cosa = cos_s[tok_a * cs + d], sina = sin_s[tok_a * cs + d];
-              const float cosb = cos_s[tok_b * cs + d], sinb = sin_s[tok_b * cs + d];
-              ca += r1 * cosa + r2 * sina;
-              cb += r1 * cosb + r2 * sinb;
-              if (BIAS) {
-                const float u1 = bqb[hc * HD + d], u2 = bqb[hc * HD + half + d];
-                ba += u1 * cosa + u2 * sina;
-                bb += u1 * cosb + u2 * sinb;
-              }
-              if (MODE == 1) {
-                const float sc1 = osc[hc * HD + d], sc2 = osc[hc * HD + half + d];
-                pa += (static_cast<float>(acc[j][e]) * sc1) * cosa +
-                      (static_cast<float>(acc[NTW + j][e]) * sc2) * sina;
-                pb += (static_cast<float>(acc[j][e + 2]) * sc1) * cosb +
-                      (static_cast<float>(acc[NTW + j][e + 2]) * sc2) * sinb;
-              } else {
-                ia1 += static_cast<int>(c8s[tok_a * half + d]) * acc[j][e];
-                ia2 += static_cast<int>(s8s[tok_a * half + d]) * acc[NTW + j][e];
-                ib1 += static_cast<int>(c8s[tok_b * half + d]) * acc[j][e + 2];
-                ib2 += static_cast<int>(s8s[tok_b * half + d]) * acc[NTW + j][e + 2];
-              }
-            }
-          }
-#pragma unroll
-          for (int o = 1; o <= 2; o <<= 1) {
-            ca += __shfl_xor_sync(0xffffffffu, ca, o);
-            cb += __shfl_xor_sync(0xffffffffu, cb, o);
-            if (BIAS) {
-              ba += __shfl_xor_sync(0xffffffffu, ba, o);
-              bb += __shfl_xor_sync(0xffffffffu, bb, o);
-            }
-            if (MODE == 1) {
-              pa += __shfl_xor_sync(0xffffffffu, pa, o);
-              pb += __shfl_xor_sync(0xffffffffu, pb, o);
-            } else {
-              ia1 += __shfl_xor_sync(0xffffffffu, ia1, o);
-              ia2 += __shfl_xor_sync(0xffffffffu, ia2, o);
-              ib1 += __shfl_xor_sync(0xffffffffu, ib1, o);
-              ib2 += __shfl_xor_sync(0xffffffffu, ib2, o);
-            }
-          }
-          // [parity][sum: main | int8_rot's sin part | correction | bias][warp half][kTile]
-          float* rh = red + ((hc & 1) * 8 + (warp >> 2)) * kTile;
-          if (ft == 0) {
-            rh[tok_a] = MODE == 1 ? pa : __int_as_float(ia1);
-            rh[tok_b] = MODE == 1 ? pb : __int_as_float(ib1);
-            rh[2 * kTile + tok_a] = __int_as_float(ia2);
-            rh[2 * kTile + tok_b] = __int_as_float(ib2);
-            rh[4 * kTile + tok_a] = ca;
-            rh[4 * kTile + tok_b] = cb;
-            if (BIAS) {
-              rh[6 * kTile + tok_a] = ba;
-              rh[6 * kTile + tok_b] = bb;
-            }
-          }
-          __syncthreads();
-          if (tid < kTile) {
-            const float* r2 = red + (hc & 1) * 8 * kTile;
-            const float corr = r2[4 * kTile + tid] + r2[5 * kTile + tid];
-            const float bias = BIAS ? r2[6 * kTile + tid] + r2[7 * kTile + tid] : 0.0f;
-            float main;
-            if (MODE == 1) {
-              main = r2[tid] + r2[kTile + tid];
-            } else {
-              const int t1 = __float_as_int(r2[tid]) + __float_as_int(r2[kTile + tid]);
-              const int t2 = __float_as_int(r2[2 * kTile + tid]) +
-                             __float_as_int(r2[3 * kTile + tid]);
-              main = static_cast<float>(t1) * (osc[hc * HD] * a.i8r_inv) +
-                     static_cast<float>(t2) * (osc[hc * HD + half] * a.i8r_inv);
-            }
-            // the bias term is cache-independent: after the per-token scale
-            lg[h * kTile + tid] = main * sk[tid] + corr * zk[tid] + bias;
-          }
-        }
-      } else {
+      {
         const float sk_a = sk[tok_a], sk_b = sk[tok_b], zk_a = zk[tok_a], zk_b = zk[tok_b];
         for (int ci = 0; ci < nrc; ++ci) {
           // ---- rank chunk ci: ranks [r0, r0 + nr)
@@ -661,7 +384,6 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
             }
             const float* qh = q_s + h * HD;
             const float* rsh = rs_b + h * HD;
-            const float* kbh = BIAS ? kb_g + static_cast<size_t>(h) * HD : nullptr;
             float part_a = 0.0f, part_b = 0.0f;
 #pragma unroll
             for (int j = 0; j < NTW; ++j) {
@@ -671,18 +393,11 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
                 const float q1 = qh[d], q2 = qh[d + half];
                 float k1 = acc[j][e] * sk_a, k2 = acc[NTW + j][e] * sk_a;
                 float l1 = acc[j][e + 2] * sk_b, l2 = acc[NTW + j][e + 2] * sk_b;
-                if (MODE == 0 && a.asym && ci == 0) {  // rs_b (all ranks): per-row asym only
+                if (a.asym && ci == 0) {  // rs_b (all ranks)
                   k1 += zk_a * rsh[d];
                   k2 += zk_a * rsh[d + half];
                   l1 += zk_b * rsh[d];
                   l2 += zk_b * rsh[d + half];
-                }
-                if (BIAS && ci == 0) {  // the K bias, pre-RoPE, once per token
-                  const float b1 = __ldg(kbh + d), b2 = __ldg(kbh + d + half);
-                  k1 += b1;
-                  k2 += b2;
-                  l1 += b1;
-                  l2 += b2;
                 }
                 float c = cos_s[tok_a * cs + d], s = sin_s[tok_a * cs + d];
                 part_a += q1 * (k1 * c - k2 * s) + q2 * (k2 * c + k1 * s);
@@ -710,7 +425,7 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
             }
           }
         }  // rank chunks
-      }  // MODE
+      }
       __syncthreads();
 
       // ---- online softmax, one warp per head
@@ -780,60 +495,40 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
   }
 }
 
-template <int HD, int MODE, bool BIAS, int GEN = 4>
+template <int HD, int GEN>
 int launch_split(const DecodeArgs& a, int B, cudaStream_t st) {
-  const size_t smem = split_layout(a.rk, HD, a.hpg, a.rv, a.nrk, a.nrv, a.asym, a.chunk_heads,
-                                  MODE, a.rc).total;
-  cudaError_t err = cudaFuncSetAttribute(palu_decode_split_kernel<HD, MODE, BIAS, GEN>,
+  const size_t smem =
+      split_layout(a.rk, HD, a.hpg, a.rv, a.nrk, a.nrv, a.chunk_heads, a.rc).total;
+  cudaError_t err = cudaFuncSetAttribute(palu_decode_split_kernel<HD, GEN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  palu_decode_split_kernel<HD, MODE, BIAS, GEN>
-      <<<dim3(a.splits, a.G, B), kThreads, smem, st>>>(a);
+  palu_decode_split_kernel<HD, GEN><<<dim3(a.splits, a.G, B), kThreads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD, bool BIAS>
-int launch_mode(const DecodeArgs& a, int mode, int B, cudaStream_t st) {
-  return mode == 1 ? launch_split<HD, 1, BIAS>(a, B, st) : launch_split<HD, 2, BIAS>(a, B, st);
-}
-
-template <int HD>
-int launch_bias(const DecodeArgs& a, int mode, int B, cudaStream_t st) {
-  return a.kbias ? launch_mode<HD, true>(a, mode, B, st) : launch_mode<HD, false>(a, mode, B, st);
-}
-
-// Fit as many heads' B (or int8 operands) in shared memory as fit beside
-// the rest (the exact mode takes ranks in chunks of up to 128, and of fewer
-// when not even one head's 128 rows of B fit), launch the split pass of
-// generation GEN (4: mode 1 or 2, with or without bias; 2 and 3: mode 0, no
-// bias) and then the combine into out (B, nh, rv): normalised, or with
-// m_out / l_out given the raw statistics (decode_common.cuh). hd is 64 or 128.
+// Fit as many heads' B in shared memory as fit beside the rest (ranks in
+// chunks of up to 128, and of fewer when not even one head's 128 rows of B
+// fit), launch the split pass of generation GEN and then the combine into
+// out (B, nh, rv) (decode_common.cuh). hd is 64 or 128.
 template <int GEN>
-int run_split(DecodeArgs& a, int mode, int B, int hd, float* out, cudaStream_t st,
-              float* m_out = nullptr, float* l_out = nullptr) {
-  const bool exact = mode == 0;
+int run_split(DecodeArgs& a, int B, int hd, float* out, cudaStream_t st) {
   a.chunk_heads = 0;
-  const int rcs[4] = {exact ? min(a.rk, kRc) : a.rk, 64, 32, 16};
-  for (int k = 0; k < (exact ? 4 : 1) && a.chunk_heads == 0; ++k) {
+  const int rcs[4] = {min(a.rk, kRc), 64, 32, 16};
+  for (int k = 0; k < 4 && a.chunk_heads == 0; ++k) {
     if (k > 0 && rcs[k] >= rcs[0]) continue;
     a.rc = rcs[k];
     a.chunk_heads = a.hpg;
-    while (a.chunk_heads > 0 && split_layout(a.rk, hd, a.hpg, a.rv, a.nrk, a.nrv, a.asym,
-                                             a.chunk_heads, mode, a.rc).total >
-                                    kSmemMax)
+    while (a.chunk_heads > 0 &&
+           split_layout(a.rk, hd, a.hpg, a.rv, a.nrk, a.nrv, a.chunk_heads, a.rc).total >
+               kSmemMax)
       --a.chunk_heads;
   }
   if (a.chunk_heads == 0) return static_cast<int>(cudaErrorInvalidValue);
-  int err;
-  if constexpr (GEN == 4)
-    err = hd == 128 ? launch_bias<128>(a, mode, B, st) : launch_bias<64>(a, mode, B, st);
-  else
-    err = hd == 128 ? launch_split<128, 0, false, GEN>(a, B, st)
-                    : launch_split<64, 0, false, GEN>(a, B, st);
+  const int err = hd == 128 ? launch_split<128, GEN>(a, B, st) : launch_split<64, GEN>(a, B, st);
   if (err != 0) return err;
   return decode::launch_combine(a.part_m, a.part_l, a.part_acc, out, B * a.G * a.hpg, a.splits,
-                                a.rv, st, m_out, l_out);
+                                a.rv, st);
 }
 
 }  // namespace

@@ -13,7 +13,7 @@
 // The nc / cc split on this card. On the TPU, "cc" concatenates the parts
 // sublane-wise (a relayout) and "nc" consumes each part as it comes. Here
 // `cc` assembles one bf16 (rank x tile) array in shared memory, which is
-// what palu_decode.cu does for K (its header, lines 37-38), and then reads
+// what the split kernel that served the int8 modes did for K, and then reads
 // it back (the sum, or ldmatrix for the products); `nc` consumes each
 // extracted part in registers (summed, or packed straight into mma.sync A
 // fragments).

@@ -1,7 +1,7 @@
 """Latent decode attention over the rank-major packed cache (port of
 palu_tpu/ops/pallas/palu_decode4.py::palu_flash_decode4_quantized; the
 kernels are csrc/palu_decode_exact.cu for the exact modes and
-csrc/palu_decode.cu for the int8 ones).
+csrc/palu_decode_i8.cu for the int8 ones).
 
 `palu_decode` launches the kernel for CUDA tensors and runs `palu_decode_ref`,
 its plain version, for CPU tensors. b_k is JAX's (G, hpg, rk, hd), one B
@@ -381,8 +381,9 @@ def _splits(sms: int, blocks_per_sm: int, n_bg: int, s_max: int) -> tuple:
     group, split); the items number at most sms * blocks_per_sm when n_bg
     allows (at least one split each), and the blocks, which loop over the
     items, never exceed one wave. The one-wave kernels cut each lane's
-    valid tiles into the splits (_item_tiles); the split kernels of
-    palu_decode.cu and palu_decode_fp.cu take runs of `per` tiles of S."""
+    valid tiles into the splits (_item_tiles); the split kernel of
+    palu_decode_fp.cu (the seq-major packed decode) takes runs of `per`
+    tiles of S."""
     tiles = -(-s_max // _TILE)
     slots = sms * blocks_per_sm
     splits = min(tiles, max(1, slots // n_bg))
@@ -409,11 +410,103 @@ def _item_tiles(kv_len: int, pos_offset: int, window: Optional[int], s_max: int,
     return t0, min(t0 + per, lo + n)
 
 
+def _item_visits(kv_len: int, pos_offset: int, window: Optional[int], s_max: int, splits: int,
+                 split: int, nch: int, block_s: int) -> list:
+    """The visits of work item `split` in the int8 modes' kernel
+    (csrc/palu_decode_i8.cu::visit_at): (head chunk, tile, new operand) for
+    each of the nch head chunks over the item's tiles (_item_tiles), in
+    order; a new operand at each chunk's first tile and where a rotation
+    block of block_s tokens starts."""
+    t0, t1 = _item_tiles(kv_len, pos_offset, window, s_max, splits, split)
+    return [(c, t, t == t0 or t * _TILE % block_s == 0)
+            for c in range(nch) for t in range(t0, t1)]
+
+
+_SMEM_BUDGET = 232448 - 1024  # a block's shared memory, less the 1024-byte alignment slack
+
+
+def _up(x: int, a: int) -> int:
+    return -(-x // a) * a
+
+
+@functools.lru_cache(maxsize=64)
+def _i8_plan(hd: int, rk: int, rv: int, hpg: int, nrk: int, nrv: int, asym: bool, mode: int,
+             bias: bool) -> Optional[dict]:
+    """The int8 kernel's shared-memory plan (csrc/palu_decode_i8.cu::
+    make_plan, the same function): `smem` bytes a launch takes, `ns` tile
+    stages, `nob` operand slots, `nst` staging buffers of B and `chunk`
+    heads per slot (`nch` chunks), or None when no plan fits in one block.
+    A stage holds one 64-token tile of the K and V byte planes and the
+    scale (and zero) rows; a slot holds `chunk` heads' int8 operands (hd
+    rows of ceil(rk / 128) 128-byte blocks) and three per-row f32 arrays
+    (two without a bias); a staging buffer `bch` ranks of one head's B in
+    bf16 (min(rk, 128), else 64, else 32); the A tile the tile's codes as
+    s8. Preferred: all heads in two slots, then in one, with 3 stages (2
+    last) and 2 staging buffers before 1, all with the largest staging
+    buffers before any with smaller ones; else the most heads per chunk
+    that fit."""
+    np_ = 8 if hpg <= 8 else 32
+    nbox_k, nbox_v = -(-nrk // 256), -(-nrv // 256)
+    rows_k, rows_v = -(-nrk // nbox_k), -(-nrv // nbox_v)
+    stage = _up(nbox_k * rows_k * _TILE, 128) + _up(nbox_v * rows_v * _TILE, 128)
+    stage += 2 * _up(_TILE * 4, 128) * (2 if asym else 1)
+    head = -(-rk // 128) * hd * 128
+    half = hd // 2
+
+    def total(ns: int, nob: int, nst: int, bch: int, chunk: int) -> int:
+        slot = _up(chunk * head + chunk * hd * 4 * (3 if bias else 2), 1024)
+        t = _up(ns * stage, 1024) + nob * slot + nst * bch * hd * 2
+        t = _up(t, 1024) + -(-rk // 128) * _TILE * 128  # the A tile
+        t += 2 * _TILE * (half + 4) * 4 + (_up(2 * _TILE * (half + 4), 16) if mode == 2 else 0)
+        t += 2 * chunk * _TILE * 4
+        t = _up(t, 1024) + 2 * np_ * 128
+        t += hpg * _TILE * 4 + rv * 4 + rk * 4 + 4 * _MAX_HEADS * 4 + 4 * chunk * hd * 4
+        return _up(t, 8) + 8 * (2 * ns + 2 * nob + nst + 4)
+
+    tries = [(nob, ns, nst) for nob, ns, nst in ((2, 3, 2), (2, 3, 1), (1, 3, 2), (1, 3, 1),
+                                                  (1, 2, 1))]
+    bchs = [min(rk, 128)] + [b for b in (64, 32) if b < min(rk, 128)]
+    for chunks in ((hpg,), range(hpg - 1, 0, -1)):
+        for bch in bchs:
+            for nob, ns, nst in tries:
+                for chunk in chunks:
+                    t = total(ns, nob, nst, bch, chunk)
+                    if t <= _SMEM_BUDGET:
+                        return {"smem": t + 1024, "ns": ns, "nob": nob, "nst": nst, "bch": bch,
+                                "chunk": chunk, "nch": -(-hpg // chunk)}
+    return None
+
+
+def _i8_launch_plan(hd: int, rk: int, rv: int, hpg: int, nrk: int, nrv: int, asym: bool,
+                    mode: int, bias: bool, block_s: int, s_max: int) -> dict:
+    """The int8 kernel's plan for a launch (_i8_plan); raises ValueError
+    where the kernel cannot run: hd other than 64 and 128, rk not a
+    multiple of 32 or above 512, rv above 512, more than 32 heads per group,
+    block_s not a multiple of 64 (a tile would straddle two rotation blocks)
+    or not dividing S, or no plan that fits in a block's shared memory."""
+    if (hd not in (64, 128) or rk <= 0 or rk % 32 or rk > _MAX_RK or rv > _MAX_RK
+            or hpg > _MAX_HEADS or block_s <= 0 or block_s % _TILE or s_max % block_s):
+        raise ValueError(f"the int8 modes' kernel needs hd 64 or 128, rk a multiple of 32 up to "
+                         f"{_MAX_RK}, rv <= {_MAX_RK}, <= {_MAX_HEADS} heads per group and "
+                         f"block_s a multiple of {_TILE} dividing S (hd={hd}, rk={rk}, rv={rv}, "
+                         f"hpg={hpg}, block_s={block_s}, S={s_max})")
+    plan = _i8_plan(hd, rk, rv, hpg, nrk, nrv, bool(asym), mode, bool(bias))
+    if plan is None:
+        raise ValueError(f"the int8 decode kernel's tile ring and one head's operand do not fit "
+                         f"in a block's shared memory at hd {hd}, rk {rk}, rv {rv}")
+    return plan
+
+
 @functools.lru_cache(maxsize=32)
 def _device_splits(dev: torch.device, n_bg: int, s_max: int) -> tuple:
     """_splits on the device's SMs at one block per SM (each decode block
     fills most of an SM's shared memory)."""
     return _splits(torch.cuda.get_device_properties(dev).multi_processor_count, 1, n_bg, s_max)
+
+
+def _inv_key(inv_freq):
+    """A hashable form of an inv_freq override (None: the theta default)."""
+    return None if inv_freq is None else tuple(float(x) for x in np.asarray(inv_freq))
 
 
 @functools.lru_cache(maxsize=8)
@@ -452,8 +545,9 @@ def palu_decode(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, *,
     csrc/palu_decode_exact.cu (hd 64 or 128, rk a multiple of 16 up to 512,
     rv up to 512, S a multiple of 16 and at least 64, <= 32 heads per group,
     and shapes whose tile ring and B fit in a block's shared memory: others
-    raise), the int8 modes csrc/palu_decode.cu (rk % 32 == 0, block_s % 64
-    == 0); b_k must be bf16, as the engine keeps it. CPU tensors run the
+    raise), the int8 modes csrc/palu_decode_i8.cu (also rk % 32 == 0 and
+    block_s % 64 == 0, and a plan whose tile ring and one head's operand fit,
+    _i8_plan); b_k must be bf16, as the engine keeps it. CPU tensors run the
     plain version. Each launch adds one to `palu_decode.launches` and to
     its mode's count in `palu_decode.mode_launches` ("chunked" for
     per-chunk scales), one to `palu_decode.k_bias_launches` when it carries
@@ -508,14 +602,14 @@ def palu_decode(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, *,
                          f"shared memory at hd {hd}, rk {rk}, rv {rv}, {hpg} heads per group, "
                          f"{nrk} + {nrv} code rows and {nsk} + {nsv} scale rows per token"
                          f"{' (asym)' if asym else ''}")
-    if not exact and (rk % 32 or block_s % _TILE):
-        raise ValueError(f"the int8 modes' kernel needs rk % 32 == 0 and block_s % "
-                         f"{_TILE} == 0 (rk={rk}, block_s={block_s})")
+    if not exact:
+        _i8_launch_plan(hd, rk, rv, hpg, nrk, nrv, asym, _MODES[mode], k_bias is not None,
+                        block_s, s_max)
     qc = q.contiguous()
     bk = b_k.contiguous()
     kbias = None if k_bias is None else k_bias.float().contiguous()
     kvl = kv_len.to(torch.int32).contiguous()
-    splits, per, grid = _device_splits(dev, b * g, s_max)
+    splits, _, grid = _device_splits(dev, b * g, s_max)
     # one allocation: per-split m, l, accumulators, the output (and with
     # return_stats its m and l), then the exact kernel's asym row sums of B
     n_part = b * nh * splits
@@ -539,8 +633,7 @@ def palu_decode(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, *,
     parts = (scratch.data_ptr(), scratch[n_part:].data_ptr(), scratch[2 * n_part:].data_ptr(),
              out.data_ptr())
     if exact:
-        inv = _inv_freq_t(hd, float(theta), None if inv_freq is None else tuple(
-            float(x) for x in np.asarray(inv_freq)), str(dev))
+        inv = _inv_freq_t(hd, float(theta), _inv_key(inv_freq), str(dev))
         err = build.launcher("palu_decode_exact", "palu_decode_exact",
                              "pi" + "p" * 15 + "i" * 21 + "ff" + "ppp")(
             *common, ptr(kbias), inv.data_ptr(), scratch[o0 + n_out:].data_ptr(), *parts,
@@ -550,13 +643,14 @@ def palu_decode(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, *,
             float(rope_scale), ptr(m_out), ptr(l_out), build.stream_ptr(dev))
     else:
         tab = _tables8(s_max, block_s, hd, theta, inv_freq, rope_scale, dev, off)
-        err = build.launcher("palu_decode", "palu_decode",
-                             "pi" + "p" * 19 + "i" * 18 + "ff" + "ii" + "ppp")(
+        err = build.launcher("palu_decode_i8", "palu_decode_i8",
+                             "pi" + "p" * 19 + "i" * 21 + "ff" + "ppp")(
             *common, *(ptr(tab.get(k)) for k in ("c0", "s0", "rcos", "rsin", "cos8", "sin8")),
             ptr(kbias), *parts, b, g, hpg, nkv, hd, rk, rv, s_max, nrk, nrv, qcfg.pack_bits,
-            qoff, int(asym), int(sliding_window or 0), splits, per, _MODES[mode], block_s,
-            float(math.sqrt(hd)), float(tab["i8r_inv"]), int(layer_idx or 0), off,
-            ptr(m_out), ptr(l_out), build.stream_ptr(dev))
+            qoff, int(asym), int(sliding_window or 0), splits, grid, _MODES[mode], block_s,
+            int(layer_idx or 0), xk_codes.shape[0] if layer_idx is not None else 1, off,
+            float(math.sqrt(hd)), float(tab["i8r_inv"]), ptr(m_out), ptr(l_out),
+            build.stream_ptr(dev))
     build.check(err, f"palu_decode ({mode})")
     palu_decode.launches += 1
     palu_decode.mode_launches[mode] += 1
@@ -575,9 +669,9 @@ def count_features(fn, pos_offset, return_stats: bool, layer_idx) -> None:
     fn.feature_launches["layer_idx"] += layer_idx is not None
 
 
-# the modes counted per launch; the int8 ones are the split kernel's MODE
-# template argument (csrc/palu_decode.cu), exact and chunked (the exact K
-# path over per-row and per-chunk scales) run csrc/palu_decode_exact.cu
+# the modes counted per launch; the int8 ones are the MODE template argument
+# of csrc/palu_decode_i8.cu, exact and chunked (the exact K path over
+# per-row and per-chunk scales) run csrc/palu_decode_exact.cu
 _MODES = {"exact": 0, "int8_dots": 1, "int8_rot": 2, "chunked": 3}
 palu_decode.launches = 0
 palu_decode.mode_launches = dict.fromkeys(_MODES, 0)

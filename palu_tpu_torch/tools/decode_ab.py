@@ -9,16 +9,20 @@ It imports the given checkout's own chip_smoke (so its own kernels and
 helpers; run by path, this package is not imported first) and prints one
 JSON line of device times (chip_smoke.device_ms: torch.profiler, L2 cold)
 of palu_decode at the Llama-2-7B group shapes at 8K and at
-latency_attention's 64K point, Qwen2-7B's exact decode with the K bias at
-8K and its per-chunk decode at 8 lanes (S 4096, kv_len 2048) on JAX's
-repeated b_k and, with a tag starting with "new", on the compact one, rk
-256 and 512 at 8K, one 16K shard with return_stats, the one 64K call and
-layer_idx on an L = 4 stack; then the bf16 decodes palu_decode_fp /
-palu_decode_fp_t at the Llama-2-7B group at 8K and at 64K, at the
-`serving` phase's shape (8 lanes, S 4096, kv_len 2048), at Qwen2-7B's with
-the K bias (JAX's repeated b_k and, with a tag starting with "new", the
-compact one), at rk 256 and 512, and palu_decode_fp_t on one 16K shard
-with return_stats and with layer_idx on an L = 4 stack at 64K."""
+latency_attention's 64K point (exact, int8_dots and int8_rot, blocks of
+512), the int8 modes at serve_bench_int8_rot's shape (8 lanes, S 4096,
+kv_len 1024-2080, rk = rv = 128, blocks of 2048) and with the K bias at
+Qwen2-7B's shape on the compact b_k, Qwen2-7B's exact decode with the K
+bias at 8K and its per-chunk decode at 8 lanes (S 4096, kv_len 2048) on
+JAX's repeated b_k and, with a tag starting with "new", on the compact
+one, rk 256 and 512 at 8K, one 16K shard with return_stats, the one 64K
+call and layer_idx on an L = 4 stack (each mode); then the bf16 decodes
+palu_decode_fp / palu_decode_fp_t at the Llama-2-7B group at 8K and at
+64K, at the `serving` phase's shape (8 lanes, S 4096, kv_len 2048), at
+Qwen2-7B's with the K bias (JAX's repeated b_k and, with a tag starting
+with "new", the compact one), at rk 256 and 512, and palu_decode_fp_t on
+one 16K shard with return_stats and with layer_idx on an L = 4 stack at
+64K."""
 import json
 import os
 import sys
@@ -46,10 +50,23 @@ def main(root: str, tag: str) -> None:
         res[name] = cs.device_ms(fn, iters)
 
     kw = dict(qcfg=cs.FLAGSHIP, rk=cs.RK, rv=cs.RV)
+    i8 = {mode: dict(block_s=512, **{mode: True}) for mode in ("int8_dots", "int8_rot")}
     q, b_k, bufs = cs._decode_inputs(cs.FLAGSHIP, 1, cs.G, cs.HPG, 8192, gen)
     t("llama_8k", lambda: pd(q, b_k, kv_len=kv(8192), **bufs, **kw))
+    for mode, mk in i8.items():
+        t(f"{mode}_8k", lambda: pd(q, b_k, kv_len=kv(8192), **bufs, **kw, **mk))
     q, b_k, bufs = cs._decode_inputs(cs.FLAGSHIP, 1, cs.G, cs.HPG, cs.ATTN_S, gen)
     t("llama_64k", lambda: pd(q, b_k, kv_len=kv(cs.ATTN_KV), **bufs, **kw), 10)
+    for mode, mk in i8.items():
+        t(f"{mode}_64k", lambda: pd(q, b_k, kv_len=kv(cs.ATTN_KV), **bufs, **kw, **mk), 10)
+    del q, b_k, bufs
+    # serve_bench_int8_rot's shape: 8 lanes, S 4096, kv_len 1024-2080, rk = rv
+    # = 128, rotation blocks of 2048
+    q, b_k, bufs = cs._decode_inputs(cs.FLAGSHIP, 8, cs.G, cs.HPG, 4096, gen, cs.RK)
+    kv8 = kv(1024, 1100, 1500, 2000, 2047, 2048, 2049, 2080)
+    for mode in i8:
+        t(f"{mode}_serve_bench", lambda: pd(q, b_k, kv_len=kv8, **bufs, qcfg=cs.FLAGSHIP,
+                                            rk=cs.RK, rv=cs.RK, block_s=2048, **{mode: True}))
     del q, b_k, bufs
 
     g, hpg, rk, rv = cs.QWEN2_SHAPE
@@ -64,6 +81,11 @@ def main(root: str, tag: str) -> None:
         if tag.startswith("new"):  # the engine's form: one B and bias per kv-head
             bc, kbc = b_k[:, ::rep].contiguous(), kb[:, ::rep].contiguous()
             t(f"{label}_compact", lambda: pd(q, bc, kv_len=kvl, **bufs, **qkw, k_bias=kbc))
+        if qcfg is cs.FLAGSHIP:  # the int8 modes on the compact form (every checkout's)
+            bc, kbc = b_k[:, ::rep].contiguous(), kb[:, ::rep].contiguous()
+            for mode, mk in i8.items():
+                t(f"{mode}_{label}_compact", lambda: pd(q, bc, kv_len=kvl, **bufs, **qkw,
+                                                        k_bias=kbc, **mk))
         del q, b_k, bufs
 
     for r in cs.BIG_RANKS:
@@ -82,6 +104,11 @@ def main(root: str, tag: str) -> None:
                                    return_stats=True))
     t("one_call_64k", lambda: pd(q, b_k, kv_len=kv(cs.S64), **one, **kw), 10)
     t("layer_idx_64k", lambda: pd(q, b_k, kv_len=kv(cs.S64), **stack, **kw, layer_idx=2), 10)
+    for mode, mk in i8.items():
+        t(f"{mode}_shard16k_stats", lambda: pd(q, b_k, kv_len=kv(cs.S64), **sh, **kw, **mk,
+                                               pos_offset=s_loc, return_stats=True))
+        t(f"{mode}_layer_idx_64k", lambda: pd(q, b_k, kv_len=kv(cs.S64), **stack, **kw, **mk,
+                                              layer_idx=2), 10)
     del stack, one, sh
 
     fp, fp_t = cs.palu_decode_fp, cs.palu_decode_fp_t

@@ -7,7 +7,7 @@ Variants (the JAX tool's names):
   base      - stream the 4-bit codes, no extraction (a checksum of the bytes);
   ext4nc    - extract 4-bit codes, each part consumed in registers;
   ext4cc    - extract, assemble one bf16 (rank x tile) array in shared
-              memory (what palu_decode.cu does for K), sum it;
+              memory (what the int8 modes' split kernel did for K), sum it;
   ext4mm    - extract in registers into mma.sync operands: the K product
               against B (g, rk, 64) and the V product against p (g, BS, 8);
   ext4ccmm  - the same products read from the assembled array (ldmatrix);

@@ -3,6 +3,8 @@ small shapes. Needs an NVIDIA GPU and nvcc; skips elsewhere. Run on the
 card with: python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 (the prefill and GEMV kernels alone: -k "prefill or gemv")."""
 
+import itertools
+
 import pytest
 import torch
 
@@ -1086,6 +1088,76 @@ def test_exact_decode_refuses_what_does_not_fit(gen):
     with pytest.raises(ValueError, match="shared memory"):
         palu_decode(q, b_k, kv_len=kv_len, **bufs, qcfg=qcfg, rk=512, rv=512)
     assert palu_decode.launches == n
+
+
+# ---------------------------------------------------------------------------
+# The int8 K-path modes' kernel (csrc/palu_decode_i8.cu): its plan against
+# the Python mirror, head dims, ranks, pack widths, heads per group, the
+# compact b_k / K bias, and lanes whose valid tiles start inside a rotation
+# block (windows; the one-wave splits cut every lane into items of a few
+# tiles). Features (shards, return_stats, layer_idx) and the 7B shapes: the
+# tests above that take every mode.
+# ---------------------------------------------------------------------------
+
+
+def test_i8_plan_matches_python_mirror(gen):
+    """The kernel's shared-memory plan (palu_decode_i8_plan) is the Python
+    mirror's (_i8_plan): bytes, stages, operand slots, staging buffers of B,
+    heads per chunk."""
+    import ctypes
+
+    from palu_tpu_torch.ops import build
+    from palu_tpu_torch.ops.palu_decode import _i8_plan
+
+    fn = build.launcher("palu_decode_i8", "palu_decode_i8_plan", "i" * 9 + "p")
+    for hd, rk, rv, hpg in [(128, 128, 384, 4), (128, 128, 384, 16), (128, 256, 256, 28),
+                            (128, 512, 512, 16), (64, 32, 64, 4), (128, 96, 320, 8),
+                            (128, 128, 128, 4)]:
+        for mode, asym, bias in itertools.product((1, 2), (0, 1), (0, 1)):
+            nrk, nrv = packed_nrows(rk, 4), packed_nrows(rv, 4)
+            out = (ctypes.c_int * 5)()
+            fn(hd, rk, rv, hpg, nrk, nrv, asym, mode, bias, ctypes.addressof(out))
+            want = _i8_plan(hd, rk, rv, hpg, nrk, nrv, bool(asym), mode, bool(bias))
+            if want is None:  # no plan fits: the kernel refuses too
+                assert out[0] == -1, (hd, rk, rv, hpg, mode, asym, bias)
+                continue
+            assert list(out) == [want[k] for k in ("smem", "ns", "nob", "nst", "chunk")], \
+                (hd, rk, rv, hpg, mode, asym, bias)
+
+
+# (hd, rk, rv, G, q-heads per group, kv-heads per group, QuantConfig kwargs, K bias)
+I8_CASES = {
+    "hd64": (64, 64, 128, 2, 4, 4, dict(bits=3, sym=True, container=4), False),
+    "rk32": (128, 32, 64, 2, 4, 4, dict(bits=4, sym=False), True),
+    "rk96": (128, 96, 320, 2, 4, 4, dict(bits=3, sym=True, container=4), False),
+    "rk256": (128, 256, 384, 2, 4, 4, dict(bits=3, sym=True, container=4), True),
+    "pack2": (128, 128, 256, 2, 4, 4, dict(bits=2, sym=True), False),
+    "pack3": (128, 128, 256, 2, 4, 4, dict(bits=3, sym=False), False),
+    "heads16": (128, 128, 384, 2, 16, 16, dict(bits=3, sym=True, container=4), False),
+    "heads28_compact": (128, 256, 256, 1, 28, 4, dict(bits=3, sym=True, container=4), True),
+    "heads16_compact_asym": (128, 128, 384, 2, 16, 8, dict(bits=3, sym=False, container=4),
+                             True),
+}
+
+
+@pytest.mark.parametrize("case", list(I8_CASES))
+@pytest.mark.parametrize("mode", ["int8_dots", "int8_rot"])
+def test_i8_decode_matches_plain(gen, case, mode):
+    """Each case over 2 lanes of a 1024-token cache in rotation blocks of
+    128: one lane full, one windowed so that its valid tiles start inside a
+    block (kv_len 1000, window 300: column 700), against the plain version
+    within 2e-3 of max|plain|; the launch counted in its mode."""
+    hd, rk, rv, g, hpg, nkv, qkw, bias = I8_CASES[case]
+    qcfg = QuantConfig(**qkw)
+    q, b_k, kb, bufs = _exact_case(gen, qcfg, 2, g, hpg, nkv, rk, rv, 1024, hd=hd)
+    kw = dict(qcfg=qcfg, rk=rk, rv=rv, block_s=128, k_bias=kb if bias else None,
+              **{mode: True})
+    for kvl, window in (((1024, 1000), 300), ((1024, 517), None)):
+        kv_len = torch.tensor(kvl, dtype=torch.int32, device="cuda")
+        n = palu_decode.mode_launches[mode]
+        got = palu_decode(q, b_k, kv_len=kv_len, **bufs, **kw, sliding_window=window)
+        assert palu_decode.mode_launches[mode] == n + 1
+        _close(got, palu_decode_ref(q, b_k, kv_len=kv_len, **bufs, **kw, sliding_window=window))
 
 
 # ---------------------------------------------------------------------------

@@ -421,3 +421,19 @@ def test_decode_timeline_anchors_patch_the_kernel():
     for edits in (dt._STAMPS, dt._LOADS_ONLY):
         patched = dt._patch(src, edits)
         assert len(patched) == len(src) + sum(len(text) for _, _, text in edits)
+
+
+def test_decode_timeline_anchors_patch_the_i8_kernel():
+    """--kernel i8 patches csrc/palu_decode_i8.cu at its own anchors (each
+    exactly once) and names every stamp of its phases."""
+    from palu_tpu_torch.ops import build
+    from palu_tpu_torch.tools import decode_timeline as dt
+
+    src = (build.CSRC / "palu_decode_i8.cu").read_text()
+    patched = dt._patch(src, dt._I8_STAMPS)
+    assert len(patched) == len(src) + sum(len(text) for _, _, text in dt._I8_STAMPS)
+    for role, stamps in (("k", set(range(6))), ("v", set(range(5))), ("builder", {0, 1, 2, 4})):
+        used = {e for a_b in dt.I8_PHASES[role].values() for e in a_b}
+        assert used == stamps
+        assert all(f"TLI({r}, " in patched for r in range(3))
+
