@@ -405,6 +405,43 @@ def device_ms(fn, iters: int) -> float:
     raise RuntimeError("torch.profiler recorded no device time")
 
 
+def device_span_ms(fn, iters: int) -> dict:
+    """One call of fn, L2 cold as in device_ms: `ms` sums its kernels'
+    durations, `span_ms` runs from its first kernel's start to its last
+    one's end (the gaps between a call's kernels included). A profile with
+    no device rows is taken again; three in a row raise."""
+    global _FLUSH
+    if _FLUSH is None:
+        _FLUSH = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                _FLUSH.zero_()
+                fn()
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        if evs:
+            break
+    total, spans, cur = 0.0, [], None
+    for e in evs:
+        if re.search("fill", e.name, re.I):  # the flush: the previous call ended
+            if cur:
+                spans.append(cur[1] - cur[0])
+            cur = None
+            continue
+        total += e.time_range.end - e.time_range.start
+        cur = [e.time_range.start, e.time_range.end] if cur is None else \
+            [cur[0], max(cur[1], e.time_range.end)]
+    if cur:
+        spans.append(cur[1] - cur[0])
+    if not spans:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return {"ms": total / iters / 1e3, "span_ms": sum(spans) / len(spans) / 1e3}
+
+
 def _device_events(prof):
     """The profiler's device-side rows (kernels, copies, memsets), so that
     time the host ops own is not counted twice."""
@@ -457,24 +494,37 @@ def phase_build() -> None:
                           "ptxas": regs.get("palu_decode_exact", [])},
           "fp_decode_sass": {**hopper_sass("palu_decode_fp_wg"),
                              "ptxas": regs.get("palu_decode_fp_wg", [])},
-          "i8_decode_sass": {**hopper_sass("palu_decode_i8", ("HGMMA", "UTMALDG", "IMMA")),
-                             "ptxas": regs.get("palu_decode_i8", [])}})
+          "i8_decode_sass": {**hopper_sass("palu_decode_i8", reported=("IMMA",)),
+                             "ptxas": regs.get("palu_decode_i8", [])},
+          # the streaming GEMVs: mma.sync, TMA tiles, bulk copies (int4
+          # scales and x, h), the cluster barrier; ptxas' lines of the two
+          "gemv_sass": {**{f"gemv_int4_{k}": v for k, v in hopper_sass(
+                            "gemv_int4", GEMV_SASS + ("UBLKCP",)).items()},
+                        **{f"gemv_int8_{k}": v for k, v in hopper_sass(
+                            "gemv_int8", GEMV_SASS).items()},
+                        "ptxas": regs.get("gemv_int4", []) + regs.get("gemv_int8", [])}})
 
 
-def hopper_sass(source: str, ops=("HGMMA", "UTMALDG")) -> dict:
-    """Counts of the Hopper instructions `ops` in the SASS of
-    csrc/<source>.cu (cuobjdump -sass): HGMMA (wgmma; its int8 form in the
-    int8 decode), UTMALDG (TMA loads), IMMA (mma.sync's int8 form, which the
-    int8 decode must not use: reported, not required). Raises when HGMMA or
-    UTMALDG is missing; reports why when cuobjdump is not there."""
+# what the streaming GEMVs' design stands on: mma.sync (HMMA), TMA tile
+# loads, and the cluster barrier that orders the K splits' pushed sums
+GEMV_SASS = ("HMMA", "UTMALDG", "UCGABAR_ARV", "UCGABAR_WAIT")
+
+
+def hopper_sass(source: str, required=("HGMMA", "UTMALDG"), reported=()) -> dict:
+    """Counts of Hopper instructions in the SASS of csrc/<source>.cu
+    (cuobjdump -sass): `required` must each appear (default HGMMA, wgmma,
+    and UTMALDG, TMA loads), `reported` are counted only (IMMA, mma.sync's
+    int8 form, which the int8 decode must not use). Raises when a required
+    one is missing; reports why when cuobjdump is not there."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return {"cuobjdump": "not found"}
     sass = subprocess.run([tool, "-sass", str(build._lib_path(source))],
                           capture_output=True, text=True, check=True, timeout=120).stdout
-    counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ops}
-    if not (counts["HGMMA"] and counts["UTMALDG"]):
-        raise AssertionError(f"{source} SASS lacks wgmma or TMA loads: {counts}")
+    counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in (*required, *reported)}
+    missing = [op for op in required if not counts[op]]
+    if missing:
+        raise AssertionError(f"{source} SASS lacks {missing}: {counts}")
     return counts
 
 
@@ -1580,10 +1630,18 @@ def _held(name, got, want) -> tuple:
     return err, rel
 
 
-def _kernel_line(name, bits, cases, mix, per, worst_abs, worst_rel, host, qwen2_rel) -> dict:
+# host time per call of the wrappers before the streaming kernels, as this
+# script measured it (host_us_per_call; NVIDIA H100 80GB HBM3, 700 W),
+# shown beside this run's
+PARENT_HOST_US = {"mlp_gemv_int4": 42.3, "gemv_int8": 30.1}
+
+
+def _kernel_line(name, bits, cases, mix, per, per8, worst_abs, worst_rel, host,
+                 qwen2_rel) -> dict:
     """Per-launch numbers on the main path at batch 1: each case's time
-    weighted by its launches per decode step (`mix`). `qwen2_rel` is the
-    worst rel err of each Qwen2-7B-width shape (held only, not timed)."""
+    weighted by its launches per decode step (`mix`); `per8` each case's
+    device and span ms at 8 rows. `qwen2_rel` is the worst rel err of each
+    Qwen2-7B-width shape (held only, not timed)."""
     total = sum(mix.values())
 
     def avg(key):
@@ -1598,8 +1656,9 @@ def _kernel_line(name, bits, cases, mix, per, worst_abs, worst_rel, host, qwen2_
             "plain_ms": avg("plain_ms"), "bound_ms": bms, "bound_by": by,
             "library_ms": avg("library_ms")}
     emit({"phase": "kernel", "max_rel_err": worst_rel, "tol": GEMV_TOL, "rows": [1, 8],
-          "device_ms": line["ms"],
-          "main_path_mix": mix, "per_shape_batch1": per, "host_us_per_call": host,
+          "device_ms": line["ms"], "span_ms": avg("span_ms"),
+          "main_path_mix": mix, "per_shape_batch1": per, "per_shape_batch8": per8,
+          "host_us_per_call": host, "parent_host_us_per_call": PARENT_HOST_US.get(name),
           "qwen2_max_rel_err": qwen2_rel,
           "library_call": "bf16 torch.matmul of x by the dequantized weight(s)", **line})
     return line
@@ -1613,12 +1672,16 @@ QWEN2_GEMV = {"qwen2_q_proj": (QHID, QNH * HD), "qwen2_w_fused": (QNH * QRANK, Q
 QWEN2_VT = {"qwen2_vt_k": (QHID, QG * QRANK), "qwen2_vt_v": (QHID, QG * QRANK)}
 
 
-def _held_rows(fn, ref, label, k, ws, gen) -> tuple:
-    """fn against ref at 1 and 8 rows of x (K = k): (max abs err, max rel err)."""
+def _held_rows(fn, ref, label, k, ws, gen, rows_list=(1, 8)) -> tuple:
+    """fn against ref at each row count of x (K = k), a second call
+    bit-identical: (max abs err, max rel err)."""
     worst_abs = worst_rel = 0.0
-    for rows in (1, 8):
+    for rows in rows_list:
         x = torch.randn((rows, k), generator=gen, device="cuda").to(torch.bfloat16)
-        err, rel = _held(f"{fn.__name__} {label} rows {rows}", fn(x, *ws), ref(x, *ws))
+        got = fn(x, *ws)
+        err, rel = _held(f"{fn.__name__} {label} rows {rows}", got, ref(x, *ws))
+        if not torch.equal(fn(x, *ws), got):
+            raise AssertionError(f"{fn.__name__} {label} rows {rows}: two calls differ")
         worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
     return worst_abs, worst_rel
 
@@ -1628,7 +1691,9 @@ def check_gemv(gen, bits: int) -> dict:
     (the README path), at q_proj, w_fused and the row-major lm_head (the
     weight_bits=8 path: weight 0 in the README mix) and on the transposed
     tied int8 head (on no served path). Both also at the Qwen2-7B widths
-    (QWEN2_GEMV; gemv_int8 at QWEN2_VT too), held only."""
+    (QWEN2_GEMV; gemv_int8 at QWEN2_VT too), held only, at 1, 3 and 8 rows
+    (3 rows: the streaming int8 kernel whose blocks own several column
+    blocks of Qwen2-7B's lm_head)."""
     fn, ref = (gemv_int4, gemv_int4_ref) if bits == 4 else (gemv_int8, gemv_int8_ref)
     dense_shapes = {"q_proj": (HID, NH * HD), "w_fused": (NH * RV, HID), "lm_head": (HID, VOCAB)}
     if bits == 4:
@@ -1640,10 +1705,10 @@ def check_gemv(gen, bits: int) -> dict:
                   "tied_head": (HID, VOCAB)}
         mix = {"vt_k": LAYERS, "vt_v": LAYERS}
         held_only = {**QWEN2_VT, **QWEN2_GEMV}
-    per, host, worst_abs, worst_rel, qwen2_rel = {}, {}, 0.0, 0.0, {}
+    per, per8, host, worst_abs, worst_rel, qwen2_rel = {}, {}, {}, 0.0, 0.0, {}
     for label, (k, n) in held_only.items():
         w = _qweight(bits, k, n, gen)
-        err, qwen2_rel[label] = _held_rows(fn, ref, label, k, (w,), gen)
+        err, qwen2_rel[label] = _held_rows(fn, ref, label, k, (w,), gen, (1, 3, 8))
         worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, qwen2_rel[label])
         del w
     for label, (k, n) in shapes.items():
@@ -1655,9 +1720,11 @@ def check_gemv(gen, bits: int) -> dict:
         err, rel = _held_rows(fn, ref, label, k, (w,), gen)
         worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
         x1 = torch.randn((1, k), generator=gen, device="cuda").to(torch.bfloat16)
+        x8 = torch.randn((8, k), generator=gen, device="cuda").to(torch.bfloat16)
         dense = _dense(w)
         lib, lib_name = _int_library(w)
-        per[label] = {"ms": device_ms(lambda: fn(x1, w), 20),
+        per8[label] = device_span_ms(lambda: fn(x8, w), 20)
+        per[label] = {**device_span_ms(lambda: fn(x1, w), 20),
                       "plain_ms": device_ms(lambda: ref(x1, w), 5),
                       "library_ms": device_ms(lambda: torch.matmul(x1, dense), 20),
                       "int_library_call": lib_name,
@@ -1674,7 +1741,7 @@ def check_gemv(gen, bits: int) -> dict:
                     "bf16_matmul": host_us(lambda: torch.matmul(x1, dense))}
         del w, dense, lib
     cases = "139" if bits == 4 else "126"
-    return _kernel_line(fn.__name__, bits, cases, mix, per, worst_abs, worst_rel, host,
+    return _kernel_line(fn.__name__, bits, cases, mix, per, per8, worst_abs, worst_rel, host,
                         qwen2_rel)
 
 
@@ -1699,8 +1766,10 @@ def check_mlp(gen, bits: int) -> dict:
     def dense_mlp():
         return torch.matmul(torch.nn.functional.silu(x1 @ dg) * (x1 @ du), dd)
 
+    x8 = torch.randn((8, HID), generator=gen, device="cuda").to(torch.bfloat16)
+    per8 = {"mlp": device_span_ms(lambda: fn(x8, *ws), 20)}
     per = {"mlp": {
-        "ms": device_ms(lambda: fn(x1, *ws), 20),
+        **device_span_ms(lambda: fn(x1, *ws), 20),
         "plain_ms": device_ms(lambda: ref(x1, *ws), 5),
         "library_ms": device_ms(dense_mlp, 20),
         "int_library_call": "none: no single PyTorch call computes the SwiGLU MLP",
@@ -1712,8 +1781,8 @@ def check_mlp(gen, bits: int) -> dict:
             "mlp_forward": host_us(lambda: llama.mlp_forward(x1, p, set())),
             "bf16_matmul": host_us(dense_mlp)}
     cases = "96" if bits == 4 else "80"
-    return _kernel_line(fn.__name__, bits, cases, {"mlp": LAYERS}, per, worst_abs, worst_rel,
-                        host, {"qwen2_mlp": qwen2_rel})
+    return _kernel_line(fn.__name__, bits, cases, {"mlp": LAYERS}, per, per8, worst_abs,
+                        worst_rel, host, {"qwen2_mlp": qwen2_rel})
 
 
 # ---------------------------------------------------------------------------
@@ -2308,6 +2377,7 @@ def phase_serve_w4() -> dict:
     lanes, _ = _engine(cfg, W4, batch=8, params=eng.params, s_max=2048)
     del eng
     serve("lanes_w4", lanes, _prompts(2, (1024,), lanes=8), 8)
+    decode_breakdown(lanes, "lanes_w4")
     return launches
 
 

@@ -9,27 +9,74 @@
 // Bound on this card: bytes. At 8 rows or fewer every weight byte feeds at
 // most 16 multiply-adds, far below the ~295 operations per byte where the
 // card stops being limited by its memory; the weights are read once.
-// Design (gemv_common.cuh): split K into whole 128-row groups across blocks
-// so that a 4096-column product still fills the 132 SMs; each thread reads
-// 8 columns x 2 input rows per 8-byte load and unpacks them with one mask
-// and one shift. The offset 8 is subtracted from the code before the
-// multiply (exact: the exponent trick yields code - 8 as a float), where the
-// TPU kernel folds it out of the dot algebraically; the group's partial dot
-// is accumulated in f32 and multiplied by the group scale once per group.
-// Splits are summed by a second kernel in a fixed order.
 //
-// The MLP (h = x.dtype(silu(x Wg) * (x Wu)), y = h Wd) runs as two such
-// GEMVs under one call: gate and up share one split pass (their column
-// blocks side by side), a reduce kernel forms h (rounded to x's type where
-// the TPU kernel rounds it), and the down GEMV reads h from device memory
-// (22 KB at one row; it stays in L2). The TPU kernel carries the down
+// mlp_gemv_int4 over a bf16 x (the engine's path) runs the streaming
+// tensor-core GEMV of gemv_common.cuh (namespace ring) in two launches:
+// 1. gate and up: a block owns 128 columns of both and a K range of whole
+//    groups; the K ranges of a column block form a cluster that adds them
+//    in rank order, forms h = bf16(silu(x Wg) * (x Wu)) (rounded to x's
+//    type where the TPU kernel rounds it) and writes h in the down
+//    product's x-fragment order;
+// 2. down: each block copies its groups of h in one bulk copy; its K splits
+//    add through the cluster the same way. No f32 partial row goes to
+//    device memory.
+// Each weight byte costs ~2.25 integer instructions (permute, lop3, a
+// quarter of a shift) and 1/32 of an mma. On an H100 80GB HBM3 the two
+// launches take what the parent's four did at 1 row and 0.38x at 8 rows
+// (PERF.md); the layout streams at ~1.5 TB/s in either design. Launching
+// the down product with programmatic dependent launch (its ring filled
+// before the first launch ends) lengthened the call's span (0.058 against
+// 0.050 ms at 1 row) and was taken out. The TPU kernel carries the down
 // product's accumulator across a sequential grid, which Hopper has not.
+//
+// On the CUDA-core split pass of gemv_common.cuh (each thread reads 8
+// columns x 2 input rows per 8-byte load, unpacks them with a mask and a
+// shift, subtracts the offset 8 exactly by the exponent trick, multiplies
+// by the group scale once per group; a second kernel adds the splits in a
+// fixed order): gemv_int4 at every shape, and mlp_gemv_int4 over an f32 x
+// (bf16 tensor cores would round x), where gate and up share one split
+// pass, swiglu_reduce forms h and the down GEMV reads it back.
 
 #include "gemv_common.cuh"
 
 using namespace gemv;
 
 namespace {
+
+// The streaming MLP: gate and up, then down (see the note above).
+int run_mlp_stream(const void* x, int B, int H, int I, const void* wg, const void* sg,
+                   const void* wu, const void* su, const void* wd, const void* sd, void* hp,
+                   int c1, int grid1, int c2, int grid2, void* out, unsigned long long* tl,
+                   cudaStream_t st) {
+  CUtensorMap mg, mu, md;
+  if (!ring::weight_map(&mg, wg, H / 2, I, I) || !ring::weight_map(&mu, wu, H / 2, I, I) ||
+      !ring::weight_map(&md, wd, I / 2, H, H))
+    return static_cast<int>(cudaErrorInvalidValue);
+  ring::Args a = {};
+  a.x = x;
+  a.s0 = static_cast<const float*>(sg);
+  a.s1 = static_cast<const float*>(su);
+  a.h_out = static_cast<uint32_t*>(hp);
+  a.B = B;
+  a.K = H;
+  a.N = I;
+  a.units = H / kUnit;
+  a.cluster = c1;
+  a.tl = tl;
+  int err = ring::launch<ring::kGateUp>(mg, mu, a, grid1, st);
+  if (err != 0) return err;
+  ring::Args d = {};
+  d.x = hp;
+  d.s0 = static_cast<const float*>(sd);
+  d.out = static_cast<__nv_bfloat16*>(out);
+  d.B = B;
+  d.K = I;
+  d.N = H;
+  d.units = I / kUnit;
+  d.cluster = c2;
+  d.tl = tl == nullptr ? nullptr : tl + grid1 * ring::kStamps;
+  return ring::launch<ring::kDown>(md, md, d, grid2, st);
+}
 
 constexpr int kGroup = kUnit;                     // rows per scale group
 constexpr int kHalf = kGroup / 2;                 // packed rows per group
@@ -192,4 +239,27 @@ extern "C" int palu_mlp_gemv_int4(const void* x, int x_is_bf16, int B, int H, in
                                   h, part2, splits2, gps2, out, st)
              : run_mlp<float>(x, B, H, I, wg, sg, wu, su, wd, sd, part1, splits1, gps1, h,
                           part2, splits2, gps2, out, st);
+}
+
+// The streaming MLP over a bf16 x (B, H): weights as in palu_mlp_gemv_int4;
+// hp (B, I/128, 64) u32 scratch (h in the down product's fragment order);
+// out (B, H) bf16. c1 / grid1 and c2 / grid2: each launch's cluster size
+// and blocks (ops/gemv_int4.mlp_plan); tl: null, or (grid1 + grid2) x
+// ring::kStamps timeline stamps.
+extern "C" int palu_mlp_gemv_int4_stream(const void* x, int B, int H, int I, const void* wg,
+                                         const void* sg, const void* wu, const void* su,
+                                         const void* wd, const void* sd, void* hp, int c1,
+                                         int grid1, int c2, int grid2, void* out, void* tl,
+                                         void* stream) {
+  if (H % kUnit || I % kUnit) return static_cast<int>(cudaErrorInvalidValue);
+  return run_mlp_stream(x, B, H, I, wg, sg, wu, su, wd, sd, hp, c1, grid1, c2, grid2, out,
+                        static_cast<unsigned long long*>(tl),
+                        static_cast<cudaStream_t>(stream));
+}
+
+// Clusters of `cluster` MLP streaming blocks (kind 0 gate / up, 1 down) of
+// `smem` bytes the card runs at once (cudaOccupancyMaxActiveClusters), or -1.
+extern "C" int palu_mlp4_max_clusters(int kind, int cluster, int smem) {
+  return kind == 0 ? ring::max_clusters<ring::kGateUp>(cluster, smem)
+                   : ring::max_clusters<ring::kDown>(cluster, smem);
 }

@@ -8,20 +8,33 @@
 //
 // Bound on this card: bytes. At 8 rows or fewer every weight byte feeds at
 // most 8 multiply-adds; the weights are read once.
-// Design (gemv_common.cuh): for a weight with N contiguous, split K into
-// 128-row chunks across blocks (at N = 1024, one block per 128 columns
-// would give 8 blocks for 132 SMs); each thread reads 8 columns per 8-byte
-// load and converts the codes by the exponent trick. Splits are summed in a
-// fixed order by a second kernel that also applies the scales.
+//
+// gemv_int8 over a bf16 x and a weight with N contiguous in 16-byte aligned
+// rows runs the streaming tensor-core GEMV of gemv_common.cuh (namespace
+// ring, kind kInt8) where it is the faster (ops/gemv_int8.use_stream): each
+// block issues its weight slice at entry into an 8-stage TMA ring (VT_v's
+// 64 KB whole) and reads x while the copies are in flight; a code byte
+// becomes one bf16x2 register of its two nibbles (the high one times 16, its
+// top bit flipped) against x's row repeated, on mma.sync, so 8 rows cost
+// what 1 costs; the K splits of a column block are a cluster of up to 16
+// blocks that add in rank order, apply the per-channel scales and write x's
+// type: one launch, no partial rows in device memory. What held the split
+// pass back at 1 row was a fixed cost per call (6.2 us + bytes / 2.7 TB/s
+// over five shapes); the streaming kernel's is no smaller (the first tile
+// lands ~3 us after launch, the cluster sums take ~1-2 us), so at 1 row and
+// at VT_k the split pass stays.
+//
+// On the CUDA-core split pass of gemv_common.cuh (16-row lanes x 8 columns
+// per thread, codes converted by the exponent trick; a second kernel adds
+// the splits in a fixed order and applies the scales): mlp_gemv_int8 (gate
+// and up in one split pass, a reduce kernel that applies their scales
+// before silu and rounds h to x's type, then the down GEMV), and gemv_int8
+// over an f32 x (bf16 tensor cores would round it) or a weight whose rows
+// are not 16-byte aligned.
 // The tied int8 lm_head is a transposed view (embedding codes (V, H) read as
 // (H, V) with K contiguous); copying it would cost more than the product, so
 // it has its own kernel: a warp per output column walks K with 4-byte loads
 // against x staged in shared memory, and reduces across its lanes.
-//
-// The MLP runs as two GEMVs under one call, as in gemv_int4.cu: gate and up
-// in one split pass, a reduce kernel that applies their scales before silu
-// and rounds h to x's type, then the down GEMV whose scale comes after its
-// sum.
 
 #include "gemv_common.cuh"
 
@@ -252,4 +265,42 @@ extern "C" int palu_mlp_gemv_int8(const void* x, int x_is_bf16, int B, int H, in
                                       ups1, h, part2, splits2, ups2, out, st)
              : run_mlp<float>(x, B, H, I, wg, sg, wu, su, wd, sd, part1, splits1, ups1, h,
                               part2, splits2, ups2, out, st);
+}
+
+// The streaming GEMV over a bf16 x (B, K): wq int8 codes of a (K, N) weight,
+// row k of N contiguous codes at wq + k * ldw (16-byte aligned rows); ws
+// (N,) f32; out (B, N) bf16. cluster / grid: the plan
+// (ops/gemv_int8.gemv8_plan); x_vec: x's rows may be read 16 bytes at a
+// time (K % 8 == 0, 16-byte aligned); tl: null, or grid x ring::kStamps
+// timeline stamps.
+extern "C" int palu_gemv_int8_stream(const void* x, int B, int K, int N, const void* wq, int ldw,
+                                     const void* ws, int cluster, int grid,
+                                     int x_vec, void* out, void* tl, void* stream) {
+  if (ldw % 16) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap m;
+  if (!ring::weight_map(&m, wq, K, N, ldw)) return static_cast<int>(cudaErrorInvalidValue);
+  ring::Args a = {};
+  a.x = x;
+  a.ws = static_cast<const float*>(ws);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.B = B;
+  a.K = K;
+  a.N = N;
+  a.units = (K + ring::kTileRows - 1) / ring::kTileRows;
+  a.cluster = cluster;
+  a.x_vec = x_vec;
+  a.tl = static_cast<unsigned long long*>(tl);
+  return ring::launch<ring::kInt8>(m, m, a, grid, static_cast<cudaStream_t>(stream));
+}
+
+// Shared memory bytes of a streaming block (ring::Layout): kind 0 gate /
+// up, 1 down, 2 int8; `units` of its K range. For the plan's mirror test.
+extern "C" int palu_gemv_stream_smem(int kind, int B, int units) {
+  return ring::Layout(kind, B, units).bytes;
+}
+
+// Clusters of `cluster` int8 streaming blocks of `smem` bytes the card runs
+// at once (cudaOccupancyMaxActiveClusters), or -1.
+extern "C" int palu_gemv8_max_clusters(int cluster, int smem) {
+  return ring::max_clusters<ring::kInt8>(cluster, smem);
 }

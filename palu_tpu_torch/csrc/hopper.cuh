@@ -1,6 +1,8 @@
 // Hopper building blocks shared by the kernels that run on the tensor
 // memory accelerator and warpgroup MMA (prefill_flash.cu,
-// palu_decode_exact.cu, palu_decode_i8.cu): mbarriers, TMA tile loads,
+// palu_decode_exact.cu, palu_decode_i8.cu) and by the streaming GEMVs
+// (gemv_common.cuh): mbarriers, TMA tile and bulk loads, cluster barriers
+// and distributed shared memory writes,
 // wgmma shared-memory descriptors, the bf16 wgmma shapes those kernels
 // issue (A from registers, B MN-major from shared memory) and the int8 ones
 // (A and B K-major in shared memory), and the
@@ -79,6 +81,56 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5}], [%2];"
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// One box of a 2-D tensor map into shared memory, counted on the
+// mbarrier's transaction bytes.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) contiguous bytes from global memory into shared
+// memory, both 16-byte aligned, counted on the mbarrier's transaction bytes.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Thread block clusters: this block's rank, a barrier over every thread of
+// every block of the cluster (release / acquire), and a 32-bit write to the
+// shared memory of block `rank` at the address `addr` has in this block.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// The two halves of cluster_sync (release / acquire), to overlap work
+// between them.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void st_cluster_f32(uint32_t addr, uint32_t rank, float v) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(addr), "r"(rank));
+  asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(remote), "f"(v) : "memory");
 }
 
 // wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
@@ -233,6 +285,21 @@ inline bool make_map_3d(CUtensorMap* map, CUtensorMapDataType type, int elem, co
   const cuuint32_t estride[3] = {1, 1, 1};
   return fn(map, type, 3, const_cast<void*>(ptr), dims, strides, box, estride,
             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 2-D map of bytes (d0 innermost, d1 rows `ld` bytes apart), boxes of b0 x
+// b1, zeros past the tensor's edge.
+inline bool make_map_2d_u8(CUtensorMap* map, const void* ptr, uint64_t d0, uint64_t d1,
+                           uint64_t ld, uint32_t b0, uint32_t b1, CUtensorMapSwizzle swizzle) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {d0, d1};
+  const cuuint64_t strides[1] = {ld};
+  const cuuint32_t box[2] = {b0, b1};
+  const cuuint32_t estride[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims, strides, box,
+            estride, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -8,20 +8,33 @@ group share a byte (low / high nibble) and codes 0..15 stand for -8..7.
 x has 1 to 8 rows; results are in x.dtype. CUDA tensors launch the
 kernels, CPU tensors run the plain versions (`*_ref`), which dequantize
 group by group in f32: y = sum_g (x_g @ (q_g - 8)) * s_g.
+
+mlp_gemv_int4 over a bf16 x runs the streaming tensor-core kernels
+(csrc/gemv_common.cuh, namespace ring) in two launches on the plan of
+`mlp_plan` where they are the faster (`use_stream_mlp`); gemv_int4, and
+mlp_gemv_int4 otherwise or over an f32 x, run the CUDA-core split pass
+(`split_k`) and its reduce kernels.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from . import build
-from .gemv_int8 import check_cuda, check_rows, split_k
+from .gemv_int8 import (KIND_DOWN, KIND_GATE_UP, check_cuda, check_rows, device_capacity,
+                        device_sms, split_k, stream_plan)
 
-__all__ = ["gemv_int4", "gemv_int4_ref", "mlp_gemv_int4", "mlp_gemv_int4_ref", "GROUP"]
+__all__ = ["gemv_int4", "gemv_int4_ref", "mlp_gemv_int4", "mlp_gemv_int4_ref", "GROUP",
+           "mlp_plan", "use_stream_mlp"]
 
 GROUP = 128        # rows per scale group (kGroup); core/wquant.W4_GROUP
 _BLOCK_N = 128     # output columns per block (kBlockN)
+# palu_mlp_gemv_int4_stream: x, B, H, I, six weight tensors, h's scratch,
+# two plans, out, timeline, stream
+_STREAM_SIG = "piii" + "p" * 7 + "i" * 4 + "ppp"
 
 
 def _check_weight(w, k: int) -> None:
@@ -52,6 +65,41 @@ def _check_mlp(x, wg, wu, wd) -> None:
     _check_weight(wd, wg["wq4"].shape[1])
     if wd["wq4"].shape[1] != hdim:
         raise ValueError(f"down weight must be (I/2, {hdim}), got {tuple(wd['wq4'].shape)}")
+
+
+# On an H100 80GB HBM3 (700 W; tools/gemv_ab.py, three A/B calls) the
+# streaming MLP was 0.38x the split pass at Llama-2-7B's width and 8 rows
+# and faster from 2 rows, 0.83-0.93x at Qwen2-7B's (H 3584 x I 18944,
+# 68 Mi) at 1 row, but 1.02-1.04x at Llama-2-7B's (4096 x 11008, 45 Mi) at
+# 1 row. Only these two widths were measured at 1 row: the boundary between
+# them is unmeasured, so a width from 45 to 68 Mi (4096 x 14336, 5120 x
+# 13824) takes a route that no measurement backs.
+MLP_STREAM_MIN_1ROW = 64 << 20
+
+
+def use_stream_mlp(hdim: int, inter: int, rows: int) -> bool:
+    """Whether mlp_gemv_int4 over a bf16 x takes the streaming kernels:
+    from 2 rows, or at 1 row when H x I reaches MLP_STREAM_MIN_1ROW."""
+    return rows >= 2 or hdim * inter >= MLP_STREAM_MIN_1ROW
+
+
+def mlp_plan(sms: int, hdim: int, inter: int, rows: int, capacity=(None, None)):
+    """The streaming MLP's two launches, each (cluster, grid) of
+    gemv_int8.stream_plan: gate and up (I / 128 column blocks, H / 128
+    groups), then down (H / 128 column blocks, I / 128 groups), with each
+    kind's cluster capacity; None when either leaves no room for a ring (the
+    split pass runs instead)."""
+    first = stream_plan(sms, KIND_GATE_UP, inter // GROUP, hdim // GROUP, rows, capacity[0])
+    second = stream_plan(sms, KIND_DOWN, hdim // GROUP, inter // GROUP, rows, capacity[1])
+    return None if first is None or second is None else (first, second)
+
+
+@functools.lru_cache(maxsize=256)
+def _device_mlp_plan(dev: torch.device, hdim: int, inter: int, rows: int):
+    """mlp_plan on the card of `dev` (its SMs and cluster capacities), cached
+    so that a call makes one lookup (the decode step is host-bound)."""
+    return mlp_plan(device_sms(dev), hdim, inter, rows,
+                    (device_capacity(dev, KIND_GATE_UP), device_capacity(dev, KIND_DOWN)))
 
 
 def _group_dot(x, w) -> torch.Tensor:
@@ -116,17 +164,29 @@ def mlp_gemv_int4(x, wg, wu, wd) -> torch.Tensor:
     ts = [x] + [w[key] for w in (wg, wu, wd) for key in ("wq4", "ws")]
     check_cuda(x, ts, ts[1:])
     dev = x.device
-    s1, g1 = split_k(dev, 2 * inter // _BLOCK_N, hdim // GROUP, b)
-    s2, g2 = split_k(dev, hdim // _BLOCK_N, inter // GROUP, b)
-    part = torch.empty(s1 * b * 2 * inter + s2 * b * hdim, dtype=torch.float32, device=dev)
-    h = torch.empty((b, inter), dtype=x.dtype, device=dev)
     out = torch.empty((b, hdim), dtype=x.dtype, device=dev)
     xc = x.contiguous()
-    err = build.launcher("gemv_int4", "palu_mlp_gemv_int4", "piiiipppppppiippiipp")(
-        xc.data_ptr(), int(x.dtype == torch.bfloat16), b, hdim, inter,
-        *[t.data_ptr() for t in ts[1:]],
-        part.data_ptr(), s1, g1, h.data_ptr(), part[s1 * b * 2 * inter:].data_ptr(), s2, g2,
-        out.data_ptr(), build.stream_ptr(dev))
+    plan = None
+    if x.dtype == torch.bfloat16 and use_stream_mlp(hdim, inter, b):
+        plan = _device_mlp_plan(dev, hdim, inter, b)
+    if plan is not None:
+        if xc.data_ptr() % 16:
+            xc = xc.clone()
+        hp = torch.empty(b * inter // 2, dtype=torch.int32, device=dev)  # h's fragments
+        err = build.launcher("gemv_int4", "palu_mlp_gemv_int4_stream", _STREAM_SIG)(
+            xc.data_ptr(), b, hdim, inter, *[t.data_ptr() for t in ts[1:]], hp.data_ptr(),
+            *plan[0], *plan[1], out.data_ptr(), None, build.stream_ptr(dev))
+    else:
+        s1, g1 = split_k(dev, 2 * inter // _BLOCK_N, hdim // GROUP, b)
+        s2, g2 = split_k(dev, hdim // _BLOCK_N, inter // GROUP, b)
+        part = torch.empty(s1 * b * 2 * inter + s2 * b * hdim, dtype=torch.float32,
+                           device=dev)
+        h = torch.empty((b, inter), dtype=x.dtype, device=dev)
+        err = build.launcher("gemv_int4", "palu_mlp_gemv_int4", "piiiipppppppiippiipp")(
+            xc.data_ptr(), int(x.dtype == torch.bfloat16), b, hdim, inter,
+            *[t.data_ptr() for t in ts[1:]],
+            part.data_ptr(), s1, g1, h.data_ptr(), part[s1 * b * 2 * inter:].data_ptr(), s2,
+            g2, out.data_ptr(), build.stream_ptr(dev))
     build.check(err, "mlp_gemv_int4")
     mlp_gemv_int4.launches += 1
     return out

@@ -8,6 +8,12 @@ Weights are core/wquant.quantize_weight storage: {"wq8": (K, N) int8,
 tensors run the plain versions (`*_ref`, f32 products of the codes). The
 weight may be a transposed view with K contiguous (the tied int8 lm_head,
 embedding codes (V, H) read as (H, V)); the kernel reads it in place.
+
+gemv_int8 over a bf16 x and 16-byte aligned rows runs the streaming
+tensor-core kernel (csrc/gemv_common.cuh, namespace ring) on the plan of
+`gemv8_plan` where it is the faster of the two (`use_stream`); otherwise,
+for an f32 x, other row strides, and in mlp_gemv_int8 the CUDA-core split
+pass (`split_k`) and its reduce kernel run.
 """
 
 from __future__ import annotations
@@ -20,12 +26,132 @@ import torch.nn.functional as F
 from . import build
 
 __all__ = ["gemv_int8", "gemv_int8_ref", "mlp_gemv_int8", "mlp_gemv_int8_ref",
-           "MAX_ROWS", "split_k", "check_rows", "check_cuda"]
+           "MAX_ROWS", "split_k", "check_rows", "check_cuda", "stream_smem", "stream_plan",
+           "model_capacity", "gemv8_plan", "use_stream", "device_sms", "device_capacity"]
 
 MAX_ROWS = 8       # rows a kernel takes (PALU_SWITCH_B)
 _BLOCK_N = 128     # output columns per block (kBlockN)
 _UNIT = 128        # contraction rows per split unit (kUnit)
 _BLOCKS_PER_SM = 4
+
+# The streaming kernels (csrc/gemv_common.cuh, namespace ring)
+RING_TILE_ROWS = 64          # byte rows of a weight tile (kTileRows)
+RING_TILE_COLS = 128         # output columns of a tile and of a column block
+# ring stages (kStages): a multiple of the 4 consumer warps; a slice that
+# leaves no room for 8 has no plan and runs the split pass
+RING_STAGES = 8
+RING_SMEM = 112 * 1024       # dynamic shared memory of a block (kSmemBudget)
+RING_SLOTS_PER_SM = 2        # blocks that fit one SM at that size
+CLUSTERS = tuple(range(1, 17))  # cluster sizes a plan may take (over 8: non-portable)
+KIND_GATE_UP, KIND_DOWN, KIND_INT8 = 0, 1, 2
+
+
+def stream_smem(kind: int, rows: int, units: int) -> int:
+    """Shared memory bytes of a streaming block (mirror of ring::Layout):
+    the ring (8 KB tiles, int4 also 512-byte scale rows), x's fragments
+    (int4 256 bytes per row and group, int8 128 per row and 64-row tile),
+    the sums of x, the block's f32 sums in two sets, the int8 column
+    scales, h (gate / up), the mbarriers, and 1 KB of alignment slack (the
+    rows the ranks of a cluster push go over the ring)."""
+    o = RING_STAGES * RING_TILE_ROWS * RING_TILE_COLS
+    if kind != KIND_INT8:
+        o += RING_STAGES * RING_TILE_COLS * 4
+    o += (128 if kind == KIND_INT8 else 256) * rows * units
+    o += (1 if kind == KIND_INT8 else units) * 32
+    o += 2 * rows * RING_TILE_COLS * 4
+    if kind == KIND_INT8:
+        o += RING_TILE_COLS * 4
+    if kind == KIND_GATE_UP:
+        o += rows * RING_TILE_COLS * 2
+    o += (2 * RING_STAGES + 1) * 8
+    return o + 1024
+
+
+def model_capacity(sms: int) -> tuple:
+    """Clusters of each size in CLUSTERS that RING_SLOTS_PER_SM blocks per SM
+    hold, with no loss to the placement of clusters on the card."""
+    return tuple(RING_SLOTS_PER_SM * sms // c for c in CLUSTERS)
+
+
+@functools.lru_cache(maxsize=1024)
+def stream_plan(sms: int, kind: int, col_blocks: int, units: int, rows: int, capacity=None):
+    """Work plan of a streaming launch: (cluster, grid), or None when x's
+    slice leaves no room for the ring.
+
+    A column block of 128 outputs is split along K into `cluster` ranges of
+    whole units (int4 groups, int8 64-row tiles; rank r takes units
+    [r * units // cluster, (r + 1) * units // cluster)), one cluster per
+    column block, all in one wave: cluster * col_blocks blocks within
+    RING_SLOTS_PER_SM per SM and col_blocks within capacity[cluster - 1]
+    (the clusters of that size the card runs at once; model_capacity(sms)
+    by default). A cluster of one may own column blocks cb, cb + grid, ...
+    The size taken gives each block the fewest tiles (its four consumer
+    warps take them in turn, so a block's tiles are its critical path), then
+    the fewest blocks, among those whose shared memory fits RING_SMEM."""
+    caps = capacity or model_capacity(sms)
+    slots = RING_SLOTS_PER_SM * sms
+    per_unit = 2 if kind == KIND_GATE_UP else 1  # tiles per unit
+    best = None
+    for c, cap in zip(CLUSTERS, caps):
+        if c > units:
+            break
+        if c == 1:
+            grid = min(col_blocks, cap, slots)
+            tiles = -(-col_blocks // grid) * units * per_unit
+        else:
+            grid = c * col_blocks
+            if grid > slots or col_blocks > cap:
+                continue
+            tiles = -(-units // c) * per_unit
+        if stream_smem(kind, rows, -(-units // c)) > RING_SMEM:
+            continue
+        key = (tiles, grid)
+        if best is None or key < best[0]:
+            best = (key, (c, grid))
+    return None if best is None else best[1]
+
+
+# The streaming kernel costs the same at 1 to 8 rows (mma.sync takes 8); the
+# split pass adds multiply-adds per row but starts sooner. On an H100 80GB
+# HBM3 (700 W; tools/gemv_ab.py, rows 1-8 at VT_k, VT_v, q_proj, w_fused and
+# lm_head) the streaming kernel was the faster where (rows - 1) * K * N
+# reached about 56 Mi: lm_head from 2 rows, w_fused from 3, q_proj from 5,
+# VT_v from 6, VT_k never. The threshold rests on these five shapes of one
+# model; other widths take the route it gives them unmeasured.
+STREAM_MIN_WORK = 56 << 20
+
+
+def use_stream(k: int, n: int, rows: int) -> bool:
+    """Whether gemv_int8 takes the streaming kernel (STREAM_MIN_WORK)."""
+    return (rows - 1) * k * n >= STREAM_MIN_WORK
+
+
+def gemv8_plan(sms: int, k: int, n: int, rows: int, capacity=None):
+    """stream_plan of gemv_int8 at K x N (N % 128 == 0) for `rows` rows."""
+    return stream_plan(sms, KIND_INT8, n // RING_TILE_COLS, -(-k // RING_TILE_ROWS), rows,
+                       capacity)
+
+
+@functools.lru_cache(maxsize=64)
+def device_sms(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+@functools.lru_cache(maxsize=64)
+def device_capacity(dev: torch.device, kind: int) -> tuple:
+    """Clusters of each size in CLUSTERS that the card runs at once, blocks
+    of RING_SMEM bytes (cudaOccupancyMaxActiveClusters): the placement of
+    clusters on the card's GPCs can hold fewer than model_capacity."""
+    with torch.cuda.device(dev):
+        if kind == KIND_INT8:
+            fn = build.launcher("gemv_int8", "palu_gemv8_max_clusters", "ii")
+            caps = tuple(fn(c, RING_SMEM) for c in CLUSTERS)
+        else:
+            fn = build.launcher("gemv_int4", "palu_mlp4_max_clusters", "iii")
+            caps = tuple(fn(kind, c, RING_SMEM) for c in CLUSTERS)
+    if min(caps) < 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: {caps}")
+    return caps
 
 
 @functools.lru_cache(maxsize=256)
@@ -33,7 +159,7 @@ def split_k(dev: torch.device, col_blocks: int, units: int, rows: int):
     """Split `units` 128-row units of the contraction over blocks so that
     about four blocks run per SM, with x's slice (rows x units x 128 f32)
     kept within 32 KB of shared memory: (splits, units per split)."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sms = device_sms(dev)
     want = max(1, -(-_BLOCKS_PER_SM * sms // col_blocks))
     per = min(max(1, -(-units // want)), max(1, 64 // rows))
     return -(-units // per), per
@@ -140,15 +266,24 @@ def gemv_int8(x, w) -> torch.Tensor:
     dev = x.device
     xc = x.contiguous()
     out = torch.empty((b, n), dtype=x.dtype, device=dev)
-    if k_major:
-        splits, ups, part = 0, 0, None
+    plan = None
+    if not k_major and x.dtype == torch.bfloat16 and ldw % 16 == 0 and use_stream(k, n, b):
+        plan = gemv8_plan(device_sms(dev), k, n, b, device_capacity(dev, KIND_INT8))
+    if plan is not None:
+        x_vec = int(k % 8 == 0 and xc.data_ptr() % 16 == 0)
+        err = build.launcher("gemv_int8", "palu_gemv_int8_stream", "piiipipiiippp")(
+            xc.data_ptr(), b, k, n, wq.data_ptr(), ldw, ws.data_ptr(), *plan, x_vec,
+            out.data_ptr(), None, build.stream_ptr(dev))
     else:
-        splits, ups = split_k(dev, n // _BLOCK_N, -(-k // _UNIT), b)
-        part = torch.empty(splits * b * n, dtype=torch.float32, device=dev)
-    err = build.launcher("gemv_int8", "palu_gemv_int8", "piiiipiippiipp")(
-        xc.data_ptr(), int(x.dtype == torch.bfloat16), b, k, n, wq.data_ptr(), ldw, k_major,
-        ws.data_ptr(), None if part is None else part.data_ptr(), splits, ups,
-        out.data_ptr(), build.stream_ptr(dev))
+        if k_major:
+            splits, ups, part = 0, 0, None
+        else:
+            splits, ups = split_k(dev, n // _BLOCK_N, -(-k // _UNIT), b)
+            part = torch.empty(splits * b * n, dtype=torch.float32, device=dev)
+        err = build.launcher("gemv_int8", "palu_gemv_int8", "piiiipiippiipp")(
+            xc.data_ptr(), int(x.dtype == torch.bfloat16), b, k, n, wq.data_ptr(), ldw,
+            k_major, ws.data_ptr(), None if part is None else part.data_ptr(), splits, ups,
+            out.data_ptr(), build.stream_ptr(dev))
     build.check(err, "gemv_int8")
     gemv_int8.launches += 1
     return out

@@ -174,6 +174,169 @@ def test_gemv_int4_edge_shapes(gen, kn, rows, dtype):
     assert torch.equal(gemv_int4(x, w), got)
 
 
+def _w4_groups(gen, k, n):
+    """int4 codes and scales of 128-row groups built directly (quantize_weight4
+    shrinks the group below 128 rows unless K % 256 == 0)."""
+    return {"wq4": torch.randint(0, 256, (k // 2, n), generator=gen, device="cuda",
+                                 dtype=torch.uint8),
+            "ws": torch.rand((k // 128, n), generator=gen, device="cuda") * 0.01 + 1e-3}
+
+
+def _held_twice(fn, args, want, dtype):
+    """fn(*args) within the class of its plain version (2^-7 of max|plain| in
+    bf16, 1e-5 in f32), in x's type, and bit-identical on a second call."""
+    got = fn(*args)
+    tol = 2.0**-7 if dtype == torch.bfloat16 else 1e-5
+    assert got.dtype == dtype and got.shape == want.shape and torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max() <= tol * want.float().abs().max()
+    assert torch.equal(fn(*args), got)
+
+
+# (H, I) of the MLP: 1, 9 and 86 groups on either side
+MLP4_EDGES = {"h1_i1": (128, 128), "h9_i1": (1152, 128), "h1_i86": (128, 86 * 128),
+              "h86_i1": (86 * 128, 128), "h9_i9": (1152, 1152), "h9_i86": (1152, 86 * 128)}
+
+
+@pytest.mark.parametrize("shape", list(MLP4_EDGES))
+@pytest.mark.parametrize("rows", range(1, 9))
+@pytest.mark.parametrize("route", ["stream_bf16", "split_bf16", "split_f32"])
+def test_mlp_gemv_int4_edge_shapes(gen, monkeypatch, shape, rows, route):
+    """The streaming MLP and the split pass (each bf16 shape on both routes,
+    whichever use_stream_mlp picks; f32 always splits) at H and I of 1, 9
+    and 86 groups, every row count; two calls bit-identical (the cluster's
+    K splits are added in rank order)."""
+    from palu_tpu_torch.ops import gemv_int4 as g4
+    from palu_tpu_torch.ops.gemv_int4 import mlp_gemv_int4, mlp_gemv_int4_ref
+
+    dtype = torch.float32 if route == "split_f32" else torch.bfloat16
+    monkeypatch.setattr(g4, "use_stream_mlp", lambda h, i, rows: route == "stream_bf16")
+    h, inter = MLP4_EDGES[shape]
+    ws = (_w4_groups(gen, h, inter), _w4_groups(gen, h, inter), _w4_groups(gen, inter, h))
+    x = torch.randn((rows, h), generator=gen, device="cuda").to(dtype)
+    n0 = mlp_gemv_int4.launches
+    _held_twice(mlp_gemv_int4, (x, *ws), mlp_gemv_int4_ref(x, *ws), dtype)
+    assert mlp_gemv_int4.launches == n0 + 2
+
+
+# (K, N) of gemv_int8: K of 128, 1000 (not a multiple of 128), 1152 and 4096
+INT8_EDGES = {"k128_n128": (128, 128), "k1000_n1024": (1000, 1024), "k1152_n3072": (1152, 3072),
+              "k4096_n128": (4096, 128), "k4096_n1024": (4096, 1024),
+              "k4096_n3072": (4096, 3072)}
+
+
+@pytest.mark.parametrize("shape", list(INT8_EDGES))
+@pytest.mark.parametrize("rows", range(1, 9))
+@pytest.mark.parametrize("route", ["stream_bf16", "split_bf16", "split_f32"])
+def test_gemv_int8_edge_shapes(gen, monkeypatch, shape, rows, route):
+    """The streaming GEMV and the split pass (each bf16 shape on both routes,
+    whichever use_stream picks; f32 always splits) at K 128, 1000, 1152 and
+    4096 and N 128, 1024 and 3072, every row count; two calls bit-identical."""
+    from palu_tpu_torch.ops import gemv_int8 as g8
+    from palu_tpu_torch.ops.gemv_int8 import gemv_int8, gemv_int8_ref
+
+    dtype = torch.float32 if route == "split_f32" else torch.bfloat16
+    monkeypatch.setattr(g8, "use_stream", lambda k, n, rows: route == "stream_bf16")
+    k, n = INT8_EDGES[shape]
+    w = _wq(gen, 8, k, n)
+    x = torch.randn((rows, k), generator=gen, device="cuda").to(dtype)
+    n0 = gemv_int8.launches
+    _held_twice(gemv_int8, (x, w), gemv_int8_ref(x, w), dtype)
+    assert gemv_int8.launches == n0 + 2
+
+
+@pytest.mark.parametrize("kn", [(4096, 1024), (4096, 3072), (4096, 4096), (12288, 4096),
+                                (4096, 32000), (3584, 3584), (7168, 3584), (3584, 256),
+                                (3584, 152064)],
+                         ids=["vt_k", "vt_v", "q_proj", "w_fused", "lm_head", "qwen2_q_proj",
+                              "qwen2_w_fused", "qwen2_vt", "qwen2_lm_head"])
+def test_gemv_int8_stream_at_model_widths(gen, monkeypatch, kn):
+    """The streaming GEMV at Llama-2-7B's and Qwen2-7B's int8 shapes, rows 1-8
+    (whatever use_stream would pick), bit-identical on a second call."""
+    from palu_tpu_torch.ops import gemv_int8 as g8
+
+    monkeypatch.setattr(g8, "use_stream", lambda k, n, rows: True)
+    w = _wq(gen, 8, *kn)
+    for rows in range(1, 9):
+        x = torch.randn((rows, kn[0]), generator=gen, device="cuda").bfloat16()
+        _held_twice(g8.gemv_int8, (x, w), g8.gemv_int8_ref(x, w), torch.bfloat16)
+
+
+# Streaming int8 plans whose blocks own several column blocks in turn (N over
+# two blocks per SM x 128 columns: Qwen2-7B's untied lm_head from 2 rows), a
+# K range of tiles that is not a multiple of the consumer warps (K 4160), and
+# VT_v's clusters at 8 rows: (K, N, rows)
+INT8_REPEATS = {"qwen2_lm_head": (3584, 152064, (2, 3, 4, 5)),
+                "k1024_n76800": (1024, 600 * 128, (1, 4, 8)),
+                "k4160_n76800": (4160, 600 * 128, (1, 4)),
+                "k4096_n3072": (4096, 3072, (8,))}
+
+
+@pytest.mark.parametrize("case", list(INT8_REPEATS))
+def test_gemv_int8_stream_repeats(gen, monkeypatch, case):
+    """The streaming GEMV held against its plain version and bit-identical
+    over 24 calls on the same inputs."""
+    from palu_tpu_torch.ops import gemv_int8 as g8
+
+    monkeypatch.setattr(g8, "use_stream", lambda k, n, rows: True)
+    k, n, rows_list = INT8_REPEATS[case]
+    w = _wq(gen, 8, k, n)
+    for rows in rows_list:
+        assert g8.gemv8_plan(132, k, n, rows) is not None
+        x = torch.randn((rows, k), generator=gen, device="cuda").bfloat16()
+        _held_twice(g8.gemv_int8, (x, w), g8.gemv_int8_ref(x, w), torch.bfloat16)
+        got = g8.gemv_int8(x, w)
+        for _ in range(22):
+            assert torch.equal(g8.gemv_int8(x, w), got)
+
+
+@pytest.mark.parametrize("hi", [(4096, 11008), (3584, 18944)], ids=["llama", "qwen2"])
+def test_mlp_gemv_int4_stream_repeats(gen, monkeypatch, hi):
+    """The streaming MLP at Llama-2-7B's and Qwen2-7B's widths, rows 1, 2, 5
+    and 8 (where it has a plan), bit-identical over 24 calls."""
+    from palu_tpu_torch.ops import gemv_int4 as g4
+
+    monkeypatch.setattr(g4, "use_stream_mlp", lambda h, i, rows: True)
+    h, inter = hi
+    ws = (_w4_groups(gen, h, inter), _w4_groups(gen, h, inter), _w4_groups(gen, inter, h))
+    for rows in (1, 2, 5, 8):
+        x = torch.randn((rows, h), generator=gen, device="cuda").bfloat16()
+        _held_twice(g4.mlp_gemv_int4, (x, *ws), g4.mlp_gemv_int4_ref(x, *ws), torch.bfloat16)
+        got = g4.mlp_gemv_int4(x, *ws)
+        for _ in range(22):
+            assert torch.equal(g4.mlp_gemv_int4(x, *ws), got)
+
+
+@pytest.mark.parametrize("kind", [0, 1, 2])
+def test_stream_smem_matches_kernel_layout(gen, kind):
+    """ops/gemv_int8.stream_smem mirrors ring::Layout."""
+    from palu_tpu_torch.ops import build
+    from palu_tpu_torch.ops.gemv_int8 import stream_smem
+
+    fn = build.launcher("gemv_int8", "palu_gemv_stream_smem", "iii")
+    for rows in (1, 3, 8):
+        for units in (1, 7, 64):
+            assert fn(kind, rows, units) == stream_smem(kind, rows, units)
+
+
+def test_stream_plans_fit_the_card(gen):
+    """The card's cluster capacity is at most the model's, and the plans at
+    Llama-2-7B's shapes keep one cluster per column block within it."""
+    from palu_tpu_torch.ops import gemv_int4 as g4
+    from palu_tpu_torch.ops import gemv_int8 as g8
+
+    dev = torch.device("cuda")
+    sms = g8.device_sms(dev)
+    caps = {k: g8.device_capacity(dev, k) for k in (0, 1, 2)}
+    for k, cap in caps.items():
+        assert all(0 < c <= m for c, m in zip(cap, g8.model_capacity(sms)))
+    for kn in ((4096, 1024), (4096, 3072), (4096, 4096), (12288, 4096), (4096, 32000)):
+        c, grid = g8.gemv8_plan(sms, *kn, 1, caps[2])
+        assert grid // c <= caps[2][g8.CLUSTERS.index(c)]
+    plans = g4.mlp_plan(sms, 4096, 11008, 1, (caps[0], caps[1]))
+    for kind, (c, grid) in zip((0, 1), plans):
+        assert grid // c <= caps[kind][g8.CLUSTERS.index(c)]
+
+
 # Qwen2-7B's GEMV widths (K, N): q_proj, the U_v-fused o_proj of 28 heads at
 # rank 256, lm_head, VT_k / VT_v of its one group at rank 256
 QWEN2_GEMV = [(3584, 3584), (7168, 3584), (3584, 152064), (3584, 256)]
