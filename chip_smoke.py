@@ -10,11 +10,16 @@ Phases, each printing one JSON line:
   2. build    - nvcc builds every kernel from csrc/, all sources at once,
                 and the SASS of the prefill kernel and of the exact and the
                 bf16 decode kernels must hold wgmma (HGMMA) and TMA loads
-                (UTMALDG); the decode kernels' registers and spills from
-                ptxas;
+                (UTMALDG), gemv_bf16's mma.sync (HMMA), the Hadamard
+                kernels' shuffles and bulk copies, with no spill in any
+                Hadamard mix instantiation; the kernels' registers and
+                spills from ptxas;
   3. kernels  - each kernel against its plain PyTorch version on the card at
                 the main path's shapes (7B widths), with the device times
-                (torch.profiler, L2 cold) of the kernel, the plain version
+                (torch.profiler, L2 cold: the durations of the call's own
+                kernels in one profile, each call after a 64 MB flush left
+                out by name; a kernel row under its bound raises) of the
+                kernel, the plain version
                 and a PyTorch yardstick (for the GEMVs: the dense bf16
                 product that weight quantization replaces, and PyTorch's
                 own int4 / int8 weight-only call where the card's torch
@@ -217,8 +222,8 @@ from palu_tpu_torch.runtime.cache import cache_nbytes, decode_latents
 from palu_tpu_torch.runtime.engine import Engine, EngineConfig
 from palu_tpu_torch.runtime.sampling import SamplingParams
 from palu_tpu_torch.runtime.serving import NativeScheduler, ServingEngine
-from palu_tpu_torch.tools import (ab_v2, dissect, gemv_probe, mlp_a8_probe, stream_probe,
-                                  unpack_probe)
+from palu_tpu_torch.tools import (ab_v2, common, dissect, gemv_probe, mlp_a8_probe,
+                                  stream_probe, unpack_probe)
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, dense bf16
 # and int8 tensor-core rates and the f32 rate outside the tensor cores, for
@@ -373,73 +378,27 @@ def qwen2_params(cfg: ModelConfig, device="cuda") -> dict:
     return params
 
 
-_FLUSH = None
-
-
 def device_ms(fn, iters: int) -> float:
-    """Device time of one call of fn: the kernel time torch.profiler sums
-    over `iters` calls, each after a 64 MB write that leaves L2 (50 MB)
-    cold as a layer's call inside a model step finds it, less the writes'
-    own time measured alone. Host time between launches is not counted.
-    A profile with no device rows (seen once, at the tied-head GEMV) is
-    taken again; three in a row raise."""
-    global _FLUSH
-    if _FLUSH is None:
-        _FLUSH = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    fn()
-    torch.cuda.synchronize()
-
-    def kernel_ms(with_fn: bool) -> float:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                _FLUSH.zero_()
-                if with_fn:
-                    fn()
-            torch.cuda.synchronize()
-        return sum(e.self_device_time_total for e in _device_events(prof)) / 1e3
-
-    for _ in range(3):
-        with_fn, alone = kernel_ms(True), kernel_ms(False)
-        if with_fn > 0 and alone > 0:
-            return (with_fn - alone) / iters
-    raise RuntimeError("torch.profiler recorded no device time")
+    """Device time of one call of fn: the durations of fn's own kernels
+    that torch.profiler records over `iters` calls in one profile, each
+    call after a 64 MB in-place bitwise_not that leaves L2 (50 MB) cold as
+    a layer's call inside a model step finds it; the flush's kernels are
+    left out by name (tools/common.profile_calls: no wrapper of the port
+    launches bitwise_not, and a fill or copy that fn launches counts).
+    Host time between launches is not counted. A profile with no device
+    events (seen once, at the tied-head GEMV) is taken again; three in a
+    row raise."""
+    return common.device_us(fn, iters) / 1e3
 
 
 def device_span_ms(fn, iters: int) -> dict:
     """One call of fn, L2 cold as in device_ms: `ms` sums its kernels'
     durations, `span_ms` runs from its first kernel's start to its last
-    one's end (the gaps between a call's kernels included). A profile with
-    no device rows is taken again; three in a row raise."""
-    global _FLUSH
-    if _FLUSH is None:
-        _FLUSH = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                _FLUSH.zero_()
-                fn()
-            torch.cuda.synchronize()
-        evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                     key=lambda e: e.time_range.start)
-        if evs:
-            break
-    total, spans, cur = 0.0, [], None
-    for e in evs:
-        if re.search("fill", e.name, re.I):  # the flush: the previous call ended
-            if cur:
-                spans.append(cur[1] - cur[0])
-            cur = None
-            continue
-        total += e.time_range.end - e.time_range.start
-        cur = [e.time_range.start, e.time_range.end] if cur is None else \
-            [cur[0], max(cur[1], e.time_range.end)]
-    if cur:
-        spans.append(cur[1] - cur[0])
-    if not spans:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return {"ms": total / iters / 1e3, "span_ms": sum(spans) / len(spans) / 1e3}
+    one's end (the gaps between a call's kernels included); means over the
+    calls of one profile (tools/common.profile_calls)."""
+    calls = common.profile_calls(fn, iters)
+    return {"ms": sum(c[0] for c in calls) / len(calls) / 1e3,
+            "span_ms": sum(c[1] for c in calls) / len(calls) / 1e3}
 
 
 def _device_events(prof):
@@ -447,6 +406,14 @@ def _device_events(prof):
     time the host ops own is not counted twice."""
     return [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+
+
+def check_bound(name: str, ms: float, bound: float) -> None:
+    """A device time under the least time the card could take for the same
+    work is a fault of the measurement (a warm L2, a kernel left out or
+    counted twice), not a number for the table: raise."""
+    if not ms >= bound:
+        raise AssertionError(f"{name}: device time {ms} ms under its bound {bound} ms")
 
 
 def bound_ms(nbytes: float, flops: float, int8_ops: float = 0.0, f32_flops: float = 0.0):
@@ -502,7 +469,39 @@ def phase_build() -> None:
                             "gemv_int4", GEMV_SASS + ("UBLKCP",)).items()},
                         **{f"gemv_int8_{k}": v for k, v in hopper_sass(
                             "gemv_int8", GEMV_SASS).items()},
-                        "ptxas": regs.get("gemv_int4", []) + regs.get("gemv_int8", [])}})
+                        "ptxas": regs.get("gemv_int4", []) + regs.get("gemv_int8", [])},
+          # gemv_bf16_t: mma.sync on operands loaded into registers (no
+          # shared-memory ring); the Hadamard mix: shuffles, bf16 tiles by
+          # bulk copies, and no local memory in any mix instantiation
+          "gemv_bf16_sass": {**hopper_sass("gemv_bf16", ("HMMA",), ("LDL", "STL")),
+                             "spills": kernel_spills("gemv_bf16", "gemv_t_kernel")},
+          "hadamard_sass": {**hopper_sass("hadamard", ("SHFL", "UBLKCP"), ("LDL", "STL")),
+                            "mix_spills": kernel_spills("hadamard", "mix_kernel",
+                                                        must_be_zero=True)}})
+
+
+def kernel_spills(source: str, kernel: str, must_be_zero: bool = False) -> dict:
+    """Spill stores in bytes of each instantiation of `kernel` in
+    csrc/<source>.cu, from ptxas' report in the build log (mangled names
+    shortened to their template arguments); must_be_zero raises on any."""
+    log = build._lib_path(source).with_suffix(".log")
+    if not log.exists():
+        return {"log": "not found"}
+    out, name = {}, None
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1) if kernel in m.group(1) else None
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if name and m:
+            out[name.split(kernel)[-1][:24]] = int(m.group(1))
+            name = None
+    if not out:
+        raise AssertionError(f"{source}: no ptxas report of {kernel}")
+    if must_be_zero and any(out.values()):
+        raise AssertionError(f"{source}: {kernel} spills: {out}")
+    return out
 
 
 # what the streaming GEMVs' design stands on: mma.sync (HMMA), TMA tile
@@ -1411,12 +1410,15 @@ HAD_RANKS = tuple(range(32, 513, 32))
 
 def check_hadamard(gen) -> dict:
     """hadamard_transform against its plain version in f32 on the same
-    input (TF32 off): f32 and bf16 at fuse_hadamard's shapes, VT_g^T (4096, r) and U_g (512, r), for r
+    input (TF32 off): f32 and bf16 at fuse_hadamard's shapes, VT_g^T (4096,
+    r) and U_g (512, r), for r
     in 128 / 256 / 352 / 384 / 480 / 512, (512, r) for every rank multiple
     of 32 and n 4096, both orientations of H_K, and the JAX kernel test's
     sizes (tests/test_fwht_kernel.py). Then device times at (4096, 256)
     f32, the uniform 0.5 search's rank, and at the other path ranks, beside
-    the plain version's and one torch.matmul against the dense matrix."""
+    the plain version's and one torch.matmul against the dense matrix, and
+    in bf16 at (4096, 256 / 352 / 480) beside the bf16 matmul; each time
+    held above its bound (check_bound)."""
     shapes = [(rows, r) for rows in (4096, 512) for r in (128, 256, 352, 384, 480, 512)]
     shapes += [(512, r) for r in HAD_RANKS] + [(512, 4096), (37, 128), (37, 96), (37, 352),
                                                (37, 1024), (3, 5, 128)]
@@ -1445,18 +1447,24 @@ def check_hadamard(gen) -> dict:
         raise AssertionError(f"hadamard_transform took n {n} > {MAX_N}")
 
     timed = {}
-    for rows, r in [(4096, 256), (512, 256), (4096, 128), (4096, 352), (4096, 480),
-                    (4096, 512)]:
-        x = torch.randn((rows, r), generator=gen, device="cuda")
-        h = torch.from_numpy(full_hadamard_matrix(r)).cuda()
+    for rows, r, dt in [(4096, 256, torch.float32), (512, 256, torch.float32),
+                        (4096, 128, torch.float32), (4096, 352, torch.float32),
+                        (4096, 480, torch.float32), (4096, 512, torch.float32),
+                        (4096, 256, torch.bfloat16), (4096, 352, torch.bfloat16),
+                        (4096, 480, torch.bfloat16)]:
+        x = torch.randn((rows, r), generator=gen, device="cuda").to(dt)
+        h = torch.from_numpy(full_hadamard_matrix(r)).cuda().to(dt)
         _, k = get_hadK(r)
-        nbytes = 2 * rows * r * 4
+        nbytes = 2 * rows * r * x.element_size()
         f32_flops = rows * r * (math.log2(r // k) + k + 1)
         bms, by = bound_ms(nbytes, 0.0, f32_flops=f32_flops)
-        timed[f"{rows}x{r}"] = {
-            "K": k, "ms": device_ms(lambda: hadamard_transform(x), 50),
-            "plain_ms": device_ms(lambda: hadamard_transform_ref(x), 20),
+        tag = f"{rows}x{r}" + ("" if dt == torch.float32 else "_bf16")
+        ms = device_ms(lambda: hadamard_transform(x), 50)
+        check_bound(f"hadamard_transform {tag}", ms, bms)
+        timed[tag] = {
+            "K": k, "ms": ms, "plain_ms": device_ms(lambda: hadamard_transform_ref(x), 20),
             "library_ms": device_ms(lambda: torch.matmul(x, h.T), 50),
+            "copy_ms": device_ms(lambda: x.clone(), 50),
             "bytes": nbytes, "f32_flops": f32_flops, "bound_ms": bms, "bound_by": by}
     main = timed["4096x256"]
     out = {"name": "hadamard_transform", "route": "cuda",
@@ -1467,7 +1475,8 @@ def check_hadamard(gen) -> dict:
            "bound_by": main["bound_by"], "library_ms": main["library_ms"]}
     emit({"phase": "kernel", "cases": cases, "tol": {str(k): v for k, v in HAD_TOL.items()},
           "max_rel_err": {k: v[0] for k, v in worst.items()}, "timed": timed,
-          "library_call": "torch.matmul(x, H.T) against the dense f32 Hadamard matrix",
+          "library_call": "torch.matmul(x, H.T) against the dense Hadamard matrix in x's "
+                          "type; copy_ms: x.clone(), the read and write alone",
           **out})
     return out
 
@@ -3525,10 +3534,14 @@ def main() -> int:
                check_gemv(gen, 4), check_mlp(gen, 4), check_gemv(gen, 8), check_mlp(gen, 8),
                check_hadamard(gen), check_decode_bias(gen), check_decode_chunked(gen),
                *check_decode_stats(gen)]
+    for k in kernels:
+        check_bound(k["name"], k["ms"], k["bound_ms"])
     check_decode_ranks(gen)
     check_decode_rope(gen)
     check_dense_sdpa(gen)
     probe_lines = phase_probes()
+    for k in probe_lines:
+        check_bound(k["name"], k["ms"], k["bound_ms"])
     phase_e2e()
     phase_e2e("e2e_w4", W4)
     phase_e2e("e2e_w8", W8)

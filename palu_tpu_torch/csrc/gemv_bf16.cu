@@ -11,19 +11,19 @@
 // tensor-core rate. The weight stays in the 50 MB L2 across back-to-back
 // calls: a caller that times it flushes L2 between calls.
 //
-// Design: the TPU grid walks N tiles in order; here block (j, s) owns the
-// BN columns [j * BN, (j + 1) * BN) and the s-th range of the contraction,
-// so that some four blocks run per SM (split-K), and a second kernel adds
-// the splits in a fixed order (gemv_common.cuh's reduce_out: results
-// repeat from run to run). x's slice is staged in shared memory in f32.
-// On W (K, N) a block's BN / 8 column threads each read 16 bytes (8
-// columns) of a row, neighbouring threads on neighbouring bytes, and its
+// Design on W (K, N), gemv_bf16: the TPU grid walks N tiles in order; here
+// block (j, s) owns the BN columns [j * BN, (j + 1) * BN) and the s-th
+// range of the contraction, so that some four blocks run per SM (split-K),
+// and a second kernel adds the splits in a fixed order (gemv_common.cuh's
+// reduce_out: results repeat from run to run). x's slice is staged in
+// shared memory in f32. A block's BN / 8 column threads each read 16 bytes
+// (8 columns) of a row, neighbouring threads on neighbouring bytes, and its
 // 256 / (BN / 8) row lanes take every such row of the range; the row lanes
-// are summed in shared memory. On W^T (N, K) each warp takes four rows of
-// W^T (output columns) at a time and reads the range 16 bytes a lane, 512
-// contiguous bytes a row and step, four loads in flight, and sums each row
-// with shuffles. Loads skip L1
+// are summed in shared memory. Loads skip L1
 // (ld.global.nc.L1::no_allocate): every weight byte is read once.
+//
+// On W^T (N, K), gemv_bf16_t: one launch on the tensor cores, below
+// (namespace tldg).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -108,100 +108,165 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// W^T (N, K): part[s, m, n] for the block's BN rows of W^T and the range;
-// each warp takes kRows rows at a time, so that kRows loads are in flight.
-constexpr int kRows = 4;
+// ---- W^T (N, K): the one-launch kernel of gemv_bf16_t ----
+//
+// A column block is 16 output columns = 16 rows of W^T, each 2K contiguous
+// bytes. A block of W warps owns cpb column blocks; their contraction is
+// split into S = W / cpb ranges of 32-value units, warp w taking column
+// block w / S and range w % S. A warp walks its range 32 values at a time:
+// lane (g, t) loads 16 bytes (8 values) of rows g and g + 8 at k + 8t and
+// x's row g there (no shared memory, no barrier: the loads of kUnroll
+// units are in flight together), and runs two mma.sync m16n8k16 on them.
+// The mma's k order is free as long as A and B agree: step 1 takes the
+// lane's values 0-3 (logical k 2t, 2t + 1 from values 0-1, 2t + 8, 2t + 9
+// from values 2-3), step 2 values 4-7, for A (W^T rows) and B (x) alike.
+// Each warp's sums (16 columns x 8 rows of x) meet the other ranges' in
+// shared memory and are added in range order: results repeat from call to
+// call, and no partial rows go to device memory. Rows of W^T past N and
+// values past K are read as zeros. Plan: tools/gemv_probe.gemv_t_plan.
+//
+// Why loads into registers and not a TMA / bulk-copy ring into shared
+// memory: on an H100 80GB HBM3 (700 W) the 33.5 MB of a 4096 x 4096 W^T
+// streamed in 16.9-17.4 us by cp.async.bulk (row segments of 0.5-8 KB,
+// any ring depth) or by cp.async, and in 13.6-15.1 us by 16-byte
+// ld.global.nc into registers (tools/gemv_ab.py --only=floor,
+// csrc/stream_floor.cu); this kernel takes ~17.1 us at 1 and 8 rows.
+namespace tldg {
 
-template <int M>
-__global__ void __launch_bounds__(kThreads)
-    gemv_t_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
-                  float* __restrict__ part, int K, int N, int BN, int krange) {
-  extern __shared__ float sm[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, split = blockIdx.y;
-  const int k0 = split * krange, len = min(krange, K - k0);
-  float* xs = sm;  // [M][len]
-  stage_x<M>(x, K, k0, len, xs);
+constexpr int kRows = 16;    // W^T rows (output columns) per column block
+constexpr int kUnit = 32;    // contraction values per warp step: 8 a lane, 4 lanes a row
+constexpr int kUnroll = 8;   // steps whose loads are in flight together
+constexpr int kSums = kRows * 8;  // a warp's (column, x row) f32 sums
+
+__device__ __forceinline__ uint4 ld_w(const bf16* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+// d += A (16 x 16) . B (16 x 8), fragments as mma.sync takes them
+__device__ __forceinline__ void mma16816(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+template <int W, int U = kUnroll>
+__global__ void __launch_bounds__(W * 32) gemv_t_kernel(const bf16* __restrict__ x,
+                                                        const bf16* __restrict__ wt,
+                                                        bf16* __restrict__ y, int M, int K,
+                                                        int N, int cpb) {
+  __shared__ float sums[W][kSums];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int S = W / cpb;
+  const int cb = blockIdx.x * cpb + warp / S, range = warp % S;
+  const int units = (K + kUnit - 1) / kUnit;
+  const int u0 = range * units / S, u1 = (range + 1) * units / S;
+  const int r0 = cb * kRows + g, r1 = r0 + 8;
+  const bool live0 = r0 < N, live1 = r1 < N, xlive = g < M;
+  const bf16* w0 = wt + static_cast<size_t>(live0 ? r0 : 0) * K + 8 * t;
+  const bf16* w1 = wt + static_cast<size_t>(live1 ? r1 : 0) * K + 8 * t;
+  const bf16* xr = x + static_cast<size_t>(xlive ? g : 0) * K + 8 * t;
+  float acc[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (int u = u0; u < u1; u += U) {
+    uint4 a[U], b[U], xv[U];
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      const int k = (u + j) * kUnit + 8 * t;  // this lane's 8 values
+      const bool in = u + j < u1 && k < K;
+      a[j] = in && live0 ? ld_w(w0 + (u + j) * kUnit) : zero;
+      b[j] = in && live1 ? ld_w(w1 + (u + j) * kUnit) : zero;
+      xv[j] = in && xlive ? __ldg(reinterpret_cast<const uint4*>(xr + (u + j) * kUnit)) : zero;
+    }
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      mma16816(acc[0], a[j].x, b[j].x, a[j].y, b[j].y, xv[j].x, xv[j].y);
+      mma16816(acc[1], a[j].z, b[j].z, a[j].w, b[j].w, xv[j].z, xv[j].w);
+    }
+  }
+  // acc: (column g, x rows 2t, 2t + 1), (column g + 8, the same rows)
+  float* mine = sums[warp];
+  mine[g * 8 + 2 * t] = acc[0][0] + acc[1][0];
+  mine[g * 8 + 2 * t + 1] = acc[0][1] + acc[1][1];
+  mine[(g + 8) * 8 + 2 * t] = acc[0][2] + acc[1][2];
+  mine[(g + 8) * 8 + 2 * t + 1] = acc[0][3] + acc[1][3];
   __syncthreads();
-  for (int r0 = warp * kRows; r0 < BN; r0 += (kThreads / 32) * kRows) {
-    const int nr = min(kRows, BN - r0);
-    const size_t n0 = static_cast<size_t>(blockIdx.x) * BN + r0;
-    float acc[kRows][M];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int m = 0; m < M; ++m) acc[i][m] = 0.0f;
-    for (int k = lane * 8; k < len; k += 256) {
-      uint4 u[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-        if (i < nr) u[i] = ld_nc16(wt + (n0 + i) * K + k0 + k);
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        if (i < nr) {
-          float f[8];
-          unpack8(u[i], f);
-#pragma unroll
-          for (int m = 0; m < M; ++m)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) acc[i][m] += xs[m * len + k + j] * f[j];
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-#pragma unroll
-      for (int m = 0; m < M; ++m) {
-        float s = acc[i][m];
-        for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-        if (lane == 0 && i < nr) part[(static_cast<size_t>(split) * M + m) * N + n0 + i] = s;
-      }
-    }
+  for (int idx = threadIdx.x; idx < cpb * kSums; idx += W * 32) {
+    const int c = idx / kSums, e = idx - c * kSums, col = e >> 3, xrow = e & 7;
+    const int out_col = (blockIdx.x * cpb + c) * kRows + col;
+    if (xrow >= M || out_col >= N) continue;
+    float v = sums[c * S][e];
+    for (int r = 1; r < S; ++r) v += sums[c * S + r][e];
+    y[static_cast<size_t>(xrow) * N + out_col] = __float2bfloat16_rn(v);
   }
 }
 
+}  // namespace tldg
+
 template <int M>
-int launch(bool t, const bf16* x, const bf16* w, float* part, int K, int N, int BN, int splits,
-           int krange, cudaStream_t st) {
+int launch(const bf16* x, const bf16* w, float* part, int K, int N, int BN, int splits, int krange,
+           cudaStream_t st) {
   const int lanes = kThreads / (BN / 8);
   const size_t smem = sizeof(float) * (static_cast<size_t>(M) * krange +
-                                       (t ? 0 : static_cast<size_t>(lanes) * M * BN));
+                                       static_cast<size_t>(lanes) * M * BN);
   if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(t ? gemv_t_kernel<M> : gemv_kernel<M>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  cudaError_t err = cudaFuncSetAttribute(
+      gemv_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(N / BN, splits);
-  if (t)
-    gemv_t_kernel<M><<<grid, kThreads, smem, st>>>(x, w, part, K, N, BN, krange);
-  else
-    gemv_kernel<M><<<grid, kThreads, smem, st>>>(x, w, part, K, N, BN, krange);
+  gemv_kernel<M><<<dim3(N / BN, splits), kThreads, smem, st>>>(x, w, part, K, N, BN, krange);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// y (M, N) bf16 = x (M, K) bf16 . W, W stored (K, N) (transposed = 0) or
-// W^T stored (N, K) (transposed = 1); M 1 to 8. BN columns per block: a
-// power of two between 64 and 2048 that divides N (on W^T any divisor of
-// N). The contraction splits into `splits` ranges of krange rows (a
-// multiple of 8; splits * krange >= K); part holds splits * M * N f32. K
-// and N multiples of 8.
+// y (M, N) bf16 = x (M, K) bf16 . W, W stored (K, N); M 1 to 8. BN columns
+// per block: a power of two between 64 and 2048 that divides N. The
+// contraction splits into `splits` ranges of krange rows (a multiple of 8;
+// splits * krange >= K); part holds splits * M * N f32. K and N multiples
+// of 8.
 extern "C" int gemv_bf16(const void* x, const void* w, void* part, void* y, int M, int K, int N,
-                         int BN, int splits, int krange, int transposed, void* stream) {
+                         int BN, int splits, int krange, void* stream) {
   if (K % 8 || N % 8 || BN <= 0 || N % BN || krange % 8 || krange <= 0 ||
-      static_cast<long long>(splits) * krange < K || (splits - 1) * krange >= K)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (!transposed && (BN % 8 || BN < 64 || BN > 2048 || kThreads % (BN / 8)))
+      static_cast<long long>(splits) * krange < K || (splits - 1) * krange >= K ||
+      BN % 8 || BN < 64 || BN > 2048 || kThreads % (BN / 8))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* xb = static_cast<const bf16*>(x);
   const bf16* wb = static_cast<const bf16*>(w);
   float* pf = static_cast<float*>(part);
-  const bool t = transposed != 0;
-#define PALU_GEMV_BF16(B) launch<B>(t, xb, wb, pf, K, N, BN, splits, krange, st)
+#define PALU_GEMV_BF16(B) launch<B>(xb, wb, pf, K, N, BN, splits, krange, st)
   const int err = [&]() -> int { PALU_SWITCH_B(M, PALU_GEMV_BF16) }();
 #undef PALU_GEMV_BF16
   if (err != 0) return err;
   gemv::launch_reduce<bf16>(pf, splits, M, N, nullptr, static_cast<bf16*>(y), st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// y (M, N) bf16 = x (M, K) bf16 . W, W^T stored (N, K), in one launch:
+// blocks of `warps` warps (8 or 16), each owning cpb column blocks of 16
+// outputs (cpb divides warps); M 1 to 8, K a multiple of 8, x and W^T
+// 16-byte aligned.
+extern "C" int gemv_bf16_t_one(const void* x, const void* wt, void* y, int M, int K, int N,
+                               int warps, int cpb, void* stream) {
+  if (M < 1 || M > 8 || K <= 0 || K % 8 || N <= 0 || (warps != 8 && warps != 16) ||
+      cpb < 1 || warps % cpb || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(wt) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int col_blocks = (N + tldg::kRows - 1) / tldg::kRows;
+  const int grid = (col_blocks + cpb - 1) / cpb;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* wb = static_cast<const bf16*>(wt);
+  bf16* yb = static_cast<bf16*>(y);
+  if (warps == 8)
+    tldg::gemv_t_kernel<8><<<grid, 8 * 32, 0, st>>>(xb, wb, yb, M, K, N, cpb);
+  else
+    tldg::gemv_t_kernel<16><<<grid, 16 * 32, 0, st>>>(xb, wb, yb, M, K, N, cpb);
   return static_cast<int>(cudaGetLastError());
 }

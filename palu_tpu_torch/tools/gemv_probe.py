@@ -1,7 +1,8 @@
 """The bf16 GEMV streaming floor on the card (port of
 tools/tpu_gemv_probe.py): a blocked (M, K) @ (K, N) GEMV over N tiles of
-BN and its twin on W^T stored (N, K) (csrc/gemv_bf16.cu), beside PyTorch's
-matmuls and the port's int8 weight-only GEMVs, at K = N = 4096.
+BN and its twin on W^T stored (N, K), one launch on the tensor cores
+(csrc/gemv_bf16.cu), beside PyTorch's matmuls and the port's int8
+weight-only GEMVs, at K = N = 4096.
 
 Probes (the JAX tool's names):
   pallas    - the kernel on W (K, N), x (1, K);  pallasT - on W^T (N, K);
@@ -34,7 +35,7 @@ from ..ops.gemv_int8 import gemv_int8, mlp_gemv_int8
 from . import common
 
 __all__ = ["gemv_bf16", "gemv_bf16_t", "gemv_bf16_ref", "gemv_bf16_t_ref", "make_inputs",
-           "parser", "run", "main", "DEFAULT_PROBES", "GEMV_TOL"]
+           "parser", "run", "main", "DEFAULT_PROBES", "GEMV_TOL", "gemv_t_plan"]
 
 K = N = 4096
 K2, N2 = 4096, 11008
@@ -44,6 +45,10 @@ ALL_PROBES = DEFAULT_PROBES + ["nop", "kmlp", "kgemv", "i8", "i8noscale", "bfmlp
 # GEMVs' class (one bf16 rounding apart), as a share of max|plain|
 GEMV_TOL = 2.0 ** -7
 _BLOCKS_PER_SM = 4
+# gemv_bf16_t's kernel (csrc/gemv_bf16.cu, namespace tldg): a column block
+# is T_ROWS rows of W^T, blocks of 8 or 16 warps split the contraction of
+# their column blocks
+T_ROWS = 16
 
 
 def gemv_bf16_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -57,37 +62,77 @@ def gemv_bf16_t_ref(x: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=64)
-def _split(dev: torch.device, col_blocks: int, k: int, transposed: bool) -> tuple:
-    """(splits, krange): about four blocks per SM; ranges of a multiple of
-    8 rows (of 256 on W^T, one warp step, where K allows)."""
+def _split(dev: torch.device, col_blocks: int, k: int) -> tuple:
+    """(splits, krange) of gemv_bf16: about four blocks per SM; ranges of a
+    multiple of 8 rows."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     want = max(1, -(-_BLOCKS_PER_SM * sms // col_blocks))
-    step = 256 if transposed and k >= 256 else 8
-    krange = -(-(-(-k // want)) // step) * step
+    krange = -(-(-(-k // want)) // 8) * 8
     return -(-k // krange), krange
 
 
-def _launch(x, w, bn: int, transposed: bool) -> torch.Tensor:
+@functools.lru_cache(maxsize=256)
+def gemv_t_plan(sms: int, k: int, n: int, bn: int) -> tuple:
+    """Launch plan of gemv_bf16_t's kernel: (warps per block, column
+    blocks per block). Each block owns cpb column blocks of T_ROWS outputs
+    (at most bn // T_ROWS: `bn`, a multiple of T_ROWS, bounds the columns
+    of a block) and splits their contraction over warps // cpb warps each.
+    Blocks of 8 warps where the column blocks fill the card (at least one
+    per SM), of 16 below that; more than one column block per block only
+    where two blocks per SM stay busy (ceil(col_blocks / cpb) >= 2 * sms)."""
+    if bn < T_ROWS or bn % T_ROWS:
+        raise ValueError(f"gemv_bf16_t takes bn a positive multiple of {T_ROWS} (the most "
+                         f"output columns of a block), got {bn}")
+    if k <= 0 or k % 8 or n <= 0:
+        raise ValueError(f"gemv_bf16_t takes K a positive multiple of 8 and N > 0: K={k}, N={n}")
+    col_blocks = -(-n // T_ROWS)
+    warps = 8 if col_blocks >= sms else 16
+    cpb = 1
+    while 2 * cpb <= min(warps, bn // T_ROWS) and -(-col_blocks // (2 * cpb)) >= 2 * sms:
+        cpb *= 2
+    return warps, cpb
+
+
+def _check_operands(x, w, transposed: bool) -> tuple:
     m, k = x.shape
     n = w.shape[0] if transposed else w.shape[1]
     if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16 or w.dim() != 2 or \
             (w.shape[1] if transposed else w.shape[0]) != k:
         raise ValueError(f"x (M, K) and the weight must be bf16 with K {k}, got {x.dtype} "
                          f"{tuple(x.shape)}, {w.dtype} {tuple(w.shape)}")
-    if not 1 <= m <= 8 or k % 8 or n % 8 or n % bn or \
-            (not transposed and (bn < 64 or bn > 2048 or bn & (bn - 1))):
-        raise ValueError(f"the bf16 GEMV takes 1 to 8 rows, K and N multiples of 8 and BN "
-                         f"dividing N (a power of two 64..2048 on W): M={m}, K={k}, N={n}, "
-                         f"BN={bn}")
     if not (x.is_contiguous() and w.is_contiguous()) or x.device != w.device:
         raise ValueError("x and the weight must be contiguous and on one device")
-    splits, krange = _split(x.device, n // bn, k, transposed)
+    return m, k, n
+
+
+def _launch_t(x, wt, bn: int) -> torch.Tensor:
+    m, k, n = _check_operands(x, wt, True)
+    if not 1 <= m <= 8:
+        raise ValueError(f"gemv_bf16_t takes 1 to 8 rows of x, got {m}")
+    if x.data_ptr() % 16 or wt.data_ptr() % 16:
+        raise ValueError("gemv_bf16_t reads x and W^T 16 bytes at a time: both 16-byte aligned")
+    dev = x.device
+    warps, cpb = gemv_t_plan(torch.cuda.get_device_properties(dev).multi_processor_count,
+                               k, n, bn)
+    y = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+    err = build.launcher("gemv_bf16", "gemv_bf16_t_one", "ppp" + "i" * 5 + "p")(
+        x.data_ptr(), wt.data_ptr(), y.data_ptr(), m, k, n, warps, cpb, build.stream_ptr(dev))
+    build.check(err, "gemv_bf16_t")
+    return y
+
+
+def _launch(x, w, bn: int) -> torch.Tensor:
+    m, k, n = _check_operands(x, w, False)
+    if not 1 <= m <= 8 or k % 8 or n % 8 or n % bn or bn < 64 or bn > 2048 or bn & (bn - 1):
+        raise ValueError(f"the bf16 GEMV takes 1 to 8 rows, K and N multiples of 8 and BN "
+                         f"dividing N (a power of two 64..2048): M={m}, K={k}, N={n}, BN={bn}")
+    splits, krange = _split(x.device, n // bn, k)
     part = torch.empty(splits * m * n, dtype=torch.float32, device=x.device)
     y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    err = build.launcher("gemv_bf16", "gemv_bf16", "pppp" + "i" * 7 + "p")(
+    err = build.launcher("gemv_bf16", "gemv_bf16", "pppp" + "i" * 6 + "p")(
         x.data_ptr(), w.data_ptr(), part.data_ptr(), y.data_ptr(), m, k, n, bn, splits, krange,
-        int(transposed), build.stream_ptr(x.device))
-    build.check(err, "gemv_bf16_t" if transposed else "gemv_bf16")
+        build.stream_ptr(x.device))
+    build.check(err, "gemv_bf16")
     return y
 
 
@@ -97,17 +142,19 @@ def gemv_bf16(x: torch.Tensor, w: torch.Tensor, bn: int = 512) -> torch.Tensor:
     version."""
     if not x.is_cuda:
         return gemv_bf16_ref(x, w)
-    y = _launch(x, w, bn, False)
+    y = _launch(x, w, bn)
     gemv_bf16.launches += 1
     return y
 
 
 def gemv_bf16_t(x: torch.Tensor, wt: torch.Tensor, bn: int = 512) -> torch.Tensor:
     """y (M, N) bf16 = x (M, K) bf16 @ wt^T, wt (N, K) bf16 stored
-    transposed; otherwise as gemv_bf16."""
+    transposed: one launch (gemv_t_plan; bn, a multiple of 16, bounds
+    the output columns of a block). CUDA tensors launch the kernel, CPU
+    tensors run the plain version."""
     if not x.is_cuda:
         return gemv_bf16_t_ref(x, wt)
-    y = _launch(x, wt, bn, True)
+    y = _launch_t(x, wt, bn)
     gemv_bf16_t.launches += 1
     return y
 

@@ -22,6 +22,8 @@ hd), on the CPU, against the JAX package:
     valid tile (kv_len below S, windows, sequence shards, lanes of unequal
     length) exactly once and no other."""
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -68,9 +70,37 @@ def _case(rep, qkw, seed):
     return q, b_k, k_bias, bufs, np.asarray((200, 256), np.int32), dict(rk=rk, rv=rv)
 
 
+def _diagnostics(request, call, got: np.ndarray, want: np.ndarray) -> str:
+    """What a failure of the parity below needs to be traced: the port's
+    output recomputed in this process (with this process's settings and on
+    one intra-op thread), torch's settings, and the test files that ran
+    earlier in this worker process (its terminal reporter's records)."""
+    again = call().numpy()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        one = call().numpy()
+    finally:
+        torch.set_num_threads(threads)
+    tr = request.config.pluginmanager.get_plugin("terminalreporter")
+    earlier = sorted({r.nodeid.split("::")[0] for reps in (tr.stats.values() if tr else ())
+                      for r in reps if getattr(r, "nodeid", "")})
+    lim = TOL * np.abs(want).max()
+    return (f"max err {np.abs(got - want).max()} > {lim}; got[0, 0, :3] {got[0, 0, :3].tolist()}, "
+            f"want {want[0, 0, :3].tolist()}; recomputed here: max |again - got| "
+            f"{np.abs(again - got).max()} (err {np.abs(again - want).max()}), on one thread "
+            f"max |one - got| {np.abs(one - got).max()} (err {np.abs(one - want).max()}); "
+            f"torch {torch.__version__} threads {threads} interop "
+            f"{torch.get_num_interop_threads()} default dtype {torch.get_default_dtype()} "
+            f"cpu capability {torch.backends.cpu.get_cpu_capability()} f32 matmul "
+            f"{torch.get_float32_matmul_precision()} worker "
+            f"{os.environ.get('PYTEST_XDIST_WORKER')}; files run earlier in "
+            f"this process: {earlier}")
+
+
 @pytest.mark.parametrize("q", list(QUANTS))
 @pytest.mark.parametrize("rep", list(REPS))
-def test_compact_form_matches_jax_repeated_form(rep, q):
+def test_compact_form_matches_jax_repeated_form(rep, q, request):
     qkw = QUANTS[q]
     qv, b_k, k_bias, bufs, kv_len, ranks = _case(rep, qkw, rep + len(q))
     # JAX's form: each kv-head's rows repeated for its rep q-heads
@@ -84,10 +114,15 @@ def test_compact_form_matches_jax_repeated_form(rep, q):
     tb = {k: torch.from_numpy(v) for k, v in bufs.items()}
     kw = dict(kv_len=torch.from_numpy(kv_len), **tb, qcfg=QuantConfig(**qkw), **ranks)
     n = palu_decode.launches
-    got = palu_decode(torch.from_numpy(qv), torch.from_numpy(b_k), **kw,
-                      k_bias=torch.from_numpy(k_bias))
+
+    def call():
+        return palu_decode(torch.from_numpy(qv), torch.from_numpy(b_k), **kw,
+                           k_bias=torch.from_numpy(k_bias))
+
+    got = call()
     assert palu_decode.launches == n  # CPU: the plain version
-    assert np.abs(got.numpy() - want).max() <= TOL * np.abs(want).max()
+    err = np.abs(got.numpy() - want).max()
+    assert err <= TOL * np.abs(want).max(), _diagnostics(request, call, got.numpy(), want)
     repeated = palu_decode(torch.from_numpy(qv), torch.from_numpy(jb_k), **kw,
                            k_bias=torch.from_numpy(jk_bias))
     assert torch.equal(got, repeated)

@@ -618,6 +618,110 @@ def test_hadamard_kernel_matches_plain(gen, shape, dtype):
         hadamard_transform(torch.zeros((2, 8192), device="cuda"))
 
 
+# every K that get_hadK gives at the compress path's ranks and past them
+# (1, 12, 28, 36, 40, 44, 52, 60; n 4096 for K 1), at row counts that are
+# not a multiple of the kernels' rows per block
+HAD_K_NS = [256, 4096, 96, 384, 448, 288, 320, 352, 416, 480, 1920, 24, 80, 160]
+
+
+@pytest.mark.parametrize("rows", [1, 3, 37, 4097])
+@pytest.mark.parametrize("n", HAD_K_NS)
+def test_hadamard_every_k_matches_plain(gen, n, rows):
+    """Each kernel of hadamard_plan (fwht for K 1, mix for the K the sign
+    masks cover) at every K, both orientations, f32 and bf16, against the
+    plain version in f32 on the same input (1e-5 of max|plain| in f32, one
+    bf16 rounding more in bf16); the plan's kind is the one the CPU tests
+    emulate."""
+    from palu_tpu_torch.core.hadamard import get_hadK
+    from palu_tpu_torch.ops.hadamard import (MIX_KS, hadamard_plan, hadamard_transform,
+                                             hadamard_transform_ref)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, k = get_hadK(n)
+    assert hadamard_plan(n)["kind"] == ("fwht" if k == 1 else "mix") and (k == 1 or k in MIX_KS)
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-3 + 2.0**-9)):
+        x = torch.randn((rows, n), generator=gen, device="cuda").to(dtype)
+        for transpose in (False, True):
+            got = hadamard_transform(x, transpose=transpose)
+            want = hadamard_transform_ref(x.float(), transpose=transpose)
+            assert got.dtype == dtype and torch.isfinite(got).all()
+            assert (got.float() - want).abs().max() <= tol * want.abs().max()
+
+
+@pytest.mark.parametrize("n", [352, 480, 256, 4096])
+def test_hadamard_repeats(gen, n):
+    """24 calls on one input give bit-identical outputs."""
+    from palu_tpu_torch.ops.hadamard import hadamard_transform
+
+    x = torch.randn((37, n), generator=gen, device="cuda")
+    first = hadamard_transform(x)
+    assert all(torch.equal(hadamard_transform(x), first) for _ in range(24))
+
+
+def test_hadamard_unaligned_rows(gen):
+    """A view that starts off a 16-byte boundary is copied before the
+    kernels' 16-byte reads."""
+    from palu_tpu_torch.ops.hadamard import hadamard_transform, hadamard_transform_ref
+
+    base = torch.randn((9, 352), generator=gen, device="cuda")
+    x = base.view(-1)[1:1 + 8 * 352].view(8, 352)
+    assert x.data_ptr() % 16
+    want = hadamard_transform_ref(x)
+    assert (hadamard_transform(x) - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.parametrize("rows", range(1, 9))
+@pytest.mark.parametrize("kn,bn", [((4096, 4096), 512), ((4096, 1024), 512), ((512, 1024), 64),
+                                   ((4096, 11008), 256), ((12288, 4096), 512), ((520, 1000), 16),
+                                   ((24, 40), 16), ((4096, 4096), 16)])
+def test_gemv_bf16_t_stream_matches_plain(gen, rows, kn, bn):
+    """The one-launch W^T GEMV at 1-8 rows: the tool's shape, the bf16
+    kernels test's, the int8 path's VT_k / w_fused shapes (VT_k: blocks of
+    16 warps), the MLP's 11008 (two column blocks a block), a contraction
+    that ends inside a 32-value unit (520), column blocks past N (1000,
+    40), bn 16."""
+    from palu_tpu_torch.tools import gemv_probe as gp
+
+    k, n = kn
+    wt = (torch.randn((n, k), generator=gen, device="cuda") * 0.02).bfloat16()
+    x = (torch.randn((rows, k), generator=gen, device="cuda") * 0.1).bfloat16()
+    want = gp.gemv_bf16_t_ref(x, wt).float()
+    c0 = gp.gemv_bf16_t.launches
+    got = gp.gemv_bf16_t(x, wt, bn)
+    assert gp.gemv_bf16_t.launches == c0 + 1
+    assert got.shape == (rows, n) and torch.isfinite(got).all()
+    assert (got.float() - want).abs().max() <= gp.GEMV_TOL * want.abs().max()
+
+
+@pytest.mark.parametrize("kn", [(4096, 4096), (4096, 1024), (4096, 32000)])
+@pytest.mark.parametrize("rows", [1, 8])
+def test_gemv_bf16_t_stream_repeats(gen, kn, rows):
+    """24 calls give bit-identical outputs: each column block's ranges are
+    added in a fixed order; 4096 x 32000 makes a block own four column
+    blocks, 4096 x 1024 splits the contraction over 16 warps."""
+    from palu_tpu_torch.tools import gemv_probe as gp
+
+    k, n = kn
+    wt = (torch.randn((n, k), generator=gen, device="cuda") * 0.02).bfloat16()
+    x = (torch.randn((rows, k), generator=gen, device="cuda") * 0.1).bfloat16()
+    first = gp.gemv_bf16_t(x, wt)
+    assert all(torch.equal(gp.gemv_bf16_t(x, wt), first) for _ in range(24))
+
+
+def test_gemv_bf16_t_refuses(gen):
+    """Shapes and knobs the kernel does not take raise before a launch."""
+    from palu_tpu_torch.tools import gemv_probe as gp
+
+    x = torch.zeros((9, 64), dtype=torch.bfloat16, device="cuda")
+    wt = torch.zeros((32, 64), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError):
+        gp.gemv_bf16_t(x, wt)  # 9 rows
+    with pytest.raises(ValueError):
+        gp.gemv_bf16_t(x[:1], wt, bn=24)  # bn not a multiple of 16
+    with pytest.raises(ValueError):
+        gp.gemv_bf16_t(x[:1, :60].contiguous(), wt[:, :60].contiguous())  # K % 8
+
+
 def test_fuse_hadamard_on_card_matches_cpu(gen):
     """core/lowrank.fuse_hadamard on CUDA factors (two kernel launches per
     group) against the CPU's formulation of the same factors."""
