@@ -12,8 +12,11 @@ Phases, each printing one JSON line:
                 bf16 decode kernels must hold wgmma (HGMMA) and TMA loads
                 (UTMALDG), gemv_bf16's mma.sync (HMMA), the Hadamard
                 kernels' shuffles and bulk copies, with no spill in any
-                Hadamard mix instantiation; the kernels' registers and
-                spills from ptxas;
+                Hadamard mix instantiation, and mma.sync with no local
+                memory in the register-streamed GEMVs (gemv4_n32,
+                gemv4_ldg, gemv_kn); the kernels' registers and spills
+                from ptxas;
+                every phase's line carries t_s, seconds since the start;
   3. kernels  - each kernel against its plain PyTorch version on the card at
                 the main path's shapes (7B widths), with the device times
                 (torch.profiler, L2 cold: the durations of the call's own
@@ -31,15 +34,17 @@ Phases, each printing one JSON line:
   4. e2e      - a 2-layer model at 7B widths: one 2048-token request and 16
                 teacher-forced decode steps through the kernels (bf16) on the
                 card, against the same run on the CPU (plain versions, f32);
-     e2e_w4   - the same under weight_bits=4, vt_bits=8, embed_bits=8; the
-                card's quantized codes and scales must equal the CPU's;
+     e2e_w4   - the same under weight_bits=4, vt_bits=8, embed_bits=8 (4
+                teacher-forced steps); the card's quantized codes and
+                scales must equal the CPU's;
      e2e_w8   - the same under weight_bits=8, vt_bits=8, embed_bits=8;
      e2e_fp, e2e_fp_t - the same over the unquantized bf16 latent caches
                 (qcfg None), seq-major and rank-major;
      e2e_qwen2, e2e_qwen2_w4 - 2 layers of Qwen2-7B (its published config
                 read by hf_io.config_from_hf; nonzero q/k/v biases; one
                 G-LRD group of 28 q-heads at ranks 256) over the 3-bit cache,
-                a 1024-token request, bf16 and under int4 weights; every
+                a 1024-token request, bf16 (16 steps) and under int4
+                weights (4 steps); every
                 decode launch carries the K bias and o_bias_corr equals the
                 CPU's;
      e2e_chunked - the same 2 layers over the per-chunk cache (3-bit asym,
@@ -76,7 +81,8 @@ Phases, each printing one JSON line:
      before each run and read just after:
      latency_kernel    - run_latency_kernel at 4K / 16K / 64K over bf16
                 latents and the exact 3-bit seq-major cache
-                (palu_decode_seq_quantized), providers WX, xla and ours;
+                (palu_decode_seq_quantized), providers WX and ours, and
+                xla (the plain PyTorch decode) at 4K and 16K;
      latency_attention - run_latency_attention at a 64K prompt: the 3-bit
                 cache exact, with int8_rot and with int8_dots, and dense KV,
                 1 layer each; the 3-bit cache at 32 layers, as is and with
@@ -204,6 +210,7 @@ from palu_tpu_torch.ops.archive.palu_decode3 import palu_decode3_quantized
 from palu_tpu_torch.ops.attention import dense_decode_sdpa, dense_flash_decode
 from palu_tpu_torch.ops.cache_append import (append_supported, append_token_quantized,
                                              append_token_quantized_ref)
+from palu_tpu_torch.ops import gemv_int4 as gemv_int4_mod
 from palu_tpu_torch.ops.gemv_int4 import (gemv_int4, gemv_int4_ref, mlp_gemv_int4,
                                           mlp_gemv_int4_ref)
 from palu_tpu_torch.ops.gemv_int8 import (gemv_int8, gemv_int8_ref, mlp_gemv_int8,
@@ -276,7 +283,14 @@ SDPA_YARDSTICK = ("scaled_dot_product_attention, one decode token over dense bf1
                   "the same context (a different function: the attention Palu replaces)")
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries `t_s`, the seconds since
+    the script started (where the run's time goes)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - _T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -475,6 +489,13 @@ def phase_build() -> None:
           # bulk copies, and no local memory in any mix instantiation
           "gemv_bf16_sass": {**hopper_sass("gemv_bf16", ("HMMA",), ("LDL", "STL")),
                              "spills": kernel_spills("gemv_bf16", "gemv_t_kernel")},
+          # the register-streamed one-launch GEMVs (gemv_int4 over a bf16 x on
+          # narrow or clustered column blocks, gemv_bf16 over W (K, N)):
+          # mma.sync counted, no local memory and no spill
+          "ldg_sass": {name: {**kernel_sass(src, name, ("HMMA", "LDG", "LDL", "STL")),
+                              "spills": kernel_spills(src, name, must_be_zero=True)}
+                       for src, name in (("gemv_int4", "gemv4_n32"), ("gemv_int4", "gemv4_ldg"),
+                                         ("gemv_bf16", "gemv_kn"))},
           "hadamard_sass": {**hopper_sass("hadamard", ("SHFL", "UBLKCP"), ("LDL", "STL")),
                             "mix_spills": kernel_spills("hadamard", "mix_kernel",
                                                         must_be_zero=True)}})
@@ -502,6 +523,28 @@ def kernel_spills(source: str, kernel: str, must_be_zero: bool = False) -> dict:
     if must_be_zero and any(out.values()):
         raise AssertionError(f"{source}: {kernel} spills: {out}")
     return out
+
+
+def kernel_sass(source: str, kernel: str, ops) -> dict:
+    """Counts of `ops` in the SASS of the kernels of csrc/<source>.cu whose
+    name holds `kernel` (cuobjdump -sass, split at its "Function :"
+    headers). Raises when no such kernel is found, when it has no HMMA
+    (mma.sync) where HMMA is counted, or when it uses local memory (LDL /
+    STL: a spill or a runtime-indexed array)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {"cuobjdump": "not found"}
+    sass = subprocess.run([tool, "-sass", str(build._lib_path(source))],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    parts = [p for p in re.split(r"\n\s*Function : ", sass)[1:]
+             if kernel in p.split("\n", 1)[0]]
+    if not parts:
+        raise AssertionError(f"{source}: no SASS of {kernel}")
+    counts = {op: sum(len(re.findall(rf"\b{re.escape(op)}\b", p)) for p in parts)
+              for op in ops}
+    if ("HMMA" in counts and not counts["HMMA"]) or counts.get("LDL") or counts.get("STL"):
+        raise AssertionError(f"{source} {kernel}: SASS {counts}")
+    return counts
 
 
 # what the streaming GEMVs' design stands on: mma.sync (HMMA), TMA tile
@@ -1642,7 +1685,8 @@ def _held(name, got, want) -> tuple:
 # host time per call of the wrappers before the streaming kernels, as this
 # script measured it (host_us_per_call; NVIDIA H100 80GB HBM3, 700 W),
 # shown beside this run's
-PARENT_HOST_US = {"mlp_gemv_int4": 42.3, "gemv_int8": 30.1}
+PARENT_HOST_US = {"mlp_gemv_int4": 42.3, "gemv_int8": 30.1,
+                  "gemv_int4": 45.8}  # gemv_int4: the split pass and its reduce kernel
 
 
 def _kernel_line(name, bits, cases, mix, per, per8, worst_abs, worst_rel, host,
@@ -1696,7 +1740,8 @@ def _held_rows(fn, ref, label, k, ws, gen, rows_list=(1, 8)) -> tuple:
 
 
 def check_gemv(gen, bits: int) -> dict:
-    """gemv_int4 at q_proj, w_fused and lm_head; gemv_int8 at VT_k and VT_v
+    """gemv_int4 at q_proj, w_fused and lm_head (one kernel per call at 1
+    and 8 rows, int4pack timed at both); gemv_int8 at VT_k and VT_v
     (the README path), at q_proj, w_fused and the row-major lm_head (the
     weight_bits=8 path: weight 0 in the README mix) and on the transposed
     tied int8 head (on no served path). Both also at the Qwen2-7B widths
@@ -1740,6 +1785,20 @@ def check_gemv(gen, bits: int) -> dict:
                       "int_library_ms": None if lib is None else device_ms(lambda: lib(x1), 20),
                       "bytes": _nbytes(*w.values()) + 2 * (k + n), "flops": 2 * k * n}
         per[label]["kernels_per_call"] = kernels_per_call(lambda: fn(x1, w))
+        per[label]["bound_ms"], per[label]["bound_by"] = bound_ms(per[label]["bytes"],
+                                                                  per[label]["flops"])
+        bms8, _ = bound_ms(per[label]["bytes"] + 14 * (k + n), 8 * per[label]["flops"])
+        check_bound(f"{fn.__name__} {label}", per[label]["ms"], per[label]["bound_ms"])
+        check_bound(f"{fn.__name__} {label} 8 rows", per8[label]["ms"], bms8)
+        if bits == 4:  # one launch (gemv4_n32 or gemv4_ldg), no reduce kernel
+            per8[label]["kernels_per_call"] = kernels_per_call(lambda: fn(x8, w))
+            if per[label]["kernels_per_call"] != 1 or per8[label]["kernels_per_call"] != 1:
+                raise AssertionError(f"gemv_int4 {label}: {per[label]['kernels_per_call']} / "
+                                     f"{per8[label]['kernels_per_call']} kernels per call")
+            per[label]["route"] = gemv_int4_mod.gemv4_route(
+                torch.cuda.get_device_properties(0).multi_processor_count, k, n, 1)[0]
+        if lib is not None and bits == 4:
+            per8[label]["int_library_ms"] = device_ms(lambda: lib(x8), 20)
         if lib is not None:  # how close the yardstick's function is to ours
             want = ref(x1, w).float()
             per[label]["int_library_rel_err"] = (
@@ -1843,6 +1902,14 @@ def _qwen2_e2e_inputs():
     return (cfg, params, rng.integers(0, QVOCAB, (1, 1024)), rng.integers(0, QVOCAB, 16))
 
 
+# teacher-forced steps of the quantized-weight e2e phases (e2e_w4, e2e_w8,
+# e2e_qwen2_w4): on the CPU the plain GEMVs dequantize each weight group
+# by group on every step (Qwen2-7B's 152064-column int4 head is ~2 GB of
+# f32 codes a step), which took 40 / 26 / 69 s of the CPU reference at 16
+# steps; the bf16 phases keep 16
+E2E_WEIGHT_STEPS = 4
+
+
 def phase_e2e(tag: str = "e2e", wkw=None, inputs=None) -> None:
     """2 layers at full width, card (bf16, kernels) against CPU (f32, plain
     versions) on the same bf16-rounded weights: `inputs` is (cfg, params,
@@ -1852,6 +1919,8 @@ def phase_e2e(tag: str = "e2e", wkw=None, inputs=None) -> None:
     codes) equals the CPU's to f32 rounding."""
     wkw = wkw or {}
     cfg, params, ids, forced = inputs or _e2e_inputs()
+    if wkw:  # the CPU's plain int4 / int8 GEMVs dequantize every step
+        forced = forced[:E2E_WEIGHT_STEPS]
     params_gpu = _tree_to(params, "cuda", torch.bfloat16)
     params_cpu = _tree_to(params, "cpu", torch.float32)
     ecfg = EngineConfig(s_max=4096, batch=1, qcfg=FLAGSHIP, decode_chunk=512, **wkw)
@@ -2412,25 +2481,31 @@ def _only(counts: dict, want: dict, tag: str) -> None:
 
 def phase_latency_kernel() -> dict:
     """run_latency_kernel at 4K / 16K / 64K with the 7B ranks (rank_k 1024,
-    rank_v 3072, groups of 4), providers WX, xla and ours, over bf16
+    rank_v 3072, groups of 4), providers WX and ours (xla at 4K and 16K,
+    in a second run of the CLI), over bf16
     latents (ours: palu_decode_fp) and the exact 3-bit seq-major cache
     (ours: palu_decode_seq_quantized). Counts are set to 0 just before
     each run and read just after: `ours` is 10 warm-up and 50 timed
     launches per length, and nothing else launches a kernel. Returns the
     3-bit run's counts."""
-    lens = (4096, 16384, 65536)
+    # (lengths, providers): the plain PyTorch provider (xla) is not run at
+    # 64K, where it took ~10 s a run (0.13-0.17 s a call)
+    runs = (((4096, 16384), ("WX", "xla", "ours")), ((65536,), ("WX", "ours")))
     out = {}
     for lt, fn in (("16", palu_decode_fp), ("3", palu_decode_seq_quantized)):
-        argv = ["--target_seq_lens", *map(str, lens), "--total_rank_v", "3072",
-                "--lt_bits", lt, "--json"]
+        argvs = [["--target_seq_lens", *map(str, lens), "--total_rank_v", "3072",
+                  "--lt_bits", lt, "--providers", *providers, "--json"]
+                 for lens, providers in runs]
         reset_counts()
         t0 = time.perf_counter()
+        rows = []
         with contextlib.redirect_stdout(io.StringIO()):  # the CLI's own records
-            rows = run_latency_kernel.main(argv)
+            for argv in argvs:
+                rows += run_latency_kernel.main(argv)
         torch.cuda.synchronize()
         counts = read_counts()
-        _only(counts, {fn.__name__: 60 * len(lens)}, f"latency_kernel lt_bits {lt}")
-        emit({"phase": "latency_kernel", "argv": argv, "rows_us": rows,
+        _only(counts, {fn.__name__: 60 * len(rows)}, f"latency_kernel lt_bits {lt}")
+        emit({"phase": "latency_kernel", "argv": argvs, "rows_us": rows,
               "providers": {"ours": fn.__name__, "xla": "ops/attention.flash_decode_latent "
                             "(plain PyTorch)", "WX": "ops/attention.dense_decode_sdpa over "
                             "dense bf16 K/V (one scaled_dot_product_attention call)"},
@@ -2902,6 +2977,27 @@ def _probe_line(name: str, source: str, replaces: str, head: str, recs: list,
             "variants_ms": {r["variant"]: r["us"] / 1e3 for r in mine}}
 
 
+def _gemv_bf16_rows8() -> dict:
+    """gemv_bf16 (W (K, N)) at the probe's 4096 x 4096 and 8 rows of x
+    (the tool times 1 row): held against its plain version, its device
+    time beside torch.matmul's and the bound (launches here are not the
+    probe run's)."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    k = n = gemv_probe.K
+    w = (torch.randn((k, n), generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+    x8 = (torch.randn((8, k), generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+    got, want = gemv_probe.gemv_bf16(x8, w).float(), gemv_probe.gemv_bf16_ref(x8, w).float()
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    if not (torch.isfinite(got).all() and rel <= GEMV_TOL):
+        raise AssertionError(f"gemv_bf16 8 rows: rel err {rel} > {GEMV_TOL}")
+    bms, _ = bound_ms(_nbytes(w, x8) + 8 * n * 2, 2 * 8 * k * n)
+    ms = device_ms(lambda: gemv_probe.gemv_bf16(x8, w), 20)
+    check_bound("gemv_bf16 8 rows", ms, bms)
+    return {"ms_8rows": ms, "library_ms_8rows": device_ms(lambda: torch.matmul(x8, w), 20),
+            "bound_ms_8rows": bms, "max_rel_err_8rows": rel,
+            "kernels_per_call_8rows": kernels_per_call(lambda: gemv_probe.gemv_bf16(x8, w))}
+
+
 def phase_probes() -> list:
     """The six tool entry points (python -m palu_tpu_torch.tools.<name>)
     on the card at the JAX tools' default sizes with every variant: counts
@@ -2945,6 +3041,8 @@ def phase_probes() -> list:
         if name is None:
             continue
         lines.append(_probe_line(name, source, replaces, head, recs, counts))
+        if name == "gemv_bf16":
+            lines[-1].update(_gemv_bf16_rows8())
         for e_name, e_source, e_replaces, e_head in extra:
             lines.append(_probe_line(e_name, e_source, e_replaces, e_head, recs, counts))
     return lines

@@ -1,5 +1,5 @@
-// Blocked bf16 GEMV: the streaming floor that the weight-only GEMVs
-// (gemv_int4.cu, gemv_int8.cu) should approach.
+// The bf16 GEMVs of the probe tool: the streaming floor that the
+// weight-only GEMVs (gemv_int4.cu, gemv_int8.cu) should approach.
 //
 // Replaces: tools/tpu_gemv_probe.py::gemv_pallas (y = x . W over N tiles of
 // BN, W stored (K, N)) and gemv_pallas_t (the same product with W^T stored
@@ -11,16 +11,31 @@
 // tensor-core rate. The weight stays in the 50 MB L2 across back-to-back
 // calls: a caller that times it flushes L2 between calls.
 //
-// Design on W (K, N), gemv_bf16: the TPU grid walks N tiles in order; here
-// block (j, s) owns the BN columns [j * BN, (j + 1) * BN) and the s-th
-// range of the contraction, so that some four blocks run per SM (split-K),
-// and a second kernel adds the splits in a fixed order (gemv_common.cuh's
-// reduce_out: results repeat from run to run). x's slice is staged in
-// shared memory in f32. A block's BN / 8 column threads each read 16 bytes
-// (8 columns) of a row, neighbouring threads on neighbouring bytes, and its
-// 256 / (BN / 8) row lanes take every such row of the range; the row lanes
-// are summed in shared memory. Loads skip L1
-// (ld.global.nc.L1::no_allocate): every weight byte is read once.
+// On W (K, N), gemv_bf16: one launch on the tensor cores (gemv_kn below),
+// the register-streamed design of gemv_common.cuh (namespace ldg). A
+// column block is 64 output columns; a unit is 32 contraction rows of it
+// (4 KB). Lane (g, t) of a warp loads 16 bytes (columns 8 g .. 8 g + 7)
+// of rows 8 t .. 8 t + 7 of the unit straight into registers (a warp-wide
+// load covers four whole 128-byte rows) and x's row g at those 8 rows.
+// mma.sync's A fragment wants two contraction rows of one column in a
+// register; a 16-byte load holds 8 columns of one row, so rows 2m and
+// 2m + 1 are paired by byte permutes (0x5410: their even columns, 0x7632:
+// their odd ones), one instruction per 4 weight bytes. The mma's k order
+// is free as long as A and B agree: k-step s takes rows 4 s, 4 s + 1 (K
+// slots 2t, 2t + 1) and 4 s + 2, 4 s + 3 (slots 2t + 8, 2t + 9), the words
+// 2 s and 2 s + 1 of x's 16 bytes; M row g of mma tile j is column
+// 8 g + 2 j, row g + 8 column 8 g + 2 j + 1. Two units a warp are in
+// flight (8 KB), the next one's loads issued as each is consumed. Rows
+// past K and columns past N read as zeros. Plan:
+// tools/gemv_probe.gemv_plan.
+//
+// Why this pairing: a lane's 16-byte load of W^T holds k-pairs already
+// (gemv_bf16_t below); of W it does not. movmatrix.trans (a warp-wide
+// 8 x 8 transpose) was not tried. CUDA-core f32 multiply-adds on the
+// loaded values (the design this kernel replaces: a split pass plus a
+// reduce kernel, x staged as f32 in shared memory) cost 8 per weight
+// value at 8 rows against 1/4 of a permute and 1/64 of an mma here; on an
+// H100 80GB HBM3 (700 W) that design took 0.0196 ms at 1 row (PERF.md).
 //
 // On W^T (N, K), gemv_bf16_t: one launch on the tensor cores, below
 // (namespace tldg).
@@ -34,78 +49,114 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-constexpr int kThreads = 256;
+using namespace gemv;
 
-__device__ __forceinline__ uint4 ld_nc16(const void* p) {
-  uint4 v;
-  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "l"(p));
-  return v;
-}
+// ---- W (K, N): the one-launch kernel of gemv_bf16 ----
 
-__device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float2 t = __bfloat1622float2(h[k]);
-    f[2 * k] = t.x;
-    f[2 * k + 1] = t.y;
-  }
-}
+constexpr int kColsKN = 64;  // output columns of a column block
+constexpr int kUnitKN = 32;  // contraction rows of a unit
 
-// x[:, k0 : k0 + len] as f32 into xs[m * len + k] (the block reads it so)
-template <int M>
-__device__ __forceinline__ void stage_x(const bf16* __restrict__ x, int K, int k0, int len,
-                                        float* xs) {
-  for (int i = threadIdx.x; i < M * len; i += kThreads) {
-    const int m = i / len, k = i - m * len;
-    xs[i] = __bfloat162float(x[static_cast<size_t>(m) * K + k0 + k]);
-  }
-}
+struct ArgsKN {
+  const bf16* x;  // (M, K), 16-byte aligned
+  const bf16* w;  // (K, N), 16-byte aligned
+  bf16* y;        // (M, N)
+  int M, K, N, cluster;
+  unsigned long long* tl;  // kTimeline: ldg::kStamps per block
+};
 
-// W (K, N): part[s, m, n] for the block's columns and rows [k0, k0 + krange).
-template <int M>
-__global__ void __launch_bounds__(kThreads)
-    gemv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w, float* __restrict__ part,
-                int K, int N, int BN, int krange) {
-  extern __shared__ float sm[];
-  const int ct_n = BN / 8, lanes = kThreads / ct_n;
-  const int ct = threadIdx.x % ct_n, rl = threadIdx.x / ct_n;
-  const int n0 = blockIdx.x * BN + ct * 8, split = blockIdx.y;
-  const int k0 = split * krange, len = min(krange, K - k0);
-  float* xs = sm;                       // [M][krange]
-  float* red = sm + M * krange;         // [lanes][M][BN]
-  stage_x<M>(x, K, k0, len, xs);
-  __syncthreads();
-  float acc[M][8];
+// d += the unit's 32 rows (w, rows 8 t + r) times x's 8 values (xv)
+__device__ __forceinline__ void unit_mma(const uint4 (&w)[8], const uint4& xv,
+                                         float (&acc)[4][4]) {
 #pragma unroll
-  for (int m = 0; m < M; ++m)
+  for (int s = 0; s < 2; ++s) {
+    const uint32_t b0 = ldg::word(xv, 2 * s), b1 = ldg::word(xv, 2 * s + 1);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[m][j] = 0.0f;
-#pragma unroll 4
-  for (int k = rl; k < len; k += lanes) {
-    float f[8];
-    unpack8(ld_nc16(w + static_cast<size_t>(k0 + k) * N + n0), f);
-#pragma unroll
-    for (int m = 0; m < M; ++m) {
-      const float xv = xs[m * len + k];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[m][j] += xv * f[j];
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t r0 = ldg::word(w[4 * s], j), r1 = ldg::word(w[4 * s + 1], j);
+      const uint32_t r2 = ldg::word(w[4 * s + 2], j), r3 = ldg::word(w[4 * s + 3], j);
+      ring::mma_bf16(acc[j], __byte_perm(r0, r1, 0x5410), __byte_perm(r0, r1, 0x7632),
+                     __byte_perm(r2, r3, 0x5410), __byte_perm(r2, r3, 0x7632), b0, b1);
     }
   }
-  for (int m = 0; m < M; ++m) {
-    float4* dst = reinterpret_cast<float4*>(red + (rl * M + m) * BN + ct * 8);
-    dst[0] = make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
-    dst[1] = make_float4(acc[m][4], acc[m][5], acc[m][6], acc[m][7]);
+}
+
+template <bool kTimeline>
+__global__ void __launch_bounds__(ldg::kThreads, 2) gemv_kn(const ArgsKN a) {
+  extern __shared__ __align__(16) float smem_kn[];
+  const int C = a.cluster, M = a.M, K = a.K, N = a.N;
+  const int rank = C > 1 ? static_cast<int>(hopper::cluster_rank()) : 0;
+  const int col_blocks = (N + kColsKN - 1) / kColsKN, U = (K + kUnitKN - 1) / kUnitKN;
+  const int cid = blockIdx.x / C, ncl = gridDim.x / C;
+  const int ncb = (col_blocks - cid + ncl - 1) / ncl;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int W = ldg::kWarps * C, wi = rank * ldg::kWarps + warp;
+  const int uw0 = wi * U / W, nuw = (wi + 1) * U / W - uw0;  // this warp's units
+  const int ntiles = ncb * nuw;
+  float* red = smem_kn;
+  float* recv = smem_kn + ldg::kWarps * M * (kColsKN + ldg::kPad);
+  if (C > 1) hopper::cluster_arrive();  // waited for before the first push
+  unsigned long long* tl = kTimeline ? a.tl + blockIdx.x * ldg::kStamps : nullptr;
+  if (kTimeline && threadIdx.x == 0) {
+    tl[0] = ldg::stamp(0u);
+    tl[6] = ntiles + (rank << 16);
+    tl[7] = ldg::smid();
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < M * BN; i += kThreads) {
-    const int m = i / BN, c = i - m * BN;
-    float s = 0.0f;
-    for (int l = 0; l < lanes; ++l) s += red[(l * M + m) * BN + c];
-    part[(static_cast<size_t>(split) * M + m) * N + blockIdx.x * BN + c] = s;
+
+  // unit i of the warp: unit uw0 + i % nuw of column block cid + (i / nuw) * ncl
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  auto load = [&](int i, uint4 (&w)[8], uint4& xv) {
+    const int col = (cid + (i / nuw) * ncl) * kColsKN + 8 * g;
+    const int k0 = (uw0 + i % nuw) * kUnitKN + 8 * t;
+    const bf16* src = a.w + static_cast<size_t>(k0) * N + col;
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      w[r] = col < N && k0 + r < K ? ldg::ld_w(src + static_cast<size_t>(r) * N) : zero;
+    xv = g < M && k0 < K ? ldg::ld_x(a.x + static_cast<size_t>(g) * K + k0) : zero;
+  };
+  uint4 wa[8], wb[8], xa = zero, xb = zero;  // units of even / odd index
+  if (ntiles > 0) load(0, wa, xa);
+  if (ntiles > 1) load(1, wb, xb);
+
+  float acc[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+  int i = 0;
+  for (int jb = 0; jb < ncb; ++jb) {
+    for (int u = 0; u < nuw; ++u, ++i) {
+      if (kTimeline && i == 0 && threadIdx.x == 0) tl[1] = ldg::stamp(wa[0].x ^ wa[7].w);
+      if ((i & 1) == 0) {
+        unit_mma(wa, xa, acc);
+        if (i + 2 < ntiles) load(i + 2, wa, xa);
+      } else {
+        unit_mma(wb, xb, acc);
+        if (i + 2 < ntiles) load(i + 2, wb, xb);
+      }
+      if (kTimeline && i + 1 == ntiles && threadIdx.x == 0)
+        tl[2] = ldg::stamp(__float_as_uint(acc[3][3]));
+    }
+    // the warp's sums: M row g of tile j is column 8 g + 2 j, row g + 8
+    // column 8 g + 2 j + 1; acc[j][e] is x's row 2 t + (e & 1)
+    __syncthreads();  // the last column block's sums have been read
+    constexpr int RS = kColsKN + ldg::kPad;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int n = 2 * t + e;
+      if (n < M) {
+        float4* row = reinterpret_cast<float4*>(red + (warp * M + n) * RS + 8 * g);
+        row[0] = make_float4(acc[0][e], acc[0][e + 2], acc[1][e], acc[1][e + 2]);
+        row[1] = make_float4(acc[2][e], acc[2][e + 2], acc[3][e], acc[3][e + 2]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+    ldg::finish<kColsKN>(red, recv, M, C, rank, jb & 1, jb == 0, (cid + jb * ncl) * kColsKN, N,
+                         a.y, tl);
   }
+  if (kTimeline && threadIdx.x == 0) tl[5] = ldg::stamp(0u);
 }
 
 // ---- W^T (N, K): the one-launch kernel of gemv_bf16_t ----
@@ -209,43 +260,28 @@ __global__ void __launch_bounds__(W * 32) gemv_t_kernel(const bf16* __restrict__
 
 }  // namespace tldg
 
-template <int M>
-int launch(const bf16* x, const bf16* w, float* part, int K, int N, int BN, int splits, int krange,
-           cudaStream_t st) {
-  const int lanes = kThreads / (BN / 8);
-  const size_t smem = sizeof(float) * (static_cast<size_t>(M) * krange +
-                                       static_cast<size_t>(lanes) * M * BN);
-  if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      gemv_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  gemv_kernel<M><<<dim3(N / BN, splits), kThreads, smem, st>>>(x, w, part, K, N, BN, krange);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
-// y (M, N) bf16 = x (M, K) bf16 . W, W stored (K, N); M 1 to 8. BN columns
-// per block: a power of two between 64 and 2048 that divides N. The
-// contraction splits into `splits` ranges of krange rows (a multiple of 8;
-// splits * krange >= K); part holds splits * M * N f32. K and N multiples
-// of 8.
-extern "C" int gemv_bf16(const void* x, const void* w, void* part, void* y, int M, int K, int N,
-                         int BN, int splits, int krange, void* stream) {
-  if (K % 8 || N % 8 || BN <= 0 || N % BN || krange % 8 || krange <= 0 ||
-      static_cast<long long>(splits) * krange < K || (splits - 1) * krange >= K ||
-      BN % 8 || BN < 64 || BN > 2048 || kThreads % (BN / 8))
+// y (M, N) bf16 = x (M, K) bf16 . W, W stored (K, N), in one launch; M 1 to
+// 8, K and N multiples of 8, x and W 16-byte aligned. cluster / grid:
+// tools/gemv_probe.gemv_plan; tl: null, or grid x ldg::kStamps timeline
+// stamps.
+extern "C" int gemv_bf16(const void* x, const void* w, void* y, int M, int K, int N,
+                         int cluster, int grid, void* tl, void* stream) {
+  const int col_blocks = (N + kColsKN - 1) / kColsKN;
+  if (K <= 0 || K % 8 || N <= 0 || N % 8 || ldg::bad_launch(cluster, grid, col_blocks, M) ||
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* xb = static_cast<const bf16*>(x);
-  const bf16* wb = static_cast<const bf16*>(w);
-  float* pf = static_cast<float*>(part);
-#define PALU_GEMV_BF16(B) launch<B>(xb, wb, pf, K, N, BN, splits, krange, st)
-  const int err = [&]() -> int { PALU_SWITCH_B(M, PALU_GEMV_BF16) }();
-#undef PALU_GEMV_BF16
-  if (err != 0) return err;
-  gemv::launch_reduce<bf16>(pf, splits, M, N, nullptr, static_cast<bf16*>(y), st);
-  return static_cast<int>(cudaGetLastError());
+  ArgsKN a = {static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<bf16*>(y),
+              M, K, N, cluster, static_cast<unsigned long long*>(tl)};
+  return ldg::launch(tl != nullptr ? gemv_kn<true> : gemv_kn<false>, a, cluster, grid,
+                     ldg::smem_bytes(kColsKN, M, cluster), static_cast<cudaStream_t>(stream));
+}
+
+// Clusters of `cluster` gemv_kn blocks (shared memory of 8 rows) the card
+// runs at once (cudaOccupancyMaxActiveClusters), or -1.
+extern "C" int gemv_bf16_max_clusters(int cluster) {
+  return ldg::max_clusters(gemv_kn<false>, cluster, ldg::smem_bytes(kColsKN, 8, cluster));
 }
 
 // y (M, N) bf16 = x (M, K) bf16 . W, W^T stored (N, K), in one launch:

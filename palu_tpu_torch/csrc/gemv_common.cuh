@@ -1,11 +1,13 @@
-// Shared pieces of the weight-only GEMV kernels (gemv_int4.cu, gemv_int8.cu):
-// the CUDA-core split pass below, and the streaming tensor-core GEMV
-// (namespace ring, further down).
+// Shared pieces of the weight-only GEMV kernels (gemv_int4.cu, gemv_int8.cu)
+// and of the bf16 GEMV over W (K, N) (gemv_bf16.cu): the CUDA-core split
+// pass below, the streaming tensor-core GEMV (namespace ring, further
+// down), and the sums of the register-streamed one-launch GEMVs (namespace
+// ldg, last).
 //
-// The split pass serves gemv_int4 (every shape), mlp_gemv_int8, and the
-// inputs the streaming kernels do not take: an f32 x (tensor cores would
-// round it to bf16; these keep f32 products) for mlp_gemv_int4 and
-// gemv_int8, and an int8 weight whose rows are not 16-byte aligned. It is
+// The split pass serves mlp_gemv_int8 and the inputs the tensor-core
+// kernels do not take: an f32 x (tensor cores would round it to bf16;
+// these keep f32 products) for gemv_int4, mlp_gemv_int4 and gemv_int8, and
+// an int8 weight whose rows are not 16-byte aligned. It is
 // bound by integer issue more than by bytes: each weight byte costs ~4
 // integer instructions and 2 float subtracts before its multiply-adds.
 //
@@ -877,5 +879,213 @@ inline int launch(const CUtensorMap& m0, const CUtensorMap& m1, const Args& a, i
 }
 
 }  // namespace ring
+
+// ---------------------------------------------------------------------------
+// The register-streamed GEMVs (Hopper): gemv_int4 over a bf16 x
+// (gemv_int4.cu) and the probe's gemv_bf16 over W (K, N) (gemv_bf16.cu).
+// ---------------------------------------------------------------------------
+//
+// One launch, no shared-memory ring: each warp loads its weight rows 16
+// bytes a lane straight into registers (ld.global.nc, L1 not allocated),
+// turns them into mma.sync fragments with byte permutes, and issues the
+// loads of its next tile as it consumes the current one, so that ~8 KB a
+// warp stay in flight. On an H100 80GB HBM3 (700 W) plain 16-byte loads
+// streamed a 33.5 MB matrix at 2.2-2.5 TB/s against ~2 TB/s for TMA, bulk
+// copies or cp.async (tools/gemv_ab.py --only=floor).
+//
+// A column block (int4 128 output columns, bf16 64) is the unit of the
+// sums. Its contraction is split over the 8 warps of each of the `cluster`
+// blocks of a thread-block cluster: warp w of rank r is split
+// wi = 8 r + w of W = 8 * cluster, and takes the contraction units [wi * U
+// / W, (wi + 1) * U / W). Each warp keeps f32 sums of its units for the
+// block's columns and x's rows (x's rows are mma's N: 8 rows cost what one
+// costs); the block adds its warps in warp order in shared memory, the
+// ranks push the sums of the columns another rank finishes into that
+// rank's shared memory (distributed shared memory), and after a cluster
+// barrier each rank adds its columns' rows in rank order and writes them
+// rounded to bf16. Two calls are bit-identical; no f32 partial row goes to
+// device memory and no float atomic is used. A cluster owns column blocks
+// cid, cid + ncl, ... (cid = blockIdx / cluster, ncl clusters); the plan
+// (ops/gemv_int8.ldg_plan) keeps the grid in one wave.
+
+namespace ldg {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kMaxCluster = 8;  // portable cluster sizes: 1, 2, 4, 8
+constexpr int kPad = 4;         // floats added to a row of the warps' sums
+
+// Shared memory of a block: the warps' sums red[warp][row][cols + kPad]
+// and, in a cluster of more than one, two receive buffers (by the column
+// block's parity) [source rank][row][cols / cluster]. Mirrored by
+// ops/gemv_int8.ldg_smem.
+__host__ __device__ inline int smem_bytes(int cols, int B, int cluster) {
+  return (kWarps * B * (cols + kPad) + (cluster > 1 ? 2 * B * cols : 0)) * 4;
+}
+
+// 16 (or 4) bytes of a weight (read once: no L1 line) and 16 (or 4) of x
+// (read by every warp that shares its contraction rows: cached).
+__device__ __forceinline__ uint4 ld_w(const void* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t ld_w4(const void* p) {
+  uint32_t v;
+  asm volatile("ld.global.nc.L1::no_allocate.u32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t ld_x4(const void* p) {
+  uint32_t v;
+  asm volatile("ld.global.nc.u32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ uint4 ld_x(const void* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+// 16 bytes from global into shared memory, asynchronously (cp.async), and
+// the wait for this thread's copies.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\ncp.async.commit_group;" ::"r"(
+                   hopper::smem_u32(smem)),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// Timeline stamps of a block (%globaltimer ns; tools/gemv_ab.py
+// --timeline), written by thread 0 of the kernels' kTimeline
+// instantiation: start, warp 0's first tile data in registers, warp 0's
+// last tile computed, every warp's sums in shared memory (the last column
+// block), the cluster's pushes received, end; then warp 0's tiles (its warp 0's, plus 65536 times its cluster rank) and SM.
+constexpr int kStamps = 8;
+
+__device__ __forceinline__ unsigned smid() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(r));
+  return r;
+}
+
+// %globaltimer once `dep` is in a register (a loaded value's arrival).
+__device__ __forceinline__ unsigned long long stamp(uint32_t dep) {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t) : "r"(dep));
+  return t;
+}
+
+// The block's sums of one column block [col0, col0 + COLS) of out (B, N):
+// red holds each warp's sums (rows n < B), written by the caller after a
+// __syncthreads; recv is this block's receive buffers (C > 1), par the
+// column block's parity, first whether it is the cluster's first column
+// block (the wait of the barrier the kernel arrived at on entry: every
+// block of the cluster runs before any pushes into its shared memory).
+// Columns at or past N are not written.
+template <int COLS>
+__device__ __forceinline__ void finish(const float* red, float* recv, int B, int C, int rank,
+                                       int par, bool first, int col0, int N,
+                                       __nv_bfloat16* __restrict__ out,
+                                       unsigned long long* tl) {
+  constexpr int RS = COLS + kPad;
+  __syncthreads();  // every warp's sums are in red
+  const int tid = threadIdx.x;
+  if (tl != nullptr && tid == 0) tl[3] = tl[4] = stamp(0u);
+  if (C == 1) {
+    for (int idx = tid; idx < B * COLS; idx += kThreads) {
+      const int n = idx / COLS, c = idx - n * COLS;
+      float v = red[n * RS + c];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) v += red[(w * B + n) * RS + c];
+      if (col0 + c < N) out[static_cast<size_t>(n) * N + col0 + c] = __float2bfloat16_rn(v);
+    }
+    return;
+  }
+  const int per = COLS / C;
+  if (first) hopper::cluster_wait();
+  const uint32_t rbase = hopper::smem_u32(recv) + par * (B * COLS * 4);
+  for (int idx = tid; idx < B * COLS; idx += kThreads) {
+    const int n = idx / COLS, c = idx - n * COLS;
+    float v = red[n * RS + c];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) v += red[(w * B + n) * RS + c];
+    const int owner = c / per;
+    hopper::st_cluster_f32(rbase + ((rank * B + n) * per + c - owner * per) * 4, owner, v);
+  }
+  hopper::cluster_arrive();  // release: the pushes above
+  hopper::cluster_wait();    // acquire: every rank's pushes into this block
+  if (tl != nullptr && tid == 0) tl[4] = stamp(0u);
+  const float* mine = recv + par * B * COLS;
+  for (int idx = tid; idx < B * per; idx += kThreads) {
+    const int n = idx / per, k = idx - n * per;
+    float v = mine[n * per + k];
+    for (int r = 1; r < C; ++r) v += mine[(r * B + n) * per + k];
+    const int col = col0 + rank * per + k;
+    if (col < N) out[static_cast<size_t>(n) * N + col] = __float2bfloat16_rn(v);
+  }
+}
+
+// Launch `grid` blocks of kernel(a) in clusters of `cluster` (1: no
+// cluster attribute) with `smem` bytes of dynamic shared memory.
+template <typename A>
+inline int launch(void (*kernel)(A), const A& a, int cluster, int grid, int smem,
+                  cudaStream_t st) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, a));
+}
+
+// Clusters of `cluster` blocks of kernel (smem bytes each) that the card
+// runs at once, or -1.
+template <typename A>
+inline int max_clusters(void (*kernel)(A), int cluster, int smem) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  return cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) == cudaSuccess ? n : -1;
+}
+
+// A launch the kernel does not take: a cluster size other than 1, 2, 4
+// or 8, a grid that is not whole clusters or has a cluster with no column
+// block, rows outside 1..8.
+inline bool bad_launch(int cluster, int grid, int col_blocks, int B) {
+  return !(cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8) || grid <= 0 ||
+         grid % cluster || grid / cluster > col_blocks || B < 1 || B > 8;
+}
+
+}  // namespace ldg
 
 }  // namespace gemv

@@ -9,11 +9,18 @@ x has 1 to 8 rows; results are in x.dtype. CUDA tensors launch the
 kernels, CPU tensors run the plain versions (`*_ref`), which dequantize
 group by group in f32: y = sum_g (x_g @ (q_g - 8)) * s_g.
 
-mlp_gemv_int4 over a bf16 x runs the streaming tensor-core kernels
-(csrc/gemv_common.cuh, namespace ring) in two launches on the plan of
-`mlp_plan` where they are the faster (`use_stream_mlp`); gemv_int4, and
-mlp_gemv_int4 otherwise or over an f32 x, run the CUDA-core split pass
-(`split_k`) and its reduce kernels.
+gemv_int4 over a bf16 x runs one launch of a register-streamed
+tensor-core kernel (csrc/gemv_int4.cu; `gemv4_route`): gemv4_n32 (a block
+of 16 warps per 32 columns, no cluster) where N / 32 column blocks fit the
+card in one wave, else gemv4_ldg (128-column blocks, the contraction split
+over a cluster) on the plan of `gemv4_plan`. On an H100 80GB HBM3 (700 W;
+tools/gemv_ab.py) this beat the split pass at Llama-2-7B's q_proj,
+w_fused and lm_head at 1 and 8 rows. mlp_gemv_int4 over a bf16
+x runs the streaming tensor-core kernels (csrc/gemv_common.cuh, namespace
+ring) in two launches on the plan of `mlp_plan` where they are the faster
+(`use_stream_mlp`). Over an f32 x (tensor cores would round it to bf16),
+and mlp_gemv_int4 where the streaming kernels are the slower, the CUDA-core
+split pass (`split_k`) and its reduce kernels run.
 """
 
 from __future__ import annotations
@@ -24,17 +31,22 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .gemv_int8 import (KIND_DOWN, KIND_GATE_UP, check_cuda, check_rows, device_capacity,
-                        device_sms, split_k, stream_plan)
+from .gemv_int8 import (KIND_DOWN, KIND_GATE_UP, LDG_CLUSTERS, MAX_ROWS, check_cuda,
+                        check_rows, device_capacity, device_sms, ldg_plan, split_k, stream_plan)
 
 __all__ = ["gemv_int4", "gemv_int4_ref", "mlp_gemv_int4", "mlp_gemv_int4_ref", "GROUP",
-           "mlp_plan", "use_stream_mlp"]
+           "mlp_plan", "use_stream_mlp", "gemv4_plan", "gemv4_route", "LDG_BLOCKS_PER_SM",
+           "N32_COLS"]
 
 GROUP = 128        # rows per scale group (kGroup); core/wquant.W4_GROUP
 _BLOCK_N = 128     # output columns per block (kBlockN)
 # palu_mlp_gemv_int4_stream: x, B, H, I, six weight tensors, h's scratch,
 # two plans, out, timeline, stream
 _STREAM_SIG = "piii" + "p" * 7 + "i" * 4 + "ppp"
+# gemv4_ldg's blocks per SM (__launch_bounds__(256, 2): 128 registers a
+# thread), and its plan's costs in tiles (ops/gemv_int8.ldg_plan)
+LDG_BLOCKS_PER_SM = 2
+LDG_COSTS = (1, 1)
 
 
 def _check_weight(w, k: int) -> None:
@@ -102,6 +114,50 @@ def _device_mlp_plan(dev: torch.device, hdim: int, inter: int, rows: int):
                     (device_capacity(dev, KIND_GATE_UP), device_capacity(dev, KIND_DOWN)))
 
 
+def gemv4_plan(sms: int, k: int, n: int, rows: int, capacity=None) -> tuple:
+    """Launch plan of gemv_int4 over a bf16 x (gemv4_ldg): (cluster, grid)
+    of gemv_int8.ldg_plan over the N / 128 column blocks and K / 128 groups,
+    two blocks per SM, `capacity` the card's clusters of each size in
+    LDG_CLUSTERS. The kernel's time does not vary with x's rows (mma.sync
+    takes 8), so neither does the plan; `rows` is checked (1 to 8)."""
+    if k <= 0 or k % GROUP or n <= 0 or n % _BLOCK_N or not 1 <= rows <= MAX_ROWS:
+        raise ValueError(f"gemv4_ldg takes K a positive multiple of {GROUP}, N of {_BLOCK_N} "
+                         f"and 1 to {MAX_ROWS} rows: K={k}, N={n}, rows={rows}")
+    return ldg_plan(sms, LDG_BLOCKS_PER_SM, n // _BLOCK_N, k // GROUP, capacity, LDG_COSTS)
+
+
+N32_COLS = 32  # gemv4_n32's columns of a block (kColsN); one block of 16 warps per SM
+
+
+def gemv4_route(sms: int, k: int, n: int, rows: int, capacity=None) -> tuple:
+    """gemv_int4's tensor-core launch over a bf16 x: ("n32", N / 32 blocks)
+    where the narrow column blocks fit the card in one wave (one block per
+    SM), else ("ldg", gemv4_plan)."""
+    if n % N32_COLS == 0 and 0 < n // N32_COLS <= sms:
+        gemv4_plan(sms, k, n, rows, capacity)  # the same checks
+        return "n32", n // N32_COLS
+    return "ldg", gemv4_plan(sms, k, n, rows, capacity)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_ldg_capacity(dev: torch.device) -> tuple:
+    """Clusters of each size in LDG_CLUSTERS that the card of `dev` runs of
+    gemv4_ldg's blocks at once (cudaOccupancyMaxActiveClusters)."""
+    with torch.cuda.device(dev):
+        fn = build.launcher("gemv_int4", "palu_gemv4_ldg_max_clusters", "i")
+        caps = tuple(fn(c) for c in LDG_CLUSTERS)
+    if min(caps) < 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: {caps}")
+    return caps
+
+
+@functools.lru_cache(maxsize=256)
+def _device_gemv4_route(dev: torch.device, k: int, n: int, rows: int) -> tuple:
+    """gemv4_route on the card of `dev`, cached (the decode step is
+    host-bound: a call makes one lookup)."""
+    return gemv4_route(device_sms(dev), k, n, rows, _device_ldg_capacity(dev))
+
+
 def _group_dot(x, w) -> torch.Tensor:
     """x (B, K) @ dequant(w) in f32, one 128-row group at a time."""
     b, k = x.shape
@@ -128,7 +184,9 @@ def mlp_gemv_int4_ref(x, wg, wu, wd) -> torch.Tensor:
 
 def gemv_int4(x, w) -> torch.Tensor:
     """y = x @ dequant(w) for x (B <= 8, K), in x.dtype. CUDA tensors launch
-    the kernel; CPU tensors run the plain version."""
+    the kernel (bf16 x: one launch of gemv4_n32 or gemv4_ldg, gemv4_route;
+    f32 x: the split pass and its reduce kernel); CPU tensors run the plain
+    version."""
     if not x.is_cuda:
         return gemv_int4_ref(x, w)
     _check(x, w)
@@ -137,13 +195,26 @@ def gemv_int4(x, w) -> torch.Tensor:
     b, k = x.shape
     n = wq.shape[1]
     dev = x.device
-    splits, gps = split_k(dev, n // _BLOCK_N, k // GROUP, b)
-    part = torch.empty(splits * b * n, dtype=torch.float32, device=dev)
     out = torch.empty((b, n), dtype=x.dtype, device=dev)
     xc = x.contiguous()
-    err = build.launcher("gemv_int4", "palu_gemv_int4", "piiiipppiipp")(
-        xc.data_ptr(), int(x.dtype == torch.bfloat16), b, k, n, wq.data_ptr(), ws.data_ptr(),
-        part.data_ptr(), splits, gps, out.data_ptr(), build.stream_ptr(dev))
+    if x.dtype == torch.bfloat16:
+        if xc.data_ptr() % 16:  # x is read 16 bytes at a time
+            xc = xc.clone()
+        kind, plan = _device_gemv4_route(dev, k, n, b)
+        if kind == "n32":
+            err = build.launcher("gemv_int4", "palu_gemv_int4_n32", "piiippppp")(
+                xc.data_ptr(), b, k, n, wq.data_ptr(), ws.data_ptr(), out.data_ptr(), None,
+                build.stream_ptr(dev))
+        else:
+            err = build.launcher("gemv_int4", "palu_gemv_int4_ldg", "piiippiippp")(
+                xc.data_ptr(), b, k, n, wq.data_ptr(), ws.data_ptr(), *plan, out.data_ptr(),
+                None, build.stream_ptr(dev))
+    else:
+        splits, gps = split_k(dev, n // _BLOCK_N, k // GROUP, b)
+        part = torch.empty(splits * b * n, dtype=torch.float32, device=dev)
+        err = build.launcher("gemv_int4", "palu_gemv_int4", "piiiipppiipp")(
+            xc.data_ptr(), 0, b, k, n, wq.data_ptr(), ws.data_ptr(), part.data_ptr(), splits,
+            gps, out.data_ptr(), build.stream_ptr(dev))
     build.check(err, "gemv_int4")
     gemv_int4.launches += 1
     return out

@@ -27,7 +27,8 @@ from . import build
 
 __all__ = ["gemv_int8", "gemv_int8_ref", "mlp_gemv_int8", "mlp_gemv_int8_ref",
            "MAX_ROWS", "split_k", "check_rows", "check_cuda", "stream_smem", "stream_plan",
-           "model_capacity", "gemv8_plan", "use_stream", "device_sms", "device_capacity"]
+           "model_capacity", "gemv8_plan", "use_stream", "device_sms", "device_capacity",
+           "LDG_CLUSTERS", "ldg_smem", "ldg_plan"]
 
 MAX_ROWS = 8       # rows a kernel takes (PALU_SWITCH_B)
 _BLOCK_N = 128     # output columns per block (kBlockN)
@@ -109,6 +110,59 @@ def stream_plan(sms: int, kind: int, col_blocks: int, units: int, rows: int, cap
         if best is None or key < best[0]:
             best = (key, (c, grid))
     return None if best is None else best[1]
+
+
+# The register-streamed one-launch GEMVs (csrc/gemv_common.cuh, namespace
+# ldg): gemv_int4 over a bf16 x and the probe's gemv_bf16 over W (K, N)
+LDG_WARPS = 8                # warps of a block
+LDG_CLUSTERS = (1, 2, 4, 8)  # cluster sizes a plan may take (portable)
+LDG_PAD = 4                  # floats added to a row of the warps' sums (kPad)
+
+
+def ldg_smem(cols: int, rows: int, cluster: int, scales: bool = False) -> int:
+    """Shared memory bytes of a register-streamed block (mirror of
+    ldg::smem_bytes, and with `scales` of gemv_int4.cu's smem4_bytes): the
+    warps' sums of `cols` columns for x's rows (gemv4_ldg's accumulators),
+    in a cluster two receive buffers of the block's share of them, and
+    gemv4_ldg's staged tile scales (a row of `cols` floats per warp)."""
+    sums = LDG_WARPS * rows * (cols + LDG_PAD) + (2 * rows * cols if cluster > 1 else 0)
+    return 4 * (sums + (LDG_WARPS * cols if scales else 0))
+
+
+@functools.lru_cache(maxsize=1024)
+def ldg_plan(sms: int, per_sm: int, col_blocks: int, units: int, capacity=None,
+             costs=(1, 1)) -> tuple:
+    """Work plan of a register-streamed launch: (cluster, grid).
+
+    Each column block's `units` (contraction tiles: int4 groups, bf16
+    32-row units) are split over the LDG_WARPS * cluster warps of one
+    cluster (warp w of rank r: split wi = LDG_WARPS * r + w of W, units
+    [wi * units // W, (wi + 1) * units // W)); cluster c of the grid's ncl
+    owns column blocks c, c + ncl, ... The grid is one wave: at most
+    per_sm blocks per SM (what the kernel's registers leave room for) and,
+    for each size, at most capacity[i] clusters of LDG_CLUSTERS[i] (the
+    clusters the card runs at once; per_sm * sms // size by default).
+
+    The size taken has the least cost, in tiles of the busiest warp: its
+    column blocks times (its units there + `costs[0]`, the sums of a column
+    block), plus `costs[1]` for a cluster of more than one block (a cluster
+    launch costs more); ties go to the smaller cluster."""
+    if sms < 1 or per_sm < 1 or col_blocks < 1 or units < 1:
+        raise ValueError(f"a register-streamed GEMV needs sms, per_sm, column blocks and "
+                         f"units >= 1: {sms}, {per_sm}, {col_blocks}, {units}")
+    caps = capacity or tuple(per_sm * sms // c for c in LDG_CLUSTERS)
+    best = None
+    for c, cap in zip(LDG_CLUSTERS, caps):
+        ncl = min(col_blocks, cap, per_sm * sms // c)
+        if ncl < 1:
+            continue
+        cost = -(-col_blocks // ncl) * (-(-units // (LDG_WARPS * c)) + costs[0]) + \
+            (costs[1] if c > 1 else 0)
+        if best is None or cost < best[0]:
+            best = (cost, (c, c * ncl))
+    if best is None:
+        raise ValueError(f"no cluster size runs on this card: capacity {caps}")
+    return best[1]
 
 
 # The streaming kernel costs the same at 1 to 8 rows (mma.sync takes 8); the

@@ -5,7 +5,7 @@ Run it by path, once per checkout and in turns (parent, this, this,
 parent), from the root of this checkout:
 
     python3 palu_tpu_torch/tools/gemv_ab.py <checkout root> <tag> [--timeline] [--e2e]
-        [--only=int8,mlp,int4,bf16t,hadamard,floor]
+        [--only=int8,mlp,int4,bf16,bf16t,hadamard,floor]
 
 It imports the given checkout's own chip_smoke (so its own kernels and
 wrappers; run by path, this package is not imported first) and prints one
@@ -20,8 +20,12 @@ between its kernels included). Shapes: gemv_int8 at VT_k 4096 x 1024,
 VT_v 4096 x 3072, q_proj 4096 x 4096, w_fused 12288 x 4096 and lm_head
 4096 x 32000 (Llama-2-7B at rank 128 / 384 per group of 4);
 mlp_gemv_int4 and mlp_gemv_int8 at Llama-2-7B's H 4096, I 11008 and
-Qwen2-7B's H 3584, I 18944; gemv_int4 at q_proj, w_fused and lm_head;
-gemv_bf16_t (the probe tool's W^T GEMV, tools/gemv_probe.py) at K x N
+Qwen2-7B's H 3584, I 18944; gemv_int4 at q_proj, w_fused and lm_head
+beside torch._weight_int4pack_mm on the same codes (`..._int4pack`,
+chip_smoke._int_library) and the wrapper's host time at q_proj;
+gemv_bf16 (the probe tool's GEMV over W (K, N), tools/gemv_probe.py) at
+K x N 4096 x 4096, 4096 x 1024 and 12288 x 4096 beside torch.matmul on
+the same W (`..._matmul`); gemv_bf16_t (its W^T GEMV) at K x N
 4096 x 4096, 4096 x 1024 and 12288 x 4096 beside F.linear on the same
 W^T (`..._F.linear`); hadamard_transform at chip_smoke.check_hadamard's
 timed shapes in f32 and bf16 beside torch.matmul against the dense
@@ -29,15 +33,24 @@ matrix in x's type (`..._matmul`) and a copy of x (`..._clone`); floor:
 how fast the card streams a 4096 x 4096 bf16 matrix (33.5 MB) with
 nothing computed, by each load path (csrc/stream_floor.cu of this tool's
 own checkout, built here with nvcc: 16-byte ld.global.nc, cp.async into
-a 4-stage ring, cp.async.bulk of row segments into an mbarrier ring), as
-[us, TB/s]. --only takes a comma list of those groups (default: all).
+a 4-stage ring, cp.async.bulk of row segments into an mbarrier ring), and
+8.9 MB and 26.7 MB (gemv_int4's q_proj and w_fused bytes, codes and
+scales) by 16-byte loads, and gemv_int4's q_proj and w_fused codes (4096-byte
+rows) contiguously and in its tile pattern (64-row tiles of 128 bytes read
+16 bytes a lane, as gemv4_ldg, or of 32 bytes read 4 bytes a lane, as
+gemv4_n32), as [us, TB/s]. --only takes a comma list of those groups (default: all).
 Weights are random from seed 7, quantized on the card.
 
 --timeline (a checkout with the streaming kernels only) adds per-block
 stamps of the streaming kernels at the main-path shapes, 1 row: the
 medians over blocks of the time to the first tile, the tile loop, the
 cluster sums, and the end of the last block (us), from the kernels'
-`tl` argument (ring::kStamps per block).
+`tl` argument (ring::kStamps per block); and, in a checkout with the
+register-streamed kernels, theirs (ldg::kStamps: first data, tiles, the
+last block's tiles, the cluster exchange, output, end, and the SMs the
+blocks ran on) with each launch's device time, for gemv4_ldg on the
+plans of LDG4_PLANS, gemv4_n32, and gemv_bf16's gemv_kn on KN_PLANS,
+with both kernels' cluster capacities.
 
 --e2e adds the decode steps that reach these kernels, set up as the
 checkout's chip_smoke sets up serve_w4 and lanes_w4 (Llama-2-7B at full
@@ -155,6 +168,83 @@ def timeline(cs, res: dict, flush) -> None:
             "down": summary(t[grids[0] * stamps:], grids[1])}
 
 
+# register-streamed kernels' launches timed and stamped by --timeline:
+# gemv4_ldg on these (cluster, clusters) plans, gemv4_n32 (one block per 32
+# columns) and gemv_bf16's gemv_kn
+LDG4_PLANS = {"q_proj": [(4, 32), (2, 32), (4, 16)], "w_fused": [(4, 32), (2, 32)],
+              "lm_head": [(1, 250), (1, 132)]}
+KN_PLANS = {"4096x4096": [(2, 64), (4, 62), (8, 30)], "12288x4096": [(2, 64), (8, 30)]}
+
+
+def ldg_timeline(cs, res: dict, flush) -> None:
+    """The register-streamed kernels' stamps (ldg::kStamps per block, 1
+    row) and device times on the plans above, their cluster capacities,
+    and the SMs their blocks ran on (a checkout that has them)."""
+    import numpy as np
+    import torch
+    from palu_tpu_torch.ops import build
+    from palu_tpu_torch.ops import gemv_int4 as g4
+    from palu_tpu_torch.tools import gemv_probe as gp
+
+    if not hasattr(g4, "gemv4_route"):
+        return
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    res["ldg_capacity_gemv4_ldg"] = g4._device_ldg_capacity(dev)
+    res["ldg_capacity_gemv_kn"] = gp._device_capacity(dev)
+
+    def summary(t, grid):
+        t = t.reshape(grid, 8).astype(np.float64)
+        t0 = t[:, 0].min()
+        med = lambda a, b: round(float(np.median(t[:, b] - t[:, a])) / 1e3, 3)  # noqa: E731
+        sms = np.bincount(t[:, 7].astype(int))
+        return {"blocks": grid, "first_data_us": med(0, 1), "tiles_us": med(1, 2),
+                "last_tiles_done_us": round(float((t[:, 2] - t0).max()) / 1e3, 3),
+                "exchange_us": med(3, 4), "out_us": med(4, 5),
+                "end_us": round(float(t[:, 5].max() - t0) / 1e3, 3),
+                "sms": int((sms > 0).sum()), "sms_with_2": int((sms > 1).sum())}
+
+    def stamped(name, launch, grid):
+        tl = torch.zeros(grid * 8, dtype=torch.int64, device="cuda")
+        flush.bitwise_not_()
+        launch(tl.data_ptr())
+        torch.cuda.synchronize()
+        res[name] = {"device_us": round(profile_call(lambda: launch(None), 20, flush)[0] * 1e3,
+                                        3), **summary(tl.cpu().numpy(), grid)}
+
+    ldg = build.launcher("gemv_int4", "palu_gemv_int4_ldg", "piiippiippp")
+    n32 = build.launcher("gemv_int4", "palu_gemv_int4_n32", "piiippppp")
+    for tag, plans in LDG4_PLANS.items():
+        k, n = INT4[tag]
+        w = cs._qweight(4, k, n, gen)
+        x = torch.randn((1, k), generator=gen, device="cuda").bfloat16()
+        out = torch.empty((1, n), dtype=torch.bfloat16, device="cuda")
+        args = (x.data_ptr(), 1, k, n, w["wq4"].data_ptr(), w["ws"].data_ptr())
+        for c, ncl in plans:
+            stamped(f"timeline_gemv4_ldg_{tag}_c{c}x{ncl}", lambda tl: build.check(
+                ldg(*args, c, c * ncl, out.data_ptr(), tl, build.stream_ptr(dev)), "ldg"), c * ncl)
+        if n // g4.N32_COLS <= g8_sms(dev):
+            stamped(f"timeline_gemv4_n32_{tag}", lambda tl: build.check(
+                n32(*args, out.data_ptr(), tl, build.stream_ptr(dev)), "n32"), n // g4.N32_COLS)
+        del w
+    kn = build.launcher("gemv_bf16", "gemv_bf16", "ppp" + "i" * 5 + "pp")
+    for tag, plans in KN_PLANS.items():
+        k, n = BF16[tag]
+        w = (torch.randn((k, n), generator=gen, device="cuda") * 0.02).bfloat16()
+        x = (torch.randn((1, k), generator=gen, device="cuda") * 0.1).bfloat16()
+        y = torch.empty((1, n), dtype=torch.bfloat16, device="cuda")
+        for c, ncl in plans:
+            stamped(f"timeline_gemv_kn_{tag}_c{c}x{ncl}", lambda tl: build.check(
+                kn(x.data_ptr(), w.data_ptr(), y.data_ptr(), 1, k, n, c, c * ncl, tl,
+                   build.stream_ptr(dev)), "gemv_kn"), c * ncl)
+        del w
+
+
+def g8_sms(dev) -> int:
+    import torch
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def e2e(cs, res: dict, steps: int = 8) -> None:
     """Decode steps of serve_w4 and lanes_w4 (module docstring)."""
     import numpy as np
@@ -186,15 +276,33 @@ def e2e(cs, res: dict, steps: int = 8) -> None:
 
 
 BF16_T = {"4096x4096": (4096, 4096), "4096x1024": (4096, 1024), "12288x4096": (12288, 4096)}
+BF16 = BF16_T  # W (K, N) at the same K x N
 HADAMARD = ((4096, 256), (512, 256), (4096, 128), (4096, 352), (4096, 480), (4096, 512))
-GROUPS = ("int8", "mlp", "int4", "bf16t", "hadamard", "floor")
-# floor: (path, rows per block or stage, segment bytes, stages, blocks);
-# path 0 ld.global.nc, 1 cp.async, 2 cp.async.bulk
-FLOOR = {"ldg_528x256": (0, 0, 0, 0, 528), "ldg_2112x256": (0, 0, 0, 0, 2112),
-         "cpasync_16x1KB": (1, 16, 1024, 4, 0), "cpasync_8x2KB": (1, 8, 2048, 4, 0),
-         "bulk_16x512B_s6": (2, 16, 512, 6, 0), "bulk_16x1KB_s4": (2, 16, 1024, 4, 0),
-         "bulk_8x4KB_s2": (2, 8, 4096, 2, 0), "bulk_1x8KB_s4": (2, 1, 8192, 4, 0),
-         "bulk_64x128B_s4": (2, 64, 128, 4, 0)}
+GROUPS = ("int8", "mlp", "int4", "bf16", "bf16t", "hadamard", "floor")
+# floor: (path, rows per block or stage, segment bytes, stages, blocks,
+# rows streamed[, bytes a row: 8192 unless given]); path 0 ld.global.nc, 1 cp.async, 2
+# cp.async.bulk, 3 gemv_int4's tile pattern (rows: the tile order, 1 row
+# group major; segment: the bytes a lane loads, 16 as gemv4_ldg, 4 as
+# gemv4_n32); 4096 rows are 33.5 MB, 1088 gemv_int4's q_proj (8.9 MB),
+# 3264 its w_fused (26.7 MB)
+FLOOR = {"ldg_528x256": (0, 0, 0, 0, 528, 4096), "ldg_2112x256": (0, 0, 0, 0, 2112, 4096),
+         "cpasync_16x1KB": (1, 16, 1024, 4, 0, 4096), "cpasync_8x2KB": (1, 8, 2048, 4, 0, 4096),
+         "bulk_16x512B_s6": (2, 16, 512, 6, 0, 4096), "bulk_16x1KB_s4": (2, 16, 1024, 4, 0, 4096),
+         "bulk_8x4KB_s2": (2, 8, 4096, 2, 0, 4096), "bulk_1x8KB_s4": (2, 1, 8192, 4, 0, 4096),
+         "bulk_64x128B_s4": (2, 64, 128, 4, 0, 4096),
+         "ldg_528x256_8.9MB": (0, 0, 0, 0, 528, 1088),
+         "ldg_2112x256_8.9MB": (0, 0, 0, 0, 2112, 1088),
+         "ldg_528x256_26.7MB": (0, 0, 0, 0, 528, 3264),
+         "ldg_2112x256_26.7MB": (0, 0, 0, 0, 2112, 3264),
+         # gemv_int4's codes at their own geometry (4096-byte rows): q_proj
+         # 2048 rows (8.4 MB), w_fused 6144 (25.2 MB), read contiguously and
+         # in its tile pattern
+         "ldg_2112x256_q_proj": (0, 0, 0, 0, 2112, 2048, 4096),
+         "tiles_w16_264_q_proj": (3, 1, 16, 0, 264, 2048, 4096),
+         "tiles_w4_264_q_proj": (3, 1, 4, 0, 264, 2048, 4096),
+         "ldg_2112x256_w_fused": (0, 0, 0, 0, 2112, 6144, 4096),
+         "tiles_w16_264_w_fused": (3, 1, 16, 0, 264, 6144, 4096),
+         "tiles_w4_264_w_fused": (3, 1, 4, 0, 264, 6144, 4096)}
 
 
 def floor(res: dict, flush) -> None:
@@ -212,17 +320,22 @@ def floor(res: dict, flush) -> None:
     lib = ctypes.CDLL(lib_path)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.stream_floor.argtypes = [i, p, i, i, i, i, i, i, p, p]
-    w = torch.randn((4096, 4096), device="cuda").bfloat16()
+    shapes = {(v[5], v[6] if len(v) > 6 else 8192) for v in FLOOR.values()}
+    ws = {(rows, rb): torch.randint(0, 255, (rows, rb), dtype=torch.uint8, device="cuda")
+          for rows, rb in sorted(shapes)}
     sink = torch.zeros(4, dtype=torch.int32, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
-    for name, (path, r, seg, stages, blocks) in FLOOR.items():
+    for name, (path, r, seg, stages, blocks, rows, *rest) in FLOOR.items():
+        rb = rest[0] if rest else 8192
+        w = ws[(rows, rb)]
+
         def call():
-            err = lib.stream_floor(path, w.data_ptr(), 4096, 8192, r, seg, stages, blocks,
+            err = lib.stream_floor(path, w.data_ptr(), rows, rb, r, seg, stages, blocks,
                                    sink.data_ptr(), stream)
             if err:
                 raise RuntimeError(f"stream_floor {name}: CUDA error {err}")
         ms = profile_call(call, 30, flush)[0]
-        res[f"floor_{name}"] = [ms * 1e3, w.numel() * 2 / (ms * 1e-3) / 1e12]
+        res[f"floor_{name}"] = [ms * 1e3, w.numel() / (ms * 1e-3) / 1e12]
 
 
 def main(root: str, tag: str, with_timeline: bool, with_e2e: bool, only=GROUPS) -> None:
@@ -268,8 +381,19 @@ def main(root: str, tag: str, with_timeline: bool, with_e2e: bool, only=GROUPS) 
             del ws
     for name, (k, n) in INT4.items() if "int4" in only else ():
         w = cs._qweight(4, k, n, gen)
+        lib, _ = cs._int_library(w)
         for r, x in rows_of(k).items():
             t(f"gemv_int4_{name}_r{r}", lambda: cs.gemv_int4(x, w))
+            if lib is not None:
+                t(f"gemv_int4_{name}_r{r}_int4pack", lambda: lib(x))
+            if name == "q_proj":
+                host(f"gemv_int4_{name}_r{r}", lambda: cs.gemv_int4(x, w))
+        del w, lib
+    for name, (k, n) in BF16.items() if "bf16" in only else ():
+        w = (torch.randn((k, n), generator=gen, device="cuda") * 0.02).bfloat16()
+        for r, x in rows_of(k).items():
+            t(f"gemv_bf16_{name}_r{r}", lambda: cs.gemv_probe.gemv_bf16(x, w))
+            t(f"gemv_bf16_{name}_r{r}_matmul", lambda: torch.matmul(x, w))
         del w
     for name, (k, n) in BF16_T.items() if "bf16t" in only else ():
         wt = (torch.randn((n, k), generator=gen, device="cuda") * 0.02).bfloat16()
@@ -289,6 +413,7 @@ def main(root: str, tag: str, with_timeline: bool, with_e2e: bool, only=GROUPS) 
         floor(res, flush)
     if with_timeline:
         timeline(cs, res, flush)
+        ldg_timeline(cs, res, flush)
     del flush
     if with_e2e:
         e2e(cs, res)

@@ -1,8 +1,8 @@
 """The bf16 GEMV streaming floor on the card (port of
-tools/tpu_gemv_probe.py): a blocked (M, K) @ (K, N) GEMV over N tiles of
-BN and its twin on W^T stored (N, K), one launch on the tensor cores
-(csrc/gemv_bf16.cu), beside PyTorch's matmuls and the port's int8
-weight-only GEMVs, at K = N = 4096.
+tools/tpu_gemv_probe.py): an (M, K) @ (K, N) GEMV and its twin on W^T
+stored (N, K), each one launch on the tensor cores (csrc/gemv_bf16.cu),
+beside PyTorch's matmuls and the port's int8 weight-only GEMVs, at
+K = N = 4096.
 
 Probes (the JAX tool's names):
   pallas    - the kernel on W (K, N), x (1, K);  pallasT - on W^T (N, K);
@@ -31,11 +31,12 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import build
-from ..ops.gemv_int8 import gemv_int8, mlp_gemv_int8
+from ..ops.gemv_int8 import LDG_CLUSTERS, device_sms, gemv_int8, ldg_plan, mlp_gemv_int8
 from . import common
 
 __all__ = ["gemv_bf16", "gemv_bf16_t", "gemv_bf16_ref", "gemv_bf16_t_ref", "make_inputs",
-           "parser", "run", "main", "DEFAULT_PROBES", "GEMV_TOL", "gemv_t_plan"]
+           "parser", "run", "main", "DEFAULT_PROBES", "GEMV_TOL", "gemv_t_plan", "gemv_plan",
+           "KN_COLS", "KN_UNIT"]
 
 K = N = 4096
 K2, N2 = 4096, 11008
@@ -44,7 +45,13 @@ ALL_PROBES = DEFAULT_PROBES + ["nop", "kmlp", "kgemv", "i8", "i8noscale", "bfmlp
 # bf16 output of f32 sums against the plain f32 product rounded once: the
 # GEMVs' class (one bf16 rounding apart), as a share of max|plain|
 GEMV_TOL = 2.0 ** -7
-_BLOCKS_PER_SM = 4
+# gemv_bf16's kernel (csrc/gemv_bf16.cu, gemv_kn): a column block is KN_COLS
+# outputs, a unit KN_UNIT contraction rows of it; two blocks of 8 warps per
+# SM (its ~120 registers a thread leave room for them)
+KN_COLS = 64
+KN_UNIT = 32
+KN_BLOCKS_PER_SM = 2
+KN_COSTS = (4, 2)  # the plan's costs in units (ops/gemv_int8.ldg_plan; set from card sweeps)
 # gemv_bf16_t's kernel (csrc/gemv_bf16.cu, namespace tldg): a column block
 # is T_ROWS rows of W^T, blocks of 8 or 16 warps split the contraction of
 # their column blocks
@@ -61,14 +68,35 @@ def gemv_bf16_t_ref(x: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
     return (x.float() @ wt.float().t()).to(torch.bfloat16)
 
 
+def gemv_plan(sms: int, k: int, n: int, rows: int, capacity=None) -> tuple:
+    """Launch plan of gemv_bf16's kernel: (cluster, grid) of
+    ops/gemv_int8.ldg_plan over ceil(N / KN_COLS) column blocks and
+    ceil(K / KN_UNIT) units, KN_BLOCKS_PER_SM blocks per SM, `capacity` the
+    card's clusters of each size in LDG_CLUSTERS. The kernel's time does
+    not vary with x's rows (mma.sync takes 8), so neither does the plan;
+    `rows` is checked (1 to 8)."""
+    if k <= 0 or k % 8 or n <= 0 or n % 8 or not 1 <= rows <= 8:
+        raise ValueError(f"gemv_bf16 takes K and N positive multiples of 8 and 1 to 8 rows: "
+                         f"K={k}, N={n}, rows={rows}")
+    return ldg_plan(sms, KN_BLOCKS_PER_SM, -(-n // KN_COLS), -(-k // KN_UNIT), capacity,
+                    KN_COSTS)
+
+
 @functools.lru_cache(maxsize=64)
-def _split(dev: torch.device, col_blocks: int, k: int) -> tuple:
-    """(splits, krange) of gemv_bf16: about four blocks per SM; ranges of a
-    multiple of 8 rows."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    want = max(1, -(-_BLOCKS_PER_SM * sms // col_blocks))
-    krange = -(-(-(-k // want)) // 8) * 8
-    return -(-k // krange), krange
+def _device_capacity(dev: torch.device) -> tuple:
+    """Clusters of each size in LDG_CLUSTERS of gemv_bf16's blocks that the
+    card of `dev` runs at once (cudaOccupancyMaxActiveClusters)."""
+    with torch.cuda.device(dev):
+        fn = build.launcher("gemv_bf16", "gemv_bf16_max_clusters", "i")
+        caps = tuple(fn(c) for c in LDG_CLUSTERS)
+    if min(caps) < 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: {caps}")
+    return caps
+
+
+@functools.lru_cache(maxsize=256)
+def _device_plan(dev: torch.device, k: int, n: int, rows: int) -> tuple:
+    return gemv_plan(device_sms(dev), k, n, rows, _device_capacity(dev))
 
 
 @functools.lru_cache(maxsize=256)
@@ -123,23 +151,28 @@ def _launch_t(x, wt, bn: int) -> torch.Tensor:
 
 def _launch(x, w, bn: int) -> torch.Tensor:
     m, k, n = _check_operands(x, w, False)
-    if not 1 <= m <= 8 or k % 8 or n % 8 or n % bn or bn < 64 or bn > 2048 or bn & (bn - 1):
-        raise ValueError(f"the bf16 GEMV takes 1 to 8 rows, K and N multiples of 8 and BN "
-                         f"dividing N (a power of two 64..2048): M={m}, K={k}, N={n}, BN={bn}")
-    splits, krange = _split(x.device, n // bn, k)
-    part = torch.empty(splits * m * n, dtype=torch.float32, device=x.device)
+    if not 1 <= m <= 8 or k % 8 or n % 8 or bn < KN_COLS or bn % KN_COLS:
+        raise ValueError(f"gemv_bf16 takes 1 to 8 rows, K and N multiples of 8 and BN a "
+                         f"positive multiple of {KN_COLS}: M={m}, K={k}, N={n}, BN={bn}")
+    if w.data_ptr() % 16:
+        raise ValueError("gemv_bf16 reads W 16 bytes at a time: W must be 16-byte aligned")
+    if x.data_ptr() % 16:
+        x = x.clone()
+    cluster, grid = _device_plan(x.device, k, n, m)
     y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    err = build.launcher("gemv_bf16", "gemv_bf16", "pppp" + "i" * 6 + "p")(
-        x.data_ptr(), w.data_ptr(), part.data_ptr(), y.data_ptr(), m, k, n, bn, splits, krange,
+    err = build.launcher("gemv_bf16", "gemv_bf16", "ppp" + "i" * 5 + "pp")(
+        x.data_ptr(), w.data_ptr(), y.data_ptr(), m, k, n, cluster, grid, None,
         build.stream_ptr(x.device))
     build.check(err, "gemv_bf16")
     return y
 
 
 def gemv_bf16(x: torch.Tensor, w: torch.Tensor, bn: int = 512) -> torch.Tensor:
-    """y (M, N) bf16 = x (M, K) bf16 @ w (K, N) bf16, blocks of bn output
-    columns. CUDA tensors launch the kernel, CPU tensors run the plain
-    version."""
+    """y (M, N) bf16 = x (M, K) bf16 @ w (K, N) bf16 in one launch
+    (gemv_plan). `bn`, the TPU tool's N tile, is kept for its interface:
+    the kernel's blocks take KN_COLS columns at a time, so any positive
+    multiple of KN_COLS runs the same launch. CUDA tensors launch the
+    kernel, CPU tensors run the plain version."""
     if not x.is_cuda:
         return gemv_bf16_ref(x, w)
     y = _launch(x, w, bn)

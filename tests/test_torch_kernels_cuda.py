@@ -3,6 +3,7 @@ small shapes. Needs an NVIDIA GPU and nvcc; skips elsewhere. Run on the
 card with: python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 (the prefill and GEMV kernels alone: -k "prefill or gemv")."""
 
+import functools
 import itertools
 
 import pytest
@@ -355,6 +356,221 @@ def test_gemv_kernels_at_qwen2_widths(gen, bits, kn):
         x = torch.randn((rows, k), generator=gen, device="cuda").bfloat16()
         got, want = gemv(x, w).float(), gemv_ref(x, w).float()
         assert (got - want).abs().max() <= 2.0**-7 * want.abs().max()
+
+
+# gemv_int4's one-launch kernel (gemv4_ldg): Llama-2-7B's q_proj, w_fused
+# and lm_head, Qwen2-7B's (chip_smoke.QWEN2_GEMV), and one column block
+LDG4_SHAPES = {"q_proj": (4096, 4096), "w_fused": (12288, 4096), "lm_head": (4096, 32000),
+               "qwen2_q_proj": (3584, 3584), "qwen2_w_fused": (7168, 3584),
+               "qwen2_lm_head": (3584, 152064), "k12288_n128": (12288, 128)}
+
+
+def _force_int4_kernel(monkeypatch, kernel):
+    """Route gemv_int4 over a bf16 x to one tensor-core kernel whatever
+    gemv4_route picks: "n32" where the shape allows it, else gemv4_ldg;
+    "ldg" always gemv4_ldg."""
+    from palu_tpu_torch.ops import gemv_int4 as g4
+
+    route = g4.gemv4_route
+    if kernel == "ldg":
+        monkeypatch.setattr(g4, "gemv4_route", lambda sms, k, n, rows, capacity=None: (
+            "ldg", g4.gemv4_plan(sms, k, n, rows, capacity)))
+    else:
+        monkeypatch.setattr(g4, "gemv4_route", route)
+    # a fresh cache of routes for the test (the module's is restored after it)
+    monkeypatch.setattr(g4, "_device_gemv4_route",
+                        functools.lru_cache(maxsize=256)(g4._device_gemv4_route.__wrapped__))
+
+
+@pytest.mark.parametrize("kernel", ["n32", "ldg"])
+@pytest.mark.parametrize("shape", list(LDG4_SHAPES))
+def test_gemv_int4_ldg_matches_plain(gen, monkeypatch, shape, kernel):
+    """gemv4_n32 and gemv4_ldg (each forced at every row count 1-8): one
+    launch per call, within GEMV_TOL of the plain version."""
+    from palu_tpu_torch.ops.gemv_int4 import gemv_int4, gemv_int4_ref
+
+    _force_int4_kernel(monkeypatch, kernel)
+    k, n = LDG4_SHAPES[shape]
+    w = _wq(gen, 4, k, n)
+    for rows in range(1, 9):
+        x = torch.randn((rows, k), generator=gen, device="cuda").bfloat16()
+        n0 = gemv_int4.launches
+        got = gemv_int4(x, w)
+        assert gemv_int4.launches == n0 + 1
+        want = gemv_int4_ref(x, w)
+        assert got.shape == want.shape and torch.isfinite(got).all()
+        assert (got.float() - want.float()).abs().max() <= 2.0**-7 * want.float().abs().max()
+
+
+@pytest.mark.parametrize("kernel", ["n32", "ldg"])
+@pytest.mark.parametrize("shape", ["q_proj", "lm_head", "qwen2_w_fused"])
+@pytest.mark.parametrize("rows", [1, 8])
+def test_gemv_int4_ldg_repeats(gen, monkeypatch, shape, rows, kernel):
+    """gemv4_n32 and gemv4_ldg (forced): 24 calls bit-identical: clusters
+    of 4 (q_proj), blocks that own several column blocks (lm_head),
+    clusters that own several (Qwen2-7B's w_fused)."""
+    from palu_tpu_torch.ops.gemv_int4 import gemv_int4
+
+    _force_int4_kernel(monkeypatch, kernel)
+    k, n = LDG4_SHAPES[shape]
+    w = _wq(gen, 4, k, n)
+    x = torch.randn((rows, k), generator=gen, device="cuda").bfloat16()
+    first = gemv_int4(x, w)
+    assert all(torch.equal(gemv_int4(x, w), first) for _ in range(24))
+
+
+@pytest.mark.parametrize("kernel", ["n32", "ldg"])
+def test_gemv_int4_ldg_unaligned_x(gen, monkeypatch, kernel):
+    """An x that starts off a 16-byte boundary is copied before the
+    kernels' 16-byte reads."""
+    from palu_tpu_torch.ops.gemv_int4 import gemv_int4, gemv_int4_ref
+
+    _force_int4_kernel(monkeypatch, kernel)
+    w = _wq(gen, 4, 1024, 384)
+    base = torch.randn((3 * 1024 + 1,), generator=gen, device="cuda").bfloat16()
+    x = base[1:].view(3, 1024)
+    assert x.data_ptr() % 16
+    want = gemv_int4_ref(x, w).float()
+    assert (gemv_int4(x, w).float() - want).abs().max() <= 2.0**-7 * want.abs().max()
+
+
+@pytest.mark.parametrize("kn,rows", [((4096, 4096), 1), ((12288, 4096), 1),
+                                     ((4096, 32000), 1), ((4096, 4096), 2)],
+                         ids=["q_proj_r1", "w_fused_r1", "lm_head_r1", "q_proj_r2"])
+def test_gemv_int4_routes(gen, kn, rows):
+    """A bf16 x takes one kernel a call (gemv4_n32 at q_proj and w_fused,
+    gemv4_ldg at lm_head: gemv4_route), within GEMV_TOL; an f32 x of the
+    same shape the split pass and its reduce kernel (two)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from palu_tpu_torch.ops import gemv_int4 as g4
+
+    k, n = kn
+    w = _wq(gen, 4, k, n)
+    for dtype, kernels in ((torch.bfloat16, 1), (torch.float32, 2)):
+        x = torch.randn((rows, k), generator=gen, device="cuda").to(dtype)
+        want = g4.gemv_int4_ref(x, w).float()
+        g4.gemv_int4(x, w)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            got = g4.gemv_int4(x, w)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        assert len(names) == kernels, names
+        if dtype == torch.bfloat16:
+            kind = g4.gemv4_route(g4.device_sms(x.device), k, n, rows)[0]
+            assert kind in names[0], names
+        tol = 2.0**-7 if dtype == torch.bfloat16 else 1e-5
+        assert (got.float() - want).abs().max() <= tol * want.abs().max()
+
+
+def test_gemv_int4_f32_takes_the_split_pass(gen):
+    """An f32 x runs the CUDA-core split pass (f32 products: 1e-5 of the
+    plain version, which bf16 tensor cores could not meet) and consults no
+    plan of the one-launch kernel."""
+    from palu_tpu_torch.ops import gemv_int4 as g4
+
+    w = _wq(gen, 4, 4096, 32000)
+    x = torch.randn((3, 4096), generator=gen, device="cuda")
+    before = g4._device_gemv4_route.cache_info()
+    got, want = g4.gemv_int4(x, w), g4.gemv_int4_ref(x, w)
+    after = g4._device_gemv4_route.cache_info()
+    assert got.dtype == torch.float32
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    assert (after.hits, after.misses) == (before.hits, before.misses)
+
+
+@pytest.mark.parametrize("cols", [64, 128])
+def test_ldg_smem_matches_kernel(gen, cols):
+    """ops/gemv_int8.ldg_smem mirrors ldg::smem_bytes."""
+    from palu_tpu_torch.ops import build
+    from palu_tpu_torch.ops.gemv_int8 import LDG_CLUSTERS, ldg_smem
+
+    fn = build.launcher("gemv_int4", "palu_gemv_ldg_smem", "iiii")
+    for rows in range(1, 9):
+        for c in LDG_CLUSTERS:
+            assert fn(cols, rows, c, 0) == ldg_smem(cols, rows, c)
+            assert fn(128, rows, c, 1) == ldg_smem(128, rows, c, scales=True)
+
+
+def test_ldg_plans_fit_the_card(gen):
+    """The card's cluster capacity of both register-streamed kernels is at
+    most the model's, and their plans at the main-path shapes stay within
+    it (one wave)."""
+    from palu_tpu_torch.ops import gemv_int4 as g4
+    from palu_tpu_torch.ops import gemv_int8 as g8
+    from palu_tpu_torch.tools import gemv_probe as gp
+
+    dev = torch.device("cuda")
+    sms = g8.device_sms(dev)
+    for caps, per_sm, plans in (
+            (g4._device_ldg_capacity(dev), g4.LDG_BLOCKS_PER_SM,
+             [g4.gemv4_plan(sms, k, n, 1, g4._device_ldg_capacity(dev))
+              for k, n in LDG4_SHAPES.values()]),
+            (gp._device_capacity(dev), gp.KN_BLOCKS_PER_SM,
+             [gp.gemv_plan(sms, k, n, 1, gp._device_capacity(dev))
+              for k, n in ((4096, 4096), (4096, 1024), (12288, 4096), (4096, 11008))])):
+        assert all(0 < c <= per_sm * sms // size for c, size in zip(caps, g8.LDG_CLUSTERS))
+        for c, grid in plans:
+            assert grid // c <= caps[g8.LDG_CLUSTERS.index(c)] and grid <= per_sm * sms
+
+
+# gemv_bf16 over W (K, N) (gemv_kn): the tool's shape, the A/B's, the
+# MLP's 11008, a contraction and N that end inside a unit / column block
+KN_SHAPES = {"tool": (4096, 4096), "vt": (4096, 1024), "w_fused": (12288, 4096),
+             "mlp": (4096, 11008), "k520_n1000": (520, 1000), "k24_n40": (24, 40)}
+
+
+@pytest.mark.parametrize("shape", list(KN_SHAPES))
+def test_gemv_bf16_kn_matches_plain(gen, shape):
+    """One launch per call at rows 1-8, within GEMV_TOL of the plain
+    version."""
+    from palu_tpu_torch.tools import gemv_probe as gp
+
+    k, n = KN_SHAPES[shape]
+    w = (torch.randn((k, n), generator=gen, device="cuda") * 0.02).bfloat16()
+    for rows in range(1, 9):
+        x = (torch.randn((rows, k), generator=gen, device="cuda") * 0.1).bfloat16()
+        c0 = gp.gemv_bf16.launches
+        got = gp.gemv_bf16(x, w)
+        assert gp.gemv_bf16.launches == c0 + 1
+        want = gp.gemv_bf16_ref(x, w).float()
+        assert got.shape == (rows, n) and torch.isfinite(got).all()
+        assert (got.float() - want).abs().max() <= gp.GEMV_TOL * want.abs().max()
+
+
+@pytest.mark.parametrize("shape", ["tool", "vt", "mlp"])
+@pytest.mark.parametrize("rows", [1, 8])
+def test_gemv_bf16_kn_repeats(gen, shape, rows):
+    """24 calls bit-identical (clusters of 4 or 8; the MLP's width makes
+    clusters own several column blocks)."""
+    from palu_tpu_torch.tools import gemv_probe as gp
+
+    k, n = KN_SHAPES[shape]
+    w = (torch.randn((k, n), generator=gen, device="cuda") * 0.02).bfloat16()
+    x = (torch.randn((rows, k), generator=gen, device="cuda") * 0.1).bfloat16()
+    first = gp.gemv_bf16(x, w)
+    assert all(torch.equal(gp.gemv_bf16(x, w), first) for _ in range(24))
+
+
+def test_gemv_bf16_kn_unaligned_x_and_refusals(gen):
+    """An x off a 16-byte boundary is copied; 9 rows, K % 8 and a bn that
+    is not a multiple of 64 raise before a launch."""
+    from palu_tpu_torch.tools import gemv_probe as gp
+
+    w = (torch.randn((512, 256), generator=gen, device="cuda") * 0.02).bfloat16()
+    base = (torch.randn((2 * 512 + 1,), generator=gen, device="cuda") * 0.1).bfloat16()
+    x = base[1:].view(2, 512)
+    assert x.data_ptr() % 16
+    want = gp.gemv_bf16_ref(x, w).float()
+    assert (gp.gemv_bf16(x, w).float() - want).abs().max() <= gp.GEMV_TOL * want.abs().max()
+    with pytest.raises(ValueError):
+        gp.gemv_bf16(torch.zeros((9, 512), dtype=torch.bfloat16, device="cuda"), w)
+    with pytest.raises(ValueError):
+        gp.gemv_bf16(x[:, :60].contiguous(), w[:60].contiguous())
+    with pytest.raises(ValueError):
+        gp.gemv_bf16(x.contiguous(), w, bn=96)
 
 
 @pytest.mark.parametrize("bits", [4, 8])
