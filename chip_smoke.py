@@ -14,11 +14,14 @@ Phases, each printing one JSON line:
                 kernels' shuffles and bulk copies, with no spill in any
                 Hadamard mix instantiation, and mma.sync with no local
                 memory in the register-streamed GEMVs (gemv4_n32,
-                gemv4_ldg, gemv_kn); the kernels' registers and spills
-                from ptxas;
+                gemv4_ldg, gemv_kn, and mlp8_ldg of the int8 MLP), the
+                append kernel's shuffles with no local memory and no
+                spill; the kernels' registers and spills from ptxas;
                 every phase's line carries t_s, seconds since the start;
   3. kernels  - each kernel against its plain PyTorch version on the card at
-                the main path's shapes (7B widths), with the device times
+                the main path's shapes (7B widths; the append: one launch a
+                layer for both sides, bit-exact, with its host time per
+                layer; the int8 MLP: two launches a call), with the device times
                 (torch.profiler, L2 cold: the durations of the call's own
                 kernels in one profile, each call after a 64 MB flush left
                 out by name; a kernel row under its bound raises) of the
@@ -208,11 +211,14 @@ from palu_tpu_torch.ops import build
 from palu_tpu_torch.ops.archive.palu_decode2 import palu_decode2, palu_decode2_quantized
 from palu_tpu_torch.ops.archive.palu_decode3 import palu_decode3_quantized
 from palu_tpu_torch.ops.attention import dense_decode_sdpa, dense_flash_decode
-from palu_tpu_torch.ops.cache_append import (append_supported, append_token_quantized,
+from palu_tpu_torch.ops.cache_append import (KVAppend, append_kv_quantized,
+                                             append_kv_quantized_ref, append_supported,
+                                             append_token_quantized,
                                              append_token_quantized_ref)
 from palu_tpu_torch.ops import gemv_int4 as gemv_int4_mod
 from palu_tpu_torch.ops.gemv_int4 import (gemv_int4, gemv_int4_ref, mlp_gemv_int4,
                                           mlp_gemv_int4_ref)
+from palu_tpu_torch.ops import gemv_int8 as gemv_int8_mod
 from palu_tpu_torch.ops.gemv_int8 import (gemv_int8, gemv_int8_ref, mlp_gemv_int8,
                                           mlp_gemv_int8_ref)
 from palu_tpu_torch.ops.hadamard import (MAX_N, hadamard_transform,
@@ -268,9 +274,9 @@ G, HPG, RK, RV, HD, NH = 8, 4, 128, 384, 128, 32  # Llama-2-7B, Palu group 4
 HID, INTER, VOCAB, LAYERS = 4096, 11008, 32000, 32
 W4 = dict(weight_bits=4, vt_bits=8, embed_bits=8)  # the README's configuration
 W8 = dict(weight_bits=8, vt_bits=8, embed_bits=8)
-COUNTERS = (append_token_quantized, palu_decode, palu_decode_fp, palu_decode_fp_t,
-            palu_decode_seq_quantized, prefill_flash, gemv_int4, mlp_gemv_int4, gemv_int8,
-            mlp_gemv_int8, hadamard_transform, dissect.palu_decode_fp_dissect,
+COUNTERS = (append_kv_quantized, append_token_quantized, palu_decode, palu_decode_fp,
+            palu_decode_fp_t, palu_decode_seq_quantized, prefill_flash, gemv_int4, mlp_gemv_int4,
+            gemv_int8, mlp_gemv_int8, hadamard_transform, dissect.palu_decode_fp_dissect,
             stream_probe.stream_probe, unpack_probe.unpack_probe, gemv_probe.gemv_bf16,
             gemv_probe.gemv_bf16_t, palu_decode2, palu_decode2_quantized,
             palu_decode3_quantized, mlp_a8_probe.mlp_a8)
@@ -495,7 +501,11 @@ def phase_build() -> None:
           "ldg_sass": {name: {**kernel_sass(src, name, ("HMMA", "LDG", "LDL", "STL")),
                               "spills": kernel_spills(src, name, must_be_zero=True)}
                        for src, name in (("gemv_int4", "gemv4_n32"), ("gemv_int4", "gemv4_ldg"),
-                                         ("gemv_bf16", "gemv_kn"))},
+                                         ("gemv_bf16", "gemv_kn"), ("gemv_int8", "mlp8_ldg"))},
+          # the append: warp shuffles, no shared memory, no local memory or spill
+          "append_sass": {**kernel_sass("cache_append", "append_kernel", ("SHFL", "LDL", "STL")),
+                          "spills": kernel_spills("cache_append", "append_kernel",
+                                                  must_be_zero=True)},
           "hadamard_sass": {**hopper_sass("hadamard", ("SHFL", "UBLKCP"), ("LDL", "STL")),
                             "mix_spills": kernel_spills("hadamard", "mix_kernel",
                                                         must_be_zero=True)}})
@@ -575,59 +585,102 @@ def hopper_sass(source: str, required=("HGMMA", "UTMALDG"), reported=()) -> dict
 # ---------------------------------------------------------------------------
 
 
-def _append_case(qcfg: QuantConfig, rank: int, b: int, s_max: int, gen):
-    nrows = packed_nrows(rank, qcfg.pack_bits)
-    codes = torch.randint(0, 256, (b, G, nrows, s_max), generator=gen, device="cuda",
-                          dtype=torch.uint8)
-    scale = torch.rand((b, G, 1, s_max), generator=gen, device="cuda")
-    zero = None if qcfg.sym else torch.randn((b, G, 1, s_max), generator=gen, device="cuda")
-    lat = torch.randn((b, G, rank), generator=gen, device="cuda").to(torch.bfloat16)
-    return lat, codes, scale, zero
+def _append_side(qcfg: QuantConfig, rank: int, b: int, g: int, s_max: int, gen):
+    """A token's latents (B, G, rank) bf16 and one side's cache buffers of
+    random bytes, scales and zeros."""
+    bufs = {"codes_t": torch.randint(0, 256, (b, g, packed_nrows(rank, qcfg.pack_bits), s_max),
+                                     generator=gen, device="cuda", dtype=torch.uint8),
+            "scale_t": torch.rand((b, g, 1, s_max), generator=gen, device="cuda")}
+    if not qcfg.sym:
+        bufs["zero_t"] = torch.randn((b, g, 1, s_max), generator=gen, device="cuda")
+    lat = torch.randn((b, g, rank), generator=gen, device="cuda").to(torch.bfloat16)
+    return lat, bufs
+
+
+# the append's cases: every pack width, sym and asym, a clip; the ranks of
+# Llama-2-7B's groups of 4 (K 128, V 384, G 8) and of Qwen2-7B's (256, G 1)
+APPEND_QCFGS = (FLAGSHIP, QuantConfig(bits=3, sym=False, container=4),
+                QuantConfig(bits=2, sym=True), QuantConfig(bits=8, sym=False),
+                QuantConfig(bits=4, sym=True, clip_ratio=0.9))
+APPEND_RANKS = ((G, RK, RV), (QG, QRANK, QRANK))
 
 
 def check_append(gen) -> dict:
-    s_max, worst, cases = 8192, 0.0, 0
-    pos = torch.tensor([4099, 8191], dtype=torch.int32, device="cuda")
-    wr = torch.tensor([True, False], device="cuda")  # lane 1 must keep its bytes
-    for qcfg in (FLAGSHIP, QuantConfig(bits=3, sym=False, container=4),
-                 QuantConfig(bits=2, sym=True), QuantConfig(bits=8, sym=False)):
-        for rank in (RK, RV):
-            lat, codes, scale, zero = _append_case(qcfg, rank, 2, s_max, gen)
-            ref = [t.clone() if t is not None else None for t in (codes, scale, zero)]
-            before = codes.clone()
-            append_token_quantized(lat, codes, scale, pos, wr, qcfg=qcfg, rank=rank, zero=zero)
-            append_token_quantized_ref(lat, ref[0], ref[1], pos, wr, qcfg=qcfg, rank=rank,
-                                       zero=ref[2])
-            torch.cuda.synchronize()
-            for got, want in zip((codes, scale, zero), ref):
-                if got is not None and not torch.equal(got, want):
-                    raise AssertionError(f"append not bit-exact for {qcfg} rank {rank}")
-            if not torch.equal(codes[1], before[1]) or torch.equal(codes[0], before[0]):
-                raise AssertionError("append wrote a masked lane or skipped a live one")
+    """The one-launch append of a layer's two sides (append_kv_quantized)
+    and the one-side append_token_quantized (the same kernel) against their
+    plain versions on 3 lanes at positions 4099, S - 1 and 0, lane 1
+    masked: bit-exact, the masked lane's bytes kept, one launch a call. Then
+    at serve's shapes (batch 1, ranks 128 / 384, the 3-bit cache) one
+    layer's append as the engine runs it (KVAppend, built once): device ms,
+    host us per layer, and the host us of the checking call and of the two
+    one-side calls the engine made before."""
+    s_max, cases = 8192, 0
+    pos = torch.tensor([4099, s_max - 1, 0], dtype=torch.int32, device="cuda")
+    wr = torch.tensor([True, False, True], device="cuda")  # lane 1 must keep its bytes
+
+    def held(got, want, before, what):
+        torch.cuda.synchronize()
+        for k in want:
+            if not torch.equal(got[k], want[k]):
+                raise AssertionError(f"append not bit-exact: {what} {k}")
+        if not torch.equal(got["codes_t"][1], before[1]) or \
+                torch.equal(got["codes_t"][0], before[0]):
+            raise AssertionError(f"append wrote a masked lane or skipped a live one: {what}")
+
+    for qcfg in APPEND_QCFGS:
+        for g, rk, rv in APPEND_RANKS:
+            (lk, bk), (lv, bv) = (_append_side(qcfg, r, 3, g, s_max, gen) for r in (rk, rv))
+            ref = [{k: t.clone() for k, t in b.items()} for b in (bk, bv)]
+            before = [b["codes_t"].clone() for b in (bk, bv)]
+            n = append_kv_quantized.launches
+            append_kv_quantized(lk, lv, bk, bv, pos, wr, qcfg=qcfg, rank_k=rk, rank_v=rv)
+            if append_kv_quantized.launches != n + 1:
+                raise AssertionError("append_kv_quantized: not one launch a call")
+            append_kv_quantized_ref(lk, lv, *ref, pos, wr, qcfg=qcfg, rank_k=rk, rank_v=rv)
+            for side, got, want, b0 in zip("kv", (bk, bv), ref, before):
+                held(got, want, b0, f"{qcfg} ranks {rk}/{rv} side {side}")
+            lat, bufs = _append_side(qcfg, rv, 3, g, s_max, gen)
+            ref, before = {k: t.clone() for k, t in bufs.items()}, bufs["codes_t"].clone()
+            append_token_quantized(lat, bufs["codes_t"], bufs["scale_t"], pos, wr, qcfg=qcfg,
+                                   rank=rv, zero=bufs.get("zero_t"))
+            append_token_quantized_ref(lat, ref["codes_t"], ref["scale_t"], pos, wr,
+                                       qcfg=qcfg, rank=rv, zero=ref.get("zero_t"))
+            held(bufs, ref, before, f"{qcfg} one side rank {rv}")
             cases += 1
 
-    # times at the main path's shapes: batch 1, one K-side and one V-side call
+    # one layer of serve: batch 1, both sides through one KVAppend
     pos1 = torch.tensor([4099], dtype=torch.int32, device="cuda")
     wr1 = torch.tensor([True], device="cuda")
-    sides = [(r, _append_case(FLAGSHIP, r, 1, s_max, gen)) for r in (RK, RV)]
+    (lk, bk), (lv, bv) = (_append_side(FLAGSHIP, r, 1, G, s_max, gen) for r in (RK, RV))
+    layer = KVAppend((bk, bv), (RK, RV), qcfg=FLAGSHIP)
+    lats = (lk, lv)
 
-    def run(fn):
-        def go():
-            for r, (lat, codes, scale, _) in sides:
-                fn(lat, codes, scale, pos1, wr1, qcfg=FLAGSHIP, rank=r)
-        return go
+    def two_calls():
+        for lat, b, r in ((lk, bk, RK), (lv, bv, RV)):
+            append_token_quantized(lat, b["codes_t"], b["scale_t"], pos1, wr1, qcfg=FLAGSHIP,
+                                   rank=r)
 
-    ms = device_ms(run(append_token_quantized), 50) / 2
-    plain_ms = device_ms(run(append_token_quantized_ref), 10) / 2
-    nbytes = sum(G * (r * 2 + packed_nrows(r, 4) + 4) + 8 for r in (RK, RV)) / 2
-    flops = sum(G * r * 6 for r in (RK, RV)) / 2
+    ms = device_ms(lambda: layer(lats, pos1, wr1), 50)
+    plain_ms = device_ms(lambda: append_kv_quantized_ref(lk, lv, bk, bv, pos1, wr1,
+                                                         qcfg=FLAGSHIP, rank_k=RK, rank_v=RV),
+                         10)
+    kernels = kernels_per_call(lambda: layer(lats, pos1, wr1))
+    host = {"engine_KVAppend": host_us(lambda: layer(lats, pos1, wr1)),
+            "append_kv_quantized": host_us(lambda: append_kv_quantized(
+                lk, lv, bk, bv, pos1, wr1, qcfg=FLAGSHIP, rank_k=RK, rank_v=RV)),
+            "two_append_token_quantized": host_us(two_calls)}
+    if kernels != 1:
+        raise AssertionError(f"append: {kernels} kernels a layer")
+    nbytes = sum(G * (r * 2 + packed_nrows(r, 4) + 4) for r in (RK, RV)) + 8
+    flops = sum(G * r * 6 for r in (RK, RV))
     bms, by = bound_ms(nbytes, flops)
     out = {"name": "cache_append", "route": "cuda",
            "source": "palu_tpu_torch/csrc/cache_append.cu",
            "replaces": "palu_tpu/ops/pallas/cache_append.py:136",
-           "max_abs_err": worst, "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+           "max_abs_err": 0.0, "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
            "bound_ms": bms, "bound_by": by, "library_ms": None}
-    emit({"phase": "kernel", "cases": cases, "bit_exact": True, **out})
+    emit({"phase": "kernel", "cases": cases, "bit_exact": True, "per": "layer, both sides",
+          "kernels_per_call": kernels, "host_us_per_layer": host, **out})
     return out
 
 
@@ -1634,15 +1687,22 @@ def host_us(fn, iters: int = 100) -> dict:
     return {"us": t / iters * 1e6, "device_woke": woke}
 
 
-def kernels_per_call(fn, iters: int = 10) -> float:
-    """Device kernels the profiler sees per call of fn."""
+def kernels_per_call(fn, iters: int = 10, tries: int = 3) -> float:
+    """Device kernels the profiler sees per call of fn. A profile with no
+    device event at all (the profiler's fault, seen now and then: fn
+    launches at least one kernel) is taken again; `tries` in a row raise."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA) / iters
+    n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if n == 0:
+        if tries > 1:
+            return kernels_per_call(fn, iters, tries - 1)
+        raise RuntimeError("torch.profiler recorded no device event")
+    return n / iters
 
 
 def _has_cuda_kernel(op: str) -> bool:
@@ -1844,6 +1904,20 @@ def check_mlp(gen, bits: int) -> dict:
         "int_library_ms": None,
         "bytes": sum(_nbytes(*w.values()) for w in ws) + 4 * HID,
         "flops": 6 * HID * INTER}}
+    if bits == 8:  # two launches of mlp8_ldg over a bf16 x; an f32 x splits (4)
+        per["mlp"]["kernels_per_call"] = kernels_per_call(lambda: fn(x1, *ws))
+        per8["mlp"]["kernels_per_call"] = kernels_per_call(lambda: fn(x8, *ws))
+        per["mlp"]["plans"] = gemv_int8_mod._device_mlp8_plans(torch.device("cuda"), HID,
+                                                               INTER, 1)
+        x32 = x1.float()
+        f32 = kernels_per_call(lambda: fn(x32, *ws))
+        if per["mlp"]["kernels_per_call"] != 2 or per8["mlp"]["kernels_per_call"] != 2 \
+                or f32 != 4:
+            raise AssertionError(f"mlp_gemv_int8: {per['mlp']['kernels_per_call']} / "
+                                 f"{per8['mlp']['kernels_per_call']} kernels a call at 1 / 8 "
+                                 f"rows (bf16), {f32} over an f32 x")
+        bms8, _ = bound_ms(per["mlp"]["bytes"] + 14 * (HID + INTER), 8 * per["mlp"]["flops"])
+        check_bound("mlp_gemv_int8 8 rows", per8["mlp"]["ms"], bms8)
     p = dict(zip(("gate", "up", "down"), ws))
     host = {"shape": "mlp", "wrapper": host_us(lambda: fn(x1, *ws)),
             "mlp_forward": host_us(lambda: llama.mlp_forward(x1, p, set())),
@@ -2048,7 +2122,7 @@ def phase_e2e_chunked(inputs) -> None:
           "top1_agreement": (got.argmax(-1) == want.argmax(-1)).float().mean().item(),
           "launches": {k: launches[k] for k in ("palu_decode", "palu_decode_chunked",
                                                 "palu_decode_k_bias",
-                                                "append_token_quantized")},
+                                                "append_kv_quantized")},
           "gpu_decode_paths": {k: v[1] for k, v in runs.items()},
           "gpu_s": {k: v[3] for k, v in runs.items()}})
     if len(held) != 2 * len(forced):
@@ -2057,7 +2131,7 @@ def phase_e2e_chunked(inputs) -> None:
         raise AssertionError(f"e2e_chunked: vs the plain-decode engine rel err {rel}")
     if runs["kernel"][1] != ["palu_decode-kernel"] or not (
             launches["palu_decode_chunked"] == launches["palu_decode_k_bias"]
-            == launches["palu_decode"] == len(held)) or launches["append_token_quantized"]:
+            == launches["palu_decode"] == len(held)) or launches["append_kv_quantized"]:
         raise AssertionError(f"e2e_chunked: paths {runs['kernel'][1]}, launches {launches}")
 
 
@@ -2178,8 +2252,8 @@ def expected_launches(layers: int, ecfg: EngineConfig, steps: int, bias: bool = 
         per_step["palu_decode_k_bias"] = layers if path == "palu_decode" else 0
     if ecfg.qcfg is not None and ecfg.qcfg.group_size > 0:
         per_step["palu_decode_chunked"] = layers
-    if append_supported(ecfg.qcfg):
-        per_step["append_token_quantized"] = 2 * layers
+    if append_supported(ecfg.qcfg):  # one launch a layer, both sides
+        per_step["append_kv_quantized"] = layers
     if bits == 4:
         per_step["gemv_int4"] = 2 * layers + 1   # q_proj, w_fused, lm_head
         per_step["mlp_gemv_int4"] = layers
@@ -2555,7 +2629,7 @@ def phase_latency_attention() -> dict:
         want = {}
         if counter is not None:
             want = {counter: layers * steps, "palu_decode": layers * steps,
-                    "append_token_quantized": 2 * layers * steps}
+                    "append_kv_quantized": layers * steps}
         emit({"phase": "latency_attention", "run": tag, "argv": argv, "layers": layers,
               **stats, "decode_paths": sorted(eng._decode_paths),
               "gemv_paths": sorted(eng._gemv_paths), "launches": counts,
@@ -2586,7 +2660,7 @@ def phase_serve_bench_int8_rot() -> dict:
     containers, rotation blocks of 2048): 8 lanes, s_max 4096, 16 requests
     with prompts of 1024-2048 tokens, 32 new tokens each, on the native
     scheduler. Counts 0 just before and read just after; every decode step
-    launches the int8_rot decode and two appends per layer."""
+    launches the int8_rot decode and one two-side append per layer."""
     argv = ["--int8_rot", "--lt_bits", "3", "--lt_sym", "--lt_container", "4",
             "--num_heads", "32", "--num_layers", "32", "--lanes", "8", "--s_max", "4096",
             "--prompt_len", "2048", "--pallas_block", "2048", "--json"]
@@ -2617,7 +2691,7 @@ def phase_serve_bench_int8_rot() -> dict:
             srv.engine._pallas_block != 2048:
         raise AssertionError(f"serve_bench_int8_rot took {srv.engine._decode_paths}")
     _only(counts, {"palu_decode": n_dec, "palu_decode_int8_rot": n_dec,
-                   "append_token_quantized": 2 * n_dec,
+                   "append_kv_quantized": n_dec,
                    "prefill_flash": counts["prefill_flash"]}, "serve_bench_int8_rot")
     if n_dec <= 0 or n_dec % args.num_layers or counts["prefill_flash"] <= 0:
         raise AssertionError(f"serve_bench_int8_rot: launches {counts}")
@@ -3679,7 +3753,7 @@ def main() -> int:
     # decode with the K bias, serving_qwen2 for the per-chunk-scale decode;
     # serve_seq (and its rank-major fp case) for the statistics variants,
     # serve_stacked (and its fp case) for the layer_idx calls
-    source = {"cache_append": ("append_token_quantized", launches),
+    source = {"cache_append": ("append_kv_quantized", launches),
               "palu_decode": ("palu_decode", launches),
               "palu_decode_int8_dots": ("palu_decode_int8_dots",
                                         launches_attn["palu_3bit_int8_dots"]),

@@ -12,8 +12,14 @@ embedding codes (V, H) read as (H, V)); the kernel reads it in place.
 gemv_int8 over a bf16 x and 16-byte aligned rows runs the streaming
 tensor-core kernel (csrc/gemv_common.cuh, namespace ring) on the plan of
 `gemv8_plan` where it is the faster of the two (`use_stream`); otherwise,
-for an f32 x, other row strides, and in mlp_gemv_int8 the CUDA-core split
-pass (`split_k`) and its reduce kernel run.
+for an f32 x and other row strides, the CUDA-core split pass (`split_k`)
+and its reduce kernel run.
+
+mlp_gemv_int8 over a bf16 x runs two launches of the register-streamed
+kernel mlp8_ldg (csrc/gemv_int8.cu): gate and up with the SwiGLU epilogue
+writing h, then down over h, each on its plan of `mlp8_plan`. Over an f32
+x (bf16 tensor cores would round it) it runs the split pass: gate and up,
+a SwiGLU reduce kernel, then down and its reduce.
 """
 
 from __future__ import annotations
@@ -28,7 +34,8 @@ from . import build
 __all__ = ["gemv_int8", "gemv_int8_ref", "mlp_gemv_int8", "mlp_gemv_int8_ref",
            "MAX_ROWS", "split_k", "check_rows", "check_cuda", "stream_smem", "stream_plan",
            "model_capacity", "gemv8_plan", "use_stream", "device_sms", "device_capacity",
-           "LDG_CLUSTERS", "ldg_smem", "ldg_plan"]
+           "LDG_CLUSTERS", "ldg_smem", "ldg_plan", "MLP8_CLUSTERS", "MLP8_WARPS", "mlp8_smem",
+           "mlp8_plan", "mlp8_plans"]
 
 MAX_ROWS = 8       # rows a kernel takes (PALU_SWITCH_B)
 _BLOCK_N = 128     # output columns per block (kBlockN)
@@ -163,6 +170,103 @@ def ldg_plan(sms: int, per_sm: int, col_blocks: int, units: int, capacity=None,
     if best is None:
         raise ValueError(f"no cluster size runs on this card: capacity {caps}")
     return best[1]
+
+
+# The int8 SwiGLU MLP over a bf16 x (csrc/gemv_int8.cu, mlp8_ldg): blocks of
+# 16 warps (one an SM) or 8 (two; down always), 128 registers a thread,
+# 128-column blocks of 64-row tiles, clusters of any size up to 8
+MLP8_WARPS = (16, 8)
+# palu_mlp_gemv_int8_ldg: x, B, H, I, six weight tensors, h, the two plans,
+# out, stream
+MLP8_SIG = "piii" + "p" * 7 + "iiiiipp"
+MLP8_COLS = 128
+MLP8_CLUSTERS = tuple(range(1, 9))
+
+
+def mlp8_smem(sets: int, warps: int, rows: int, cluster: int) -> int:
+    """Shared memory bytes of an mlp8_ldg block (mirror of mlp8_smem_bytes):
+    the warps' sums of each set (gate and up: 2; down: 1) for x's rows, and
+    in a cluster two receive buffers of each rank's ceil(128 / cluster)
+    columns per source rank."""
+    red = sets * warps * rows * (MLP8_COLS + LDG_PAD)
+    recv = 2 * sets * cluster * rows * -(-MLP8_COLS // cluster) if cluster > 1 else 0
+    return 4 * (red + recv)
+
+
+@functools.lru_cache(maxsize=1024)
+def mlp8_plan(sms: int, col_blocks: int, sets: int, capacity=None) -> tuple:
+    """Work plan of one mlp8_ldg launch: (warps, cluster, grid).
+
+    Each column block's 64-row tiles (each read once per set: gate and up,
+    or down) are split over the warps * cluster warps of one cluster (warp w
+    of rank r: split wi = warps * r + w of W, tiles [wi * units // W, (wi +
+    1) * units // W)); cluster c of the grid's ncl owns column blocks c, c +
+    ncl, ... Blocks are 16 warps (one an SM; gate and up only) or 8 (two an
+    SM). `capacity` holds (warps, clusters of each size in MLP8_CLUSTERS)
+    pairs: what the card runs at once (cudaOccupancyMaxActiveClusters); by
+    default what the SMs hold.
+
+    The plan takes, 16-warp blocks first, the largest cluster with which
+    every column block has its own cluster in one wave; where none has, 8-
+    warp blocks without a cluster, each owning several column blocks. On an
+    H100 80GB HBM3 (700 W; tools/gemv_ab.py --only=mlp8plans, PERF.md) these
+    were the fastest plans at Llama-2-7B's shapes: a launch takes about what
+    its busiest SM's bytes take at the rate 16 warps with 4 KB each in
+    flight stream, and every round of column blocks after a cluster's
+    first, or a contraction that the cluster's warps split unevenly, added a
+    barrier's wait for the slowest rank (clusters of 3, 5, 6 or 7 owning two
+    column blocks ran 7-30 % slower). At Qwen2-7B's gate / up (148 column
+    blocks) clusters of 4 ran 6 % faster than the plan's."""
+    if sms < 1 or col_blocks < 1 or sets not in (1, 2):
+        raise ValueError(f"mlp8_ldg needs sms and column blocks >= 1 and 1 or 2 sets: "
+                         f"{sms}, {col_blocks}, {sets}")
+    caps = dict(capacity or ())
+    for warps in MLP8_WARPS if sets == 2 else (8,):
+        slots = 512 // (32 * warps) * sms
+        cap = caps.get(warps) or tuple(slots // c for c in MLP8_CLUSTERS)
+        fits = [c for c, n in zip(MLP8_CLUSTERS, cap) if col_blocks <= n and
+                c * col_blocks <= slots]
+        if fits:
+            return warps, max(fits), max(fits) * col_blocks
+    cap = caps.get(8) or (2 * sms,)
+    return 8, 1, min(col_blocks, 2 * sms, cap[0])
+
+
+def mlp8_plans(sms: int, hdim: int, inter: int, rows: int, capacity=(None, None)) -> tuple:
+    """mlp_gemv_int8's two launches over a bf16 x at H = hdim, I = inter,
+    each (warps, cluster, grid) of mlp8_plan: gate and up (I / 128 column
+    blocks of H / 64 tiles, two sets), then down (H / 128 column blocks of
+    I / 64 tiles); `capacity` each launch's (warps, clusters of each size in
+    MLP8_CLUSTERS) pairs. The kernels' time does not vary with x's rows (mma.sync
+    takes 8), so neither do the plans; `rows` is checked (1 to 8)."""
+    if (hdim <= 0 or hdim % MLP8_COLS or inter <= 0 or inter % MLP8_COLS
+            or not 1 <= rows <= MAX_ROWS):
+        raise ValueError(f"mlp8_ldg takes H and I positive multiples of {MLP8_COLS} and 1 to "
+                         f"{MAX_ROWS} rows: H={hdim}, I={inter}, rows={rows}")
+    return (mlp8_plan(sms, inter // MLP8_COLS, 2, capacity[0]),
+            mlp8_plan(sms, hdim // MLP8_COLS, 1, capacity[1]))
+
+
+@functools.lru_cache(maxsize=64)
+def _device_mlp8_capacity(dev: torch.device, sets: int) -> tuple:
+    """(warps, clusters of each size in MLP8_CLUSTERS) pairs: what the card
+    of `dev` runs of mlp8_ldg's blocks (`sets` 2: gate and up, 16 or 8
+    warps; 1: down, 8 warps) at once."""
+    with torch.cuda.device(dev):
+        fn = build.launcher("gemv_int8", "palu_mlp8_max_clusters", "iii")
+        caps = tuple((w, tuple(fn(sets, w, c) for c in MLP8_CLUSTERS))
+                     for w in (MLP8_WARPS if sets == 2 else (8,)))
+    if min(min(c) for _, c in caps) < 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: {caps}")
+    return caps
+
+
+@functools.lru_cache(maxsize=256)
+def _device_mlp8_plans(dev: torch.device, hdim: int, inter: int, rows: int) -> tuple:
+    """mlp8_plans on the card of `dev`, cached (the decode step is
+    host-bound: a call makes one lookup)."""
+    return mlp8_plans(device_sms(dev), hdim, inter, rows,
+                      (_device_mlp8_capacity(dev, 2), _device_mlp8_capacity(dev, 1)))
 
 
 # The streaming kernel costs the same at 1 to 8 rows (mma.sync takes 8); the
@@ -349,7 +453,8 @@ gemv_int8.launches = 0
 def mlp_gemv_int8(x, wg, wu, wd) -> torch.Tensor:
     """SwiGLU MLP over int8 weights for x (B <= 8, H): silu(x Wg) * (x Wu)
     rounded to x.dtype, then @ Wd. Weights row-major (N contiguous). CUDA
-    tensors launch the kernels; CPU tensors run the plain version."""
+    tensors launch the kernels (bf16 x: two launches of mlp8_ldg; f32 x:
+    the split pass); CPU tensors run the plain version."""
     if not x.is_cuda:
         return mlp_gemv_int8_ref(x, wg, wu, wd)
     _check_mlp(x, wg, wu, wd)
@@ -359,18 +464,25 @@ def mlp_gemv_int8(x, wg, wu, wd) -> torch.Tensor:
     scales = [_scales(w["ws"]) for w in (wg, wu, wd)]
     check_cuda(x, [x] + weights + scales, weights)
     dev = x.device
-    s1, u1 = split_k(dev, 2 * inter // _BLOCK_N, -(-hdim // _UNIT), b)
-    s2, u2 = split_k(dev, hdim // _BLOCK_N, -(-inter // _UNIT), b)
-    part = torch.empty(s1 * b * 2 * inter + s2 * b * hdim, dtype=torch.float32, device=dev)
     h = torch.empty((b, inter), dtype=x.dtype, device=dev)
     out = torch.empty((b, hdim), dtype=x.dtype, device=dev)
     xc = x.contiguous()
-    err = build.launcher("gemv_int8", "palu_mlp_gemv_int8", "piiiipppppppiippiipp")(
-        xc.data_ptr(), int(x.dtype == torch.bfloat16), b, hdim, inter,
-        weights[0].data_ptr(), scales[0].data_ptr(), weights[1].data_ptr(),
-        scales[1].data_ptr(), weights[2].data_ptr(), scales[2].data_ptr(),
-        part.data_ptr(), s1, u1, h.data_ptr(), part[s1 * b * 2 * inter:].data_ptr(), s2, u2,
-        out.data_ptr(), build.stream_ptr(dev))
+    ws = [t.data_ptr() for pair in zip(weights, scales) for t in pair]
+    if x.dtype == torch.bfloat16:
+        if xc.data_ptr() % 4:  # x is read 4 bytes at a time
+            xc = xc.clone()
+        (w1, c1, g1), (_, c2, g2) = _device_mlp8_plans(dev, hdim, inter, b)
+        err = build.launcher("gemv_int8", "palu_mlp_gemv_int8_ldg", MLP8_SIG)(
+            xc.data_ptr(), b, hdim, inter, *ws, h.data_ptr(), w1, c1, g1, c2, g2,
+            out.data_ptr(), build.stream_ptr(dev))
+    else:
+        s1, u1 = split_k(dev, 2 * inter // _BLOCK_N, -(-hdim // _UNIT), b)
+        s2, u2 = split_k(dev, hdim // _BLOCK_N, -(-inter // _UNIT), b)
+        part = torch.empty(s1 * b * 2 * inter + s2 * b * hdim, dtype=torch.float32,
+                           device=dev)
+        err = build.launcher("gemv_int8", "palu_mlp_gemv_int8", "piiiipppppppiippiipp")(
+            xc.data_ptr(), 0, b, hdim, inter, *ws, part.data_ptr(), s1, u1, h.data_ptr(),
+            part[s1 * b * 2 * inter:].data_ptr(), s2, u2, out.data_ptr(), build.stream_ptr(dev))
     build.check(err, "mlp_gemv_int8")
     mlp_gemv_int8.launches += 1
     return out

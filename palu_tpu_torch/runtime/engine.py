@@ -12,7 +12,8 @@ one-chunk prefill for serving, decode and generate with sampling).
            MLP; lm_head once per step.
 
 The cache is quantized (qcfg: rank-major codes with per-row scales, whose
-append is quantize-pack-write, ops/cache_append, or with per-chunk scale
+append is quantize-pack-write, one ops/cache_append.KVAppend launch a
+layer for both sides, or with per-chunk scale
 rows (group_size > 0, the reference's --lt_group_size), written by a
 masked plain write as in the JAX engine; decode reads the codes,
 ops/palu_decode) or holds the raw latents in `dtype` (qcfg None, the
@@ -81,6 +82,7 @@ A mesh without a seq axis shards the batch lanes over `data` only; a
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Any, Optional
 
 import numpy as np
@@ -93,7 +95,7 @@ from ..models import llama
 from ..models import rope as rope_mod
 from ..models.config import ModelConfig
 from ..ops import build
-from ..ops.cache_append import append_supported, append_token_quantized
+from ..ops.cache_append import KVAppend, append_supported
 from ..ops.attention import (dense_decode_sdpa, dense_flash_decode,
                              flash_decode_latent_seq_sharded,
                              flash_decode_latent_seq_sharded_rank_major)
@@ -303,6 +305,7 @@ class Engine:
                                        cfg.head_dim, **self._int8_knobs)
         self._packed_path = "palu_decode" + ("" if mode == "exact" else f"_{mode}")
         self._fused_append = append_supported(ecfg.qcfg)
+        self._append_memo = None  # (weakrefs of a cache's buffers, its layers' KVAppend)
         self._decode_paths: set = set()
         self._gemv_paths: set = set()
         inv_freq, rope_scale = rope_mod.inv_freq_and_scale(cfg)
@@ -358,7 +361,8 @@ class Engine:
         if "model" in names and ecfg.mesh.shape[names.index("model")] > 1:
             raise NotImplementedError(
                 "tensor parallelism over a 'model' mesh axis comes with a later slice of the "
-                "port (ROADMAP A item 5); use a ('data', 'seq') mesh or model = 1")
+                "port (ROADMAP A, the rest of the parallelism: tensor parallelism); use a "
+                "('data', 'seq') mesh or model = 1")
         self._lanes = host_local_batch_slice(ecfg.batch, ecfg.mesh)
         self.batch = self._lanes.stop - self._lanes.start
         if ecfg.seq_axis is None:
@@ -524,7 +528,8 @@ class Engine:
         cfg, ecfg = self.cfg, self.ecfg
         if any(self._dense):
             raise NotImplementedError("prefill of dense k/v layers comes with a later slice "
-                                      "(ROADMAP A item 2); decode them from a seeded cache")
+                                      "(ROADMAP A, engine remainders: dense-KV prefill); decode "
+                                      "them from a seeded cache")
         b, m, c_len = ids.shape
         run = m * c_len
         nh, hd = cfg.num_attention_heads, cfg.head_dim
@@ -538,7 +543,8 @@ class Engine:
         if self._seq is not None and base > 0:
             raise NotImplementedError(
                 "a prefill chunk past offset 0 on a sequence shard needs the other shards' "
-                "columns; it comes with the serving slice (ROADMAP A item 5)")
+                "columns; it comes with a later slice (ROADMAP A, the rest of the parallelism: "
+                "a prefill chunk past offset 0 on a sequence shard)")
         for i, p_layer in enumerate(self._layers):
             entry = self._prefill_entry(cache, i)
             attn = p_layer["attn"]
@@ -621,17 +627,36 @@ class Engine:
 
     # -- decode --------------------------------------------------------------
 
-    def _append(self, bufs, lat, pos_w, writeable):
-        """Masked write of one token column lat (B, G, 1, r): quantized and
-        packed by the append kernel where it covers the cache, else the
-        plain write (raw latents, exact 3-bit packing), as in the JAX
-        engine."""
-        if self._fused_append:
-            append_token_quantized(lat[:, :, 0, :], bufs["codes_t"], bufs["scale_t"],
-                                   pos_w, writeable, qcfg=self.ecfg.qcfg, rank=lat.shape[-1],
-                                   zero=bufs.get("zero_t"))
-        else:
-            cache_lib.write_at_lanes_masked(bufs, self._encode(lat), pos_w, writeable)
+    def _appends(self, cache) -> list:
+        """Per layer, the two-side append into `cache` (ops/cache_append.KVAppend,
+        None for a dense layer), its buffers checked once per cache: kept
+        while the cache holds the same buffer tensors it was built on."""
+        entries = [cache["stack"]] if self._stacked else cache["layers"]
+        leaves = [t for e in entries for side in e.values() for t in side.values()]
+        memo = self._append_memo
+        if memo is None or len(memo[0]) != len(leaves) or any(
+                r() is not t for r, t in zip(memo[0], leaves)):
+            appends = []
+            for i, (p_layer, dense) in enumerate(zip(self._layers, self._dense)):
+                if dense:
+                    appends.append(None)
+                    continue
+                entry = self._layer_entry(cache, i)
+                ranks = [p_layer["attn"][f"{s}_proj"]["U"].shape[1] for s in ("k", "v")]
+                appends.append(KVAppend((entry["k"], entry["v"]), ranks, qcfg=self.ecfg.qcfg))
+            memo = self._append_memo = (tuple(weakref.ref(t) for t in leaves), appends)
+        return memo[1]
+
+    def _append(self, entry, append, lats, pos_w, writeable):
+        """Masked write of one token's K and V columns lats (B, G, 1, r_k /
+        r_v): quantized and packed by one append launch for both sides where
+        the kernel covers the cache, else the plain write (raw latents,
+        exact 3-bit packing, per-chunk scales), as in the JAX engine."""
+        if append is not None:
+            append([lat[:, :, 0, :] for lat in lats], pos_w, writeable)
+            return
+        for side, lat in zip(("k", "v"), lats):
+            cache_lib.write_at_lanes_masked(entry[side], self._encode(lat), pos_w, writeable)
 
     def _decode_attention(self, q, entry, attn, der, kv_len, layer_idx=None):
         """Latent decode attention of one layer and the U_v-fused o_proj.
@@ -747,9 +772,10 @@ class Engine:
         x = embed_rows(self.params["embed"], token_ids, ecfg.dtype)  # (B, 1, H)
         nh, hd = cfg.num_attention_heads, cfg.head_dim
         cos, sin = llama.rope_cos_sin_for(cfg, pos[:, None])
+        appends = self._appends(cache) if self._fused_append else [None] * len(self._dense)
 
-        for i, (p_layer, der, dense) in enumerate(zip(self._layers, self.derived,
-                                                      self._dense)):
+        for i, (p_layer, der, dense, append) in enumerate(zip(self._layers, self.derived,
+                                                              self._dense, appends)):
             entry = self._layer_entry(cache, i)
             attn = p_layer["attn"]
             h = llama.rms_norm(x, p_layer["input_norm"], cfg.rms_norm_eps)
@@ -762,9 +788,9 @@ class Engine:
                 self._append_dense(entry, h, attn, cos, sin, pos_w, writeable)
                 x = x + self._dense_attention(q, entry, attn, kv_len)[:, None, :]
             else:
-                for side, proj in (("k", "k_proj"), ("v", "v_proj")):
-                    lat = llama.project_kv(h, attn[proj], self._gemv_paths).transpose(1, 2)
-                    self._append(entry[side], lat, pos_a, wr_a)
+                lats = [llama.project_kv(h, attn[proj], self._gemv_paths).transpose(1, 2)
+                        for proj in ("k_proj", "v_proj")]
+                self._append(entry, append, lats, pos_a, wr_a)
                 if self._stacked:  # the kernel reads layer i of the whole stack
                     x = x + self._decode_attention(q, cache["stack"], attn, der, kv_len,
                                                    layer_idx=i)[:, None, :]

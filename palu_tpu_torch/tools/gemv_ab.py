@@ -5,7 +5,7 @@ Run it by path, once per checkout and in turns (parent, this, this,
 parent), from the root of this checkout:
 
     python3 palu_tpu_torch/tools/gemv_ab.py <checkout root> <tag> [--timeline] [--e2e]
-        [--only=int8,mlp,int4,bf16,bf16t,hadamard,floor]
+        [--only=int8,mlp,int4,bf16,bf16t,hadamard,floor,append,mlp8plans]
 
 It imports the given checkout's own chip_smoke (so its own kernels and
 wrappers; run by path, this package is not imported first) and prints one
@@ -36,9 +36,18 @@ own checkout, built here with nvcc: 16-byte ld.global.nc, cp.async into
 a 4-stage ring, cp.async.bulk of row segments into an mbarrier ring), and
 8.9 MB and 26.7 MB (gemv_int4's q_proj and w_fused bytes, codes and
 scales) by 16-byte loads, and gemv_int4's q_proj and w_fused codes (4096-byte
-rows) contiguously and in its tile pattern (64-row tiles of 128 bytes read
-16 bytes a lane, as gemv4_ldg, or of 32 bytes read 4 bytes a lane, as
-gemv4_n32), as [us, TB/s]. --only takes a comma list of those groups (default: all).
+rows) and the int8 MLP's gate and down codes contiguously and in the tile
+pattern (64-row tiles of 128 bytes read 16 bytes a lane, as gemv4_ldg and
+mlp8_ldg, or of 32 bytes read 4 bytes a lane, as gemv4_n32), as [us,
+TB/s]; append: one decode step's cache append of a layer of serve (batch
+1, Llama-2-7B's groups: K latents at rank 128 and V at 384, 8 groups, bf16,
+the 3-bit sym cache in nibbles, S 8192) as the checkout's engine runs it
+(one launch of ops/cache_append.KVAppend for both sides, or the two
+one-side append_token_quantized calls before it), its device ms, L2 cold,
+and host us; mlp8plans (a checkout with mlp8_ldg): each launch of the int8
+MLP at 1 row on the plans of MLP8_SWEEP, (block warps, cluster, grid),
+Llama-2-7B's and Qwen2-7B's widths, its device us. --only takes a comma
+list of those groups (default: all).
 Weights are random from seed 7, quantized on the card.
 
 --timeline (a checkout with the streaming kernels only) adds per-block
@@ -56,7 +65,9 @@ with both kernels' cluster capacities.
 checkout's chip_smoke sets up serve_w4 and lanes_w4 (Llama-2-7B at full
 depth, int4 weights with int8 VT and embedding, random weights from its
 seed): one decode step at batch 1 after a 7000-token prompt and 32 new
-tokens, and at batch 8 after 1024-token prompts and 8 new tokens. Each
+tokens, and at batch 8 after 1024-token prompts and 8 new tokens; then at
+int8 weights (serve_w8's configuration, all 32 layers) at batch 1 after a
+1000-token prompt and 8 new tokens. Each
 reports wall ms, device busy ms (the sum of kernel durations,
 torch.profiler) and the device's idle share per step, over 8 steps, with
 the kernels that take the most device time."""
@@ -273,12 +284,25 @@ def e2e(cs, res: dict, steps: int = 8) -> None:
     del eng
     lanes.generate(cs._prompts(2, (1024,), lanes=8)[0], max_new_tokens=8)
     res["e2e_lanes_w4"] = step(lanes)
+    del lanes
+    torch.cuda.empty_cache()
+    w8, _ = cs._engine(cfg, cs.W8)
+    w8.generate(cs._prompts(3, (1000,))[0], max_new_tokens=8)
+    res["e2e_serve_w8"] = step(w8)
 
 
 BF16_T = {"4096x4096": (4096, 4096), "4096x1024": (4096, 1024), "12288x4096": (12288, 4096)}
 BF16 = BF16_T  # W (K, N) at the same K x N
 HADAMARD = ((4096, 256), (512, 256), (4096, 128), (4096, 352), (4096, 480), (4096, 512))
-GROUPS = ("int8", "mlp", "int4", "bf16", "bf16t", "hadamard", "floor")
+GROUPS = ("int8", "mlp", "int4", "bf16", "bf16t", "hadamard", "floor", "append", "mlp8plans")
+# mlp8plans: (H, I), gate / up plans, down plans (down: 8-warp blocks)
+MLP8_SWEEP = {"llama": ((4096, 11008),
+                        [(16, 1, 86), (8, 1, 86), (8, 2, 172), (8, 4, 248), (8, 8, 240),
+                         (8, 3, 237), (8, 5, 235), (8, 6, 234), (8, 7, 224)],
+                        [(8, 7, 224), (8, 6, 192), (8, 4, 128), (8, 8, 240), (8, 2, 64)]),
+              "qwen2": ((3584, 18944),
+                        [(8, 1, 148), (8, 2, 264), (8, 3, 222), (8, 4, 248), (8, 8, 240)],
+                        [(8, 8, 224), (8, 7, 196), (8, 4, 112)])}
 # floor: (path, rows per block or stage, segment bytes, stages, blocks,
 # rows streamed[, bytes a row: 8192 unless given]); path 0 ld.global.nc, 1 cp.async, 2
 # cp.async.bulk, 3 gemv_int4's tile pattern (rows: the tile order, 1 row
@@ -302,7 +326,15 @@ FLOOR = {"ldg_528x256": (0, 0, 0, 0, 528, 4096), "ldg_2112x256": (0, 0, 0, 0, 21
          "tiles_w4_264_q_proj": (3, 1, 4, 0, 264, 2048, 4096),
          "ldg_2112x256_w_fused": (0, 0, 0, 0, 2112, 6144, 4096),
          "tiles_w16_264_w_fused": (3, 1, 16, 0, 264, 6144, 4096),
-         "tiles_w4_264_w_fused": (3, 1, 4, 0, 264, 6144, 4096)}
+         "tiles_w4_264_w_fused": (3, 1, 4, 0, 264, 6144, 4096),
+         # the int8 MLP's weights (Llama-2-7B): gate or up (4096 rows of 11008
+         # bytes) and down (11008 rows of 4096 bytes), 45.1 MB each,
+         # contiguously and in mlp8_ldg's tile pattern (64-row tiles of 128
+         # bytes read 16 bytes a lane)
+         "ldg_2112x256_mlp_gate": (0, 0, 0, 0, 2112, 4096, 11008),
+         "tiles_w16_264_mlp_gate": (3, 1, 16, 0, 264, 4096, 11008),
+         "ldg_2112x256_mlp_down": (0, 0, 0, 0, 2112, 11008, 4096),
+         "tiles_w16_264_mlp_down": (3, 1, 16, 0, 264, 11008, 4096)}
 
 
 def floor(res: dict, flush) -> None:
@@ -336,6 +368,82 @@ def floor(res: dict, flush) -> None:
                 raise RuntimeError(f"stream_floor {name}: CUDA error {err}")
         ms = profile_call(call, 30, flush)[0]
         res[f"floor_{name}"] = [ms * 1e3, w.numel() / (ms * 1e-3) / 1e12]
+
+
+def append(cs, res: dict, gen, flush, host) -> None:
+    """The append group (module docstring)."""
+    import torch
+
+    pos = torch.tensor([4099], dtype=torch.int32, device="cuda")
+    wr = torch.tensor([True], device="cuda")
+    sides = []
+    for rank in (cs.RK, cs.RV):
+        nrows = cs.packed_nrows(rank, cs.FLAGSHIP.pack_bits)
+        sides.append((rank, torch.randn((1, cs.G, rank), generator=gen, device="cuda").bfloat16(),
+                      torch.randint(0, 256, (1, cs.G, nrows, 8192), generator=gen,
+                                    device="cuda", dtype=torch.uint8),
+                      torch.rand((1, cs.G, 1, 8192), generator=gen, device="cuda")))
+    if hasattr(cs, "KVAppend"):  # one launch a layer for both sides
+        layer = cs.KVAppend([{"codes_t": c, "scale_t": s} for _, _, c, s in sides],
+                            [r for r, _, _, _ in sides], qcfg=cs.FLAGSHIP)
+        lats = [lat for _, lat, _, _ in sides]
+
+        def call():
+            layer(lats, pos, wr)
+    else:  # the two one-side calls of the engine before it
+        def call():
+            for rank, lat, codes, scale in sides:
+                cs.append_token_quantized(lat, codes, scale, pos, wr, qcfg=cs.FLAGSHIP,
+                                          rank=rank)
+    res["append_layer"] = profile_call(call, 50, flush)
+    host("append_layer", call)
+
+
+def mlp8_plans(cs, res: dict, gen, flush) -> None:
+    """The mlp8plans group (module docstring): each launch timed alone,
+    the other on the first plan of its list."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from palu_tpu_torch.ops import build
+    from palu_tpu_torch.ops import gemv_int8 as g8
+
+    dev = torch.device("cuda")
+    fn = build.launcher("gemv_int8", "palu_mlp_gemv_int8_ldg", g8.MLP8_SIG)
+
+    def per_launch(call, iters=20):
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                flush.bitwise_not_()
+                call()
+            torch.cuda.synchronize()
+        us = {"gate_up": [], "down": []}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and "mlp8_ldg" in e.name:
+                kind = "gate_up" if "mlp8_ldg<2" in e.name else "down"
+                us[kind].append(e.time_range.end - e.time_range.start)
+        return {k: round(sum(v) / len(v), 2) for k, v in us.items() if v}
+
+    for tag, ((h, inter), gus, dns) in MLP8_SWEEP.items():
+        ws = [cs._qweight(8, h, inter, gen), cs._qweight(8, h, inter, gen),
+              cs._qweight(8, inter, h, gen)]
+        ptrs = [t.data_ptr() for w in ws for t in (w["wq8"], w["ws"])]
+        x = torch.randn((1, h), generator=gen, device="cuda").bfloat16()
+        hb = torch.empty((1, inter), dtype=torch.bfloat16, device="cuda")
+        out = torch.empty((1, h), dtype=torch.bfloat16, device="cuda")
+        for which, plans in (("gate_up", gus), ("down", dns)):
+            for plan in plans:
+                p1 = plan if which == "gate_up" else gus[0]
+                p2 = plan[1:] if which == "down" else dns[0][1:]
+
+                def call():
+                    build.check(fn(x.data_ptr(), 1, h, inter, *ptrs, hb.data_ptr(), *p1, *p2,
+                                   out.data_ptr(), build.stream_ptr(dev)), "mlp8_ldg")
+                key = f"mlp8_{tag}_{which}_w{plan[0]}_c{plan[1]}x{plan[2] // plan[1]}"
+                res[key] = per_launch(call)[which]
+        del ws
 
 
 def main(root: str, tag: str, with_timeline: bool, with_e2e: bool, only=GROUPS) -> None:
@@ -411,6 +519,10 @@ def main(root: str, tag: str, with_timeline: bool, with_e2e: bool, only=GROUPS) 
             t(f"hadamard_{rows}x{n}_{str(dt)[6:]}_clone", lambda: x.clone(), 50)
     if "floor" in only:
         floor(res, flush)
+    if "append" in only:
+        append(cs, res, gen, flush, host)
+    if "mlp8plans" in only:
+        mlp8_plans(cs, res, gen, flush)
     if with_timeline:
         timeline(cs, res, flush)
         ldg_timeline(cs, res, flush)

@@ -10,7 +10,9 @@ import pytest
 import torch
 
 from palu_tpu_torch.core.quant import QuantConfig, pack_codes_t, packed_nrows, quantize_affine
-from palu_tpu_torch.ops.cache_append import append_token_quantized, append_token_quantized_ref
+from palu_tpu_torch.ops.cache_append import (KVAppend, append_kv_quantized,
+                                             append_kv_quantized_ref, append_token_quantized,
+                                             append_token_quantized_ref)
 from palu_tpu_torch.ops.palu_decode import palu_decode, palu_decode_ref
 from palu_tpu_torch.ops.prefill_flash import prefill_flash, prefill_flash_ref
 
@@ -42,6 +44,105 @@ def test_append_kernel_bit_exact(gen, kw):
     append_token_quantized_ref(lat, *ref[:2], pos, wr, qcfg=qcfg, rank=rank, zero=ref[2])
     for got, want in zip((codes, scale, zero), ref):
         assert got is None or torch.equal(got, want)
+
+
+def _append_bufs(gen, qcfg, b, g, rank, s_max):
+    bufs = {"codes_t": torch.randint(0, 256, (b, g, packed_nrows(rank, qcfg.pack_bits), s_max),
+                                     generator=gen, device="cuda", dtype=torch.uint8),
+            "scale_t": torch.rand((b, g, 1, s_max), generator=gen, device="cuda")}
+    if not qcfg.sym:
+        bufs["zero_t"] = torch.rand((b, g, 1, s_max), generator=gen, device="cuda")
+    return bufs
+
+
+@pytest.mark.parametrize("kw", [dict(bits=3, sym=True, container=4), dict(bits=3, sym=False,
+                                                                          container=4),
+                                dict(bits=2, sym=True), dict(bits=4, sym=False, clip_ratio=0.9),
+                                dict(bits=8, sym=True)])
+@pytest.mark.parametrize("g,ranks", [(8, (128, 384)), (1, (256, 256)), (2, (32, 64))],
+                         ids=["llama", "qwen2", "narrow"])
+@pytest.mark.parametrize("lanes", [1, 8])
+def test_append_kv_kernel_bit_exact(gen, kw, g, ranks, lanes):
+    """Both sides in one launch against the plain version: codes, scales and
+    zeros bit-identical; masked lanes (every third) keep their bytes; pos 0
+    and S - 1; bf16 and f32 latents; a KVAppend built once and called twice
+    (the engine's path) writes the same as the checking call."""
+    qcfg, s_max = QuantConfig(**kw), 256
+    pos = torch.tensor([0, s_max - 1, 100, 7, 255, 31, 64, 200][:lanes], dtype=torch.int32,
+                       device="cuda")
+    wr = torch.tensor([i % 3 != 1 for i in range(lanes)], device="cuda")
+    for dt in (torch.bfloat16, torch.float32):
+        bufs = [_append_bufs(gen, qcfg, lanes, g, r, s_max) for r in ranks]
+        lats = [torch.randn((lanes, g, r), generator=gen, device="cuda").to(dt) for r in ranks]
+        ref = [{k: t.clone() for k, t in b.items()} for b in bufs]
+        n = append_kv_quantized.launches
+        append_kv_quantized(*lats, *bufs, pos, wr, qcfg=qcfg, rank_k=ranks[0], rank_v=ranks[1])
+        assert append_kv_quantized.launches == n + 1
+        append_kv_quantized_ref(*lats, *ref, pos, wr, qcfg=qcfg, rank_k=ranks[0],
+                                rank_v=ranks[1])
+        for got, want in zip(bufs, ref):
+            for k in want:
+                assert torch.equal(got[k], want[k]), k
+        for b, r in zip(bufs, ref):  # masked lanes: the ref kept them, so did the kernel
+            for lane in range(lanes):
+                if lane % 3 == 1:
+                    assert torch.equal(b["codes_t"][lane], r["codes_t"][lane])
+        layer = KVAppend(bufs, ranks, qcfg=qcfg)
+        lats = [torch.randn((lanes, g, r), generator=gen, device="cuda").to(dt) for r in ranks]
+        for _ in range(2):
+            layer(lats, pos, wr)
+        append_kv_quantized_ref(*lats, *ref, pos, wr, qcfg=qcfg, rank_k=ranks[0],
+                                rank_v=ranks[1])
+        for got, want in zip(bufs, ref):
+            for k in want:
+                assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("kw", [dict(bits=3, sym=True, container=4), dict(bits=4, sym=False),
+                                dict(bits=2, sym=False, clip_ratio=0.9), dict(bits=8, sym=True)])
+def test_append_kv_many_rows_bit_exact(gen, kw):
+    """8 lanes x 8 groups at ranks 512 / 384, latents over six decades of
+    scale: ~230K quantized latents a case, every code, scale and zero
+    identical to the plain version's (the kernel divides by one reciprocal
+    a row, cache_append.cu div_rn)."""
+    qcfg, s_max, ranks = QuantConfig(**kw), 64, (512, 384)
+    pos = torch.arange(8, dtype=torch.int32, device="cuda") * 7
+    wr = torch.ones(8, dtype=torch.bool, device="cuda")
+    for decade in range(-3, 3):
+        bufs = [_append_bufs(gen, qcfg, 8, 8, r, s_max) for r in ranks]
+        ref = [{k: t.clone() for k, t in b.items()} for b in bufs]
+        lats = [torch.randn((8, 8, r), generator=gen, device="cuda") * 10.0**decade
+                for r in ranks]
+        append_kv_quantized(*lats, *bufs, pos, wr, qcfg=qcfg, rank_k=ranks[0], rank_v=ranks[1])
+        append_kv_quantized_ref(*lats, *ref, pos, wr, qcfg=qcfg, rank_k=ranks[0],
+                                rank_v=ranks[1])
+        for got, want in zip(bufs, ref):
+            for k in want:
+                assert torch.equal(got[k], want[k]), (decade, k)
+
+
+def test_append_kv_refuses(gen):
+    """A latent that is not contiguous raises (it is not copied), as do
+    latents of another shape, device or dtype, and buffers the kernel cannot
+    write in place."""
+    qcfg = QuantConfig(bits=3, sym=True, container=4)
+    bufs = [_append_bufs(gen, qcfg, 2, 2, r, 64) for r in (32, 64)]
+    layer = KVAppend(bufs, (32, 64), qcfg=qcfg)
+    pos = torch.zeros(2, dtype=torch.int32, device="cuda")
+    wr = torch.ones(2, dtype=torch.bool, device="cuda")
+    lk = torch.randn((2, 2, 32), device="cuda")
+    lv = torch.randn((2, 64, 2), device="cuda").transpose(1, 2)  # not contiguous
+    with pytest.raises(ValueError):
+        layer((lk, lv), pos, wr)
+    with pytest.raises(ValueError):
+        layer((lk, lk), pos, wr)
+    with pytest.raises(ValueError):
+        layer((lk, lv.contiguous().bfloat16()), pos, wr)
+    with pytest.raises(ValueError):
+        layer((lk.cpu(), lv.contiguous().cpu()), pos, wr)
+    strided = dict(bufs[0], codes_t=torch.zeros_like(bufs[0]["codes_t"]).transpose(0, 1))
+    with pytest.raises(ValueError):
+        KVAppend((strided, bufs[1]), (32, 64), qcfg=qcfg)
 
 
 @pytest.mark.parametrize("kw,window", [(dict(bits=3, sym=True, container=4), None),
@@ -586,6 +687,106 @@ def test_mlp_kernels_at_qwen2_widths(gen, bits):
         x = torch.randn((rows, h), generator=gen, device="cuda").bfloat16()
         got, want = mlp(x, *ws).float(), mlp_ref(x, *ws).float()
         assert (got - want).abs().max() <= 2.0**-7 * want.abs().max()
+
+
+def _kernels_per_call(fn) -> float:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA) / 4
+
+
+# (H, I) of the int8 MLP: Llama-2-7B's and Qwen2-7B's widths, one column
+# block on either side, tiles that no split divides evenly
+MLP8_SHAPES = {"llama": (4096, 11008), "qwen2": (3584, 18944), "h128_i128": (128, 128),
+               "h1152_i384": (1152, 384), "h384_i10880": (384, 85 * 128)}
+
+
+@pytest.mark.parametrize("shape", list(MLP8_SHAPES))
+def test_mlp_gemv_int8_ldg_matches_plain(gen, shape):
+    """mlp8_ldg's two launches at rows 1-8 within 2^-7 of the plain version;
+    24 calls bit-identical at 1 and 8 rows; two kernels a call over a bf16 x,
+    the split pass's four over an f32 x."""
+    from palu_tpu_torch.ops import gemv_int8 as g8
+
+    h, inter = MLP8_SHAPES[shape]
+    ws = (_wq(gen, 8, h, inter), _wq(gen, 8, h, inter), _wq(gen, 8, inter, h))
+    for rows in range(1, 9):
+        x = torch.randn((rows, h), generator=gen, device="cuda").bfloat16()
+        _held_twice(g8.mlp_gemv_int8, (x, *ws), g8.mlp_gemv_int8_ref(x, *ws), torch.bfloat16)
+        if rows in (1, 8):
+            got = g8.mlp_gemv_int8(x, *ws)
+            for _ in range(22):
+                assert torch.equal(g8.mlp_gemv_int8(x, *ws), got)
+            assert _kernels_per_call(lambda: g8.mlp_gemv_int8(x, *ws)) == 2
+    x = torch.randn((3, h), generator=gen, device="cuda")
+    _held_twice(g8.mlp_gemv_int8, (x, *ws), g8.mlp_gemv_int8_ref(x, *ws), torch.float32)
+    assert _kernels_per_call(lambda: g8.mlp_gemv_int8(x, *ws)) == 4
+
+
+@pytest.mark.parametrize("warps", [16, 8])
+@pytest.mark.parametrize("sizes", [(1, 32), (2, 48), (3, 86), (4, 172), (7, 148), (8, 8)])
+def test_mlp_gemv_int8_every_plan(gen, warps, sizes):
+    """Both block widths of the gate / up launch and cluster sizes 1-8 of
+    both launches on grids whose clusters own several column blocks (and
+    at 8 ranks warps with no tile), through the C entry on plans chosen
+    here: each within 2^-7 of the plain version at 1 and 5 rows."""
+    from palu_tpu_torch.ops import build
+    from palu_tpu_torch.ops import gemv_int8 as g8
+
+    c, blocks = sizes  # cluster size, I / 128
+    h, inter = 1024, 128 * blocks
+    ws = (_wq(gen, 8, h, inter), _wq(gen, 8, h, inter), _wq(gen, 8, inter, h))
+    fn = build.launcher("gemv_int8", "palu_mlp_gemv_int8_ldg", g8.MLP8_SIG)
+    for rows in (1, 5):
+        x = torch.randn((rows, h), generator=gen, device="cuda").bfloat16()
+        hb = torch.empty((rows, inter), dtype=torch.bfloat16, device="cuda")
+        out = torch.empty((rows, h), dtype=torch.bfloat16, device="cuda")
+        g1 = c * max(1, blocks // 2)  # clusters own two column blocks (gate / up)
+        g2 = c * 2  # and four (down: H / 128 = 8)
+        err = fn(x.data_ptr(), rows, h, inter,
+                 *[t.data_ptr() for w in ws for t in (w["wq8"], w["ws"])], hb.data_ptr(),
+                 warps, c, g1, c, g2, out.data_ptr(), build.stream_ptr(x.device))
+        assert err == 0
+        want = g8.mlp_gemv_int8_ref(x, *ws).float()
+        assert (out.float() - want).abs().max() <= 2.0**-7 * want.abs().max()
+
+
+def test_mlp8_smem_matches_kernel(gen):
+    """ops/gemv_int8.mlp8_smem mirrors mlp8_smem_bytes."""
+    from palu_tpu_torch.ops import build
+    from palu_tpu_torch.ops import gemv_int8 as g8
+
+    fn = build.launcher("gemv_int8", "palu_mlp8_smem", "iiii")
+    for sets, warps in ((2, 16), (2, 8), (1, 8)):
+        for rows in range(1, 9):
+            for c in g8.MLP8_CLUSTERS:
+                assert fn(sets, warps, rows, c) == g8.mlp8_smem(sets, warps, rows, c)
+
+
+def test_mlp8_plans_fit_the_card(gen):
+    """The card's cluster capacity of mlp8_ldg's kinds is at most what the
+    SMs hold, and the plans at Llama-2-7B's and Qwen2-7B's widths stay
+    within it (one wave)."""
+    from palu_tpu_torch.ops import gemv_int8 as g8
+
+    dev = torch.device("cuda")
+    sms = g8.device_sms(dev)
+    caps = (g8._device_mlp8_capacity(dev, 2), g8._device_mlp8_capacity(dev, 1))
+    for kind in caps:
+        for warps, cap in kind:
+            assert all(0 < n <= 512 // (32 * warps) * sms // c
+                       for n, c in zip(cap, g8.MLP8_CLUSTERS))
+    for h, inter in (MLP8_SHAPES["llama"], MLP8_SHAPES["qwen2"]):
+        for kind, (warps, c, grid) in zip(caps, g8.mlp8_plans(sms, h, inter, 1, caps)):
+            assert grid // c <= dict(kind)[warps][c - 1]
+            assert grid <= 512 // (32 * warps) * sms
 
 
 @pytest.mark.parametrize("rows", [1, 8])
