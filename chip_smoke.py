@@ -481,6 +481,10 @@ def phase_build() -> None:
                           "ptxas": regs.get("palu_decode_exact", [])},
           "fp_decode_sass": {**hopper_sass("palu_decode_fp_wg"),
                              "ptxas": regs.get("palu_decode_fp_wg", [])},
+          # the seq-major packed decode: wgmma and TMA (B) in its own
+          # instantiations, bulk copies of the packed tiles, no local memory
+          # or spill
+          "seq_decode_sass": seq_decode_sass(),
           "i8_decode_sass": {**hopper_sass("palu_decode_i8", reported=("IMMA",)),
                              "ptxas": regs.get("palu_decode_i8", [])},
           # the streaming GEMVs: mma.sync, TMA tiles, bulk copies (int4
@@ -509,6 +513,23 @@ def phase_build() -> None:
           "hadamard_sass": {**hopper_sass("hadamard", ("SHFL", "UBLKCP"), ("LDL", "STL")),
                             "mix_spills": kernel_spills("hadamard", "mix_kernel",
                                                         must_be_zero=True)}})
+
+
+def seq_decode_sass() -> dict:
+    """SASS counts of palu_decode_seq_wg_kernel's instantiation on the main
+    path (hd 128, one 8-head tile a consumer, 6 V blocks: the Llama group,
+    rv 384): raises without HGMMA, UTMALDG (B) and UBLKCP (the packed tiles),
+    on LDL / STL or on a spill there; the spills of every instantiation
+    reported (at 16 heads a consumer or 8 V blocks the consumers' registers
+    spill, as in the bf16 decodes' instantiations)."""
+    main = "palu_decode_seq_wg_kernelILi128ELi1ELi6E"
+    out = kernel_sass("palu_decode_fp_wg", main, ("HGMMA", "UTMALDG", "UBLKCP", "LDL", "STL"))
+    if "cuobjdump" not in out and not (out["HGMMA"] and out["UTMALDG"] and out["UBLKCP"]):
+        raise AssertionError(f"{main} SASS lacks wgmma or TMA: {out}")
+    spills = kernel_spills("palu_decode_fp_wg", "palu_decode_seq_wg_kernel")
+    if any(v for k, v in spills.items() if k.startswith("ILi128ELi1ELi6E")):
+        raise AssertionError(f"{main} spills: {spills}")
+    return {**out, "spills": spills}
 
 
 def kernel_spills(source: str, kernel: str, must_be_zero: bool = False) -> dict:
@@ -889,13 +910,17 @@ def _seq_inputs(qcfg: QuantConfig, b: int, s_max: int, gen, rk: int = RK, rv: in
     return q, b_k, bufs
 
 
+SEQ_REPEATS = 24  # calls of one seq decode that must agree bit for bit
+
+
 def check_decode_seq(gen) -> dict:
     """The seq-major packed decode against its plain version at S 8192:
     exact 3-bit and 4-bit, sym and asym, at batch 1 (kv_len 8000, not a
     whole tile) and over two ragged lanes, and a sliding window; then at
     run_latency_kernel's 3-bit shapes (batch 1, S = kv_len = 4096, 16384
-    and 65536). Then its device time at batch 1 with that cache full to
-    8192 and to 65536, and the dense-KV SDPA yardstick."""
+    and 65536). SEQ_REPEATS calls at batch 1, S 8192 must be bit-identical.
+    Then its device time at batch 1 with that cache full to 8192 and to
+    65536, and the dense-KV SDPA yardstick."""
     s_max = 8192
     specs = [  # (qcfg, kv_len per lane, window)
         (QuantConfig(bits=3, sym=False), (8000,), None),
@@ -923,6 +948,11 @@ def check_decode_seq(gen) -> dict:
     q, b_k, bufs = _seq_inputs(qcfg, 1, s_max, gen)
     kv_len = torch.tensor([s_max], dtype=torch.int32, device="cuda")
     kw = dict(qcfg=qcfg, rk=RK, rv=RV)
+    first = palu_decode_seq_quantized(q, b_k, kv_len=kv_len, **bufs, **kw)
+    for _ in range(SEQ_REPEATS - 1):  # the ring, stages and splits: bit-identical repeats
+        if not torch.equal(palu_decode_seq_quantized(q, b_k, kv_len=kv_len, **bufs, **kw),
+                           first):
+            raise AssertionError("seq decode: a repeated call differs")
     n = s_max
     nbytes = (sum(t.numel() * t.element_size() for t in bufs.values())
               + q.numel() * 2 + b_k.numel() * 2 + NH * RV * 4)
@@ -941,13 +971,14 @@ def check_decode_seq(gen) -> dict:
     worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, err)
     ms_64k = device_ms(lambda: palu_decode_seq_quantized(q, b_k, kv_len=kv64, **bufs, **kw), 10)
     out = {"name": "palu_decode_seq_quantized", "route": "cuda",
-           "source": "palu_tpu_torch/csrc/palu_decode_fp.cu",
+           "source": "palu_tpu_torch/csrc/palu_decode_fp_wg.cu",
            "replaces": "palu_tpu/ops/pallas/palu_decode.py:559",
            "max_abs_err": worst_abs, "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
            "bound_ms": bms, "bound_by": by,
            "library_ms": device_ms(_dense_kv_sdpa(1, s_max, gen), 20)}
     emit({"phase": "kernel", "cases": len(specs) + 1, "max_rel_err": worst_rel,
           "tol": DECODE_TOL, "layout": "(B, G, S, nbytes)", "bytes": nbytes, "flops": flops,
+          "bit_identical_repeats": SEQ_REPEATS,
           "b1_s65536_ms": ms_64k, "library_call": SDPA_YARDSTICK, **out})
     return out
 
@@ -2978,7 +3009,7 @@ PROBES = (
 EXTRA_LINES = {
     "gemv_probe": [("gemv_bf16_t", "palu_tpu_torch/csrc/gemv_bf16.cu",
                     "tools/tpu_gemv_probe.py:73", "pallasT")],
-    "ab_v2": [("palu_decode2_quantized", "palu_tpu_torch/csrc/palu_decode2.cu",
+    "ab_v2": [("palu_decode2_quantized", "palu_tpu_torch/csrc/palu_decode_exact.cu",
                "palu_tpu/ops/pallas/archive/palu_decode2.py:337", "v2q3"),
               ("palu_decode3_quantized", "palu_tpu_torch/csrc/palu_decode3.cu",
                "palu_tpu/ops/pallas/archive/palu_decode3.py:242", "v3q3")],

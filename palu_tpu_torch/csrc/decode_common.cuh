@@ -1,9 +1,10 @@
 // Shared pieces of the latent decode kernels (palu_decode_exact.cu and
 // palu_decode_i8.cu over the rank-major packed cache, the archived split
-// kernel of palu_decode_split.cuh, palu_decode_fp_wg.cu and palu_decode_fp.cu
-// over the unquantized caches and the seq-major packed one): async copies, ldmatrix and mma.sync
-// wrappers (bf16 and s8), warp reductions, and the kernel that combines
-// the split-sequence partials.
+// kernel of palu_decode_split.cuh, palu_decode_fp_wg.cu over the unquantized
+// caches and the seq-major packed one, palu_decode_fp.cu's dissection and
+// v2 layout): async copies, ldmatrix and mma.sync wrappers (bf16 and s8),
+// warp reductions, the row sums of B, and the kernel that combines the
+// split-sequence partials.
 //
 // The split pass writes, per (lane, q-head) row and split s, the running
 // max m_s, the softmax denominator l_s and the unnormalised latent
@@ -165,6 +166,26 @@ __global__ void __launch_bounds__(128) combine_kernel(
   float num = 0.0f;
   for (int s = 0; s < splits; ++s) num += wgt[s] * part_acc[(bh * splits + s) * rv + r];
   out[bh * rv + r] = STATS ? num : num / den_s;
+}
+
+// Row sums of B per scale chunk, the zero or base term's factor of the
+// packed decodes: rs[gj][c][d] = sum over the gs ranks of chunk c of
+// B[gj][r][d], in f32 (gj: a (group, kv-head) pair of bk (G, nkv, rk, hd)).
+static __global__ void rowsum_kernel(const __nv_bfloat16* __restrict__ bk, float* __restrict__ rs,
+                                     int rk, int gs, int hd) {
+  const int gj = blockIdx.x, c = blockIdx.y, d = threadIdx.x;
+  const __nv_bfloat16* src = bk + (static_cast<size_t>(gj) * rk + c * gs) * hd + d;
+  float s = 0.0f;
+  for (int r = 0; r < gs; ++r) s += __bfloat162float(src[static_cast<size_t>(r) * hd]);
+  rs[(static_cast<size_t>(gj) * gridDim.y + c) * hd + d] = s;
+}
+
+// Launch rowsum_kernel over n_gj (group, kv-head) pairs of B in nsc chunks
+// of rk / nsc ranks; returns the launch error.
+inline int launch_rowsum(const __nv_bfloat16* bk, float* rs, int n_gj, int nsc, int rk, int hd,
+                         cudaStream_t st) {
+  rowsum_kernel<<<dim3(n_gj, nsc), hd, 0, st>>>(bk, rs, rk, rk / nsc, hd);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Launch the combine over `rows` (lane, q-head) rows, normalised or (m_out

@@ -7,8 +7,10 @@
 // palu_flash_decode3_quantized (body _make_kernel3), per-row affine scales
 // and zeros packed as (B, S, 2G) by sz_pack, pack widths 2, 3, 4 and 8.
 //
-// What it computes: palu_decode2.cu's function, with RoPE(s) = R(s0) R(s -
-// s0) for the rotation block [s0, s0 + block_s) that holds s: the query
+// What it computes: v2's function (ops/archive/palu_decode2.py's module
+// docstring: the affine dequantization x = scale * code + zero folded past
+// the products), with RoPE(s) = R(s0) R(s - s0) for the rotation block [s0,
+// s0 + block_s) that holds s: the query
 // (pre-scaled by 1/sqrt(hd) and rounded to its dtype by the wrapper, as
 // the TPU wrapper does) is rotated back by s0 with the offset tables
 // (c0, s0: cos / sin of each block start, (S / block_s, hd/2) f32), and
@@ -16,9 +18,12 @@
 // hd/2) f32, rope_scale folded into both). Tables are built in float64 and
 // rounded to f32 by the wrapper, as the TPU wrapper builds them.
 //
-// Bound on this card: palu_decode2.cu's (the same function).
+// Bound on this card: the function of v4's exact mode over the same codes:
+// the K rebuild's 2 * nh * rk * hd flops per token on the bf16 tensor cores
+// (68.7 GFLOP at the A/B's 64K x 32 heads, 0.069 ms) above the codes' bytes
+// (0.033 ms at 3 bits).
 //
-// Design: the split pass and combine of palu_decode_split.cuh (GEN 3),
+// Design: the split pass and combine of palu_decode_split.cuh,
 // asym: the rotated query replaces q_s in shared memory when the tile walk
 // enters a new rotation block (block_s % 64 == 0, so a 64-token tile never
 // straddles two), the relative rows fill the shared-memory rotation rows,
@@ -74,6 +79,6 @@ extern "C" int palu_decode3_quantized(const void* q, int q_bf16, const void* bk,
   a.tiles_per_split = tiles_per_split;
   a.sqrt_hd = 1.0f;  // the query comes pre-scaled
   a.block_s = block_s;
-  return run_split<3>(a, B, hd, static_cast<float*>(out),
+  return run_split(a, B, hd, static_cast<float*>(out),
                       static_cast<cudaStream_t>(stream));
 }

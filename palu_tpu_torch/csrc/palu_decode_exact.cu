@@ -798,17 +798,6 @@ palu_decode_exact_kernel(const __grid_constant__ CUtensorMap tm_kc,
   }
 }
 
-// Row sums of B per scale chunk, the asym zero term's factor: rs[g][j][c][d]
-// = sum over ranks r of chunk c of B[g][j][r][d], in f32.
-__global__ void rowsum_kernel(const __nv_bfloat16* __restrict__ bk, float* __restrict__ rs,
-                              int rk, int gs, int hd) {
-  const int gj = blockIdx.x, c = blockIdx.y, d = threadIdx.x;
-  const __nv_bfloat16* src = bk + (static_cast<size_t>(gj) * rk + c * gs) * hd + d;
-  float s = 0.0f;
-  for (int r = 0; r < gs; ++r) s += __bfloat162float(src[static_cast<size_t>(r) * hd]);
-  rs[(static_cast<size_t>(gj) * gridDim.y + c) * hd + d] = s;
-}
-
 template <int HD, bool CHUNKED, int NP, int MT>
 int launch(int grid, const CUtensorMap (&tm)[7], const ExactArgs& a, cudaStream_t st) {
   const int smem = static_cast<int>(a.L.total) + 1024;
@@ -894,10 +883,8 @@ extern "C" int palu_decode_exact(const void* q, int q_bf16, const void* bk, cons
   a.inv_sqrt_hd = inv_sqrt_hd, a.rope_scale = rope_scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (asym) {
-    rowsum_kernel<<<dim3(G * nkv, nsk), hd, 0, st>>>(static_cast<const __nv_bfloat16*>(bk),
-                                                     static_cast<float*>(rsum), rk, rk / nsk,
-                                                     hd);
-    const int err = static_cast<int>(cudaGetLastError());
+    const int err = decode::launch_rowsum(static_cast<const __nv_bfloat16*>(bk),
+                                          static_cast<float*>(rsum), G * nkv, nsk, rk, hd, st);
     if (err != 0) return err;
   }
   const uint64_t planes = static_cast<uint64_t>(n_layers) * B * G;

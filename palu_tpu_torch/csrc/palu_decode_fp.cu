@@ -1,14 +1,8 @@
 // Latent decode attention over seq-major latents, split over the sequence
 // (flash-decoding) with a second kernel that combines the splits
 // (decode_common.cuh): the split kernel that served every unquantized and
-// seq-major decode before the bf16 decodes moved to palu_decode_fp_wg.cu.
-//
-// Replaces: palu_tpu/ops/pallas/palu_decode.py::palu_flash_decode_quantized,
-// the v1 kernel over seq-major packed codes (B, G, S, nbytes) with per-token
-// scale and base (B, G, S, 1) (palu_decode_seq_q); and two tools' kernels
-// below, the archived v2 decode and the dissection. One kernel template
-// serves them; only the tile load (and, for codes, the per-token scales)
-// differ.
+// seq-major decode before they moved to palu_decode_fp_wg.cu. It stays for
+// two tools' kernels below, the dissection and the archived v2 decode.
 //
 // What it computes, per lane b, group g and q-head h of the group:
 //   K_h(s) = B_h^T x_k(s)
@@ -16,20 +10,7 @@
 //   out_h = sum_s softmax(logit)(s) x_v(s)
 // -> (B, nh, rv) f32 in latent space (o_proj is U_v-fused).
 //
-// Bound on this card: at 3 bits the packed tile is 208 bytes per token and
-// group against 1024 for bf16 latents, and the K rebuild (2 * nh * rk * hd
-// flops per token, 8.6 GFLOP per layer at 8K) bounds it; over bf16
-// latents (v2, dissection) the bytes do.
-//
-// The packed variant (QUANT) dequantizes in its tile load: each thread
-// reads 4-byte words of a token's packed row (a 64-token tile is one
-// contiguous run of 64 * nbytes bytes; exact 3-bit reads the matching word
-// of the 1-bit plane too), unpacks them in registers and writes the values
-// code + q_min - base(s), formed in f32 and rounded once to bf16 (exact for
-// the integer base that quantize gives), into the same bf16 tile the
-// latent variants fill. The per-token scale multiplies the f32 K
-// accumulators before RoPE and folds into p on the V side, so K and V are
-// exact up to f32 summation order.
+// Bound on this card: over bf16 latents the bytes do.
 //
 // Design: Grid (splits, G, B), 8 warps, about one block per SM.
 // A block stages the B_h of its group's heads in shared memory once with
@@ -52,8 +33,7 @@
 // K). When all of B fits it is staged once per block. Each
 // thread reads the f32 cos/sin of its two tokens and its dims straight into
 // registers (the tables the wrapper built exactly as the plain version
-// does); staging them in shared memory would not leave room for the 48 KB
-// V tile at rv 384 beside four heads of B. Each head keeps (m, l) and a
+// does). Each head keeps (m, l) and a
 // latent accumulator (rv) in shared memory; a thread per rank reads its 64
 // V values once per tile and contracts them against p for every head.
 // Blocks past kv_len (or before the window) do no tile work. Nothing
@@ -125,12 +105,6 @@ struct FpArgs {
   const bf16* bk;     // (G, hpg, rk, hd)
   const bf16* xk;     // (B, G, S, rk) seq-major
   const bf16* xv;     // (B, G, S, rv), or V2: (B, G, rv, S) rank-major
-  const uint8_t* kc;  // packed variant: (B, G, S, nbk) codes
-  const uint8_t* vc;  // (B, G, S, nbv)
-  const float* ks;    // (B, G, S) per-token scale and base
-  const float* kb;
-  const float* vs;
-  const float* vb;
   const int* kv_len;  // (B,)
   const float* cos_t; // (S, hd/2)
   const float* sin_t;
@@ -140,7 +114,6 @@ struct FpArgs {
   float* part_acc;    // (B, nh, splits, rv)
   unsigned long long* part_ck;  // dissection: (B, G, splits) checksums
   int G, hpg, rk, rv, S, window;
-  int nbk, nbv, pbits, qmin;  // packed variant
   int splits, tiles_per_split, chunk_heads;
   int rc;             // ranks of B per chunk (rk when one chunk)
   float sqrt_hd;
@@ -156,11 +129,11 @@ __host__ __device__ inline size_t tile_elems(bool rm, int r) {
 // the kernel's carve and the launcher's size); `chunk` heads of `rc` rows
 // of B staged.
 struct FpLayout {
-  size_t bsm, kt, vt, q, acc, lg, pw, red, stat, sc, total;
+  size_t bsm, kt, vt, q, acc, lg, pw, red, stat, total;
 };
 
 __host__ __device__ inline FpLayout fp_layout(bool rmk, bool rmv, int rk, int hd, int hpg,
-                                              int rv, int chunk, bool quant, int rc) {
+                                              int rv, int chunk, int rc) {
   FpLayout L;
   size_t off = 0;
   L.bsm = off;  off = al(off + sizeof(bf16) * chunk * rc * (hd + kBPad));
@@ -172,7 +145,6 @@ __host__ __device__ inline FpLayout fp_layout(bool rmk, bool rmv, int rk, int hd
   L.pw = off;   off = al(off + sizeof(float) * hpg * kTile);
   L.red = off;  off = al(off + sizeof(float) * 4 * kTile);
   L.stat = off; off = al(off + sizeof(float) * 3 * kMaxHeads);
-  L.sc = off;   off = al(off + (quant ? sizeof(float) * 2 * kTile : 0));
   L.total = off;
   return L;
 }
@@ -209,53 +181,6 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int rows, 
   }
 }
 
-// Dequantize the packed seq-major tile of tokens [s0, s0 + kTile) of one
-// (b, g) plane with r ranks (nb bytes per token) into dst [token][rank]
-// (stride r + kPad) as bf16 integers code + qmin - base(s). Field k of
-// byte j of the main plane (field width pw, w = r / (8 / pw) bytes) holds
-// rank j + k * w; exact 3-bit adds bit (j / w1) + 2k of byte j % w1 of the
-// 1-bit plane (w1 = r / 8 bytes, after the main plane) as the code's bit 2.
-// One thread per 4-byte word of the main plane; tokens at or past S are 0.
-__device__ __forceinline__ void unpack_tile(bf16* dst, const uint8_t* src, const float* base,
-                                            int r, int nb, int pbits, int qmin, int S, int s0,
-                                            int tid) {
-  const int pw = pbits == 3 ? 2 : pbits;
-  const int nf = 8 / pw, w = r / nf, w1 = r / 8, nw = w / 4;
-  const uint32_t mask = (1u << pw) - 1;
-  for (int i = tid; i < kTile * nw; i += kThreads) {
-    const int t = i / nw, j = (i % nw) * 4, s = s0 + t;
-    bf16* d = dst + t * (r + kPad) + j;
-    uint32_t lo = 0, hi = 0;
-    int hs = 0;
-    float off = 0.0f;
-    const bool in = s < S;
-    if (in) {
-      const uint8_t* row = src + static_cast<size_t>(s) * nb;
-      lo = *reinterpret_cast<const uint32_t*>(row + j);
-      if (pbits == 3) {
-        hi = *reinterpret_cast<const uint32_t*>(row + w + j % w1);
-        hs = j / w1;
-      }
-      off = static_cast<float>(qmin) - base[s];
-    }
-    for (int k = 0; k < nf; ++k) {
-      float v[4];
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        uint32_t c = (lo >> (8 * b + pw * k)) & mask;
-        if (pbits == 3) c |= ((hi >> (8 * b + hs + 2 * k)) & 1u) << 2;
-        v[b] = in ? static_cast<float>(c) + off : 0.0f;
-      }
-      __nv_bfloat162 p0 = __floats2bfloat162_rn(v[0], v[1]);
-      __nv_bfloat162 p1 = __floats2bfloat162_rn(v[2], v[3]);
-      uint2 u;
-      u.x = *reinterpret_cast<uint32_t*>(&p0);
-      u.y = *reinterpret_cast<uint32_t*>(&p1);
-      *reinterpret_cast<uint2*>(d + k * w) = u;
-    }
-  }
-}
-
 // Fold every 16-byte piece this thread copied into the seq-major tile of
 // `rows` ranks (load_tile's index pattern, so no barrier is needed): the
 // pieces' 16-bit patterns summed (kDmaOnly) or the XOR of their words
@@ -278,13 +203,11 @@ __device__ __forceinline__ unsigned long long fold_tile(const bf16* src, int row
   return ck;
 }
 
-// QUANT: the packed seq-major cache. MODE is kFull except in the
-// dissection (bf16 latents only). V2 is the archived v2 decode: rank-major
-// V, cos/sin computed here from the positions.
-template <int HD, bool QUANT, int MODE = kFull, bool V2 = false>
+// MODE is kFull except in the dissection. V2 is the archived v2 decode:
+// rank-major V, cos/sin computed here from the positions.
+template <int HD, int MODE = kFull, bool V2 = false>
 __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a) {
-  static_assert(MODE == kFull || !QUANT, "dissection: bf16 latents only");
-  static_assert(!V2 || (!QUANT && MODE == kFull), "v2: bf16 latents only");
+  static_assert(!V2 || MODE == kFull, "v2: the whole kernel");
   constexpr bool RMV = V2;  // V tile layout (rank-major for V2)
   constexpr bool kRebuild = MODE == kFull || MODE == kNoValue;  // K rebuilt, q dotted
   constexpr bool kStream = MODE == kDmaOnly || MODE == kNoop;   // loads only
@@ -303,7 +226,7 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
   const int kstride = rk + kPad;  // K tile row stride (elements)
 
   extern __shared__ __align__(128) unsigned char smem[];
-  const FpLayout L = fp_layout(false, RMV, rk, HD, hpg, rv, a.chunk_heads, QUANT, a.rc);
+  const FpLayout L = fp_layout(false, RMV, rk, HD, hpg, rv, a.chunk_heads, a.rc);
   const int rc = a.rc, nrc = (rk + rc - 1) / rc;          // rank chunks of B
   bf16* bsm = reinterpret_cast<bf16*>(smem + L.bsm);     // [chunk][rc][HS]
   bf16* kt = reinterpret_cast<bf16*>(smem + L.kt);       // K latent tile
@@ -314,17 +237,13 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
   float* pw = reinterpret_cast<float*>(smem + L.pw);     // [hpg][kTile] p
   float* red = reinterpret_cast<float*>(smem + L.red);   // [head parity][warp half][kTile]
   float* stat = reinterpret_cast<float*>(smem + L.stat); // [3][kMaxHeads]: m, l, alpha
-  float* sc_k = reinterpret_cast<float*>(smem + L.sc);   // [kTile] K scales (packed)
-  float* sc_v = sc_k + kTile;                            // [kTile] V scales
   float* m_s = stat;
   float* l_s = stat + kMaxHeads;
   float* alpha_s = stat + 2 * kMaxHeads;
 
   const size_t bg = static_cast<size_t>(b) * a.G + g;
-  const bf16* xk = QUANT ? nullptr : a.xk + bg * rk * a.S;
-  const bf16* xv = QUANT ? nullptr : a.xv + bg * rv * a.S;
-  const uint8_t* kc = QUANT ? a.kc + bg * a.nbk * a.S : nullptr;
-  const uint8_t* vc = QUANT ? a.vc + bg * a.nbv * a.S : nullptr;
+  const bf16* xk = a.xk + bg * rk * a.S;
+  const bf16* xv = a.xv + bg * rv * a.S;
   const bf16* bk_g = a.bk + static_cast<size_t>(g) * hpg * rk * HD;
 
   for (int i = tid; i < hpg * HD; i += kThreads) {
@@ -367,18 +286,8 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
     for (int tile = t_begin; tile < t_end; ++tile) {
       const int s0 = tile * kTile;
       // ---- load: K and V latent tiles (cp.async), this thread's rope rows
-      if constexpr (QUANT) {
-        unpack_tile(kt, kc, a.kb + bg * a.S, rk, a.nbk, a.pbits, a.qmin, a.S, s0, tid);
-        unpack_tile(vt, vc, a.vb + bg * a.S, rv, a.nbv, a.pbits, a.qmin, a.S, s0, tid);
-        if (tid < kTile) {
-          const int s = s0 + tid;
-          sc_k[tid] = s < a.S ? a.ks[bg * a.S + s] : 0.0f;
-          sc_v[tid] = s < a.S ? a.vs[bg * a.S + s] : 0.0f;
-        }
-      } else {
-        load_tile<false>(kt, xk, rk, a.S, s0, tid);
-        load_tile<RMV>(vt, xv, rv, a.S, s0, tid);
-      }
+      load_tile<false>(kt, xk, rk, a.S, s0, tid);
+      load_tile<RMV>(vt, xv, rv, a.S, s0, tid);
       float ca[NTW][2], sa[NTW][2], cb[NTW][2], sb[NTW][2];
       if constexpr (kRebuild) {
         const int pa = s0 + tok_a, pb = s0 + tok_b;
@@ -431,9 +340,6 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
         if (part == 0)
           for (int h = c0; h < c0 + nc; ++h) lg[h * kTile + t] = cs * 1e-6f;
       }
-
-      // packed: the per-token scales of this lane's two rows
-      const float ska = QUANT ? sc_k[tok_a] : 1.0f, skb = QUANT ? sc_k[tok_b] : 1.0f;
 
       for (int ci = 0; ci < (kRebuild ? nrc : 0); ++ci) {
         // ---- rank chunk ci: ranks [r0, r0 + nr)
@@ -494,14 +400,8 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
             for (int e = 0; e < 2; ++e) {
               const int d = (jw + j) * 8 + 2 * ft + e;
               const float q1 = qh[d], q2 = qh[d + half];
-              float k1 = acc[j][e], k2 = acc[NTW + j][e];
-              float l1 = acc[j][e + 2], l2 = acc[NTW + j][e + 2];
-              if constexpr (QUANT) {
-                k1 *= ska;
-                k2 *= ska;
-                l1 *= skb;
-                l2 *= skb;
-              }
+              const float k1 = acc[j][e], k2 = acc[NTW + j][e];
+              const float l1 = acc[j][e + 2], l2 = acc[NTW + j][e + 2];
               part_a += q1 * (k1 * ca[j][e] - k2 * sa[j][e]) + q2 * (k2 * ca[j][e] + k1 * sa[j][e]);
               part_b += q1 * (l1 * cb[j][e] - l2 * sb[j][e]) + q2 * (l2 * cb[j][e] + l1 * sb[j][e]);
             }
@@ -549,7 +449,7 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
           const int t = lane + 32 * u;
           e[u] = ok[u] ? expf(x[u] - m_new) : 0.0f;
           sum += e[u];
-          pw[h * kTile + t] = QUANT ? e[u] * sc_v[t] : e[u];
+          pw[h * kTile + t] = e[u];
         }
         sum = warp_sum(sum);
         if (lane == 0) {
@@ -616,15 +516,14 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
   }
 }
 
-template <int HD, bool QUANT, int MODE = kFull, bool V2 = false>
+template <int HD, int MODE = kFull, bool V2 = false>
 int launch_split(const FpArgs& a, int B, cudaStream_t st) {
-  const size_t smem =
-      fp_layout(false, V2, a.rk, HD, a.hpg, a.rv, a.chunk_heads, QUANT, a.rc).total;
+  const size_t smem = fp_layout(false, V2, a.rk, HD, a.hpg, a.rv, a.chunk_heads, a.rc).total;
   cudaError_t err =
-      cudaFuncSetAttribute(palu_decode_fp_split_kernel<HD, QUANT, MODE, V2>,
+      cudaFuncSetAttribute(palu_decode_fp_split_kernel<HD, MODE, V2>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  palu_decode_fp_split_kernel<HD, QUANT, MODE, V2>
+  palu_decode_fp_split_kernel<HD, MODE, V2>
       <<<dim3(a.splits, a.G, B), kThreads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -668,7 +567,7 @@ __global__ void __launch_bounds__(256) dissect_finish(const float* __restrict__ 
 // Heads of B that fit in shared memory beside the rest, and the rank chunk
 // (a.rc): up to 128 ranks, fewer when not even one head's 128 rows fit;
 // a.chunk_heads is 0 when nothing fits.
-void fit_heads(FpArgs& a, bool rmk, bool rmv, int hd, bool quant) {
+void fit_heads(FpArgs& a, bool rmk, bool rmv, int hd) {
   const int rcs[4] = {min(a.rk, kRc), 64, 32, 16};
   a.chunk_heads = 0;
   for (int k = 0; k < 4 && a.chunk_heads == 0; ++k) {
@@ -676,7 +575,7 @@ void fit_heads(FpArgs& a, bool rmk, bool rmv, int hd, bool quant) {
     a.rc = rcs[k];
     a.chunk_heads = a.hpg;
     while (a.chunk_heads > 0 &&
-           fp_layout(rmk, rmv, a.rk, hd, a.hpg, a.rv, a.chunk_heads, quant, a.rc).total >
+           fp_layout(rmk, rmv, a.rk, hd, a.hpg, a.rv, a.chunk_heads, a.rc).total >
                kSmemMax)
       --a.chunk_heads;
   }
@@ -721,14 +620,13 @@ extern "C" int palu_decode_fp_dissect(int mode, const void* q, int q_bf16, const
   a.splits = splits;
   a.tiles_per_split = tiles_per_split;
   a.sqrt_hd = sqrt_hd;
-  fit_heads(a, false, false, hd, false);
+  fit_heads(a, false, false, hd);
   if (a.chunk_heads != hpg) return static_cast<int>(cudaErrorInvalidValue);
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int err;
 #define PALU_DISSECT(M)                                                               \
-  (hd == 128 ? launch_split<128, false, M>(a, B, st)                                \
-             : launch_split<64, false, M>(a, B, st))
+  (hd == 128 ? launch_split<128, M>(a, B, st) : launch_split<64, M>(a, B, st))
   switch (mode) {
     case kFull: err = PALU_DISSECT(kFull); break;
     case kNoValue: err = PALU_DISSECT(kNoValue); break;
@@ -751,60 +649,6 @@ extern "C" int palu_decode_fp_dissect(int mode, const void* q, int q_bf16, const
                                       static_cast<unsigned long long*>(ck_out), rows, splits,
                                       B * G * splits);
   return static_cast<int>(cudaGetLastError());
-}
-
-// The packed seq-major variant: codes (B, G, S, nbk) / (B, G, S, nbv) uint8
-// at pack width pbits (2, 3 or 4), per-token scale and base (B, G, S) f32;
-// x = (code + qmin - base) * scale. hd is 64 or 128, rk a multiple of 32 up
-// to 512, rv a multiple of 32, S a multiple of 8.
-extern "C" int palu_decode_seq_q(const void* q, int q_bf16, const void* bk, const void* kc,
-                                 const void* ks, const void* kb, const void* vc, const void* vs,
-                                 const void* vb, const void* kv_len, const void* cos_t,
-                                 const void* sin_t, void* part_m, void* part_l, void* part_acc,
-                                 void* out, int B, int G, int hpg, int hd, int rk, int rv, int S,
-                                 int nbk, int nbv, int pbits, int qmin, int window, int splits,
-                                 int tiles_per_split, float sqrt_hd, void* stream) {
-  if ((hd != 64 && hd != 128) || rk % 32 || rk > kMaxRank || rv % 32 || S % 8 ||
-      hpg > kMaxHeads || (pbits != 2 && pbits != 3 && pbits != 4))
-    return static_cast<int>(cudaErrorInvalidValue);
-  FpArgs a{};
-  a.q = q;
-  a.q_bf16 = q_bf16;
-  a.bk = static_cast<const bf16*>(bk);
-  a.kc = static_cast<const uint8_t*>(kc);
-  a.vc = static_cast<const uint8_t*>(vc);
-  a.ks = static_cast<const float*>(ks);
-  a.kb = static_cast<const float*>(kb);
-  a.vs = static_cast<const float*>(vs);
-  a.vb = static_cast<const float*>(vb);
-  a.kv_len = static_cast<const int*>(kv_len);
-  a.cos_t = static_cast<const float*>(cos_t);
-  a.sin_t = static_cast<const float*>(sin_t);
-  a.part_m = static_cast<float*>(part_m);
-  a.part_l = static_cast<float*>(part_l);
-  a.part_acc = static_cast<float*>(part_acc);
-  a.G = G;
-  a.hpg = hpg;
-  a.rk = rk;
-  a.rv = rv;
-  a.S = S;
-  a.window = window;
-  a.splits = splits;
-  a.tiles_per_split = tiles_per_split;
-  a.sqrt_hd = sqrt_hd;
-  a.nbk = nbk;
-  a.nbv = nbv;
-  a.pbits = pbits;
-  a.qmin = qmin;
-  fit_heads(a, false, false, hd, true);
-  if (a.chunk_heads == 0) return static_cast<int>(cudaErrorInvalidValue);
-
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err = hd == 128 ? launch_split<128, true>(a, B, st)
-                            : launch_split<64, true>(a, B, st);
-  if (err != 0) return err;
-  return decode::launch_combine(a.part_m, a.part_l, a.part_acc, static_cast<float*>(out),
-                                B * G * hpg, splits, rv, st);
 }
 
 // The archived v2 decode over bf16 latents: x_k (B, G, S, rk) seq-major,
@@ -842,12 +686,12 @@ extern "C" int palu_decode_fp_v2(const void* q, int q_bf16, const void* bk, cons
   a.tiles_per_split = tiles_per_split;
   a.sqrt_hd = sqrt_hd;
   a.rope_scale = rope_scale;
-  fit_heads(a, false, true, hd, false);
+  fit_heads(a, false, true, hd);
   if (a.chunk_heads == 0) return static_cast<int>(cudaErrorInvalidValue);
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err = hd == 128 ? launch_split<128, false, kFull, true>(a, B, st)
-                            : launch_split<64, false, kFull, true>(a, B, st);
+  const int err = hd == 128 ? launch_split<128, kFull, true>(a, B, st)
+                            : launch_split<64, kFull, true>(a, B, st);
   if (err != 0) return err;
   return decode::launch_combine(a.part_m, a.part_l, a.part_acc, static_cast<float*>(out),
                                 B * G * hpg, splits, rv, st);

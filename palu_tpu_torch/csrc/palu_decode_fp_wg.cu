@@ -84,6 +84,39 @@
 // decode::tile_range), so every valid tile is read once and no block walks
 // past kv_len; a split with no tile writes m = -1e30, l = 0, acc = 0. The
 // combine kernel (decode_common.cuh) merges the splits.
+//
+// The seq-major packed cache (palu_decode_seq_wg_kernel; replaces
+// palu_tpu/ops/pallas/palu_decode.py::palu_flash_decode_quantized, the v1
+// kernel over codes (B, G, S, nbytes) in core/quant.pack_codes' plane
+// packing, 2, 3 or 4 bits, with per-token scale and base (B, G, S, 1), x =
+// (code + q_min - base) * scale). Bound: at 3 bits a token is (rk + rv) * 3 /
+// 8 + 16 bytes per group against the same K rebuild, so the operations
+// bound it (0.0090 ms at the Llama group and 8K at an H100's 989 bf16
+// TFLOP/s). The consumers run
+// unchanged on the chunk images a bf16 seq-major cache gives them; only the
+// producer differs. Its thread 0 copies each 64-token tile of one (b, g)
+// plane as six bulk copies (the K and V code runs of 64 x nbytes bytes,
+// contiguous, and the four scale and base rows; the last tile stops at S)
+// into a ring of npk packed stages, npk tiles ahead. With B resident it
+// loads each item's B too, and all 128 producer threads unpack; with B
+// streamed, threads 32 and 64 stream it as for the bf16 caches (the loads
+// wait on the consumers, so they cannot sit in the unpacking loop) and
+// warps 0 and 3 unpack. Unpacking writes the stage into the 128-rank chunks
+// of the bf16 ring, thread (t0, u) 8 ranks of tokens t0, t0 + nthr / 16,
+// ... as one 16-byte store into the 128-byte swizzle (conflict-free per
+// quarter warp), from a per-block table of each 8-rank unit's byte offsets
+// and shifts; at 40 registers it spilled, so this kernel takes 56 / 224 /
+// 224. The operand is exact: code + q_min as a bf16 small integer (bf16
+// 0x4300 | c is 128 + c; one bf16x2 subtraction takes 128 - q_min off), so
+// a base far from zero loses nothing. The per-token terms ride on the
+// accumulators: K(s) = scale(s) (B^T (code + q_min) - base(s) rowsum B)
+// before RoPE (rowsum B from decode::launch_rowsum), P^T = p scale_v(s) in
+// bf16 high and low parts, and each head's sum of (hi + lo) (-base_v(s))
+// adds to every rank of its output. Each chunk's per-token scale and -base
+// ride in a 512-byte side row per ring slot. Ranks past rk in the last K
+// chunk hold whatever finite values the ring had (zeroed at the start), and
+// B's rows there are zero; tokens past kv_len are masked before any scale
+// multiplies them.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -112,6 +145,23 @@ struct Plan {
   int ok, ns, nb, resident, nck, ncv, rows_v;
   uint32_t slot_bytes;                      // one B slot: 128 ranks x hd, hd / 64 boxes
   uint32_t bslots, p, q, lg, stats, bars, total;
+  // the packed cache: npk stages of pstage bytes at pk (K codes at 0, V codes
+  // at pv, the K scale, K base, V scale and V base rows at psc), the unit
+  // table at utab and the ring slots' side rows at aux
+  int npk;
+  uint32_t pstage, pv, psc, pk, utab, aux;
+};
+
+// what the packed variant adds to Args
+struct Packed {
+  const uint8_t* kc;       // (B, G, S, nbk) codes
+  const uint8_t* vc;       // (B, G, S, nbv)
+  const float* ks;         // (B, G, S) scale and base per token
+  const float* kb;
+  const float* vs;
+  const float* vb;
+  const float* rsum;       // (G, hpg, hd) row sums of B
+  int nbk, nbv, pbits, qmin;
 };
 
 struct Args {
@@ -128,6 +178,7 @@ struct Args {
   int splits, n_items, layer, pos_offset;
   float inv_sqrt_hd, rope_scale;
   Plan L;
+  Packed pk;
 };
 
 inline uint32_t up(uint32_t x, uint32_t a) { return (x + a - 1) / a * a; }
@@ -139,43 +190,66 @@ inline uint32_t up(uint32_t x, uint32_t a) { return (x + a - 1) / a * a; }
 // resident with the deepest ring up to 8 chunks and at least one tile's K
 // chunks plus one; else B streamed, a whole tile plus one chunk in flight
 // if it fits. ok = 0 when nothing fits.
-Plan make_plan(int hd, int rk, int rv, int nkv0, int nkv1, int npw) {
+//
+// The packed cache (nbk > 0: bytes per token of K codes, nbv of V) adds the
+// fourth statistic (each head's offset sum), the unit table, a side row per
+// ring slot and npk packed stages; the ring need only hold one side's
+// chunks (max(nck, ncv): the K chunks are free before the softmax waits
+// for the first V chunk). Preference: B resident with the deepest ring up
+// to 8 chunks, 2 stages before 1; else B streamed, the ring from a tile
+// plus one chunk down, 2 stages before 1, the most B slots up to 8 (at least
+// 2, else 1).
+Plan make_plan(int hd, int rk, int rv, int nkv0, int nkv1, int npw, int nbk = 0, int nbv = 0) {
   Plan p{};
+  const bool pk = nbk > 0;
   p.nck = (rk + kChunk - 1) / kChunk;
   p.ncv = (rv + kChunk - 1) / kChunk;
   p.rows_v = rv < kChunk ? rv : kChunk;
-  auto tail = [&](int ns, int nb, uint32_t slot) {
+  p.pv = up(kTile * nbk, 128);
+  p.psc = p.pv + up(kTile * nbv, 128);
+  p.pstage = pk ? p.psc + 4 * kTile * 4 : 0;
+  auto tail = [&](int ns, int nb, uint32_t slot, int npk) {
     uint32_t o = ns * kChunkBytes;
     p.bslots = o;
     o = up(o + 2 * nb * slot, 1024);
     p.p = o; o += 2 * 2 * npw * 128;
     p.q = o; o += 2 * npw * hd * 4;
     p.lg = o; o += 2 * npw * kTile * 4;
-    p.stats = o; o += 2 * 3 * npw * 4;
+    p.stats = o; o += 2 * (pk ? 4 : 3) * npw * 4;
+    if (pk) {
+      p.utab = up(o, 16); o = p.utab + 2 * 4 * 16 * 8;  // [side][chunk][unit] uint2
+      p.aux = o; o += ns * 2 * kTile * 4;
+      p.pk = up(o, 128); o = p.pk + npk * p.pstage;
+    }
     p.bars = up(o, 8);
-    return p.bars + 8 * (2 * ns + 4 * nb);
+    return p.bars + 8 * (2 * ns + 4 * nb + npk);
   };
   const int nkvw = nkv0 > nkv1 ? nkv0 : nkv1;
   const int want = p.nck + p.ncv + 1 < 8 ? p.nck + p.ncv + 1 : 8;
-  const int least = p.nck + 1;
+  const int least = pk ? (p.nck > p.ncv ? p.nck : p.ncv) : p.nck + 1;
   const uint32_t slot = kChunk * hd * 2;
-  auto take = [&](int ns, int nb, int resident) {
-    p.ok = 1, p.ns = ns, p.nb = nb, p.resident = resident, p.slot_bytes = slot;
-    p.total = tail(ns, nb, slot);
+  const uint32_t budget = static_cast<uint32_t>(kSmemBudget);
+  auto take = [&](int ns, int nb, int resident, int npk) {
+    p.ok = 1, p.ns = ns, p.nb = nb, p.resident = resident, p.slot_bytes = slot, p.npk = npk;
+    p.total = tail(ns, nb, slot, npk);
   };
   const int nb_res = nkvw * p.nck > 0 ? nkvw * p.nck : 1;
+  const int npk_hi = pk ? 2 : 0, npk_lo = pk ? 1 : 0;
   for (int ns = 8; ns >= least; --ns)  // resident
-    if (tail(ns, nb_res, slot) <= static_cast<uint32_t>(kSmemBudget)) {
-      take(ns, nb_res, 1);
-      return p;
-    }
-  for (int ns = want; ns >= least; --ns) {  // streamed
-    int nb = 2;
-    if (tail(ns, nb, slot) > static_cast<uint32_t>(kSmemBudget)) continue;
-    while (nb < 8 && tail(ns, nb + 1, slot) <= static_cast<uint32_t>(kSmemBudget)) ++nb;
-    take(ns, nb, 0);
-    return p;
-  }
+    for (int npk = npk_hi; npk >= npk_lo; --npk)
+      if (tail(ns, nb_res, slot, npk) <= budget) {
+        take(ns, nb_res, 1, npk);
+        return p;
+      }
+  for (int nb0 = 2; nb0 >= (pk ? 1 : 2); --nb0)  // streamed
+    for (int ns = want; ns >= least; --ns)
+      for (int npk = npk_hi; npk >= npk_lo; --npk) {
+        int nb = nb0;
+        if (tail(ns, nb, slot, npk) > budget) continue;
+        while (nb < 8 && tail(ns, nb + 1, slot, npk) <= budget) ++nb;
+        take(ns, nb, 0, npk);
+        return p;
+      }
   p.ok = 0;
   return p;
 }
@@ -382,6 +456,95 @@ __device__ __forceinline__ void k_finish(float (&kf)[HD / 2], const float (&rc)[
   }
 }
 
+// The packed cache's per-token terms on one kv-head's K registers (element
+// 4jj + 2t + e: token ta + 8t, column 8jj + 2qd + e): K = scale (K + off
+// rowsum B_j), scale and off = -base from kx, the side rows of the tile's
+// first K chunk.
+template <int HD>
+__device__ __forceinline__ void k_affine(float (&kf)[HD / 2], const float* rs, const float* kx,
+                                         int ta, int qd) {
+  const float sa = kx[ta], sb = kx[ta + 8], oa = kx[kTile + ta], ob = kx[kTile + ta + 8];
+#pragma unroll
+  for (int jj = 0; jj < HD / 8; ++jj) {
+    const float2 r = __ldg(reinterpret_cast<const float2*>(rs + 8 * jj + 2 * qd));
+    kf[4 * jj] = fmaf(oa, r.x, kf[4 * jj]) * sa;
+    kf[4 * jj + 1] = fmaf(oa, r.y, kf[4 * jj + 1]) * sa;
+    kf[4 * jj + 2] = fmaf(ob, r.x, kf[4 * jj + 2]) * sb;
+    kf[4 * jj + 3] = fmaf(ob, r.y, kf[4 * jj + 3]) * sb;
+  }
+}
+
+// The unit table of the packed cache: per side (K, V), 128-rank chunk c and
+// 8-rank unit u (ranks r0 = 128 c + 8 u of that side's r), where its codes
+// lie in a token's row of nbytes: x = the byte j0 of the main plane's 8
+// bytes | their field's shift << 16 (~0: past r); y (3-bit) = for ranks r0
+// .. r0 + 3 and r0 + 4 .. r0 + 7 the byte of the 1-bit plane (bits 0-9 and
+// 16-25) and its bit (10-12, 26-28). A main plane byte j holds ranks j + k r
+// / nf in field k (nf = 8 / its width); the 1-bit plane holds rank r at byte
+// r mod (r / 8), bit r div (r / 8) (core/quant.pack_codes).
+__device__ __forceinline__ uint2 unit_entry(int side, int c, int u, int rk, int rv, int pbits) {
+  const int r = side ? rv : rk, r0 = c * kChunk + 8 * u;
+  if (r0 >= r) return make_uint2(~0u, 0u);
+  const int pw = pbits == 3 ? 2 : pbits, wpl = r / (8 / pw), k = r0 / wpl;
+  uint2 e = make_uint2(static_cast<uint32_t>(r0 - k * wpl) | (static_cast<uint32_t>(pw * k) << 16),
+                       0u);
+  if (pbits == 3) {
+    const int w1 = r / 8;
+    for (int h = 0; h < 2; ++h) {
+      const int rq = r0 + 4 * h;
+      e.y |= (static_cast<uint32_t>(wpl + rq % w1) | (static_cast<uint32_t>(rq / w1) << 10))
+             << (16 * h);
+    }
+  }
+  return e;
+}
+
+// Unpack one 128-rank chunk (side, c) of the packed stage into ring slot
+// `dst` (bf16, two 64-rank x 64-token boxes in the 128-byte swizzle), as
+// thread (t0 = ut / 16, u = ut % 16) of the producer's nthr unpacking
+// threads: unit u's 8 ranks of tokens t0, t0 + nthr / 16, ... as one
+// 16-byte store each (eight threads fill one 128-byte row: no bank
+// conflict); tokens at or past nvalid are zeros. `rows` is the side's code
+// rows in the stage, nb bytes a token; `sub` the bf16 pair 128 - q_min.
+__device__ __forceinline__ void unpack_chunk(uint32_t dst, const uint8_t* rows, int nb, uint2 e,
+                                             int ut, int nthr, int pbits, uint32_t sub,
+                                             int nvalid) {
+  const int kStep = nthr / 16;  // tokens a pass
+  if (e.x == ~0u) return;
+  const int u = ut & 15, t0 = ut >> 4;
+  const int j0 = e.x & 0xFFFF, sh = e.x >> 16;
+  const uint32_t mask = pbits == 4 ? 0x0F0F0F0Fu : 0x03030303u;
+  const uint8_t* row = rows + t0 * nb;
+  const uint32_t d0 = dst + (u >> 3) * 8192;
+#pragma unroll 2
+  for (int t = t0; t < kTile; t += kStep, row += kStep * nb) {
+    uint32_t c0 = (*reinterpret_cast<const uint32_t*>(row + j0) >> sh) & mask;
+    uint32_t c1 = (*reinterpret_cast<const uint32_t*>(row + j0 + 4) >> sh) & mask;
+    if (pbits == 3) {
+      const uint32_t h0 = *reinterpret_cast<const uint32_t*>(row + (e.y & 0x3FF));
+      const uint32_t h1 = *reinterpret_cast<const uint32_t*>(row + ((e.y >> 16) & 0x3FF));
+      c0 |= ((h0 >> ((e.y >> 10) & 7)) & 0x01010101u) << 2;
+      c1 |= ((h1 >> ((e.y >> 26) & 7)) & 0x01010101u) << 2;
+    }
+    uint4 o = make_uint4(0u, 0u, 0u, 0u);
+    if (t < nvalid) {  // bf16 0x4300 | c = 128 + c, less 128 - q_min
+      o.x = __byte_perm(c0, 0x43434343u, 0x4140), o.y = __byte_perm(c0, 0x43434343u, 0x4342);
+      o.z = __byte_perm(c1, 0x43434343u, 0x4140), o.w = __byte_perm(c1, 0x43434343u, 0x4342);
+      uint32_t* w = &o.x;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const __nv_bfloat162 v = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(w + i),
+                                         *reinterpret_cast<const __nv_bfloat162*>(&sub));
+        w[i] = *reinterpret_cast<const uint32_t*>(&v);
+      }
+    }
+    const uint32_t d = d0 + t * 128 + (((u & 7) ^ (t & 7)) << 4);
+    asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(d), "r"(o.x), "r"(o.y),
+                 "r"(o.z), "r"(o.w)
+                 : "memory");
+  }
+}
+
 // A work item's coordinates and its tiles [t0, t1) (empty when t1 <= t0).
 struct Item {
   int b, g, split, t0, t1, vlo, vhi;
@@ -399,13 +562,28 @@ __device__ __forceinline__ Item item_at(const Args& a, int item) {
   return it;
 }
 
+// The packed copies' place in the block's sequence of tiles (its items'
+// tiles in order): item (>= n_items when done), tile, the item's end, plane.
+struct Cursor {
+  int item, tile, t1, plane;
+};
+
+__device__ __forceinline__ void cursor_next(const Args& a, Cursor& c) {
+  ++c.tile;
+  while (c.tile >= c.t1) {
+    c.item += gridDim.x;
+    if (c.item >= a.n_items) return;
+    const Item w = item_at(a, c.item);
+    c.tile = w.t0, c.t1 = w.t1, c.plane = w.b * a.G + w.g;
+  }
+}
+
 // HD: head dim; RM: rank-major latents; NT: 8-head tiles of a consumer's
-// q-heads; MT: 64-rank blocks of the V accumulators, rv <= 64 MT
-template <int HD, bool RM, int NT, int MT>
-__global__ void __launch_bounds__(kThreads, 1)
-palu_decode_fp_wg_kernel(const __grid_constant__ CUtensorMap tm_k,
-                         const __grid_constant__ CUtensorMap tm_v,
-                         const __grid_constant__ CUtensorMap tm_b, const Args a) {
+// q-heads; MT: 64-rank blocks of the V accumulators, rv <= 64 MT; PK: the
+// packed seq-major cache (RM false)
+template <int HD, bool RM, int NT, int MT, bool PK>
+__device__ __forceinline__ void decode_body(const CUtensorMap& tm_k, const CUtensorMap& tm_v,
+                                            const CUtensorMap& tm_b, const Args& a) {
   constexpr int NACC = HD / 2;  // K accumulator registers per thread
   constexpr int NPW = 8 * NT;   // q-head rows of a consumer's P^T
   const Plan& L = a.L;
@@ -416,6 +594,8 @@ palu_decode_fp_wg_kernel(const __grid_constant__ CUtensorMap tm_k,
   const uint32_t bars = base + L.bars;
   const uint32_t full = bars, empty = bars + 8 * L.ns;
   const uint32_t bfull = bars + 16 * L.ns, bempty = bfull + 16 * L.nb;  // [consumer][nb]
+  const uint32_t pfull = bempty + 16 * L.nb;                            // PK: [npk]
+  float* aux = reinterpret_cast<float*>(sm + L.aux);  // PK: [ring slot][scale, -base][kTile]
 
   // the warpgroup's role, broadcast from lane 0 so that ptxas sees it warp-
   // uniform: wgmma under a branch it takes for divergent runs serialized (C7520)
@@ -423,25 +603,120 @@ palu_decode_fp_wg_kernel(const __grid_constant__ CUtensorMap tm_k,
   const int nh = a.G * a.hpg;
   if (tid == 0) {
     for (int s = 0; s < L.ns; ++s) {
-      mbar_init(full + 8 * s, 1);
+      mbar_init(full + 8 * s, PK ? (L.resident ? kWG : kWG / 2) : 1);  // PK: the unpackers
       mbar_init(empty + 8 * s, 2 * kWG);
     }
     for (int s = 0; s < 2 * L.nb; ++s) {
       mbar_init(bfull + 8 * s, 1);
       mbar_init(bempty + 8 * s, kWG);
     }
+    for (int s = 0; s < L.npk; ++s) mbar_init(pfull + 8 * s, 1);
     mbar_init_fence();
   }
   for (int i = tid; i < 2 * 2 * NPW * 128 / 4; i += kThreads)
     reinterpret_cast<uint32_t*>(sm + L.p)[i] = 0u;  // P^T rows past a consumer's heads stay 0
+  if constexpr (PK) {
+    // the ring zeroed: its bytes past rk in the last K chunk are only ever
+    // finite values, against B's zero rows
+    for (int i = tid; i < L.ns * static_cast<int>(kChunkBytes) / 16; i += kThreads)
+      reinterpret_cast<uint4*>(sm)[i] = make_uint4(0u, 0u, 0u, 0u);
+    uint2* utab = reinterpret_cast<uint2*>(sm + L.utab);
+    for (int i = tid; i < 2 * 4 * 16; i += kThreads)
+      utab[i] = unit_entry(i / 64, (i / 16) % 4, i % 16, a.rk, a.rv, a.pk.pbits);
+    fence_async_shared();
+  }
   __syncthreads();
 
   if (wg == 2) {
     // ---- producer: thread 0 streams the ring, threads 32 and 64 the B of
-    // consumers 0 and 1
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    // consumers 0 and 1 (PK: warps 0 and 3 copy and unpack the packed
+    // tiles into the ring)
+    // PK: 56 registers for the unpack (at 40 it spilled), 224 for the consumers
+    if constexpr (PK)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+    else
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     const int lt = tid - 2 * kWG;
-    if (lt == 0) {
+    // consumer c's B for group g: its kv-heads' 128-rank chunks, slot by
+    // slot (kb counts its slot uses)
+    auto load_b = [&](int c, int g, int& kb) {
+      const int h0 = c ? a.hsplit : 0, h1 = c ? a.hpg : a.hsplit;
+      const int j0 = h0 / a.rep, j1 = h1 > h0 ? (h1 - 1) / a.rep + 1 : j0;
+      for (int j = j0; j < j1; ++j)
+        for (int bc = 0; bc < L.nck; ++bc, ++kb) {
+          const int slot = kb % L.nb;
+          mbar_wait(bempty + 8 * (c * L.nb + slot), ((kb / L.nb) & 1) ^ 1);
+          const uint32_t fb = bfull + 8 * (c * L.nb + slot);
+          const uint32_t dst = base + L.bslots + (c * L.nb + slot) * L.slot_bytes;
+          mbar_expect_tx(fb, L.slot_bytes);
+#pragma unroll
+          for (int cc = 0; cc < HD / 64; ++cc)
+            tma_load(dst + cc * kChunk * 128, &tm_b, fb, cc * 64, bc * kChunk, g * a.nkv + j);
+        }
+    };
+    if (PK && (L.resident || lt < 32 || lt >= 96)) {
+      // PK: thread 0 copies the packed tiles npk ahead (and, B resident,
+      // loads each item's B), and the unpacking threads (B resident: all
+      // 128; streamed: warps 0 and 3, as threads 32 and 64 stream B) unpack
+      // each tile into the ring's chunks
+      const Packed& pa = a.pk;
+      const int nthr = L.resident ? kWG : kWG / 2;
+      const int ut = L.resident || lt < 32 ? lt : lt - 64;
+      // the packed tile at the cursor into stage s: the K and V code runs,
+      // then the K scale, K base, V scale and V base rows (stopping at S)
+      auto copy_tile = [&](int s, const Cursor& cu) {
+        const int s0 = cu.tile * kTile, n = min(kTile, a.S - s0);
+        const uint32_t fb = pfull + 8 * s, dst = base + L.pk + s * L.pstage;
+        const size_t row = static_cast<size_t>(cu.plane) * a.S + s0;
+        mbar_expect_tx(fb, n * (pa.nbk + pa.nbv + 16));
+        bulk_load(dst, pa.kc + row * pa.nbk, n * pa.nbk, fb);
+        bulk_load(dst + L.pv, pa.vc + row * pa.nbv, n * pa.nbv, fb);
+        bulk_load(dst + L.psc, pa.ks + row, n * 4, fb);
+        bulk_load(dst + L.psc + kTile * 4, pa.kb + row, n * 4, fb);
+        bulk_load(dst + L.psc + 2 * kTile * 4, pa.vs + row, n * 4, fb);
+        bulk_load(dst + L.psc + 3 * kTile * 4, pa.vb + row, n * 4, fb);
+      };
+      Cursor cu{static_cast<int>(blockIdx.x) - static_cast<int>(gridDim.x), 0, 0, 0};
+      if (ut == 0)
+        for (int s = 0; s < L.npk; ++s) {
+          cursor_next(a, cu);
+          if (cu.item < a.n_items) copy_tile(s, cu);
+        }
+      const uint2* utab = reinterpret_cast<const uint2*>(sm + L.utab);
+      const float qsub = 128.0f - static_cast<float>(pa.qmin);
+      const uint32_t sub = pack_bf16(qsub, qsub);
+      int it = 0, pt = 0, kb0 = 0, kb1 = 0;
+      for (int item = blockIdx.x; item < a.n_items; item += gridDim.x) {
+        const Item w = item_at(a, item);
+        if (L.resident && ut == 0 && w.t1 > w.t0) load_b(0, w.g, kb0), load_b(1, w.g, kb1);
+        for (int tile = w.t0; tile < w.t1; ++tile, ++pt) {
+          const int ps = pt % L.npk, nvalid = min(kTile, a.S - tile * kTile);
+          mbar_wait(pfull + 8 * ps, (pt / L.npk) & 1);
+          const uint8_t* stage = sm + L.pk + ps * L.pstage;
+          for (int ch = 0; ch < L.nck + L.ncv; ++ch, ++it) {
+            const int side = ch >= L.nck, c = side ? ch - L.nck : ch, st = it % L.ns;
+            mbar_wait(empty + 8 * st, ((it / L.ns) & 1) ^ 1);
+            unpack_chunk(base + st * kChunkBytes, stage + (side ? L.pv : 0),
+                         side ? pa.nbv : pa.nbk, utab[(side * 4 + c) * 16 + (ut & 15)], ut,
+                         nthr, pa.pbits, sub, nvalid);
+            if (c == 0 && ut < kTile) {  // the side's per-token scale and -base
+              const float* sc = reinterpret_cast<const float*>(stage + L.psc) + side * 2 * kTile;
+              float* ax = aux + st * 2 * kTile;
+              ax[ut] = ut < nvalid ? sc[ut] : 0.0f;
+              ax[kTile + ut] = ut < nvalid ? -sc[kTile + ut] : 0.0f;
+            }
+            fence_async_shared();  // the chunk is read by wgmma (the async proxy)
+            mbar_arrive(full + 8 * st);
+          }
+          fence_async_shared();  // the stage's reads are done before a copy refills it
+          named_sync(3, nthr);
+          if (ut == 0) {
+            cursor_next(a, cu);
+            if (cu.item < a.n_items) copy_tile(ps, cu);
+          }
+        }
+      }
+    } else if (!PK && lt == 0) {
       int it = 0;
       for (int item = blockIdx.x; item < a.n_items; item += gridDim.x) {
         const Item w = item_at(a, item);
@@ -468,31 +743,20 @@ palu_decode_fp_wg_kernel(const __grid_constant__ CUtensorMap tm_k,
         }
       }
     } else if (lt == 32 || lt == 64) {
-      const int c = lt / 32 - 1;
-      const int h0 = c ? a.hsplit : 0, h1 = c ? a.hpg : a.hsplit;
-      const int j0 = h0 / a.rep, j1 = h1 > h0 ? (h1 - 1) / a.rep + 1 : j0;
       int kb = 0;
       for (int item = blockIdx.x; item < a.n_items; item += gridDim.x) {
         const Item w = item_at(a, item);
         if (w.t1 <= w.t0) continue;
         const int nt = L.resident ? 1 : w.t1 - w.t0;
-        for (int t = 0; t < nt; ++t)
-          for (int j = j0; j < j1; ++j)
-            for (int bc = 0; bc < L.nck; ++bc, ++kb) {
-              const int slot = kb % L.nb;
-              mbar_wait(bempty + 8 * (c * L.nb + slot), ((kb / L.nb) & 1) ^ 1);
-              const uint32_t fb = bfull + 8 * (c * L.nb + slot);
-              const uint32_t dst = base + L.bslots + (c * L.nb + slot) * L.slot_bytes;
-              mbar_expect_tx(fb, L.slot_bytes);
-#pragma unroll
-              for (int cc = 0; cc < HD / 64; ++cc)
-                tma_load(dst + cc * kChunk * 128, &tm_b, fb, cc * 64, bc * kChunk, w.g * a.nkv + j);
-            }
+        for (int t = 0; t < nt; ++t) load_b(lt / 32 - 1, w.g, kb);
       }
     }
     return;
   }
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  if constexpr (PK)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+  else
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
   const int c = wg;  // this consumer
   const int wt = tid % kWG, warp = wt / 32, lane = tid % 32;
   const int gq = lane / 4, qd = lane % 4;
@@ -503,9 +767,10 @@ palu_decode_fp_wg_kernel(const __grid_constant__ CUtensorMap tm_k,
   const int sync_id = 1 + c;
   float* q_s = reinterpret_cast<float*>(sm + L.q) + c * NPW * HD;  // [head][HD] / sqrt(hd)
   float* lg = reinterpret_cast<float*>(sm + L.lg) + c * NPW * kTile;  // [head][kTile]
-  float* m_s = reinterpret_cast<float*>(sm + L.stats) + c * 3 * NPW;
+  float* m_s = reinterpret_cast<float*>(sm + L.stats) + c * (PK ? 4 : 3) * NPW;
   float* l_s = m_s + NPW;
   float* alpha_s = m_s + 2 * NPW;
+  float* zs_s = m_s + 3 * NPW;  // PK: each head's sum of P^T . (-base_v)
   const uint32_t p_hi = base + L.p + c * 2 * NPW * 128, p_lo = p_hi + NPW * 128;
   uint8_t* p_sm = sm + L.p + c * 2 * NPW * 128;
   const uint32_t my_bfull = bfull + 8 * c * L.nb, my_bempty = bempty + 8 * c * L.nb;
@@ -530,6 +795,7 @@ palu_decode_fp_wg_kernel(const __grid_constant__ CUtensorMap tm_k,
       m_s[wt] = -1e30f;
       l_s[wt] = 0.0f;
       alpha_s[wt] = 1.0f;
+      if (PK) zs_s[wt] = 0.0f;
     }
     named_sync(sync_id, kWG);
 #pragma unroll
@@ -607,6 +873,9 @@ palu_decode_fp_wg_kernel(const __grid_constant__ CUtensorMap tm_k,
           fence_regs(kv);
           if (!L.resident) mbar_arrive(my_bempty + 8 * slot);
         }
+        if constexpr (PK)
+          k_affine<HD>(kv, a.pk.rsum + (static_cast<size_t>(w.g) * a.nkv + j) * HD,
+                       aux + (it % L.ns) * 2 * kTile, ta, qd);
         const float* bias =
             a.kbias ? a.kbias + (static_cast<size_t>(w.g) * a.nkv + j) * HD : nullptr;
         k_finish<HD>(kv, rcs, rsn, bias, q_s, lg, max(h0, j * a.rep) - h0,
@@ -616,7 +885,15 @@ palu_decode_fp_wg_kernel(const __grid_constant__ CUtensorMap tm_k,
       named_sync(sync_id, kWG);  // every head's logits of the tile are in lg; the last
                                  // tile's V products (their reads of P^T and alpha) are done
       // ---- online softmax, one warp per head; P^T in bf16 high and low
-      // parts (a uniform loop: h < NPW as nhw <= NPW)
+      // parts (a uniform loop: h < NPW as nhw <= NPW). PK: P^T = p scale_v,
+      // masked before the scale multiplies, and the offset sum per head, from
+      // the side row of the tile's first V chunk
+      const float* vx = aux;
+      if constexpr (PK) {
+        const int q = it + L.nck;
+        mbar_wait(full + 8 * (q % L.ns), (q / L.ns) & 1);
+        vx = aux + (q % L.ns) * 2 * kTile;
+      }
       for (int hb = 0; hb < nhw; hb += 4) {
         const int h = hb + warp;
         const bool hv = h < nhw;
@@ -632,14 +909,17 @@ palu_decode_fp_wg_kernel(const __grid_constant__ CUtensorMap tm_k,
         mx = decode::warp_max(mx);
         const float m_old = m_s[h], m_new = fmaxf(m_old, mx);
         const float alpha = expf(m_old - m_new);
-        float sum = 0.0f;
+        float sum = 0.0f, zs = 0.0f;
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
           const int t = lane + 32 * u;
           const float p = ok[u] ? expf(x[u] - m_new) : 0.0f;
           sum += p;
-          const __nv_bfloat16 ph = __float2bfloat16_rn(p);
-          const __nv_bfloat16 pl = __float2bfloat16_rn(p - __bfloat162float(ph));
+          const float pv = PK ? (ok[u] ? p * vx[t] : 0.0f) : p;
+          const __nv_bfloat16 ph = __float2bfloat16_rn(pv);
+          const __nv_bfloat16 pl = __float2bfloat16_rn(pv - __bfloat162float(ph));
+          if (PK && ok[u])
+            zs = fmaf(__bfloat162float(ph) + __bfloat162float(pl), vx[kTile + t], zs);
           const uint32_t off = h * 128 + ((((t >> 3) ^ (h & 7)) << 4) | ((t & 7) << 1));
           if (hv) {
             *reinterpret_cast<__nv_bfloat16*>(p_sm + off) = ph;
@@ -647,10 +927,12 @@ palu_decode_fp_wg_kernel(const __grid_constant__ CUtensorMap tm_k,
           }
         }
         sum = decode::warp_sum(sum);
+        if (PK) zs = decode::warp_sum(zs);
         if (hv) {  // every lane holds the warp's results
           m_s[h] = m_new;
           l_s[h] = l_s[h] * alpha + sum;
           alpha_s[h] = alpha;
+          if (PK) zs_s[h] = zs_s[h] * alpha + zs;
         }
       }
       fence_async_shared();      // P^T is read by wgmma (the async proxy)
@@ -662,7 +944,13 @@ palu_decode_fp_wg_kernel(const __grid_constant__ CUtensorMap tm_k,
       for (int k = kb0; k < kb0 + n; ++k) mbar_arrive(my_bempty + 8 * (k % L.nb));
       kb = kb0 + n;
     }
-    // this item's partials (the statistics are final since the last softmax's barrier)
+    // this item's partials (the statistics are final since the last softmax's barrier);
+    // rv read here, so that the stores' rank predicates are not held (and
+    // spilled) across the item's tiles
+    int rv = a.rv;
+    asm volatile("" : "+r"(rv));
+    float* part = a.part_acc + ((head0 + h0) * a.splits + w.split) * rv;
+    const int hstride = a.splits * rv;
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -671,8 +959,7 @@ palu_decode_fp_wg_kernel(const __grid_constant__ CUtensorMap tm_k,
         for (int e = 0; e < 4; ++e) {
           const int r = 64 * mt + 16 * warp + gq + 8 * (e >> 1), hw = 8 * j + 2 * qd + (e & 1);
           const float v = FOLD ? vacc[mt][e] + vacc[mt][4 + e] : vacc[mt][4 * j + e];
-          if (r < a.rv && hw < nhw)
-            a.part_acc[((head0 + h0 + hw) * a.splits + w.split) * a.rv + r] = v;
+          if (r < rv && hw < nhw) part[hw * hstride + r] = PK ? v + zs_s[hw] : v;
         }
     if (wt < nhw) {
       a.part_m[(head0 + h0 + wt) * a.splits + w.split] = m_s[wt];
@@ -682,38 +969,64 @@ palu_decode_fp_wg_kernel(const __grid_constant__ CUtensorMap tm_k,
 }
 
 template <int HD, bool RM, int NT, int MT>
+__global__ void __launch_bounds__(kThreads, 1)
+palu_decode_fp_wg_kernel(const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_b, const Args a) {
+  decode_body<HD, RM, NT, MT, false>(tm_k, tm_v, tm_b, a);
+}
+
+// the packed seq-major cache (tm_b alone is read)
+template <int HD, int NT, int MT>
+__global__ void __launch_bounds__(kThreads, 1)
+palu_decode_seq_wg_kernel(const __grid_constant__ CUtensorMap tm_b, const Args a) {
+  decode_body<HD, false, NT, MT, true>(tm_b, tm_b, tm_b, a);
+}
+
+template <int HD, bool RM, int NT, int MT, bool PK>
 int launch(int grid, const CUtensorMap (&tm)[3], const Args& a, cudaStream_t st) {
   const int smem = static_cast<int>(a.L.total) + 1024;
-  auto kern = palu_decode_fp_wg_kernel<HD, RM, NT, MT>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<grid, kThreads, smem, st>>>(tm[0], tm[1], tm[2], a);
+  if constexpr (PK) {
+    auto kern = palu_decode_seq_wg_kernel<HD, NT, MT>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kern<<<grid, kThreads, smem, st>>>(tm[2], a);
+  } else {
+    auto kern = palu_decode_fp_wg_kernel<HD, RM, NT, MT>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kern<<<grid, kThreads, smem, st>>>(tm[0], tm[1], tm[2], a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 // The instantiation for the consumers' heads and rv: NT 1 (<= 8 heads each)
 // or 2, and MT 64-rank blocks, 4 (rv <= 256), 6 (NT 1, rv <= 384) or 8.
-template <int HD, bool RM>
+template <int HD, bool RM, bool PK>
 int launch_shape(int nt, int rv, int grid, const CUtensorMap (&tm)[3], const Args& a,
                  cudaStream_t st) {
   if (nt == 1) {
-    if (rv <= 256) return launch<HD, RM, 1, 4>(grid, tm, a, st);
-    if (rv <= 384) return launch<HD, RM, 1, 6>(grid, tm, a, st);
-    return launch<HD, RM, 1, 8>(grid, tm, a, st);
+    if (rv <= 256) return launch<HD, RM, 1, 4, PK>(grid, tm, a, st);
+    if (rv <= 384) return launch<HD, RM, 1, 6, PK>(grid, tm, a, st);
+    return launch<HD, RM, 1, 8, PK>(grid, tm, a, st);
   }
-  if (rv <= 256) return launch<HD, RM, 2, 4>(grid, tm, a, st);
-  return launch<HD, RM, 2, 8>(grid, tm, a, st);
+  if (rv <= 256) return launch<HD, RM, 2, 4, PK>(grid, tm, a, st);
+  return launch<HD, RM, 2, 8, PK>(grid, tm, a, st);
 }
 
 template <int HD>
-int launch_hd(bool rm, int nt, int rv, int grid, const CUtensorMap (&tm)[3], const Args& a,
-              cudaStream_t st) {
-  return rm ? launch_shape<HD, true>(nt, rv, grid, tm, a, st)
-            : launch_shape<HD, false>(nt, rv, grid, tm, a, st);
+int launch_hd(bool rm, bool pk, int nt, int rv, int grid, const CUtensorMap (&tm)[3],
+              const Args& a, cudaStream_t st) {
+  if (pk) return launch_shape<HD, false, true>(nt, rv, grid, tm, a, st);
+  return rm ? launch_shape<HD, true, false>(nt, rv, grid, tm, a, st)
+            : launch_shape<HD, false, false>(nt, rv, grid, tm, a, st);
 }
 
-Plan plan_for(int hd, int rk, int rv, int hpg, int nkv, int* hs_out, int* nt_out) {
+// The plan and the consumers' q-head split; nbk / nbv > 0: the packed cache.
+Plan plan_for(int hd, int rk, int rv, int hpg, int nkv, int* hs_out, int* nt_out, int nbk = 0,
+              int nbv = 0) {
   const int hs = head_split(hpg, nkv), rep = hpg / nkv;
   const int nkv0 = hs > 0 ? (hs - 1) / rep + 1 : 0;
   const int nkv1 = hpg > hs ? (hpg - 1) / rep + 1 - hs / rep : 0;
@@ -721,8 +1034,11 @@ Plan plan_for(int hd, int rk, int rv, int hpg, int nkv, int* hs_out, int* nt_out
   const int nt = nhw > 8 ? 2 : 1;
   if (hs_out) *hs_out = hs;
   if (nt_out) *nt_out = nt;
-  return make_plan(hd, rk, rv, nkv0, nkv1, 8 * nt);
+  return make_plan(hd, rk, rv, nkv0, nkv1, 8 * nt, nbk, nbv);
 }
+
+// Bytes per token of one side's codes at pack width pbits (core/quant.packed_nbytes).
+int packed_nbytes(int r, int pbits) { return pbits == 3 ? r / 4 + r / 8 : r * pbits / 8; }
 
 }  // namespace
 
@@ -788,12 +1104,84 @@ extern "C" int palu_decode_fp_wg(const void* q, int q_bf16, const void* bk, cons
                          sw);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err = hd == 128 ? launch_hd<128>(rank_major != 0, nt, rv, grid, tm, a, st)
-                      : launch_hd<64>(rank_major != 0, nt, rv, grid, tm, a, st);
+  int err = hd == 128 ? launch_hd<128>(rank_major != 0, false, nt, rv, grid, tm, a, st)
+                      : launch_hd<64>(rank_major != 0, false, nt, rv, grid, tm, a, st);
   if (err != 0) return err;
   return decode::launch_combine(static_cast<const float*>(part_m),
                                 static_cast<const float*>(part_l),
                                 static_cast<const float*>(part_acc), static_cast<float*>(out),
                                 B * G * hpg, splits, rv, st, static_cast<float*>(m_out),
                                 static_cast<float*>(l_out));
+}
+
+// The packed seq-major decode's plan at these shapes (q-heads per group hpg,
+// each its own B): out = {smem bytes, ring chunks, B slots per consumer,
+// resident, packed stages}, or out[0] = -1 when no plan fits in one block.
+extern "C" int palu_decode_seq_wg_plan(int hd, int rk, int rv, int hpg, int pbits, int* out) {
+  const Plan p = plan_for(hd, rk, rv, hpg, hpg, nullptr, nullptr, packed_nbytes(rk, pbits),
+                          packed_nbytes(rv, pbits));
+  out[0] = p.ok ? static_cast<int>(p.total) + 1024 : -1;
+  out[1] = p.ns, out[2] = p.nb, out[3] = p.resident, out[4] = p.npk;
+  return 0;
+}
+
+// q (B, nh, hd) bf16 or f32; bk (G, hpg, rk, hd) bf16 (JAX's repeated form:
+// one B per q-head); codes kc (B, G, S, nbk) / vc (B, G, S, nbv) uint8 in
+// core/quant.pack_codes' plane packing at pack width pbits (2, 3 or 4);
+// per-token ks, kb, vs, vb (B, G, S) f32, x = (code + qmin - base) * scale;
+// kv_len (B,) int32; inv_freq (hd / 2,) f32; rsum scratch of G * hpg * hd f32
+// (row sums of B); partials and out as palu_decode_fp_wg. hd 64 or 128, rk
+// and rv multiples of 32 up to 512, hpg <= 32, S a multiple of 8, every
+// buffer 16-byte aligned.
+extern "C" int palu_decode_seq_wg(const void* q, int q_bf16, const void* bk, const void* kc,
+                                  const void* ks, const void* kb, const void* vc, const void* vs,
+                                  const void* vb, const void* kv_len, const void* inv_freq,
+                                  void* rsum, void* part_m, void* part_l, void* part_acc,
+                                  void* out, int B, int G, int hpg, int hd, int rk, int rv, int S,
+                                  int pbits, int qmin, int window, int splits, int grid,
+                                  float inv_sqrt_hd, float rope_scale, void* stream) {
+  if ((hd != 64 && hd != 128) || rk % 32 || rv % 32 || rk <= 0 || rv <= 0 || rk > kMaxRank ||
+      rv > kMaxRank || hpg <= 0 || hpg > kMaxHeads || S % 8 ||
+      (pbits != 2 && pbits != 3 && pbits != 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{};
+  int nt = 1;
+  a.pk.nbk = packed_nbytes(rk, pbits), a.pk.nbv = packed_nbytes(rv, pbits);
+  a.L = plan_for(hd, rk, rv, hpg, hpg, &a.hsplit, &nt, a.pk.nbk, a.pk.nbv);
+  if (!a.L.ok) return static_cast<int>(cudaErrorInvalidValue);
+  a.q = q;
+  a.q_bf16 = q_bf16;
+  a.inv_freq = static_cast<const float*>(inv_freq);
+  a.kv_len = static_cast<const int*>(kv_len);
+  a.part_m = static_cast<float*>(part_m);
+  a.part_l = static_cast<float*>(part_l);
+  a.part_acc = static_cast<float*>(part_acc);
+  a.B = B, a.G = G, a.hpg = hpg, a.nkv = hpg, a.rep = 1, a.rk = rk, a.rv = rv, a.S = S;
+  a.window = window;
+  a.splits = splits, a.n_items = B * G * splits;
+  a.inv_sqrt_hd = inv_sqrt_hd, a.rope_scale = rope_scale;
+  a.pk.kc = static_cast<const uint8_t*>(kc);
+  a.pk.vc = static_cast<const uint8_t*>(vc);
+  a.pk.ks = static_cast<const float*>(ks);
+  a.pk.kb = static_cast<const float*>(kb);
+  a.pk.vs = static_cast<const float*>(vs);
+  a.pk.vb = static_cast<const float*>(vb);
+  a.pk.rsum = static_cast<const float*>(rsum);
+  a.pk.pbits = pbits, a.pk.qmin = qmin;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err = decode::launch_rowsum(static_cast<const __nv_bfloat16*>(bk),
+                                  static_cast<float*>(rsum), G * hpg, 1, rk, hd, st);
+  if (err != 0) return err;
+  CUtensorMap tm[3];
+  if (!make_map_3d(&tm[2], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, bk, hd, rk,
+                   static_cast<uint64_t>(G) * hpg, 64, kChunk, CU_TENSOR_MAP_SWIZZLE_128B))
+    return static_cast<int>(cudaErrorInvalidValue);
+  tm[0] = tm[1] = tm[2];
+  err = hd == 128 ? launch_hd<128>(false, true, nt, rv, grid, tm, a, st)
+                  : launch_hd<64>(false, true, nt, rv, grid, tm, a, st);
+  if (err != 0) return err;
+  return decode::launch_combine(static_cast<const float*>(part_m),
+                                static_cast<const float*>(part_l),
+                                static_cast<const float*>(part_acc), static_cast<float*>(out),
+                                B * G * hpg, splits, rv, st);
 }

@@ -1,24 +1,18 @@
 // The split pass of the latent decode over the rank-major packed cache and
-// its host-side launch, shared by the archived A/B baselines palu_decode2.cu
-// (v2) and palu_decode3.cu (v3), which run the exact K path over per-row
-// affine scales and differ only in how RoPE and the scales reach the kernel
-// (the template argument GEN):
-//   2 - cos/sin computed in the kernel, sincosf of the f32 angle
-//       (position * inv_freq[j]) times rope_scale, as the v2 TPU kernel
-//       forms them; no table of positions is read;
-//   3 - one (block_s, hd/2) table of block-relative cos/sin (rope_scale
-//       folded in) and one (S / block_s, hd/2) table of block-start
-//       offsets: when the tile walk enters a rotation block the query is
-//       rotated by the block start, q' = R(-s0) q (RoPE(s) = R(s0) R(s -
-//       s0)), so each token reads only its relative row; the query arrives
-//       pre-scaled by 1/sqrt(hd); scales and zeros arrive packed as one
-//       (B, S, 2G) array (v3's sz_pack), each token's row read with stride
-//       2G.
-// Both run asym only: the v2 / v3 caches always carry a zero row (zero =
-// (q_min - base) * scale for sym, too), so the zero term is zero(s) *
-// rowsum B added to K before RoPE (RoPE is linear, so this is v2's "virtual
-// key" logit). v4's decode runs on palu_decode_exact.cu and
-// palu_decode_i8.cu.
+// its host-side launch, behind the archived A/B baseline palu_decode3.cu
+// (v3), the exact K path over per-row affine scales with v3's way of
+// bringing RoPE and the scales to the kernel: one (block_s, hd/2) table of
+// block-relative cos/sin (rope_scale folded in) and one (S / block_s, hd/2)
+// table of block-start offsets: when the tile walk enters a rotation block
+// the query is rotated by the block start, q' = R(-s0) q (RoPE(s) = R(s0)
+// R(s - s0)), so each token reads only its relative row; the query arrives
+// pre-scaled by 1/sqrt(hd); scales and zeros arrive packed as one (B, S,
+// 2G) array (v3's sz_pack), each token's row read with stride 2G. It runs
+// asym only: the v3 cache always carries a zero row (zero = (q_min - base) *
+// scale for sym, too), so the zero term is zero(s) * rowsum B added to K
+// before RoPE (RoPE is linear, so this is v2's "virtual key" logit). v4's
+// decode runs on palu_decode_exact.cu and palu_decode_i8.cu, v2's on
+// palu_decode_exact.cu.
 //
 // Design: grid (splits, G, B), 8 warps, about one block per SM. A block
 // walks its runs of tiles of 64 tokens: 16-byte loads bring the packed K
@@ -65,17 +59,14 @@ struct DecodeArgs {
   int q_bf16;
   const __nv_bfloat16* bk;     // (G, hpg, rk, hd)
   const uint8_t* kc;           // (B, G, nrk, S)
-  const float* ks;             // GEN 2: (B, G, S); GEN 3: (B, S, 2G) scale | zero rows
-  const float* kz;             // GEN 2: (B, G, S)
+  const float* ks;             // (B, S, 2G) scale | zero rows
   const uint8_t* vc;           // (B, G, nrv, S)
   const float* vs;
-  const float* vz;
   const int* kv_len;           // (B,)
-  const float* c0;             // GEN 3: (S / block_s, hd/2) block-start rotation
+  const float* c0;             // (S / block_s, hd/2) block-start rotation
   const float* s0;
-  const float* rcos;           // GEN 3: (block_s, hd/2) block-relative rotation
+  const float* rcos;           // (block_s, hd/2) block-relative rotation
   const float* rsin;
-  const float* inv_freq;       // GEN 2: (hd/2,) f32 RoPE frequencies
   float* part_m;               // (B, nh, splits)
   float* part_l;
   float* part_acc;             // (B, nh, splits, rv)
@@ -83,7 +74,6 @@ struct DecodeArgs {
   int splits, tiles_per_split, chunk_heads, block_s;
   int rc;                      // ranks per chunk (rk when one chunk)
   float sqrt_hd;
-  float rope_scale;            // GEN 2: multiplies cos and sin
 };
 
 // Where rank r (of n) lives in a packed rank-major plane: byte row and
@@ -165,10 +155,8 @@ __host__ __device__ inline SplitLayout split_layout(int rk, int hd, int hpg, int
   return L;
 }
 
-// GEN: the decode generation (this file's header).
-template <int HD, int GEN>
+template <int HD>
 __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs a) {
-  static_assert(GEN == 2 || GEN == 3, "v2 / v3: the exact mode over per-row scales");
   constexpr int half = HD / 2;
   constexpr int HS = HD + kBPad;  // B row stride
   constexpr int NTH = HD / 16;    // 8-wide column tiles per half of hd
@@ -213,14 +201,14 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
   const size_t bg = static_cast<size_t>(b) * a.G + g;
   const uint8_t* kc = a.kc + bg * a.nrk * a.S;
   const uint8_t* vc = a.vc + bg * a.nrv * a.S;
-  // per-row scales and zeros of token s at [s * sst]: (B, G, S) rows, or
-  // v3's (B, S, 2G) packed rows (scale in column g, zero in column G + g)
-  const int sst = GEN == 3 ? 2 * a.G : 1;
-  const size_t sz0 = static_cast<size_t>(b) * a.S * sst + g;  // GEN 3
-  const float* ksc = GEN == 3 ? a.ks + sz0 : a.ks + bg * a.S;
-  const float* vsc = GEN == 3 ? a.vs + sz0 : a.vs + bg * a.S;
-  const float* kzp = GEN == 3 ? ksc + a.G : a.asym ? a.kz + bg * a.S : nullptr;
-  const float* vzp = GEN == 3 ? vsc + a.G : a.asym ? a.vz + bg * a.S : nullptr;
+  // per-row scales and zeros of token s at [s * sst]: v3's (B, S, 2G)
+  // packed rows (scale in column g, zero in column G + g)
+  const int sst = 2 * a.G;
+  const size_t sz0 = static_cast<size_t>(b) * a.S * sst + g;
+  const float* ksc = a.ks + sz0;
+  const float* vsc = a.vs + sz0;
+  const float* kzp = ksc + a.G;
+  const float* vzp = vsc + a.G;
   const __nv_bfloat16* bk_g = a.bk + static_cast<size_t>(g) * hpg * rk * HD;
 
   for (int r = tid; r < rk; r += kThreads) ktab[r] = rank_entry(r, rk, a.pbits);
@@ -268,8 +256,8 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
     int cur_blk = -1;
     for (int tile = t_begin; tile < t_end; ++tile) {
       const int s0 = tile * kTile;
-      const int blk = GEN == 3 ? s0 / a.block_s : 0;
-      if (GEN == 3 && blk != cur_blk) {
+      const int blk = s0 / a.block_s;
+      if (blk != cur_blk) {
         // ---- v3: the query rotated back by this rotation block's start,
         // q' = R(-s0) q, in f32 (the previous tile's reads of q_s ended at
         // its last barrier; the tile load's barrier precedes the next)
@@ -294,21 +282,11 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
         zk[tid] = (in && a.asym) ? kzp[s * sst] : 0.0f;
         zv[tid] = (in && a.asym) ? vzp[s * sst] : 0.0f;
       }
-      // rope rows: block-relative ones (v3), or computed here from the
-      // positions (v2)
+      // rope rows: the block-relative ones
       const float* cos_src = a.rcos;
       const float* sin_src = a.rsin;
       const int row0 = s0 - blk * a.block_s;
-      if constexpr (GEN == 2) {
-        for (int i = tid; i < kTile * half; i += kThreads) {
-          const int t = i / half, f = i % half;
-          float sn, c;
-          sincosf(static_cast<float>(s0 + t) * __ldg(a.inv_freq + f), &sn, &c);
-          cos_s[t * cs + f] = c * a.rope_scale;
-          sin_s[t * cs + f] = sn * a.rope_scale;
-        }
-      }
-      for (int i = tid; i < (GEN == 2 ? 0 : kTile * (half / 4)); i += kThreads) {
+      for (int i = tid; i < kTile * (half / 4); i += kThreads) {
         const int t = i / (half / 4), f = (i % (half / 4)) * 4, s = s0 + t;
         float4 c = make_float4(0.f, 0.f, 0.f, 0.f), n = c;
         if (s < a.S) {
@@ -495,24 +473,23 @@ __global__ void __launch_bounds__(kThreads) palu_decode_split_kernel(DecodeArgs 
   }
 }
 
-template <int HD, int GEN>
+template <int HD>
 int launch_split(const DecodeArgs& a, int B, cudaStream_t st) {
   const size_t smem =
       split_layout(a.rk, HD, a.hpg, a.rv, a.nrk, a.nrv, a.chunk_heads, a.rc).total;
-  cudaError_t err = cudaFuncSetAttribute(palu_decode_split_kernel<HD, GEN>,
+  cudaError_t err = cudaFuncSetAttribute(palu_decode_split_kernel<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  palu_decode_split_kernel<HD, GEN><<<dim3(a.splits, a.G, B), kThreads, smem, st>>>(a);
+  palu_decode_split_kernel<HD><<<dim3(a.splits, a.G, B), kThreads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Fit as many heads' B in shared memory as fit beside the rest (ranks in
 // chunks of up to 128, and of fewer when not even one head's 128 rows of B
-// fit), launch the split pass of generation GEN and then the combine into
-// out (B, nh, rv) (decode_common.cuh). hd is 64 or 128.
-template <int GEN>
-int run_split(DecodeArgs& a, int B, int hd, float* out, cudaStream_t st) {
+// fit), launch the split pass and then the combine into out (B, nh, rv)
+// (decode_common.cuh). hd is 64 or 128.
+inline int run_split(DecodeArgs& a, int B, int hd, float* out, cudaStream_t st) {
   a.chunk_heads = 0;
   const int rcs[4] = {min(a.rk, kRc), 64, 32, 16};
   for (int k = 0; k < 4 && a.chunk_heads == 0; ++k) {
@@ -525,7 +502,7 @@ int run_split(DecodeArgs& a, int B, int hd, float* out, cudaStream_t st) {
       --a.chunk_heads;
   }
   if (a.chunk_heads == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int err = hd == 128 ? launch_split<128, GEN>(a, B, st) : launch_split<64, GEN>(a, B, st);
+  const int err = hd == 128 ? launch_split<128>(a, B, st) : launch_split<64>(a, B, st);
   if (err != 0) return err;
   return decode::launch_combine(a.part_m, a.part_l, a.part_acc, out, B * a.G * a.hpg, a.splits,
                                 a.rv, st);

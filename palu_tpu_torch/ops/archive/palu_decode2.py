@@ -8,7 +8,11 @@ rank-major (B, G, rv, S); its kernel is the v2 layout of
 csrc/palu_decode_fp.cu (palu_decode_fp_v2). `palu_decode2_quantized` takes
 the rank-major packed cache (pack_codes_t) with per-row affine scales and
 zeros (B, G, S), x = scale * code + zero (quantize_affine's form, sym and
-asym alike); its kernel is csrc/palu_decode2.cu. Both return (B, nh, rv)
+asym alike): the function of palu_decode's exact mode over asym per-row
+rows with no offset, so its kernel is csrc/palu_decode_exact.cu
+(ops/palu_decode.exact_launch: qoff 0, the zero term on row sums of B,
+RoPE from `v2_inv_freq` and rope_scale; palu_decode's launch counters do
+not count it). Both return (B, nh, rv)
 f32 latent-space outputs, launch their kernel for CUDA tensors and run
 their plain version (`*_ref`) for CPU tensors, and count their launches.
 
@@ -34,7 +38,8 @@ import torch
 
 from ...core.quant import QuantConfig, packed_nrows, unpack_codes_t
 from .. import build
-from ..palu_decode import _MAX_HEADS, _MAX_RK, _device_splits
+from ..palu_decode import (_MAX_HEADS, _MAX_RK, _TILE, _device_splits, _exact_smem, _scratch,
+                           exact_launch)
 
 __all__ = ["palu_decode2", "palu_decode2_ref", "palu_decode2_quantized",
            "palu_decode2_quantized_ref", "v2_inv_freq"]
@@ -186,14 +191,6 @@ def _launch_setup(q, b_k, tensors, s_max: int, rk: int, what: str):
     return (q.device, *_device_splits(q.device, b * g, s_max)[:2])
 
 
-def _scratch(b: int, nh: int, rv: int, splits: int, dev) -> tuple:
-    """One allocation: per-split m, l, accumulators, then the output."""
-    n_part = b * nh * splits
-    scratch = torch.empty(n_part * (2 + rv) + b * nh * rv, dtype=torch.float32, device=dev)
-    return (scratch.data_ptr(), scratch[n_part:].data_ptr(), scratch[2 * n_part:].data_ptr(),
-            scratch[n_part * (2 + rv):].view(b, nh, rv))
-
-
 def palu_decode2(q, b_k, x_k, x_v_t, kv_len, *, block_s: int = 1024, theta: float = 10000.0,
                  sliding_window: Optional[int] = None, inv_freq=None,
                  rope_scale: float = 1.0) -> torch.Tensor:
@@ -215,11 +212,11 @@ def palu_decode2(q, b_k, x_k, x_v_t, kv_len, *, block_s: int = 1024, theta: floa
     dev, splits, per = _launch_setup(q, b_k, (x_k, x_v_t), s_max, rk, "palu_decode2")
     inv = v2_inv_freq(hd // 2, theta, inv_freq, dev)
     kvl = kv_len.to(torch.int32).contiguous()
-    pm, pl, pa, out = _scratch(b, nh, rv, splits, dev)
+    n_part, scratch, out, _, _ = _scratch(b, nh, rv, splits, False, 0, dev)
     err = build.launcher("palu_decode_fp", "palu_decode_fp_v2", "pi" + "p" * 9 + "i" * 10 + "ffp")(
         q.contiguous().data_ptr(), int(q.dtype == torch.bfloat16), b_k.contiguous().data_ptr(),
-        x_k.data_ptr(), x_v_t.data_ptr(), kvl.data_ptr(), inv.data_ptr(), pm, pl, pa,
-        out.data_ptr(), b, g, hpg, hd, rk, rv, s_max, int(sliding_window or 0), splits, per,
+        x_k.data_ptr(), x_v_t.data_ptr(), kvl.data_ptr(), inv.data_ptr(), scratch.data_ptr(),
+        scratch[n_part:].data_ptr(), scratch[2 * n_part:].data_ptr(), out.data_ptr(), b, g, hpg, hd, rk, rv, s_max, int(sliding_window or 0), splits, per,
         float(rope_scale), float(math.sqrt(hd)), build.stream_ptr(dev))
     build.check(err, "palu_decode2")
     palu_decode2.launches += 1
@@ -285,7 +282,9 @@ def palu_decode2_quantized(q, b_k, xk_codes, xk_scale, xk_zero, xv_codes, xv_sca
     """Decode attention over the rank-major packed cache, v2: codes (B, G,
     packed_nrows, S) uint8, scale and zero (B, G, S) f32 each (x = scale *
     code + zero), kv_len (B,). -> (B, nh, rv) f32. block_s (dividing S) is
-    the plain version's sequence block."""
+    the plain version's sequence block. CUDA tensors launch the exact
+    kernel (rv also a multiple of 16 up to 512, S at least 64, and shapes
+    whose tile ring and B fit in a block's shared memory: others raise)."""
     kw = dict(qcfg=qcfg, rk=rk, rv=rv, block_s=block_s, theta=theta,
               sliding_window=sliding_window, inv_freq=inv_freq, rope_scale=rope_scale)
     if not q.is_cuda:
@@ -298,18 +297,17 @@ def palu_decode2_quantized(q, b_k, xk_codes, xk_scale, xk_zero, xv_codes, xv_sca
                                                 ("xv_scale", xv_scale), ("xv_zero", xv_zero))}
     _check_quant(q, b_k, xk_codes, xv_codes, kv_len, qcfg, rk, rv, block_s, rows)
     bufs = (xk_codes, xk_scale, xk_zero, xv_codes, xv_scale, xv_zero)
-    dev, splits, per = _launch_setup(q, b_k, bufs, s_max, rk, "palu_decode2_quantized")
-    inv = v2_inv_freq(hd // 2, theta, inv_freq, dev)
-    kvl = kv_len.to(torch.int32).contiguous()
-    pm, pl, pa, out = _scratch(b, nh, rv, splits, dev)
-    err = build.launcher("palu_decode2", "palu_decode2_quantized",
-                         "pi" + "p" * 13 + "i" * 13 + "ffp")(
-        q.contiguous().data_ptr(), int(q.dtype == torch.bfloat16), b_k.contiguous().data_ptr(),
-        *(t.data_ptr() for t in bufs[:3]), *(t.data_ptr() for t in bufs[3:]), kvl.data_ptr(),
-        inv.data_ptr(), pm, pl, pa, out.data_ptr(), b, g, hpg, hd, rk, rv, s_max,
-        xk_codes.shape[2], xv_codes.shape[2], qcfg.pack_bits, int(sliding_window or 0), splits,
-        per, float(rope_scale), float(math.sqrt(hd)), build.stream_ptr(dev))
-    build.check(err, "palu_decode2_quantized")
+    dev = _launch_setup(q, b_k, bufs, s_max, rk, "palu_decode2_quantized")[0]
+    nrk, nrv = xk_codes.shape[2], xv_codes.shape[2]
+    if rv % 16 or rv > _MAX_RK or s_max < _TILE \
+            or _exact_smem(hd, rk, rv, hpg, hpg, nrk, nrv, 1, 1, 1) < 0:
+        raise ValueError(f"palu_decode2_quantized's kernel (the exact decode) needs rv a "
+                         f"multiple of 16 up to {_MAX_RK}, S >= {_TILE} and a tile ring and B "
+                         f"that fit in a block's shared memory (hd={hd}, rk={rk}, rv={rv}, "
+                         f"S={s_max}, hpg={hpg})")
+    out = exact_launch(q, b_k, *bufs, kv_len, pbits=qcfg.pack_bits, qoff=0, rk=rk, rv=rv,
+                       window=int(sliding_window or 0),
+                       inv=v2_inv_freq(hd // 2, theta, inv_freq, dev), rope_scale=rope_scale)
     palu_decode2_quantized.launches += 1
     return out
 

@@ -29,8 +29,8 @@ import torch
 
 from ...core.quant import QuantConfig
 from .. import build
-from .palu_decode2 import (_check_quant, _codes, _launch_setup, _scratch, _valid,
-                           online_step)
+from ..palu_decode import _scratch
+from .palu_decode2 import _check_quant, _codes, _launch_setup, _valid, online_step
 
 __all__ = ["palu_decode3_quantized", "palu_decode3_quantized_ref", "sz_pack", "v3_tables",
            "q_scaled"]
@@ -153,12 +153,13 @@ def palu_decode3_quantized(q, b_k, xk_codes, xk_sz, xv_codes, xv_sz, kv_len, *,
     tab = v3_tables(s_max, block_s, hd, theta, inv_freq, rope_scale, dev)
     qs = q_scaled(q).contiguous()
     kvl = kv_len.to(torch.int32).contiguous()
-    pm, pl, pa, out = _scratch(b, nh, rv, splits, dev)
+    n_part, scratch, out, _, _ = _scratch(b, nh, rv, splits, False, 0, dev)
     err = build.launcher("palu_decode3", "palu_decode3_quantized",
                          "pi" + "p" * 14 + "i" * 14 + "p")(
         qs.data_ptr(), int(q.dtype == torch.bfloat16), b_k.contiguous().data_ptr(),
         *(t.data_ptr() for t in bufs), kvl.data_ptr(),
-        *(tab[k].data_ptr() for k in ("c0", "s0", "rcos", "rsin")), pm, pl, pa, out.data_ptr(),
+        *(tab[k].data_ptr() for k in ("c0", "s0", "rcos", "rsin")), scratch.data_ptr(),
+        scratch[n_part:].data_ptr(), scratch[2 * n_part:].data_ptr(), out.data_ptr(),
         b, g, hpg, hd, rk, rv, s_max, xk_codes.shape[2], xv_codes.shape[2], qcfg.pack_bits,
         int(sliding_window or 0), splits, per, block_s, build.stream_ptr(dev))
     build.check(err, "palu_decode3_quantized")

@@ -605,57 +605,102 @@ def palu_decode(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, *,
     if not exact:
         _i8_launch_plan(hd, rk, rv, hpg, nrk, nrv, asym, _MODES[mode], k_bias is not None,
                         block_s, s_max)
-    qc = q.contiguous()
-    bk = b_k.contiguous()
-    kbias = None if k_bias is None else k_bias.float().contiguous()
-    kvl = kv_len.to(torch.int32).contiguous()
-    splits, _, grid = _device_splits(dev, b * g, s_max)
-    # one allocation: per-split m, l, accumulators, the output (and with
-    # return_stats its m and l), then the exact kernel's asym row sums of B
+    qoff = 0 if asym else 2 ** (qcfg.bits - 1)
+    if exact:
+        inv = _inv_freq_t(hd, float(theta), _inv_key(inv_freq), str(dev))
+        out = exact_launch(q, b_k, xk_codes, xk_scale, xk_zero, xv_codes, xv_scale, xv_zero,
+                           kv_len, pbits=qcfg.pack_bits, qoff=qoff, rk=rk, rv=rv,
+                           window=int(sliding_window or 0), inv=inv, rope_scale=rope_scale,
+                           nsk=nsk, nsv=nsv, k_bias=k_bias, pos_offset=off, layer_idx=layer_idx,
+                           return_stats=return_stats)
+    else:
+        qc = q.contiguous()
+        bk = b_k.contiguous()
+        kbias = None if k_bias is None else k_bias.float().contiguous()
+        kvl = kv_len.to(torch.int32).contiguous()
+        splits, _, grid = _device_splits(dev, b * g, s_max)
+        n_part, scratch, out, m_out, l_out = _scratch(b, nh, rv, splits, return_stats, 0, dev)
+        common = (qc.data_ptr(), int(q.dtype == torch.bfloat16), bk.data_ptr(),
+                  xk_codes.data_ptr(), xk_scale.data_ptr(), _ptr(xk_zero), xv_codes.data_ptr(),
+                  xv_scale.data_ptr(), _ptr(xv_zero), kvl.data_ptr())
+        parts = (scratch.data_ptr(), scratch[n_part:].data_ptr(),
+                 scratch[2 * n_part:].data_ptr(), out.data_ptr())
+        tab = _tables8(s_max, block_s, hd, theta, inv_freq, rope_scale, dev, off)
+        err = build.launcher("palu_decode_i8", "palu_decode_i8",
+                             "pi" + "p" * 19 + "i" * 21 + "ff" + "ppp")(
+            *common, *(_ptr(tab.get(k)) for k in ("c0", "s0", "rcos", "rsin", "cos8", "sin8")),
+            _ptr(kbias), *parts, b, g, hpg, nkv, hd, rk, rv, s_max, nrk, nrv, qcfg.pack_bits,
+            qoff, int(asym), int(sliding_window or 0), splits, grid, _MODES[mode], block_s,
+            int(layer_idx or 0), xk_codes.shape[0] if layer_idx is not None else 1, off,
+            float(math.sqrt(hd)), float(tab["i8r_inv"]), _ptr(m_out), _ptr(l_out),
+            build.stream_ptr(dev))
+        build.check(err, f"palu_decode ({mode})")
+        if return_stats:
+            out = (out, m_out, l_out)
+    palu_decode.launches += 1
+    palu_decode.mode_launches[mode] += 1
+    palu_decode.k_bias_launches += k_bias is not None
+    count_features(palu_decode, pos_offset, return_stats, layer_idx)
+    return out
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
+def _scratch(b: int, nh: int, rv: int, splits: int, return_stats: bool, n_extra: int, dev):
+    """One allocation: per-split m, l, accumulators, the output (and with
+    return_stats its m and l), then n_extra f32. Returns (n_part, scratch,
+    out, m_out, l_out)."""
     n_part = b * nh * splits
     n_out = b * nh * (rv + (2 if return_stats else 0))
-    n_rs = g * nkv * nsk * hd if exact and asym else 0
-    scratch = torch.empty(n_part * (2 + rv) + n_out + n_rs, dtype=torch.float32, device=dev)
+    scratch = torch.empty(n_part * (2 + rv) + n_out + n_extra, dtype=torch.float32, device=dev)
     o0 = n_part * (2 + rv)
     out = scratch[o0:o0 + b * nh * rv].view(b, nh, rv)
     m_out = l_out = None
     if return_stats:
         m_out = scratch[o0 + b * nh * rv:o0 + b * nh * (rv + 1)].view(b, nh)
         l_out = scratch[o0 + b * nh * (rv + 1):o0 + n_out].view(b, nh)
-    qoff = 0 if asym else 2 ** (qcfg.bits - 1)
+    return n_part, scratch, out, m_out, l_out
 
-    def ptr(t):
-        return t.data_ptr() if t is not None else None
 
-    common = (qc.data_ptr(), int(q.dtype == torch.bfloat16), bk.data_ptr(), xk_codes.data_ptr(),
-              xk_scale.data_ptr(), ptr(xk_zero), xv_codes.data_ptr(), xv_scale.data_ptr(),
-              ptr(xv_zero), kvl.data_ptr())
-    parts = (scratch.data_ptr(), scratch[n_part:].data_ptr(), scratch[2 * n_part:].data_ptr(),
-             out.data_ptr())
-    if exact:
-        inv = _inv_freq_t(hd, float(theta), _inv_key(inv_freq), str(dev))
-        err = build.launcher("palu_decode_exact", "palu_decode_exact",
-                             "pi" + "p" * 15 + "i" * 21 + "ff" + "ppp")(
-            *common, ptr(kbias), inv.data_ptr(), scratch[o0 + n_out:].data_ptr(), *parts,
-            b, g, hpg, nkv, hd, rk, rv, s_max, nrk, nrv, qcfg.pack_bits, qoff, int(asym),
-            int(sliding_window or 0), nsk, nsv, splits, grid, int(layer_idx or 0),
-            xk_codes.shape[0] if layer_idx is not None else 1, off, float(1.0 / math.sqrt(hd)),
-            float(rope_scale), ptr(m_out), ptr(l_out), build.stream_ptr(dev))
-    else:
-        tab = _tables8(s_max, block_s, hd, theta, inv_freq, rope_scale, dev, off)
-        err = build.launcher("palu_decode_i8", "palu_decode_i8",
-                             "pi" + "p" * 19 + "i" * 21 + "ff" + "ppp")(
-            *common, *(ptr(tab.get(k)) for k in ("c0", "s0", "rcos", "rsin", "cos8", "sin8")),
-            ptr(kbias), *parts, b, g, hpg, nkv, hd, rk, rv, s_max, nrk, nrv, qcfg.pack_bits,
-            qoff, int(asym), int(sliding_window or 0), splits, grid, _MODES[mode], block_s,
-            int(layer_idx or 0), xk_codes.shape[0] if layer_idx is not None else 1, off,
-            float(math.sqrt(hd)), float(tab["i8r_inv"]), ptr(m_out), ptr(l_out),
-            build.stream_ptr(dev))
-    build.check(err, f"palu_decode ({mode})")
-    palu_decode.launches += 1
-    palu_decode.mode_launches[mode] += 1
-    palu_decode.k_bias_launches += k_bias is not None
-    count_features(palu_decode, pos_offset, return_stats, layer_idx)
+def exact_launch(q, b_k, xk_codes, xk_scale, xk_zero, xv_codes, xv_scale, xv_zero, kv_len, *,
+                 pbits: int, qoff: int, rk: int, rv: int, window: int, inv: torch.Tensor,
+                 rope_scale: float, nsk: int = 1, nsv: int = 1, k_bias=None,
+                 pos_offset: int = 0, layer_idx: Optional[int] = None,
+                 return_stats: bool = False):
+    """One launch of csrc/palu_decode_exact.cu (the checks are the
+    caller's): K = scale (B^T (code - qoff)) [+ zero rowsum B] [+ k_bias]
+    per scale chunk, zeros given (asym) or None, RoPE at the f32 angle
+    position * inv (inv (hd / 2,) f32 on the device) times rope_scale. ->
+    out (B, nh, rv), or (acc, m, l) with return_stats."""
+    b, nh, hd = q.shape
+    g, nkv = b_k.shape[0], b_k.shape[1]
+    s_max = xk_codes.shape[-1]
+    asym = xk_zero is not None
+    dev = q.device
+    qc = q.contiguous()
+    bk = b_k.contiguous()
+    kbias = None if k_bias is None else k_bias.float().contiguous()
+    kvl = kv_len.to(torch.int32).contiguous()
+    splits, _, grid = _device_splits(dev, b * g, s_max)
+    # the asym row sums of B after the outputs
+    n_part, scratch, out, m_out, l_out = _scratch(b, nh, rv, splits, return_stats,
+                                                  g * nkv * nsk * hd if asym else 0, dev)
+    n_out = b * nh * (rv + (2 if return_stats else 0))
+    err = build.launcher("palu_decode_exact", "palu_decode_exact",
+                         "pi" + "p" * 15 + "i" * 21 + "ff" + "ppp")(
+        qc.data_ptr(), int(q.dtype == torch.bfloat16), bk.data_ptr(), xk_codes.data_ptr(),
+        xk_scale.data_ptr(), _ptr(xk_zero), xv_codes.data_ptr(), xv_scale.data_ptr(),
+        _ptr(xv_zero), kvl.data_ptr(), _ptr(kbias), inv.data_ptr(),
+        scratch[n_part * (2 + rv) + n_out:].data_ptr(), scratch.data_ptr(),
+        scratch[n_part:].data_ptr(), scratch[2 * n_part:].data_ptr(), out.data_ptr(),
+        b, g, nh // g, nkv, hd, rk, rv, s_max, xk_codes.shape[-2], xv_codes.shape[-2], pbits,
+        qoff, int(asym), window, nsk, nsv, splits, grid, int(layer_idx or 0),
+        xk_codes.shape[0] if layer_idx is not None else 1, int(pos_offset),
+        float(1.0 / math.sqrt(hd)), float(rope_scale), _ptr(m_out), _ptr(l_out),
+        build.stream_ptr(dev))
+    build.check(err, "palu_decode_exact")
     return (out, m_out, l_out) if return_stats else out
 
 

@@ -22,7 +22,12 @@ palu_decode_fp / palu_decode_fp_t at the Llama-2-7B group at 8K and at
 Qwen2-7B's with the K bias (JAX's repeated b_k and, with a tag starting
 with "new", the compact one), at rk 256 and 512, and palu_decode_fp_t on
 one 16K shard with return_stats and with layer_idx on an L = 4 stack at
-64K."""
+64K. Then (`seq`) palu_decode_seq_quantized over the 3-bit seq-major cache
+(run_latency_kernel's --lt_bits 3) at the Llama-2-7B group, batch 1, S =
+kv_len = 4K, 8K, 16K and 64K, at rk 256 and 512 (8K), and at 16 q-heads
+per group (8K, rk = rv = 256); and (`v2q`) palu_decode2_quantized at ab_v2's
+v2q3 shape (8 groups of 4, rk 128, rv 384, the 3-bit rank-major cache,
+S = kv_len = 64K)."""
 import json
 import os
 import sys
@@ -40,7 +45,6 @@ def main(root: str, tag: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(7)
-    pd = cs.palu_decode
     res = {}
 
     def kv(*n):
@@ -49,6 +53,35 @@ def main(root: str, tag: str) -> None:
     def t(name, fn, iters=20):
         res[name] = cs.device_ms(fn, iters)
 
+    _exact(cs, tag, gen, kv, t)
+    _fp(cs, tag, gen, kv, t)
+    seq, ref = cs.palu_decode_seq_quantized, cs.palu_decode_seq_quantized_ref
+    qcfg = cs.QuantConfig(bits=3, group_size=0)
+    llama = [(s, cs.RK, cs.RV, cs.G, cs.HPG) for s in (4096, 8192, 16384, 65536)]
+    for s, rk, rv, g, hpg in llama + [(8192, 256, cs.RV, cs.G, cs.HPG),
+                                      (8192, 512, cs.RV, cs.G, cs.HPG),
+                                      (8192, 256, 256, cs.NH // 16, 16)]:
+        q, b_k, bufs = cs._seq_inputs(qcfg, 1, s, gen, rk, rv, g, hpg)
+        skw = dict(qcfg=qcfg, rk=rk, rv=rv)
+        label = f"seq_{s // 1024}k" + ("" if rk == cs.RK else f"_rk{rk}") + \
+            ("" if hpg == cs.HPG else f"_hpg{hpg}")
+        cs._held_decode(label, seq(q, b_k, kv_len=kv(s), **bufs, **skw),
+                        ref(q, b_k, kv_len=kv(s), **bufs, **skw))
+        t(label, lambda: seq(q, b_k, kv_len=kv(s), **bufs, **skw), 10 if s > 8192 else 20)
+        del q, b_k, bufs
+    x = cs.ab_v2.make_inputs(65536, 65536, torch.device("cuda"), gen)
+    v = cs.ab_v2.variant("v2q3", x, 1024)
+    t("v2q3_64k", v["fn"], 10)
+    del x, v
+    print(json.dumps({"ab": tag, "root": root, "seconds": round(time.perf_counter() - t0, 1),
+                      **res}), flush=True)
+
+
+def _exact(cs, tag, gen, kv, t) -> None:
+    """palu_decode in its modes (the module docstring's list)."""
+    import torch
+
+    pd = cs.palu_decode
     kw = dict(qcfg=cs.FLAGSHIP, rk=cs.RK, rv=cs.RV)
     i8 = {mode: dict(block_s=512, **{mode: True}) for mode in ("int8_dots", "int8_rot")}
     q, b_k, bufs = cs._decode_inputs(cs.FLAGSHIP, 1, cs.G, cs.HPG, 8192, gen)
@@ -111,6 +144,15 @@ def main(root: str, tag: str) -> None:
                                               layer_idx=2), 10)
     del stack, one, sh
 
+
+def _fp(cs, tag, gen, kv, t) -> None:
+    """The bf16 decodes palu_decode_fp / palu_decode_fp_t (the module
+    docstring's list)."""
+    import torch
+
+    g, hpg, rk, rv = cs.QWEN2_SHAPE
+    rep = hpg // cs.QNKV
+    s_loc = cs.S64 // cs.N_SHARDS
     fp, fp_t = cs.palu_decode_fp, cs.palu_decode_fp_t
     q, b_k, seq, rank = cs._fp_inputs(1, cs.G, cs.HPG, 8192, gen)
     t("fp_8k", lambda: fp(q, b_k, *seq, kv(8192)))
@@ -142,8 +184,6 @@ def main(root: str, tag: str) -> None:
         t(f"fp_rk{r}_8k", lambda: fp(q, b_k, *seq, kv(8192)))
         t(f"fp_t_rk{r}_8k", lambda: fp_t(q, b_k, *rank, kv(8192)))
         del seq, rank
-    print(json.dumps({"ab": tag, "root": root, "seconds": round(time.perf_counter() - t0, 1),
-                      **res}), flush=True)
 
 
 if __name__ == "__main__":

@@ -925,6 +925,107 @@ def test_decode_seq_kernel_matches_plain(gen, bits, sym, window):
     assert (got - want).abs().max() <= 2e-3 * want.abs().max()
 
 
+# (qcfg kwargs, lanes, G, heads per group, rk, rv, hd, S, kv_len, extra kw, f32 q): the
+# packed seq-major kernel's edges
+SEQ_EDGES = {
+    "partial_chunk_192": (dict(bits=3, sym=False), 2, 2, 4, 192, 192, 128, 1024, (300, 1024),
+                          {}, False),
+    "partial_chunk_288": (dict(bits=3), 2, 2, 4, 288, 320, 128, 1024, (300, 1024), {}, False),
+    "partial_chunk_352": (dict(bits=4, sym=False), 2, 2, 4, 352, 384, 128, 1024, (77, 1024), {},
+                          False),
+    "partial_chunk_416": (dict(bits=2), 2, 2, 4, 416, 448, 128, 1024, (300, 1024), {}, False),
+    "s_8_mod_64": (dict(bits=3, sym=False), 2, 2, 4, 128, 384, 128, 1032, (1032, 1000), {},
+                   False),
+    "kv_len_1": (dict(bits=3), 2, 2, 4, 128, 384, 128, 1024, (1, 1), {}, False),
+    "hpg16": (dict(bits=3, sym=False), 2, 2, 16, 128, 256, 128, 1024, (700, 1024), {}, False),
+    "hpg28": (dict(bits=3), 1, 1, 28, 256, 256, 128, 1024, (1000,), {}, False),
+    "hpg32": (dict(bits=4), 1, 1, 32, 512, 512, 128, 1024, (1024,), {}, False),
+    "hd64": (dict(bits=3, sym=False), 2, 2, 4, 96, 160, 64, 1024, (300, 1024), {}, False),
+    "hd64_rk32": (dict(bits=2, sym=False), 2, 2, 4, 32, 32, 64, 1024, (300, 1024), {}, False),
+    "f32_q": (dict(bits=3), 2, 2, 4, 128, 384, 128, 1024, (300, 1024), {}, True),
+    "llama3_rope": (dict(bits=3, sym=False), 2, 2, 4, 128, 384, 128, 1024, (300, 1024),
+                    "llama3", False),
+    "yarn_rope_window": (dict(bits=3), 2, 2, 4, 128, 384, 128, 1024, (300, 1024), "yarn",
+                         False),
+}
+
+
+def _seq_edge(gen, name):
+    qcfg_kw, b, g, hpg, rk, rv, hd, s_max, kvl, extra, f32_q = SEQ_EDGES[name]
+    qcfg = QuantConfig(**qcfg_kw)
+    q, b_k, bufs = _packed_case(gen, "seq", qcfg, b, g, hpg, rk, rv, hd, s_max)
+    if f32_q:
+        q = q.float()
+    kw = dict(qcfg=qcfg, rk=rk, rv=rv)
+    if isinstance(extra, str):
+        kw.update(_rope_kw(extra), sliding_window=200 if extra == "yarn" else None)
+    return q, b_k, bufs, torch.tensor(kvl, dtype=torch.int32, device="cuda"), kw
+
+
+@pytest.mark.parametrize("name", list(SEQ_EDGES))
+def test_decode_seq_kernel_edges(gen, name):
+    """The packed seq-major kernel against its plain version at its edges:
+    the partial last rank chunks (ranks past rk in the K chunk against B's
+    zero rows), S = 8 mod 64 (the last tile's bulk copies stop at S), kv_len
+    1, 16 / 28 / 32 heads per group (two 8-head tiles a consumer, B
+    streamed), hd 64, an f32 query and scaled RoPE."""
+    from palu_tpu_torch.ops.palu_decode_seq import (palu_decode_seq_quantized,
+                                                    palu_decode_seq_quantized_ref)
+
+    q, b_k, bufs, kv_len, kw = _seq_edge(gen, name)
+    n = palu_decode_seq_quantized.launches
+    got = palu_decode_seq_quantized(q, b_k, kv_len=kv_len, **bufs, **kw)
+    assert palu_decode_seq_quantized.launches == n + 1
+    want = palu_decode_seq_quantized_ref(q, b_k, kv_len=kv_len, **bufs, **kw)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 2e-3 * want.abs().max()
+
+
+@pytest.mark.parametrize("name", ["kv_len_1", "hpg28", "s_8_mod_64"])
+def test_decode_seq_kernel_repeats_bit_identical(gen, name):
+    """24 calls of one packed seq-major decode agree bit for bit (the ring,
+    the packed stages, the B slots and the splits' combine)."""
+    from palu_tpu_torch.ops.palu_decode_seq import palu_decode_seq_quantized
+
+    q, b_k, bufs, kv_len, kw = _seq_edge(gen, name)
+    first = palu_decode_seq_quantized(q, b_k, kv_len=kv_len, **bufs, **kw)
+    for _ in range(23):
+        assert torch.equal(palu_decode_seq_quantized(q, b_k, kv_len=kv_len, **bufs, **kw), first)
+
+
+def test_seq_plan_matches_python_mirror(gen):
+    """The kernel's shared-memory plan (palu_decode_seq_wg_plan) is the
+    Python mirror's (_seq_plan): bytes, ring chunks, B slots, residence,
+    packed stages."""
+    import ctypes
+
+    from palu_tpu_torch.ops import build
+    from palu_tpu_torch.ops.palu_decode_seq import _seq_plan
+
+    fn = build.launcher("palu_decode_fp_wg", "palu_decode_seq_wg_plan", "iiiiip")
+    for hd, rk, rv, hpg, pbits in itertools.product((64, 128), (32, 128, 192, 256, 512),
+                                                    (32, 384, 512), (1, 4, 16, 28, 32), (2, 3, 4)):
+        out = (ctypes.c_int * 5)()
+        fn(hd, rk, rv, hpg, pbits, ctypes.addressof(out))
+        want = _seq_plan(hd, rk, rv, hpg, pbits)
+        assert list(out) == [want[k] for k in ("smem", "ns", "nb", "resident", "npk")], \
+            (hd, rk, rv, hpg, pbits)
+
+
+def test_decode_seq_kernel_refuses_what_it_cannot_run(gen):
+    from palu_tpu_torch.ops.palu_decode_seq import palu_decode_seq_quantized
+
+    qcfg = QuantConfig(bits=3)
+    q, b_k, bufs = _packed_case(gen, "seq", qcfg, 1, 1, 4, 128, 48, 128, 256)
+    kv_len = torch.tensor([200], dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="multiples of 32"):
+        palu_decode_seq_quantized(q, b_k, kv_len=kv_len, **bufs, qcfg=qcfg, rk=128, rv=48)
+    q, b_k, bufs = _packed_case(gen, "seq", qcfg, 1, 1, 4, 128, 64, 128, 256)
+    with pytest.raises(ValueError, match="bf16"):
+        palu_decode_seq_quantized(q, b_k.float(), kv_len=kv_len, **bufs, qcfg=qcfg, rk=128,
+                                  rv=64)
+
+
 @pytest.mark.parametrize("mode", ["int8_dots", "int8_rot"])
 @pytest.mark.parametrize("block_s", [64, 512])
 @pytest.mark.parametrize("sym", [True, False])
@@ -1470,6 +1571,23 @@ def test_decode2_decode3_quantized_kernels_match_plain(gen, size, kvl, bits, gen
     got = fn(*ops, **kw)
     assert fn.launches == n0 + 1
     _held_decode(got, ref(*ops, **kw))
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+def test_decode2_quantized_runs_the_exact_kernel(gen, bits):
+    """palu_decode2_quantized on the exact kernel at every pack width, sym
+    and asym caches (v2's zero rows either way): held against its plain
+    version, counted on its own counter and not on palu_decode's."""
+    from palu_tpu_torch.ops.archive import palu_decode2 as d2
+
+    for sym in (True, False):
+        x = _archive_case(gen, "small", (300, 1024), bits, {}, sym=sym)
+        ops = (x["q"], x["b_k"], *x["v2q"], x["kv_len"])
+        kw = dict(qcfg=x["qcfg"], rk=x["rk"], rv=x["rv"], block_s=1024)
+        n0, p0 = d2.palu_decode2_quantized.launches, palu_decode.launches
+        got = d2.palu_decode2_quantized(*ops, **kw)
+        assert d2.palu_decode2_quantized.launches == n0 + 1 and palu_decode.launches == p0
+        _held_decode(got, d2.palu_decode2_quantized_ref(*ops, **kw))
 
 
 @pytest.mark.parametrize("rope", ["llama3", "yarn"])
