@@ -129,9 +129,9 @@ Phases, each printing one JSON line:
      384; GEMV 4096 x 4096) with every variant, counts 0 just before each
      and read just after: each kernel variant held against its plain
      version (checksums and integer totals exact, the dissect within
-     DECODE_TOL and its `full` mode (the split kernel that served
-     palu_decode_fp before csrc/palu_decode_fp_wg.cu) also within
-     DECODE_TOL of palu_decode_fp_ref, the
+     DECODE_TOL and its `full` mode (palu_decode_fp's own kernel, the
+     others cut from its body in csrc/palu_decode_fp_wg.cu) bit-identical
+     to palu_decode_fp and within DECODE_TOL of palu_decode_fp_ref, the
      unpack products within the bf16 class, the GEMVs within GEMV_TOL),
      with its device time, bound and yardstick; the kernels line gains
      palu_decode_fp_dissect, stream_probe, unpack_probe, gemv_bf16 and
@@ -468,6 +468,7 @@ def phase_device() -> str:
 def phase_build() -> None:
     t0 = time.perf_counter()
     per = build.build_all()
+    start_sass(build.SOURCES)
     regs = {}
     for name in build.SOURCES:
         log = build._lib_path(name).with_suffix(".log")
@@ -485,6 +486,10 @@ def phase_build() -> None:
           # instantiations, bulk copies of the packed tiles, no local memory
           # or spill
           "seq_decode_sass": seq_decode_sass(),
+          # the v3 decode's and the dissection's instantiations, reported
+          # beside the gated ones: registers and spill stores of each
+          "v3_decode_ptxas": kernel_ptxas("palu_decode_exact", "palu_decode_v3_kernel"),
+          "dissect_ptxas": kernel_ptxas("palu_decode_fp_wg", "palu_decode_fp_dissect_kernel"),
           "i8_decode_sass": {**hopper_sass("palu_decode_i8", reported=("IMMA",)),
                              "ptxas": regs.get("palu_decode_i8", [])},
           # the streaming GEMVs: mma.sync, TMA tiles, bulk copies (int4
@@ -513,6 +518,7 @@ def phase_build() -> None:
           "hadamard_sass": {**hopper_sass("hadamard", ("SHFL", "UBLKCP"), ("LDL", "STL")),
                             "mix_spills": kernel_spills("hadamard", "mix_kernel",
                                                         must_be_zero=True)}})
+    _SASS.clear()  # the dumps are read
 
 
 def seq_decode_sass() -> dict:
@@ -534,8 +540,20 @@ def seq_decode_sass() -> dict:
 
 def kernel_spills(source: str, kernel: str, must_be_zero: bool = False) -> dict:
     """Spill stores in bytes of each instantiation of `kernel` in
-    csrc/<source>.cu, from ptxas' report in the build log (mangled names
-    shortened to their template arguments); must_be_zero raises on any."""
+    csrc/<source>.cu (kernel_ptxas); must_be_zero raises on any."""
+    report = kernel_ptxas(source, kernel)
+    if "log" in report:
+        return report
+    out = {k: v.get("spill_stores", 0) for k, v in report.items()}
+    if must_be_zero and any(out.values()):
+        raise AssertionError(f"{source}: {kernel} spills: {out}")
+    return out
+
+
+def kernel_ptxas(source: str, kernel: str) -> dict:
+    """ptxas' registers and spill stores (bytes) of each instantiation of
+    `kernel` in csrc/<source>.cu, from the build log (mangled names
+    shortened to their template arguments); raises when the log has none."""
     log = build._lib_path(source).with_suffix(".log")
     if not log.exists():
         return {"log": "not found"}
@@ -543,17 +561,53 @@ def kernel_spills(source: str, kernel: str, must_be_zero: bool = False) -> dict:
     for line in log.read_text().splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            name = m.group(1) if kernel in m.group(1) else None
+            name = m.group(1).split(kernel)[-1][:24] if kernel in m.group(1) else None
+            if name is not None:
+                out[name] = {}
             continue
         m = re.search(r"(\d+) bytes spill stores", line)
         if name and m:
-            out[name.split(kernel)[-1][:24]] = int(m.group(1))
+            out[name]["spill_stores"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if name and m:
+            out[name]["registers"] = int(m.group(1))
             name = None
     if not out:
         raise AssertionError(f"{source}: no ptxas report of {kernel}")
-    if must_be_zero and any(out.values()):
-        raise AssertionError(f"{source}: {kernel} spills: {out}")
     return out
+
+
+# cuobjdump -sass of each source's library: a running dump (process, output
+# file) until sass_of reads it, then its text
+_SASS: dict = {}
+
+
+def start_sass(sources) -> None:
+    """Start cuobjdump -sass of the named sources' libraries all at once
+    (a large library takes tens of seconds alone); sass_of waits for one."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return
+    for source in sources:
+        if source not in _SASS:
+            out = tempfile.TemporaryFile(mode="w+")
+            _SASS[source] = (subprocess.Popen([tool, "-sass", str(build._lib_path(source))],
+                                              stdout=out, text=True), out)
+
+
+def sass_of(source: str) -> str:
+    """The SASS of csrc/<source>.cu's library (its dump started if it was
+    not), read once."""
+    start_sass([source])
+    entry = _SASS[source]
+    if isinstance(entry, tuple):
+        proc, out = entry
+        if proc.wait(timeout=300) != 0:
+            raise subprocess.CalledProcessError(proc.returncode, proc.args)
+        out.seek(0)
+        _SASS[source] = out.read()
+        out.close()
+    return _SASS[source]
 
 
 def kernel_sass(source: str, kernel: str, ops) -> dict:
@@ -565,8 +619,7 @@ def kernel_sass(source: str, kernel: str, ops) -> dict:
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return {"cuobjdump": "not found"}
-    sass = subprocess.run([tool, "-sass", str(build._lib_path(source))],
-                          capture_output=True, text=True, check=True, timeout=120).stdout
+    sass = sass_of(source)
     parts = [p for p in re.split(r"\n\s*Function : ", sass)[1:]
              if kernel in p.split("\n", 1)[0]]
     if not parts:
@@ -592,8 +645,7 @@ def hopper_sass(source: str, required=("HGMMA", "UTMALDG"), reported=()) -> dict
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return {"cuobjdump": "not found"}
-    sass = subprocess.run([tool, "-sass", str(build._lib_path(source))],
-                          capture_output=True, text=True, check=True, timeout=120).stdout
+    sass = sass_of(source)
     counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in (*required, *reported)}
     missing = [op for op in required if not counts[op]]
     if missing:
@@ -2991,8 +3043,8 @@ def phase_compress_cli() -> None:
 # three (EXTRA_LINES); ab_v2_kvl runs three of them again at kv_len < S
 # (held and counted, no kernels line)
 PROBES = (
-    ("dissect", dissect, [], "palu_decode_fp_dissect", "palu_tpu_torch/csrc/palu_decode_fp.cu",
-     "tools/tpu_dissect.py:127", "full"),
+    ("dissect", dissect, [], "palu_decode_fp_dissect",
+     "palu_tpu_torch/csrc/palu_decode_fp_wg.cu", "tools/tpu_dissect.py:127", "full"),
     ("stream_probe", stream_probe, [], "stream_probe", "palu_tpu_torch/csrc/stream_probe.cu",
      "tools/tpu_stream_probe.py:60", "bs1024"),
     ("unpack_probe", unpack_probe, [], "unpack_probe", "palu_tpu_torch/csrc/unpack_probe.cu",
@@ -3011,7 +3063,7 @@ EXTRA_LINES = {
                     "tools/tpu_gemv_probe.py:73", "pallasT")],
     "ab_v2": [("palu_decode2_quantized", "palu_tpu_torch/csrc/palu_decode_exact.cu",
                "palu_tpu/ops/pallas/archive/palu_decode2.py:337", "v2q3"),
-              ("palu_decode3_quantized", "palu_tpu_torch/csrc/palu_decode3.cu",
+              ("palu_decode3_quantized", "palu_tpu_torch/csrc/palu_decode_exact.cu",
                "palu_tpu/ops/pallas/archive/palu_decode3.py:242", "v3q3")],
 }
 # the decode kernels that ab_v2 runs beside the new ones (its v1 / v1q / v4*
@@ -3027,9 +3079,10 @@ UNPACK_MM_TOL = 2e-3
 def _probe_held(tag: str, rec: dict) -> None:
     """Raise unless a probe record was held at this script's tolerances:
     checksums and integer totals exact, the dissect's outputs and
-    statistics within DECODE_TOL and `full` (the pre-redesign split kernel)
-    also within DECODE_TOL of palu_decode_fp_ref, the products within the
-    bf16 class, the GEMVs within GEMV_TOL."""
+    statistics within DECODE_TOL and `full` (palu_decode_fp's kernel)
+    bit-identical to palu_decode_fp and within DECODE_TOL of
+    palu_decode_fp_ref, the products within the bf16 class, the GEMVs
+    within GEMV_TOL."""
     h, v = rec.get("held"), rec["variant"]
     if h is None:
         return
@@ -3043,7 +3096,8 @@ def _probe_held(tag: str, rec: dict) -> None:
     elif tag == "dissect" and v in ("full", "nologits"):
         ok = h["max_rel_err"] <= DECODE_TOL
         if v == "full":
-            ok = ok and rec["vs_palu_decode_fp_ref"]["max_rel_err"] <= DECODE_TOL
+            ok = ok and rec["vs_palu_decode_fp_ref"]["max_rel_err"] <= DECODE_TOL and \
+                rec["vs_palu_decode_fp"]["tol"] == "exact" and rec["vs_palu_decode_fp"]["ok"]
     elif tag == "unpack_probe" and v in ("ext4mm", "ext4ccmm"):
         ok = h["max_rel_err"] <= UNPACK_MM_TOL
     elif tag == "gemv_probe":

@@ -1,10 +1,9 @@
 // Shared pieces of the latent decode kernels (palu_decode_exact.cu and
-// palu_decode_i8.cu over the rank-major packed cache, the archived split
-// kernel of palu_decode_split.cuh, palu_decode_fp_wg.cu over the unquantized
-// caches and the seq-major packed one, palu_decode_fp.cu's dissection and
-// v2 layout): async copies, ldmatrix and mma.sync wrappers (bf16 and s8),
-// warp reductions, the row sums of B, and the kernel that combines the
-// split-sequence partials.
+// palu_decode_i8.cu over the rank-major packed cache and the v3 one,
+// palu_decode_fp_wg.cu over the unquantized caches and the seq-major packed
+// one, palu_decode_fp.cu's v2 layout) and of the tools' kernels: async
+// copies, ldmatrix and bf16 mma.sync wrappers, warp reductions, the row sums
+// of B, and the kernel that combines the split-sequence partials.
 //
 // The split pass writes, per (lane, q-head) row and split s, the running
 // max m_s, the softmax denominator l_s and the unnormalised latent
@@ -54,18 +53,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a (16x32, row) . b (32x8, col), s8 in, s32 accumulate. Fragments:
-// a[0] rows g / k 4t..4t+3, a[1] rows g+8, a[2] / a[3] the same at k + 16;
-// b[0] k 4t..4t+3 / column g, b[1] at k + 16 (g = lane / 4, t = lane % 4).
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

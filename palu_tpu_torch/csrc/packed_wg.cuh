@@ -1,10 +1,10 @@
 // Shared pieces of the warp-specialised decodes over the rank-major packed
-// cache (palu_decode_exact.cu, the exact K path, and palu_decode_i8.cu, the
-// int8 K-path modes): where a rank lives in a packed byte plane and its
-// branch-free unpack, the K warpgroup's online softmax over one 64-token
-// tile (which hands P^T to the V warpgroup in bf16 high and low parts), and
-// the V warpgroup's value product on mma.sync with its write of the
-// partials.
+// cache (palu_decode_exact.cu, the exact K path and the v3 decode, and
+// palu_decode_i8.cu, the int8 K-path modes): where a rank lives in a packed
+// byte plane and its branch-free unpack, the K warpgroup's online softmax
+// over one 64-token tile (which hands P^T to the V warpgroup in bf16 high
+// and low parts), and the V warpgroup's value product on mma.sync with its
+// write of the partials.
 //
 // P^T layout: rows of 128 bytes, one per head (NP rows of high parts, then
 // NP of low parts); token t sits at K column k(t) (below), 16-byte chunks

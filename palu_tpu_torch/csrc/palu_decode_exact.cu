@@ -77,6 +77,42 @@
 // over items; the splits of a (lane, group) cut its valid tiles
 // (decode::tile_range); a split with none writes m = -1e30, l = 0, acc = 0.
 // The combine kernel (decode_common.cuh) merges the splits.
+//
+// The v3 packed decode (palu_decode_v3_kernel, the body's V3 argument;
+// replaces palu_tpu/ops/pallas/archive/palu_decode3.py::
+// palu_flash_decode3_quantized, an A/B baseline with no product call site):
+// this kernel's function over asym per-row rows with qoff 0, the query
+// pre-scaled by 1 / sqrt(hd) and rounded to its dtype by the wrapper, and
+// two differences in how the inputs come:
+//  - the scales and zeros of every group packed per token as (B, S, 2G)
+//    f32 (sz_pack: scales in columns [0, G), zeros in [G, 2G)), read in
+//    place. A TMA box's inner extent must be 16 bytes, so one group's
+//    column is no box of its own: two (4 columns x 64 tokens) boxes a side
+//    at columns g and G + g would bring 4 KB a tile (one box of all 2G
+//    columns 8 KB at G 8), against v2's four 256-byte rows and ~12 KB of
+//    3-bit codes, and cost the 3-bit plan a stage (3 KB more a stage: 3
+//    instead of 4). That form was built and its box loads failed on the
+//    card (an illegal instruction at G 2; cause not found). So warp 2 of
+//    the producer warpgroup gathers the tile's four columns with 4-byte
+//    loads (64 tokens x 4 values; two 32-byte sectors a token and side, 8 KB
+//    of sectors a tile at G 8, L2-resident after the first group) into the
+//    stage's v2 rows and arrives on the stage's full barrier beside the
+//    TMA bytes: the stage, the plan and the K and V warpgroups' reads are
+//    v2's, and G may be odd;
+//  - RoPE from v3's f32 tables, built in float64 by the wrapper: the
+//    block-relative rows rcos / rsin (block_s, hd / 2, rope_scale folded
+//    in) and the block starts' c0 / s0 (S / block_s, hd / 2). A 64-token
+//    tile never straddles two rotation blocks (block_s % 64 == 0), so the V
+//    warpgroup's rotation stage forms the tile's R(s) = R(s0) R(s - s0) from
+//    the tile's 64 table rows and its block's start (cos = c0 rc - s0 rs,
+//    sin = s0 rc + c0 rs): the K warpgroup's epilogue and q stay as they
+//    are (the TPU kernel rotated the query back by s0 instead; the two
+//    differ by f32 rounding).
+// The v3 mode is a template argument: the instantiations that serve
+// palu_decode are compiled as before. v3 has one instantiation, at the A/B
+// tool's shape (hd 128, at most 8 heads a group): it is an A/B baseline,
+// and each instantiation of this body lengthens the longest build of the
+// port by about ten seconds.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -116,6 +152,12 @@ struct ExactArgs {
   const float* kbias;      // (G, nkv, hd) pre-RoPE K bias, or null
   const float* rsum;       // asym: (G, nkv, nsk, hd) row sums of B per scale chunk
   const float* inv_freq;   // (hd / 2,) RoPE frequencies
+  const float* ksz;        // v3: (B, S, 2G) scales and zeros of K and of V
+  const float* vsz;
+  const float* c0;         // v3: (S / block_s, hd / 2) cos / sin of each block start
+  const float* s0;
+  const float* rcos;       // v3: (block_s, hd / 2) block-relative cos / sin, rope_scale in
+  const float* rsin;
   const int* kv_len;       // (B,) absolute
   float* part_m;           // (B, nh, splits)
   float* part_l;
@@ -123,6 +165,7 @@ struct ExactArgs {
   int B, G, hpg, nkv, rep, rk, rv, S, pbits, qoff, asym, window;
   int nsk, nsv, gsk, gsv;  // scale rows per token of K / V, ranks per scale chunk
   int splits, n_items, layer, pos_offset;
+  int block_s;             // v3: the rotation block
   float inv_sqrt_hd, rope_scale;
   Plan L;
 };
@@ -133,9 +176,10 @@ inline uint32_t up(uint32_t x, uint32_t a) { return (x + a - 1) / a * a; }
 // nkv x nrc rank chunks of the group; streamed: nb >= 2 slots of rc ranks),
 // then the P^T tile (high, low), the RoPE rotation of the tile, q, the
 // logits, the rank tables, softmax statistics and the mbarriers. ok = 0
-// when no plan fits in a block's shared memory.
+// when no plan fits in a block's shared memory. gathered: the scale and zero
+// rows come by loads, not TMA (v3), and count no transaction bytes.
 Plan make_plan(int hd, int rk, int rv, int hpg, int nkv, int nrk, int nrv, int nsk, int nsv,
-               int asym, int np) {
+               int asym, int np, int gathered = 0) {
   Plan p{};
   p.nbox_k = (nrk + 255) / 256;
   p.rows_k = (nrk + p.nbox_k - 1) / p.nbox_k;
@@ -150,7 +194,7 @@ Plan make_plan(int hd, int rk, int rv, int hpg, int nkv, int nrk, int nrv, int n
   p.vz = o; o = up(o + (asym ? nsv * kTile * 4 : 0), 128);
   p.stage_bytes = up(o, 1024);
   p.tx_bytes = (p.nbox_k * p.rows_k + p.nbox_v * p.rows_v) * kTile +
-               (1 + asym) * (nsk + nsv) * kTile * 4;
+               (gathered ? 0 : (1 + asym) * (nsk + nsv) * kTile * 4);
   auto tail = [&](uint32_t at, int ns, int nb) {
     p.p = up(at, 1024);
     uint32_t t = p.p + 2 * np * 128;
@@ -407,16 +451,15 @@ __device__ __forceinline__ Item item_at(const ExactArgs& a, int item) {
 
 // HD: head dim; CHUNKED: per-chunk scales; NP: heads per group rounded up to
 // 8 or 32 (the V product's N); MT: V accumulator tiles of 64 ranks, rv <= 64 MT
-// (4 at NP 32 when rv <= 256: 8 x 16 accumulators would spill)
-template <int HD, bool CHUNKED, int NP, int MT>
-__global__ void __launch_bounds__(kThreads, 1)
-palu_decode_exact_kernel(const __grid_constant__ CUtensorMap tm_kc,
-                         const __grid_constant__ CUtensorMap tm_vc,
-                         const __grid_constant__ CUtensorMap tm_ks,
-                         const __grid_constant__ CUtensorMap tm_kz,
-                         const __grid_constant__ CUtensorMap tm_vs,
-                         const __grid_constant__ CUtensorMap tm_vz,
-                         const __grid_constant__ CUtensorMap tm_b, const ExactArgs a) {
+// (4 at NP 32 when rv <= 256: 8 x 16 accumulators would spill); V3: v3's
+// packed scales, gathered by the producer's warp 2 (tm_ks .. tm_vz unread),
+// and RoPE tables (header)
+template <int HD, bool CHUNKED, int NP, int MT, bool V3>
+__device__ __forceinline__ void exact_body(const CUtensorMap& tm_kc, const CUtensorMap& tm_vc,
+                                           const CUtensorMap& tm_ks, const CUtensorMap& tm_kz,
+                                           const CUtensorMap& tm_vs, const CUtensorMap& tm_vz,
+                                           const CUtensorMap& tm_b, const ExactArgs& a) {
+  static_assert(!V3 || !CHUNKED, "v3: per-row scales");
   constexpr int NACC = HD / 2;     // K accumulator registers per thread
   constexpr int HALF = HD / 2;
   constexpr int RS = HALF + 4;     // padded rows of the rotation tile
@@ -452,7 +495,7 @@ palu_decode_exact_kernel(const __grid_constant__ CUtensorMap tm_kc,
   const int nchunks = a.nkv * L.nrc;
   if (tid == 0) {
     for (int s = 0; s < L.ns; ++s) {
-      mbar_init(full + 8 * s, 1);
+      mbar_init(full + 8 * s, V3 ? 1 + 32 : 1);  // V3: and the scale warp's lanes
       mbar_init(empty + 8 * s, 2 * kWG);
     }
     for (int s = 0; s < L.nb; ++s) {
@@ -491,12 +534,41 @@ palu_decode_exact_kernel(const __grid_constant__ CUtensorMap tm_kc,
             tma_load(sb + L.kc + x * L.rows_k * kTile, &tm_kc, fb, s0, x * L.rows_k, plane);
           for (int x = 0; x < L.nbox_v; ++x)
             tma_load(sb + L.vc + x * L.rows_v * kTile, &tm_vc, fb, s0, x * L.rows_v, plane);
-          tma_load(sb + L.ks, &tm_ks, fb, s0, 0, plane);
-          tma_load(sb + L.vs, &tm_vs, fb, s0, 0, plane);
-          if (a.asym) {
-            tma_load(sb + L.kz, &tm_kz, fb, s0, 0, plane);
-            tma_load(sb + L.vz, &tm_vz, fb, s0, 0, plane);
+          if constexpr (!V3) {  // (V3: the scale warp's)
+            tma_load(sb + L.ks, &tm_ks, fb, s0, 0, plane);
+            tma_load(sb + L.vs, &tm_vs, fb, s0, 0, plane);
+            if (a.asym) {
+              tma_load(sb + L.kz, &tm_kz, fb, s0, 0, plane);
+              tma_load(sb + L.vz, &tm_vz, fb, s0, 0, plane);
+            }
           }
+        }
+      }
+    } else if (V3 && lt >= 64 && lt < 96) {
+      // V3: warp 2 gathers each tile's columns g and G + g of the (B, S, 2G)
+      // scales and zeros into the stage's rows, two tokens a lane (zeros
+      // past S), then each lane arrives on the stage's full barrier
+      const int ln = lt - 64;
+      int it = 0;
+      for (int item = blockIdx.x; item < a.n_items; item += gridDim.x) {
+        const Item w = item_at(a, item);
+        for (int tile = w.t0; tile < w.t1; ++tile, ++it) {
+          const int st = it % L.ns;
+          mbar_wait(empty + 8 * st, ((it / L.ns) & 1) ^ 1);
+          float* rows = reinterpret_cast<float*>(sm + st * L.stage_bytes);
+#pragma unroll
+          for (int t = ln; t < kTile; t += 32) {
+            const int s = tile * kTile + t;
+            float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            if (s < a.S) {
+              const size_t row = (static_cast<size_t>(w.b) * a.S + s) * 2 * a.G + w.g;
+              v[0] = __ldg(a.ksz + row), v[1] = __ldg(a.ksz + row + a.G);
+              v[2] = __ldg(a.vsz + row), v[3] = __ldg(a.vsz + row + a.G);
+            }
+            rows[L.ks / 4 + t] = v[0], rows[L.kz / 4 + t] = v[1];
+            rows[L.vs / 4 + t] = v[2], rows[L.vz / 4 + t] = v[3];
+          }
+          mbar_arrive(full + 8 * st);
         }
       }
     } else if (lt == 32) {
@@ -747,7 +819,7 @@ palu_decode_exact_kernel(const __grid_constant__ CUtensorMap tm_kc,
     // ---- V warpgroup: per tile k the rotation of k, then out^T += Vdeq .
     // P^T of tile k - 1 (the K warpgroup's epilogue of k overlaps it)
     const int fr = wt % HALF, t_step = kWG / HALF;
-    const float inv = a.inv_freq[fr];
+    const float inv = V3 ? 0.0f : a.inv_freq[fr];
     const Unpack un(a.pbits);
     float acc[MT][NP / 8][4];  // per 64-rank tile and 8-head tile: rows gq, gq + 8
     int it = 0;
@@ -766,13 +838,29 @@ palu_decode_exact_kernel(const __grid_constant__ CUtensorMap tm_kc,
         if (tile < w.t1) {
           const int s0 = tile * kTile;
           if (it > 0) mbar_wait(rope_empty, (it - 1) & 1);  // the K side read the last one
-          // RoPE of positions pos_offset + s0 + t at the plain version's f32 angle
+          if constexpr (V3) {
+            // R(s) = R(s0) R(s - s0): the tile's rows of the block-relative
+            // tables composed with its rotation block's start
+            const int blk = s0 / a.block_s, r0 = s0 - blk * a.block_s;
+            const float c0 = __ldg(a.c0 + blk * HALF + fr), sn0 = __ldg(a.s0 + blk * HALF + fr);
+            const float* rc = a.rcos + static_cast<size_t>(r0) * HALF + fr;
+            const float* rn = a.rsin + static_cast<size_t>(r0) * HALF + fr;
+#pragma unroll 8
+            for (int t = wt / HALF; t < kTile; t += t_step) {
+              const float c = __ldg(rc + t * HALF), sn = __ldg(rn + t * HALF);
+              cos_s[t * RS + fr] = c0 * c - sn0 * sn;
+              sin_s[t * RS + fr] = sn0 * c + c0 * sn;
+            }
+          } else {
+            // RoPE of positions pos_offset + s0 + t at the plain version's f32 angle
 #pragma unroll 4
-          for (int t = wt / HALF; t < kTile; t += t_step) {
-            float sn, cs;
-            decode::sincos_fast(__fmul_rn(static_cast<float>(a.pos_offset + s0 + t), inv), sn, cs);
-            cos_s[t * RS + fr] = cs * a.rope_scale;
-            sin_s[t * RS + fr] = sn * a.rope_scale;
+            for (int t = wt / HALF; t < kTile; t += t_step) {
+              float sn, cs;
+              decode::sincos_fast(__fmul_rn(static_cast<float>(a.pos_offset + s0 + t), inv), sn,
+                                  cs);
+              cos_s[t * RS + fr] = cs * a.rope_scale;
+              sin_s[t * RS + fr] = sn * a.rope_scale;
+            }
           }
           mbar_arrive(rope_full);
           ++it;
@@ -799,13 +887,42 @@ palu_decode_exact_kernel(const __grid_constant__ CUtensorMap tm_kc,
 }
 
 template <int HD, bool CHUNKED, int NP, int MT>
+__global__ void __launch_bounds__(kThreads, 1)
+palu_decode_exact_kernel(const __grid_constant__ CUtensorMap tm_kc,
+                         const __grid_constant__ CUtensorMap tm_vc,
+                         const __grid_constant__ CUtensorMap tm_ks,
+                         const __grid_constant__ CUtensorMap tm_kz,
+                         const __grid_constant__ CUtensorMap tm_vs,
+                         const __grid_constant__ CUtensorMap tm_vz,
+                         const __grid_constant__ CUtensorMap tm_b, const ExactArgs a) {
+  exact_body<HD, CHUNKED, NP, MT, false>(tm_kc, tm_vc, tm_ks, tm_kz, tm_vs, tm_vz, tm_b, a);
+}
+
+// the v3 packed decode (header): no scale map, the scale warp gathers them
+template <int HD, int NP, int MT>
+__global__ void __launch_bounds__(kThreads, 1)
+palu_decode_v3_kernel(const __grid_constant__ CUtensorMap tm_kc,
+                      const __grid_constant__ CUtensorMap tm_vc,
+                      const __grid_constant__ CUtensorMap tm_b, const ExactArgs a) {
+  exact_body<HD, false, NP, MT, true>(tm_kc, tm_vc, tm_b, tm_b, tm_b, tm_b, tm_b, a);
+}
+
+template <int HD, bool CHUNKED, int NP, int MT, bool V3>
 int launch(int grid, const CUtensorMap (&tm)[7], const ExactArgs& a, cudaStream_t st) {
   const int smem = static_cast<int>(a.L.total) + 1024;
-  auto kern = palu_decode_exact_kernel<HD, CHUNKED, NP, MT>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<grid, kThreads, smem, st>>>(tm[0], tm[1], tm[2], tm[3], tm[4], tm[5], tm[6], a);
+  if constexpr (V3) {
+    auto kern = palu_decode_v3_kernel<HD, NP, MT>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kern<<<grid, kThreads, smem, st>>>(tm[0], tm[1], tm[6], a);
+  } else {
+    auto kern = palu_decode_exact_kernel<HD, CHUNKED, NP, MT>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kern<<<grid, kThreads, smem, st>>>(tm[0], tm[1], tm[2], tm[3], tm[4], tm[5], tm[6], a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -814,9 +931,9 @@ int launch(int grid, const CUtensorMap (&tm)[7], const ExactArgs& a, cudaStream_
 template <int HD, bool CHUNKED>
 int launch_shape(int hpg, int rv, int grid, const CUtensorMap (&tm)[7], const ExactArgs& a,
                  cudaStream_t st) {
-  if (hpg <= 8) return launch<HD, CHUNKED, 8, 8>(grid, tm, a, st);
-  if (rv <= 256) return launch<HD, CHUNKED, 32, 4>(grid, tm, a, st);
-  return launch<HD, CHUNKED, 32, 8>(grid, tm, a, st);
+  if (hpg <= 8) return launch<HD, CHUNKED, 8, 8, false>(grid, tm, a, st);
+  if (rv <= 256) return launch<HD, CHUNKED, 32, 4, false>(grid, tm, a, st);
+  return launch<HD, CHUNKED, 32, 8, false>(grid, tm, a, st);
 }
 
 template <int HD>
@@ -912,4 +1029,76 @@ extern "C" int palu_decode_exact(const void* q, int q_bf16, const void* bk, cons
                                 static_cast<const float*>(part_acc), static_cast<float*>(out),
                                 B * G * hpg, splits, rv, st, static_cast<float*>(m_out),
                                 static_cast<float*>(l_out));
+}
+
+// The v3 decode's shared memory at these shapes (per-row asym rows, one B
+// per q-head: v2's plan), or -1 when no plan fits in one block (the
+// wrapper raises then).
+extern "C" int palu_decode_v3_smem(int hd, int rk, int rv, int hpg, int nrk, int nrv) {
+  const Plan p = make_plan(hd, rk, rv, hpg, hpg, nrk, nrv, 1, 1, 1, hpg <= 8 ? 8 : 32, 1);
+  return p.ok ? static_cast<int>(p.total) + 1024 : -1;
+}
+
+// The v3 packed decode (header): q (B, nh, hd) bf16 or f32, pre-scaled by
+// 1 / sqrt(hd); bk (G, hpg, rk, hd) bf16; codes kc / vc (B, G, nrk / nrv, S)
+// uint8 rank-major; ksz / vsz (B, S, 2G) f32, scales in columns [0, G) and
+// zeros in [G, 2G); kv_len (B,) int32; c0 / s0 (S / block_s, hd / 2) and
+// rcos / rsin (block_s, hd / 2) f32; rsum scratch of G * hpg * hd f32;
+// partials and out as palu_decode_exact. hd 128, rk and rv multiples of 16
+// up to 512, hpg <= 8, S a multiple of 16 and at least 64, block_s a
+// multiple of 64 that divides S, codes and bk 16-byte aligned.
+extern "C" int palu_decode_v3(const void* q, int q_bf16, const void* bk, const void* kc,
+                              const void* ksz, const void* vc, const void* vsz,
+                              const void* kv_len, const void* c0, const void* s0,
+                              const void* rcos, const void* rsin, void* rsum, void* part_m,
+                              void* part_l, void* part_acc, void* out, int B, int G, int hpg,
+                              int hd, int rk, int rv, int S, int nrk, int nrv, int pbits,
+                              int window, int block_s, int splits, int grid, void* stream) {
+  if (hd != 128 || rk % 16 || rv % 16 || rk > kMaxRank || rv > kMaxRank || hpg <= 0 ||
+      hpg > 8 || G <= 0 || S % 16 || S < kTile ||
+      (pbits != 2 && pbits != 3 && pbits != 4 && pbits != 8) || block_s <= 0 ||
+      block_s % kTile || S % block_s)
+    return static_cast<int>(cudaErrorInvalidValue);
+  ExactArgs a{};
+  a.L = make_plan(hd, rk, rv, hpg, hpg, nrk, nrv, 1, 1, 1, hpg <= 8 ? 8 : 32, 1);
+  if (!a.L.ok) return static_cast<int>(cudaErrorInvalidValue);
+  a.q = q;
+  a.q_bf16 = q_bf16;
+  a.rsum = static_cast<const float*>(rsum);
+  a.ksz = static_cast<const float*>(ksz);
+  a.vsz = static_cast<const float*>(vsz);
+  a.c0 = static_cast<const float*>(c0);
+  a.s0 = static_cast<const float*>(s0);
+  a.rcos = static_cast<const float*>(rcos);
+  a.rsin = static_cast<const float*>(rsin);
+  a.kv_len = static_cast<const int*>(kv_len);
+  a.part_m = static_cast<float*>(part_m);
+  a.part_l = static_cast<float*>(part_l);
+  a.part_acc = static_cast<float*>(part_acc);
+  a.B = B, a.G = G, a.hpg = hpg, a.nkv = hpg, a.rep = 1, a.rk = rk, a.rv = rv, a.S = S;
+  a.pbits = pbits, a.qoff = 0, a.asym = 1, a.window = window;
+  a.nsk = a.nsv = 1, a.gsk = rk, a.gsv = rv;
+  a.splits = splits, a.n_items = B * G * splits;
+  a.block_s = block_s;
+  a.inv_sqrt_hd = 1.0f, a.rope_scale = 1.0f;  // q pre-scaled; rope_scale in the tables
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err = decode::launch_rowsum(static_cast<const __nv_bfloat16*>(bk),
+                                  static_cast<float*>(rsum), G * hpg, 1, rk, hd, st);
+  if (err != 0) return err;
+  const auto u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  const auto none = CU_TENSOR_MAP_SWIZZLE_NONE;
+  const uint64_t planes = static_cast<uint64_t>(B) * G;
+  CUtensorMap tm[7];  // codes and B; the scales come by loads (tm[2] .. tm[5] unread)
+  const bool ok = make_map_3d(&tm[0], u8, 1, kc, S, nrk, planes, kTile, a.L.rows_k, none) &&
+                  make_map_3d(&tm[1], u8, 1, vc, S, nrv, planes, kTile, a.L.rows_v, none) &&
+                  make_map_3d(&tm[6], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, bk, hd, rk,
+                              static_cast<uint64_t>(G) * hpg, 64, a.L.rc,
+                              CU_TENSOR_MAP_SWIZZLE_128B);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  err = launch<128, false, 8, 8, true>(grid, tm, a, st);
+  if (err != 0) return err;
+  return decode::launch_combine(static_cast<const float*>(part_m),
+                                static_cast<const float*>(part_l),
+                                static_cast<const float*>(part_acc), static_cast<float*>(out),
+                                B * G * hpg, splits, rv, st);
 }

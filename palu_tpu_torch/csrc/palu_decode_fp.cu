@@ -1,14 +1,20 @@
-// Latent decode attention over seq-major latents, split over the sequence
-// (flash-decoding) with a second kernel that combines the splits
-// (decode_common.cuh): the split kernel that served every unquantized and
-// seq-major decode before they moved to palu_decode_fp_wg.cu. It stays for
-// two tools' kernels below, the dissection and the archived v2 decode.
+// The archived v2 decode over bf16 latents (palu_decode_fp_v2; replaces
+// palu_tpu/ops/pallas/archive/palu_decode2.py::palu_flash_decode2, an A/B
+// baseline with no product call site): K seq-major (B, G, S, rk), V
+// rank-major (B, G, rv, S), the v2 cache's layouts, on the split kernel
+// that served every unquantized and seq-major decode before they moved to
+// palu_decode_fp_wg.cu, with a second kernel that combines the splits
+// (decode_common.cuh). It stays until the v2 layout moves onto that
+// pipeline.
 //
 // What it computes, per lane b, group g and q-head h of the group:
 //   K_h(s) = B_h^T x_k(s)
 //   logit(s) = q_h . RoPE_s(K_h(s)) / sqrt(hd), masked by kv_len and window
 //   out_h = sum_s softmax(logit)(s) x_v(s)
-// -> (B, nh, rv) f32 in latent space (o_proj is U_v-fused).
+// -> (B, nh, rv) f32 in latent space (o_proj is U_v-fused). The RoPE angle
+// of position s and frequency j is the f32 product s * inv_freq[j]; each
+// thread's cos / sin come from sincosf of it (times rope_scale), as the v2
+// TPU kernel forms them. No K bias.
 //
 // Bound on this card: over bf16 latents the bytes do.
 //
@@ -17,9 +23,9 @@
 // cp.async (in chunks of heads when they do not all fit), then walks its
 // tiles of 64 tokens. Each tile of K and V latents comes into shared memory
 // with 16-byte cp.async copies in the cache's own layout, so global reads
-// stay coalesced: seq-major as 64 rows of r ranks (padded by 16 B so
-// ldmatrix rows fall on distinct banks), the v2 V tile rank-major as r rows
-// of 64 tokens (128 B, padded to 144 B). ldmatrix turns the K tile into the
+// stay coalesced: K seq-major as 64 rows of rk ranks (padded by 16 B so
+// ldmatrix rows fall on distinct banks), V rank-major as rv rows of 64
+// tokens (128 B, padded to 144 B). ldmatrix turns the K tile into the
 // mma A operand x^T (16 tokens x 16 ranks) directly. Per head, K (64
 // tokens x hd) = x^T . B_h runs as mma.sync m16n8k16 (bf16 in, f32
 // accumulate): warp w takes 16 tokens and matching quarters of both halves
@@ -30,39 +36,11 @@
 // 128 ranks: the latent tiles hold every rank, the chunk's rows of B stream
 // through the B buffer per tile (B of 4 heads at rk 512 is 512 KB), and the
 // chunks' partial logits add up in f32 (RoPE and the q dot are linear in
-// K). When all of B fits it is staged once per block. Each
-// thread reads the f32 cos/sin of its two tokens and its dims straight into
-// registers (the tables the wrapper built exactly as the plain version
-// does). Each head keeps (m, l) and a
-// latent accumulator (rv) in shared memory; a thread per rank reads its 64
-// V values once per tile and contracts them against p for every head.
-// Blocks past kv_len (or before the window) do no tile work. Nothing
-// allocates here: the wrapper hands in the partials.
-//
-// The dissection (palu_decode_fp_dissect; port of
-// tools/tpu_dissect.py::call, the TPU tool that splits the v1 kernel's
-// time): the split kernel's MODE removes parts of its seq-major bf16
-// variant (the kernel palu_decode_fp ran before palu_decode_fp_wg.cu), so
-// that each mode times that kernel minus a part. kFull (0) is it whole. kNoValue drops the V
-// contraction and emits each head's softmax statistics (m, l). kNoLogits
-// replaces the B staging, the K rebuild and the q dot with the tool's fake
-// logits, 1e-6 times the sum over ranks of each token's x_k, and keeps the
-// value path (the TPU block holds every group and sums group 0's x_k; a
-// block here holds one group and sums its own). kDmaOnly keeps the
-// cp.async tile loads and adds every staged element's 16-bit pattern into
-// an exact checksum; kNoop keeps the tile loads and folds each 16-byte
-// piece once (the XOR of its four words) into the checksum, as the TPU
-// kept its BlockSpec copies in its noop (a grid with no loads would time
-// only the launch). The four cut modes stage no B and read no RoPE rows.
-//
-// The archived v2 decode (palu_decode_fp_v2; replaces
-// palu_tpu/ops/pallas/archive/palu_decode2.py::palu_flash_decode2, an A/B
-// baseline with no product call site): the split kernel's V2 argument
-// takes K seq-major and V rank-major, the v2 cache's layouts, and computes
-// each thread's cos/sin in registers with sincosf of the f32 angle
-// position * inv_freq[j] (times rope_scale), as the v2 TPU kernel forms
-// them, in place of reading the wrapper's tables; no K bias. Same function
-// and bound as palu_decode_fp.
+// K). When all of B fits it is staged once per block. Each head keeps (m,
+// l) and a latent accumulator (rv) in shared memory; a thread per rank
+// reads its 64 V values once per tile and contracts them against p for
+// every head. Blocks past kv_len (or before the window) do no tile work.
+// Nothing allocates here: the wrapper hands in the partials.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,28 +74,22 @@ constexpr int kCk = kTile + 8;
 constexpr int kPad = 8;
 constexpr int kBPad = 8;
 
-// dissection modes of the split kernel (kFull: production)
-constexpr int kFull = 0, kNoValue = 1, kNoLogits = 2, kDmaOnly = 3, kNoop = 4;
-
 struct FpArgs {
   const void* q;      // (B, nh, hd) bf16 or f32, roped at the current position
   int q_bf16;
   const bf16* bk;     // (G, hpg, rk, hd)
   const bf16* xk;     // (B, G, S, rk) seq-major
-  const bf16* xv;     // (B, G, S, rv), or V2: (B, G, rv, S) rank-major
+  const bf16* xv;     // (B, G, rv, S) rank-major
   const int* kv_len;  // (B,)
-  const float* cos_t; // (S, hd/2)
-  const float* sin_t;
-  const float* inv_freq;  // V2: (hd/2,) f32 RoPE frequencies
+  const float* inv_freq;  // (hd/2,) f32 RoPE frequencies
   float* part_m;      // (B, nh, splits)
   float* part_l;
   float* part_acc;    // (B, nh, splits, rv)
-  unsigned long long* part_ck;  // dissection: (B, G, splits) checksums
   int G, hpg, rk, rv, S, window;
   int splits, tiles_per_split, chunk_heads;
   int rc;             // ranks of B per chunk (rk when one chunk)
   float sqrt_hd;
-  float rope_scale;   // V2: multiplies cos and sin
+  float rope_scale;   // multiplies cos and sin
 };
 
 // Elements of one latent tile in shared memory (rows padded).
@@ -150,9 +122,9 @@ __host__ __device__ inline FpLayout fp_layout(bool rmk, bool rmv, int rk, int hd
 }
 
 // cp.async the latent tile of tokens [s0, s0 + kTile) of one (b, g) plane
-// with `rows` ranks into shared memory: rank-major (the v2 V tile) as
-// [rank][token] (stride kCk), seq-major as [token][rank] (stride rows +
-// kPad). Tokens at
+// with `rows` ranks into shared memory: rank-major (the V tile) as
+// [rank][token] (stride kCk), seq-major (the K tile) as [token][rank]
+// (stride rows + kPad). Tokens at
 // or past S are zero (S and rows are multiples of 8, so a 16-byte piece is
 // wholly in or out).
 template <bool RM>
@@ -181,36 +153,9 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int rows, 
   }
 }
 
-// Fold every 16-byte piece this thread copied into the seq-major tile of
-// `rows` ranks (load_tile's index pattern, so no barrier is needed): the
-// pieces' 16-bit patterns summed (kDmaOnly) or the XOR of their words
-// (kNoop). Zero-filled pieces past S add 0.
-template <int MODE>
-__device__ __forceinline__ unsigned long long fold_tile(const bf16* src, int rows, int tid) {
-  const int vec = rows / 8;
-  unsigned long long ck = 0;
-  for (int i = tid; i < kTile * vec; i += kThreads) {
-    const int t = i / vec, c = i % vec;
-    const uint4 u = *reinterpret_cast<const uint4*>(src + t * (rows + kPad) + c * 8);
-    if (MODE == kNoop) {
-      ck += u.x ^ u.y ^ u.z ^ u.w;
-    } else {
-      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-      for (int k = 0; k < 4; ++k) ck += (w[k] & 0xffffu) + (w[k] >> 16);
-    }
-  }
-  return ck;
-}
-
-// MODE is kFull except in the dissection. V2 is the archived v2 decode:
-// rank-major V, cos/sin computed here from the positions.
-template <int HD, int MODE = kFull, bool V2 = false>
+template <int HD>
 __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a) {
-  static_assert(!V2 || MODE == kFull, "v2: the whole kernel");
-  constexpr bool RMV = V2;  // V tile layout (rank-major for V2)
-  constexpr bool kRebuild = MODE == kFull || MODE == kNoValue;  // K rebuilt, q dotted
-  constexpr bool kStream = MODE == kDmaOnly || MODE == kNoop;   // loads only
+  constexpr bool RMV = true;  // V tile layout: rank-major
   constexpr int half = HD / 2;
   constexpr int HS = HD + kBPad;  // B row stride
   constexpr int NTH = HD / 16;    // 8-wide column tiles per half of hd
@@ -266,14 +211,12 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
   const int t_end = min((split + 1) * a.tiles_per_split, tile_hi);
   const int tok_a = m0 + fg, tok_b = tok_a + 8;  // accumulator rows of this lane
 
-  unsigned long long ck = 0;  // kDmaOnly / kNoop checksum
-
   // heads in chunks whose B fits in shared memory (one chunk when all fit);
   // each chunk walks the block's tiles
   for (int c0 = 0; c0 < hpg && t_begin < t_end; c0 += a.chunk_heads) {
     const int nc = min(a.chunk_heads, hpg - c0);
     __syncthreads();  // set-up done / the previous chunk's B reads done
-    if (kRebuild && nrc == 1) {  // all of B fits: staged once
+    if (nrc == 1) {  // all of B fits: staged once
       for (int i = tid; i < nc * rk * (HD / 8); i += kThreads) {
         const int row = i / (HD / 8), c = i % (HD / 8);  // row = head * rk + rank
         cp_async16(bsm + row * HS + c * 8,
@@ -288,60 +231,28 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
       // ---- load: K and V latent tiles (cp.async), this thread's rope rows
       load_tile<false>(kt, xk, rk, a.S, s0, tid);
       load_tile<RMV>(vt, xv, rv, a.S, s0, tid);
+      // sincosf of the f32 angle, times rope_scale
       float ca[NTW][2], sa[NTW][2], cb[NTW][2], sb[NTW][2];
-      if constexpr (kRebuild) {
-        const int pa = s0 + tok_a, pb = s0 + tok_b;
+      const int pa = s0 + tok_a, pb = s0 + tok_b;
 #pragma unroll
-        for (int j = 0; j < NTW; ++j) {
-          const int d = (jw + j) * 8 + 2 * ft;
-          if constexpr (V2) {  // sincosf of the f32 angle, times rope_scale
-            const float2 f = *reinterpret_cast<const float2*>(a.inv_freq + d);
-            const float fr[2] = {f.x, f.y};
+      for (int j = 0; j < NTW; ++j) {
+        const int d = (jw + j) * 8 + 2 * ft;
+        const float2 f = *reinterpret_cast<const float2*>(a.inv_freq + d);
+        const float fr[2] = {f.x, f.y};
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              sincosf(static_cast<float>(pa) * fr[e], &sa[j][e], &ca[j][e]);
-              sincosf(static_cast<float>(pb) * fr[e], &sb[j][e], &cb[j][e]);
-              ca[j][e] *= a.rope_scale;
-              sa[j][e] *= a.rope_scale;
-              cb[j][e] *= a.rope_scale;
-              sb[j][e] *= a.rope_scale;
-            }
-            continue;
-          }
-          float2 c = make_float2(0.f, 0.f), s = c, c2 = c, s2 = c;
-          if (pa < a.S) {
-            c = *reinterpret_cast<const float2*>(a.cos_t + static_cast<size_t>(pa) * half + d);
-            s = *reinterpret_cast<const float2*>(a.sin_t + static_cast<size_t>(pa) * half + d);
-          }
-          if (pb < a.S) {
-            c2 = *reinterpret_cast<const float2*>(a.cos_t + static_cast<size_t>(pb) * half + d);
-            s2 = *reinterpret_cast<const float2*>(a.sin_t + static_cast<size_t>(pb) * half + d);
-          }
-          ca[j][0] = c.x;  ca[j][1] = c.y;  sa[j][0] = s.x;  sa[j][1] = s.y;
-          cb[j][0] = c2.x; cb[j][1] = c2.y; sb[j][0] = s2.x; sb[j][1] = s2.y;
+        for (int e = 0; e < 2; ++e) {
+          sincosf(static_cast<float>(pa) * fr[e], &sa[j][e], &ca[j][e]);
+          sincosf(static_cast<float>(pb) * fr[e], &sb[j][e], &cb[j][e]);
+          ca[j][e] *= a.rope_scale;
+          sa[j][e] *= a.rope_scale;
+          cb[j][e] *= a.rope_scale;
+          sb[j][e] *= a.rope_scale;
         }
       }
       cp_async_wait_all();
       __syncthreads();
 
-      if constexpr (kStream) {
-        ck += fold_tile<MODE>(kt, rk, tid) + fold_tile<MODE>(vt, rv, tid);
-        __syncthreads();  // as after the V contraction: the next loads overwrite
-        continue;
-      }
-
-      if constexpr (MODE == kNoLogits) {
-        // fake logits: 1e-6 * sum over ranks of x_k, four threads per token
-        const int t = tid / 4, part = tid % 4;
-        float cs = 0.0f;
-        for (int r = part; r < rk; r += 4) cs += __bfloat162float(kt[t * kstride + r]);
-        cs += __shfl_xor_sync(0xffffffffu, cs, 1);
-        cs += __shfl_xor_sync(0xffffffffu, cs, 2);
-        if (part == 0)
-          for (int h = c0; h < c0 + nc; ++h) lg[h * kTile + t] = cs * 1e-6f;
-      }
-
-      for (int ci = 0; ci < (kRebuild ? nrc : 0); ++ci) {
+      for (int ci = 0; ci < nrc; ++ci) {
         // ---- rank chunk ci: ranks [r0, r0 + nr)
         const int r0 = ci * rc, nr = min(rc, rk - r0), nkc = nr / 16;
         if (nrc > 1) {  // stream this chunk's rows of B for the chunk's heads
@@ -461,24 +372,19 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
       __syncthreads();
 
       // ---- latent V: acc[h][r] = acc * alpha + sum_t p[h][t] x_v[t][r]
-      for (int r = tid; r < (MODE == kNoValue ? 0 : rv); r += kThreads) {
+      for (int r = tid; r < rv; r += kThreads) {
         float cv[kTile];
-        if (RMV) {
-          const uint4* row = reinterpret_cast<const uint4*>(vt + r * kCk);
+        const uint4* row = reinterpret_cast<const uint4*>(vt + r * kCk);
 #pragma unroll
-          for (int c = 0; c < kTile / 8; ++c) {
-            const uint4 u = row[c];
-            const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+        for (int c = 0; c < kTile / 8; ++c) {
+          const uint4 u = row[c];
+          const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              const float2 f = __bfloat1622float2(p2[k]);
-              cv[c * 8 + 2 * k] = f.x;
-              cv[c * 8 + 2 * k + 1] = f.y;
-            }
+          for (int k = 0; k < 4; ++k) {
+            const float2 f = __bfloat1622float2(p2[k]);
+            cv[c * 8 + 2 * k] = f.x;
+            cv[c * 8 + 2 * k + 1] = f.y;
           }
-        } else {
-#pragma unroll
-          for (int t = 0; t < kTile; ++t) cv[t] = __bfloat162float(vt[t * (rv + kPad) + r]);
         }
         for (int h = c0; h < c0 + nc; ++h) {
           float acc = acc_s[h * rv + r] * alpha_s[h];
@@ -493,20 +399,8 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
   }
   __syncthreads();
 
-  if constexpr (kStream) {  // the block's checksum
-    for (int o = 16; o > 0; o >>= 1) ck += __shfl_xor_sync(0xffffffffu, ck, o);
-    unsigned long long* ck_w = reinterpret_cast<unsigned long long*>(red);
-    if (lane == 0) ck_w[warp] = ck;
-    __syncthreads();
-    if (tid == 0) {
-      unsigned long long s = 0;
-      for (int w = 0; w < kWarps; ++w) s += ck_w[w];
-      a.part_ck[bg * a.splits + split] = s;
-    }
-    return;
-  }
   const size_t head0 = static_cast<size_t>(b) * nh + g * hpg;
-  for (int i = tid; i < (MODE == kNoValue ? 0 : hpg * rv); i += kThreads) {
+  for (int i = tid; i < hpg * rv; i += kThreads) {
     const int h = i / rv, r = i % rv;
     a.part_acc[((head0 + h) * a.splits + split) * rv + r] = acc_s[i];
   }
@@ -516,52 +410,15 @@ __global__ void __launch_bounds__(kThreads) palu_decode_fp_split_kernel(FpArgs a
   }
 }
 
-template <int HD, int MODE = kFull, bool V2 = false>
+template <int HD>
 int launch_split(const FpArgs& a, int B, cudaStream_t st) {
-  const size_t smem = fp_layout(false, V2, a.rk, HD, a.hpg, a.rv, a.chunk_heads, a.rc).total;
+  const size_t smem = fp_layout(false, true, a.rk, HD, a.hpg, a.rv, a.chunk_heads, a.rc).total;
   cudaError_t err =
-      cudaFuncSetAttribute(palu_decode_fp_split_kernel<HD, MODE, V2>,
+      cudaFuncSetAttribute(palu_decode_fp_split_kernel<HD>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  palu_decode_fp_split_kernel<HD, MODE, V2>
-      <<<dim3(a.splits, a.G, B), kThreads, smem, st>>>(a);
+  palu_decode_fp_split_kernel<HD><<<dim3(a.splits, a.G, B), kThreads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
-}
-
-// The dissection's second pass. kNoValue: per (lane, q-head) row, the
-// splits' statistics merged, out[row] = (M, L) with M = max m_s and
-// L = sum_s e^(m_s - M) l_s. kDmaOnly / kNoop: one block adds the n block
-// checksums into ck_out[0].
-__global__ void __launch_bounds__(256) dissect_finish(const float* __restrict__ part_m,
-                                                      const float* __restrict__ part_l,
-                                                      const unsigned long long* __restrict__ ck,
-                                                      float* __restrict__ stats,
-                                                      unsigned long long* __restrict__ ck_out,
-                                                      int rows, int splits, int n_ck) {
-  if (ck != nullptr) {
-    __shared__ unsigned long long w_s[8];
-    unsigned long long s = 0;
-    for (int i = threadIdx.x; i < n_ck; i += blockDim.x) s += ck[i];
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (threadIdx.x % 32 == 0) w_s[threadIdx.x / 32] = s;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      unsigned long long t = 0;
-      for (int w = 0; w < 8; ++w) t += w_s[w];
-      ck_out[0] = t;
-    }
-    return;
-  }
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= rows) return;
-  const float* m = part_m + static_cast<size_t>(row) * splits;
-  const float* l = part_l + static_cast<size_t>(row) * splits;
-  float mx = -1e30f;
-  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, m[s]);
-  float den = 0.0f;
-  for (int s = 0; s < splits; ++s) den += expf(m[s] - mx) * l[s];
-  stats[2 * row] = mx;
-  stats[2 * row + 1] = den;
 }
 
 // Heads of B that fit in shared memory beside the rest, and the rank chunk
@@ -582,74 +439,6 @@ void fit_heads(FpArgs& a, bool rmk, bool rmv, int hd) {
 }
 
 }  // namespace
-
-// The dissection of the split kernel over seq-major bf16 latents (no bias,
-// no window): mode 0 (kFull) launches it whole, with the combine, so its
-// out (B, nh, rv) f32 is the decode's; kNoLogits also writes out. kNoValue writes stats (B, nh, 2) f32 = (m, l);
-// kDmaOnly / kNoop write the checksum ck_out (one u64) from part_ck (B * G
-// * splits). Every head's B must fit in shared memory in one rank chunk
-// (rk <= 128), so each block walks its tiles once.
-extern "C" int palu_decode_fp_dissect(int mode, const void* q, int q_bf16, const void* bk,
-                                      const void* xk, const void* xv, const void* kv_len,
-                                      const void* cos_t, const void* sin_t, void* part_m,
-                                      void* part_l, void* part_acc, void* part_ck, void* out,
-                                      void* stats, void* ck_out, int B, int G, int hpg, int hd,
-                                      int rk, int rv, int S, int splits, int tiles_per_split,
-                                      float sqrt_hd, void* stream) {
-  if ((hd != 64 && hd != 128) || rk % 16 || rk > kRc || rv % 8 || S % 8 || hpg > kMaxHeads ||
-      mode < kFull || mode > kNoop)
-    return static_cast<int>(cudaErrorInvalidValue);
-  FpArgs a{};
-  a.q = q;
-  a.q_bf16 = q_bf16;
-  a.bk = static_cast<const bf16*>(bk);
-  a.xk = static_cast<const bf16*>(xk);
-  a.xv = static_cast<const bf16*>(xv);
-  a.kv_len = static_cast<const int*>(kv_len);
-  a.cos_t = static_cast<const float*>(cos_t);
-  a.sin_t = static_cast<const float*>(sin_t);
-  a.part_m = static_cast<float*>(part_m);
-  a.part_l = static_cast<float*>(part_l);
-  a.part_acc = static_cast<float*>(part_acc);
-  a.part_ck = static_cast<unsigned long long*>(part_ck);
-  a.G = G;
-  a.hpg = hpg;
-  a.rk = rk;
-  a.rv = rv;
-  a.S = S;
-  a.splits = splits;
-  a.tiles_per_split = tiles_per_split;
-  a.sqrt_hd = sqrt_hd;
-  fit_heads(a, false, false, hd);
-  if (a.chunk_heads != hpg) return static_cast<int>(cudaErrorInvalidValue);
-
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err;
-#define PALU_DISSECT(M)                                                               \
-  (hd == 128 ? launch_split<128, M>(a, B, st) : launch_split<64, M>(a, B, st))
-  switch (mode) {
-    case kFull: err = PALU_DISSECT(kFull); break;
-    case kNoValue: err = PALU_DISSECT(kNoValue); break;
-    case kNoLogits: err = PALU_DISSECT(kNoLogits); break;
-    case kDmaOnly: err = PALU_DISSECT(kDmaOnly); break;
-    default: err = PALU_DISSECT(kNoop); break;
-  }
-#undef PALU_DISSECT
-  if (err != 0) return err;
-  if (mode == kFull || mode == kNoLogits)
-    return decode::launch_combine(a.part_m, a.part_l, a.part_acc, static_cast<float*>(out),
-                                  B * G * hpg, splits, rv, st);
-  const int rows = B * G * hpg;
-  if (mode == kNoValue)
-    dissect_finish<<<(rows + 255) / 256, 256, 0, st>>>(a.part_m, a.part_l, nullptr,
-                                                      static_cast<float*>(stats), nullptr, rows,
-                                                      splits, 0);
-  else
-    dissect_finish<<<1, 256, 0, st>>>(nullptr, nullptr, a.part_ck, nullptr,
-                                      static_cast<unsigned long long*>(ck_out), rows, splits,
-                                      B * G * splits);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // The archived v2 decode over bf16 latents: x_k (B, G, S, rk) seq-major,
 // x_v_t (B, G, rv, S) rank-major; inv_freq (hd/2,) f32, the RoPE angle of
@@ -690,8 +479,7 @@ extern "C" int palu_decode_fp_v2(const void* q, int q_bf16, const void* bk, cons
   if (a.chunk_heads == 0) return static_cast<int>(cudaErrorInvalidValue);
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err = hd == 128 ? launch_split<128, kFull, true>(a, B, st)
-                            : launch_split<64, kFull, true>(a, B, st);
+  const int err = hd == 128 ? launch_split<128>(a, B, st) : launch_split<64>(a, B, st);
   if (err != 0) return err;
   return decode::launch_combine(a.part_m, a.part_l, a.part_acc, static_cast<float*>(out),
                                 B * G * hpg, splits, rv, st);

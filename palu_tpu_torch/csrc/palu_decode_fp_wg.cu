@@ -117,6 +117,28 @@
 // chunk hold whatever finite values the ring had (zeroed at the start), and
 // B's rows there are zero; tokens past kv_len are masked before any scale
 // multiplies them.
+//
+// The dissection (palu_decode_fp_dissect; replaces tools/tpu_dissect.py::
+// call, the TPU tool that splits the v1 decode's time): each mode takes a
+// part out of the kernel palu_decode_fp launches, at its splits, over
+// seq-major bf16 latents with one B per q-head. kFull is that kernel itself
+// (palu_decode_fp_wg; the tool launches it through palu_decode_fp's own
+// launcher). The others run palu_decode_fp_dissect_kernel, the body's MODE
+// argument, at the tool's head dim (128) and one 8-head tile a consumer
+// (MT 6 up to rv 384, else 8, for the one with V products): kNoValue keeps
+// everything but the V products (the consumers wait for the V chunks and
+// release them) and emits each head's (m, l); kNoLogits streams no B and
+// runs no K product or rotation: 1e-6 times each token's x_k summed over
+// ranks (its group's, from the K chunks) is every head's logit, and the
+// softmax and V products run on it; kDmaOnly keeps the producer's ring,
+// and consumer c adds the 16-bit patterns of box c of every chunk into an
+// exact 64-bit checksum before both release it; kNoop folds each 16-byte
+// unit once (the XOR of its four words) instead. The swizzle permutes whole 16-byte units
+// and the boxes bring ranks past r and tokens past S as zeros, which add
+// nothing: the checksums are those of the cache's own elements (a V
+// chunk's second box counts only when it was loaded). The modes with no K
+// work take palu_decode_fp's ring depth with no B slots and no B barrier;
+// kNoValue keeps B.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -140,6 +162,8 @@ constexpr int kChunk = 128;        // ranks per ring chunk
 constexpr uint32_t kChunkBytes = kTile * kChunk * 2;  // 16 KB
 constexpr int kMaxKSteps = kChunk / 16;
 constexpr int kSmemBudget = static_cast<int>(decode::kSmemMax) - 1024;  // - alignment slack
+// the dissection's modes (header); kFull is the kernel that serves
+constexpr int kFull = 0, kNoValue = 1, kNoLogits = 2, kDmaOnly = 3, kNoop = 4;
 
 struct Plan {
   int ok, ns, nb, resident, nck, ncv, rows_v;
@@ -179,6 +203,7 @@ struct Args {
   float inv_sqrt_hd, rope_scale;
   Plan L;
   Packed pk;
+  unsigned long long* ck;  // the dissection's checksum (kDmaOnly, kNoop), zeroed before
 };
 
 inline uint32_t up(uint32_t x, uint32_t a) { return (x + a - 1) / a * a; }
@@ -199,7 +224,11 @@ inline uint32_t up(uint32_t x, uint32_t a) { return (x + a - 1) / a * a; }
 // to 8 chunks, 2 stages before 1; else B streamed, the ring from a tile
 // plus one chunk down, 2 stages before 1, the most B slots up to 8 (at least
 // 2, else 1).
-Plan make_plan(int hd, int rk, int rv, int nkv0, int nkv1, int npw, int nbk = 0, int nbv = 0) {
+//
+// ring > 0: the dissection's modes with no K work, a ring of that many
+// chunks and no B slots.
+Plan make_plan(int hd, int rk, int rv, int nkv0, int nkv1, int npw, int nbk = 0, int nbv = 0,
+               int ring = 0) {
   Plan p{};
   const bool pk = nbk > 0;
   p.nck = (rk + kChunk - 1) / kChunk;
@@ -233,6 +262,11 @@ Plan make_plan(int hd, int rk, int rv, int nkv0, int nkv1, int npw, int nbk = 0,
     p.ok = 1, p.ns = ns, p.nb = nb, p.resident = resident, p.slot_bytes = slot, p.npk = npk;
     p.total = tail(ns, nb, slot, npk);
   };
+  if (ring > 0) {
+    take(ring, 0, 0, 0);
+    p.ok = p.total <= budget;
+    return p;
+  }
   const int nb_res = nkvw * p.nck > 0 ? nkvw * p.nck : 1;
   const int npk_hi = pk ? 2 : 0, npk_lo = pk ? 1 : 0;
   for (int ns = 8; ns >= least; --ns)  // resident
@@ -545,6 +579,60 @@ __device__ __forceinline__ void unpack_chunk(uint32_t dst, const uint8_t* rows, 
   }
 }
 
+// The dissection's checksum of one seq-major ring chunk's box (64 tokens x
+// 64 ranks, 8 KB at `box`), 4 of its 512 16-byte units per thread of a
+// consumer (wt): kDmaOnly adds each unit's eight 16-bit patterns, kNoop the
+// XOR of its four words. The swizzle only permutes whole units, and ranks
+// past r and tokens past S arrive as zeros, which add 0: the sums equal
+// those over the cache's own elements.
+template <int MODE>
+__device__ __forceinline__ unsigned long long fold_box(uint32_t box, int wt) {
+  unsigned long long ck = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    uint4 u;
+    asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(u.x), "=r"(u.y), "=r"(u.z), "=r"(u.w)
+                 : "r"(box + (wt + 128 * k) * 16));
+    if constexpr (MODE == kNoop) {
+      ck += u.x ^ u.y ^ u.z ^ u.w;
+    } else {
+      ck += (u.x & 0xffffu) + (u.x >> 16) + (u.y & 0xffffu) + (u.y >> 16) + (u.z & 0xffffu) +
+            (u.z >> 16) + (u.w & 0xffffu) + (u.w >> 16);
+    }
+  }
+  return ck;
+}
+
+// The dissection's fake logits (kNoLogits) of the tile whose K chunks start
+// at ring index q0: 1e-6 times each token's x_k summed over ranks (its K
+// chunks' rows; ranks past rk are zeros), in lg for the consumer's nhw
+// heads. Thread wt sums token wt / 2's row of box wt % 2 of every chunk.
+__device__ __forceinline__ void fake_logits(uint32_t base, int q0, int ns, int nck, float* lg,
+                                            int nhw, int wt) {
+  const int t = wt >> 1, x = wt & 1;
+  float sum = 0.0f;
+  for (int ck = 0; ck < nck; ++ck) {
+    const uint32_t row = base + ((q0 + ck) % ns) * kChunkBytes + x * 8192 + t * 128;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      uint4 v;
+      asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+                   : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+                   : "r"(row + u * 16));
+      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+        sum += f.x + f.y;
+      }
+    }
+  }
+  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+  if (x == 0)
+    for (int h = 0; h < nhw; ++h) lg[h * kTile + t] = sum * 1e-6f;
+}
+
 // A work item's coordinates and its tiles [t0, t1) (empty when t1 <= t0).
 struct Item {
   int b, g, split, t0, t1, vlo, vhi;
@@ -580,8 +668,8 @@ __device__ __forceinline__ void cursor_next(const Args& a, Cursor& c) {
 
 // HD: head dim; RM: rank-major latents; NT: 8-head tiles of a consumer's
 // q-heads; MT: 64-rank blocks of the V accumulators, rv <= 64 MT; PK: the
-// packed seq-major cache (RM false)
-template <int HD, bool RM, int NT, int MT, bool PK>
+// packed seq-major cache (RM false); MODE: a dissection mode (kFull serves)
+template <int HD, bool RM, int NT, int MT, bool PK, int MODE = kFull>
 __device__ __forceinline__ void decode_body(const CUtensorMap& tm_k, const CUtensorMap& tm_v,
                                             const CUtensorMap& tm_b, const Args& a) {
   constexpr int NACC = HD / 2;  // K accumulator registers per thread
@@ -742,7 +830,7 @@ __device__ __forceinline__ void decode_body(const CUtensorMap& tm_k, const CUten
           }
         }
       }
-    } else if (lt == 32 || lt == 64) {
+    } else if (MODE < kNoLogits && (lt == 32 || lt == 64)) {  // (the modes with no K work: no B)
       int kb = 0;
       for (int item = blockIdx.x; item < a.n_items; item += gridDim.x) {
         const Item w = item_at(a, item);
@@ -763,7 +851,8 @@ __device__ __forceinline__ void decode_body(const CUtensorMap& tm_k, const CUten
   const int ta = 16 * warp + gq;  // this thread's K rows: tokens ta and ta + 8
   const int h0 = c ? a.hsplit : 0, h1 = c ? a.hpg : a.hsplit;  // its q-heads
   const int nhw = h1 - h0;
-  const int j0 = h0 / a.rep, j1 = h1 > h0 ? (h1 - 1) / a.rep + 1 : j0;  // its kv-heads
+  // its kv-heads (none in the dissection's modes with no K work)
+  const int j0 = h0 / a.rep, j1 = MODE < kNoLogits && h1 > h0 ? (h1 - 1) / a.rep + 1 : j0;
   const int sync_id = 1 + c;
   float* q_s = reinterpret_cast<float*>(sm + L.q) + c * NPW * HD;  // [head][HD] / sqrt(hd)
   float* lg = reinterpret_cast<float*>(sm + L.lg) + c * NPW * kTile;  // [head][kTile]
@@ -777,6 +866,7 @@ __device__ __forceinline__ void decode_body(const CUtensorMap& tm_k, const CUten
   const uint32_t my_bslots = base + L.bslots + c * L.nb * L.slot_bytes;
 
   int it = 0, kb = 0;
+  unsigned long long csum = 0;  // kDmaOnly / kNoop: this thread's checksum
   constexpr bool FOLD = NT == 1;  // P^T high and low side by side in one product
   float vacc[MT][8];  // out^T: element 4j + e of block mt is rank 64mt + 16warp + gq (+8 for
                       // e >= 2), column 8j + 2qd + e % 2: head (FOLD: 2qd + e % 2, high
@@ -813,6 +903,14 @@ __device__ __forceinline__ void decode_body(const CUtensorMap& tm_k, const CUten
     // chain: a block past rv reads some other bytes into accumulator rows
     // that are never written out.
     auto v_product = [&](int q0) {
+      if constexpr (MODE == kNoValue) {  // the V chunks waited for and released, no product
+        for (int cv = 0; cv < L.ncv; ++cv) {
+          const int q = q0 + cv;
+          mbar_wait(full + 8 * (q % L.ns), (q / L.ns) & 1);
+        }
+        for (int cv = 0; cv < L.ncv; ++cv) mbar_arrive(empty + 8 * ((q0 + cv) % L.ns));
+        return;
+      }
 #pragma unroll
       for (int j = 0; j < 2; ++j) {  // column 8j + 2qd + e of the accumulators
         const float2 al =
@@ -853,11 +951,25 @@ __device__ __forceinline__ void decode_body(const CUtensorMap& tm_k, const CUten
     const int kb0 = kb;
     for (int tile = w.t0; tile < w.t1; ++tile, it += L.nck + L.ncv) {
       const int s0 = tile * kTile;
+      if constexpr (MODE >= kDmaOnly) {
+        // loads only: consumer c folds box c of each of the tile's chunks
+        // (a V chunk's second box is loaded only when rv reaches past its
+        // first 64 ranks) and both release every chunk
+        for (int ch = 0; ch < L.nck + L.ncv; ++ch) {
+          const int q = it + ch, cv = ch - L.nck;
+          mbar_wait(full + 8 * (q % L.ns), (q / L.ns) & 1);
+          if (c == 0 || cv < 0 || a.rv - cv * kChunk > 64)
+            csum += fold_box<MODE>(base + (q % L.ns) * kChunkBytes + c * 8192, wt);
+          mbar_arrive(empty + 8 * (q % L.ns));
+        }
+        continue;
+      }
       float rcs[HD / 16][2][2], rsn[HD / 16][2][2];  // the tile's rotation (cos, sin)
       rotation<HD>(rcs, rsn, a.inv_freq, static_cast<float>(a.pos_offset + s0 + ta), qd,
                    a.rope_scale);
       for (int ck = 0; ck < L.nck; ++ck)
         mbar_wait(full + 8 * ((it + ck) % L.ns), ((it + ck) / L.ns) & 1);
+      if constexpr (MODE == kNoLogits) fake_logits(base, it, L.ns, L.nck, lg, nhw, wt);
       for (int j = j0; j < j1; ++j) {
         float kv[NACC];
         for (int bc = 0; bc < L.nck; ++bc) {  // the 128-rank chunks of B_j
@@ -952,7 +1064,7 @@ __device__ __forceinline__ void decode_body(const CUtensorMap& tm_k, const CUten
     float* part = a.part_acc + ((head0 + h0) * a.splits + w.split) * rv;
     const int hstride = a.splits * rv;
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
+    for (int mt = 0; mt < (MODE == kNoValue || MODE >= kDmaOnly ? 0 : MT); ++mt)
 #pragma unroll
       for (int j = 0; j < (FOLD ? 1 : 2); ++j)
 #pragma unroll
@@ -961,10 +1073,14 @@ __device__ __forceinline__ void decode_body(const CUtensorMap& tm_k, const CUten
           const float v = FOLD ? vacc[mt][e] + vacc[mt][4 + e] : vacc[mt][4 * j + e];
           if (r < rv && hw < nhw) part[hw * hstride + r] = PK ? v + zs_s[hw] : v;
         }
-    if (wt < nhw) {
+    if (MODE < kDmaOnly && wt < nhw) {
       a.part_m[(head0 + h0 + wt) * a.splits + w.split] = m_s[wt];
       a.part_l[(head0 + h0 + wt) * a.splits + w.split] = l_s[wt];
     }
+  }
+  if constexpr (MODE >= kDmaOnly) {  // the block's checksum: a 64-bit add per warp
+    for (int o = 16; o > 0; o >>= 1) csum += __shfl_xor_sync(0xffffffffu, csum, o);
+    if (lane == 0) atomicAdd(a.ck, csum);
   }
 }
 
@@ -981,6 +1097,61 @@ template <int HD, int NT, int MT>
 __global__ void __launch_bounds__(kThreads, 1)
 palu_decode_seq_wg_kernel(const __grid_constant__ CUtensorMap tm_b, const Args a) {
   decode_body<HD, false, NT, MT, true>(tm_b, tm_b, tm_b, a);
+}
+
+// the dissection's modes other than kFull over seq-major latents, one
+// 8-head tile a consumer
+template <int HD, int MT, int MODE>
+__global__ void __launch_bounds__(kThreads, 1)
+palu_decode_fp_dissect_kernel(const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const __grid_constant__ CUtensorMap tm_b, const Args a) {
+  decode_body<HD, false, 1, MT, false, MODE>(tm_k, tm_v, tm_b, a);
+}
+
+template <int HD, int MT, int MODE>
+int launch_dissect(int grid, const CUtensorMap (&tm)[3], const Args& a, cudaStream_t st) {
+  const int smem = static_cast<int>(a.L.total) + 1024;
+  auto kern = palu_decode_fp_dissect_kernel<HD, MT, MODE>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<grid, kThreads, smem, st>>>(tm[0], tm[1], tm[2], a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The mode's instantiation at the tool's head dim: the V blocks MT for
+// kNoLogits (the only cut mode with V products) 6 up to rv 384 (the Llama
+// group's, as palu_decode_fp's instantiation there), else 8; 4 otherwise
+// (no V accumulator is used).
+int launch_dissect_mode(int mode, int rv, int grid, const CUtensorMap (&tm)[3], const Args& a,
+                        cudaStream_t st) {
+  switch (mode) {
+    case kNoValue: return launch_dissect<128, 4, kNoValue>(grid, tm, a, st);
+    case kNoLogits:
+      return rv <= 384 ? launch_dissect<128, 6, kNoLogits>(grid, tm, a, st)
+                       : launch_dissect<128, 8, kNoLogits>(grid, tm, a, st);
+    case kDmaOnly: return launch_dissect<128, 4, kDmaOnly>(grid, tm, a, st);
+    default: return launch_dissect<128, 4, kNoop>(grid, tm, a, st);
+  }
+}
+
+// The dissection's second pass of kNoValue: per (lane, q-head) row, the
+// splits' statistics merged, stats[row] = (M, L) with M = max m_s and L =
+// sum_s e^(m_s - M) l_s.
+__global__ void __launch_bounds__(256) dissect_finish(const float* __restrict__ part_m,
+                                                      const float* __restrict__ part_l,
+                                                      float* __restrict__ stats, int rows,
+                                                      int splits) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= rows) return;
+  const float* m = part_m + static_cast<size_t>(row) * splits;
+  const float* l = part_l + static_cast<size_t>(row) * splits;
+  float mx = -1e30f;
+  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, m[s]);
+  float den = 0.0f;
+  for (int s = 0; s < splits; ++s) den += expf(m[s] - mx) * l[s];
+  stats[2 * row] = mx;
+  stats[2 * row + 1] = den;
 }
 
 template <int HD, bool RM, int NT, int MT, bool PK>
@@ -1039,6 +1210,14 @@ Plan plan_for(int hd, int rk, int rv, int hpg, int nkv, int* hs_out, int* nt_out
 
 // Bytes per token of one side's codes at pack width pbits (core/quant.packed_nbytes).
 int packed_nbytes(int r, int pbits) { return pbits == 3 ? r / 4 + r / 8 : r * pbits / 8; }
+
+// The dissection's plan of `mode` (one B per q-head): palu_decode_fp's, and
+// for the modes with no K work the same ring with no B slots.
+Plan dissect_plan(int mode, int hd, int rk, int rv, int hpg, int* hs_out, int* nt_out) {
+  const Plan p = plan_for(hd, rk, rv, hpg, hpg, hs_out, nt_out);
+  if (!p.ok || mode < kNoLogits) return p;
+  return make_plan(hd, rk, rv, 0, 0, 8 * *nt_out, 0, 0, p.ns);
+}
 
 }  // namespace
 
@@ -1184,4 +1363,75 @@ extern "C" int palu_decode_seq_wg(const void* q, int q_bf16, const void* bk, con
                                 static_cast<const float*>(part_l),
                                 static_cast<const float*>(part_acc), static_cast<float*>(out),
                                 B * G * hpg, splits, rv, st);
+}
+
+// The dissection's plan (the tool's mirror is held against it): out = {smem
+// bytes, ring chunks, B slots per consumer, resident, 8-head tiles a
+// consumer}, or out[0] = -1 when no plan fits in one block.
+extern "C" int palu_decode_fp_dissect_plan(int mode, int hd, int rk, int rv, int hpg, int* out) {
+  int hs = 0, nt = 1;
+  const Plan p = dissect_plan(mode, hd, rk, rv, hpg, &hs, &nt);
+  out[0] = p.ok ? static_cast<int>(p.total) + 1024 : -1;
+  out[1] = p.ns, out[2] = p.nb, out[3] = p.resident, out[4] = nt;
+  return 0;
+}
+
+// The dissection's modes 1-4 (kNoValue, kNoLogits, kDmaOnly, kNoop; kFull is
+// palu_decode_fp_wg itself) of the kernel over seq-major bf16 latents, at
+// palu_decode_fp's splits: q (B, nh, hd) bf16 or f32; bk (G, hpg, rk, hd)
+// bf16; xk (B, G, S, rk), xv (B, G, S, rv) bf16; kv_len (B,) int32;
+// inv_freq (hd / 2,) f32; partials as palu_decode_fp_wg. kNoLogits writes
+// out (B, nh, rv) f32, kNoValue stats (B, nh, 2) f32 = (m, l), kDmaOnly and
+// kNoop the checksum ck (one u64). hd 128 (the tool's), rk a multiple of 16
+// and rv of 8 up to 512, hpg <= 16 (one 8-head tile a consumer), S a
+// multiple of 8; no bias, window or offset.
+extern "C" int palu_decode_fp_dissect(int mode, const void* q, int q_bf16, const void* bk,
+                                      const void* xk, const void* xv, const void* kv_len,
+                                      const void* inv_freq, void* part_m, void* part_l,
+                                      void* part_acc, void* out, void* stats, void* ck, int B,
+                                      int G, int hpg, int hd, int rk, int rv, int S, int splits,
+                                      int grid, float inv_sqrt_hd, void* stream) {
+  if (mode < kNoValue || mode > kNoop || hd != 128 || rk % 16 || rv % 8 ||
+      rk > kMaxRank || rv > kMaxRank || hpg <= 0 || hpg > kMaxHeads || S % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{};
+  int nt = 1;
+  a.L = dissect_plan(mode, hd, rk, rv, hpg, &a.hsplit, &nt);
+  if (!a.L.ok || nt != 1) return static_cast<int>(cudaErrorInvalidValue);
+  a.q = q;
+  a.q_bf16 = q_bf16;
+  a.inv_freq = static_cast<const float*>(inv_freq);
+  a.kv_len = static_cast<const int*>(kv_len);
+  a.part_m = static_cast<float*>(part_m);
+  a.part_l = static_cast<float*>(part_l);
+  a.part_acc = static_cast<float*>(part_acc);
+  a.ck = static_cast<unsigned long long*>(ck);
+  a.B = B, a.G = G, a.hpg = hpg, a.nkv = hpg, a.rep = 1, a.rk = rk, a.rv = rv, a.S = S;
+  a.splits = splits, a.n_items = B * G * splits;
+  a.inv_sqrt_hd = inv_sqrt_hd, a.rope_scale = 1.0f;
+  const uint64_t planes = static_cast<uint64_t>(B) * G;
+  const auto bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  CUtensorMap tm[3];
+  if (!(make_map_3d(&tm[0], bf, 2, xk, rk, S, planes, 64, kTile, sw) &&
+        make_map_3d(&tm[1], bf, 2, xv, rv, S, planes, 64, kTile, sw) &&
+        make_map_3d(&tm[2], bf, 2, bk, hd, rk, static_cast<uint64_t>(G) * hpg, 64, kChunk, sw)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mode >= kDmaOnly) {
+    const cudaError_t e = cudaMemsetAsync(ck, 0, sizeof(unsigned long long), st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int err = launch_dissect_mode(mode, rv, grid, tm, a, st);
+  if (err != 0 || mode >= kDmaOnly) return err;
+  const int rows = B * G * hpg;
+  if (mode == kNoLogits)
+    return decode::launch_combine(static_cast<const float*>(part_m),
+                                  static_cast<const float*>(part_l),
+                                  static_cast<const float*>(part_acc), static_cast<float*>(out),
+                                  rows, splits, rv, st);
+  dissect_finish<<<(rows + 255) / 256, 256, 0, st>>>(static_cast<const float*>(part_m),
+                                                     static_cast<const float*>(part_l),
+                                                     static_cast<float*>(stats), rows, splits);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,8 @@
 """Latent decode attention, v3 (port of
 palu_tpu/ops/pallas/archive/palu_decode3.py::palu_flash_decode3_quantized;
-the kernel is csrc/palu_decode3.cu): the function of
-palu_decode2_quantized, with RoPE from two small tables and the scales and
-zeros packed as one (B, S, 2G) array (`sz_pack`).
+the kernel is csrc/palu_decode_exact.cu's v3 instantiation): the function
+of palu_decode2_quantized, with RoPE from two small tables and the scales
+and zeros packed as one (B, S, 2G) array (`sz_pack`).
 
 RoPE(s) = R(s0) R(s - s0) for the rotation block of `block_s` tokens that
 starts at s0: the query is rotated back by s0 with the offset tables
@@ -16,6 +16,16 @@ cos_rel . A' + sin_rel . C' with A' = cs1 q1' + cs2 q2', C' = cs1 q2' - cs2
 q1' (cs the column sums of B's two RoPE halves, q' the rotated query).
 `palu_decode3_quantized` launches the kernel for CUDA tensors and runs
 `palu_decode3_quantized_ref`, its plain version in f32, for CPU tensors.
+
+The kernel is the exact decode over asym per-row rows (qoff 0, the zero
+term on row sums of B) with v3's inputs read as they come: a warp of its
+producer gathers each tile's columns g and G + g of (B, S, 2G) into the
+stage's scale and zero rows, and each tile's rotation R(s0) R(s - s0) is
+formed from its 64 rows of the relative tables and its block's start (cos
+= c0 rc - s0 rs, sin = s0 rc + c0 rs; the TPU kernel rotated the query back
+by s0 instead: the same function up to f32 rounding). Its plan is v2's;
+its one instantiation takes the A/B tool's head dim, 128, and up to 8
+heads a group (`v3_launch_plan`).
 """
 
 from __future__ import annotations
@@ -29,11 +39,13 @@ import torch
 
 from ...core.quant import QuantConfig
 from .. import build
-from ..palu_decode import _scratch
-from .palu_decode2 import _check_quant, _codes, _launch_setup, _valid, online_step
+from ..palu_decode import _MAX_RK, _TILE, _device_splits, _exact_plan, _scratch
+from .palu_decode2 import _check_quant, _codes, _valid, online_step
+
+_V3_HEADS = 8  # heads per group of the kernel's one instantiation (the A/B tool's 4 fit)
 
 __all__ = ["palu_decode3_quantized", "palu_decode3_quantized_ref", "sz_pack", "v3_tables",
-           "q_scaled"]
+           "q_scaled", "v3_launch_plan"]
 
 
 def sz_pack(scale: torch.Tensor, zero: torch.Tensor) -> torch.Tensor:
@@ -130,38 +142,74 @@ def palu_decode3_quantized_ref(q, b_k, xk_codes, xk_sz, xv_codes, xv_sz, kv_len,
     return (acc / l[..., None]).reshape(b, nh, rv)
 
 
+def v3_launch_plan(hd: int, rk: int, rv: int, g: int, hpg: int, nrk: int, nrv: int, s_max: int,
+                   block_s: int) -> dict:
+    """The exact kernel's plan for a v3 launch (ops/palu_decode._exact_plan
+    over asym per-row rows, v2's); raises ValueError where the kernel cannot
+    run: hd other than 128 or more than 8 heads per group (v3's one
+    instantiation is the A/B tool's shape), rk or rv not a multiple of 16
+    or above 512, S not a multiple of 16 or below 64, block_s not a multiple
+    of 64 (a tile would straddle two rotation blocks) or not dividing S, or
+    no plan whose tile ring and B fit in a block's shared memory."""
+    if (hd != 128 or rk <= 0 or rv <= 0 or rk % 16 or rv % 16 or rk > _MAX_RK
+            or rv > _MAX_RK or not 0 < hpg <= _V3_HEADS or g <= 0 or s_max % 16
+            or s_max < _TILE or block_s <= 0 or block_s % _TILE or s_max % block_s):
+        raise ValueError(f"the v3 kernel needs hd 128, <= {_V3_HEADS} heads per group, rk and "
+                         f"rv multiples of 16 up to {_MAX_RK}, S a multiple of 16 and at least "
+                         f"{_TILE}, and block_s a multiple of {_TILE} dividing S (hd={hd}, "
+                         f"rk={rk}, rv={rv}, G={g}, hpg={hpg}, S={s_max}, block_s={block_s})")
+    plan = _exact_plan(hd, rk, rv, hpg, hpg, nrk, nrv, 1, 1, True)
+    if plan is None:
+        raise ValueError(f"the v3 kernel's tile ring and B do not fit in a block's shared memory "
+                         f"at hd {hd}, rk {rk}, rv {rv}, {hpg} heads per group")
+    return plan
+
+
 def palu_decode3_quantized(q, b_k, xk_codes, xk_sz, xv_codes, xv_sz, kv_len, *,
                            qcfg: QuantConfig, rk: int, rv: int, block_s: int = 1024,
                            theta: float = 10000.0, sliding_window: Optional[int] = None,
                            inv_freq=None, rope_scale: float = 1.0) -> torch.Tensor:
     """Decode attention over the rank-major packed cache, v3: codes (B, G,
     packed_nrows, S) uint8, xk_sz / xv_sz (B, S, 2G) f32 from sz_pack,
-    kv_len (B,). -> (B, nh, rv) f32. block_s is the rotation block (a
-    multiple of 64 that divides S for the kernel)."""
+    kv_len (B,). -> (B, nh, rv) f32. block_s is the rotation block. CUDA
+    tensors launch the exact kernel's v3 instantiation (b_k bf16, the
+    shapes v3_launch_plan takes, 16-byte aligned codes: others raise);
+    each launch adds one to `palu_decode3_quantized.launches`."""
     kw = dict(qcfg=qcfg, rk=rk, rv=rv, block_s=block_s, theta=theta,
               sliding_window=sliding_window, inv_freq=inv_freq, rope_scale=rope_scale)
     if not q.is_cuda:
         return palu_decode3_quantized_ref(q, b_k, xk_codes, xk_sz, xv_codes, xv_sz, kv_len,
                                           **kw)
     s_max = _check(q, b_k, xk_codes, xk_sz, xv_codes, xv_sz, kv_len, qcfg, rk, rv, block_s)
-    if block_s % 64:
-        raise ValueError(f"the v3 kernel needs block_s % 64 == 0, got {block_s}")
     b, nh, hd = q.shape
     g, hpg = b_k.shape[:2]
+    nrk, nrv = xk_codes.shape[2], xv_codes.shape[2]
     bufs = (xk_codes, xk_sz, xv_codes, xv_sz)
-    dev, splits, per = _launch_setup(q, b_k, bufs, s_max, rk, "palu_decode3_quantized")
+    if b_k.dtype != torch.bfloat16 or q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the v3 kernel reads b_k as bf16 and q as bf16 or f32, got "
+                         f"{b_k.dtype} / {q.dtype}")
+    v3_launch_plan(hd, rk, rv, g, hpg, nrk, nrv, s_max, block_s)
+    if len({t.device for t in (q, b_k, kv_len, *bufs)}) != 1:
+        raise ValueError("all tensors must be on one device")
+    if not all(t.is_contiguous() for t in bufs) or \
+            any(t.data_ptr() % 16 for t in (b_k, xk_codes, xv_codes)):
+        raise ValueError("the v3 kernel needs contiguous codes and scales, and its TMA loads "
+                         "16-byte aligned codes and b_k")
+    dev = q.device
+    splits, _, grid = _device_splits(dev, b * g, s_max)
     tab = v3_tables(s_max, block_s, hd, theta, inv_freq, rope_scale, dev)
     qs = q_scaled(q).contiguous()
     kvl = kv_len.to(torch.int32).contiguous()
-    n_part, scratch, out, _, _ = _scratch(b, nh, rv, splits, False, 0, dev)
-    err = build.launcher("palu_decode3", "palu_decode3_quantized",
-                         "pi" + "p" * 14 + "i" * 14 + "p")(
+    # the row sums of B (the zero term's factor) after the outputs
+    n_part, scratch, out, _, _ = _scratch(b, nh, rv, splits, False, g * hpg * hd, dev)
+    err = build.launcher("palu_decode_exact", "palu_decode_v3", "pi" + "p" * 15 + "i" * 14 + "p")(
         qs.data_ptr(), int(q.dtype == torch.bfloat16), b_k.contiguous().data_ptr(),
         *(t.data_ptr() for t in bufs), kvl.data_ptr(),
-        *(tab[k].data_ptr() for k in ("c0", "s0", "rcos", "rsin")), scratch.data_ptr(),
+        *(tab[k].data_ptr() for k in ("c0", "s0", "rcos", "rsin")),
+        scratch[n_part * (2 + rv) + b * nh * rv:].data_ptr(), scratch.data_ptr(),
         scratch[n_part:].data_ptr(), scratch[2 * n_part:].data_ptr(), out.data_ptr(),
-        b, g, hpg, hd, rk, rv, s_max, xk_codes.shape[2], xv_codes.shape[2], qcfg.pack_bits,
-        int(sliding_window or 0), splits, per, block_s, build.stream_ptr(dev))
+        b, g, hpg, hd, rk, rv, s_max, nrk, nrv, qcfg.pack_bits, int(sliding_window or 0),
+        block_s, splits, grid, build.stream_ptr(dev))
     build.check(err, "palu_decode3_quantized")
     palu_decode3_quantized.launches += 1
     return out

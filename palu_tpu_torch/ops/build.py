@@ -31,7 +31,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("cache_append", "palu_decode_exact", "palu_decode_i8", "palu_decode_fp_wg",
            "palu_decode_fp", "prefill_flash", "gemv_int4", "gemv_int8", "hadamard", "stream_probe",
-           "unpack_probe", "gemv_bf16", "palu_decode3", "mlp_a8")
+           "unpack_probe", "gemv_bf16", "mlp_a8")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -58,9 +58,9 @@ def _lib_path(name: str) -> Path:
 
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     """Build every named source that has no library yet, in parallel.
-    Returns {name: seconds} for the sources built; each build's compiler
-    output (with ptxas' register and shared-memory report) is kept beside
-    its library as `<lib>.log`."""
+    Returns {name: seconds from the start until its nvcc ended} for the
+    sources built; each build's compiler output (with ptxas' register and
+    shared-memory report) is kept beside its library as `<lib>.log`."""
     todo = [n for n in names if not _lib_path(n).exists()]
     if not todo:
         return {}
@@ -72,17 +72,20 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
         out = _lib_path(n)
         tmp = out.with_suffix(f".tmp{os.getpid()}")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
-        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True), tmp, out)
+        with open(out.with_suffix(".log"), "w") as log:
+            procs[n] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), tmp, out)
     times, errors = {}, []
-    for n, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        times[n] = time.perf_counter() - t0
-        out.with_suffix(".log").write_text(log)
-        if proc.returncode != 0:
-            errors.append(f"nvcc failed for {n}.cu (exit {proc.returncode}):\n{log}")
-            continue
-        os.replace(tmp, out)
+    while len(times) < len(procs):
+        for n, (proc, tmp, out) in procs.items():
+            if n in times or proc.poll() is None:
+                continue
+            times[n] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                log = out.with_suffix(".log").read_text()
+                errors.append(f"nvcc failed for {n}.cu (exit {proc.returncode}):\n{log}")
+                continue
+            os.replace(tmp, out)
+        time.sleep(0.05)
     if errors:
         raise RuntimeError("\n".join(errors))
     return times

@@ -382,8 +382,8 @@ def _splits(sms: int, blocks_per_sm: int, n_bg: int, s_max: int) -> tuple:
     allows (at least one split each), and the blocks, which loop over the
     items, never exceed one wave. The one-wave kernels cut each lane's
     valid tiles into the splits (_item_tiles); the split kernel of
-    palu_decode_fp.cu (the seq-major packed decode) takes runs of `per`
-    tiles of S."""
+    palu_decode_fp.cu (the archived v2 layout) takes runs of `per` tiles
+    of S."""
     tiles = -(-s_max // _TILE)
     slots = sms * blocks_per_sm
     splits = min(tiles, max(1, slots // n_bg))
@@ -515,6 +515,52 @@ def _inv_freq_t(hd: int, theta: float, inv_key, device: str) -> torch.Tensor:
     device, for the exact kernel's in-kernel rotation."""
     return _inv_freq(hd, theta, None if inv_key is None else np.asarray(inv_key),
                      torch.device(device)).contiguous()
+
+
+@functools.lru_cache(maxsize=64)
+def _exact_plan(hd: int, rk: int, rv: int, hpg: int, nkv: int, nrk: int, nrv: int, nsk: int,
+                nsv: int, asym: bool) -> Optional[dict]:
+    """The exact kernel's shared-memory plan (csrc/palu_decode_exact.cu::
+    make_plan, the same function): `smem` bytes a launch takes, `ns` tile
+    stages of `stage` bytes (the K and V byte planes of a 64-token tile,
+    then its scale and zero rows), `nb` B slots of `rc` ranks (`nrc` chunks
+    a kv-head), `resident` (all of B once per work item); None when no plan
+    fits in one block."""
+    np_ = 8 if hpg <= 8 else 32
+    nbox_k, nbox_v = -(-nrk // 256), -(-nrv // 256)
+    o = _up(nbox_k * -(-nrk // nbox_k) * _TILE, 128)
+    o = _up(o + nbox_v * -(-nrv // nbox_v) * _TILE, 128)
+    for n in (nsk, nsk if asym else 0, nsv, nsv if asym else 0):
+        o = _up(o + n * _TILE * 4, 128)
+    stage = _up(o, 1024)
+
+    def tail(at: int, ns: int, nb: int) -> int:
+        t = _up(at, 1024) + 2 * np_ * 128
+        for n in (2 * _TILE * (hd // 2 + 4), hpg * hd, hpg * _TILE, rk, rv, 4 * _MAX_HEADS):
+            t = _up(t + n * 4, 16)
+        return t + 8 * (2 * ns + 2 * nb + 4)
+
+    def take(ns, nb, rc, resident, total):
+        return {"smem": total + 1024, "ns": ns, "nb": nb, "rc": rc, "nrc": -(-rk // rc),
+                "resident": resident, "stage": stage}
+
+    rc_res = min(rk, 128)
+    for ns in (4, 3):  # B resident
+        nb = nkv * -(-rk // rc_res)
+        total = tail(ns * stage + nb * rc_res * hd * 2, ns, nb)
+        if total <= _SMEM_BUDGET:
+            return take(ns, nb, rc_res, 1, total)
+    for i, rc in enumerate((rc_res, 64, 32, 16)):  # B streamed through nb >= 2 slots
+        if i > 0 and rc >= rc_res:
+            continue
+        slot = rc * hd * 2
+        nb = 2
+        while nb < 8 and tail(3 * stage + (nb + 1) * slot, 3, nb + 1) <= _SMEM_BUDGET:
+            nb += 1
+        total = tail(3 * stage + nb * slot, 3, nb)
+        if total <= _SMEM_BUDGET:
+            return take(3, nb, rc, 0, total)
+    return None
 
 
 @functools.lru_cache(maxsize=64)

@@ -34,8 +34,9 @@ import torch
 from ..runtime import cache as cache_lib
 from . import build
 from .attention import flash_decode_latent
-from .palu_decode import (_MAX_HEADS, _MAX_RK, FEATURES, _device_splits, _expand, _inv_freq_t,
-                          _layer, _lead, _stats, count_features)
+from .palu_decode import (_MAX_HEADS, _MAX_RK, _SMEM_BUDGET, _TILE, FEATURES, _device_splits,
+                          _expand, _inv_freq_t, _layer, _lead, _stats, _up, count_features)
+from .palu_decode_seq import _CHUNK, _CHUNK_BYTES, _head_split
 
 __all__ = ["palu_decode_fp", "palu_decode_fp_ref", "palu_decode_fp_t", "palu_decode_fp_t_ref"]
 
@@ -95,6 +96,50 @@ def _ref(q, b_k, x_k, x_v, kv_len, rank_major, theta, sliding_window, inv_freq,
     if return_stats:
         return _stats(*out, q.shape[0], q.shape[1], rv)
     return out
+
+
+@functools.lru_cache(maxsize=64)
+def _fp_plan(hd: int, rk: int, rv: int, hpg: int, nkv: int, ring: int = 0) -> Optional[dict]:
+    """The kernel's shared-memory plan over bf16 latents
+    (csrc/palu_decode_fp_wg.cu::plan_for / make_plan, the same function):
+    `smem` bytes a launch takes, `ns` ring chunks of 16 KB, `nb` B slots per
+    consumer, `resident` (B loaded once per work item), `nt` 8-head tiles a
+    consumer, `hsplit` (consumer 0's q-heads); None when no plan fits in one
+    block. ring > 0: a ring of that many chunks and no B slot (the
+    dissection's modes with no K work)."""
+    hs = _head_split(hpg, nkv)
+    rep = hpg // nkv
+    nkv0 = (hs - 1) // rep + 1 if hs > 0 else 0
+    nkv1 = (hpg - 1) // rep + 1 - hs // rep if hpg > hs else 0
+    nt = 2 if max(hs, hpg - hs) > 8 else 1
+    npw = 8 * nt
+    nck, ncv = -(-rk // _CHUNK), -(-rv // _CHUNK)
+    slot = _CHUNK * hd * 2
+
+    def total(ns: int, nb: int) -> int:
+        o = _up(ns * _CHUNK_BYTES + 2 * nb * slot, 1024)
+        o += 2 * 2 * npw * 128 + 2 * npw * hd * 4 + 2 * npw * _TILE * 4 + 2 * 3 * npw * 4
+        return _up(o, 8) + 8 * (2 * ns + 4 * nb)
+
+    def take(ns, nb, resident):
+        t = total(ns, nb)
+        return None if t > _SMEM_BUDGET else {"smem": t + 1024, "ns": ns, "nb": nb,
+                                              "resident": resident, "nt": nt, "hsplit": hs}
+
+    if ring:
+        return take(ring, 0, 0)
+    nb_res = max(nkv0, nkv1) * nck or 1
+    for ns in range(8, nck, -1):  # B resident, the ring at least a tile's K chunks plus one
+        if total(ns, nb_res) <= _SMEM_BUDGET:
+            return take(ns, nb_res, 1)
+    for ns in range(min(8, nck + ncv + 1), nck, -1):  # B streamed through nb >= 2 slots
+        nb = 2
+        if total(ns, nb) > _SMEM_BUDGET:
+            continue
+        while nb < 8 and total(ns, nb + 1) <= _SMEM_BUDGET:
+            nb += 1
+        return take(ns, nb, 0)
+    return None
 
 
 @functools.lru_cache(maxsize=64)

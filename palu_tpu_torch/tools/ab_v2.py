@@ -9,8 +9,8 @@ Variants (the JAX tool's names; a trailing number is the code width):
   v2q<b> - palu_decode2_quantized: the rank-major packed cache, affine
            scales and zeros (B, G, S), cos/sin in the kernel;
   v3q<b> - palu_decode3_quantized: the same cache with scales and zeros
-           packed (B, S, 2G), block-relative RoPE tables and the query
-           rotated per block;
+           packed (B, S, 2G) and block-relative RoPE tables (on the exact
+           kernel, which forms each tile's rotation from them);
   v4a<b> - palu_decode, asym; v4q<b> - palu_decode, sym (exact K path);
   v4g<b> - palu_decode over per-chunk scales (GSZ ranks per scale, 128);
   v4     - palu_decode_fp_t: rank-major bf16 latents;

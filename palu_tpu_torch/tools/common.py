@@ -92,17 +92,20 @@ def profile_calls(fn: Callable[[], object], iters: int) -> list:
     `iters` calls, each after the L2 flush, the events cut at each flush
     kernel (a call's kernels follow its flush); kernel us sums the durations
     of a call's kernels, span us runs from its first kernel's start to its
-    last one's end. Events before the first recorded flush are dropped (the
-    profiler can miss the first events of a profile). Raises when the flush's
-    kernel ran more often than the flushes (fn launched it too). A profile
-    with no device events is taken again; three raise."""
+    last one's end. A profile opens with one more flush than the calls, so
+    that the first events, which the profiler can miss, belong to no call (a
+    one-call profile that missed its only flush held no call); events before
+    the first recorded flush are dropped. Raises when the flush's kernel ran more
+    often than the flushes (fn launched it too). A profile with no call's
+    device events is taken again; five in a row raise."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     flush = l2_flush()
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            flush()  # the opening flush: no call follows it
             for _ in range(iters):
                 flush()
                 fn()
@@ -110,7 +113,7 @@ def profile_calls(fn: Callable[[], object], iters: int) -> list:
         evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
                      key=lambda e: e.time_range.start)
         flushes = sum(1 for e in evs if e.name in _FLUSH_KEYS)
-        if flushes > iters:
+        if flushes > iters + 1:
             raise RuntimeError(f"{flushes} flush kernels in {iters} timed calls: the timed "
                                "call launches the flush's kernel")
         calls, cur = [], None

@@ -27,7 +27,11 @@ one 16K shard with return_stats and with layer_idx on an L = 4 stack at
 kv_len = 4K, 8K, 16K and 64K, at rk 256 and 512 (8K), and at 16 q-heads
 per group (8K, rk = rv = 256); and (`v2q`) palu_decode2_quantized at ab_v2's
 v2q3 shape (8 groups of 4, rk 128, rv 384, the 3-bit rank-major cache,
-S = kv_len = 64K)."""
+S = kv_len = 64K). Then (`v3q`) palu_decode3_quantized at ab_v2's v3q2,
+v3q3 and v3q4 (64K, rotation blocks of 1024) and v3q3 at 8K, each held
+against its plain version first; and (`dissect`) the dissection's five
+modes at the tool's shape (64K) beside palu_decode_fp on the same
+inputs."""
 import json
 import os
 import sys
@@ -72,7 +76,24 @@ def main(root: str, tag: str) -> None:
     x = cs.ab_v2.make_inputs(65536, 65536, torch.device("cuda"), gen)
     v = cs.ab_v2.variant("v2q3", x, 1024)
     t("v2q3_64k", v["fn"], 10)
+    del v
+    for name in ("v3q3", "v3q2", "v3q4"):
+        v = cs.ab_v2.variant(name, x, 1024)
+        cs._held_decode(f"{name}_64k", v["fn"](), v["ref"]())
+        t(f"{name}_64k", v["fn"], 10)
+        del v
+    del x
+    x = cs.ab_v2.make_inputs(8192, 8192, torch.device("cuda"), gen)
+    v = cs.ab_v2.variant("v3q3", x, 1024)
+    cs._held_decode("v3q3_8k", v["fn"](), v["ref"]())
+    t("v3q3_8k", v["fn"])
     del x, v
+    d = cs.dissect.make_inputs(65536, torch.device("cuda"), gen)
+    ops = (d["q"], d["b_k"], d["x_k"], d["x_v"], d["kv_len"])
+    for mode in cs.dissect.MODES:
+        t(f"dissect_{mode}", lambda: cs.dissect.palu_decode_fp_dissect(mode, *ops), 10)
+    t("dissect_palu_decode_fp", lambda: cs.palu_decode_fp(*ops), 10)
+    del d, ops
     print(json.dumps({"ab": tag, "root": root, "seconds": round(time.perf_counter() - t0, 1),
                       **res}), flush=True)
 

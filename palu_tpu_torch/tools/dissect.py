@@ -1,31 +1,34 @@
 """Dissect a latent decode's time on the card (port of
-tools/tpu_dissect.py): the split kernel over seq-major bf16 latents
-(csrc/palu_decode_fp.cu) that served palu_decode_fp until the bf16
-decodes moved to csrc/palu_decode_fp_wg.cu, run in five modes.
+tools/tpu_dissect.py): the kernel palu_decode_fp launches over seq-major
+bf16 latents (csrc/palu_decode_fp_wg.cu), run in five modes.
 
 Modes (the JAX tool's names):
-  full      - that kernel whole (held against palu_decode_fp's plain
-              version; it is not the kernel palu_decode_fp launches now);
-  novalue   - the V contraction dropped; emits each head's softmax
-              statistics (m, l);
-  nologits  - the K rebuild and q dot replaced by fake logits, 1e-6 times
-              each token's x_k summed over ranks (the block's own group; the
-              TPU block held every group and summed group 0's); value path
-              kept;
-  dmaonly   - the tile loads kept, every loaded element added into an exact
-              checksum, no products;
-  noop      - the tile loads kept, each 16-byte piece folded once into the
-              checksum, nothing else.
-Then the split of full's time: the K rebuild (full - nologits), the value
-path (full - novalue), the loads plus grid (dmaonly, noop), beside the
-production palu_decode_fp call. Every mode is held against its plain
-version on the same inputs; full also against palu_decode_fp_ref. Usage:
+  full      - that kernel whole, through palu_decode_fp's own launcher
+              (its plan and splits): bit-identical to palu_decode_fp;
+  novalue   - the V products dropped (the V chunks still stream); emits
+              each head's softmax statistics (m, l);
+  nologits  - no B streamed, no K product and no rotation: fake logits, 1e-6
+              times each token's x_k summed over ranks (the block's own
+              group; the TPU block held every group and summed group 0's),
+              feed the softmax and the V products;
+  dmaonly   - the TMA ring of cache chunks kept, every staged element's
+              16-bit pattern added into an exact checksum, no products;
+  noop      - the same ring, each 16-byte piece folded once (the XOR of its
+              four words) into the checksum, nothing else.
+The modes with no K work (nologits, dmaonly, noop) keep palu_decode_fp's
+ring depth and stage no B (`dissect_plan`). The checksums count the cache's
+own elements: a box's ranks past r and tokens past S arrive as zeros and
+add 0, as the plain version (which never sees them) counts them. Then the
+split of full's time: the K rebuild (full - nologits), the value path (full
+- novalue), the loads plus grid (dmaonly, noop), beside the production
+palu_decode_fp call. Every mode is held against its plain version on the
+same inputs; full also bit for bit against palu_decode_fp. Usage:
 
   python -m palu_tpu_torch.tools.dissect [seq] [block_s] [mode,mode,...]
   python -m palu_tpu_torch.tools.dissect 512 128 --use_cpu
 
 block_s is the plain versions' sequence block (the TPU grid's block); the
-kernel walks the production decode's 64-token tiles in its own split.
+kernel walks the production decode's 64-token tiles in its own splits.
 """
 
 from __future__ import annotations
@@ -37,12 +40,12 @@ from typing import List
 import torch
 
 from ..ops import build
-from ..ops.palu_decode import _device_splits, _rope_tables
-from ..ops.palu_decode_fp import palu_decode_fp, palu_decode_fp_ref
+from ..ops.palu_decode import _device_splits, _inv_freq_t, _rope_tables
+from ..ops.palu_decode_fp import _fp_plan, _launch, palu_decode_fp, palu_decode_fp_ref
 from . import common
 
-__all__ = ["palu_decode_fp_dissect", "dissect_ref", "make_inputs", "parser", "run", "main",
-           "MODES", "DECODE_TOL"]
+__all__ = ["palu_decode_fp_dissect", "dissect_ref", "dissect_plan", "dissect_route",
+           "make_inputs", "parser", "run", "main", "MODES", "DECODE_TOL"]
 
 MODES = ("full", "novalue", "nologits", "dmaonly", "noop")
 G, HPG, RK, RV, HD = 8, 4, 128, 384, 128
@@ -126,57 +129,95 @@ def dissect_ref(mode: str, q, b_k, x_k, x_v, kv_len, *, block_s: int = 512,
     return {"out": (acc / l[..., None]).reshape(b, nh, rv), "stats": stats}
 
 
+def dissect_plan(mode: str, hd: int, rk: int, rv: int, hpg: int) -> dict:
+    """The shared-memory plan a mode launches with, one B per q-head
+    (csrc/palu_decode_fp_wg.cu::dissect_plan, the same function): full and
+    novalue take palu_decode_fp's (ops/palu_decode_fp._fp_plan); the modes
+    with no K work its ring depth and no B slot. Raises ValueError where the
+    kernel cannot run: no plan fits, or (the cut modes, instantiated at the
+    tool's shape) a head dim other than 128 or more than one 8-head tile a
+    consumer (over 16 heads a group)."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if mode != "full" and hd != 128:
+        raise ValueError(f"the dissection's cut modes take hd 128 (the tool's), got {hd}")
+    plan = _fp_plan(hd, rk, rv, hpg, hpg)
+    if plan is None:
+        raise ValueError(f"the decode kernel's tile ring and B do not fit in a block's shared "
+                         f"memory at hd {hd}, rk {rk}, rv {rv}, {hpg} heads per group")
+    if mode != "full" and plan["nt"] != 1:
+        raise ValueError(f"the dissection's cut modes take at most 16 heads a group, got {hpg}")
+    if mode in ("nologits", "dmaonly", "noop"):
+        plan = _fp_plan(hd, rk, rv, hpg, hpg, ring=plan["ns"])
+    return plan
+
+
+def dissect_route(mode: str) -> tuple:
+    """(source, C entry point) a mode launches: full palu_decode_fp's own
+    kernel, the others its body's dissection instantiations."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    return ("palu_decode_fp_wg", "palu_decode_fp_wg" if mode == "full" else
+            "palu_decode_fp_dissect")
+
+
 def palu_decode_fp_dissect(mode: str, q, b_k, x_k, x_v, kv_len, *,
                            theta: float = THETA) -> torch.Tensor:
-    """One mode of the split kernel over seq-major bf16 latents
-    x_k (B, G, S, rk), x_v (B, G, S, rv) (rk <= 128, every head's B in
-    shared memory), q (B, nh, hd), b_k (G, hpg, rk, hd), kv_len (B,). ->
-    full / nologits: (B, nh, rv) f32; novalue: (B, nh, 2) f32 (m, l);
-    dmaonly / noop: (1,) int64 checksum. CUDA tensors launch the kernel in
-    its split grid; CPU tensors run dissect_ref."""
+    """One mode of the decode kernel over seq-major bf16 latents x_k (B, G,
+    S, rk), x_v (B, G, S, rv), q (B, nh, hd), b_k (G, hpg, rk, hd), kv_len
+    (B,). -> full / nologits: (B, nh, rv) f32; novalue: (B, nh, 2) f32 (m,
+    l); dmaonly / noop: (1,) int64 checksum. CUDA tensors launch the kernel
+    at palu_decode_fp's splits (full: palu_decode_fp's launch itself; the
+    others: palu_decode_fp's shapes at hd 128 with at most 16 heads a
+    group, dissect_plan); CPU tensors run dissect_ref."""
     if not q.is_cuda:
         ref = dissect_ref(mode, q, b_k, x_k, x_v, kv_len, theta=theta)
         return ref["stats"] if mode == "novalue" else ref.get("out", ref.get("checksum"))
     _check(q, b_k, x_k, x_v, kv_len)
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if mode == "full":
+        out = _launch(q, b_k, x_k, x_v, kv_len, False, theta, None, None, 1.0, None)
+        palu_decode_fp_dissect.launches += 1
+        return out
     b, nh, hd = q.shape
     g, hpg, rk = b_k.shape[:3]
     s_max, rv = x_k.shape[2], x_v.shape[3]
     if any(t.dtype != torch.bfloat16 for t in (b_k, x_k, x_v)) or \
             q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError("b_k and the latents must be bf16, q bf16 or f32")
-    if hd not in (64, 128) or rk % 16 or rk > 128 or rv % 8 or s_max % 8 or hpg > 32:
-        raise ValueError(f"the dissection needs hd 64 or 128, rk a multiple of 16 up to 128, "
-                         f"rv and S multiples of 8 and <= 32 heads per group (hd={hd}, "
-                         f"rk={rk}, rv={rv}, S={s_max}, hpg={hpg})")
-    if not (x_k.is_contiguous() and x_v.is_contiguous()):
-        raise ValueError("cache buffers must be contiguous")
+    if rk % 16 or rk > 512 or rv % 8 or rv > 512 or s_max % 8:
+        raise ValueError(f"the dissection needs rk a multiple of 16 and rv of 8, both up to "
+                         f"512, and S a multiple of 8 (rk={rk}, rv={rv}, S={s_max})")
+    dissect_plan(mode, hd, rk, rv, hpg)
+    if not (x_k.is_contiguous() and x_v.is_contiguous()) or \
+            any(t.data_ptr() % 16 for t in (x_k, x_v, b_k)):
+        raise ValueError("cache buffers must be contiguous and 16-byte aligned")
     dev = q.device
-    cos_t, sin_t = _rope_tables(s_max, hd, theta, None, 1.0, dev)
-    splits, per, _ = _device_splits(dev, b * g, s_max)
+    inv = _inv_freq_t(hd, float(theta), None, str(dev))
+    splits, _, grid = _device_splits(dev, b * g, s_max)
     # the decodes' scratch layout (per-split m, l, accumulators, out), then
-    # the statistics and the checksums
+    # the statistics and the checksum
     n_part = b * nh * splits
     n_f = n_part * (2 + rv) + b * nh * rv
     scratch = torch.empty(n_f + b * nh * 2, dtype=torch.float32, device=dev)
     out = scratch[n_part * (2 + rv):n_f].view(b, nh, rv)
     stats = scratch[n_f:].view(b, nh, 2)
-    cks = torch.empty(b * g * splits + 1, dtype=torch.int64, device=dev)
+    ck = torch.empty(1, dtype=torch.int64, device=dev)
     qc, kvl = q.contiguous(), kv_len.to(torch.int32).contiguous()
-    err = build.launcher("palu_decode_fp", "palu_decode_fp_dissect", "ipip" + "p" * 12 +
+    err = build.launcher("palu_decode_fp_wg", "palu_decode_fp_dissect", "ipip" + "p" * 10 +
                          "i" * 9 + "fp")(
         MODES.index(mode), qc.data_ptr(), int(q.dtype == torch.bfloat16),
         b_k.contiguous().data_ptr(), x_k.data_ptr(), x_v.data_ptr(), kvl.data_ptr(),
-        cos_t.data_ptr(), sin_t.data_ptr(), scratch.data_ptr(), scratch[n_part:].data_ptr(),
-        scratch[2 * n_part:].data_ptr(), cks.data_ptr(), out.data_ptr(), stats.data_ptr(),
-        cks[b * g * splits:].data_ptr(), b, g, hpg, hd, rk, rv, s_max, splits, per,
-        float(math.sqrt(hd)), build.stream_ptr(dev))
+        inv.data_ptr(), scratch.data_ptr(), scratch[n_part:].data_ptr(),
+        scratch[2 * n_part:].data_ptr(), out.data_ptr(), stats.data_ptr(), ck.data_ptr(),
+        b, g, hpg, hd, rk, rv, s_max, splits, grid, float(1.0 / math.sqrt(hd)),
+        build.stream_ptr(dev))
     build.check(err, f"palu_decode_fp_dissect ({mode})")
     palu_decode_fp_dissect.launches += 1
-    if mode in ("full", "nologits"):
+    if mode == "nologits":
         return out
-    return stats if mode == "novalue" else cks[b * g * splits:]
+    return stats if mode == "novalue" else ck
 
 
 palu_decode_fp_dissect.launches = 0
@@ -251,7 +292,11 @@ def run(args) -> List[dict]:
                "held": _held(mode, got, ref)}
         if mode == "full":
             rec["vs_palu_decode_fp_ref"] = common.held(got, palu_decode_fp_ref(*ops), DECODE_TOL)
-            rec["held"]["ok"] = rec["held"]["ok"] and rec["vs_palu_decode_fp_ref"]["ok"]
+            checks = ["held", "vs_palu_decode_fp_ref"]
+            if dev.type == "cuda":  # the production kernel: bit for bit
+                rec["vs_palu_decode_fp"] = common.held(got, palu_decode_fp(*ops), None)
+                checks.append("vs_palu_decode_fp")
+            rec["held"]["ok"] = all(rec[k]["ok"] for k in checks)
         if mode in ("dmaonly", "noop"):
             rec["checksum"] = int(got[0])
         rec.update(common.time_call(lambda: palu_decode_fp_dissect(mode, *ops), dev, args.nch))

@@ -1410,14 +1410,14 @@ def test_decode_kernels_scaled_rope_match_plain(gen, scaling):
 @pytest.mark.parametrize("size", ["small", "tool"])
 @pytest.mark.parametrize("mode", ["full", "novalue", "nologits", "dmaonly", "noop"])
 def test_dissect_modes_match_plain(gen, size, mode):
-    """Each dissection mode against its plain version; full (the split
-    kernel that served palu_decode_fp before csrc/palu_decode_fp_wg.cu)
-    also within 2e-3 of palu_decode_fp's plain version."""
-    from palu_tpu_torch.ops.palu_decode_fp import palu_decode_fp_ref
+    """Each dissection mode of palu_decode_fp's kernel against its plain
+    version; full (that kernel through palu_decode_fp's launcher) also bit
+    for bit against palu_decode_fp and within 2e-3 of its plain version."""
+    from palu_tpu_torch.ops.palu_decode_fp import palu_decode_fp, palu_decode_fp_ref
     from palu_tpu_torch.tools import dissect
 
-    if size == "small":
-        b, g, hpg, rk, rv, hd, s = 2, 2, 4, 32, 64, 64, 512
+    if size == "small":  # the cut modes take the tool's hd 128
+        b, g, hpg, rk, rv, hd, s = 2, 2, 4, 32, 64, 128, 512
         q = torch.randn((b, g * hpg, hd), generator=gen, device="cuda").bfloat16()
         b_k = (torch.randn((g, hpg, rk, hd), generator=gen, device="cuda") * 0.1).bfloat16()
         x_k, x_v = (torch.randn((b, g, s, r), generator=gen, device="cuda").bfloat16()
@@ -1439,9 +1439,54 @@ def test_dissect_modes_match_plain(gen, size, mode):
             assert (got[..., i] - want).abs().max() <= 2e-3 * want.abs().max()
     else:
         assert (got - ref["out"]).abs().max() <= 2e-3 * ref["out"].abs().max()
-    if mode == "full":  # the pre-redesign split kernel, against palu_decode_fp's plain version
+    if mode == "full":  # palu_decode_fp's kernel: bit for bit, and against its plain version
+        assert torch.equal(got, palu_decode_fp(*ops))
         want = palu_decode_fp_ref(*ops)
         assert (got - want).abs().max() <= 2e-3 * want.abs().max()
+
+
+def test_dissect_plan_matches_python_mirror(gen):
+    """The dissection's shared-memory plan (palu_decode_fp_dissect_plan) is
+    the tool's mirror (dissect_plan): bytes, ring chunks, B slots,
+    residence, 8-head tiles; the modes with no K work stage no B."""
+    import ctypes
+
+    from palu_tpu_torch.ops import build
+    from palu_tpu_torch.tools import dissect
+
+    fn = build.launcher("palu_decode_fp_wg", "palu_decode_fp_dissect_plan", "iiiiip")
+    for mode, hd, rk, rv, hpg in itertools.product(dissect.MODES, (64, 128), (32, 128, 256, 512),
+                                                   (64, 384, 512), (1, 4, 16)):
+        if mode != "full" and hd != 128:  # the cut modes: the tool's hd only
+            continue
+        out = (ctypes.c_int * 5)()
+        fn(dissect.MODES.index(mode), hd, rk, rv, hpg, ctypes.addressof(out))
+        want = dissect.dissect_plan(mode, hd, rk, rv, hpg)
+        assert list(out) == [want[k] for k in ("smem", "ns", "nb", "resident", "nt")], \
+            (mode, hd, rk, rv, hpg)
+
+
+def test_dissect_cut_modes_at_large_ranks(gen):
+    """The cut modes past one 128-rank chunk (rk 256, rv 320: a V chunk
+    whose second box is not loaded) and at rv 512 (nologits' MT 8) against
+    their plain versions."""
+    from palu_tpu_torch.tools import dissect
+
+    b, g, hpg, hd, s = 1, 2, 4, 128, 1024
+    for rk, rv, mode in itertools.product((256,), (320, 512), dissect.MODES):
+        q = torch.randn((b, g * hpg, hd), generator=gen, device="cuda").bfloat16()
+        b_k = (torch.randn((g, hpg, rk, hd), generator=gen, device="cuda") * 0.05).bfloat16()
+        x_k, x_v = (torch.randn((b, g, s, r), generator=gen, device="cuda").bfloat16()
+                    for r in (rk, rv))
+        ops = (q, b_k, x_k, x_v, torch.tensor([1000], dtype=torch.int32, device="cuda"))
+        got = dissect.palu_decode_fp_dissect(mode, *ops)
+        ref = dissect.dissect_ref(mode, *ops)
+        if mode in ("dmaonly", "noop"):
+            assert torch.equal(got.cpu(), ref["checksum"].cpu()), mode
+        else:
+            want = ref["stats"][..., 1] if mode == "novalue" else ref["out"]
+            have = got[..., 1] if mode == "novalue" else got
+            assert (have - want).abs().max() <= 2e-3 * want.abs().max(), mode
 
 
 @pytest.mark.parametrize("probe", ["bs1024", "bs4096", "merged1024", "konly1024", "bs64"])
@@ -1588,6 +1633,54 @@ def test_decode2_quantized_runs_the_exact_kernel(gen, bits):
         got = d2.palu_decode2_quantized(*ops, **kw)
         assert d2.palu_decode2_quantized.launches == n0 + 1 and palu_decode.launches == p0
         _held_decode(got, d2.palu_decode2_quantized_ref(*ops, **kw))
+
+
+@pytest.mark.parametrize("block_s", [64, 128, 1024])
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+def test_decode3_runs_the_exact_kernel(gen, bits, block_s):
+    """palu_decode3_quantized on the exact kernel's v3 instantiation at every
+    pack width and rotation blocks of 64, 128 and 1024 tokens, kv_len < S
+    and a window: held against its plain version within 2e-3, counted on
+    its own counter and not on palu_decode's."""
+    from palu_tpu_torch.ops.archive import palu_decode3 as d3
+
+    x = _archive_case(gen, "small", (300, 1000), bits, {})
+    ops = (x["q"], x["b_k"], *x["v3q"], x["kv_len"])
+    for window in (None, 200):
+        kw = dict(qcfg=x["qcfg"], rk=x["rk"], rv=x["rv"], block_s=block_s, sliding_window=window)
+        n0, p0 = d3.palu_decode3_quantized.launches, palu_decode.launches
+        got = d3.palu_decode3_quantized(*ops, **kw)
+        assert d3.palu_decode3_quantized.launches == n0 + 1 and palu_decode.launches == p0
+        _held_decode(got, d3.palu_decode3_quantized_ref(*ops, **kw))
+
+
+def test_v3_plan_matches_python_mirror(gen):
+    """The exact kernel's shared-memory plans (palu_decode_v3_smem, and
+    palu_decode_exact_smem for v4 and v2) are the Python mirror's
+    (_exact_plan); the v3 kernel runs at an odd G (no TMA row alignment
+    binds its gathered scales)."""
+    from palu_tpu_torch.ops import build
+    from palu_tpu_torch.ops.archive import palu_decode3 as d3
+    from palu_tpu_torch.ops.palu_decode import _exact_plan
+
+    v3 = build.launcher("palu_decode_exact", "palu_decode_v3_smem", "i" * 6)
+    v4 = build.launcher("palu_decode_exact", "palu_decode_exact_smem", "i" * 10)
+    for hd, rk, rv, hpg, pbits in itertools.product((64, 128), (32, 128, 256, 512),
+                                                    (64, 384, 512), (1, 4, 28), (2, 3, 4, 8)):
+        nrk, nrv = packed_nrows(rk, pbits), packed_nrows(rv, pbits)
+        want = _exact_plan(hd, rk, rv, hpg, hpg, nrk, nrv, 1, 1, True)
+        assert v3(hd, rk, rv, hpg, nrk, nrv) == (want["smem"] if want else -1)
+        for asym in (0, 1):
+            want = _exact_plan(hd, rk, rv, hpg, hpg, nrk, nrv, 1, 1, bool(asym))
+            assert v4(hd, rk, rv, hpg, hpg, nrk, nrv, 1, 1, asym) == (want["smem"] if want
+                                                                      else -1)
+    x = _archive_case(gen, "small", (300, 1024), 3, {})
+    kc, ksz, vc, vsz = x["v3q"]  # group 0 alone: G 1
+    one = (x["q"][:, :4].contiguous(), x["b_k"][:1], kc[:, :1].contiguous(),
+           ksz[..., [0, 2]].contiguous(), vc[:, :1].contiguous(), vsz[..., [0, 2]].contiguous(),
+           x["kv_len"])
+    kw = dict(qcfg=x["qcfg"], rk=x["rk"], rv=x["rv"], block_s=256)
+    _held_decode(d3.palu_decode3_quantized(*one, **kw), d3.palu_decode3_quantized_ref(*one, **kw))
 
 
 @pytest.mark.parametrize("rope", ["llama3", "yarn"])
