@@ -16,7 +16,9 @@ Phases, each printing one JSON line:
                 memory in the register-streamed GEMVs (gemv4_n32,
                 gemv4_ldg, gemv_kn, and mlp8_ldg of the int8 MLP), the
                 append kernel's shuffles with no local memory and no
-                spill; the kernels' registers and spills from ptxas;
+                spill, the archived v2 bf16 decode's MT 6 instantiation
+                with wgmma, TMA and no local memory, the unpack probe's
+                TMA and wgmma; the kernels' registers and spills from ptxas;
                 every phase's line carries t_s, seconds since the start;
   3. kernels  - each kernel against its plain PyTorch version on the card at
                 the main path's shapes (7B widths; the append: one launch a
@@ -490,6 +492,15 @@ def phase_build() -> None:
           # beside the gated ones: registers and spill stores of each
           "v3_decode_ptxas": kernel_ptxas("palu_decode_exact", "palu_decode_v3_kernel"),
           "dissect_ptxas": kernel_ptxas("palu_decode_fp_wg", "palu_decode_fp_dissect_kernel"),
+          # the archived v2 bf16 decode's instantiations (MT 4 / 6 / 8): no
+          # local memory at MT 6, the tool's rv 384; the unpack probe's eight
+          # variants on TMA (all) and wgmma (the mm variants)
+          "v2_decode_ptxas": {**kernel_ptxas("palu_decode_fp_wg", "palu_decode_fp_v2_kernel"),
+                              "mt6_sass": kernel_sass("palu_decode_fp_wg",
+                                                      "palu_decode_fp_v2_kernelILi6E",
+                                                      ("HGMMA", "UTMALDG", "LDL", "STL"))},
+          "unpack_ptxas": {**kernel_ptxas("unpack_probe", "unpack_kernel"),
+                           "sass": hopper_sass("unpack_probe")},
           "i8_decode_sass": {**hopper_sass("palu_decode_i8", reported=("IMMA",)),
                              "ptxas": regs.get("palu_decode_i8", [])},
           # the streaming GEMVs: mma.sync, TMA tiles, bulk copies (int4
@@ -3051,8 +3062,9 @@ PROBES = (
      "tools/tpu_unpack_probe.py:57", "ext4cc"),
     ("gemv_probe", gemv_probe, gemv_probe.ALL_PROBES, "gemv_bf16",
      "palu_tpu_torch/csrc/gemv_bf16.cu", "tools/tpu_gemv_probe.py:54", "pallas"),
-    ("ab_v2", ab_v2, ab_v2.ALL_VARIANTS, "palu_decode2", "palu_tpu_torch/csrc/palu_decode_fp.cu",
-     "palu_tpu/ops/pallas/archive/palu_decode2.py:287", "v2"),
+    ("ab_v2", ab_v2, ab_v2.ALL_VARIANTS, "palu_decode2",
+     "palu_tpu_torch/csrc/palu_decode_fp_wg.cu", "palu_tpu/ops/pallas/archive/palu_decode2.py:287",
+     "v2"),
     ("ab_v2_kvl", ab_v2, ["--kvl", "40000", "v2", "v2q3", "v3q3"], None, None, None, None),
     ("mlp_a8_probe", mlp_a8_probe, [], "mlp_a8", "palu_tpu_torch/csrc/mlp_a8.cu",
      "tools/tpu_mlp_a8_probe.py:86", "a8"),

@@ -1,9 +1,10 @@
 // Shared pieces of the latent decode kernels (palu_decode_exact.cu and
 // palu_decode_i8.cu over the rank-major packed cache and the v3 one,
-// palu_decode_fp_wg.cu over the unquantized caches and the seq-major packed
-// one, palu_decode_fp.cu's v2 layout) and of the tools' kernels: async
-// copies, ldmatrix and bf16 mma.sync wrappers, warp reductions, the row sums
-// of B, and the kernel that combines the split-sequence partials.
+// palu_decode_fp_wg.cu over the unquantized caches, v2's among them, and
+// the seq-major packed one) and of the tools' kernels: async copies,
+// ldmatrix and bf16 mma.sync wrappers, warp reductions, the work items'
+// tiles, the row sums of B, and the kernel that combines the
+// split-sequence partials.
 //
 // The split pass writes, per (lane, q-head) row and split s, the running
 // max m_s, the softmax denominator l_s and the unnormalised latent
@@ -30,14 +31,6 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
 }
 
-// Four transposed 8x8 bf16 tiles from shared memory (row addresses per lane).
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
 // Four 8x8 bf16 tiles from shared memory, not transposed.
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
   const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -55,8 +48,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
-
-__host__ __device__ inline size_t al(size_t x) { return (x + 127) & ~size_t(127); }
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

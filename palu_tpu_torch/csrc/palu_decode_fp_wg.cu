@@ -8,6 +8,11 @@
 // palu_tpu/ops/pallas/palu_decode4.py::palu_flash_decode4 (the v4 kernel
 // over rank-major latents (B, G, r, S), with k_bias, pos_offset,
 // return_stats and layer_idx); RM selects the layout, nothing else differs.
+// And palu_tpu/ops/pallas/archive/palu_decode2.py::palu_flash_decode2, the
+// archived v2 kernel over K seq-major and V rank-major latents
+// (palu_decode_fp_v2_kernel: the body's K and V layouts apart, RMK false,
+// RMV true; each side's chunks come in their own form, see k_chain and the
+// V product).
 //
 // What it computes, per lane b, group g, kv-head j of the group and each of
 // the rep q-heads h that read it (rep = hpg / nkv; 1 for JAX's repeated
@@ -666,10 +671,12 @@ __device__ __forceinline__ void cursor_next(const Args& a, Cursor& c) {
   }
 }
 
-// HD: head dim; RM: rank-major latents; NT: 8-head tiles of a consumer's
-// q-heads; MT: 64-rank blocks of the V accumulators, rv <= 64 MT; PK: the
-// packed seq-major cache (RM false); MODE: a dissection mode (kFull serves)
-template <int HD, bool RM, int NT, int MT, bool PK, int MODE = kFull>
+// HD: head dim; RMK / RMV: rank-major K / V latents (the v2 layout: K
+// seq-major, V rank-major; every other caller one layout for both); NT:
+// 8-head tiles of a consumer's q-heads; MT: 64-rank blocks of the V
+// accumulators, rv <= 64 MT; PK: the packed seq-major cache (RMK and RMV
+// false); MODE: a dissection mode (kFull serves)
+template <int HD, bool RMK, bool RMV, int NT, int MT, bool PK, int MODE = kFull>
 __device__ __forceinline__ void decode_body(const CUtensorMap& tm_k, const CUtensorMap& tm_v,
                                             const CUtensorMap& tm_b, const Args& a) {
   constexpr int NACC = HD / 2;  // K accumulator registers per thread
@@ -818,7 +825,7 @@ __device__ __forceinline__ void decode_body(const CUtensorMap& tm_k, const CUten
             const bool v = ch >= L.nck;
             const int c = v ? ch - L.nck : ch, r = v ? a.rv : a.rk;
             const CUtensorMap* map = v ? &tm_v : &tm_k;
-            if (RM) {
+            if (v ? RMV : RMK) {
               mbar_expect_tx(fb, kTile * (v ? L.rows_v : kChunk) * 2);
               tma_load(dst, map, fb, s0, c * kChunk, plane);
             } else {  // the K chunk whole (its k-steps read both boxes), V as far as rv
@@ -938,10 +945,10 @@ __device__ __forceinline__ void decode_body(const CUtensorMap& tm_k, const CUten
         for (int part = 0; part < (FOLD ? 1 : 2); ++part)
 #pragma unroll
           for (int mt = 0; mt < MT; ++mt)
-            wgmma_v<RM ? 0 : 1>(vacc[mt],
-                                RM ? sw128_desc(blk[mt] + kk * 32, 16, 1024)
-                                   : sw128_desc(blk[mt] + kk * 2048, 8192, 1024),
-                                sw128_desc((part ? p_lo : p_hi) + kk * 32, 16, 1024));
+            wgmma_v<RMV ? 0 : 1>(vacc[mt],
+                                 RMV ? sw128_desc(blk[mt] + kk * 32, 16, 1024)
+                                     : sw128_desc(blk[mt] + kk * 2048, 8192, 1024),
+                                 sw128_desc((part ? p_lo : p_hi) + kk * 32, 16, 1024));
       wgmma_commit();
       wgmma_wait0();
 #pragma unroll
@@ -978,7 +985,7 @@ __device__ __forceinline__ void decode_body(const CUtensorMap& tm_k, const CUten
           mbar_wait(my_bfull + 8 * slot, (use / L.nb) & 1);  // (resident: done after the first)
           fence_regs(kv);
           wgmma_fence();
-          k_chain<HD, RM>(kv, base + ((it + bc) % L.ns) * kChunkBytes,
+          k_chain<HD, RMK>(kv, base + ((it + bc) % L.ns) * kChunkBytes,
                           my_bslots + slot * L.slot_bytes, bc == 0);
           wgmma_commit();
           wgmma_wait0();
@@ -1089,14 +1096,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 palu_decode_fp_wg_kernel(const __grid_constant__ CUtensorMap tm_k,
                          const __grid_constant__ CUtensorMap tm_v,
                          const __grid_constant__ CUtensorMap tm_b, const Args a) {
-  decode_body<HD, RM, NT, MT, false>(tm_k, tm_v, tm_b, a);
+  decode_body<HD, RM, RM, NT, MT, false>(tm_k, tm_v, tm_b, a);
 }
 
 // the packed seq-major cache (tm_b alone is read)
 template <int HD, int NT, int MT>
 __global__ void __launch_bounds__(kThreads, 1)
 palu_decode_seq_wg_kernel(const __grid_constant__ CUtensorMap tm_b, const Args a) {
-  decode_body<HD, false, NT, MT, true>(tm_b, tm_b, tm_b, a);
+  decode_body<HD, false, false, NT, MT, true>(tm_b, tm_b, tm_b, a);
 }
 
 // the dissection's modes other than kFull over seq-major latents, one
@@ -1106,7 +1113,28 @@ __global__ void __launch_bounds__(kThreads, 1)
 palu_decode_fp_dissect_kernel(const __grid_constant__ CUtensorMap tm_k,
                               const __grid_constant__ CUtensorMap tm_v,
                               const __grid_constant__ CUtensorMap tm_b, const Args a) {
-  decode_body<HD, false, 1, MT, false, MODE>(tm_k, tm_v, tm_b, a);
+  decode_body<HD, false, false, 1, MT, false, MODE>(tm_k, tm_v, tm_b, a);
+}
+
+// the archived v2 layout (K seq-major, V rank-major, one B per q-head), at
+// the v2 tool's head dim and one 8-head tile a consumer: the instantiations
+// its tool and tests run (each adds to this source's build)
+template <int MT>
+__global__ void __launch_bounds__(kThreads, 1)
+palu_decode_fp_v2_kernel(const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_b, const Args a) {
+  decode_body<128, false, true, 1, MT, false>(tm_k, tm_v, tm_b, a);
+}
+
+template <int MT>
+int launch_v2(int grid, const CUtensorMap (&tm)[3], const Args& a, cudaStream_t st) {
+  const int smem = static_cast<int>(a.L.total) + 1024;
+  auto kern = palu_decode_fp_v2_kernel<MT>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<grid, kThreads, smem, st>>>(tm[0], tm[1], tm[2], a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int HD, int MT, int MODE>
@@ -1291,6 +1319,74 @@ extern "C" int palu_decode_fp_wg(const void* q, int q_bf16, const void* bk, cons
                                 static_cast<const float*>(part_acc), static_cast<float*>(out),
                                 B * G * hpg, splits, rv, st, static_cast<float*>(m_out),
                                 static_cast<float*>(l_out));
+}
+
+// The v2 layout's plan (one B per q-head; palu_decode_fp's plan, the same
+// 16 KB chunks): out = {smem bytes, ring chunks, B slots per consumer,
+// resident, 8-head tiles a consumer}, or out[0] = -1 when no plan fits in
+// one block.
+extern "C" int palu_decode_fp_v2_plan(int hd, int rk, int rv, int hpg, int* out) {
+  int nt = 1;
+  const Plan p = plan_for(hd, rk, rv, hpg, hpg, nullptr, &nt);
+  out[0] = p.ok ? static_cast<int>(p.total) + 1024 : -1;
+  out[1] = p.ns, out[2] = p.nb, out[3] = p.resident, out[4] = nt;
+  return 0;
+}
+
+// The archived v2 decode over bf16 latents (replaces
+// palu_tpu/ops/pallas/archive/palu_decode2.py::palu_flash_decode2, an A/B
+// baseline with no product call site): the kernel palu_decode_fp launches,
+// with K seq-major and V rank-major (the v2 cache's layouts; the producer
+// loads each side's chunks in its own form, K's product reads x_k^T
+// K-major and V's reads V K-major). q (B, nh, hd) bf16 or f32, roped at the
+// current position; bk (G, hpg, rk, hd) bf16, one B per q-head; xk (B, G,
+// S, rk) and xv_t (B, G, rv, S) bf16; kv_len (B,) int32; inv_freq (hd / 2,)
+// f32 (the RoPE angle of position s and frequency j is the f32 product s *
+// inv_freq[j], cos and sin times rope_scale); partials and out as
+// palu_decode_fp_wg. hd 128, rk a multiple of 16 and rv of 8, both up to
+// 512, hpg <= 16 (one 8-head tile a consumer), S a multiple of 8; no K
+// bias, offset or layer stack.
+extern "C" int palu_decode_fp_v2(const void* q, int q_bf16, const void* bk, const void* xk,
+                                 const void* xv_t, const void* kv_len, const void* inv_freq,
+                                 void* part_m, void* part_l, void* part_acc, void* out, int B,
+                                 int G, int hpg, int hd, int rk, int rv, int S, int window,
+                                 int splits, int grid, float inv_sqrt_hd, float rope_scale,
+                                 void* stream) {
+  if (hd != 128 || rk % 16 || rv % 8 || rk <= 0 || rv <= 0 || rk > kMaxRank || rv > kMaxRank ||
+      hpg <= 0 || hpg > kWgHeads || S % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{};
+  int nt = 1;
+  a.L = plan_for(hd, rk, rv, hpg, hpg, &a.hsplit, &nt);
+  if (!a.L.ok || nt != 1) return static_cast<int>(cudaErrorInvalidValue);
+  a.q = q;
+  a.q_bf16 = q_bf16;
+  a.inv_freq = static_cast<const float*>(inv_freq);
+  a.kv_len = static_cast<const int*>(kv_len);
+  a.part_m = static_cast<float*>(part_m);
+  a.part_l = static_cast<float*>(part_l);
+  a.part_acc = static_cast<float*>(part_acc);
+  a.B = B, a.G = G, a.hpg = hpg, a.nkv = hpg, a.rep = 1, a.rk = rk, a.rv = rv, a.S = S;
+  a.window = window;
+  a.splits = splits, a.n_items = B * G * splits;
+  a.inv_sqrt_hd = inv_sqrt_hd, a.rope_scale = rope_scale;
+  const uint64_t planes = static_cast<uint64_t>(B) * G;
+  const auto bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  CUtensorMap tm[3];
+  if (!(make_map_3d(&tm[0], bf, 2, xk, rk, S, planes, 64, kTile, sw) &&
+        make_map_3d(&tm[1], bf, 2, xv_t, S, rv, planes, kTile, a.L.rows_v, sw) &&
+        make_map_3d(&tm[2], bf, 2, bk, hd, rk, static_cast<uint64_t>(G) * hpg, 64, kChunk, sw)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = rv <= 256   ? launch_v2<4>(grid, tm, a, st)
+                  : rv <= 384 ? launch_v2<6>(grid, tm, a, st)
+                              : launch_v2<8>(grid, tm, a, st);
+  if (err != 0) return err;
+  return decode::launch_combine(static_cast<const float*>(part_m),
+                                static_cast<const float*>(part_l),
+                                static_cast<const float*>(part_acc), static_cast<float*>(out),
+                                B * G * hpg, splits, rv, st);
 }
 
 // The packed seq-major decode's plan at these shapes (q-heads per group hpg,

@@ -16,9 +16,9 @@
 // block (i, p) takes rows [i * N, (i + 1) * N) of plane p (a plane is
 // (rows, width bytes), contiguous), and walks them in tiles of `tile_rows`
 // rows, each tile one contiguous run per array, copied with 16-byte
-// cp.async into shared memory, as palu_decode_fp.cu stages its seq-major
-// tiles (64 tokens of K and V: 64 KB; the merged array's 8-KB rows go 8 to
-// a tile, the same 64 KB). After the copies land, each thread reads back
+// cp.async into shared memory, as the retired split decode kernel staged
+// its seq-major tiles (64 tokens of K and V: 64 KB; the merged array's
+// 8-KB rows go 8 to a tile, the same 64 KB). After the copies land, each thread reads back
 // the pieces it copied and folds each one (the XOR of its four words) into
 // an exact 64-bit checksum, so a check can show every byte arrived. A
 // second kernel adds the blocks' checksums and writes the tool's output,

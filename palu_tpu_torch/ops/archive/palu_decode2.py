@@ -4,8 +4,13 @@ palu_flash_decode2_quantized): RoPE's cos/sin computed in the kernel from
 the positions, and the affine dequantization folded past the products.
 
 `palu_decode2` takes bf16 latents, K seq-major (B, G, S, rk) and V
-rank-major (B, G, rv, S); its kernel is the v2 layout of
-csrc/palu_decode_fp.cu (palu_decode_fp_v2). `palu_decode2_quantized` takes
+rank-major (B, G, rv, S); its kernel is palu_decode_fp's
+(csrc/palu_decode_fp_wg.cu, entry palu_decode_fp_v2): one launch of the
+one-wave TMA-ring kernel with the K and V layouts apart, one B per q-head,
+palu_decode_fp's plan (`_v2_plan`, ops/palu_decode_fp._fp_plan) and splits,
+then the combine kernel. Its instantiations cover the v2 tool's and tests'
+shapes (hd 128, at most 16 heads a group: one 8-head tile a consumer);
+other shapes raise. `palu_decode2_quantized` takes
 the rank-major packed cache (pack_codes_t) with per-row affine scales and
 zeros (B, G, S), x = scale * code + zero (quantize_affine's form, sym and
 asym alike): the function of palu_decode's exact mode over asym per-row
@@ -40,9 +45,14 @@ from ...core.quant import QuantConfig, packed_nrows, unpack_codes_t
 from .. import build
 from ..palu_decode import (_MAX_HEADS, _MAX_RK, _TILE, _device_splits, _exact_smem, _scratch,
                            exact_launch)
+from ..palu_decode_fp import _fp_plan
 
 __all__ = ["palu_decode2", "palu_decode2_ref", "palu_decode2_quantized",
            "palu_decode2_quantized_ref", "v2_inv_freq"]
+
+# the head dim and q-heads per group palu_decode2's kernel is instantiated
+# at (one 8-head tile a consumer)
+V2_HD, V2_MAX_HEADS = 128, 16
 
 
 @functools.lru_cache(maxsize=8)
@@ -172,10 +182,9 @@ def palu_decode2_ref(q, b_k, x_k, x_v_t, kv_len, *, block_s: int = 1024,
                    inv_freq, rope_scale)
 
 
-def _launch_setup(q, b_k, tensors, s_max: int, rk: int, what: str):
-    """Checks shared by the kernels; returns (device, splits, tiles per split)."""
-    b, nh, hd = q.shape
-    g, hpg = b_k.shape[:2]
+def _launch_setup(q, b_k, tensors, s_max: int, rk: int, what: str) -> torch.device:
+    """Checks shared by the kernels; returns the device."""
+    hd, hpg = q.shape[2], b_k.shape[1]
     if b_k.dtype != torch.bfloat16:
         raise ValueError(f"{what} reads b_k as bf16, got {b_k.dtype}")
     if q.dtype not in (torch.bfloat16, torch.float32):
@@ -188,7 +197,18 @@ def _launch_setup(q, b_k, tensors, s_max: int, rk: int, what: str):
         raise ValueError("all tensors must be on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("cache buffers, scales and zeros must be contiguous")
-    return (q.device, *_device_splits(q.device, b * g, s_max)[:2])
+    return q.device
+
+
+def _v2_plan(hd: int, rk: int, rv: int, hpg: int):
+    """palu_decode2's shared-memory plan: palu_decode_fp's (_fp_plan, one B
+    per q-head; the K and V chunks are 16 KB in either layout), or None
+    where the kernel has no instantiation or no plan fits (hd other than
+    128, more than 16 heads a group)."""
+    if hd != V2_HD or hpg > V2_MAX_HEADS:
+        return None
+    plan = _fp_plan(hd, rk, rv, hpg, hpg)
+    return plan if plan is not None and plan["nt"] == 1 else None
 
 
 def palu_decode2(q, b_k, x_k, x_v_t, kv_len, *, block_s: int = 1024, theta: float = 10000.0,
@@ -198,7 +218,10 @@ def palu_decode2(q, b_k, x_k, x_v_t, kv_len, *, block_s: int = 1024, theta: floa
     at the current position, b_k (G, hpg, rk, hd), x_k (B, G, S, rk)
     seq-major and x_v_t (B, G, rv, S) rank-major pre-RoPE latents, kv_len
     (B,). -> (B, nh, rv) f32. block_s (dividing S) is the plain version's
-    sequence block; the kernel walks 64-token tiles in its own split."""
+    sequence block; the kernel walks 64-token tiles in its own splits. CUDA
+    tensors launch the kernel (hd 128, rk a multiple of 16 and rv of 8,
+    both up to 512, S a multiple of 16, at most 16 heads a group: other
+    shapes raise); CPU tensors run the plain version."""
     if not q.is_cuda:
         return palu_decode2_ref(q, b_k, x_k, x_v_t, kv_len, block_s=block_s, theta=theta,
                                 sliding_window=sliding_window, inv_freq=inv_freq,
@@ -206,18 +229,29 @@ def palu_decode2(q, b_k, x_k, x_v_t, kv_len, *, block_s: int = 1024, theta: floa
     s_max, rv = _check_fp(q, b_k, x_k, x_v_t, kv_len, block_s)
     b, nh, hd = q.shape
     g, hpg, rk = b_k.shape[:3]
-    if x_k.dtype != torch.bfloat16 or x_v_t.dtype != torch.bfloat16 or rv % 8:
-        raise ValueError(f"palu_decode2 reads bf16 latents with rv a multiple of 8, got "
-                         f"{x_k.dtype} / {x_v_t.dtype}, rv {rv}")
-    dev, splits, per = _launch_setup(q, b_k, (x_k, x_v_t), s_max, rk, "palu_decode2")
+    if x_k.dtype != torch.bfloat16 or x_v_t.dtype != torch.bfloat16 or rv % 8 or rv > _MAX_RK:
+        raise ValueError(f"palu_decode2 reads bf16 latents with rv a multiple of 8 up to "
+                         f"{_MAX_RK}, got {x_k.dtype} / {x_v_t.dtype}, rv {rv}")
+    dev = _launch_setup(q, b_k, (x_k, x_v_t), s_max, rk, "palu_decode2")
+    if _v2_plan(hd, rk, rv, hpg) is None:
+        raise ValueError(f"palu_decode2's kernel is instantiated at hd {V2_HD} and at most "
+                         f"{V2_MAX_HEADS} heads a group (one 8-head tile a consumer: the v2 "
+                         f"tool's and tests' shapes), with a tile ring and B that fit in a "
+                         f"block; got hd {hd}, {hpg} heads, rk {rk}, rv {rv}")
+    bk = b_k.contiguous()
+    if any(t.data_ptr() % 16 for t in (x_k, x_v_t, bk)):
+        raise ValueError("the kernel's TMA loads need the latents and b_k 16-byte aligned")
+    splits, grid = _device_splits(dev, b * g, s_max)
     inv = v2_inv_freq(hd // 2, theta, inv_freq, dev)
     kvl = kv_len.to(torch.int32).contiguous()
     n_part, scratch, out, _, _ = _scratch(b, nh, rv, splits, False, 0, dev)
-    err = build.launcher("palu_decode_fp", "palu_decode_fp_v2", "pi" + "p" * 9 + "i" * 10 + "ffp")(
-        q.contiguous().data_ptr(), int(q.dtype == torch.bfloat16), b_k.contiguous().data_ptr(),
+    err = build.launcher("palu_decode_fp_wg", "palu_decode_fp_v2",
+                         "pi" + "p" * 9 + "i" * 10 + "ffp")(
+        q.contiguous().data_ptr(), int(q.dtype == torch.bfloat16), bk.data_ptr(),
         x_k.data_ptr(), x_v_t.data_ptr(), kvl.data_ptr(), inv.data_ptr(), scratch.data_ptr(),
-        scratch[n_part:].data_ptr(), scratch[2 * n_part:].data_ptr(), out.data_ptr(), b, g, hpg, hd, rk, rv, s_max, int(sliding_window or 0), splits, per,
-        float(rope_scale), float(math.sqrt(hd)), build.stream_ptr(dev))
+        scratch[n_part:].data_ptr(), scratch[2 * n_part:].data_ptr(), out.data_ptr(), b, g, hpg,
+        hd, rk, rv, s_max, int(sliding_window or 0), splits, grid, float(1.0 / math.sqrt(hd)),
+        float(rope_scale), build.stream_ptr(dev))
     build.check(err, "palu_decode2")
     palu_decode2.launches += 1
     return out
@@ -297,7 +331,7 @@ def palu_decode2_quantized(q, b_k, xk_codes, xk_scale, xk_zero, xv_codes, xv_sca
                                                 ("xv_scale", xv_scale), ("xv_zero", xv_zero))}
     _check_quant(q, b_k, xk_codes, xv_codes, kv_len, qcfg, rk, rv, block_s, rows)
     bufs = (xk_codes, xk_scale, xk_zero, xv_codes, xv_scale, xv_zero)
-    dev = _launch_setup(q, b_k, bufs, s_max, rk, "palu_decode2_quantized")[0]
+    dev = _launch_setup(q, b_k, bufs, s_max, rk, "palu_decode2_quantized")
     nrk, nrv = xk_codes.shape[2], xv_codes.shape[2]
     if rv % 16 or rv > _MAX_RK or s_max < _TILE \
             or _exact_smem(hd, rk, rv, hpg, hpg, nrk, nrv, 1, 1, 1) < 0:

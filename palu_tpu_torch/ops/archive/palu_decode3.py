@@ -196,7 +196,7 @@ def palu_decode3_quantized(q, b_k, xk_codes, xk_sz, xv_codes, xv_sz, kv_len, *,
         raise ValueError("the v3 kernel needs contiguous codes and scales, and its TMA loads "
                          "16-byte aligned codes and b_k")
     dev = q.device
-    splits, _, grid = _device_splits(dev, b * g, s_max)
+    splits, grid = _device_splits(dev, b * g, s_max)
     tab = v3_tables(s_max, block_s, hd, theta, inv_freq, rope_scale, dev)
     qs = q_scaled(q).contiguous()
     kvl = kv_len.to(torch.int32).contiguous()

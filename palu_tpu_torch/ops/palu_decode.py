@@ -377,19 +377,16 @@ def _rope_tables(s_max: int, head_dim: int, theta: float, inv_freq, rope_scale: 
 
 def _splits(sms: int, blocks_per_sm: int, n_bg: int, s_max: int) -> tuple:
     """The sequence split of a decode launch over n_bg (lane, group) pairs:
-    (splits, tiles per split of S, blocks). A work item is one (lane,
-    group, split); the items number at most sms * blocks_per_sm when n_bg
-    allows (at least one split each), and the blocks, which loop over the
-    items, never exceed one wave. The one-wave kernels cut each lane's
-    valid tiles into the splits (_item_tiles); the split kernel of
-    palu_decode_fp.cu (the archived v2 layout) takes runs of `per` tiles
-    of S."""
+    (splits, blocks). A work item is one (lane, group, split); the items
+    number at most sms * blocks_per_sm when n_bg allows (at least one split
+    each), and the blocks, which loop over the items, never exceed one
+    wave. The kernels cut each lane's valid tiles into the splits
+    (_item_tiles); no split of a whole-S lane is empty."""
     tiles = -(-s_max // _TILE)
     slots = sms * blocks_per_sm
     splits = min(tiles, max(1, slots // n_bg))
-    per = -(-tiles // splits)
-    splits = -(-tiles // per)
-    return splits, per, min(n_bg * splits, slots)
+    splits = -(-tiles // -(-tiles // splits))
+    return splits, min(n_bg * splits, slots)
 
 
 def _item_tiles(kv_len: int, pos_offset: int, window: Optional[int], s_max: int, splits: int,
@@ -664,7 +661,7 @@ def palu_decode(q, b_k, xk_codes, xk_scale, xv_codes, xv_scale, kv_len, *,
         bk = b_k.contiguous()
         kbias = None if k_bias is None else k_bias.float().contiguous()
         kvl = kv_len.to(torch.int32).contiguous()
-        splits, _, grid = _device_splits(dev, b * g, s_max)
+        splits, grid = _device_splits(dev, b * g, s_max)
         n_part, scratch, out, m_out, l_out = _scratch(b, nh, rv, splits, return_stats, 0, dev)
         common = (qc.data_ptr(), int(q.dtype == torch.bfloat16), bk.data_ptr(),
                   xk_codes.data_ptr(), xk_scale.data_ptr(), _ptr(xk_zero), xv_codes.data_ptr(),
@@ -729,7 +726,7 @@ def exact_launch(q, b_k, xk_codes, xk_scale, xk_zero, xv_codes, xv_scale, xv_zer
     bk = b_k.contiguous()
     kbias = None if k_bias is None else k_bias.float().contiguous()
     kvl = kv_len.to(torch.int32).contiguous()
-    splits, _, grid = _device_splits(dev, b * g, s_max)
+    splits, grid = _device_splits(dev, b * g, s_max)
     # the asym row sums of B after the outputs
     n_part, scratch, out, m_out, l_out = _scratch(b, nh, rv, splits, return_stats,
                                                   g * nkv * nsk * hd if asym else 0, dev)

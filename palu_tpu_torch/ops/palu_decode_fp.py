@@ -186,7 +186,7 @@ def _launch(q, b_k, x_k, x_v, kv_len, rank_major, theta, sliding_window, inv_fre
     bk = b_k.contiguous()
     kvl = kv_len.to(torch.int32).contiguous()
     kbias = None if k_bias is None else k_bias.float().contiguous()
-    splits, _, grid = _device_splits(dev, b * g, s_max)
+    splits, grid = _device_splits(dev, b * g, s_max)
     # one allocation: per-split m, l, accumulators, then the output (and
     # with return_stats its m and l)
     n_part = b * nh * splits

@@ -212,7 +212,7 @@ def palu_decode_seq_quantized(q, b_k, xk_codes, xk_scales, xk_base, xv_codes, xv
     qc = q.contiguous()
     bk = b_k.contiguous()
     kvl = kv_len.to(torch.int32).contiguous()
-    splits, _, grid = _device_splits(dev, b * g, s_max)
+    splits, grid = _device_splits(dev, b * g, s_max)
     # the row sums of B after the outputs
     n_part, scratch, out, _, _ = _scratch(b, nh, rv, splits, False, g * hpg * hd, dev)
     o0 = n_part * (2 + rv)

@@ -3,7 +3,10 @@
 Run it by path, once per checkout and in turns (parent, this, this,
 parent), from the root of this checkout:
 
-    python3 palu_tpu_torch/tools/decode_ab.py <checkout root> <tag>
+    python3 palu_tpu_torch/tools/decode_ab.py <checkout root> <tag> [sections]
+
+`sections` (comma-separated; every one by default): exact, fp, seq, v2q,
+v3q, dissect, v2, unpack.
 
 It imports the given checkout's own chip_smoke (so its own kernels and
 helpers; run by path, this package is not imported first) and prints one
@@ -31,14 +34,21 @@ S = kv_len = 64K). Then (`v3q`) palu_decode3_quantized at ab_v2's v3q2,
 v3q3 and v3q4 (64K, rotation blocks of 1024) and v3q3 at 8K, each held
 against its plain version first; and (`dissect`) the dissection's five
 modes at the tool's shape (64K) beside palu_decode_fp on the same
-inputs."""
+inputs. Then (`v2`) palu_decode2 over ab_v2's bf16 latents (K seq-major, V
+rank-major) at 64K, at kv_len 40000 (ab_v2_kvl's point) and at 8K, each
+held against its plain version first, beside palu_decode_fp (ab_v2's v1)
+on the same inputs; and (`unpack`) the unpack probe's eight variants at
+the tool's shape (BS 1024) and ext4cc / ext4ccmm at BS 128 and 4096, each
+held against its plain version first."""
 import json
 import os
 import sys
 import time
 
+SECTIONS = ("exact", "fp", "seq", "v2q", "v3q", "dissect", "v2", "unpack")
 
-def main(root: str, tag: str) -> None:
+
+def main(root: str, tag: str, sections=SECTIONS) -> None:
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     os.chdir(root)
@@ -57,8 +67,31 @@ def main(root: str, tag: str) -> None:
     def t(name, fn, iters=20):
         res[name] = cs.device_ms(fn, iters)
 
-    _exact(cs, tag, gen, kv, t)
-    _fp(cs, tag, gen, kv, t)
+    if "exact" in sections:
+        _exact(cs, tag, gen, kv, t)
+    if "fp" in sections:
+        _fp(cs, tag, gen, kv, t)
+    if "seq" in sections:
+        _seq(cs, gen, kv, t)
+    if "v2q" in sections or "v3q" in sections:
+        _v2q_v3q(cs, gen, t, sections)
+    if "dissect" in sections:
+        d = cs.dissect.make_inputs(65536, torch.device("cuda"), gen)
+        ops = (d["q"], d["b_k"], d["x_k"], d["x_v"], d["kv_len"])
+        for mode in cs.dissect.MODES:
+            t(f"dissect_{mode}", lambda: cs.dissect.palu_decode_fp_dissect(mode, *ops), 10)
+        t("dissect_palu_decode_fp", lambda: cs.palu_decode_fp(*ops), 10)
+        del d, ops
+    if "v2" in sections:
+        _v2(cs, gen, t)
+    if "unpack" in sections:
+        _unpack(cs, gen, t)
+    print(json.dumps({"ab": tag, "root": root, "seconds": round(time.perf_counter() - t0, 1),
+                      **res}), flush=True)
+
+
+def _seq(cs, gen, kv, t) -> None:
+    """palu_decode_seq_quantized (the module docstring's list)."""
     seq, ref = cs.palu_decode_seq_quantized, cs.palu_decode_seq_quantized_ref
     qcfg = cs.QuantConfig(bits=3, group_size=0)
     llama = [(s, cs.RK, cs.RV, cs.G, cs.HPG) for s in (4096, 8192, 16384, 65536)]
@@ -73,10 +106,20 @@ def main(root: str, tag: str) -> None:
                         ref(q, b_k, kv_len=kv(s), **bufs, **skw))
         t(label, lambda: seq(q, b_k, kv_len=kv(s), **bufs, **skw), 10 if s > 8192 else 20)
         del q, b_k, bufs
+
+
+def _v2q_v3q(cs, gen, t, sections) -> None:
+    """palu_decode2_quantized and palu_decode3_quantized (the module
+    docstring's list)."""
+    import torch
+
     x = cs.ab_v2.make_inputs(65536, 65536, torch.device("cuda"), gen)
-    v = cs.ab_v2.variant("v2q3", x, 1024)
-    t("v2q3_64k", v["fn"], 10)
-    del v
+    if "v2q" in sections:
+        v = cs.ab_v2.variant("v2q3", x, 1024)
+        t("v2q3_64k", v["fn"], 10)
+        del v
+    if "v3q" not in sections:
+        return
     for name in ("v3q3", "v3q2", "v3q4"):
         v = cs.ab_v2.variant(name, x, 1024)
         cs._held_decode(f"{name}_64k", v["fn"](), v["ref"]())
@@ -87,15 +130,43 @@ def main(root: str, tag: str) -> None:
     v = cs.ab_v2.variant("v3q3", x, 1024)
     cs._held_decode("v3q3_8k", v["fn"](), v["ref"]())
     t("v3q3_8k", v["fn"])
-    del x, v
-    d = cs.dissect.make_inputs(65536, torch.device("cuda"), gen)
-    ops = (d["q"], d["b_k"], d["x_k"], d["x_v"], d["kv_len"])
-    for mode in cs.dissect.MODES:
-        t(f"dissect_{mode}", lambda: cs.dissect.palu_decode_fp_dissect(mode, *ops), 10)
-    t("dissect_palu_decode_fp", lambda: cs.palu_decode_fp(*ops), 10)
-    del d, ops
-    print(json.dumps({"ab": tag, "root": root, "seconds": round(time.perf_counter() - t0, 1),
-                      **res}), flush=True)
+
+
+def _v2(cs, gen, t) -> None:
+    """palu_decode2 beside palu_decode_fp on the same latents (the module
+    docstring's list)."""
+    import torch
+
+    for s, kvl, label in ((65536, 65536, "64k"), (65536, 40000, "kvl40000"),
+                          (8192, 8192, "8k")):
+        x = cs.ab_v2.make_inputs(s, kvl, torch.device("cuda"), gen)
+        for name in ("v2", "v1"):
+            v = cs.ab_v2.variant(name, x, 1024)
+            if name == "v2":
+                cs._held_decode(f"v2_{label}", v["fn"](), v["ref"]())
+            t(f"{name}_{label}", v["fn"], 10 if s > 8192 else 20)
+            del v
+        del x
+
+
+def _unpack(cs, gen, t) -> None:
+    """The unpack probe's variants (the module docstring's list)."""
+    import torch
+
+    up = cs.unpack_probe
+    for bs, variants in ((1024, up.VARIANTS), (128, ("ext4cc", "ext4ccmm")),
+                         (4096, ("ext4cc", "ext4ccmm"))):
+        x = up.make_inputs(65536, bs, torch.device("cuda"), gen)
+        kw = dict(rk=up.RK, rv=up.RV, bs=bs)
+        for name in variants:
+            ops = up._operands(name, x)
+            got, want = up.unpack_probe(name, *ops, **kw), up.unpack_probe_ref(name, *ops, **kw)
+            mm = name in ("ext4mm", "ext4ccmm")
+            if not up.common.held(got, want, up.MM_TOL if mm else None)["ok"]:
+                raise AssertionError(f"unpack {name} BS {bs}: not held")
+            t(f"unpack_{name}" + ("" if bs == 1024 else f"_bs{bs}"),
+              lambda: up.unpack_probe(name, *ops, **kw))
+        del x
 
 
 def _exact(cs, tag, gen, kv, t) -> None:
@@ -208,4 +279,4 @@ def _fp(cs, tag, gen, kv, t) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1], sys.argv[2])
+    main(sys.argv[1], sys.argv[2], sys.argv[3].split(",") if len(sys.argv) > 3 else SECTIONS)

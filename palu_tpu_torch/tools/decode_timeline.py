@@ -82,7 +82,7 @@ _LOADS_ONLY = [
     ("      for (int j = j0; j < j1; ++j) {\n        float kv[NACC];", "before",
      "      if (0)\n"),
     ("      for (int hb = 0; hb < nhw; hb += 4) {", "before", "      if (0)\n"),
-    ("wgmma_v<RM ? 0 : 1>(vacc[mt],", "before", "if (0) "),
+    ("wgmma_v<RMV ? 0 : 1>(vacc[mt],", "before", "if (0) "),
 ]
 
 

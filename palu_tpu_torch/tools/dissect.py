@@ -195,7 +195,7 @@ def palu_decode_fp_dissect(mode: str, q, b_k, x_k, x_v, kv_len, *,
         raise ValueError("cache buffers must be contiguous and 16-byte aligned")
     dev = q.device
     inv = _inv_freq_t(hd, float(theta), None, str(dev))
-    splits, _, grid = _device_splits(dev, b * g, s_max)
+    splits, grid = _device_splits(dev, b * g, s_max)
     # the decodes' scratch layout (per-split m, l, accumulators, out), then
     # the statistics and the checksum
     n_part = b * nh * splits

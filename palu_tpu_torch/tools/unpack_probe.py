@@ -1,22 +1,27 @@
 """What sub-byte extraction costs on the card (port of
 tools/tpu_unpack_probe.py): rank-major packed codes (G, rows, S) streamed
-and unpacked in a grid of BS-token blocks (csrc/unpack_probe.cu), at the
-headline shape g 8, rk 128, rv 384, S 64K.
+by TMA through an mbarrier ring and unpacked, one launch a call, one wave
+of blocks over (group, BS-token block) items (csrc/unpack_probe.cu), at
+the headline shape g 8, rk 128, rv 384, S 64K.
 
 Variants (the JAX tool's names):
   base      - stream the 4-bit codes, no extraction (a checksum of the bytes);
-  ext4nc    - extract 4-bit codes, each part consumed in registers;
-  ext4cc    - extract, assemble one bf16 (rank x tile) array in shared
-              memory (what the int8 modes' split kernel did for K), sum it;
-  ext4mm    - extract in registers into mma.sync operands: the K product
-              against B (g, rk, 64) and the V product against p (g, BS, 8);
-  ext4ccmm  - the same products read from the assembled array (ldmatrix);
+  ext4nc    - extract 4-bit codes, each part converted to bf16 and summed
+              in registers;
+  ext4cc    - extract, assemble bf16 (64 ranks x 64 tokens) boxes in shared
+              memory in the 128-byte swizzle (as the seq-major packed
+              decode's producer writes its chunks), read each back;
+  ext4mm    - extract in registers into wgmma A fragments (as the exact
+              decode's K warpgroup does): the K product against B (g, rk,
+              64) and the V product against p (g, BS, 8);
+  ext4ccmm  - the same products on SS wgmma over the assembled boxes;
   ext3nc / ext3cc - the same over 3-bit bit planes;
   conv8     - convert int8 codes (twice the bytes of 4-bit).
 Each integer variant returns the exact integer total of the values it
 extracted, held exactly against the plain version; the mm variants return
 the (group, block) sums of their products, held within the bf16 class.
-Usage:
+`unpack_plan` and `unpack_items` mirror the kernel's shared-memory plan and
+item walk. Usage:
 
   python -m palu_tpu_torch.tools.unpack_probe [variant ...] [--seq S] [--bs N] [--nch N]
   python -m palu_tpu_torch.tools.unpack_probe --use_cpu --seq 1024 --bs 256
@@ -25,7 +30,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
-from typing import List
+from typing import List, Optional
 
 import torch
 
@@ -33,7 +38,8 @@ from ..ops import build
 from . import common
 
 __all__ = ["unpack_probe", "unpack_probe_ref", "unpack4_parts", "unpack3_parts", "token_sums",
-           "make_inputs", "parser", "run", "main", "VARIANTS", "MM_TOL"]
+           "unpack_plan", "unpack_items", "make_inputs", "parser", "run", "main", "VARIANTS",
+           "MM_TOL"]
 
 VARIANTS = ("base", "ext4nc", "ext4cc", "ext4mm", "ext4ccmm", "ext3nc", "ext3cc", "conv8")
 G, RK, RV, HD = 8, 128, 384, 128
@@ -42,6 +48,74 @@ W = HD // 2
 # plain version's f64: the bf16 class (docs/PARITY.md item 5), as a share
 # of max|plain|
 MM_TOL = 2e-3
+# the kernel's tile (a ring stage) of tokens, its deepest ring, a block's
+# shared memory (227 KB) less the base's alignment slack, an assembled box
+TILE, MAX_STAGES, SMEM_MAX, BOX_BYTES = 128, 8, 232448, 64 * 128
+
+
+def _up(x: int, a: int) -> int:
+    return -(-x // a) * a
+
+
+def _code_rows(variant: str, r: int) -> int:
+    return r // 2 if variant in VARIANTS[:5] else r if variant == "conv8" else 3 * r // 8
+
+
+def _boxes(rows: int) -> tuple:
+    """(box rows, boxes) of one side's TMA loads: at most 256 rows a box,
+    a multiple of 8 when there are several."""
+    n = -(-rows // 256)
+    return (rows if n == 1 else _up(-(-rows // n), 8)), n
+
+
+def unpack_plan(variant: str, rk: int, rv: int) -> Optional[dict]:
+    """The kernel's shared-memory plan (csrc/unpack_probe.cu::make_plan, the
+    same function): `smem` bytes a launch takes, `ns` ring stages of
+    `stage` bytes (each a 128-token tile, its K then its V code rows, each
+    side 1024-aligned; TMA boxes of `br_*` rows, `nbox_*` of them; the mm
+    variants' stage ends with the tile's 128 rows of p, 2 KB), the cc
+    boxes a warpgroup assembles per side (`ccb_*`: 64 ranks x 64 tokens, 8
+    KB), B's rows (`b_rows`, mm: ext4mm's in whole 128-rank chunks), and the offsets of B, p^T (two 1 KB
+    buffers a warpgroup, mm), the boxes (two buffers a warpgroup, three
+    with products), the reduction rows and the barriers. The deepest ring
+    up to 8 stages that fits; None when 2 stages do not."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
+    cc, mm = variant in ("ext4cc", "ext4ccmm", "ext3cc"), variant in ("ext4mm", "ext4ccmm")
+    rows_k, rows_v = _code_rows(variant, rk), _code_rows(variant, rv)
+    (br_k, nbox_k), (br_v, nbox_v) = _boxes(rows_k), _boxes(rows_v)
+
+    def ccb(r: int) -> int:
+        return 0 if not cc else -(-(r // 8) // 8) if variant == "ext3cc" else -(-(r // 2) // 32)
+
+    ccb_k, ccb_v = ccb(rk), ccb(rv)
+    b_rows = _up(rk, 128) if variant == "ext4mm" else 64 * ccb_k if variant == "ext4ccmm" else 0
+    side_v = _up(nbox_k * br_k * 128, 1024)
+    side_p = side_v + _up(nbox_v * br_v * 128, 1024)
+    stage = side_p + (TILE * 8 * 2 if mm else 0)
+    nbuf = (3 if mm else 2) if cc else 0
+    for ns in range(MAX_STAGES, 1, -1):
+        b = ns * stage
+        pt = _up(b + b_rows * 128, 1024)
+        asm = pt + (2 * 2 * 1024 if mm else 0)
+        red = asm + 2 * nbuf * BOX_BYTES
+        bars = _up(red + (2 * 8 * 2 * 4 if mm else 0), 8)
+        total = bars + 2 * 8 * ns
+        if total <= SMEM_MAX - 1024:
+            return {"smem": total + 1024, "ns": ns, "stage": stage, "side_v": side_v,
+                    "side_p": side_p, "rows_k": rows_k,
+                    "load_bytes": (nbox_k * br_k + nbox_v * br_v) * 128 + stage - side_p,
+                    "rows_v": rows_v, "br_k": br_k, "nbox_k": nbox_k, "br_v": br_v,
+                    "nbox_v": nbox_v, "ccb_k": ccb_k, "ccb_v": ccb_v, "b_rows": b_rows,
+                    "b": b, "pt": pt, "asm": asm, "red": red, "bars": bars}
+    return None
+
+
+def unpack_items(n_items: int, grid: int) -> list:
+    """The kernel's item walk: block b's work items [b N / grid, (b + 1) N /
+    grid) of the N = G * S / BS (group, block) items, item i being group i
+    // (S / BS), block i % (S / BS)."""
+    return [range(b * n_items // grid, (b + 1) * n_items // grid) for b in range(grid)]
 
 
 def unpack4_parts(c: torch.Tensor) -> list:
@@ -113,43 +187,48 @@ def unpack_probe(variant: str, kc, vc, b1=None, p=None, *, rk: int, rv: int,
     S) in BS-token blocks: rows = rank / 2 (4-bit, base), 3 * rank / 8
     (3-bit, uint8) or rank (conv8, int8); the mm variants also take b1 (G,
     rk, W) and p (G, BS, 8) bf16. Returns what unpack_probe_ref returns.
-    CUDA tensors launch the kernel, CPU tensors run the plain version."""
+    CUDA tensors launch the kernel (one launch a call), CPU tensors run the
+    plain version."""
     if not kc.is_cuda:
         return unpack_probe_ref(variant, kc, vc, b1, p, rk=rk, rv=rv, bs=bs)
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
     g, s = kc.shape[0], kc.shape[2]
     four = variant in VARIANTS[:5]
-    rows = (lambda r: r // 2) if four else (lambda r: r) if variant == "conv8" else \
-        (lambda r: 3 * r // 8)
     want_dtype = torch.int8 if variant == "conv8" else torch.uint8
     mm = variant in ("ext4mm", "ext4ccmm")
-    if tuple(kc.shape) != (g, rows(rk), s) or tuple(vc.shape) != (g, rows(rv), s) or \
+    rows_k, rows_v = _code_rows(variant, rk), _code_rows(variant, rv)
+    if tuple(kc.shape) != (g, rows_k, s) or tuple(vc.shape) != (g, rows_v, s) or \
             kc.dtype != want_dtype or vc.dtype != want_dtype:
-        raise ValueError(f"{variant}: codes must be {want_dtype} (G, {rows(rk)}, S) and "
-                         f"(G, {rows(rv)}, S), got {tuple(kc.shape)}, {tuple(vc.shape)}")
-    if bs % 128 or s % bs or rk % (32 if four else 8) or rv % (32 if four else 8):
-        raise ValueError(f"the unpack kernel needs BS a multiple of 128 dividing S and ranks "
-                         f"multiples of {32 if four else 8} (BS={bs}, S={s}, rk={rk}, rv={rv})")
+        raise ValueError(f"{variant}: codes must be {want_dtype} (G, {rows_k}, S) and "
+                         f"(G, {rows_v}, S), got {tuple(kc.shape)}, {tuple(vc.shape)}")
+    if bs % TILE or s % bs or rk % (32 if four else 8) or rv % (32 if four else 8):
+        raise ValueError(f"the unpack kernel needs BS a multiple of {TILE} dividing S and "
+                         f"ranks multiples of {32 if four else 8} (BS={bs}, S={s}, rk={rk}, "
+                         f"rv={rv})")
     if mm and (b1 is None or p is None or tuple(b1.shape[:2]) != (g, rk) or
                b1.shape[2] % 16 or b1.shape[2] > 64 or tuple(p.shape) != (g, bs, 8) or
-               b1.dtype != torch.bfloat16 or p.dtype != torch.bfloat16):
+               b1.dtype != torch.bfloat16 or p.dtype != torch.bfloat16 or rv > 512):
         raise ValueError("the mm variants take b1 (G, rk, W) bf16 with W a multiple of 16 up "
-                         "to 64 and p (G, BS, 8) bf16")
+                         "to 64, p (G, BS, 8) bf16 and rv up to 512")
     ts = [kc, vc] + ([b1, p] if mm else [])
-    if any(not t.is_contiguous() or t.device != kc.device for t in ts):
-        raise ValueError("inputs must be contiguous and on one device")
+    if any(not t.is_contiguous() or t.device != kc.device or t.data_ptr() % 16 for t in ts):
+        raise ValueError("inputs must be contiguous, 16-byte aligned and on one device")
+    if unpack_plan(variant, rk, rv) is None:
+        raise ValueError(f"{variant}: two stages of the unpack kernel's ring do not fit in a "
+                         f"block's shared memory at rk {rk}, rv {rv}")
     nb = s // bs
-    part_i = torch.empty(g * nb + 1, dtype=torch.int64, device=kc.device)
-    part_f = torch.empty((2, g, nb), dtype=torch.float32, device=kc.device) if mm else None
-    err = build.launcher("unpack_probe", "unpack_probe", "ippppppp" + "i" * 6 + "p")(
+    grid = min(g * nb, torch.cuda.get_device_properties(kc.device).multi_processor_count)
+    out = torch.empty((2, g, nb) if mm else (1,), dtype=torch.float32 if mm else torch.int64,
+                      device=kc.device)
+    err = build.launcher("unpack_probe", "unpack_probe", "ipppppp" + "i" * 7 + "p")(
         VARIANTS.index(variant), kc.data_ptr(), vc.data_ptr(),
-        b1.data_ptr() if mm else None, p.data_ptr() if mm else None, part_i.data_ptr(),
-        part_f.data_ptr() if mm else None, part_i[g * nb:].data_ptr(), g, rk, rv,
-        b1.shape[2] if mm else 0, s, bs, build.stream_ptr(kc.device))
+        b1.data_ptr() if mm else None, p.data_ptr() if mm else None,
+        out.data_ptr() if mm else None, None if mm else out.data_ptr(), g, rk, rv,
+        b1.shape[2] if mm else 0, s, bs, grid, build.stream_ptr(kc.device))
     build.check(err, f"unpack_probe ({variant})")
     unpack_probe.launches += 1
-    return part_f if mm else part_i[g * nb:]
+    return out
 
 
 unpack_probe.launches = 0

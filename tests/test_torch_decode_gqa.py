@@ -222,14 +222,15 @@ def test_qwen2_engine_on_compact_form_bf16_latents(cache):
 @pytest.mark.parametrize("n_bg", [1, 8, 28, 64, 256])
 @pytest.mark.parametrize("sms,per_sm", [(132, 1), (132, 2), (114, 1)])
 def test_splits_one_wave_every_tile_once(n_bg, s_max, sms, per_sm):
-    splits, per, grid = _splits(sms, per_sm, n_bg, s_max)
+    splits, grid = _splits(sms, per_sm, n_bg, s_max)
     assert 1 <= grid <= sms * per_sm
-    assert splits >= 1 and per >= 1
+    assert splits >= 1
     items = n_bg * splits
     assert grid == min(items, sms * per_sm)
     if n_bg <= sms * per_sm:  # at least a split each: one item per block
         assert items <= sms * per_sm
     tiles = -(-s_max // 64)
+    per = -(-tiles // splits)  # a whole-S lane's tiles per split (_item_tiles)
     covered = np.zeros((n_bg, tiles), np.int64)
     for block in range(grid):  # the kernel's item loop
         for item in range(block, items, grid):

@@ -134,7 +134,7 @@ def test_item_visits_at_the_64k_point():
     the card's 132 SMs over 8 groups: 16 splits per group, each starting
     one operand per rotation block it enters (and at its first tile, which
     may lie inside a block)."""
-    splits, per, grid = _splits(132, 1, 8, 66048)
+    splits, grid = _splits(132, 1, 8, 66048)
     assert (splits, grid) == (16, 128)
     starts = 0
     for split in range(splits):

@@ -142,7 +142,7 @@ def test_full_launches_palu_decode_fps_kernel(monkeypatch):
     assert dissect.dissect_route("full") == ("palu_decode_fp_wg", "palu_decode_fp_wg")
 
     launched = []
-    monkeypatch.setattr(dissect, "_device_splits", lambda dev, n_bg, s: (4, 1, n_bg * 4))
+    monkeypatch.setattr(dissect, "_device_splits", lambda dev, n_bg, s: (4, n_bg * 4))
     monkeypatch.setattr(dissect.build, "stream_ptr", lambda dev: 0)
     monkeypatch.setattr(dissect.build, "check", lambda err, what: None)
 

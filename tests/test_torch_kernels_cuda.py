@@ -1502,10 +1502,33 @@ def test_stream_probe_matches_plain(gen, probe, seq):
     assert torch.equal(out, want_out) and torch.equal(ck, want_ck)
 
 
+def _kernel_launches(fn, name: str) -> int:
+    """The CUDA kernels whose names hold `name` that one call of fn
+    launches, by torch.profiler: a kernel of another name runs first, and a
+    profile that did not record it (the profiler can miss a profile's first
+    events) is taken again, five times at most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.ones(1024, device="cuda").mul_(2)
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if any(name not in n and "emset" not in n for n in names):
+            return sum(1 for n in names if name in n)
+    raise AssertionError("torch.profiler recorded no device event in five profiles")
+
+
 @pytest.mark.parametrize("variant", ["base", "ext4nc", "ext4cc", "ext4mm", "ext4ccmm", "ext3nc",
                                      "ext3cc", "conv8"])
-@pytest.mark.parametrize("size", ["small", "tool"])
+@pytest.mark.parametrize("size", ["small", "tool", "tool_bs128", "tool_bs4096"])
 def test_unpack_probe_matches_plain(gen, variant, size):
+    """Every variant at a small size and at the tool's (BS 1024, 128 and
+    4096): one kernel launch a call, the integer variants equal to the plain
+    version, the mm variants within MM_TOL; a second call bit-identical."""
     from palu_tpu_torch.tools import unpack_probe as up
 
     if size == "small":
@@ -1521,16 +1544,46 @@ def test_unpack_probe_matches_plain(gen, variant, size):
         p = (torch.randn((g, bs, 8), generator=gen, device="cuda") * 0.1).bfloat16()
         ops = (kc, vc, b1, p) if variant in ("ext4mm", "ext4ccmm") else (kc, vc)
     else:
-        kw = dict(rk=up.RK, rv=up.RV, bs=1024)
-        ops = [t for t in up._operands(variant, up.make_inputs(65536, 1024,
+        bs = {"tool": 1024, "tool_bs128": 128, "tool_bs4096": 4096}[size]
+        kw = dict(rk=up.RK, rv=up.RV, bs=bs)
+        ops = [t for t in up._operands(variant, up.make_inputs(65536, bs,
                                                                torch.device("cuda"), gen))
                if t is not None]
+    n0 = up.unpack_probe.launches
     got = up.unpack_probe(variant, *ops, **kw)
+    assert up.unpack_probe.launches == n0 + 1
     want = up.unpack_probe_ref(variant, *ops, **kw)
     if variant in ("ext4mm", "ext4ccmm"):
         assert (got - want).abs().max() <= up.MM_TOL * want.abs().max()
     else:
         assert torch.equal(got, want)
+    assert torch.equal(up.unpack_probe(variant, *ops, **kw), got)
+    assert _kernel_launches(lambda: up.unpack_probe(variant, *ops, **kw), "unpack") == 1
+
+
+def test_unpack_plan_matches_python_mirror(gen):
+    """The kernel's plan (unpack_probe_plan) is the tool's mirror
+    (unpack_plan): bytes, stages, stage bytes, boxes, cc boxes, B rows."""
+    import ctypes
+
+    from palu_tpu_torch.ops import build
+    from palu_tpu_torch.tools import unpack_probe as up
+
+    fn = build.launcher("unpack_probe", "unpack_probe_plan", "iiip")
+    for i, variant in enumerate(up.VARIANTS):
+        step = 32 if i < 5 else 8
+        for rk, rv in itertools.product(range(step, 513, 3 * step), (step, 64, 384, 512, 768)):
+            if rv % step:
+                continue
+            out = (ctypes.c_int * 10)()
+            fn(i, rk, rv, ctypes.addressof(out))
+            want = up.unpack_plan(variant, rk, rv)
+            if want is None:
+                assert out[0] == -1, (variant, rk, rv)
+                continue
+            assert list(out) == [want[k] for k in ("smem", "ns", "stage", "br_k", "nbox_k",
+                                                   "br_v", "nbox_v", "ccb_k", "ccb_v",
+                                                   "b_rows")], (variant, rk, rv)
 
 
 @pytest.mark.parametrize("rows", [1, 8])
@@ -1590,6 +1643,9 @@ def _held_decode(got, want):
                                       ("tool", (40000,))])
 @pytest.mark.parametrize("rope", ["theta", "llama3"])
 def test_decode2_bf16_kernel_matches_plain(gen, size, kvl, rope):
+    """palu_decode2 on the bf16 decodes' kernel (its v2 instantiation):
+    held against its plain version, with and without a window; a second
+    call bit-identical."""
     from palu_tpu_torch.ops.archive.palu_decode2 import palu_decode2, palu_decode2_ref
 
     x = _archive_case(gen, size, kvl, 3, {} if rope == "theta" else _rope_kw(rope))
@@ -1598,6 +1654,45 @@ def test_decode2_bf16_kernel_matches_plain(gen, size, kvl, rope):
     got = palu_decode2(*ops, **x["rope"])
     assert palu_decode2.launches == n0 + 1
     _held_decode(got, palu_decode2_ref(*ops, **x["rope"]))
+    assert torch.equal(palu_decode2(*ops, **x["rope"]), got)
+    window = 200 if size == "small" else 5000
+    _held_decode(palu_decode2(*ops, sliding_window=window, **x["rope"]),
+                 palu_decode2_ref(*ops, sliding_window=window, **x["rope"]))
+
+
+def test_decode2_bf16_refuses_shapes_past_its_instantiations(gen):
+    """The v2 kernel is instantiated at hd 128 and at most 16 heads a group:
+    hd 64 and 20 heads a group raise ValueError (the plain version still
+    runs them on the CPU)."""
+    from palu_tpu_torch.ops.archive.palu_decode2 import palu_decode2
+
+    for hd, hpg in ((64, 4), (128, 20)):
+        q = torch.randn((1, 2 * hpg, hd), generator=gen, device="cuda").bfloat16()
+        b_k = (torch.randn((2, hpg, 32, hd), generator=gen, device="cuda") * 0.1).bfloat16()
+        x_k = torch.randn((1, 2, 256, 32), generator=gen, device="cuda").bfloat16()
+        x_v_t = torch.randn((1, 2, 64, 256), generator=gen, device="cuda").bfloat16()
+        kvl = torch.tensor([200], dtype=torch.int32, device="cuda")
+        with pytest.raises(ValueError, match="instantiated"):
+            palu_decode2(q, b_k, x_k, x_v_t, kvl, block_s=256)
+
+
+def test_v2_plan_matches_fp_plan(gen):
+    """The v2 entry's plan (palu_decode_fp_v2_plan) is palu_decode_fp's
+    mirror (_fp_plan, one B per q-head): bytes, ring chunks, B slots,
+    residence, 8-head tiles."""
+    import ctypes
+
+    from palu_tpu_torch.ops import build
+    from palu_tpu_torch.ops.palu_decode_fp import _fp_plan
+
+    fn = build.launcher("palu_decode_fp_wg", "palu_decode_fp_v2_plan", "iiiip")
+    for hd, rk, rv, hpg in itertools.product((64, 128), (32, 128, 256, 512), (64, 384, 512),
+                                             (1, 4, 16)):
+        out = (ctypes.c_int * 5)()
+        fn(hd, rk, rv, hpg, ctypes.addressof(out))
+        want = _fp_plan(hd, rk, rv, hpg, hpg)
+        assert list(out) == [want[k] for k in ("smem", "ns", "nb", "resident", "nt")], \
+            (hd, rk, rv, hpg)
 
 
 @pytest.mark.parametrize("size,kvl", [("small", (300, 1024)), ("tool", (65536,)),
