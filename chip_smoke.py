@@ -63,9 +63,10 @@ Phases, each printing one JSON line:
                 Engine.generate, with the launch counters reset just before
                 and read just after; then where the time of one decode step
                 and of one 7000-token prefill goes (torch.profiler);
-     serve_fp - the same weights and traffic over the unquantized rank-major
-                cache (rank_major_fp: palu_decode_fp_t), exact launches per
-                step, and its two breakdowns;
+     serve_fp - the first 8 layers of the same weights and the same traffic
+                over the unquantized rank-major cache (rank_major_fp:
+                palu_decode_fp_t), exact launches per step, and its two
+                breakdowns;
      serving  - the same weights through the ServingEngine (serve_bench's
                 default: unquantized seq-major latents, palu_decode_fp) on
                 the native scheduler: 8 lanes, chunked prefill interleaved
@@ -112,7 +113,24 @@ Phases, each printing one JSON line:
                 logits with an engine that runs palu_decode_ref instead;
      compress_cli - `python -m palu_tpu_torch.cli.compress` on a 2-layer
                 checkpoint written by hf_io.save_checkpoint, read back by
-                hf_io.load_params and served.
+                hf_io.load_params and served;
+     evals    - the accuracy track (palu_tpu_torch/evals) on that
+                compressed checkpoint: cli.common.load_for_eval with
+                --lt_hadamard (FWHT launches exact, 2 per group and side;
+                logits within E2E_TOL of the unfused load), perplexity on
+                seeded synthetic tokens (2 windows of 1024, bf16, against
+                the port's f32 CPU run: each unquantized window's NLL within
+                NLL_TOL, with the 3-bit hook the gap reported and the hook's
+                move held above the unquantized gap; 4 timed windows of
+                2048),
+                run_zero_shot on in-code fixtures of the six tasks with a
+                byte-level tokenizer (each bucketed score within BUCKET_TOL
+                of the request scored alone and unpadded, f32, greedy flags
+                equal), run_longbench on qasper / trec fixtures (~1500-token
+                contexts) over the 3-bit cache at s_max 4096 (every
+                palu_decode launch held against palu_decode_ref; prefill,
+                append and decode launches exact) and
+                TorchLM.generate_until with a stop string on that engine.
   Phase 3 also holds every decode kernel with Qwen2's K bias at the
   Qwen2-7B shape (G 1 x 28 heads) and the Llama shape (check_decode_bias),
   palu_decode over per-chunk scales (check_decode_chunked), every decode
@@ -158,15 +176,17 @@ Phases, each printing one JSON line:
                 layer_idx call beside their bounds and SDPA over the same
                 columns;
      serve_stacked - after serve, on its weights: Engine.generate with
-                stacked_decode=True (32 layers, the 7000-token request, every
-                palu_decode launched with layer_idx), then held against the
-                unrolled engine over 8 steps (logits and cache bytes
-                identical), both decode breakdowns; the same at 2 layers over
-                rank_major_fp (palu_decode_fp_t with layer_idx);
+                stacked_decode=True (8 of serve's 32 layers, the 7000-token
+                request, every palu_decode launched with layer_idx), then
+                held against the unrolled engine over 8 steps (logits and
+                cache bytes identical), both decode breakdowns; the same at
+                2 layers over rank_major_fp (palu_decode_fp_t with
+                layer_idx);
      serve_seq  - the engine on a 1 x 1 ("data", "seq") mesh under NCCL at
-                world size 1, serve's request at 32 layers with every decode
-                launch a statistics one, logits against the unsharded
-                engine's; and 2 layers over rank_major_fp;
+                world size 1, serve's request at 8 of its layers (serve runs
+                all 32) with every decode launch a statistics one, logits
+                against the unsharded engine's; and 2 layers over
+                rank_major_fp;
      seq_ranks  - after serve_w8: two processes on the one card under gloo
                 (seq 2, 4 layers), each step's logits against the world-1
                 engine's on the same cache;
@@ -179,6 +199,7 @@ then the nvidia-smi line, the {"kernels": [...]} line, and last
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import io
@@ -191,6 +212,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 from typing import Optional
 
@@ -199,6 +221,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from palu_tpu_torch.cli import common as cli_common
 from palu_tpu_torch.cli import run_latency_attention, run_latency_kernel, serve_bench
 from palu_tpu_torch.compression import (compress_params, search_ranks, synthetic_batches,
                                         whiten_scale_matrices)
@@ -207,6 +230,10 @@ from palu_tpu_torch.core import wquant
 from palu_tpu_torch.core.hadamard import full_hadamard_matrix, get_hadK
 from palu_tpu_torch.core.quant import (QuantConfig, pack_codes, packed_nrows, pack_codes_t,
                                        quantize, quantize_affine)
+from palu_tpu_torch.evals import lm_eval_adapter as evals_lm_eval
+from palu_tpu_torch.evals import longbench as evals_longbench
+from palu_tpu_torch.evals import ppl as evals_ppl
+from palu_tpu_torch.evals import zero_shot as evals_zero_shot
 from palu_tpu_torch.models import hf_io, llama
 from palu_tpu_torch.models.config import ModelConfig
 from palu_tpu_torch.ops import build
@@ -1782,20 +1809,33 @@ def host_us(fn, iters: int = 100) -> dict:
 
 
 def kernels_per_call(fn, iters: int = 10, tries: int = 3) -> float:
-    """Device kernels the profiler sees per call of fn. A profile with no
-    device event at all (the profiler's fault, seen now and then: fn
-    launches at least one kernel) is taken again; `tries` in a row raise."""
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    """Device kernels the profiler sees per call of fn, which launches the
+    same number each call, at least one. The profiler drops a device event
+    now and then (one run read 9 for 10 one-kernel calls) and never adds
+    one, so a profile with no device event, or with a count that is not a
+    whole number per call, is taken again, up to `tries` profiles in all.
+    The first whole reading stands, and only if no earlier reading was
+    above it; after `tries` uneven ones the last stands as read. Every
+    reading of a call that took more than one profile is emitted."""
+    readings = []
+    for _ in range(tries):
+        fn()
         torch.cuda.synchronize()
-    n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        readings.append(sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA))
+        if readings[-1] and readings[-1] % iters == 0:
+            break
+    n = readings[-1]
+    if len(readings) > 1:
+        emit({"phase": "kernels_per_call", "readings": readings, "iters": iters})
     if n == 0:
-        if tries > 1:
-            return kernels_per_call(fn, iters, tries - 1)
         raise RuntimeError("torch.profiler recorded no device event")
+    if max(readings) > n:
+        raise RuntimeError(f"a profile read more device events than the one that stands: "
+                           f"{readings} over {iters} calls")
     return n / iters
 
 
@@ -2439,10 +2479,11 @@ def _prompts(seed: int, lens, lanes: int = 1, vocab: int = VOCAB):
 
 def phase_serve() -> tuple:
     """bf16 weights at full depth over the 3-bit cache (serve), then the
-    same weights and traffic over the unquantized rank-major cache
-    (serve_fp: qcfg None, rank_major_fp, the v4 fp kernel), each with its
-    decode and prefill breakdowns. Returns both runs' launches and the
-    weights, which `serving` reuses."""
+    first REPEAT_LAYERS layers of the same weights and the same traffic
+    over the unquantized rank-major cache (serve_fp: qcfg None,
+    rank_major_fp, the v4 fp kernel), each with its decode and prefill
+    breakdowns. Returns both runs' launches and the weights, which
+    `serving` reuses."""
     cfg = llama7b(LAYERS)
     eng, init_s = _engine(cfg, {})
     prompts = _prompts(1, (1000, 3000, 7000))
@@ -2451,8 +2492,11 @@ def phase_serve() -> tuple:
     prefill_breakdown(eng, prompts[-1], "serve")
     params = eng.params
     del eng
-    fp, _ = _engine(cfg, {}, params=params, qcfg=None, rank_major_fp=True)
-    launches_fp = serve("serve_fp", fp, prompts, 32)
+    fp, _ = _engine(llama7b(REPEAT_LAYERS), {},
+                    params=dict(params, layers=params["layers"][:REPEAT_LAYERS]), qcfg=None,
+                    rank_major_fp=True)
+    launches_fp = serve("serve_fp", fp, prompts, 32,
+                        {"reduced": f"{REPEAT_LAYERS} of 32 layers"})
     decode_breakdown(fp, "serve_fp")
     prefill_breakdown(fp, prompts[-1], "serve_fp")
     return launches, launches_fp, params
@@ -3041,6 +3085,330 @@ def phase_compress_cli() -> None:
         if ranks != {256}:
             raise AssertionError(f"compress_cli: ranks {ranks}, expected 256 in every group")
         del eng, params
+        torch.cuda.empty_cache()
+        phase_evals(out_dir)
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# 7b. the accuracy track (palu_tpu_torch/evals, cli/common.load_for_eval)
+# ---------------------------------------------------------------------------
+
+# A window's NLL, bf16 on the card against the port's f32 forward on the CPU
+# (same bf16-rounded weights), as a share of the f32 NLL, unquantized. The
+# same comparison between the port's plain paths in bf16 and in f32 on the
+# CPU (hidden 1024, 2 layers, vocab 32000, 512-token windows) reads 3-5e-5;
+# the H100 at 7B widths read 5.3e-5 and 1.1e-4 on the two 1024-token
+# windows: each token's NLL moves by a few bf16 roundings of its logits and
+# the mean over the window cancels most of them. 4e-4 is 3.5x the larger
+# reading; a broken mask, norm or attention moves the mean token NLL by far
+# more than 4e-4 of its ~11 nats.
+# With the 3-bit hook the gap is reported, not held: the bf16 latents on the
+# card take the neighbouring code wherever the f32 latent sits near a
+# rounding edge, and those flips moved the NLL by 3.7e-4 and 7.4e-4 on the
+# card, while the whole hook moved it by only 1.6e-3 and 4.0e-3, so no
+# limit separates a sound run from one without the hook. Held instead: in
+# every window the hook moves the card's NLL by more than the card's
+# unquantized gap to the CPU (a dropped hook moves it by nothing).
+NLL_TOL = 4e-4
+# the bucketed score against the same request scored alone and unpadded, in
+# f32 on the card (TF32 off): tests/test_evals.py:226's bound
+BUCKET_TOL = 1e-3
+
+
+class ByteTokenizer:
+    """A byte-level tokenizer with the HF surface the evals use: ids are
+    [bos] + (3 + byte); decode writes a byte id as its byte and any other
+    id as <id>, so a random model's tokens stay visible in the text."""
+
+    bos_token_id = 1
+    eos_token_id = 2
+
+    def __call__(self, text, return_tensors=None, add_special_tokens=True):
+        ids = ([self.bos_token_id] if add_special_tokens else []) + [
+            3 + b for b in text.encode("utf-8")]
+        if return_tensors == "np":
+            return {"input_ids": np.asarray([ids], np.int64)}
+        return {"input_ids": ids}
+
+    def decode(self, ids, skip_special_tokens=True):
+        out = []
+        for i in np.asarray(ids).reshape(-1).tolist():
+            if 3 <= i < 259:
+                out.append(chr(i - 3))
+            elif not (skip_special_tokens and i in (1, 2)):
+                out.append(f"<{i}>")
+        return "".join(out)
+
+
+def zero_shot_docs(task):
+    """Two documents of each of the six default tasks, in lm-eval's fields
+    (the CPU tests' fixture too)."""
+    abcd = ["A", "B", "C", "D"]
+    return {
+        "openbookqa": [
+            {"question_stem": "The sun is a", "choices": {
+                "text": ["star", "planet", "moon", "rock"], "label": abcd}, "answerKey": "A"},
+            {"question_stem": "Water freezes when it is", "choices": {
+                "text": ["heated", "cooled", "stirred", "poured"], "label": abcd},
+             "answerKey": "B"}],
+        "hellaswag": [
+            {"ctx": "A man opens the front door and", "endings": [
+                "walks into the house.", "sings to the moon.", "flies away.",
+                "melts slowly."], "label": "0"},
+            {"ctx": "She picks up the pen and", "endings": [
+                "eats it whole.", "writes a letter.", "runs a race.", "sleeps."],
+             "label": "1"}],
+        "piqa": [
+            {"goal": "open a jar", "sol1": "twist the lid", "sol2": "shout at it",
+             "label": 0},
+            {"goal": "dry wet hands", "sol1": "wet them more", "sol2": "use a towel",
+             "label": 1}],
+        "arc_easy": [
+            {"question": "What do plants need to grow?", "choices": {
+                "text": ["light", "noise", "salt"], "label": abcd[:3]}, "answerKey": "A"},
+            {"question": "Ice is", "choices": {"text": ["hot", "cold", "loud", "green"],
+                                               "label": ["1", "2", "3", "4"]},
+             "answerKey": "2"}],
+        "arc_challenge": [
+            {"question": "Which animal is a mammal?", "choices": {
+                "text": ["shark", "whale", "trout", "eel"], "label": abcd}, "answerKey": "B"},
+            {"question": "Iron rusts when it meets", "choices": {
+                "text": ["oxygen", "helium"], "label": abcd[:2]}, "answerKey": "A"}],
+        "winogrande": [
+            {"sentence": "The cup fell off the table because _ was tilted.",
+             "option1": "the cup", "option2": "the table", "answer": "2"},
+            {"sentence": "Anna lent Maria a book since _ had finished it.",
+             "option1": "Anna", "option2": "Maria", "answer": "1"}],
+    }[task]
+
+
+LONGBENCH_WORDS = ("the model reads a long context and answers a short question about "
+                   "its rows columns ranks caches latents and tokens").split()
+
+
+def _longbench_docs(name):
+    """Two samples of qasper or trec with ~1500-byte (so ~1500-token)
+    contexts from a seeded word stream."""
+    rng = np.random.default_rng(len(name))
+    docs = []
+    for i in range(2):
+        context = " ".join(rng.choice(LONGBENCH_WORDS, 260).tolist())[:1500]
+        docs.append({"context": context, "input": f"What is row {i}?",
+                     "answers": ["the model", "rows"],
+                     "all_classes": ["Location", "Person", "Number", "Description"]})
+    return docs
+
+
+def _counting_decode(eng):
+    """Count the engine's decode calls (steps) in eng.steps."""
+    eng.steps = 0
+    real = eng.decode
+
+    def decode(*a, **kw):
+        eng.steps += 1
+        return real(*a, **kw)
+
+    eng.decode = decode
+
+
+def _evals_load(ckpt: str) -> tuple:
+    """load_for_eval --lt_hadamard on the card: exact FWHT launches (2 per
+    group and side: 2 * 8 groups * 2 sides * 2 layers) and the forward's
+    logits within E2E_TOL of the unfused load's (the rotation cancels)."""
+    ns = lambda had: argparse.Namespace(model_name_or_path=ckpt, lt_hadamard=had,
+                                        use_cpu=False)
+    plain, _ = cli_common.load_for_eval(ns(False))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    params, cfg = cli_common.load_for_eval(ns(True))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    launches = read_counts()
+    layers = cfg.num_hidden_layers
+    _only(launches, {"hadamard_transform": 2 * G * 2 * layers}, "evals: load_for_eval")
+    ids = torch.as_tensor(np.random.default_rng(11).integers(0, VOCAB, (1, 512)),
+                          device="cuda")
+    with torch.no_grad():
+        a = llama.forward(params, ids, cfg).float()
+        b = llama.forward(plain, ids, cfg).float()
+    rel = ((a - b).abs().max() / b.abs().max()).item()
+    if not (torch.isfinite(a).all() and rel <= E2E_TOL):
+        raise AssertionError(f"evals: fused vs unfused logits rel err {rel}")
+    return params, cfg, {"load_s": load_s, "hadamard_launches": launches["hadamard_transform"],
+                         "fused_vs_unfused_logits_max_rel_err": rel}
+
+
+def _evals_ppl(params, cfg) -> dict:
+    """eval_ppl_on_tokens on seeded synthetic tokens: 2 windows at 1024 on
+    the card (bf16) with and without the 3-bit sym hook against the port's
+    f32 CPU run of the same params and tokens, each unquantized window's
+    NLL held at NLL_TOL, the hooked ones' gap reported and the hook's move
+    held (see NLL_TOL); then 4 windows at the reference's 2048, timed."""
+    tokens = np.random.default_rng(12).integers(0, VOCAB, (1, 4 * 2048 + 5))
+    cpu = _tree_to(params, "cpu", torch.float32)
+    hooks = {"bf16": None, "3bit_sym": QuantConfig(bits=3, sym=True)}
+    out = {}
+    for tag, qcfg in hooks.items():
+        hook = evals_ppl.latent_hook(qcfg)
+        wins = torch.as_tensor(tokens[0, :2 * 1024].reshape(2, 1024))
+        got = [evals_ppl.window_nlls(params, cfg, w[None].cuda(), 1024, hook).item()
+               for w in wins]
+        want = [evals_ppl.window_nlls(cpu, cfg, w[None], 1024, hook).item() for w in wins]
+        rel = [abs(g - w) / w for g, w in zip(got, want)]
+        ppl_card = evals_ppl.eval_ppl_on_tokens(params, cfg, tokens[:, :2 * 1024], 1024, qcfg,
+                                                progress=False)
+        ppl_cpu = float(np.exp(np.sum(want) / (2 * 1024)))
+        evals_ppl.eval_ppl_on_tokens(params, cfg, tokens[:, :2048], 2048, qcfg,
+                                     progress=False)  # warm the 2048 shapes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ppl_2048 = evals_ppl.eval_ppl_on_tokens(params, cfg, tokens, 2048, qcfg, progress=False)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 4 * 1e3
+        out[tag] = {"window_nll_card": got, "window_nll_cpu_f32": want,
+                    "window_nll_max_rel_err": max(rel), "ppl_1024_card": ppl_card,
+                    "ppl_1024_cpu_f32": ppl_cpu, "ppl_2048_card": ppl_2048,
+                    "ms_per_window_2048": ms}
+        if not all(math.isfinite(g) for g in got) or (qcfg is None and max(rel) > NLL_TOL):
+            raise AssertionError(f"evals: {tag} window NLL card vs CPU f32 rel err {rel}")
+    fp, q3 = out["bf16"], out["3bit_sym"]
+    gap = [abs(g - w) for g, w in zip(fp["window_nll_card"], fp["window_nll_cpu_f32"])]
+    moved = [abs(a - b) for a, b in zip(q3["window_nll_card"], fp["window_nll_card"])]
+    q3["hook_moved_card_nll"] = moved
+    if not all(m > g for m, g in zip(moved, gap)):
+        raise AssertionError(f"evals: the 3-bit hook moved the card's NLLs by {moved}, "
+                             f"within the unquantized card-vs-CPU gap {gap}")
+    del cpu
+    return {"tol": NLL_TOL, "windows_held": 2, "seqlen_held": 1024, "windows_timed": 4,
+            "seqlen_timed": 2048, **out}
+
+
+def _evals_zero_shot(params, cfg, tok) -> dict:
+    """run_zero_shot on the six tasks' fixtures (bf16, the 3-bit sym hook);
+    then every request's loglikelihood_batch score (bucketed, batch 8) held
+    at BUCKET_TOL against the request scored alone and unpadded, in f32 on
+    the card, greedy flags equal (the bf16 gap reported)."""
+    qcfg = QuantConfig(bits=3, sym=True)
+    shapes0 = set(evals_zero_shot._LL_SHAPES)
+    t0 = time.perf_counter()
+    acc = evals_zero_shot.run_zero_shot(params, cfg, tok, qcfg=qcfg,
+                                        data_loader=zero_shot_docs)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    reqs = []
+    for task in evals_zero_shot.DEFAULT_TASKS:
+        for doc in zero_shot_docs(task):
+            ctx, choices, _, varies = evals_zero_shot.make_mc_requests(task, doc, tok)
+            ids = lambda t: tok(t, return_tensors="np")["input_ids"][0].tolist()
+            ctxs = ctx if varies else [ctx] * len(choices)
+            reqs += [(ids(c), ids(ch)[1:]) for c, ch in zip(ctxs, choices)]
+    gaps = {}
+    for tag, p in (("f32", _tree_to(params, "cuda", torch.float32)), ("bf16", params)):
+        batched = evals_zero_shot.loglikelihood_batch(p, cfg, reqs, batch_size=8)
+        ll = evals_zero_shot._ll_fn(cfg, None)
+        errs, flags = [], []
+        for (ctx, cont), (s, e) in zip(reqs, batched):
+            ids = torch.as_tensor([ctx + cont], device="cuda")
+            mask = torch.zeros(ids.shape, device="cuda")
+            mask[0, len(ctx):] = 1.0
+            s1, e1 = ll(p, ids, mask)
+            errs.append(abs(s - s1.item()))
+            flags.append(e == bool(e1.item()))
+        gaps[tag] = {"max_abs_err": max(errs), "flags_equal": all(flags)}
+        del p
+    if not (gaps["f32"]["max_abs_err"] <= BUCKET_TOL and gaps["f32"]["flags_equal"]):
+        raise AssertionError(f"evals: bucketed vs unpadded scores {gaps['f32']}")
+    shapes = sorted(evals_zero_shot._LL_SHAPES - shapes0)
+    return {"acc": acc, "run_s": run_s, "requests": len(reqs), "bucket_shapes": shapes,
+            "bucketed_vs_unpadded": gaps, "tol": BUCKET_TOL}
+
+
+def _evals_longbench(params, cfg, tok) -> tuple:
+    """run_longbench (qasper, trec; two ~1500-token samples each) through an
+    Engine over the flagship 3-bit cache at s_max 4096, every palu_decode
+    launch held at DECODE_TOL against palu_decode_ref, the prefill_flash,
+    cache append and palu_decode launches exact per step; then
+    TorchLM.generate_until with a stop string on the same engine."""
+    eng = Engine(params, cfg, EngineConfig(s_max=4096, qcfg=FLAGSHIP, dtype=torch.bfloat16))
+    _counting_decode(eng)
+    layers = cfg.num_hidden_layers
+    prompts = [evals_longbench.build_prompt(name, d, tok, 3500).shape[1]
+               for name in ("qasper", "trec") for d in _longbench_docs(name)]
+    held = []
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with _engine_decode(_held_engine_decode(held, "evals: LongBench's palu_decode")):
+        scores = evals_longbench.run_longbench(eng, tok, datasets=["qasper", "trec"],
+                                               data_loader=_longbench_docs)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = read_counts()
+    chunks = sum(-(-n // eng._chunk) for n in prompts)
+    want = {k: v for k, v in expected_launches(layers, eng.ecfg, eng.steps).items() if v}
+    want["prefill_flash"] = layers * chunks
+    _only(launches, want, "evals: run_longbench")
+    if len(held) != layers * eng.steps:
+        raise AssertionError(f"evals: held {len(held)} palu_decode calls of "
+                             f"{layers * eng.steps}")
+    if not all(0.0 <= v <= 100.0 for v in scores.values()):
+        raise AssertionError(f"evals: LongBench scores {scores}")
+    longbench = {"scores": scores, "prompts": prompts, "decode_steps": eng.steps,
+                 "launches": {k: v for k, v in launches.items() if v}, "run_s": run_s,
+                 "decode_held": len(held), "decode_tol": DECODE_TOL,
+                 "decode_max_rel_err": max(h[3] for h in held),
+                 "decode_max_abs_err": max(h[2] for h in held)}
+
+    lm = evals_lm_eval.TorchLM(params, cfg, tok, qcfg=FLAGSHIP, max_length=4096)
+    lm._engine = eng
+    req = types.SimpleNamespace(args=(_longbench_docs("trec")[0]["context"],
+                                      {"until": [], "max_gen_toks": 16}))
+    full = lm.generate_until([req])[0]
+    pieces = re.findall(r"<\d+>|.", full, re.S)
+    stop = pieces[len(pieces) // 2] if pieces else "\n"
+    req.args[1]["until"] = [stop]
+    eng.steps = 0
+    reset_counts()
+    cut = lm.generate_until([req])[0]
+    launches = read_counts()
+    want = {k: v for k, v in expected_launches(layers, eng.ecfg, eng.steps).items() if v}
+    n_ctx = len(tok(req.args[0])["input_ids"])
+    want["prefill_flash"] = layers * -(-n_ctx // eng._chunk)
+    _only(launches, want, "evals: generate_until")
+    if cut != (full[:full.find(stop)] if stop in full else full) or stop in cut:
+        raise AssertionError(f"evals: generate_until gave {cut!r} of {full!r} at {stop!r}")
+    gen = {"text": full, "stop": stop, "cut": cut, "decode_steps": eng.steps,
+           "launches": {k: v for k, v in launches.items() if v}}
+    del eng, lm
+    return longbench, gen
+
+
+def phase_evals(ckpt: str) -> None:
+    """The accuracy track on the card at Llama-2-7B widths, on compress_cli's
+    2-layer checkpoint (rank 256 in every group, Hadamard already fused):
+    load_for_eval with --lt_hadamard (exact FWHT launches; logits against
+    the unfused load), perplexity on seeded synthetic tokens (window NLLs
+    held against the port's f32 CPU run; ms per 2048-token window),
+    zero-shot on in-code fixtures of the six tasks (bucketed scores held
+    against unpadded ones), LongBench on qasper / trec fixtures over the
+    3-bit cache (every palu_decode launch held against palu_decode_ref,
+    launches per step exact) and TorchLM.generate_until with a stop string
+    on the same engine. Counts are set to 0 just before each step and read
+    just after."""
+    t0 = time.perf_counter()
+    tok = ByteTokenizer()
+    params, cfg, load = _evals_load(ckpt)
+    torch.cuda.empty_cache()
+    ppl = _evals_ppl(params, cfg)
+    zero_shot = _evals_zero_shot(params, cfg, tok)
+    torch.cuda.empty_cache()
+    longbench, gen = _evals_longbench(params, cfg, tok)
+    emit({"phase": "evals", "model": _model_name(cfg), "load": load, "ppl": ppl,
+          "zero_shot": zero_shot, "longbench": longbench, "generate_until": gen,
+          "phase_s": time.perf_counter() - t0})
+    del params
     torch.cuda.empty_cache()
 
 
@@ -3502,17 +3870,23 @@ def _same_cache(a: dict, b: dict) -> dict:
     return {"bytes": total, "bytes_differing": diff}
 
 
+# the depth of serve_stacked and serve_seq: each repeats serve's request,
+# which serve runs at all 32 layers, on another decode path
+REPEAT_LAYERS = 8
+
+
 def phase_serve_stacked(params) -> tuple:
-    """Engine.generate with stacked_decode=True at Llama-2-7B width: 32
-    layers over the 3-bit cache answering the 7000-token request of
-    `serve` (32 new tokens) with exact launches per step, every
-    palu_decode with layer_idx; then the same request teacher-forced
+    """Engine.generate with stacked_decode=True at Llama-2-7B width: serve's
+    first REPEAT_LAYERS layers over the 3-bit cache answering the
+    7000-token request of `serve` (32 new tokens) with exact launches per
+    step, every palu_decode with layer_idx; then the same request teacher-forced
     through the unrolled engine on the same params: logits, tokens and
     cache bytes compared, and both engines' decode breakdowns. Then a
     2-layer rank_major_fp case (palu_decode_fp_t with layer_idx). Returns
     both runs' launches."""
     t_phase = time.perf_counter()
-    cfg = llama7b(LAYERS)
+    cfg = llama7b(REPEAT_LAYERS)
+    params = dict(params, layers=params["layers"][:REPEAT_LAYERS])
     prompt = _prompts(1, (7000,))
     stacked, init_s = _engine(cfg, {}, params=params, stacked_decode=True)
     launches = serve("serve_stacked", stacked, prompt, 32, {"init_s": init_s})
@@ -3558,9 +3932,10 @@ def _free_port() -> int:
 
 def phase_serve_seq(params) -> tuple:
     """The engine on a ("data", "seq") mesh of 1 x 1 under NCCL at world
-    size 1: 32 layers at Llama-2-7B width over the 3-bit cache, the
-    7000-token request with s_max 8192 and 32 new tokens through
-    Engine.generate, every decode layer launching the statistics variant
+    size 1: serve's first REPEAT_LAYERS layers at Llama-2-7B width over
+    the 3-bit cache, the 7000-token request with s_max 8192 and 32 new
+    tokens through Engine.generate, every decode layer launching the
+    statistics variant
     (pos_offset and return_stats); teacher-forced, its logits within 1e-2
     of max|logits| of the unsharded engine's. Then a 2-layer rank_major_fp
     case (palu_decode_fp_t's statistics). Returns both runs' launches."""
@@ -3573,7 +3948,8 @@ def phase_serve_seq(params) -> tuple:
                             world_size=1, rank=0)
     try:
         mesh = make_mesh(1, seq=1, device_type="cuda")
-        cfg = llama7b(LAYERS)
+        cfg = llama7b(REPEAT_LAYERS)
+        params = dict(params, layers=params["layers"][:REPEAT_LAYERS])
         prompt = _prompts(1, (7000,))
         seq, init_s = _engine(cfg, {}, params=params, mesh=mesh, seq_axis="seq")
         launches = serve("serve_seq", seq, prompt, 32, {"init_s": init_s, "mesh": "1x1",

@@ -4,8 +4,9 @@ The JAX package's params are a pytree of dicts and lists with array leaves;
 `jax.tree.map(np.asarray, params)` turns it into numpy leaves, which
 `params_from_numpy` turns into the port's tree of tensors (same keys, same
 layouts; ragged U tuples stay tuples). `config_from_dict` takes
-`dataclasses.asdict` of a JAX ModelConfig, and `lowrank_from_numpy` the
-fields of a JAX LowRankWeights. None of them imports JAX: the caller hands
+`dataclasses.asdict` of a JAX ModelConfig, `quant_config_from_dict` that of
+a JAX QuantConfig, and `lowrank_from_numpy` the fields of a JAX
+LowRankWeights. None of them imports JAX: the caller hands
 over numpy.
 """
 
@@ -17,10 +18,12 @@ import numpy as np
 import torch
 
 from .core.lowrank import LowRankWeights
+from .core.quant import QuantConfig
 from .models.config import ModelConfig
 from .ops.build import require_cuda
 
-__all__ = ["params_from_numpy", "config_from_dict", "lowrank_from_numpy"]
+__all__ = ["params_from_numpy", "config_from_dict", "quant_config_from_dict",
+           "lowrank_from_numpy"]
 
 
 # f32 scales of quantized weights (core/wquant), kept f32 whatever `dtype`
@@ -49,6 +52,11 @@ def params_from_numpy(tree: Any, device="cuda", dtype=None) -> Any:
 def config_from_dict(d: Dict[str, Any]) -> ModelConfig:
     """The port's ModelConfig from the fields of a JAX ModelConfig."""
     return ModelConfig(**d)
+
+
+def quant_config_from_dict(d: Dict[str, Any]) -> QuantConfig:
+    """The port's QuantConfig from the fields of a JAX QuantConfig."""
+    return QuantConfig(**d)
 
 
 def lowrank_from_numpy(VT, U_list, ranks, bias=None, device="cuda") -> LowRankWeights:

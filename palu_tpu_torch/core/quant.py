@@ -62,6 +62,7 @@ class QuantConfig:
     group_size: int = 0  # 0 = one scale per row (last dim)
     sym: bool = False
     clip_ratio: float = 1.0
+    hadamard: bool = False  # latents rotated by Hadamard fusion at load (a record)
     container: int = 0  # storage field width; 0 = bits (exact packing)
 
     def __post_init__(self):

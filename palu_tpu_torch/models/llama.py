@@ -41,8 +41,9 @@ Params = Dict[str, Any]
 
 __all__ = [
     "rms_norm", "rope_cos_sin", "rope_cos_sin_for", "apply_rope",
-    "is_ragged", "ragged_offsets", "project_kv", "reconstruct_kv", "attention_core",
-    "mlp_forward", "forward", "init_params", "fuse_o_proj", "pad_ragged_params",
+    "is_ragged", "ragged_offsets", "project_kv", "reconstruct_kv", "quantize_latent_grouped",
+    "attention_core", "mlp_forward", "forward", "init_params", "fuse_o_proj",
+    "pad_ragged_params",
 ]
 
 
@@ -157,6 +158,15 @@ def reconstruct_kv(latents: torch.Tensor, proj: Params) -> torch.Tensor:
     return out.reshape(b, s, g * d)
 
 
+def quantize_latent_grouped(latents: torch.Tensor, proj: Params, quantize_latent):
+    """Apply the fake-quant hook with per-group granularity for ragged
+    latents (B, S, sum_ranks); uniform (B, S, G, r) passes through whole."""
+    if not is_ragged(proj):
+        return quantize_latent(latents)
+    parts = [quantize_latent(latents[..., o:o + r]) for (o, r) in ragged_offsets(proj)]
+    return torch.cat(parts, dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------
@@ -250,9 +260,13 @@ def mlp_forward(x: torch.Tensor, p: Params, paths: Optional[set] = None) -> torc
     return wdot(F.silu(gate) * up, p["down"], paths)
 
 
-def attn_forward(x, p: Params, cfg: ModelConfig, positions, mask,
+def attn_forward(x, p: Params, cfg: ModelConfig, positions, mask, quantize_latent=None,
                  value_mode: str = "reconstruct") -> torch.Tensor:
-    """Full-sequence (no-cache) attention of the accuracy path."""
+    """Full-sequence (no-cache) attention of the accuracy path.
+
+    quantize_latent: optional fn(latents) -> latents, applied to the K and
+    V latents of low-rank sides before reconstruction (the reference's
+    fake-quant, svd_linear.py:84-90)."""
     b, s, _ = x.shape
     nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
 
@@ -265,6 +279,11 @@ def attn_forward(x, p: Params, cfg: ModelConfig, positions, mask,
     v_raw = project_kv(x, p["v_proj"])
     k_lowrank = "VT" in p["k_proj"]
     v_lowrank = "VT" in p["v_proj"]
+    if quantize_latent is not None:
+        if k_lowrank:
+            k_raw = quantize_latent_grouped(k_raw, p["k_proj"], quantize_latent)
+        if v_lowrank:
+            v_raw = quantize_latent_grouped(v_raw, p["v_proj"], quantize_latent)
 
     k = reconstruct_kv(k_raw, p["k_proj"]) if k_lowrank else k_raw
     k = k.reshape(b, s, nkv, hd)
@@ -285,24 +304,25 @@ def attn_forward(x, p: Params, cfg: ModelConfig, positions, mask,
     return out @ o_w
 
 
-def decoder_layer(x, p: Params, cfg: ModelConfig, positions, mask,
+def decoder_layer(x, p: Params, cfg: ModelConfig, positions, mask, quantize_latent=None,
                   value_mode: str = "reconstruct") -> torch.Tensor:
     h = rms_norm(x, p["input_norm"], cfg.rms_norm_eps)
-    x = x + attn_forward(h, p["attn"], cfg, positions, mask, value_mode)
+    x = x + attn_forward(h, p["attn"], cfg, positions, mask, quantize_latent, value_mode)
     h = rms_norm(x, p["post_norm"], cfg.rms_norm_eps)
     return x + mlp_forward(h, p["mlp"])
 
 
-def forward(params: Params, input_ids: torch.Tensor, cfg: ModelConfig,
+def forward(params: Params, input_ids: torch.Tensor, cfg: ModelConfig, quantize_latent=None,
             value_mode: str = "reconstruct") -> torch.Tensor:
-    """Full forward pass -> logits (B, S, vocab): no KV cache, causal mask."""
+    """Full forward pass -> logits (B, S, vocab): no KV cache, causal mask,
+    the fake-quant hook on the latents (the accuracy track)."""
     b, s = input_ids.shape
     dev = input_ids.device
     x = params["embed"][input_ids]
     positions = torch.arange(s, device=dev)[None, :].expand(b, s)
     mask = _causal_mask(s, s, torch.float32, dev, cfg.sliding_window)
     for p_layer in params["layers"]:
-        x = decoder_layer(x, p_layer, cfg, positions, mask, value_mode)
+        x = decoder_layer(x, p_layer, cfg, positions, mask, quantize_latent, value_mode)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     lm_head = params["lm_head"] if params.get("lm_head") is not None else params["embed"].T
     return x @ lm_head

@@ -64,6 +64,36 @@ def test_parallel_package_is_scanned():
         assert f"palu_tpu_torch.parallel{name}" in mods
 
 
+def test_eval_modules_are_scanned():
+    """The accuracy track (palu_tpu_torch/evals) and the eval CLIs are among
+    the modules the import test loads without JAX and the source scan reads,
+    and they import without transformers, datasets, lm_eval and rouge."""
+    mods = _port_modules()
+    for name in ("", ".metrics", ".scorer", ".ppl", ".zero_shot", ".lm_eval_adapter",
+                 ".longbench"):
+        assert f"palu_tpu_torch.evals{name}" in mods
+    evals = ["palu_tpu_torch.evals"] + [f"palu_tpu_torch.cli.{n}" for n in (
+        "common", "run_ppl_eval", "run_lm_eval", "run_long_bench")]
+    assert set(evals) <= set(mods)
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'palu_tpu', 'transformers', 'datasets', 'lm_eval', 'rouge', "
+        "'jieba', 'tokenizers'):\n"
+        "    sys.modules[m] = None\n"
+        "import importlib\n"
+        f"for m in {evals!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from palu_tpu_torch.evals import lm_eval_adapter\n"
+        "assert not lm_eval_adapter._HAVE_LM_EVAL\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
 def test_no_jax_import_in_source():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for path in files:
