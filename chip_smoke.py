@@ -34,8 +34,9 @@ Phases, each printing one JSON line:
                 has one; for the fp decode kernels: scaled_dot_product_attention
                 over dense bf16 K/V, the attention Palu replaces; for the
                 prefill, SDPA with the same mask, also at Qwen2-7B's 28 / 4
-                heads), and for the GEMVs the host time of one call and the
-                device kernels per call;
+                heads and at the one-shot prefill's Cq = S = 4096,
+                prefill_flash_oneshot), and for the GEMVs the host time of
+                one call and the device kernels per call;
   4. e2e      - a 2-layer model at 7B widths: one 2048-token request and 16
                 teacher-forced decode steps through the kernels (bf16) on the
                 card, against the same run on the CPU (plain versions, f32);
@@ -56,6 +57,15 @@ Phases, each printing one JSON line:
                 one scale and zero per 32 ranks): each palu_decode launch
                 held against palu_decode_ref, the logits against an engine
                 on palu_decode_ref;
+     e2e_dense - a 2-layer dense-KV model (the reference's non-Palu
+                baseline) through the bucketed one-shot prefill (one
+                prefill_flash launch a layer) and SDPA decode, against the
+                CPU's f32 run (mha_prefill, dense_flash_decode);
+     e2e_chunked_seq - the e2e model over the seq-major per-chunk cache
+                (3-bit asym, one scale and base per 4 ranks: codes /
+                scales / base, decoded in PyTorch as JAX does in XLA),
+                against the CPU, then against a card engine whose prefill
+                attention runs prefill_flash_ref (each launch held);
   5. serve    - the main path at full depth: a 32-layer Llama-2-7B-width
                 Palu model (random weights from a seed, 3-bit latents in
                 nibble containers) answers three requests (1000 / 3000 /
@@ -63,6 +73,16 @@ Phases, each printing one JSON line:
                 Engine.generate, with the launch counters reset just before
                 and read just after; then where the time of one decode step
                 and of one 7000-token prefill goes (torch.profiler);
+     serve_dense - serve's weights with random dense k / v projections:
+                (a) all 32 layers dense (the dense-KV baseline), (b) layers
+                0-1 dense and the rest on the 3-bit cache, each answering a
+                3000-token request (the bucketed one-shot prefill at 4096:
+                32 prefill_flash launches) with 32 new tokens (SDPA calls,
+                palu_decode and appends per step exact); each one-shot
+                launch held against prefill_flash_ref on the same card
+                q / k / v, the logits against an engine on
+                prefill_flash_ref, both breakdowns, and (a)'s ms/token
+                beside serve's 3-bit one at the same prompt;
      serve_fp - the first 8 layers of the same weights and the same traffic
                 over the unquantized rank-major cache (rank_major_fp:
                 palu_decode_fp_t), exact launches per step, and its two
@@ -114,6 +134,9 @@ Phases, each printing one JSON line:
      compress_cli - `python -m palu_tpu_torch.cli.compress` on a 2-layer
                 checkpoint written by hf_io.save_checkpoint, read back by
                 hf_io.load_params and served;
+     ckpt     - that checkpoint through models/ckpt.save_native and
+                load_native: every tensor bit-identical, the config equal,
+                an engine's logits identical;
      evals    - the accuracy track (palu_tpu_torch/evals) on that
                 compressed checkpoint: cli.common.load_for_eval with
                 --lt_hadamard (FWHT launches exact, 2 per group and side;
@@ -234,7 +257,7 @@ from palu_tpu_torch.evals import lm_eval_adapter as evals_lm_eval
 from palu_tpu_torch.evals import longbench as evals_longbench
 from palu_tpu_torch.evals import ppl as evals_ppl
 from palu_tpu_torch.evals import zero_shot as evals_zero_shot
-from palu_tpu_torch.models import hf_io, llama
+from palu_tpu_torch.models import ckpt, hf_io, llama
 from palu_tpu_torch.models.config import ModelConfig
 from palu_tpu_torch.ops import build
 from palu_tpu_torch.ops.archive.palu_decode2 import palu_decode2, palu_decode2_quantized
@@ -1773,6 +1796,43 @@ def _qwen2_prefill_times(gen, cq: int) -> dict:
             "bound_ms": bms, "bound_by": by, "flops": flops}
 
 
+ONESHOT_S = 4096  # serve_dense's bucket: a 3000-token prompt padded to 4096
+
+
+def check_prefill_oneshot(gen) -> dict:
+    """The one-shot prefill's shape (Engine.prefill, serve_dense's bucket):
+    Cq = S = 4096, q offset 0, 32 over 32 heads, hd 128, held against the
+    plain version at PREFILL_TOL; device times (L2 cold) of the kernel, the
+    plain version and SDPA with the same (causal) mask, beside the bound."""
+    s = ONESHOT_S
+    q, k, v = _prefill_inputs(1, NH, NH, s, s, gen)
+    got = prefill_flash(q, k, v, 0, s)
+    want = prefill_flash_ref(q.float(), k.float(), v.float(), 0, s)
+    torch.cuda.synchronize()
+    err = (got.float() - want).abs().max().item()
+    rel = err / want.abs().max().item()
+    if not (torch.isfinite(got).all() and rel <= PREFILL_TOL):
+        raise AssertionError(f"one-shot prefill S {s}: rel err {rel}")
+    del got, want
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms = device_ms(lambda: prefill_flash(q, k, v, 0, s), 20)
+    plain_ms = device_ms(lambda: prefill_flash_ref(q, k, v, 0, s), 3)
+    library_ms = device_ms(lambda: sdpa(q, k, v, is_causal=True), 20)
+    flops = 4 * NH * HD * (s * (s + 1) // 2)
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    bms, by = bound_ms(nbytes, flops)
+    del q, k, v
+    out = {"name": "prefill_flash_oneshot", "route": "cuda",
+           "source": "palu_tpu_torch/csrc/prefill_flash.cu",
+           "replaces": "palu_tpu/ops/pallas/prefill_flash.py:257",
+           "max_abs_err": err, "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bms, "bound_by": by, "library_ms": library_ms}
+    emit({"phase": "kernel", "cases": 1, "max_rel_err": rel, "tol": PREFILL_TOL, "cq": s,
+          "s": s, "heads": [NH, NH], "bytes": nbytes, "flops": flops,
+          "library": "scaled_dot_product_attention(is_causal=True)", **out})
+    return out
+
+
 def _qweight(bits: int, k: int, n: int, gen):
     w = torch.randn((k, n), generator=gen, device="cuda") * 0.02
     return wquant.quantize_weight4(w) if bits == 4 else wquant.quantize_weight(w)
@@ -2067,7 +2127,7 @@ def check_mlp(gen, bits: int) -> dict:
 
 
 def _stepwise(eng, ids, forced):
-    logits, cache = eng.prefill_chunked(ids, chunk_size=512)
+    logits, cache = eng.prefill_auto(ids)
     out = [logits.float().cpu()]
     for t in forced:
         logits, cache = eng.decode(np.full((1, 1), t, np.int64), cache)
@@ -2326,6 +2386,157 @@ def phase_e2e_fp() -> None:
         del gpu, gcache
 
 
+@contextlib.contextmanager
+def _engine_prefill(fn):
+    """Engines run `fn` in place of ops/prefill_flash.prefill_flash inside."""
+    real = engine_mod.prefill_flash
+    engine_mod.prefill_flash = fn
+    try:
+        yield
+    finally:
+        engine_mod.prefill_flash = real
+
+
+def _held_prefill(held: list, what: str):
+    """prefill_flash that also runs prefill_flash_ref on the same card q, k,
+    v (in f32, so the plain output is not rounded to bf16) and holds the
+    kernel at PREFILL_TOL of max|plain|, appending (Cq, S, abs err, rel
+    err) to `held`."""
+    def fn(q, k, v, q_offset, kv_len, **kw):
+        got = prefill_flash(q, k, v, q_offset, kv_len, **kw)
+        want = prefill_flash_ref(q.float(), k.float(), v.float(), q_offset, kv_len, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want).abs().max().item()
+        rel = err / want.abs().max().item()
+        if not (torch.isfinite(got).all() and rel <= PREFILL_TOL):
+            raise AssertionError(f"{what}: prefill_flash rel err {rel}")
+        held.append((q.shape[2], k.shape[2], err, rel))
+        return got
+    return fn
+
+
+def _vs_plain_prefill(eng, prompt, forced) -> dict:
+    """`eng`'s prefill and teacher-forced decode steps with every
+    prefill_flash launch held against prefill_flash_ref on its own inputs,
+    then the same run with the engine's prefill attention on
+    prefill_flash_ref: the launches held and the logits' gap (within
+    E2E_TOL of max|logits|). Returns the two runs' logits and caches."""
+    held = []
+    with _engine_prefill(_held_prefill(held, "prefill")):
+        got, _, gcache = _forced_run(eng, prompt, len(forced), forced)
+    with _engine_prefill(prefill_flash_ref):
+        want, _, wcache = _forced_run(eng, prompt, len(forced), forced)
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    if not (torch.isfinite(got).all() and rel <= E2E_TOL):
+        raise AssertionError(f"vs the plain-prefill engine: rel err {rel}")
+    return {"launches_held": len(held), "held_shapes": sorted({h[:2] for h in held}),
+            "held_max_rel_err": max(h[3] for h in held),
+            "held_max_abs_err": max(h[2] for h in held), "held_tol": PREFILL_TOL,
+            "vs_plain_prefill_engine_max_rel_err": rel, "tol": E2E_TOL,
+            "top1_agreement": (got.argmax(-1) == want.argmax(-1)).float().mean().item(),
+            "runs": (got, want, gcache, wcache)}
+
+
+def phase_e2e_dense() -> None:
+    """The dense-KV baseline end to end: a 2-layer dense model at Llama-2-7B
+    width (bf16 weights from seed 0), the 2048-token prompt through
+    prefill_auto (the bucketed one-shot prefill: one prefill_flash launch
+    a layer) and 16 teacher-forced decode steps (SDPA) on the card, against
+    the same run on the CPU in f32 (mha_prefill, dense_flash_decode)."""
+    _, _, ids, forced = _e2e_inputs()
+    cfg = dense7b(2)
+    params = _tree_to(llama.init_params(cfg, torch.Generator().manual_seed(0)), "cpu",
+                      torch.bfloat16)
+    ecfg = EngineConfig(s_max=4096, batch=1, qcfg=None, decode_chunk=512)
+    gpu = Engine(_tree_to(params, "cuda", torch.bfloat16), cfg, ecfg)
+    reset_counts()
+    calls = []
+    t0 = time.perf_counter()
+    with _counting_sdpa(calls):
+        got, _ = _stepwise(gpu, ids, forced)
+    gpu_s = time.perf_counter() - t0
+    launches = read_counts()
+    cpu = Engine(_tree_to(params, "cpu", torch.float32), cfg,
+                 dataclasses.replace(ecfg, dtype=torch.float32, device="cpu"))
+    t0 = time.perf_counter()
+    want, _ = _stepwise(cpu, ids, forced)
+    cpu_s = time.perf_counter() - t0
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    emit({"phase": "e2e_dense", "model": _model_name(cfg) + ", dense k/v", "layers": 2,
+          "prompt": int(ids.shape[1]), "steps": len(forced), "max_rel_err": rel,
+          "tol": E2E_TOL, "top1_agreement": (got.argmax(-1) == want.argmax(-1)).float()
+          .mean().item(), "prefill_flash_launches": launches["prefill_flash"],
+          "dense_sdpa_calls": len(calls), "gpu_decode_paths": sorted(gpu._decode_paths),
+          "cpu_decode_paths": sorted(cpu._decode_paths), "gpu_s": gpu_s, "cpu_s": cpu_s})
+    if not (torch.isfinite(got).all() and rel <= E2E_TOL):
+        raise AssertionError(f"e2e_dense: end-to-end logits rel err {rel} > {E2E_TOL}")
+    if gpu._decode_paths != {"dense_sdpa-kernel"} or cpu._decode_paths != {"dense_flash-plain"}:
+        raise AssertionError(f"e2e_dense: paths {gpu._decode_paths} / {cpu._decode_paths}")
+    if launches["prefill_flash"] != 2 or len(calls) != 2 * len(forced) or any(
+            n for name, n in launches.items() if name != "prefill_flash"):
+        raise AssertionError(f"e2e_dense: launches {launches}, SDPA calls {len(calls)}")
+
+
+# the seq-major per-chunk cache of e2e_chunked_seq: 3-bit asym, one scale
+# and base per 4 ranks (a chunk that is not a multiple of 8: JAX's seq-major
+# codes / scales / base layout, which no kernel reads)
+SEQ_CHUNKED = QuantConfig(bits=3, sym=False, group_size=4)
+
+
+def phase_e2e_chunked_seq() -> None:
+    """The seq-major per-chunk cache end to end: the 2-layer e2e model over
+    SEQ_CHUNKED, the 2048-token prompt (the layer-major chunked prefill,
+    prefill_flash over the rebuilt K / V) and 16 teacher-forced decode steps
+    (the plain masked append and flash_decode_latent, in PyTorch on the
+    card as JAX runs it in XLA), against the port's f32 CPU engine (held at
+    E2E_TOL); then against an engine on the card whose prefill attention
+    runs prefill_flash_ref (every launch held at PREFILL_TOL, logits at
+    E2E_TOL, as serve_dense holds it: the two prefills' bf16 outputs part
+    by an ulp here and there, which moves layer 1's latents across 3-bit
+    code edges): the cache bytes that part the two are reported."""
+    cfg, params, ids, forced = _e2e_inputs()
+    ecfg = EngineConfig(s_max=4096, batch=1, qcfg=SEQ_CHUNKED, decode_chunk=512)
+    gpu = Engine(_tree_to(params, "cuda", torch.bfloat16), cfg, ecfg)
+    reset_counts()
+    t0 = time.perf_counter()
+    got, gcache = _stepwise(gpu, ids, forced)
+    gpu_s = time.perf_counter() - t0
+    launches = read_counts()
+    keys = [sorted(e[side]) for e in gcache["layers"] for side in ("k", "v")]
+    cpu = Engine(_tree_to(params, "cpu", torch.float32), cfg,
+                 dataclasses.replace(ecfg, dtype=torch.float32, device="cpu"))
+    t0 = time.perf_counter()
+    want, ccache = _stepwise(cpu, ids, forced)
+    cpu_s = time.perf_counter() - t0
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    n = ids.shape[1] + len(forced)
+    cpu_codes = sum(int((g[s]["codes"][:, :, :n].cpu() != c[s]["codes"][:, :, :n]).sum())
+                    for g, c in zip(gcache["layers"], ccache["layers"]) for s in ("k", "v"))
+    del gcache, cpu, ccache
+    card = _vs_plain_prefill(gpu, ids, forced)
+    _, _, kc, wc = card.pop("runs")
+    parted = {key: sum(int((a[s][key] != b[s][key]).sum())
+                       for a, b in zip(kc["layers"], wc["layers"]) for s in ("k", "v"))
+              for key in ("codes", "scales", "base")}
+    emit({"phase": "e2e_chunked_seq", "model": _model_name(cfg), "layers": 2,
+          "prompt": int(ids.shape[1]), "steps": len(forced),
+          "qcfg": dataclasses.asdict(SEQ_CHUNKED), "cache_keys": keys[0],
+          "max_rel_err": rel, "tol": E2E_TOL,
+          "top1_agreement": (got.argmax(-1) == want.argmax(-1)).float().mean().item(),
+          "code_bytes_differing_from_cpu": cpu_codes, "vs_plain_prefill": card,
+          "vs_plain_prefill_cache_bytes_differing": parted,
+          "launches": {k: launches[k] for k in ("prefill_flash", "palu_decode",
+                                                "append_kv_quantized")},
+          "gpu_decode_paths": sorted(gpu._decode_paths), "gpu_s": gpu_s, "cpu_s": cpu_s})
+    if any(k != ["base", "codes", "scales"] for k in keys):
+        raise AssertionError(f"e2e_chunked_seq: cache leaves {keys}")
+    if not (torch.isfinite(got).all() and rel <= E2E_TOL):
+        raise AssertionError(f"e2e_chunked_seq: end-to-end logits rel err {rel} > {E2E_TOL}")
+    if gpu._decode_paths != {"flash_decode_latent-plain"} or launches["prefill_flash"] != 8 \
+            or any(n for name, n in launches.items() if name != "prefill_flash"):
+        raise AssertionError(f"e2e_chunked_seq: paths {gpu._decode_paths}, {launches}")
+
+
 def _tree_to(tree, device, dtype):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device, dtype) for k, v in tree.items()}
@@ -2365,17 +2576,20 @@ class _CheckedEngine(Engine):
         return logits, cache
 
 
-def expected_launches(layers: int, ecfg: EngineConfig, steps: int, bias: bool = False) -> dict:
+def expected_launches(layers: int, ecfg: EngineConfig, steps: int, bias: bool = False,
+                      dense: int = 0) -> dict:
     """Exact launches of every kernel but prefill_flash in `steps` decode
     steps at batch <= 8 (prefill runs the matmul paths, never the GEMVs):
     the cache's append (per-row quantized caches) and decode attention
     kernels (with the K bias for a model with biases, and per-chunk
-    scales for a per-chunk cache), and the GEMVs of the weights' width."""
+    scales for a per-chunk cache) of the layers after the first `dense`
+    (dense k/v: SDPA, no kernel), and the GEMVs of the weights' width."""
     bits = ecfg.weight_bits
     vt8 = ecfg.vt_bits == 8
     per_step = {fn.__name__: 0 for fn in COUNTERS if fn is not prefill_flash}
     per_step.update(palu_decode_k_bias=0, palu_decode_chunked=0)
     per_step.update({f"{fn.__name__}_{f}": 0 for fn in FEATURED for f in FEATURE_NAMES.values()})
+    gemv_layers, layers = layers, layers - dense
     path = _decode_path(ecfg)
     per_step[path] = layers
     if ecfg.seq_axis is not None:  # each shard's decode: offset and statistics
@@ -2388,12 +2602,13 @@ def expected_launches(layers: int, ecfg: EngineConfig, steps: int, bias: bool = 
         per_step["palu_decode_chunked"] = layers
     if append_supported(ecfg.qcfg):  # one launch a layer, both sides
         per_step["append_kv_quantized"] = layers
+    gemvs = 2 * gemv_layers + 1 + 2 * dense  # q_proj, o_proj (w_fused), lm_head; dense k, v
     if bits == 4:
-        per_step["gemv_int4"] = 2 * layers + 1   # q_proj, w_fused, lm_head
-        per_step["mlp_gemv_int4"] = layers
+        per_step["gemv_int4"] = gemvs
+        per_step["mlp_gemv_int4"] = gemv_layers
     elif bits == 8:
-        per_step["gemv_int8"] = 2 * layers + 1
-        per_step["mlp_gemv_int8"] = layers
+        per_step["gemv_int8"] = gemvs
+        per_step["mlp_gemv_int8"] = gemv_layers
     if vt8:
         per_step["gemv_int8"] += 2 * layers      # VT_k, VT_v
     return {k: v * steps for k, v in per_step.items()}
@@ -2407,20 +2622,42 @@ def _weight_bytes(tree) -> int:
     return 0 if tree is None else tree.numel() * tree.element_size()
 
 
-def serve(tag: str, eng: "_CheckedEngine", prompts, new_tokens: int, extra=None) -> dict:
+@contextlib.contextmanager
+def _counting_sdpa(calls: list):
+    """Engines call a wrapper of ops/attention.dense_decode_sdpa (the dense
+    layers' decode, one library call, no kernel of the port) that appends
+    one to `calls` per call."""
+    real = engine_mod.dense_decode_sdpa
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    engine_mod.dense_decode_sdpa = counted
+    try:
+        yield
+    finally:
+        engine_mod.dense_decode_sdpa = real
+
+
+def serve(tag: str, eng: "_CheckedEngine", prompts, new_tokens: int, extra=None,
+          dense: int = 0) -> dict:
     """Answer `prompts` in turn through Engine.generate with every launch
     counter set to 0 just before and read just after; check finite logits,
-    the kernel paths and the exact decode launches."""
+    the kernel paths and the exact decode launches. `dense`: the model's
+    first `dense` layers have dense k/v, each decoded by one SDPA call a
+    step (counted: dense_sdpa in the launches)."""
     cfg = eng.cfg
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     eng._gemv_paths.clear()
-    requests = []
+    requests, sdpa_calls = [], []
     for ids in prompts:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        toks = eng.generate(ids, max_new_tokens=new_tokens)
+        with _counting_sdpa(sdpa_calls):
+            toks = eng.generate(ids, max_new_tokens=new_tokens)
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
         prefill_s = eng.prefill_s[-1]
@@ -2428,7 +2665,8 @@ def serve(tag: str, eng: "_CheckedEngine", prompts, new_tokens: int, extra=None)
                          "new_tokens": int(toks.shape[1]), "prefill_s": prefill_s,
                          "decode_ms_per_token": (total_s - prefill_s) / new_tokens * 1e3,
                          "cache_nbytes": cache_nbytes(eng.last_cache)})
-    launches = read_counts()
+    launches = dict(read_counts(), dense_sdpa=len(sdpa_calls))
+    eng.requests = requests
     steps = new_tokens * len(prompts)
     finite = bool(torch.stack(eng.finite).all().item())
     ecfg = eng.ecfg
@@ -2443,12 +2681,15 @@ def serve(tag: str, eng: "_CheckedEngine", prompts, new_tokens: int, extra=None)
           "max_memory_allocated": torch.cuda.max_memory_allocated(), **(extra or {})})
     if not finite:
         raise AssertionError(f"{tag}: non-finite logits")
-    if eng._decode_paths != {_path_tag(ecfg)}:
+    paths = (({_path_tag(ecfg)} if dense < cfg.num_hidden_layers else set())
+             | ({"dense_sdpa-kernel"} if dense else set()))
+    if eng._decode_paths != paths:
         raise AssertionError(f"{tag}: took {eng._decode_paths}")
     if not all(p.endswith("-kernel") or p == "dense-matmul" for p in eng._gemv_paths):
         raise AssertionError(f"{tag}: decode took {eng._gemv_paths}")
-    for name, n in expected_launches(cfg.num_hidden_layers, ecfg, steps,
-                                     cfg.attention_bias).items():
+    want = dict(expected_launches(cfg.num_hidden_layers, ecfg, steps, cfg.attention_bias,
+                                  dense), dense_sdpa=dense * steps)
+    for name, n in want.items():
         if launches[name] != n:
             raise AssertionError(f"{tag}: {name} launched {launches[name]} times, expected {n}")
     if launches["prefill_flash"] <= 0:
@@ -2482,12 +2723,14 @@ def phase_serve() -> tuple:
     first REPEAT_LAYERS layers of the same weights and the same traffic
     over the unquantized rank-major cache (serve_fp: qcfg None,
     rank_major_fp, the v4 fp kernel), each with its decode and prefill
-    breakdowns. Returns both runs' launches and the weights, which
-    `serving` reuses."""
+    breakdowns. Returns both runs' launches, the weights, which `serving`
+    and `serve_dense` reuse, and serve's decode ms/token at its
+    3000-token request."""
     cfg = llama7b(LAYERS)
     eng, init_s = _engine(cfg, {})
     prompts = _prompts(1, (1000, 3000, 7000))
     launches = serve("serve", eng, prompts, 32, {"init_s": init_s})
+    serve_ms = eng.requests[1]["decode_ms_per_token"]  # the 3000-token request
     decode_breakdown(eng, "serve")
     prefill_breakdown(eng, prompts[-1], "serve")
     params = eng.params
@@ -2499,7 +2742,73 @@ def phase_serve() -> tuple:
                         {"reduced": f"{REPEAT_LAYERS} of 32 layers"})
     decode_breakdown(fp, "serve_fp")
     prefill_breakdown(fp, prompts[-1], "serve_fp")
-    return launches, launches_fp, params
+    return launches, launches_fp, params, serve_ms
+
+
+def _with_dense_kv(params, n_dense: int, dense_kv: list) -> dict:
+    """`params` with the first n_dense layers' k and v projections dense
+    (dense_kv[i]: the (k, v) weights of layer i) and their o_proj without
+    the U_v-fused form (a dense layer's decode reads o_proj itself)."""
+    layers = []
+    for i, layer in enumerate(params["layers"]):
+        if i < n_dense:
+            attn = dict(layer["attn"], k_proj={"w": dense_kv[i][0]},
+                        v_proj={"w": dense_kv[i][1]}, o_proj={"w": layer["attn"]["o_proj"]["w"]})
+            layer = dict(layer, attn=attn)
+        layers.append(layer)
+    return dict(params, layers=layers)
+
+
+DENSE_STEPS = 8  # teacher-forced steps of serve_dense's plain-prefill comparison
+
+
+def phase_serve_dense(params, serve_ms: float) -> dict:
+    """The dense-KV baseline at full depth on serve's weights: every layer's
+    k / v projection given random dense bf16 weights (seed 5, init_params'
+    scale) in place of VT / U, batch 1, s_max 8192: (a) all 32 layers dense,
+    (b) layers 0-1 dense and the rest on serve's 3-bit cache. Each answers
+    one 3000-token request (bucket 4096) with 32 new tokens through
+    Engine.generate: the prefill launches exactly 32 prefill_flash kernels,
+    each decode step 32 SDPA calls in (a), 2 SDPA calls, 30 palu_decode and
+    30 appends in (b). Then, from the same prompt and 8 teacher-forced
+    steps, each one-shot prefill_flash launch held against prefill_flash_ref
+    on the same card q / k / v, and the logits against the engine whose
+    prefill attention runs prefill_flash_ref; both breakdowns. (a)'s
+    decode ms/token is set beside serve's 3-bit one at the same prompt
+    (`serve_ms`). Returns (a)'s launches."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dense_kv = [tuple((torch.randn((HID, NH * HD), generator=gen, device="cuda") * 0.02)
+                      .to(torch.bfloat16) for _ in range(2)) for _ in range(LAYERS)]
+    prompt = _prompts(1, (3000,))[0]
+    forced = np.random.default_rng(5).integers(0, VOCAB, DENSE_STEPS)
+    mixed_cfg = llama7b(LAYERS)
+    mixed_cfg = dataclasses.replace(mixed_cfg, head_wise_ranks={
+        k: v for k, v in mixed_cfg.head_wise_ranks.items()
+        if not k.startswith(("model.layers.0.", "model.layers.1."))})
+    out = {}
+    for tag, n_dense, cfg, qcfg in (("serve_dense", LAYERS, dense7b(LAYERS), None),
+                                    ("serve_dense_mixed", 2, mixed_cfg, FLAGSHIP)):
+        eng, init_s = _engine(cfg, {}, params=_with_dense_kv(params, n_dense, dense_kv),
+                              qcfg=qcfg)
+        launches = serve(tag, eng, [prompt], 32, {"init_s": init_s, "dense_layers": n_dense,
+                                                   "bucket": ONESHOT_S}, dense=n_dense)
+        if launches["prefill_flash"] != LAYERS:
+            raise AssertionError(f"{tag}: {launches['prefill_flash']} prefill_flash launches")
+        ms = eng.requests[0]["decode_ms_per_token"]
+        decode_breakdown(eng, tag)
+        prefill_breakdown(eng, prompt, tag)
+        held = _vs_plain_prefill(eng, prompt, forced)
+        held.pop("runs")
+        if held["launches_held"] != LAYERS or held["held_shapes"] != [(ONESHOT_S, ONESHOT_S)]:
+            raise AssertionError(f"{tag}: held {held}")
+        emit({"phase": f"{tag}_held", "prompt": int(prompt.shape[1]), "steps": DENSE_STEPS,
+              "prefill_s": eng.requests[0]["prefill_s"], "decode_ms_per_token": ms,
+              "serve_3bit_decode_ms_per_token": serve_ms, "vs_serve_3bit": ms / serve_ms,
+              **held})
+        out[tag] = launches
+        del eng
+        torch.cuda.empty_cache()
+    return out["serve_dense"]
 
 
 SERVING_SAMPLING = SamplingParams(temperature=1.0, top_k=32, top_p=0.9)
@@ -3075,6 +3384,7 @@ def phase_compress_cli() -> None:
         if proc.returncode != 0:
             raise AssertionError(f"cli.compress exited {proc.returncode}: {proc.stderr[-3000:]}")
         params, ccfg = hf_io.load_params(out_dir)
+        phase_ckpt(params, ccfg, os.path.join(d, "native"))
         ranks = {r for rs in ccfg.head_wise_ranks.values() for r in rs}
         eng, _ = _engine(ccfg, {}, params=params, s_max=2048)
         serve("compress_cli", eng, _prompts(8, (512,)), 8,
@@ -3088,6 +3398,57 @@ def phase_compress_cli() -> None:
         torch.cuda.empty_cache()
         phase_evals(out_dir)
     torch.cuda.empty_cache()
+
+
+def _tree_differs(got, want, path="params") -> list:
+    """Paths where two params trees differ: structure, dtype, device type
+    or any bit of a tensor."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or list(got) != list(want):
+            return [path]
+        return [p for k in want for p in _tree_differs(got[k], want[k], f"{path}/{k}")]
+    if isinstance(want, (list, tuple)):
+        if type(got) is not type(want) or len(got) != len(want):
+            return [path]
+        return [p for i, (g, w) in enumerate(zip(got, want))
+                for p in _tree_differs(g, w, f"{path}/{i}")]
+    if isinstance(want, torch.Tensor):
+        same = (isinstance(got, torch.Tensor) and got.dtype == want.dtype
+                and got.device.type == want.device.type and torch.equal(got, want))
+        return [] if same else [path]
+    return [] if got == want else [path]
+
+
+def phase_ckpt(params, cfg: ModelConfig, save_dir: str) -> None:
+    """models/ckpt on compress_cli's compressed 2-layer checkpoint:
+    save_native, then load_native onto the card; every loaded tensor must
+    be bit-identical to the saved one (dtype and structure too), the config
+    equal, and an engine over the loaded tree (3-bit cache) must give the
+    logits of the engine over the saved one, bit for bit, through a
+    512-token prefill and 4 decode steps."""
+    t0 = time.perf_counter()
+    ckpt.save_native(save_dir, params, cfg)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded, lcfg = ckpt.load_native(save_dir)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    differs = _tree_differs(loaded, params)
+    prompt, forced = _prompts(9, (512,))[0], [3, 1, 4, 1]
+    logits = []
+    for tree, c in ((params, cfg), (loaded, lcfg)):
+        eng = Engine(tree, c, EngineConfig(s_max=2048, decode_chunk=512, qcfg=FLAGSHIP))
+        logits.append(_forced_run(eng, prompt, len(forced), forced)[0])
+        del eng
+    files = {f: os.path.getsize(os.path.join(save_dir, f)) for f in sorted(os.listdir(save_dir))}
+    emit({"phase": "ckpt", "files": files, "save_s": save_s, "load_s": load_s,
+          "weight_bytes": _weight_bytes(params), "tensors_differing": differs, "config_equal": lcfg == cfg,
+          "logits_identical": torch.equal(*logits), "steps": len(forced)})
+    if differs or lcfg != cfg or not torch.equal(*logits):
+        raise AssertionError(f"ckpt: tensors {differs}, config equal {lcfg == cfg}, logits "
+                             f"equal {torch.equal(*logits)}")
+    del loaded
+    shutil.rmtree(save_dir)
 
 
 # ---------------------------------------------------------------------------
@@ -4176,7 +4537,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     kernels = [check_append(gen), check_decode(gen), *check_decode_int8(gen),
                check_decode_seq(gen), *check_decode_fp(gen), check_prefill(gen),
-               check_gemv(gen, 4), check_mlp(gen, 4), check_gemv(gen, 8), check_mlp(gen, 8),
+               check_prefill_oneshot(gen), check_gemv(gen, 4), check_mlp(gen, 4), check_gemv(gen, 8), check_mlp(gen, 8),
                check_hadamard(gen), check_decode_bias(gen), check_decode_chunked(gen),
                *check_decode_stats(gen)]
     for k in kernels:
@@ -4196,7 +4557,10 @@ def main() -> int:
     phase_e2e("e2e_qwen2_w4", W4, inputs=qwen2_inputs)
     phase_e2e_chunked(qwen2_inputs)
     del qwen2_inputs
-    launches, launches_fp, params = phase_serve()
+    phase_e2e_dense()
+    phase_e2e_chunked_seq()
+    launches, launches_fp, params, serve_ms = phase_serve()
+    launches_dense = phase_serve_dense(params, serve_ms)
     launches_stacked, launches_stacked_fp = phase_serve_stacked(params)
     launches_seq, launches_seq_fp = phase_serve_seq(params)
     launches_serving = phase_serving(params)
@@ -4225,7 +4589,8 @@ def main() -> int:
     # phase's decomposition for the Hadamard transform; serve_qwen2 for the
     # decode with the K bias, serving_qwen2 for the per-chunk-scale decode;
     # serve_seq (and its rank-major fp case) for the statistics variants,
-    # serve_stacked (and its fp case) for the layer_idx calls
+    # serve_stacked (and its fp case) for the layer_idx calls; the one-shot
+    # prefill's launches from serve_dense's all-dense run
     source = {"cache_append": ("append_kv_quantized", launches),
               "palu_decode": ("palu_decode", launches),
               "palu_decode_int8_dots": ("palu_decode_int8_dots",
@@ -4236,6 +4601,7 @@ def main() -> int:
               "palu_decode_fp": ("palu_decode_fp", launches_serving),
               "palu_decode_fp_t": ("palu_decode_fp_t", launches_fp),
               "prefill_flash": ("prefill_flash", launches),
+              "prefill_flash_oneshot": ("prefill_flash", launches_dense),
               "gemv_int4": ("gemv_int4", launches_w4),
               "mlp_gemv_int4": ("mlp_gemv_int4", launches_w4),
               "gemv_int8": ("gemv_int8", launches_w4),

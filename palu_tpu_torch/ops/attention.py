@@ -1,5 +1,8 @@
-"""Decode attention in plain PyTorch: over the latent cache (port of
-flash_decode_latent, palu_tpu/ops/attention.py; the plain version the
+"""Attention in plain PyTorch: the one-shot prefill's causal MHA (port of
+mha_prefill, palu_tpu/ops/attention.py; the CPU route of the engine's
+one-shot prefill, whose CUDA route is the ops/prefill_flash kernel), and
+decode attention over the latent cache (port of
+flash_decode_latent; the plain version the
 decode kernels are held against) and over dense roped K/V (port of the JAX
 engine's _dense_flash_decode, the reference's dense-KV baseline; on CUDA
 the engine runs it as one scaled_dot_product_attention call instead, which
@@ -22,7 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["flash_decode_latent", "dense_flash_decode", "dense_decode_sdpa", "seq_combine",
+__all__ = ["mha_prefill", "flash_decode_latent", "dense_flash_decode", "dense_decode_sdpa", "seq_combine",
            "flash_decode_latent_seq_sharded", "flash_decode_latent_seq_sharded_rank_major"]
 
 
@@ -32,6 +35,31 @@ def _inv_freq(head_dim: int, rope_theta: float, inv_freq, device) -> torch.Tenso
             torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
             / head_dim))
     return torch.as_tensor(np.asarray(inv_freq, np.float32), device=device)
+
+
+def mha_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                sliding_window: Optional[int] = None, q_offset: int = 0) -> torch.Tensor:
+    """Causal multi-head attention of roped q (B, Sq, nh, hd) over roped k
+    and v (B, Sk, nkv, hd) -> (B, Sq, nh * hd) in q's dtype. Query row i
+    sits at position q_offset + i and sees keys p <= q_offset + i (and p >
+    q_offset + i - sliding_window with a window); GQA repeats each kv head
+    over its nh / nkv q-heads. As in JAX: f32 logits, softmax, then the
+    probabilities rounded to q's dtype before the product with V."""
+    b, sq, nh, hd = q.shape
+    nkv, sk = k.shape[2], k.shape[1]
+    if nh != nkv:
+        k = k.repeat_interleave(nh // nkv, dim=2)
+        v = v.repeat_interleave(nh // nkv, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (1.0 / math.sqrt(hd))
+    q_pos = torch.arange(sq, device=q.device)[:, None] + q_offset
+    k_pos = torch.arange(sk, device=q.device)[None, :]
+    keep = k_pos <= q_pos
+    if sliding_window is not None:
+        keep &= k_pos > q_pos - sliding_window
+    logits = torch.where(keep, logits, torch.finfo(torch.float32).min)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(q.dtype))
+    return out.reshape(b, sq, nh * hd)
 
 
 def flash_decode_latent(

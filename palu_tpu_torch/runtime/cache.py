@@ -1,5 +1,5 @@
-"""Latent KV cache (port of palu_tpu/runtime/cache.py: the per-row
-rank-major quantized layout and the two unquantized layouts).
+"""Latent KV cache (port of palu_tpu/runtime/cache.py: the quantized
+layouts, rank-major and seq-major, and the two unquantized layouts).
 
 Per layer and side (k, v), with per-row (group_size == 0) quantization:
   codes_t (B, G, nrows, S) uint8   packed codes, sequence on the last axis
@@ -20,9 +20,16 @@ With per-chunk quantization (group_size > 0, the reference's
 --lt_group_size) the scale and zero rows stack one row per contiguous
 rank chunk, (B, G, rank // group_size, S), when the chunk is a multiple
 of 8 and divides the rank (`rank_major_chunked`); the decode kernel
-dequantizes each chunk before its dots. JAX keeps other chunk sizes in a
-seq-major codes / scales / base layout, which comes with a later slice of
-the port (the cache raises on it).
+dequantizes each chunk before its dots. Other chunk sizes take JAX's
+seq-major layout:
+  codes  (B, G, S, nbytes)              uint8  packed codes (pack_codes)
+  scales (B, G, S, rank // group_size)  f32
+  base   (B, G, S, rank // group_size)  f32    zero point
+so x ~= (code + q_min - base) * scale (core/quant.dequantize). No kernel
+reads it, in JAX as here: the engine appends it with the plain masked
+write and decodes it with ops/attention.flash_decode_latent. A chunk that
+does not divide the rank raises JAX's ValueError when latents are encoded
+(quant._group).
 
 The JAX package returns new buffers and relies on buffer donation for
 in-place updates; here the write helpers update the buffers in place.
@@ -82,18 +89,6 @@ def quantized(qcfg: Optional[quant.QuantConfig]) -> bool:
     return qcfg is not None and qcfg.enabled
 
 
-def check_layout(qcfg, rank: int) -> None:
-    """Raise for a quantized cache the port does not hold: per-chunk scales
-    whose chunk is not a multiple of 8 dividing the rank (JAX's seq-major
-    codes / scales / base layout)."""
-    if quantized(qcfg) and not (rank_major(qcfg) or rank_major_chunked(qcfg, rank)):
-        raise NotImplementedError(
-            f"group_size {qcfg.group_size} at rank {rank} needs JAX's seq-major "
-            "per-chunk layout (codes / scales / base), which comes with a later slice of "
-            "the port; the port's per-chunk cache takes chunks that are a multiple of 8 "
-            "and divide the rank")
-
-
 def _seq_axis(key: str, ndim: int) -> int:
     """Sequence axis of a buffer leaf: last for rank-major ("_t") keys, the
     one before it otherwise."""
@@ -103,14 +98,19 @@ def _seq_axis(key: str, ndim: int) -> int:
 def _layer_buffers(batch: int, groups: int, s_max: int, rank: int,
                    qcfg: Optional[quant.QuantConfig], device, dtype=torch.bfloat16,
                    rank_major_fp: bool = False) -> Dict[str, torch.Tensor]:
-    check_layout(qcfg, rank)
     if not quantized(qcfg):
         if rank_major_fp:
             return {"lat_t": torch.zeros((batch, groups, rank, s_max), dtype=dtype,
                                          device=device)}
         return {"lat": torch.zeros((batch, groups, s_max, rank), dtype=dtype, device=device)}
-    nrows = quant.packed_nrows(rank, qcfg.pack_bits)
     n_sc = rank // qcfg.group_size if qcfg.group_size > 0 else 1
+    if not (rank_major(qcfg) or rank_major_chunked(qcfg, rank)):
+        seq = (batch, groups, s_max)
+        return {"codes": torch.zeros(seq + (quant.packed_nbytes(rank, qcfg.pack_bits),),
+                                     dtype=torch.uint8, device=device),
+                "scales": torch.zeros(seq + (n_sc,), dtype=torch.float32, device=device),
+                "base": torch.zeros(seq + (n_sc,), dtype=torch.float32, device=device)}
+    nrows = quant.packed_nrows(rank, qcfg.pack_bits)
     bufs = {
         "codes_t": torch.zeros((batch, groups, nrows, s_max), dtype=torch.uint8,
                                device=device),
@@ -231,7 +231,10 @@ def _encode(latents: torch.Tensor, qcfg: Optional[quant.QuantConfig], dtype=None
     if not quantized(qcfg):
         lat = latents.to(dtype)
         return {"lat_t": lat.transpose(-1, -2)} if rank_major_fp else {"lat": lat}
-    check_layout(qcfg, latents.shape[-1])
+    if not (rank_major(qcfg) or rank_major_chunked(qcfg, latents.shape[-1])):
+        codes, scales, base = quant.quantize(latents, qcfg)
+        return {"codes": quant.pack_codes(codes, qcfg.pack_bits),
+                "scales": scales.float(), "base": base.float()}
     codes, scales, zeros = quant.quantize_affine(latents, qcfg)
     # scales (B, G, S, n_sc) -> (B, G, n_sc, S): sequence on the last axis
     # (n_sc = 1 per row, rank // group_size per chunk)
@@ -251,6 +254,9 @@ def decode_latents(buf: Dict[str, torch.Tensor], qcfg: Optional[quant.QuantConfi
         return buf["lat_t"].transpose(-1, -2).to(dtype)
     if "lat" in buf:
         return buf["lat"].to(dtype)
+    if "codes" in buf:
+        return quant.dequantize(quant.unpack_codes(buf["codes"], qcfg.pack_bits, rank),
+                                buf["scales"], buf["base"], qcfg, dtype=dtype)
     codes = quant.unpack_codes_t(buf["codes_t"], qcfg.pack_bits, rank).float()
 
     def rows(a):  # (B, G, n_sc, S) -> one row per rank

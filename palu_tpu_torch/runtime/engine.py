@@ -1,12 +1,22 @@
 """The Palu inference engine in PyTorch (port of palu_tpu/runtime/engine.py:
 EngineConfig, build_decode_b, Engine with layer-major chunked prefill,
-one-chunk prefill for serving, decode and generate with sampling).
+one-chunk prefill for serving, one-shot and bucketed prefill, decode and
+generate with sampling).
 
   prefill: per layer, project the whole padded prompt to latents, write
            them to the cache, rebuild dense K/V from the cache (so
            attention sees what decode will read, quantization error
            included), then per chunk: causal flash attention
-           (ops/prefill_flash) -> dense o_proj -> MLP.
+           (ops/prefill_flash) -> dense o_proj -> MLP. The chunked
+           prefill takes low-rank k/v layers only, as in JAX; the one-shot
+           prefill (`prefill`, and `prefill_bucketed`, which right-pads
+           the prompt to a power-of-two bucket) takes any layer: a dense
+           side writes roped K / raw V to the cache, a low-rank side its
+           latents, read back as in the chunked prefill; the whole prompt
+           then runs one causal attention (the prefill_flash kernel on
+           CUDA, ops/attention.mha_prefill on the CPU). prefill_auto
+           streams chunks for all-low-rank engines and takes the bucketed
+           one-shot prefill otherwise, as JAX decides.
   decode:  per layer, project one token -> append it to the cache ->
            latent decode attention over the cache -> U_v-fused o_proj ->
            MLP; lm_head once per step.
@@ -41,7 +51,9 @@ order), so they reach no kernel and the default one runs. Layers whose k and v p
 dense-KV baseline) keep roped K and V and decode with a flash pass over
 them: scaled_dot_product_attention on CUDA tensors, its plain chunked
 version (ops/attention.dense_flash_decode, the JAX engine's
-_dense_flash_decode) on the CPU; their prefill comes with a later slice.
+_dense_flash_decode) on the CPU. A layer with one dense side builds and
+prefills, and `decode` refuses it with a ValueError: the JAX engine has no
+decode for such a layer (its decode attention reads both sides' U).
 Ragged per-group ranks (the fisher search's output) are zero-padded to each
 layer's largest rank when the engine is built (llama.pad_ragged_params), as
 in the JAX engine. The decode reconstruction B (`derived[i]["b_k"]`) and
@@ -55,8 +67,11 @@ unchanged, so it becomes one constant row after the fused o_proj
 (`derived[i]["o_bias_corr"]`, per-q-head v bias times o_proj, from the
 dequantized codes under weight_bits 8 / 4 so that an engine built from
 quantized params computes the same); prefill rebuilds K and V with their
-biases. Layers with one dense side and per-chunk caches whose chunk does
-not divide the rank (JAX's seq-major layout) come with later slices.
+biases. Per-chunk caches whose chunk is not a multiple of 8 dividing the
+rank take JAX's seq-major layout (runtime/cache.py), which no kernel
+reads, in JAX as here: their append is the plain masked write and their
+decode ops/attention.flash_decode_latent over decode_latents chunks, in
+PyTorch on either device (`_decode_paths`: "flash_decode_latent-plain").
 
 Layer-stacked decode (EngineConfig.stacked_decode, JAX's scanned decode):
 the weights and the cache carry a leading (L, ...) axis
@@ -74,7 +89,7 @@ them with pos_offset and return_stats; ops/attention.py merges the shards
 over the axis's process group. A token's append lands only on the process
 that owns its position. Prefill runs whole on every process (the same
 computation), each keeping its own columns; a prefill chunk past offset 0
-would need the other shards' columns and comes with the serving slice.
+would need the other shards' columns and comes with a later slice.
 A mesh without a seq axis shards the batch lanes over `data` only; a
 `model` axis above 1 (tensor parallelism) comes with a later slice.
 """
@@ -96,11 +111,11 @@ from ..models import rope as rope_mod
 from ..models.config import ModelConfig
 from ..ops import build
 from ..ops.cache_append import KVAppend, append_supported
-from ..ops.attention import (dense_decode_sdpa, dense_flash_decode,
+from ..ops.attention import (dense_decode_sdpa, dense_flash_decode, flash_decode_latent,
                              flash_decode_latent_seq_sharded,
-                             flash_decode_latent_seq_sharded_rank_major)
+                             flash_decode_latent_seq_sharded_rank_major, mha_prefill)
 from ..ops.gemv_int8 import MAX_ROWS
-from ..ops.palu_decode import k_path_mode, palu_decode
+from ..ops.palu_decode import _expand, k_path_mode, palu_decode
 from ..ops.palu_decode_fp import palu_decode_fp, palu_decode_fp_t
 from ..ops.prefill_flash import prefill_flash
 from . import cache as cache_lib
@@ -263,16 +278,12 @@ class Engine:
             # the layer max so the cache and the kernels see uniform ranks
             params, cfg = llama.pad_ragged_params(params, cfg)
             layers = params["layers"]
-        self._dense = []
-        for i, layer in enumerate(layers):
-            lowrank = ["VT" in layer["attn"][which] for which in ("k_proj", "v_proj")]
-            if lowrank[0] != lowrank[1]:
-                raise NotImplementedError(f"layer {i} has one dense k/v side; the port's "
-                                          "engine takes layers with both or neither")
-            self._dense.append(not lowrank[0])
-            if lowrank[0]:
-                for which in ("k_proj", "v_proj"):
-                    cache_lib.check_layout(ecfg.qcfg, layer["attn"][which]["U"].shape[1])
+        # per layer, whether its k and v projections are dense; _dense: both
+        self._dense_sides = [tuple("VT" not in layer["attn"][w] for w in ("k_proj", "v_proj"))
+                             for layer in layers]
+        self._dense = [all(d) for d in self._dense_sides]
+        self._one_sided = [i for i, d in enumerate(self._dense_sides) if any(d) and not all(d)]
+        self._all_lowrank = not any(map(any, self._dense_sides))
         if ecfg.weight_bits not in (16, 8, 4):
             raise ValueError(f"weight_bits must be 16, 8 or 4, got {ecfg.weight_bits}")
         if ecfg.vt_bits not in (16, 8):
@@ -299,8 +310,8 @@ class Engine:
                             if k in self._kernel_knobs}
         mode = "exact"
         if cache_lib.quantized(ecfg.qcfg):
-            for layer, dense in zip(layers, self._dense):
-                if not dense:
+            for layer, sides in zip(layers, self._dense_sides):
+                if not any(sides):
                     mode = k_path_mode(ecfg.qcfg, layer["attn"]["k_proj"]["U"].shape[1],
                                        cfg.head_dim, **self._int8_knobs)
         self._packed_path = "palu_decode" + ("" if mode == "exact" else f"_{mode}")
@@ -312,8 +323,8 @@ class Engine:
         # default schedule -> None: the decode paths compute it from theta
         self._inv_freq = inv_freq if cfg.rope_scaling else None
         self._rope_scale = float(rope_scale) if cfg.rope_scaling else 1.0
-        self.derived = [{} if dense else self._build_derived(l["attn"])
-                        for l, dense in zip(layers, self._dense)]
+        self.derived = [{} if any(sides) else self._build_derived(l["attn"])
+                        for l, sides in zip(layers, self._dense_sides)]
         if pre_stacked:
             self._stacked = True
             if ecfg.stacked_decode is False:
@@ -370,8 +381,10 @@ class Engine:
         _, idx, n = axis_group(ecfg.mesh, ecfg.seq_axis)
         if ecfg.s_max % n:
             raise ValueError(f"s_max {ecfg.s_max} does not split over {n} sequence shards")
-        if any(self._dense):
-            raise NotImplementedError("seq_axis with dense k/v layers comes with a later slice")
+        if not self._all_lowrank:
+            raise NotImplementedError(
+                "seq_axis with dense k/v layers comes with a later slice of the port (ROADMAP "
+                "A, the rest of the parallelism: seq_axis with dense layers)")
         qk = ecfg.qcfg
         if cache_lib.quantized(qk) and qk.group_size > 0:
             # per-chunk caches shard over seq only in the rank-major layout
@@ -405,7 +418,7 @@ class Engine:
                 return "quantized cache layout is not rank-major"
         elif not ecfg.rank_major_fp:
             return "fp cache must be rank_major_fp (the v4 kernel's layout)"
-        if any(self._dense):
+        if not self._all_lowrank:
             return "dense k/v layer present"
         for key in ("k_bias", "o_bias_corr"):
             if len({key in d for d in self.derived}) > 1:
@@ -502,22 +515,26 @@ class Engine:
         x = llama.rms_norm(x, self.params["final_norm"], self.cfg.rms_norm_eps)
         return wdot(x, tied_head(self.params), paths)
 
-    def _reconstruct_dense(self, entry, attn, rk: int, rv: int, n: int):
-        """Read back (dequantizing) + reconstruct (per kv head) + RoPE the
-        first n cache positions of a layer into dense (B, nkv, n, hd) K and
-        V."""
+    def _rebuild_side(self, bufs, proj, n: int, rope=None):
+        """Read back (dequantizing) and reconstruct (per kv head) the first n
+        cache positions of one low-rank side into dense (B, n, nkv, hd), in
+        the engine dtype; with rope = (cos, sin) of positions 0..n-1 (K),
+        roped in f32 first."""
         cfg, ecfg = self.cfg, self.ecfg
-        nkv, hd = cfg.num_key_value_heads, cfg.head_dim
-        lat_k = cache_lib.decode_latents(cache_lib.seq_slice(entry["k"], 0, n),
-                                         ecfg.qcfg, rk, ecfg.dtype).transpose(1, 2)
-        b = lat_k.shape[0]
-        k = llama.reconstruct_kv(lat_k, attn["k_proj"]).reshape(b, n, nkv, hd)
-        pos = torch.arange(n, device=k.device)[None, :].expand(b, n)
-        cos, sin = llama.rope_cos_sin_for(cfg, pos)
-        k = llama.apply_rope(k.float(), cos, sin).to(ecfg.dtype)
-        lat_v = cache_lib.decode_latents(cache_lib.seq_slice(entry["v"], 0, n),
-                                         ecfg.qcfg, rv, ecfg.dtype).transpose(1, 2)
-        v = llama.reconstruct_kv(lat_v, attn["v_proj"]).reshape(b, n, nkv, hd)
+        lat = cache_lib.decode_latents(cache_lib.seq_slice(bufs, 0, n), ecfg.qcfg,
+                                       proj["U"].shape[1], ecfg.dtype).transpose(1, 2)
+        out = llama.reconstruct_kv(lat, proj).reshape(lat.shape[0], n, cfg.num_key_value_heads,
+                                                      cfg.head_dim)
+        return out if rope is None else llama.apply_rope(out.float(), *rope).to(ecfg.dtype)
+
+    def _reconstruct_dense(self, entry, attn, n: int):
+        """The first n cache positions of a low-rank layer as dense
+        (B, nkv, n, hd) roped K and V."""
+        b = self.batch
+        pos = torch.arange(n, device=self.device)[None, :].expand(b, n)
+        rope = llama.rope_cos_sin_for(self.cfg, pos)
+        k = self._rebuild_side(entry["k"], attn["k_proj"], n, rope)
+        v = self._rebuild_side(entry["v"], attn["v_proj"], n)
         return k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
 
     def _prefill_layer_major(self, cache, ids: torch.Tensor, base: int):
@@ -526,10 +543,10 @@ class Engine:
         K/V prefix once; attention + MLP then run chunk by chunk. Returns
         the logits of the run's last chunk (B, C, V)."""
         cfg, ecfg = self.cfg, self.ecfg
-        if any(self._dense):
-            raise NotImplementedError("prefill of dense k/v layers comes with a later slice "
-                                      "(ROADMAP A, engine remainders: dense-KV prefill); decode "
-                                      "them from a seeded cache")
+        if not self._all_lowrank:
+            raise NotImplementedError("the chunked prefill takes low-rank k/v layers only, as "
+                                      "JAX's does; prefill a model with dense k/v layers with "
+                                      "prefill or prefill_bucketed (prefill_auto picks it)")
         b, m, c_len = ids.shape
         run = m * c_len
         nh, hd = cfg.num_attention_heads, cfg.head_dim
@@ -552,9 +569,7 @@ class Engine:
             for side, proj in (("k", "k_proj"), ("v", "v_proj")):
                 lat = llama.project_kv(h, attn[proj]).transpose(1, 2)  # (B, G, run, r)
                 cache_lib.write_at_lanes(entry[side], self._encode(lat), offset)
-            rk = attn["k_proj"]["U"].shape[1]
-            rv = attn["v_proj"]["U"].shape[1]
-            k_full, v_full = self._reconstruct_dense(entry, attn, rk, rv, n_read)
+            k_full, v_full = self._reconstruct_dense(entry, attn, n_read)
             self._keep_columns(cache, i, entry, base + run)
             del entry
             q_w, o_w, mlp = attn["q_proj"]["w"], attn["o_proj"]["w"], p_layer["mlp"]
@@ -604,8 +619,108 @@ class Engine:
         cache["length"] = torch.full((b,), total, dtype=torch.int32, device=self.device)
         return last, cache
 
+    def _prefill_attention(self, q, k, v):
+        """The one-shot prefill's causal attention of q (B, s, nh, hd) over
+        k, v (B, s, nkv, hd) -> (B, s, nh * hd): the prefill_flash kernel
+        on CUDA tensors (q offset 0, kv length s), mha_prefill (JAX's
+        einsum) on the CPU."""
+        window = self.cfg.sliding_window
+        if not q.is_cuda:
+            return mha_prefill(q, k, v, window)
+        b, s = q.shape[:2]
+        out = prefill_flash(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), 0, s,
+                            sliding_window=window)
+        return out.transpose(1, 2).reshape(b, s, -1)
+
+    def _prefill_oneshot(self, cache, ids: torch.Tensor, last_pos: torch.Tensor):
+        """JAX's _prefill_impl (and _prefill_impl_stacked), one layer at a
+        time: ids (B, s) at offset 0 through every layer, each side of
+        each layer written to the cache and read back as decode will see
+        it, one causal attention over the whole prompt. Returns the logits
+        of each lane's row last_pos (B, 1, V); the cache's length becomes
+        last_pos + 1."""
+        cfg, ecfg = self.cfg, self.ecfg
+        b, s = ids.shape
+        nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+        dev = self.device
+        x = embed_rows(self.params["embed"], ids, ecfg.dtype)
+        rope = llama.rope_cos_sin_for(cfg, torch.arange(s, device=dev)[None, :].expand(b, s))
+        zero = torch.zeros((b,), dtype=torch.int32, device=dev)
+        for i, p_layer in enumerate(self._layers):
+            entry = self._prefill_entry(cache, i)
+            attn = p_layer["attn"]
+            h = llama.rms_norm(x, p_layer["input_norm"], cfg.rms_norm_eps)
+            q = wdot(h, attn["q_proj"]["w"])
+            if attn["q_proj"].get("b") is not None:
+                q = q + attn["q_proj"]["b"]
+            q = llama.apply_rope(q.reshape(b, s, nh, hd).float(), *rope).to(ecfg.dtype)
+            kv = []
+            for side, dense in zip(("k", "v"), self._dense_sides[i]):
+                proj = attn[f"{side}_proj"]
+                raw = llama.project_kv(h, proj)
+                if dense:  # K cached post-RoPE, V as projected
+                    t = raw.reshape(b, s, nkv, hd)
+                    t = (llama.apply_rope(t.float(), *rope) if side == "k" else t).to(ecfg.dtype)
+                    cache_lib.write_at_lanes(entry[side], {"lat": t.transpose(1, 2)}, zero)
+                else:  # latents cached pre-RoPE, read back
+                    cache_lib.write_at_lanes(entry[side], self._encode(raw.transpose(1, 2)),
+                                             zero)
+                    t = self._rebuild_side(entry[side], proj, s, rope if side == "k" else None)
+                kv.append(t)
+            self._keep_columns(cache, i, entry, s)
+            del entry
+            x = x + wdot(self._prefill_attention(q, *kv), attn["o_proj"]["w"])
+            h2 = llama.rms_norm(x, p_layer["post_norm"], cfg.rms_norm_eps)
+            x = x + llama.mlp_forward(h2, p_layer["mlp"])
+        cache["length"] = (last_pos + 1).to(torch.int32)
+        return self._lm_head_logits(x[torch.arange(b, device=dev), last_pos.long()][:, None])
+
+    @torch.no_grad()
+    def prefill(self, input_ids, cache=None, real_len=None):
+        """One-shot prefill of the whole prompt (JAX's Engine.prefill), for
+        any mix of dense and low-rank layers. input_ids (B, s) may be
+        right-padded: real_len (an int or (B,)) marks each lane's true
+        length, and pad positions are causally invisible to real ones and
+        overwritten by decode. Returns (the logits of each lane's last real
+        token (B, 1, V), cache)."""
+        input_ids = np.asarray(input_ids)
+        if input_ids.shape[0] != self.ecfg.batch:
+            raise ValueError(f"batch {input_ids.shape[0]} != engine batch {self.ecfg.batch}")
+        if input_ids.shape[1] > self.ecfg.s_max:
+            raise ValueError(f"prompt length {input_ids.shape[1]} exceeds cache s_max "
+                             f"{self.ecfg.s_max}")
+        if cache is None:
+            cache = self.init_cache()
+        if real_len is None:
+            real_len = input_ids.shape[1]
+        last = np.array(np.broadcast_to(np.asarray(real_len, np.int64) - 1, (self.ecfg.batch,)))
+        ids = torch.as_tensor(self._local_rows(input_ids, "prefill"), device=self.device)
+        last_pos = torch.as_tensor(self._local_rows(last, "prefill real_len"), device=self.device)
+        return self._prefill_oneshot(cache, ids, last_pos), cache
+
+    def prefill_bucketed(self, input_ids, cache=None):
+        """prefill with the prompt right-padded to a power-of-two bucket
+        (from 32, capped at s_max), as JAX's, so that prompts of many
+        lengths share a few shapes."""
+        input_ids = np.asarray(input_ids)
+        real = input_ids.shape[1]
+        bucket = 32
+        while bucket < real:
+            bucket *= 2
+        bucket = min(bucket, self.ecfg.s_max)
+        if bucket < real:
+            raise ValueError(f"prompt {real} exceeds s_max {self.ecfg.s_max}")
+        if bucket > real:
+            input_ids = np.pad(input_ids, ((0, 0), (0, bucket - real)))
+        return self.prefill(input_ids, cache=cache, real_len=real)
+
     def prefill_auto(self, input_ids, cache=None):
-        return self.prefill_chunked(input_ids, chunk_size=self._chunk, cache=cache)
+        """The fixed-chunk stream when every k/v layer is low-rank (always
+        for a Palu-compressed model, and for the stacked engine), else the
+        bucketed one-shot prefill, as JAX's prefill_auto decides."""
+        if self._all_lowrank:
+            return self.prefill_chunked(input_ids, chunk_size=self._chunk, cache=cache)
+        return self.prefill_bucketed(input_ids, cache=cache)
 
     @torch.no_grad()
     def prefill_chunk(self, ids_chunk, cache, off: int):
@@ -674,6 +789,9 @@ class Engine:
                   k_bias=der.get("k_bias"))
         if self._seq is not None:
             lat_out = self._decode_seq(q, kb, vb, der["b_k"], kv_len, rk, rv, side, kw)
+        elif "codes" in kb:  # JAX's seq-major per-chunk layout: no kernel reads it
+            self._decode_paths.add("flash_decode_latent-plain")
+            lat_out = self._decode_seq_major(q, kb, vb, der, kv_len, rk, rv)
         elif cache_lib.quantized(ecfg.qcfg):
             tag = "" if layer_idx is None else "[layer_idx]"
             self._decode_paths.add(f"{self._packed_path}{tag}-{side}")
@@ -696,6 +814,23 @@ class Engine:
         if "o_bias_corr" in der:
             out = out + der["o_bias_corr"]
         return out
+
+    def _decode_seq_major(self, q, kb, vb, der, kv_len, rk: int, rv: int):
+        """Decode over the seq-major per-chunk cache: flash_decode_latent over
+        decode_latents of each decode_chunk of the cache, in PyTorch on
+        either device, as JAX runs it in XLA (its xla-chunked-fallback)."""
+        cfg, ecfg = self.cfg, self.ecfg
+        chunk = self._chunk
+        b_k, k_bias = _expand(q, der["b_k"], der.get("k_bias"))
+
+        def read(bufs, rank):
+            return lambda i: cache_lib.decode_latents(
+                cache_lib.seq_slice(bufs, i * chunk, chunk), ecfg.qcfg, rank, ecfg.dtype)
+
+        return flash_decode_latent(q, read(kb, rk), read(vb, rv), b_k, ecfg.s_max // chunk,
+                                   chunk, kv_len, cfg.head_dim, cfg.rope_theta, rv,
+                                   cfg.sliding_window, inv_freq=self._inv_freq,
+                                   rope_scale=self._rope_scale, k_bias=k_bias)
 
     def _decode_seq(self, q, kb, vb, b_k, kv_len, rk: int, rv: int, side: str, kw: dict):
         """This process's sequence shard decoded and merged with the other
@@ -752,6 +887,11 @@ class Engine:
         append and advance; inactive and full lanes get a no-op write and a
         frozen length, decided on the device."""
         cfg, ecfg = self.cfg, self.ecfg
+        if self._one_sided:
+            raise ValueError(
+                f"layers {self._one_sided} have one dense k/v side: the JAX package has no "
+                "decode for such layers (its decode attention reads both sides' U), so the "
+                "port has none either; they prefill only")
         dev = self.device
         if not isinstance(token_ids, torch.Tensor):
             token_ids = torch.as_tensor(np.asarray(token_ids))

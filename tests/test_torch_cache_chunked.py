@@ -13,7 +13,7 @@
     decode: per-step logits within 1e-4 of max|logits|, identical greedy
     tokens and cache codes (scales to f32 summation order of the latents);
   - the int8 K-path modes refusing per-chunk scales, and chunks JAX keeps
-    in its seq-major layout raising NotImplementedError."""
+    in its seq-major layout taking that layout."""
 
 import dataclasses
 
@@ -142,8 +142,12 @@ def test_chunked_refusals():
         with pytest.raises(ValueError):
             Engine(params, cfg, dataclasses.replace(ecfg, **{knob: True}))
     # chunks that are not a multiple of 8, or do not divide the rank: JAX's
-    # seq-major per-chunk layout, not in the port yet
+    # seq-major per-chunk layout (tests/test_torch_cache_seq_chunked.py); a
+    # chunk that does not divide a rank raises JAX's ValueError at encode
     for gs in (4, 12, 32):
-        with pytest.raises(NotImplementedError):
-            Engine(params, cfg, dataclasses.replace(
-                ecfg, qcfg=QuantConfig(bits=3, group_size=gs, sym=True)))
+        eng = Engine(params, cfg, dataclasses.replace(
+            ecfg, qcfg=QuantConfig(bits=3, group_size=gs, sym=True)))
+        assert list(eng.init_cache()["layers"][0]["k"]) == ["codes", "scales", "base"]
+        if gs != 4:
+            with pytest.raises(ValueError, match="divisible by group_size"):
+                eng.prefill(np.zeros((1, 8), np.int64))

@@ -103,7 +103,7 @@ def test_dense_engine_decode_matches_jax():
     for name, jbuf in _leaves(jcache):
         np.testing.assert_allclose(_as_np(dict(_leaves(tcache))[name]), _as_np(jbuf),
                                    rtol=1e-4, atol=1e-5, err_msg=name)
-    with pytest.raises(NotImplementedError):  # dense prefill: a later slice
+    with pytest.raises(NotImplementedError):  # the chunked prefill refuses dense layers, as JAX's
         teng.prefill_chunked(np.zeros((1, 8), np.int64), chunk_size=32)
 
 
